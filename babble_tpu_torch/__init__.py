@@ -9,7 +9,10 @@ from .tpu import (
     GridUnsupported,
     PassResults,
     grid_from_arrays,
+    run_doubling_passes,
     run_frontier_passes,
+    run_passes,
+    section_grid,
     synthetic_grid,
 )
 
@@ -18,6 +21,9 @@ __all__ = [
     "GridUnsupported",
     "PassResults",
     "grid_from_arrays",
+    "run_doubling_passes",
     "run_frontier_passes",
+    "run_passes",
+    "section_grid",
     "synthetic_grid",
 ]

@@ -45,3 +45,18 @@ static inline unsigned babble_stride_blocks(long long work, int threads) {
 __device__ __forceinline__ int babble_clamp(int x, int lo, int hi) {
     return x < lo ? lo : (x > hi ? hi : x);
 }
+
+// *last_level = the last row of an (l_lv, n_lvl) level table that holds an
+// event (>= 0), left as it is when none does (the caller sets -1 first).
+// Rows past it are all padding. Grid-stride, one atomic per warp.
+__global__ void babble_last_level(const int32_t* __restrict__ levels,
+                                  int32_t* last_level, long long total, int n_lvl) {
+    long long stride = (long long)gridDim.x * blockDim.x;
+    int best = -1;
+    for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         k < total; k += stride) {
+        if (levels[k] >= 0) best = max(best, (int)(k / n_lvl));
+    }
+    best = __reduce_max_sync(BABBLE_FULL_MASK, best);
+    if ((threadIdx.x & 31) == 0 && best >= 0) atomicMax(last_level, best);
+}

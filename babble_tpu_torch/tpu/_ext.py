@@ -43,7 +43,22 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
     "round_received": (
         "round_received.cu", "babble_round_received", "pppppppppppppp" "iiii",
     ),
+    "divide_rounds": (
+        "divide_rounds.cu", "babble_divide_rounds", "ppppppppppppppppp" "iiiiii",
+    ),
+    "closure_la": (
+        "closure_la.cu", "babble_closure_la_pass", "pppppppppp" "iiii",
+    ),
+    "walk_chunk": (
+        "walk_chunk.cu", "babble_walk_chunk", "pppppppppp" "iiiiiiii",
+    ),
+    "lamport_scan": (
+        "lamport_scan.cu", "babble_lamport_scan", "pppppppp" "iii",
+    ),
 }
+
+# largest dynamic shared memory one block may use on an H100
+MAX_SMEM_BYTES = 232448
 
 # launches of each kernel's C entry point since the last reset
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -259,3 +274,121 @@ def round_received(wtable, la, index, creator, rounds, decided, famous,
         min_la, famous_count, i_ok, horizon, received, r_max, n, e, e_la,
     ))
     return received
+
+
+def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
+                  ext_sp_round, ext_op_round, fixed_round, ext_sp_lamport,
+                  ext_op_lamport, fixed_lamport, super_majority: int,
+                  r_max: int):
+    """K5: the level scan. Returns (rounds (E,) int32, witness (E,) bool,
+    lamport (E,) int32, wtable (r_max, N) int32). `index` is not read (the
+    reference's signature carries it)."""
+    dev = la.device
+    l_lv, n_lvl = levels.shape
+    e, n = la.shape
+    check_tensor("levels", levels, torch.int32, (l_lv, n_lvl), dev)
+    check_tensor("la", la, torch.int32, (e, n), dev)
+    check_tensor("fd", fd, torch.int32, (e, n), dev)
+    for what, t in (("creator", creator), ("index", index),
+                    ("self_parent", self_parent), ("other_parent", other_parent),
+                    ("ext_sp_round", ext_sp_round), ("ext_op_round", ext_op_round),
+                    ("fixed_round", fixed_round), ("ext_sp_lamport", ext_sp_lamport),
+                    ("ext_op_lamport", ext_op_lamport),
+                    ("fixed_lamport", fixed_lamport)):
+        check_tensor(what, t, torch.int32, (e,), dev)
+    if e < 1 or r_max < 1:
+        raise ValueError("divide_rounds: needs events and r_max >= 1")
+    warps = min(max(n_lvl, 1), 32)
+    if (3 * n_lvl + warps * 2 * n) * 4 > MAX_SMEM_BYTES:
+        raise ValueError(f"divide_rounds: {n} validators exceed one block's shared memory")
+    rounds = torch.empty((e,), dtype=torch.int32, device=dev)
+    witness = torch.empty((e,), dtype=torch.uint8, device=dev)
+    lamport = torch.empty((e,), dtype=torch.int32, device=dev)
+    wtable = torch.empty((r_max, n), dtype=torch.int32, device=dev)
+    last_level = torch.empty((), dtype=torch.int32, device=dev)
+    _launch("divide_rounds", dev, (
+        levels, creator, self_parent, other_parent, la, fd, ext_sp_round,
+        ext_op_round, fixed_round, ext_sp_lamport, ext_op_lamport,
+        fixed_lamport, rounds, witness, lamport, wtable, last_level,
+        l_lv, n_lvl, e, n, super_majority, r_max,
+    ))
+    return rounds, witness.view(torch.bool), lamport, wtable
+
+
+def closure_la(creator, index, sp, op, rows_by, l: int, pass_cap: int):
+    """K6: lastAncestors (E, N) int32 by pointer doubling, and the pass
+    count. One launch per pass; the host reads the changed flag after each
+    (one device-to-host copy per pass, at most pass_cap)."""
+    dev = rows_by.device
+    e = creator.shape[0]
+    n = rows_by.shape[0]
+    check_tensor("rows_by", rows_by, torch.int32, (n, l), dev)
+    for what, t in (("creator", creator), ("index", index), ("sp", sp), ("op", op)):
+        check_tensor(what, t, torch.int32, (e,), dev)
+    if e < 1 or l < 1 or pass_cap < 1:
+        raise ValueError("closure_la: needs events, l >= 1 and pass_cap >= 1")
+    la = torch.empty((e, n), dtype=torch.int32, device=dev)
+    la_next = torch.empty_like(la)
+    pre = torch.empty_like(la)
+    lat = torch.empty((n, n, l), dtype=torch.int32, device=dev)
+    flag = torch.empty((), dtype=torch.int32, device=dev)
+    passes, changed = 0, True
+    while changed and passes < pass_cap:
+        _launch("closure_la", dev, (
+            creator, index, sp, op, rows_by, la, lat, pre, la_next, flag,
+            e, n, l, int(passes == 0),
+        ))
+        passes += 1
+        changed = bool(flag.item())
+        la, la_next = la_next, la
+    return la, passes
+
+
+def walk_chunk(inv, rows_by, fd, la, x0, seeds, r_abs, first_nw,
+               super_majority: int, l: int, length: int, steps: int,
+               use_seeds: bool):
+    """K7: `length` frontier steps from x0 in one launch. Returns
+    (x_last (N,) int32, xs (length, N) int32)."""
+    dev = rows_by.device
+    n = rows_by.shape[0]
+    e_fd, e_la = fd.shape[0], la.shape[0]
+    check_tensor("inv", inv, torch.int32, (n, n, l), dev)
+    check_tensor("rows_by", rows_by, torch.int32, (n, l), dev)
+    check_tensor("fd", fd, torch.int32, (e_fd, n), dev)
+    check_tensor("la", la, torch.int32, (e_la, n), dev)
+    check_tensor("x0", x0, torch.int32, (n,), dev)
+    check_tensor("seeds", seeds, torch.int32, (length, n), dev)
+    check_tensor("r_abs", r_abs, torch.int32, (length,), dev)
+    check_tensor("first_nw", first_nw, torch.int32, (n,), dev)
+    if length < 1 or l < 1 or e_fd < 1 or e_la < 1:
+        raise ValueError("walk_chunk: needs length >= 1, l >= 1 and events")
+    if (4 * n + n * (n + 1) + min(n, 32) * n) * 4 > MAX_SMEM_BYTES:
+        raise ValueError(f"walk_chunk: {n} validators exceed one block's shared memory")
+    x_last = torch.empty((n,), dtype=torch.int32, device=dev)
+    xs = torch.empty((length, n), dtype=torch.int32, device=dev)
+    _launch("walk_chunk", dev, (
+        inv, rows_by, fd, la, x0, seeds, r_abs, first_nw, x_last, xs,
+        n, l, e_fd, e_la, super_majority, length, steps, int(use_seeds),
+    ))
+    return x_last, xs
+
+
+def lamport_scan(levels, sp, op, esp, eop, fpin):
+    """K8: (E,) int32 lamports by the seeded level recurrence."""
+    dev = sp.device
+    l_lv, n_lvl = levels.shape
+    e = sp.shape[0]
+    check_tensor("levels", levels, torch.int32, (l_lv, n_lvl), dev)
+    for what, t in (("sp", sp), ("op", op), ("esp", esp), ("eop", eop),
+                    ("fpin", fpin)):
+        check_tensor(what, t, torch.int32, (e,), dev)
+    if e < 1:
+        raise ValueError("lamport_scan: needs events")
+    if n_lvl * 4 > MAX_SMEM_BYTES:
+        raise ValueError(f"lamport_scan: level width {n_lvl} exceeds shared memory")
+    lam = torch.empty((e,), dtype=torch.int32, device=dev)
+    last_level = torch.empty((), dtype=torch.int32, device=dev)
+    _launch("lamport_scan", dev, (
+        levels, sp, op, esp, eop, fpin, lam, last_level, l_lv, n_lvl, e,
+    ))
+    return lam

@@ -27,3 +27,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "to run the plain PyTorch versions of the kernels"
         )
     return dev
+
+
+def to_device(a, device: torch.device) -> torch.Tensor:
+    """A numpy array as a contiguous tensor on `device` (a copy)."""
+    import numpy as np
+
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)

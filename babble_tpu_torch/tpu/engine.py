@@ -1,31 +1,34 @@
 """Device consensus engine of the PyTorch port: passes 1-3 (DivideRounds,
-DecideFame, DecideRoundReceived) over a DagGrid through the round-frontier
-pipeline.
+DecideFame, DecideRoundReceived) over a DagGrid, through the
+round-frontier pipeline (base grids) or the level scan (any grid).
 
-Counterpart of the frontier half of babble_tpu/tpu/engine.py. The host
+Counterpart of babble_tpu/tpu/engine.py's one-shot engines. The host
 stages the grid with numpy, pads it to the reference's bucketed shapes (so
 the port's tensors equal the reference's, shape for shape), runs the
 pipeline on the card (or, when asked, on the CPU through the plain
-versions) and stages the results back to numpy.
+versions) and stages the results back to numpy. The log-diameter cold
+path is in doubling.py.
 
-Not ported yet: the level scan for post-reset grids (run_passes), the node
-seam (grid_from_hashgraph / integrate_pass_results), the packed voting
-layout and the device-time ledger.
+Not ported yet: the node seam (grid_from_hashgraph /
+integrate_pass_results / run_consensus_device), the packed voting layout
+and the device-time ledger.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
-from .device import resolve_device
+from .device import resolve_device, to_device
 from .frontier import (
     build_inv, chain_table, frontier_pipeline, level_lamport, sp_index_of,
 )
 from .grid import MAX_INT32, MIN_INT32, DagGrid, GridUnsupported
+from .kernels import consensus_pipeline
 
 # validator count from which the reference picks the packed voting layout
 # by default (babble_tpu/tpu/packed.py); the port has the wide layout only
@@ -101,6 +104,44 @@ def pad_grid(grid: DagGrid) -> DagGrid:
     )
 
 
+def refuse_packed(grid: DagGrid, packed: Optional[bool]) -> None:
+    """NotImplementedError for the packed voting layout: packed=True, or
+    packed=None where the reference would pick it (>= 128 validators)."""
+    if packed or (packed is None and grid.n >= PACKED_AUTO_MIN_N):
+        raise NotImplementedError(
+            "the packed voting layout is not ported yet; pass packed=False"
+        )
+
+
+def rebase_rounds(grid: DagGrid):
+    """Shift all externally-supplied round numbers down by their minimum so
+    the device round axis spans activity since the last reset, not the
+    node's lifetime. Returns (grid, offset)."""
+    lows = [
+        a[a >= 0]
+        for a in (grid.fixed_round, grid.ext_sp_round, grid.ext_op_round)
+    ]
+    lows = [a for a in lows if a.size]
+    if not lows:
+        return grid, 0
+    r_lo = int(min(a.min() for a in lows))
+    if r_lo <= 0:
+        return grid, 0
+
+    def shift(a):
+        return np.where(a >= 0, a - r_lo, a).astype(np.int32)
+
+    return (
+        dataclasses.replace(
+            grid,
+            fixed_round=shift(grid.fixed_round),
+            ext_sp_round=shift(grid.ext_sp_round),
+            ext_op_round=shift(grid.ext_op_round),
+        ),
+        r_lo,
+    )
+
+
 def _frontier_safe(grid: DagGrid) -> bool:
     """The round-frontier walk covers base-state grids: every chain
     anchored at a genesis root (no external parent metadata from resets)."""
@@ -173,7 +214,7 @@ def stage_frontier(grid: DagGrid, device: torch.device) -> FrontierInputs:
         rows_by = ext
 
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return to_device(a, device)
 
     return FrontierInputs(
         rows_by=t(rows_by),
@@ -198,17 +239,16 @@ def run_frontier_passes(
     Bucketed shapes and the adaptive round axis as in the reference.
 
     Raises GridUnsupported on a grid that is not frontier-safe (post-reset
-    grids take the level scan, not ported yet) and NotImplementedError for
-    the packed layout (packed=True, or packed=None at >= 128 validators)."""
+    grids take run_passes or run_doubling_passes) and NotImplementedError
+    for the packed layout (packed=True, or packed=None at >= 128
+    validators)."""
     dev = resolve_device(device)
-    if packed or (packed is None and grid.n >= PACKED_AUTO_MIN_N):
-        raise NotImplementedError(
-            "the packed voting layout is not ported yet; pass packed=False"
-        )
+    refuse_packed(grid, packed)
     if not _frontier_safe(grid):
         raise GridUnsupported(
-            "post-reset grid: the round-frontier walk covers base grids only "
-            "(the level scan is not ported yet)"
+            "post-reset grid: the round-frontier walk covers base grids only; "
+            "run it through run_passes (the level scan) or "
+            "run_doubling_passes (the cold path)"
         )
 
     e_real = grid.e
@@ -238,4 +278,85 @@ def run_frontier_passes(
         received=host(res.received)[:e_real],
         last_round=last_round,
         round_offset=0,
+    )
+
+
+# the DagGrid fields the level scan reads, in consensus_pipeline's order
+SCAN_FIELDS = (
+    "levels", "creator", "index", "self_parent", "other_parent",
+    "last_ancestors", "first_descendants", "ext_sp_round", "ext_op_round",
+    "fixed_round", "ext_sp_lamport", "ext_op_lamport", "fixed_lamport",
+    "coin_bit",
+)
+
+
+def stage_scan(grid: DagGrid, device: torch.device):
+    """The level scan's inputs as device tensors, in SCAN_FIELDS order."""
+    return tuple(to_device(getattr(grid, f), device) for f in SCAN_FIELDS)
+
+
+def scan_layout(grid: DagGrid, bucketed: bool):
+    """(grid, round_offset, r_max) as run_passes stages them: bucketed
+    rebases the round axis and pads to the static-shape schedule."""
+    if not bucketed:
+        return grid, 0, grid.r_max
+    grid, offset = rebase_rounds(grid)
+    grid = pad_grid(grid)
+    return grid, offset, _bucket(grid.r_max, 64, factor=2)
+
+
+def run_passes(
+    grid: DagGrid,
+    d_max: Optional[int] = None,
+    bucketed: bool = False,
+    adaptive_r: bool = False,
+    device: Optional[Union[str, torch.device]] = None,
+    packed: Optional[bool] = None,
+) -> PassResults:
+    """Passes 1-3 of any grid (base or post-reset) through the level scan,
+    on the CUDA card by default (device="cpu" runs the plain versions).
+
+    With bucketed=True, the round axis is rebased and shapes are padded as
+    in the reference; with adaptive_r, the fame/received round axis starts
+    from the grow-only hint shared with run_frontier_passes and re-runs one
+    bucket up on overflow. Raises NotImplementedError for the packed
+    layout, as run_frontier_passes does."""
+    dev = resolve_device(device)
+    refuse_packed(grid, packed)
+    e_real = grid.e
+    grid, offset, r_max = scan_layout(grid, bucketed)
+    inputs = stage_scan(grid, dev)
+
+    def run_fn(r_fame):
+        # the fame offset loop is self-bounding (j <= last_round); d_cap is
+        # a safety net only
+        d_cap = d_max if d_max is not None else r_fame + 2
+        return consensus_pipeline(
+            *inputs, grid.super_majority, grid.n, r_max, r_fame, d_cap,
+        )
+
+    if adaptive_r:
+        res, _ = _adaptive_r_loop(run_fn, grid.n, r_max)
+    else:
+        res = run_fn(r_max)
+
+    def host(x):
+        return x.cpu().numpy()
+
+    rounds = host(res.rounds)[:e_real]
+    received = host(res.received)[:e_real]
+    if offset:
+        rounds = np.where(rounds >= 0, rounds + offset, rounds)
+        received = np.where(received >= 0, received + offset, received)
+    return PassResults(
+        rounds=rounds,
+        witness=host(res.witness)[:e_real],
+        lamport=host(res.lamport)[:e_real],
+        witness_table=host(res.witness_table),
+        fame_decided=host(res.fame_decided),
+        famous=host(res.famous),
+        rounds_decided=host(res.rounds_decided),
+        received=received,
+        last_round=int(res.last_round) + offset,
+        round_offset=offset,
     )

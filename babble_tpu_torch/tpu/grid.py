@@ -11,7 +11,9 @@ Each event is a row; its lastAncestors / firstDescendants coordinate
 vectors are two (E, N) int32 matrices (MAX_INT32 = no first descendant).
 Parents outside the grid (roots, reset `others` entries) arrive as
 per-event external metadata; the round-frontier path handles base grids
-only, where every chain is anchored at a genesis root.
+only, where every chain is anchored at a genesis root, and the level scan
+and the cold path also take post-reset grids. `section_grid` cuts such a
+grid out of a solved one, as a fast-sync joiner receives it.
 """
 
 from __future__ import annotations
@@ -322,3 +324,94 @@ def row_levels(grid: DagGrid) -> np.ndarray:
         out[rows[rows >= 0]] = lvl
     return out
 
+
+
+def section_grid(grid: DagGrid, res, cut: int, pin_cut: bool = True) -> DagGrid:
+    """Cut a post-reset / fast-sync-frame style SECTION out of a solved
+    grid: keep rows at topological level >= cut, rewrite dropped parents as
+    external metadata carrying the authoritative rounds/lamports from
+    `res` (a PassResults/PipelineResult for the full grid) — exactly the
+    shape `grid_from_hashgraph` produces after a reset, where the store
+    holds only the section and roots/frozen refs carry the history below
+    the cut.
+
+    Creator indexes are intentionally NOT renumbered: chains start at
+    non-zero per-creator indexes, exercising the per-chain rebasing of the
+    cold path. Coordinate matrices are sliced unchanged (they live in
+    (creator, index) space); out-of-section lastAncestors entries are the
+    callee's problem, first descendants of kept rows are always kept
+    (descendants sit at higher levels).
+
+    pin_cut=True (the realistic shape) pins round/lamport on rows whose
+    self-parent fell below the cut, mirroring the root next_round /
+    memoized-metadata pins a real reset carries. pin_cut=False yields the
+    amnesiac variant: chain-first rows continue their below-cut round via
+    ext_sp_round alone and are then NOT witnesses — with few enough
+    surviving witnesses the section's rounds stall entirely, which is
+    exactly the host engine's (and the level scan's) behavior on such a
+    store; it makes a sharp differential fixture for the frontier-row
+    masking in the cold path."""
+    lv = row_levels(grid)
+    keep = lv >= cut
+    old_rows = np.nonzero(keep)[0]
+    if old_rows.size == 0:
+        raise ValueError("section cut keeps no rows")
+    new_of = np.full(grid.e, -1, dtype=np.int32)
+    new_of[old_rows] = np.arange(old_rows.size, dtype=np.int32)
+
+    rounds = np.asarray(res.rounds)
+    lamport = np.asarray(res.lamport)
+
+    sp_old = grid.self_parent[old_rows]
+    op_old = grid.other_parent[old_rows]
+    sp_in = (sp_old >= 0) & keep[np.maximum(sp_old, 0)]
+    op_in = (op_old >= 0) & keep[np.maximum(op_old, 0)]
+    sp_cut = (sp_old >= 0) & ~sp_in
+    op_cut = (op_old >= 0) & ~op_in
+
+    self_parent = np.where(sp_in, new_of[np.maximum(sp_old, 0)], -1)
+    other_parent = np.where(op_in, new_of[np.maximum(op_old, 0)], -1)
+    ext_sp_round = np.where(
+        sp_cut, rounds[np.maximum(sp_old, 0)], grid.ext_sp_round[old_rows]
+    ).astype(np.int32)
+    ext_op_round = np.where(
+        op_cut, rounds[np.maximum(op_old, 0)], grid.ext_op_round[old_rows]
+    ).astype(np.int32)
+    ext_sp_lamport = np.where(
+        sp_cut, lamport[np.maximum(sp_old, 0)], grid.ext_sp_lamport[old_rows]
+    ).astype(np.int32)
+    ext_op_lamport = np.where(
+        op_cut, lamport[np.maximum(op_old, 0)], grid.ext_op_lamport[old_rows]
+    ).astype(np.int32)
+
+    fixed_round = grid.fixed_round[old_rows].copy()
+    fixed_lamport = grid.fixed_lamport[old_rows].copy()
+    if pin_cut:
+        fixed_round = np.where(
+            sp_cut, rounds[old_rows], fixed_round
+        ).astype(np.int32)
+        fixed_lamport = np.where(
+            sp_cut, lamport[old_rows], fixed_lamport
+        ).astype(np.int32)
+
+    levels, num_levels = build_levels(grid.n, self_parent, other_parent)
+    return DagGrid(
+        n=grid.n,
+        e=old_rows.size,
+        super_majority=grid.super_majority,
+        creator=grid.creator[old_rows].copy(),
+        index=grid.index[old_rows].copy(),
+        self_parent=self_parent.astype(np.int32),
+        other_parent=other_parent.astype(np.int32),
+        last_ancestors=grid.last_ancestors[old_rows].copy(),
+        first_descendants=grid.first_descendants[old_rows].copy(),
+        coin_bit=grid.coin_bit[old_rows].copy(),
+        fixed_round=fixed_round,
+        ext_sp_round=ext_sp_round,
+        ext_op_round=ext_op_round,
+        ext_sp_lamport=ext_sp_lamport,
+        ext_op_lamport=ext_op_lamport,
+        fixed_lamport=fixed_lamport,
+        levels=levels,
+        num_levels=num_levels,
+    )

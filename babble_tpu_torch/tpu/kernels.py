@@ -1,11 +1,13 @@
-"""Virtual voting and round-received for the PyTorch port.
+"""Level-scan DivideRounds, virtual voting and round-received for the
+PyTorch port.
 
-Counterparts of babble_tpu/tpu/kernels.py (suffix_min, the DecideFame
-tables and loop, the round-received tables and search), wide layout only.
-Each public function is a wrapper: on a CPU tensor it runs the plain
-PyTorch version below, on a CUDA tensor it launches the hand-written
-kernel (babble_tpu_torch/csrc/decide_fame.cu, round_received.cu) or
-raises. The plain versions repeat the reference's integer arithmetic with
+Counterparts of babble_tpu/tpu/kernels.py (suffix_min, the level scan
+_divide_rounds, the DecideFame tables and loop, the round-received tables
+and search, consensus_pipeline), wide layout only. Each public function is
+a wrapper: on a CPU tensor it runs the plain PyTorch version below, on a
+CUDA tensor it launches the hand-written kernel
+(babble_tpu_torch/csrc/divide_rounds.cu, decide_fame.cu,
+round_received.cu) or raises. The plain versions repeat the reference's integer arithmetic with
 explicit index masks where JAX clamps gathers; they are the CPU path and
 the yardstick the kernels are held to on the card.
 
@@ -20,7 +22,7 @@ from typing import NamedTuple, Union
 import torch
 
 from . import _ext
-from .grid import MAX_INT32
+from .grid import MAX_INT32, MIN_INT32
 
 Scalar = Union[int, torch.Tensor]
 
@@ -30,6 +32,13 @@ def suffix_min(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     suffix_min with a fill no smaller than any element)."""
     flipped = torch.flip(x, dims=(dim,))
     return torch.flip(torch.cummin(flipped, dim=dim).values, dims=(dim,))
+
+
+class DivideRoundsResult(NamedTuple):
+    rounds: torch.Tensor  # (E,) int32
+    witness: torch.Tensor  # (E,) bool
+    lamport: torch.Tensor  # (E,) int32
+    witness_table: torch.Tensor  # (R, N) int32 event rows, -1 = none
 
 
 class FameResult(NamedTuple):
@@ -48,6 +57,94 @@ class PipelineResult(NamedTuple):
     rounds_decided: torch.Tensor  # (R,) bool
     received: torch.Tensor  # (E,) int32
     last_round: torch.Tensor  # () int32
+
+
+def last_level(levels: torch.Tensor) -> int:
+    """Index of the last level row that holds an event, -1 if none. Rows
+    past it are all padding, and a padding row changes nothing."""
+    occupied = torch.nonzero((levels >= 0).any(dim=1))
+    return int(occupied.max()) if occupied.numel() else -1
+
+
+def _divide_rounds_plain(levels, creator, index, self_parent, other_parent,
+                         la, fd, ext_sp_round, ext_op_round, fixed_round,
+                         ext_sp_lamport, ext_op_lamport, fixed_lamport,
+                         super_majority: int, r_max: int) -> DivideRoundsResult:
+    """The reference's lax.scan over topological levels, one loop step per
+    level. Each step reads the carry in full before it writes, as the scan
+    does; dropped scatters land in one sink slot past the end of each
+    buffer (event row E, witness-table row r_max)."""
+    e_count, n = la.shape
+    dev = la.device
+    i32 = torch.int32
+    rounds = torch.full((e_count + 1,), -1, dtype=i32, device=dev)
+    lamport = torch.full((e_count + 1,), -1, dtype=i32, device=dev)
+    witness = torch.zeros((e_count + 1,), dtype=torch.bool, device=dev)
+    wtable = torch.full((r_max + 1, n), -1, dtype=i32, device=dev)
+    lanes = torch.arange(levels.shape[1], device=dev)
+
+    def parent(ptr, own, ext):
+        # the in-grid parent's value, else the host-supplied external one
+        return torch.where(ptr >= 0, own[ptr.clamp(0, e_count - 1).long()], ext)
+
+    for lv in range(last_level(levels) + 1):
+        level_rows = levels[lv]
+        valid = level_rows >= 0
+        rows = level_rows.clamp(0, e_count - 1).long()
+        c = creator[rows]
+        sp, op = self_parent[rows], other_parent[rows]
+
+        sp_round = parent(sp, rounds, ext_sp_round[rows])
+        op_round = parent(op, rounds, ext_op_round[rows])
+        parent_round = torch.maximum(sp_round, op_round)
+
+        # strongly-see counts against the parent round's witnesses
+        wrows = wtable[parent_round.clamp(0, r_max - 1).long()]  # (N_lvl, N)
+        wvalid = (wrows >= 0) & (parent_round[:, None] >= 0)
+        fd_w = fd[wrows.clamp(0, e_count - 1).long()]  # (N_lvl, N, N)
+        counts = (la[rows][:, None, :] >= fd_w).sum(dim=-1, dtype=i32)
+        ss = (counts >= super_majority) & wvalid
+        c_seen = ss.sum(dim=-1, dtype=i32)
+
+        new_round = parent_round + (c_seen >= super_majority).to(i32)
+        fixed = fixed_round[rows]
+        new_round = torch.where(fixed >= 0, fixed, new_round)
+        new_witness = new_round > sp_round
+
+        sp_lt = parent(sp, lamport, ext_sp_lamport[rows])
+        op_lt = parent(op, lamport, ext_op_lamport[rows])
+        new_lt = torch.maximum(sp_lt, op_lt) + 1
+        fl = fixed_lamport[rows]
+        new_lt = torch.where(fl != MIN_INT32, fl, new_lt)
+
+        scatter_rows = torch.where(valid, rows, e_count)
+        rounds[scatter_rows] = new_round
+        lamport[scatter_rows] = new_lt
+        witness[scatter_rows] = new_witness
+        w_mask = valid & new_witness & (c >= 0) & (c < n)
+        wr = torch.where(w_mask, new_round.clamp(0, r_max - 1), r_max).long()
+        # dropped lanes land on distinct cells of the sink row
+        wtable[wr, torch.where(w_mask, c.long(), lanes % n)] = level_rows
+    return DivideRoundsResult(
+        rounds[:e_count], witness[:e_count], lamport[:e_count], wtable[:r_max],
+    )
+
+
+def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
+                  ext_sp_round, ext_op_round, fixed_round, ext_sp_lamport,
+                  ext_op_lamport, fixed_lamport, super_majority: int,
+                  r_max: int) -> DivideRoundsResult:
+    """DivideRounds by a scan over the (L, N) level table: rounds, witness
+    flags, lamport timestamps and the (r_max, N) witness table. External
+    parents take the host-supplied ext_* values; fixed_round >= 0 and
+    fixed_lamport != MIN_INT32 override. CPU: the plain version; CUDA: the
+    kernel."""
+    args = (levels, creator, index, self_parent, other_parent, la, fd,
+            ext_sp_round, ext_op_round, fixed_round, ext_sp_lamport,
+            ext_op_lamport, fixed_lamport, super_majority, r_max)
+    if la.device.type == "cpu":
+        return _divide_rounds_plain(*args)
+    return DivideRoundsResult(*_ext.divide_rounds(*args))
 
 
 def _rows(table: torch.Tensor, e: int) -> torch.Tensor:
@@ -230,4 +327,42 @@ def decide_round_received(wtable, la, index, creator, rounds, decided, famous,
     return _ext.round_received(
         wtable, la, index, creator, rounds, decided, famous, rounds_decided,
         last_round,
+    )
+
+
+def consensus_pipeline(levels, creator, index, self_parent, other_parent, la,
+                       fd, ext_sp_round, ext_op_round, fixed_round,
+                       ext_sp_lamport, ext_op_lamport, fixed_lamport,
+                       coin_bit, super_majority: int, n_participants: int,
+                       r_max: int, r_fame: int, d_cap: int) -> PipelineResult:
+    """Level-scan DivideRounds + DecideFame + DecideRoundReceived, with
+    last_round reduced on the device. r_max bounds the scan's witness
+    table, r_fame the round axis of the fame and received tables; a caller
+    checks last_round + 2 <= r_fame and re-runs one bucket up otherwise.
+    Inputs are never written."""
+    dr = divide_rounds(
+        levels, creator, index, self_parent, other_parent, la, fd,
+        ext_sp_round, ext_op_round, fixed_round, ext_sp_lamport,
+        ext_op_lamport, fixed_lamport, super_majority, r_max,
+    )
+    last_round = dr.rounds.max()
+    wtable = dr.witness_table[:r_fame]
+    fame = decide_fame(
+        wtable, la, fd, index, coin_bit, last_round,
+        super_majority, n_participants, d_cap,
+    )
+    received = decide_round_received(
+        wtable, la, index, creator, dr.rounds,
+        fame.decided, fame.famous, fame.rounds_decided, last_round,
+    )
+    return PipelineResult(
+        rounds=dr.rounds,
+        witness=dr.witness,
+        lamport=dr.lamport,
+        witness_table=wtable,
+        fame_decided=fame.decided,
+        famous=fame.famous,
+        rounds_decided=fame.rounds_decided,
+        received=received,
+        last_round=last_round,
     )

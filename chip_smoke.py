@@ -18,7 +18,28 @@ Phases, in order; any failure raises and exits non-zero:
 4. end to end: run_frontier_passes on the card at the bench size, every
    field equal to the port's CPU run, last_round 26 and 28,065 received
    events (the JAX reference's result on this grid), every kernel's launch
-   count above zero, and the median wall time over warm runs.
+   count above zero, and the median wall time over warm runs;
+5. grids of the cold path: the catch-up cell of bench_catchup.py (8
+   validators, synthetic_deep_grid(8, 16384, seed=0, zipf_a=1.2), 65,536
+   events and 20,359 levels, cut at half its levels into a section of
+   32,760 events and 10,180 levels) and an unpinned section, whose
+   rounds stall (synthetic_deep_grid(8, 2048), pin_cut=False);
+6. kernels of the level scan and the cold path against their plain
+   versions on the card, torch.equal: divide_rounds and lamport_scan on
+   the bench grid and both sections, closure_la (with its pass count) on
+   the bench grid and the catch-up section, walk_chunk on every chunk of
+   the bench grid's walk (unseeded) and both sections' (seeded; the
+   first_nw mask must fire on the unpinned section), with launches and
+   CUDA-event times;
+7. the bench grid through run_doubling_passes and run_passes(bucketed,
+   adaptive_r) on the card: equal to run_frontier_passes field for field,
+   closure passes 5 and walk chunks 2, each path's kernels launched, and
+   the median wall time over warm runs;
+8. the catch-up cell: both engines on the card equal to each other and to
+   the port's CPU run, last_round 1,022, round_offset 511, 32,536
+   received, closure passes 4, walk chunks 6, 11 passes, each path's
+   kernels launched, and events ordered per second replaying the section
+   from cold (32,760 / the median wall time).
 
 The next-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX and
@@ -65,11 +86,36 @@ HBM_BYTES_S = 3.35e12
 ALU_OPS_S = 67e12
 INT8_TC_OPS_S = 1979e12
 
+# the catch-up cell of bench_catchup.py, with the JAX reference's results
+CATCHUP = dict(n=8, depth=16384, seed=0, zipf_a=1.2)
+CATCHUP_GRID = (65536, 20359)  # events, levels
+CATCHUP_SECTION = (32760, 10180)
+CATCHUP_EXPECT = dict(last_round=1022, round_offset=511, received=32536,
+                      closure_passes=4, walk_chunks=6, passes=11)
+BENCH_DOUBLING = dict(closure_passes=5, walk_chunks=2)
+UNPINNED = dict(n=8, depth=2048, seed=0, zipf_a=1.2)
+UNPINNED_LAST_ROUND = 127
+CATCHUP_RUNS = 5
+SLOW_PLAIN_REPS = 3
+
 REPLACES = {
     "build_inv": ("babble_tpu_torch/csrc/build_inv.cu", "babble_tpu/tpu/frontier.py:116"),
     "frontier_rounds": ("babble_tpu_torch/csrc/frontier_walk.cu", "babble_tpu/tpu/frontier.py:299"),
     "decide_fame": ("babble_tpu_torch/csrc/decide_fame.cu", "babble_tpu/tpu/kernels.py:335"),
     "round_received": ("babble_tpu_torch/csrc/round_received.cu", "babble_tpu/tpu/kernels.py:424"),
+    "divide_rounds": ("babble_tpu_torch/csrc/divide_rounds.cu", "babble_tpu/tpu/kernels.py:118"),
+    "closure_la": ("babble_tpu_torch/csrc/closure_la.cu", "babble_tpu/tpu/doubling.py:172"),
+    "walk_chunk": ("babble_tpu_torch/csrc/walk_chunk.cu", "babble_tpu/tpu/doubling.py:296"),
+    "lamport_scan": ("babble_tpu_torch/csrc/lamport_scan.cu", "babble_tpu/tpu/doubling.py:443"),
+}
+# the kernels each engine's call must launch
+PATH_KERNELS = {
+    "run_frontier_passes": ("build_inv", "frontier_rounds", "decide_fame", "round_received"),
+    "run_passes": ("divide_rounds", "decide_fame", "round_received"),
+    "run_doubling_passes": ("closure_la", "build_inv", "walk_chunk", "decide_fame",
+                            "round_received"),
+    "run_doubling_passes, seeded": ("closure_la", "build_inv", "walk_chunk", "lamport_scan",
+                                    "decide_fame", "round_received"),
 }
 
 
@@ -77,10 +123,10 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warmup=2):
     """Median milliseconds of fn() over reps runs, each between two CUDA
-    events, after two warm-up runs."""
-    for _ in range(2):
+    events, after `warmup` warm-up runs."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -143,10 +189,13 @@ def require_equal(what, got, want):
 
 def require_same_results(what, got, want):
     """PassResults equality: per-event fields in full, the (R, N) tables on
-    the real rounds (the adaptive round axis may size them differently)."""
+    the real rounds (the adaptive round axis may size them differently;
+    their rows are indexed by round - round_offset)."""
     if got.last_round != want.last_round:
         raise AssertionError(f"{what}: last_round {got.last_round} != {want.last_round}")
-    k = want.last_round + 1
+    if got.round_offset != want.round_offset:
+        raise AssertionError(f"{what}: round_offset {got.round_offset} != {want.round_offset}")
+    k = want.last_round - want.round_offset + 1
     for field in ("rounds", "witness", "lamport", "received", "witness_table",
                   "fame_decided", "famous", "rounds_decided"):
         g, w = getattr(got, field), getattr(want, field)
@@ -156,13 +205,60 @@ def require_same_results(what, got, want):
             raise AssertionError(f"{what}: {field} differs from the CPU run")
 
 
+def wall_ms(fn, runs):
+    """Median host-clock milliseconds of fn() over `runs` warm runs, each
+    ending in a synchronize, after two warm-up runs."""
+    walls = []
+    for _ in range(runs + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls[2:]) * 1e3
+
+
+def run_path(label, fn):
+    """Run one engine call with every launch count set to 0 just before it
+    and read just after; fail unless each kernel of the path launched."""
+    from babble_tpu_torch.tpu import _ext
+
+    _ext.reset_launches()
+    res = fn()
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    missing = [k for k in PATH_KERNELS[label] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: never launched {missing}")
+    log(f"  {label}: launches {({k: v for k, v in launches.items() if v})}")
+    return res, launches
+
+
+def scan_pair_count(levels, sp, op, ext_sp_round, ext_op_round, rounds, wtable):
+    """(event, witness) pairs whose strongly-see count the level scan needs:
+    each event against the witnesses of its parent round that an earlier
+    level placed in the table (CPU tensors, the scan's own outputs)."""
+    e = rounds.shape[0]
+    r_max = wtable.shape[0]
+    lvl = torch.full((e,), -1, dtype=torch.long)
+    pos = torch.nonzero(levels >= 0)
+    lvl[levels[pos[:, 0], pos[:, 1]].long()] = pos[:, 0]
+    sp_r = torch.where(sp >= 0, rounds[sp.clamp(0, e - 1).long()], ext_sp_round)
+    op_r = torch.where(op >= 0, rounds[op.clamp(0, e - 1).long()], ext_op_round)
+    pr = torch.maximum(sp_r, op_r)
+    w = wtable[pr.clamp(0, r_max - 1).long()]
+    ok = ((w >= 0) & (pr >= 0)[:, None] & (lvl >= 0)[:, None]
+          & (lvl[w.clamp(0, e - 1).long()] < lvl[:, None]))
+    return int(ok.sum())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from babble_tpu_torch.tpu import _ext, engine, frontier, kernels
-    from babble_tpu_torch.tpu.grid import synthetic_grid
+    from babble_tpu_torch.tpu import _ext, doubling, engine, frontier, kernels
+    from babble_tpu_torch.tpu.grid import section_grid, synthetic_deep_grid, synthetic_grid
 
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False  # the bmm yardstick stays exact
@@ -341,7 +437,7 @@ def main() -> int:
             f"end to end: last_round {res.last_round}, {n_received} received; "
             f"the reference gives {BENCH_LAST_ROUND} and {BENCH_RECEIVED}"
         )
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in PATH_KERNELS["run_frontier_passes"] if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
     log(f"end to end == cpu run; launches on the main path: {launches}")
@@ -377,6 +473,210 @@ def main() -> int:
         f"inputs): median {pipe_ms:.3f} ms")
     log(f"tally yardstick: one torch.bmm of ({r_max}, {n}, {n}) 0/1 float32 "
         f"matrices {tally_bmm_ms:.4f} ms (never called by the port)")
+
+    # 5. grids of the cold path
+    t0 = time.perf_counter()
+    deep = synthetic_deep_grid(CATCHUP["n"], CATCHUP["depth"], seed=CATCHUP["seed"],
+                               zipf_a=CATCHUP["zipf_a"])
+    if (deep.e, deep.num_levels) != CATCHUP_GRID:
+        raise AssertionError(f"catch-up grid: {deep.e} events, {deep.num_levels} levels; "
+                             f"expected {CATCHUP_GRID}")
+    sec = section_grid(deep, engine.run_frontier_passes(deep, device=dev), deep.num_levels // 2)
+    if (sec.e, sec.num_levels) != CATCHUP_SECTION:
+        raise AssertionError(f"catch-up section: {sec.e} events, {sec.num_levels} levels; "
+                             f"expected {CATCHUP_SECTION}")
+    ug = synthetic_deep_grid(UNPINNED["n"], UNPINNED["depth"], seed=UNPINNED["seed"],
+                             zipf_a=UNPINNED["zipf_a"])
+    usec = section_grid(ug, engine.run_passes(ug, device=dev), ug.num_levels // 2,
+                        pin_cut=False)
+    log(f"catch-up grid: {deep.e} events, {deep.num_levels} levels; section "
+        f"{sec.e} events, {sec.num_levels} levels; unpinned section {usec.e} events, "
+        f"{usec.num_levels} levels; {time.perf_counter() - t0:.1f} s to build")
+
+    # 6. the level scan's and the cold path's kernels against their plain
+    #    versions, on the bench grid and both sections; timed on the bench
+    #    grid and the catch-up section
+    def compare(name, label, kern, plain, timed):
+        _ext.reset_launches()
+        got = kern()
+        torch.cuda.synchronize()
+        n_launch = _ext.LAUNCHES[name]
+        want = plain()
+        torch.cuda.synchronize()
+        require_equal(f"{name} on the {label}", got, want)
+        line = f"{name} == plain on the {label}: {n_launch} launches"
+        if timed:
+            k_ms = cuda_ms(kern, 10)
+            p_ms = cuda_ms(plain, SLOW_PLAIN_REPS, warmup=1)
+            line += f", {k_ms:.4f} ms, plain {p_ms:.3f} ms"
+            if label == "catch-up section":
+                summary[name] = {"max_abs_err": max_abs_err(got, want), "ms": k_ms,
+                                 "plain_ms": p_ms}
+        log(line)
+        return got
+
+    def as_tensors(out):
+        return tuple(torch.tensor(x, device=dev) if isinstance(x, int) else x for x in out)
+
+    cold = [("bench grid", bench), ("catch-up section", sec), ("unpinned section", usec)]
+    for label, g in cold:
+        timed = label != "unpinned section"
+        gp, _, scan_r_max = engine.scan_layout(g, True)
+        ins = engine.stage_scan(gp, dev)
+        dr_args = ins[:13] + (gp.super_majority, scan_r_max)
+        dr = compare("divide_rounds", label,
+                     lambda: tuple(kernels.divide_rounds(*dr_args)),
+                     lambda: tuple(kernels._divide_rounds_plain(*dr_args)), timed)
+        lam_args = doubling.lamport_inputs(g, dev)
+        compare("lamport_scan", label,
+                lambda: doubling._lamport_levels_scan(*lam_args),
+                lambda: doubling._lamport_levels_scan_plain(*lam_args), timed)
+        cs = doubling.stage_doubling(g, dev)
+        cl_args = (cs.creator_d, cs.idx_d, cs.sp_d, cs.op_d, cs.rows_by_d, cs.l_b,
+                   cs.block, cs.pass_cap)
+        if label != "unpinned section":
+            cl = compare("closure_la", label,
+                         lambda: as_tensors(doubling._closure_la(*cl_args)),
+                         lambda: as_tensors(doubling._closure_la_plain(*cl_args)), timed)
+        # every chunk of the walk, kernel against plain; the largest is timed
+        inv_c = frontier.build_inv(cs.rows_by_d, cs.la_d)
+        s_np, first_nw, x0 = doubling.walk_seeds(g, cs)
+        chunks = []
+
+        def walk(*a):
+            got = doubling._walk_chunk(*a)
+            want = doubling._walk_chunk_plain(*a)
+            torch.cuda.synchronize()
+            require_equal(f"walk_chunk (length {a[10]}) on the {label}", got, want)
+            chunks.append(a)
+            return got
+
+        hist = doubling._doubling_walk(
+            lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev), inv_c,
+            cs.rows_by_d, cs.fd_d, cs.la_d, x0, s_np, first_nw, g.super_majority,
+            cs.l_b, cs.seeded, {}, walk=walk)
+        fired = sum(1 for c in range(g.n)
+                    if 0 <= first_nw[c] < hist.shape[0] and hist[first_nw[c], c] == 0)
+        if label == "unpinned section" and fired == 0:
+            raise AssertionError("unpinned section: the first_nw mask never fired")
+        big = max(chunks, key=lambda a: a[10])
+        compare("walk_chunk", f"{label} (largest chunk, {big[10]} steps)",
+                lambda: doubling._walk_chunk(*big), lambda: doubling._walk_chunk_plain(*big),
+                False)
+        if timed:
+            k_ms = cuda_ms(lambda: doubling._walk_chunk(*big), 10)
+            p_ms = cuda_ms(lambda: doubling._walk_chunk_plain(*big), SLOW_PLAIN_REPS, warmup=1)
+            log(f"  walk_chunk on the {label}: {big[10]} steps x {big[11]} probes, "
+                f"{k_ms:.4f} ms, plain {p_ms:.3f} ms")
+        log(f"walk_chunk == plain on every chunk of the {label} "
+            f"({', '.join(str(a[10]) for a in chunks)} steps, seeded {cs.seeded}); "
+            f"first_nw mask fired on {fired} of {g.n} chains")
+        if label != "catch-up section":
+            continue
+        summary["walk_chunk"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+
+        # work bounds at the catch-up section's shapes, from this run's data
+        def cpu(x):
+            return x.cpu()
+
+        n_s = g.n
+        lv_c, _, _, sp_c, op_c, la_c, fd_c, esr_c, eor_c = (
+            cpu(ins[i]) for i in (0, 1, 2, 3, 4, 5, 6, 7, 8))
+        e_b = la_c.shape[0]
+        last_lv = kernels.last_level(lv_c)
+        used_level_bytes = (last_lv + 1) * lv_c.shape[1] * 4
+        n_wit = int(dr[1].sum().item())
+        pairs = scan_pair_count(lv_c, sp_c, op_c, esr_c, eor_c, cpu(dr[0]), cpu(dr[3]))
+        work["divide_rounds"] = (
+            used_level_bytes + g.e * (9 * 4 + n_s * 4) + n_wit * n_s * 4
+            + e_b * 9 + scan_r_max * n_s * 4,
+            (pairs * n_s + g.e * 4) / ALU_OPS_S)
+        work["lamport_scan"] = (
+            (kernels.last_level(cpu(lam_args[0])) + 1) * lam_args[0].shape[1] * 4
+            + g.e * 5 * 4 + lam_args[1].shape[0] * 4,
+            2 * g.e / ALU_OPS_S)
+        la_fin, passes = cl
+        l_c = cs.l_b
+        la0 = doubling._closure_init(cs.creator_d, cs.idx_d, cs.sp_d, cs.op_d, n_s)
+        nonneg_fin = int((la_fin >= 0).sum().item())
+        nonneg_0 = int((la0 >= 0).sum().item())
+        prefix_ops = n_s * l_c * n_s
+        work["closure_la"] = (
+            4 * cs.idx_d.shape[0] * 4 + n_s * l_c * 4 + la_fin.numel() * 4,
+            (nonneg_fin * n_s + prefix_ops
+             + (int(passes) - 1) * (nonneg_0 * n_s + prefix_ops)) / ALU_OPS_S)
+        # walk: the timed chunk's working steps (frontier holding a row)
+        x_before = torch.cat([big[4][None, :], doubling._walk_chunk_plain(*big)[1][:-1]])
+        working = int((x_before < l_c).any(dim=1).sum().item())
+        steps = big[11]
+        step_bytes = n_s * n_s * 4 * 2 + n_s * steps * n_s * 4 + n_s * (steps + 1) * 4
+        work["walk_chunk"] = (
+            min(working * step_bytes, big[0].numel() * 4 + big[2].numel() * 4
+                + big[3].numel() * 4 + big[1].numel() * 4)
+            + big[5].numel() * 4 + big[6].numel() * 4 + big[10] * n_s * 4 + 3 * n_s * 4,
+            working * (n_s * steps * n_s * n_s + n_s * n_s) / ALU_OPS_S)
+        log(f"  bound inputs (catch-up section): {pairs} scan (event, witness) pairs, "
+            f"{n_wit} witnesses, closure {int(passes)} passes with {nonneg_0} -> "
+            f"{nonneg_fin} set coordinates, {working} working walk steps of {big[10]}")
+
+    # 7. the bench grid through the level scan and the cold path
+    bstats = {}
+    dbl_b, _ = run_path("run_doubling_passes", lambda: doubling.run_doubling_passes(
+        bench, stats=bstats, device=dev))
+    require_same_results("run_doubling_passes on the bench grid", dbl_b, res)
+    scan_b, _ = run_path("run_passes", lambda: engine.run_passes(
+        bench, bucketed=True, adaptive_r=True, device=dev))
+    require_same_results("run_passes on the bench grid", scan_b, res)
+    got = {k: bstats[k] for k in BENCH_DOUBLING}
+    if got != BENCH_DOUBLING:
+        raise AssertionError(f"bench grid doubling stats {got}, expected {BENCH_DOUBLING}")
+    for label, fn in (
+        ("run_doubling_passes", lambda: doubling.run_doubling_passes(bench, device=dev)),
+        ("run_passes(bucketed, adaptive_r)", lambda: engine.run_passes(
+            bench, bucketed=True, adaptive_r=True, device=dev)),
+    ):
+        ms = wall_ms(fn, E2E_RUNS)
+        log(f"e2e {label} on the bench grid: median {ms:.3f} ms over {E2E_RUNS} warm runs, "
+            f"{bench.e / ms * 1e3:.0f} events/s, card: {smi}")
+    log(f"bench grid: the three engines agree field for field; last_round "
+        f"{dbl_b.last_round}, {int((dbl_b.received >= 0).sum())} received, "
+        f"closure passes {bstats['closure_passes']}, walk chunks {bstats['walk_chunks']}")
+
+    # 8. the catch-up cell
+    t0 = time.perf_counter()
+    cpu_stats = {}
+    cpu_d = doubling.run_doubling_passes(sec, stats=cpu_stats, device="cpu")
+    cpu_s = engine.run_passes(sec, bucketed=True, adaptive_r=True, device="cpu")
+    log(f"catch-up section on the CPU (plain versions): {time.perf_counter() - t0:.1f} s")
+    sstats = {}
+    dbl_s, launches_d = run_path("run_doubling_passes, seeded", lambda: doubling.run_doubling_passes(
+        sec, stats=sstats, device=dev))
+    scan_s, launches_s = run_path("run_passes", lambda: engine.run_passes(
+        sec, bucketed=True, adaptive_r=True, device=dev))
+    require_same_results("catch-up run_doubling_passes == CPU", dbl_s, cpu_d)
+    require_same_results("catch-up run_passes == CPU", scan_s, cpu_s)
+    require_same_results("catch-up run_doubling_passes == run_passes", dbl_s, scan_s)
+    if sstats != cpu_stats:
+        raise AssertionError(f"catch-up stats {sstats} != CPU {cpu_stats}")
+    got = dict(last_round=dbl_s.last_round, round_offset=dbl_s.round_offset,
+               received=int((dbl_s.received >= 0).sum()),
+               closure_passes=sstats["closure_passes"], walk_chunks=sstats["walk_chunks"],
+               passes=sstats["passes"])
+    if got != CATCHUP_EXPECT:
+        raise AssertionError(f"catch-up cell: {got}, the reference gives {CATCHUP_EXPECT}")
+    log(f"catch-up cell: both engines == each other == CPU run; {got}")
+    for label, fn in (
+        ("run_doubling_passes", lambda: doubling.run_doubling_passes(sec, device=dev)),
+        ("run_passes(bucketed, adaptive_r)", lambda: engine.run_passes(
+            sec, bucketed=True, adaptive_r=True, device=dev)),
+    ):
+        ms = wall_ms(fn, CATCHUP_RUNS)
+        log(f"e2e catch-up {label}: median {ms:.3f} ms over {CATCHUP_RUNS} warm runs, "
+            f"{sec.e / ms * 1e3:.0f} events ordered/s replaying the section from cold, "
+            f"card: {smi}")
+    launches["divide_rounds"] = launches_s["divide_rounds"]
+    for k in ("closure_la", "walk_chunk", "lamport_scan"):
+        launches[k] = launches_d[k]
 
     out = []
     for name, (source, replaces) in REPLACES.items():

@@ -80,3 +80,21 @@ def test_grid_from_arrays_round_trips_a_reference_grid():
     port.last_ancestors[0, 0] = 12345
     assert ref.last_ancestors[0, 0] != 12345
     assert port.r_max == ref.r_max and port.r_base == ref.r_base
+
+
+@pytest.mark.parametrize("cut_frac,pin", [(1.0 / 3.0, True), (1.0 / 2.0, True), (1.0 / 2.0, False)])
+def test_section_grid_matches_reference(cut_frac, pin):
+    """The port's section_grid, cut from the port's grid with the same
+    solved rounds and lamports, equals the reference's field for field."""
+    from babble_tpu.tpu.engine import run_passes
+
+    ref = ref_grid.synthetic_deep_grid(6, 256, seed=2, zipf_a=1.0)
+    port = port_grid.grid_from_arrays(vars(ref))
+    full = run_passes(ref)
+    cut = int(ref.num_levels * cut_frac)
+    want = ref_grid.section_grid(ref, full, cut, pin_cut=pin)
+    got = port_grid.section_grid(port, full, cut, pin_cut=pin)
+    assert isinstance(got, port_grid.DagGrid)
+    assert_same_grid(got, want)
+    with pytest.raises(ValueError):
+        port_grid.section_grid(port, full, ref.num_levels + 1)
