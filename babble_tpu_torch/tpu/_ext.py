@@ -55,10 +55,27 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
     "lamport_scan": (
         "lamport_scan.cu", "babble_lamport_scan", "pppppppp" "iii",
     ),
+    "apply_deltas": (
+        "apply_deltas.cu", "babble_apply_deltas", "ppppppppppppp" "iiiii",
+    ),
+    "step_levels": (
+        "step_levels.cu", "babble_step_levels", "ppppppppppppppppppppppp" "iiiiiiii",
+    ),
+    "train_levels": (
+        "train_levels.cu", "babble_train_levels",
+        "pppppppppppppppppppppppppp" "iiiiiiii",
+    ),
+    "decide_window": (
+        "decide_window.cu", "babble_decide_window",
+        "pppppppppppppppppppppp" "iiiiiiii",
+    ),
 }
 
 # largest dynamic shared memory one block may use on an H100
 MAX_SMEM_BYTES = 232448
+# rounds' fd slabs the level kernels cache in shared memory, at most
+# (fewer where a slab of N x N int32 does not fit)
+SLAB_SLOTS = 4
 
 # launches of each kernel's C entry point since the last reset
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -392,3 +409,175 @@ def lamport_scan(levels, sp, op, esp, eop, fpin):
         levels, sp, op, esp, eop, fpin, lam, last_level, l_lv, n_lvl, e,
     ))
     return lam
+
+
+def _check_state_scalars(dev, **scalars) -> None:
+    for what, (t, dtype) in scalars.items():
+        check_tensor(what, t, dtype, (), dev)
+
+
+def apply_deltas(fd, fd_w, la, creator, index, w_of_row, rows, b_creator,
+                 b_index, la_rows, upd_row, upd_col, upd_val) -> None:
+    """K9, in place: min-scatter the (U,) fd deltas into fd (E_cap, N) and,
+    through the pre-batch w_of_row, into fd_w (R_cap, N, N); stage the (B,)
+    new rows' la, creator, index and own fd cell."""
+    dev = fd.device
+    e_cap, n = fd.shape
+    r_cap = fd_w.shape[0]
+    b = rows.shape[0]
+    u = upd_row.shape[0]
+    check_tensor("fd", fd, torch.int32, (e_cap, n), dev)
+    check_tensor("fd_w", fd_w, torch.int32, (r_cap, n, n), dev)
+    check_tensor("la", la, torch.int32, (e_cap, n), dev)
+    for what, t in (("creator", creator), ("index", index), ("w_of_row", w_of_row)):
+        check_tensor(what, t, torch.int32, (e_cap,), dev)
+    for what, t in (("rows", rows), ("b_creator", b_creator), ("b_index", b_index)):
+        check_tensor(what, t, torch.int32, (b,), dev)
+    check_tensor("la_rows", la_rows, torch.int32, (b, n), dev)
+    for what, t in (("upd_row", upd_row), ("upd_col", upd_col), ("upd_val", upd_val)):
+        check_tensor(what, t, torch.int32, (u,), dev)
+    _launch("apply_deltas", dev, (
+        fd, fd_w, la, creator, index, w_of_row, rows, b_creator, b_index,
+        la_rows, upd_row, upd_col, upd_val, e_cap, n, r_cap, b, u,
+    ))
+
+
+def _check_level_state(dev, fd, rounds, lamport, witness, wtable, w_of_row,
+                       la_w, fd_w, idx_w, coin_w, rounds_decided, last_round,
+                       count, stale):
+    e_cap, n = fd.shape
+    r_cap = wtable.shape[0]
+    check_tensor("fd", fd, torch.int32, (e_cap, n), dev)
+    for what, t in (("rounds", rounds), ("lamport", lamport), ("w_of_row", w_of_row)):
+        check_tensor(what, t, torch.int32, (e_cap,), dev)
+    check_tensor("witness", witness, torch.bool, (e_cap,), dev)
+    check_tensor("wtable", wtable, torch.int32, (r_cap, n), dev)
+    check_tensor("la_w", la_w, torch.int32, (r_cap, n, n), dev)
+    check_tensor("fd_w", fd_w, torch.int32, (r_cap, n, n), dev)
+    check_tensor("idx_w", idx_w, torch.int32, (r_cap, n), dev)
+    check_tensor("coin_w", coin_w, torch.bool, (r_cap, n), dev)
+    check_tensor("rounds_decided", rounds_decided, torch.bool, (r_cap,), dev)
+    _check_state_scalars(dev, last_round=(last_round, torch.int32),
+                         count=(count, torch.int32), stale=(stale, torch.bool))
+    return e_cap, n, r_cap
+
+
+def step_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
+                idx_w, coin_w, rounds_decided, last_round, count, stale,
+                rows, creator, index, sp_row, op_row, la_rows, coin,
+                fixed_round, levels, super_majority: int) -> None:
+    """K10, in place: the batch's (L, W) level table walked in order by one
+    block, witness registration, then last_round, count and the latches."""
+    dev = fd.device
+    e_cap, n, r_cap = _check_level_state(
+        dev, fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
+        idx_w, coin_w, rounds_decided, last_round, count, stale)
+    b = rows.shape[0]
+    l_lv, w = levels.shape
+    for what, t in (("rows", rows), ("creator", creator), ("index", index),
+                    ("sp_row", sp_row), ("op_row", op_row),
+                    ("fixed_round", fixed_round)):
+        check_tensor(what, t, torch.int32, (b,), dev)
+    check_tensor("la_rows", la_rows, torch.int32, (b, n), dev)
+    check_tensor("coin", coin, torch.bool, (b,), dev)
+    check_tensor("levels", levels, torch.int32, (l_lv, w), dev)
+    if b < 1 or w < 1:
+        raise ValueError("step_levels: needs a non-empty batch and level width")
+    base = (7 * w + l_lv * w + 7 * b + w * n) * 4 + r_cap * n
+    if base > MAX_SMEM_BYTES:
+        raise ValueError(f"step_levels: {n} validators exceed one block's shared memory")
+    slots = min(SLAB_SLOTS, (MAX_SMEM_BYTES - base) // ((n * n + 3) * 4))
+    _launch("step_levels", dev, (
+        fd, rounds, lamport, witness.view(torch.uint8), wtable, w_of_row,
+        la_w, fd_w, idx_w, coin_w.view(torch.uint8),
+        rounds_decided.view(torch.uint8), last_round, count,
+        stale.view(torch.uint8), rows, creator, index, sp_row, op_row,
+        la_rows, coin.view(torch.uint8), fixed_round, levels,
+        e_cap, n, r_cap, b, l_lv, w, super_majority, slots,
+    ))
+
+
+def train_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
+                 idx_w, coin_w, rounds_decided, last_round, count, stale,
+                 rows, creator, index, sp_row, op_row, sp_pos, op_pos,
+                 la_rows, coin, fixed_round, levels, super_majority: int) -> None:
+    """K11, in place: a train's (T, W) level scan on train-local carries
+    (shared memory) and a clamped compare copy of fd_w (scratch), then the
+    bulk registration, the write-back and the latches."""
+    dev = fd.device
+    e_cap, n, r_cap = _check_level_state(
+        dev, fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
+        idx_w, coin_w, rounds_decided, last_round, count, stale)
+    kb = rows.shape[0]
+    t_lv, w = levels.shape
+    for what, t in (("rows", rows), ("creator", creator), ("index", index),
+                    ("sp_row", sp_row), ("op_row", op_row), ("sp_pos", sp_pos),
+                    ("op_pos", op_pos), ("fixed_round", fixed_round)):
+        check_tensor(what, t, torch.int32, (kb,), dev)
+    check_tensor("la_rows", la_rows, torch.int32, (kb, n), dev)
+    check_tensor("coin", coin, torch.bool, (kb,), dev)
+    check_tensor("levels", levels, torch.int32, (t_lv, w), dev)
+    if kb < 1 or w < 1:
+        raise ValueError("train_levels: needs a non-empty train and level width")
+    if e_cap >= 1 << 24:
+        raise ValueError("train_levels: event capacity exceeds the 2^24 compare range")
+    base = kb * 9 + r_cap * n + (9 * w + w * n) * 4
+    if base > MAX_SMEM_BYTES:
+        raise ValueError(f"train_levels: a train of {kb} rows exceeds one block's shared memory")
+    slots = min(SLAB_SLOTS, (MAX_SMEM_BYTES - base) // ((n * n + 3) * 4))
+    fd_cmp = torch.empty((r_cap, n, n), dtype=torch.int32, device=dev)
+    _launch("train_levels", dev, (
+        fd, rounds, lamport, witness.view(torch.uint8), wtable, w_of_row,
+        la_w, fd_w, idx_w, coin_w.view(torch.uint8),
+        rounds_decided.view(torch.uint8), last_round, count,
+        stale.view(torch.uint8), rows, creator, index, sp_row, op_row, sp_pos,
+        op_pos, la_rows, coin.view(torch.uint8), fixed_round, levels, fd_cmp,
+        e_cap, n, r_cap, kb, t_lv, w, super_majority, slots,
+    ))
+
+
+def decide_window(wtable, la_w, fd_w, idx_w, coin_w, fame_decided, famous,
+                  rounds_decided, last_round, count, index, creator, rounds,
+                  received, stale, fame_lag, super_majority: int,
+                  n_participants: int, r_win: int, e_win: int,
+                  d_unroll: int) -> None:
+    """K12, in place: fame over the r_win-round window from the first
+    undecided round (freeze mask below it), round received over the
+    trailing e_win rows, the stale detector and the fame_lag latch."""
+    dev = wtable.device
+    r_cap, n = wtable.shape
+    e_cap = index.shape[0]
+    check_tensor("wtable", wtable, torch.int32, (r_cap, n), dev)
+    check_tensor("la_w", la_w, torch.int32, (r_cap, n, n), dev)
+    check_tensor("fd_w", fd_w, torch.int32, (r_cap, n, n), dev)
+    check_tensor("idx_w", idx_w, torch.int32, (r_cap, n), dev)
+    for what, t in (("coin_w", coin_w), ("fame_decided", fame_decided),
+                    ("famous", famous)):
+        check_tensor(what, t, torch.bool, (r_cap, n), dev)
+    check_tensor("rounds_decided", rounds_decided, torch.bool, (r_cap,), dev)
+    for what, t in (("index", index), ("creator", creator), ("rounds", rounds),
+                    ("received", received)):
+        check_tensor(what, t, torch.int32, (e_cap,), dev)
+    _check_state_scalars(dev, last_round=(last_round, torch.int32),
+                         count=(count, torch.int32), stale=(stale, torch.bool),
+                         fame_lag=(fame_lag, torch.bool))
+    if not (1 <= r_win <= r_cap and 1 <= e_win <= e_cap) or n_participants < 1:
+        raise ValueError("decide_window: windows must fit the capacities")
+    words = (n + 31) // 32
+    if (3 * n * (n + 1) + 4 * n) * 4 > MAX_SMEM_BYTES:
+        raise ValueError(f"decide_window: {n} validators exceed one block's shared memory")
+    scal = torch.empty((2,), dtype=torch.int32, device=dev)
+    ss_bits = torch.empty((r_win, n, words), dtype=torch.int32, device=dev)
+    vt0 = torch.empty((r_win, n, words), dtype=torch.int32, device=dev)
+    min_la = torch.empty((r_cap, n), dtype=torch.int32, device=dev)
+    famous_count = torch.empty((r_cap,), dtype=torch.int32, device=dev)
+    i_ok = torch.empty((r_cap,), dtype=torch.uint8, device=dev)
+    _launch("decide_window", dev, (
+        wtable, la_w, fd_w, idx_w, coin_w.view(torch.uint8),
+        fame_decided.view(torch.uint8), famous.view(torch.uint8),
+        rounds_decided.view(torch.uint8), last_round, count, index, creator,
+        rounds, received, stale.view(torch.uint8), fame_lag.view(torch.uint8),
+        scal, ss_bits, vt0, min_la, famous_count, i_ok,
+        e_cap, n, r_cap, r_win, e_win, super_majority, n_participants,
+        d_unroll,
+    ))

@@ -39,7 +39,30 @@ Phases, in order; any failure raises and exits non-zero:
    the port's CPU run, last_round 1,022, round_offset 511, 32,536
    received, closure passes 4, walk chunks 6, 11 passes, each path's
    kernels launched, and events ordered per second replaying the section
-   from cold (32,760 / the median wall time).
+   from cold (32,760 / the median wall time);
+9. the incremental engine's kernels (apply_deltas, step_levels,
+   train_levels, decide_window) against their plain versions on the card:
+   one state driven through the kernels and a clone through the plain
+   versions, every IncState field torch.equal after every call, at the
+   live step shape (the bench grid's 512 batches of batches_from_grid(grid,
+   64, 8192, 65536), e_win 8192, r_win 64, r_cap 64), the train shape (its
+   4 trains of trains_from_grid(grid, 8192, 524288, 32768, t_cap=832),
+   e_win 16384) and test_incremental.py's 8-validator grid (batch 32,
+   train 256; the unrolled offset d = 8 is a coin step), there also with
+   r_win 8 < r_cap 16 (the window slides and freezes) and with two no-op
+   batches (the live engine's padding) after its own, with each kernel's
+   launches and CUDA-event times at the bench shapes;
+10. both append paths end to end on the bench grid, inputs on the card
+   before timing: step over the 512 batches, multi_step in groups of 16
+   (padded with no-op batches as the live engine pads them), train_step
+   over the 4 trains and multi_train with K = 2 (e_win 24,576: a decide
+   per two trains needs both trains' rows and the undecided tail in its
+   window; at 16,384 the stale latch fires, in the JAX reference too,
+   which is checked as well); each equal to run_passes
+   on the card on rows [:e] of rounds, lamport, witness and received, with
+   last_round 26, 28,065 received and no latch set, each path's kernels
+   launched, and events appended per second (32,768 / the median wall
+   time over 5 warm runs from a fresh state, one synchronize at the end).
 
 The next-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX and
@@ -98,6 +121,30 @@ UNPINNED_LAST_ROUND = 127
 CATCHUP_RUNS = 5
 SLOW_PLAIN_REPS = 3
 
+# the incremental engine: the live engine's defaults (babble_tpu/tpu/live.py
+# ENGINE_DEFAULTS) for the step path, bench_incremental.py's constants for
+# the train path, and the JAX reference's results on the bench grid
+INC_STEP = dict(batch=64, upd_cap=8192, e_cap=65536, r_cap=64, r_win=64, e_win=8192)
+INC_TRAIN = dict(size=8192, upd_cap=524288, e_cap=32768, t_cap=832, r_cap=64,
+                 r_win=32, e_win=16384)
+INC_BATCHES = 512
+INC_TRAIN_LEVELS = [416, 384, 416, 384]
+INC_WITNESSES = 1727
+MULTI_STEP_K = 16
+MULTI_TRAIN_K = 2
+# one decide per two trains must see both trains' rows and the tail still
+# undecided before them; at the train path's e_win 16,384 rows below the
+# window stay undetermined and the stale latch fires, in the JAX reference
+# as in the port, with 23,380 received
+MULTI_TRAIN_E_WIN = 24576
+MULTI_TRAIN_UNDERSIZED = dict(stale=True, fame_lag=False, received=23380)
+INC_RUNS = 5
+# about half a millisecond of spinning at the H100's clock
+SPIN_CYCLES = 1_000_000
+# test_incremental.py's 8-validator grid, its batch and train sizes
+INC_FIXTURE = dict(n=8, e=768, seed=3, zipf_a=1.1, batch=32, train=256, w_cap=16,
+                   t_cap=96, r_cap=64, e_win=512)
+
 REPLACES = {
     "build_inv": ("babble_tpu_torch/csrc/build_inv.cu", "babble_tpu/tpu/frontier.py:116"),
     "frontier_rounds": ("babble_tpu_torch/csrc/frontier_walk.cu", "babble_tpu/tpu/frontier.py:299"),
@@ -107,6 +154,10 @@ REPLACES = {
     "closure_la": ("babble_tpu_torch/csrc/closure_la.cu", "babble_tpu/tpu/doubling.py:172"),
     "walk_chunk": ("babble_tpu_torch/csrc/walk_chunk.cu", "babble_tpu/tpu/doubling.py:296"),
     "lamport_scan": ("babble_tpu_torch/csrc/lamport_scan.cu", "babble_tpu/tpu/doubling.py:443"),
+    "apply_deltas": ("babble_tpu_torch/csrc/apply_deltas.cu", "babble_tpu/tpu/incremental.py:213"),
+    "step_levels": ("babble_tpu_torch/csrc/step_levels.cu", "babble_tpu/tpu/incremental.py:243"),
+    "train_levels": ("babble_tpu_torch/csrc/train_levels.cu", "babble_tpu/tpu/incremental.py:570"),
+    "decide_window": ("babble_tpu_torch/csrc/decide_window.cu", "babble_tpu/tpu/incremental.py:361"),
 }
 # the kernels each engine's call must launch
 PATH_KERNELS = {
@@ -116,6 +167,10 @@ PATH_KERNELS = {
                             "round_received"),
     "run_doubling_passes, seeded": ("closure_la", "build_inv", "walk_chunk", "lamport_scan",
                                     "decide_fame", "round_received"),
+    "step": ("apply_deltas", "step_levels", "decide_window"),
+    "multi_step": ("apply_deltas", "step_levels", "decide_window"),
+    "train_step": ("apply_deltas", "train_levels", "decide_window"),
+    "multi_train": ("apply_deltas", "train_levels", "decide_window"),
 }
 
 
@@ -252,6 +307,120 @@ def scan_pair_count(levels, sp, op, ext_sp_round, ext_op_round, rounds, wtable):
     return int(ok.sum())
 
 
+def state_diff(a, b):
+    """Names of the IncState fields in which two states differ."""
+    return [f for f in a._fields if not torch.equal(getattr(a, f), getattr(b, f))]
+
+
+class PairedRun:
+    """One incremental state driven through the kernels and a clone of it
+    through the plain versions, call by call: every IncState field is held
+    torch.equal after each call, and each call's kernel and plain times
+    (CUDA events) and the work its data needs are kept by kernel name."""
+
+    def __init__(self, label, state):
+        from babble_tpu_torch.tpu import incremental as inc
+
+        self.label = label
+        self.k = state
+        self.p = inc.clone_state(state)
+        self.events = {}
+        self.work = {}
+
+    def call(self, name, kern, plain, work=None):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        # the card spins while the host runs the wrapper and enqueues the
+        # launch, so the events time the kernel and not the enqueue
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev[0].record()
+        kern(self.k)
+        ev[1].record()
+        ev[2].record()
+        plain(self.p)
+        ev[3].record()
+        bad = state_diff(self.k, self.p)
+        calls = self.events.setdefault(name, [])
+        if bad:
+            raise AssertionError(f"{name} on the {self.label}, call {len(calls)}: "
+                                 f"{bad} differ from the plain version")
+        calls.append(ev)
+        if work is not None:
+            nbytes, alu, tc = work(self.k)
+            acc = self.work.setdefault(name, [0, 0, 0])
+            acc[0] += nbytes
+            acc[1] += alu
+            acc[2] += tc
+
+    def times(self, name):
+        """(calls, total kernel ms, total plain ms)."""
+        torch.cuda.synchronize()
+        evs = self.events[name]
+        return (len(evs), sum(e[0].elapsed_time(e[1]) for e in evs),
+                sum(e[2].elapsed_time(e[3]) for e in evs))
+
+
+def inc_work_deltas(st, x):
+    """(bytes, ALU ops, tensor-core ops) apply_deltas needs for input x:
+    each real delta's 12 bytes, its row's slot and one fd cell (and one
+    fd_w cell where mirrored); each staged row's la row in and out, its
+    identity and own fd cell."""
+    e_cap, n = st.la.shape
+    ok = (x.upd_row >= 0) & (x.upd_row < e_cap)
+    u = int(ok.sum())
+    slot = st.w_of_row[x.upd_row.clamp(0, e_cap - 1).long()]
+    mirrored = int((ok & (slot >= 0)).sum())
+    rows = int(((x.rows >= 0) & (x.rows < e_cap)).sum())
+    return u * 20 + mirrored * 4 + rows * (8 * n + 24), u + mirrored + rows, 0
+
+
+def inc_work_levels(st, x, rounds_scan):
+    """(bytes, ALU ops, 0) of one level-scan call: per real lane its batch
+    metadata, la row, parents' rounds and lamports and its parent round's
+    witness row, the fd rows of the witnesses it is counted against
+    (those of its parent round as the call leaves the table), its results,
+    each registration's rows; the step path also reads every row's round
+    (its last_round is a max over all of them)."""
+    e_cap, n = st.la.shape
+    r_cap = st.wtable.shape[0]
+    pos = x.levels[x.levels >= 0].long()
+    lanes = pos.numel()
+
+    def parent_round(r):
+        ok = (r >= 0) & (r < e_cap)
+        return torch.where(ok, st.rounds[r.clamp(0, e_cap - 1).long()], -1)
+
+    pr = torch.maximum(parent_round(x.sp_row[pos]), parent_round(x.op_row[pos]))
+    pairs = int(((st.wtable[pr.clamp(0, r_cap - 1).long()] >= 0) & (pr >= 0)[:, None]).sum())
+    regs = int(st.witness[x.rows[pos].clamp(0, e_cap - 1).long()].sum())
+    nbytes = (lanes * (29 + 16 + 8 * n + 9) + pairs * n * 4
+              + regs * (8 * n + 17) + (e_cap * 4 if rounds_scan else 0))
+    return nbytes, pairs * n + lanes * n, 0
+
+
+def inc_work_decide(st, r_win, e_win):
+    """(bytes, ALU ops, tensor-core ops) of one decide: the window's
+    witness rows of la_w and fd_w and its tables, the famous witnesses' la
+    rows, the fame tables, the trailing e_win rows (index, creator,
+    rounds, received) and the rows below them the stale detector reads;
+    the strongly-see compares at ALU rate and the eight offsets' 0/1
+    tallies at the int8 tensor-core rate."""
+    e_cap, n = st.la.shape
+    r_cap = st.wtable.shape[0]
+    lr = int(st.last_round)
+    undecided = ~st.rounds_decided & (torch.arange(r_cap, device=st.la.device) <= lr)
+    idx = torch.nonzero(undecided)
+    floor_true = min(int(idx[0]), lr) if idx.numel() else lr
+    floor = min(max(floor_true, 0), r_cap - r_win)
+    wv = st.wtable[floor : floor + r_win] >= 0
+    n_wit = int(wv.sum())
+    pairs = int((wv[1:].sum(dim=1) * wv[:-1].sum(dim=1)).sum())
+    n_famous = int((st.fame_decided & st.famous & (st.wtable >= 0)).sum())
+    lo = min(max(int(st.count) - e_win, 0), e_cap - e_win)
+    nbytes = (n_wit * (8 * n + 5) + r_win * n * 4 + n_famous * n * 4 + r_cap * n * 6
+              + r_cap + e_win * 16 + lo * 8)
+    return nbytes, pairs * n, 2 * 8 * r_win * n ** 3
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -355,7 +524,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     bench = synthetic_grid(BENCH["n"], BENCH["e_count"], seed=BENCH["seed"],
-                           zipf_a=BENCH["zipf_a"])
+                           zipf_a=BENCH["zipf_a"], record_fd_updates=True)
     log(f"bench grid: {bench.n} validators, {bench.e} events, "
         f"{time.perf_counter() - t0:.1f} s to generate")
     st = engine.stage_frontier(bench, dev)
@@ -677,6 +846,181 @@ def main() -> int:
     launches["divide_rounds"] = launches_s["divide_rounds"]
     for k in ("closure_la", "walk_chunk", "lamport_scan"):
         launches[k] = launches_d[k]
+
+    # 9. the incremental engine's kernels against their plain versions
+    from babble_tpu_torch.tpu import incremental as inc
+
+    sm, n = bench.super_majority, bench.n
+    t0 = time.perf_counter()
+    batches = inc.batches_from_grid(bench, INC_STEP["batch"], INC_STEP["upd_cap"],
+                                    INC_STEP["e_cap"])
+    trains = inc.trains_from_grid(bench, INC_TRAIN["size"], INC_TRAIN["upd_cap"],
+                                  INC_TRAIN["e_cap"], t_cap=INC_TRAIN["t_cap"])
+    if len(batches) != INC_BATCHES or [t.levels.shape[0] for t in trains] != INC_TRAIN_LEVELS:
+        raise AssertionError(f"builders: {len(batches)} batches, train levels "
+                             f"{[t.levels.shape[0] for t in trains]}; expected "
+                             f"{INC_BATCHES} and {INC_TRAIN_LEVELS}")
+    max_burst = max(int((b.upd_row < INC_STEP["e_cap"]).sum()) for b in batches)
+    max_train_burst = max(int((t.upd_row < INC_TRAIN["e_cap"]).sum()) for t in trains)
+    batches_d = [inc.device_put(b, dev) for b in batches]
+    trains_d = [inc.device_put(t, dev) for t in trains]
+    torch.cuda.synchronize()
+    log(f"incremental inputs: {len(batches)} batches (largest fd burst {max_burst} of "
+        f"{INC_STEP['upd_cap']}), {len(trains)} trains (levels "
+        f"{[t.levels.shape[0] for t in trains]}, largest burst {max_train_burst} of "
+        f"{INC_TRAIN['upd_cap']}); {time.perf_counter() - t0:.1f} s to build and copy")
+
+    def step_calls(run, x, r_win, e_win, work):
+        run.call("apply_deltas", lambda st: inc._apply_deltas_and_stage(st, x),
+                 lambda st: inc._apply_deltas_and_stage_plain(st, x),
+                 (lambda st: inc_work_deltas(st, x)) if work else None)
+        run.call("step_levels", lambda st: inc._step_levels(st, x, sm_of[0]),
+                 lambda st: inc._step_levels_plain(st, x, sm_of[0]),
+                 (lambda st: inc_work_levels(st, x, True)) if work else None)
+        decide_calls(run, r_win, e_win, work)
+
+    def train_calls(run, x, r_win, e_win, work):
+        run.call("apply_deltas", lambda st: inc._apply_deltas_and_stage(st, x),
+                 lambda st: inc._apply_deltas_and_stage_plain(st, x),
+                 (lambda st: inc_work_deltas(st, x)) if work else None)
+        run.call("train_levels", lambda st: inc._train_levels(st, x, sm_of[0]),
+                 lambda st: inc._train_levels_plain(st, x, sm_of[0]),
+                 (lambda st: inc_work_levels(st, x, False)) if work else None)
+        decide_calls(run, r_win, e_win, work)
+
+    def decide_calls(run, r_win, e_win, work):
+        run.call("decide_window",
+                 lambda st: inc._decide_body(st, sm_of[0], n_of[0], r_win=r_win, e_win=e_win),
+                 lambda st: inc._decide_body_plain(st, sm_of[0], n_of[0], r_win, e_win),
+                 (lambda st: inc_work_decide(st, r_win, e_win)) if work else None)
+
+    # the 8-validator fixture: the coin step lies in the unroll; with r_win 8
+    # below r_cap 16 the window slides and freezes
+    fx = INC_FIXTURE
+    fgrid = synthetic_grid(fx["n"], fx["e"], seed=fx["seed"], zipf_a=fx["zipf_a"],
+                           record_fd_updates=True)
+    sm_of, n_of = [fgrid.super_majority], [fgrid.n]
+    fb = [inc.device_put(b, dev) for b in inc.batches_from_grid(fgrid, fx["batch"], 8192, fx["e"])]
+    # two no-op batches (the live engine's multi_step padding) at the end
+    fb += [inc.device_put(inc.empty_batch(fgrid.n, fx["batch"], 8192, fx["e"]), dev)] * 2
+    ft = [inc.device_put(t, dev) for t in inc.trains_from_grid(
+        fgrid, fx["train"], 8192, fx["e"], w_cap=fx["w_cap"], t_cap=fx["t_cap"])]
+    for r_cap, r_win in ((fx["r_cap"], 32), (16, 8)):
+        run = PairedRun(f"8-validator grid, r_cap {r_cap}, r_win {r_win}",
+                        inc.init_state(fgrid.n, fx["e"], r_cap, device=dev))
+        for b in fb:
+            step_calls(run, b, r_win, fx["e_win"], False)
+        trun = PairedRun(run.label + ", trains", inc.init_state(fgrid.n, fx["e"], r_cap, device=dev))
+        for t in ft:
+            train_calls(trun, t, r_win, fx["e_win"], False)
+        log(f"apply_deltas, step_levels, train_levels, decide_window == plain after every "
+            f"call on the {run.label}: {len(fb)} batches, {len(ft)} trains, last_round "
+            f"{int(run.k.last_round)}, stale {bool(run.k.stale)}")
+
+    sm_of, n_of = [sm], [n]
+    t0 = time.perf_counter()
+    srun = PairedRun("live step shape", inc.init_state(
+        n, INC_STEP["e_cap"], INC_STEP["r_cap"], device=dev))
+    for b in batches_d:
+        step_calls(srun, b, INC_STEP["r_win"], INC_STEP["e_win"], True)
+    trun = PairedRun("train shape", inc.init_state(
+        n, INC_TRAIN["e_cap"], INC_TRAIN["r_cap"], device=dev))
+    for t in trains_d:
+        train_calls(trun, t, INC_TRAIN["r_win"], INC_TRAIN["e_win"], True)
+    log(f"apply_deltas, step_levels, train_levels, decide_window == plain after every call "
+        f"at the live step shape ({len(batches_d)} batches) and the train shape "
+        f"({len(trains_d)} trains): {time.perf_counter() - t0:.1f} s")
+    inc_summary = {}
+    for label, run, names in (("live step shape", srun, ("apply_deltas", "step_levels", "decide_window")),
+                              ("train shape", trun, ("apply_deltas", "train_levels", "decide_window"))):
+        for name in names:
+            calls, k_ms, p_ms = run.times(name)
+            nbytes, alu, tc = run.work[name]
+            log(f"  {name} at the {label}: {calls} calls, kernel {k_ms:.3f} ms in all "
+                f"({k_ms / calls:.4f} ms per call), plain {p_ms:.1f} ms in all; work "
+                f"{nbytes} bytes, {alu} ALU and {tc} tensor-core operations in all")
+            if label == "live step shape" or name == "train_levels":
+                inc_summary[name] = (calls, k_ms, p_ms, nbytes, alu, tc)
+
+    # 10. both append paths end to end
+    e = bench.e
+    scan_ref = engine.run_passes(bench, device=dev)
+
+    def check_path(label, st):
+        got = {f: getattr(st, f)[:e].cpu().numpy() for f in ("rounds", "lamport", "witness", "received")}
+        for f, g in got.items():
+            if not (g == getattr(scan_ref, f)).all():
+                raise AssertionError(f"{label}: {f} differs from run_passes on the card")
+        n_received = int((got["received"] >= 0).sum())
+        res = dict(last_round=int(st.last_round), received=n_received,
+                   witnesses=int(got["witness"].sum()), stale=bool(st.stale),
+                   fame_lag=bool(st.fame_lag))
+        want = dict(last_round=BENCH_LAST_ROUND, received=BENCH_RECEIVED,
+                    witnesses=INC_WITNESSES, stale=False, fame_lag=False)
+        if res != want:
+            raise AssertionError(f"{label}: {res}, the reference gives {want}")
+        return res
+
+    empty = inc.device_put(inc.empty_batch(n, INC_STEP["batch"], INC_STEP["upd_cap"],
+                                           INC_STEP["e_cap"]), dev)
+    step_groups = []
+    for i in range(0, len(batches_d), MULTI_STEP_K):
+        group = batches_d[i : i + MULTI_STEP_K]
+        k = 4 if len(group) <= 4 else MULTI_STEP_K
+        group = group + [empty] * (k - len(group))
+        step_groups.append(inc.Batch(*[torch.stack(f) for f in zip(*group)]))
+    train_groups = [inc.device_put(inc.stack_trains(trains[i : i + MULTI_TRAIN_K]), dev)
+                    for i in range(0, len(trains), MULTI_TRAIN_K)]
+    torch.cuda.synchronize()
+    st_cfg, tr_cfg = INC_STEP, INC_TRAIN
+    append_paths = {
+        "step": (st_cfg, lambda st: [inc.step(st, b, sm, n, r_win=st_cfg["r_win"],
+                                              e_win=st_cfg["e_win"]) for b in batches_d]),
+        "multi_step": (st_cfg, lambda st: [inc.multi_step(
+            st, g, sm, n, r_win=st_cfg["r_win"], e_win=st_cfg["e_win"]) for g in step_groups]),
+        "train_step": (tr_cfg, lambda st: [inc.train_step(
+            st, t, sm, n, r_win=tr_cfg["r_win"], e_win=tr_cfg["e_win"]) for t in trains_d]),
+        "multi_train": (tr_cfg, lambda st: [inc.multi_train(
+            st, g, sm, n, r_win=tr_cfg["r_win"], e_win=MULTI_TRAIN_E_WIN)
+            for g in train_groups]),
+    }
+    inc_launches = {}
+    for label, (cfg, drive) in append_paths.items():
+        st = inc.init_state(n, cfg["e_cap"], cfg["r_cap"], device=dev)
+        torch.cuda.synchronize()
+        _, path_launches = run_path(label, lambda: drive(st))
+        res = check_path(label, st)
+        inc_launches[label] = path_launches
+        walls = []
+        for _ in range(INC_RUNS + 2):
+            st = inc.init_state(n, cfg["e_cap"], cfg["r_cap"], device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drive(st)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        check_path(label, st)
+        wall = statistics.median(walls[2:])
+        log(f"e2e {label} on the bench grid: median {wall * 1e3:.3f} ms over {INC_RUNS} warm "
+            f"runs, {e / wall:.0f} events appended/s; {res}; card: {smi}")
+    st = inc.init_state(n, tr_cfg["e_cap"], tr_cfg["r_cap"], device=dev)
+    for g in train_groups:
+        inc.multi_train(st, g, sm, n, r_win=tr_cfg["r_win"], e_win=tr_cfg["e_win"])
+    got = dict(stale=bool(st.stale), fame_lag=bool(st.fame_lag),
+               received=int((st.received >= 0).sum()))
+    if got != MULTI_TRAIN_UNDERSIZED:
+        raise AssertionError(f"multi_train at e_win {tr_cfg['e_win']}: {got}, the reference "
+                             f"gives {MULTI_TRAIN_UNDERSIZED}")
+    log(f"multi_train at e_win {tr_cfg['e_win']} (undersized for a decide per "
+        f"{MULTI_TRAIN_K} trains): {got}, as the reference")
+    launches["apply_deltas"] = inc_launches["step"]["apply_deltas"]
+    launches["step_levels"] = inc_launches["step"]["step_levels"]
+    launches["decide_window"] = inc_launches["step"]["decide_window"]
+    launches["train_levels"] = inc_launches["train_step"]["train_levels"]
+    for name, (calls, k_ms, p_ms, nbytes, alu, tc) in inc_summary.items():
+        summary[name] = {"max_abs_err": 0, "ms": k_ms / calls, "plain_ms": p_ms / calls}
+        work[name] = (nbytes / calls, (alu / ALU_OPS_S + tc / INT8_TC_OPS_S) / calls)
+
 
     out = []
     for name, (source, replaces) in REPLACES.items():

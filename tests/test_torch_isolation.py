@@ -14,6 +14,7 @@ import pytest
 import babble_tpu_torch
 from babble_tpu_torch.tpu import synthetic_grid
 from babble_tpu_torch.tpu import engine as port_engine
+from babble_tpu_torch.tpu import incremental as port_incremental
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -32,6 +33,7 @@ def test_port_modules_import_no_jax_and_no_reference():
         )
     )
     assert "babble_tpu_torch.tpu.engine" in modules
+    assert "babble_tpu_torch.tpu.incremental" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {['babble_tpu_torch'] + modules!r}:\n"
@@ -72,3 +74,6 @@ def test_default_device_is_cuda_and_refuses_a_host_without_it(monkeypatch):
         port_engine.run_frontier_passes(grid, device="cuda")
     res = port_engine.run_frontier_passes(grid, device="cpu")
     assert res.last_round >= 1
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_incremental.init_state(4, 64, 8)
+    assert port_incremental.init_state(4, 64, 8, device="cpu").la.device.type == "cpu"
