@@ -217,20 +217,12 @@ Inputs = Union[Batch, Train]
 
 def device_put(x: Inputs, device=None) -> Inputs:
     """A Batch or Train (numpy or torch fields) with every field on
-    `device` (the card unless the caller passes "cpu")."""
+    `device` (the card unless the caller passes "cpu"). Fields already
+    there are passed through as they are."""
     dev = resolve_device(device)
     return type(x)(*[
-        f.to(dev) if isinstance(f, torch.Tensor) else to_device(np.asarray(f), dev)
-        for f in x
-    ])
-
-
-def _on(x: Inputs, state: IncState) -> Inputs:
-    """Numpy fields moved to the state's device; tensor fields as given
-    (the kernel wrappers check their device)."""
-    dev = state.la.device
-    return type(x)(*[
-        f if isinstance(f, torch.Tensor) else to_device(np.asarray(f), dev)
+        (f if f.device == dev else f.to(dev)) if isinstance(f, torch.Tensor)
+        else to_device(np.asarray(f), dev)
         for f in x
     ])
 
@@ -401,10 +393,9 @@ def _step_levels(state: IncState, batch: Batch, super_majority: int) -> None:
 
 
 def _step_body(state: IncState, batch: Batch, super_majority: int,
-               n_participants: int, packed: bool = False) -> IncState:
+               n_participants: int) -> IncState:
     """Append one batch: K9 then K10. Fame and received are _decide_body's."""
-    _refuse_packed(packed)
-    batch = _on(batch, state)
+    batch = device_put(batch, state.la.device)
     _apply_deltas_and_stage(state, batch)
     _step_levels(state, batch, super_majority)
     return state
@@ -524,12 +515,11 @@ def _train_levels(state: IncState, train: Train, super_majority: int) -> None:
 
 
 def _train_body(state: IncState, train: Train, super_majority: int,
-                n_participants: int, packed: bool = False) -> IncState:
+                n_participants: int) -> IncState:
     """Append a whole train: K9 then K11. Equal to running its batches
     through _step_body one by one, apart from the clamped fd rows the
     train registers (see _train_levels_plain)."""
-    _refuse_packed(packed)
-    train = _on(train, state)
+    train = device_put(train, state.la.device)
     _apply_deltas_and_stage(state, train)
     _train_levels(state, train, super_majority)
     return state
@@ -657,13 +647,12 @@ def _decide_body_plain(state: IncState, super_majority: int, n_participants: int
 
 
 def _decide_body(state: IncState, super_majority: int, n_participants: int,
-                 r_win: int = 32, e_win: int = 8192, packed: bool = False) -> IncState:
+                 r_win: int = 32, e_win: int = 8192) -> IncState:
     """K12 (babble_tpu/tpu/incremental.py:361 _decide_body with :125
     _fame_window). Timing-independent: running it once per K appended
     batches gives the values per-batch evaluation would. CPU: the plain
-    version; CUDA: csrc/decide_window.cu."""
-    _refuse_packed(packed)
-    _check_windows(state, r_win, e_win)
+    version; CUDA: csrc/decide_window.cu. The entry points check the
+    windows before they change the state."""
     if state.la.device.type == "cpu":
         _decide_body_plain(state, super_majority, n_participants, r_win, e_win)
         return state
@@ -706,7 +695,7 @@ def multi_step(state: IncState, stacked: Batch, super_majority: int,
     decide. Equal to K step calls: decisions are timing-independent."""
     _refuse_packed(packed)
     _check_windows(state, r_win, e_win)
-    stacked = _on(stacked, state)
+    stacked = device_put(stacked, state.la.device)
     for k in range(stacked.rows.shape[0]):
         _step_body(state, _unstack(stacked, k), super_majority, n_participants)
     return _decide_body(state, super_majority, n_participants, r_win=r_win, e_win=e_win)
@@ -729,7 +718,7 @@ def multi_train(state: IncState, stacked: Train, super_majority: int,
     """K stacked trains, then one decide. Equal to K train_step calls."""
     _refuse_packed(packed)
     _check_windows(state, r_win, e_win)
-    stacked = _on(stacked, state)
+    stacked = device_put(stacked, state.la.device)
     for k in range(stacked.rows.shape[0]):
         _train_body(state, _unstack(stacked, k), super_majority, n_participants)
     return _decide_body(state, super_majority, n_participants, r_win=r_win, e_win=e_win)

@@ -134,8 +134,10 @@ MULTI_STEP_K = 16
 MULTI_TRAIN_K = 2
 # one decide per two trains must see both trains' rows and the tail still
 # undecided before them; at the train path's e_win 16,384 rows below the
-# window stay undetermined and the stale latch fires, in the JAX reference
-# as in the port, with 23,380 received
+# window stay undetermined and the stale latch fires with 23,380 received,
+# at 24,576 none does: the JAX reference's results on the CPU, every field
+# equal to the port's (tests/test_torch_incremental.py
+# ::test_multi_train_window_on_the_bench_grid, marked slow)
 MULTI_TRAIN_E_WIN = 24576
 MULTI_TRAIN_UNDERSIZED = dict(stale=True, fame_lag=False, received=23380)
 INC_RUNS = 5
@@ -374,12 +376,15 @@ def inc_work_deltas(st, x):
 
 
 def inc_work_levels(st, x, rounds_scan):
-    """(bytes, ALU ops, 0) of one level-scan call: per real lane its batch
-    metadata, la row, parents' rounds and lamports and its parent round's
-    witness row, the fd rows of the witnesses it is counted against
-    (those of its parent round as the call leaves the table), its results,
-    each registration's rows; the step path also reads every row's round
-    (its last_round is a max over all of them)."""
+    """(bytes, ALU ops, 0) of one level-scan call, each input read once and
+    each output written once: per real lane its level-table entry, batch
+    metadata, la row, parents' rounds and lamports and its results; per
+    distinct parent round its witness row and the fd_w rows of its
+    witnesses (as the call leaves the table), however many lanes compare
+    against them; each registration's fd row in and its la_w, fd_w and
+    table cells out; the step path also reads every row's round (its
+    last_round is a max over all of them). The lane-by-witness compares
+    (pairs x n) count as ALU work."""
     e_cap, n = st.la.shape
     r_cap = st.wtable.shape[0]
     pos = x.levels[x.levels >= 0].long()
@@ -390,10 +395,14 @@ def inc_work_levels(st, x, rounds_scan):
         return torch.where(ok, st.rounds[r.clamp(0, e_cap - 1).long()], -1)
 
     pr = torch.maximum(parent_round(x.sp_row[pos]), parent_round(x.op_row[pos]))
-    pairs = int(((st.wtable[pr.clamp(0, r_cap - 1).long()] >= 0) & (pr >= 0)[:, None]).sum())
+    present = (st.wtable[pr.clamp(0, r_cap - 1).long()] >= 0) & (pr >= 0)[:, None]
+    pairs = int(present.sum())
+    slabs = pr[pr >= 0].clamp(0, r_cap - 1).unique().long()
+    slab_rows = int((st.wtable[slabs] >= 0).sum())
     regs = int(st.witness[x.rows[pos].clamp(0, e_cap - 1).long()].sum())
-    nbytes = (lanes * (29 + 16 + 8 * n + 9) + pairs * n * 4
-              + regs * (8 * n + 17) + (e_cap * 4 if rounds_scan else 0))
+    nbytes = (lanes * (4 + 29 + 4 * n + 16 + 9) + slabs.numel() * 4 * n
+              + slab_rows * 4 * n + regs * (12 * n + 13)
+              + (e_cap * 4 if rounds_scan else 0))
     return nbytes, pairs * n + lanes * n, 0
 
 

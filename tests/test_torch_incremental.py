@@ -279,6 +279,31 @@ def test_multi_train_window_must_hold_two_trains():
     assert int((ps.received >= 0).sum()) < int((one.received >= 0).sum())
 
 
+@pytest.mark.slow
+@pytest.mark.parametrize("e_win,received,stale", [(16384, 23380, True), (24576, 28065, False)])
+def test_multi_train_window_on_the_bench_grid(e_win, received, stale):
+    """The bench grid's train cell (bench_incremental.py's constants, full
+    width; about 20 s on the CPU): multi_train with K = 2 at the train
+    path's e_win 16,384 latches stale with 23,380 rows received, at 24,576
+    it gives 26 / 28,065 with no latch, in the reference as in the port
+    (chip_smoke.py phase 10 holds the card to both outcomes)."""
+    kw = dict(seed=0, zipf_a=1.1, record_fd_updates=True)
+    g, pg = ref_synthetic_grid(64, 32768, **kw), synthetic_grid(64, 32768, **kw)
+    jt = ref.trains_from_grid(g, 8192, 524288, 32768, t_cap=832)
+    pt = inc.trains_from_grid(pg, 8192, 524288, 32768, t_cap=832)
+    js = ref.init_state(64, 32768, 64)
+    ps = inc.init_state(64, 32768, 64, device="cpu")
+    for i in range(0, 4, 2):
+        js = ref.multi_train(js, ref.stack_trains(jt[i : i + 2]), g.super_majority, 64,
+                             e_win=e_win)
+        inc.multi_train(ps, inc.stack_trains(pt[i : i + 2]), g.super_majority, 64,
+                        e_win=e_win)
+        assert_state_equal(ps, js, f"multi_train group {i // 2}")
+    assert int(ps.last_round) == 26
+    assert int((ps.received >= 0).sum()) == received
+    assert bool(ps.stale) == stale and not bool(ps.fame_lag)
+
+
 def test_stale_latch_fires_on_undersized_window():
     ps, _ = run_steps((8, 512, 7, 1.1), r_cap=64, r_win=32, e_win=64)
     assert bool(ps.stale)
@@ -387,8 +412,12 @@ def test_entry_points_refuse_packed_and_bad_windows():
     b = inc.Batch(*[np.zeros(1, np.int32)] * 12)
     with pytest.raises(NotImplementedError):
         inc.step(st, b, 3, 4, packed=True)
+    before = inc.clone_state(st)
     with pytest.raises(ValueError):
-        inc._decide_body(st, 3, 4, r_win=16, e_win=64)
+        inc.step(st, b, 3, 4, r_win=16, e_win=64)
+    # the windows are checked before the state changes
+    for f in inc.IncState._fields:
+        assert torch.equal(getattr(st, f), getattr(before, f)), f
 
 
 def test_device_put_and_state_round_trip():
