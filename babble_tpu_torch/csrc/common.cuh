@@ -106,78 +106,3 @@ __device__ __forceinline__ bool babble_warp_sees_majority(const int32_t* la_e,
     }
     return seen >= super_majority;
 }
-
-// A shared-memory cache of fd slabs (the (N, N) int32 rows of one round)
-// for the level kernels, whose lanes mostly read the slabs of one or two
-// parent rounds per level. Slot s holds a round r with r % slots == s.
-// Per level lv, between block barriers:
-//   slab_begin  (before the requests)  folds the last level's fills into owner;
-//   slab_request (lanes)               asks for a round (a race: any winner);
-//   -- barrier --
-//   slab_fill   (whole block)          copies each requested slab not held;
-//   -- barrier --
-//   slab_rows   (lanes)                the cached slab if held, else the source;
-//   -- barrier --
-//   slab_write  (write phase)          writes a registered row through;
-//   slab_end    (write phase)          clears the next level's requests;
-//   -- barrier --
-// Requests of level lv live in want[lv & 1], so clearing one level's and
-// reading the other's never race. slots == 0 turns the cache off.
-struct SlabCache {
-    int32_t* data;   // (slots, nn)
-    int32_t* owner;  // (slots,) round held before the level, -1 = none
-    int32_t* want;   // (2, slots) rounds requested by a level, -1 = none
-    int slots;
-    int nn;          // n * n
-};
-
-__device__ __forceinline__ int32_t* slab_want(const SlabCache& c, int lv) {
-    return c.want + (lv & 1) * c.slots;
-}
-
-__device__ __forceinline__ int slab_held(const SlabCache& c, int lv, int s) {
-    const int r = slab_want(c, lv)[s];
-    return r >= 0 ? r : c.owner[s];
-}
-
-__device__ __forceinline__ void slab_init(const SlabCache& c) {
-    for (int k = threadIdx.x; k < 3 * c.slots; k += blockDim.x) {
-        (k < c.slots ? c.owner : c.want)[k < c.slots ? k : k - c.slots] = -1;
-    }
-}
-
-__device__ __forceinline__ void slab_begin(const SlabCache& c, int lv) {
-    if ((int)threadIdx.x < c.slots) {
-        const int r = slab_want(c, lv + 1)[threadIdx.x];  // level lv - 1's requests
-        if (r >= 0) c.owner[threadIdx.x] = r;
-    }
-}
-
-__device__ __forceinline__ void slab_request(const SlabCache& c, int lv, int r) {
-    if (c.slots) slab_want(c, lv)[r % c.slots] = r;
-}
-
-__device__ __forceinline__ void slab_fill(const SlabCache& c, int lv, const int32_t* src) {
-    for (int s = 0; s < c.slots; ++s) {
-        const int r = slab_want(c, lv)[s];
-        if (r < 0 || c.owner[s] == r) continue;  // block-uniform
-        for (int k = threadIdx.x; k < c.nn; k += blockDim.x) {
-            c.data[s * c.nn + k] = src[(long long)r * c.nn + k];
-        }
-    }
-}
-
-__device__ __forceinline__ const int32_t* slab_rows(const SlabCache& c, int lv, int r,
-                                                    const int32_t* src) {
-    if (c.slots && slab_held(c, lv, r % c.slots) == r) return c.data + (r % c.slots) * c.nn;
-    return src + (long long)r * c.nn;
-}
-
-// off = the row's witness column * n + the coordinate
-__device__ __forceinline__ void slab_write(const SlabCache& c, int lv, int r, int off, int v) {
-    if (c.slots && slab_held(c, lv, r % c.slots) == r) c.data[(r % c.slots) * c.nn + off] = v;
-}
-
-__device__ __forceinline__ void slab_end(const SlabCache& c, int lv) {
-    if ((int)threadIdx.x < c.slots) slab_want(c, lv + 1)[threadIdx.x] = -1;
-}

@@ -29,15 +29,12 @@
 // last barrier makes the writes visible to the next level. The level
 // table, the batch's small arrays and the witness-valid mask are staged in
 // shared memory once, and the walk ends at the last level that holds an
-// event. A level's lanes mostly share one or two parent rounds, so the
-// fd_w slabs of those rounds are cached in shared memory (common.cuh
-// SlabCache, written through on registration). Per level: phase A reads
-// each lane's la row and parents and requests its slab, the block fills
-// the cache, phase C decides whether each lane strongly sees a
-// supermajority (one warp per lane, lanes over coordinates, eight
-// witnesses at a time, ballots, stopping once the verdict is known:
-// common.cuh babble_warp_sees_majority), and the write phase stores. A
-// padding lane writes nothing (JAX's dropped scatter).
+// event. Per level: phase A reads each lane's la row and parents, phase C
+// decides whether each lane strongly sees a supermajority of its parent
+// round's witnesses, reading their fd_w rows (one warp per lane, lanes
+// over coordinates, eight witnesses at a time, ballots, stopping once the
+// verdict is known: common.cuh babble_warp_sees_majority), and the write
+// phase stores. A padding lane writes nothing (JAX's dropped scatter).
 
 #include "common.cuh"
 
@@ -55,8 +52,7 @@ sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
         const int32_t* __restrict__ op_row, const int32_t* __restrict__ la_rows,
         const uint8_t* __restrict__ coin, const int32_t* __restrict__ fixed_round,
         const int32_t* __restrict__ levels,
-        int e_cap, int n, int r_cap, int b, int l_lv, int w, int super_majority,
-        int slots) {
+        int e_cap, int n, int r_cap, int b, int l_lv, int w, int super_majority) {
     extern __shared__ int32_t smem[];
     int32_t* s_p = smem;           // (w,) per lane: batch position, -1 = padding
     int32_t* s_pr = s_p + w;       //   parent round
@@ -74,9 +70,7 @@ sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
     int32_t* b_fixed = b_op + b;
     int32_t* b_coin = b_fixed + b;
     int32_t* la_lane = b_coin + b;  // (w, n) the lanes' la rows
-    SlabCache cache{la_lane + w * n, la_lane + w * n + slots * n * n,
-                    la_lane + w * n + slots * n * n + slots, slots, n * n};
-    uint8_t* wv = (uint8_t*)(cache.want + 2 * slots);  // (r_cap * n,) wtable >= 0
+    uint8_t* wv = (uint8_t*)(la_lane + w * n);  // (r_cap * n,) wtable >= 0
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     __shared__ int red_max, red_cnt, last_lv;
@@ -94,7 +88,6 @@ sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
         b_coin[k] = coin[k];
     }
     for (int k = threadIdx.x; k < r_cap * n; k += blockDim.x) wv[k] = wtable[k] >= 0;
-    slab_init(cache);
     __syncthreads();
     for (int k = threadIdx.x; k < l_lv * w; k += blockDim.x) {
         lv_s[k] = levels[k];
@@ -105,9 +98,7 @@ sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
 
     for (int lv = 0; lv <= lv_end; ++lv) {
         const int32_t* lrow = lv_s + lv * w;
-        slab_begin(cache, lv);
-        // phase A: each lane's la row and parents (one round trip), and its
-        // request for the parent round's fd_w slab
+        // phase A: each lane's la row and parents (one round trip)
         for (int i = warp; i < w; i += SL_WARPS) {
             const int pos = lrow[i];
             if (pos < 0) {  // padding lane (warp-uniform)
@@ -130,13 +121,10 @@ sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
                 s_spr[i] = sp_round;
                 // int32 wrap-around, as the reference's int32 add
                 s_lt[i] = (int)((unsigned)max(sp_lt, op_lt) + 1u);
-                if (pr >= 0) slab_request(cache, lv, babble_clamp(pr, 0, r_cap - 1));
             }
         }
         __syncthreads();
-        slab_fill(cache, lv, fd_w);
-        __syncthreads();
-        // phase C: the strongly-seen counts, from the cached slabs
+        // phase C: the strongly-seen counts
         for (int i = warp; i < w; i += SL_WARPS) {
             const int p = s_p[i];
             if (p < 0) continue;  // warp-uniform
@@ -144,7 +132,7 @@ sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
             const int prc = babble_clamp(pr, 0, r_cap - 1);
             const uint8_t* wv_r = wv + prc * n;
             const bool sees = pr >= 0 && babble_warp_sees_majority(
-                la_lane + i * n, slab_rows(cache, lv, prc, fd_w), n, super_majority,
+                la_lane + i * n, fd_w + (long long)prc * n * n, n, super_majority,
                 [wv_r](int wi) { return wv_r[wi] != 0; });
             if (lane == 0) {
                 int rd = pr + (sees ? 1 : 0);
@@ -159,7 +147,6 @@ sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
         }
         __syncthreads();
         // write phase: the lanes' rows, then the registered witness rows
-        // (through the cache)
         for (int i = threadIdx.x; i < w; i += blockDim.x) {
             const int p = s_p[i];
             if (p < 0) continue;
@@ -185,12 +172,9 @@ sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
             if (slot < 0) continue;
             const int p = s_p[i];
             const int row = babble_clamp(b_rows[p], 0, e_cap - 1);
-            const int v = fd[(long long)row * n + q];
             la_w[(long long)slot * n + q] = la_rows[(long long)p * n + q];
-            fd_w[(long long)slot * n + q] = v;
-            slab_write(cache, lv, slot / n, (slot % n) * n + q, v);
+            fd_w[(long long)slot * n + q] = fd[(long long)row * n + q];
         }
-        slab_end(cache, lv);
         __syncthreads();
     }
 
@@ -201,17 +185,7 @@ sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
     }
     __syncthreads();
     int m = BABBLE_MIN_INT32;
-    int k0 = 0;
-    if ((reinterpret_cast<uintptr_t>(rounds) & 15) == 0) {  // 16-byte loads
-        const int4* r4 = reinterpret_cast<const int4*>(rounds);
-        k0 = e_cap / 4 * 4;
-#pragma unroll 4
-        for (int k = threadIdx.x; k < e_cap / 4; k += blockDim.x) {
-            const int4 v = r4[k];
-            m = max(m, max(max(v.x, v.y), max(v.z, v.w)));
-        }
-    }
-    for (int k = k0 + threadIdx.x; k < e_cap; k += blockDim.x) m = max(m, rounds[k]);
+    for (int k = threadIdx.x; k < e_cap; k += blockDim.x) m = max(m, rounds[k]);
     m = __reduce_max_sync(BABBLE_FULL_MASK, m);
     if (lane == 0) atomicMax(&red_max, m);
     int cnt = 0, late = 0;
@@ -247,11 +221,11 @@ extern "C" int babble_step_levels(
     const int32_t* op_row, const int32_t* la_rows, const uint8_t* coin,
     const int32_t* fixed_round, const int32_t* levels,
     int e_cap, int n, int r_cap, int b, int l_lv, int w, int super_majority,
-    int slots, int device, void* stream) {
+    int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    size_t smem = ((size_t)7 * w + (size_t)l_lv * w + (size_t)7 * b + (size_t)w * n
-                   + (size_t)slots * (n * n + 3)) * sizeof(int32_t)
+    size_t smem = ((size_t)7 * w + (size_t)l_lv * w + (size_t)7 * b + (size_t)w * n)
+                      * sizeof(int32_t)
                   + (size_t)r_cap * n;
     if (smem > 48 * 1024) {
         BABBLE_CHECK(cudaFuncSetAttribute(
@@ -261,7 +235,7 @@ extern "C" int babble_step_levels(
         fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w, idx_w,
         coin_w, rounds_decided, last_round, count, stale, rows, creator, index,
         sp_row, op_row, la_rows, coin, fixed_round, levels, e_cap, n, r_cap, b,
-        l_lv, w, super_majority, slots);
+        l_lv, w, super_majority);
     BABBLE_CHECK_LAUNCH();
     return 0;
 }

@@ -30,12 +30,8 @@
 // memory (KB = 8,192 rows: 72 KB) with the valid mask (R_cap x N bytes);
 // the compare copy of fd_w (R_cap x N x N int32, 1 MB at 64 x 64 x 64)
 // stays in a global scratch buffer that a grid-wide launch fills first.
-// A level's lanes mostly share one or two parent rounds, so the compare
-// copy's slabs of those rounds are cached in shared memory (common.cuh
-// SlabCache, up to four slots as shared memory allows, written through
-// on registration): per level, phase A reads each lane's inputs and
-// requests its parent round's slab, the block fills the cache, phase C
-// decides each lane's supermajority with ballots (common.cuh
+// Per level, phase A reads each lane's inputs, phase C decides each lane's
+// supermajority against the compare copy with ballots (common.cuh
 // babble_warp_sees_majority), and the write phase updates the carries.
 // The write-back and the latches run once after the scan.
 
@@ -79,8 +75,7 @@ tl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
         const int32_t* __restrict__ op_pos, const int32_t* __restrict__ la_rows,
         const uint8_t* __restrict__ coin, const int32_t* __restrict__ fixed_round,
         const int32_t* __restrict__ levels, int32_t* fd_cmp,
-        int e_cap, int n, int r_cap, int kb, int t_lv, int w, int super_majority,
-        int slots) {
+        int e_cap, int n, int r_cap, int kb, int t_lv, int w, int super_majority) {
     extern __shared__ int32_t smem[];
     int32_t* rb = smem;              // (kb,) rounds carry
     int32_t* lb = rb + kb;           // (kb,) lamport carry
@@ -94,9 +89,7 @@ tl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
     int32_t* s_wit = s_round + w;    //   new witness flag
     int32_t* s_slot = s_wit + w;     //   compare-copy slot, -1 = none
     int32_t* la_lane = s_slot + w;   // (w, n) the lanes' la rows
-    SlabCache cache{la_lane + w * n, la_lane + w * n + slots * n * n,
-                    la_lane + w * n + slots * n * n + slots, slots, n * n};
-    uint8_t* wb = (uint8_t*)(cache.want + 2 * slots);  // (kb,) witness carry
+    uint8_t* wb = (uint8_t*)(la_lane + w * n);  // (kb,) witness carry
     uint8_t* wv = wb + kb;           // (r_cap * n,) witness-valid copy
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
@@ -109,15 +102,12 @@ tl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
         wb[k] = 0;
     }
     for (int k = threadIdx.x; k < n_slots; k += blockDim.x) wv[k] = wtable[k] >= 0;
-    slab_init(cache);
     __syncthreads();
 
     for (int lv = 0; lv < t_lv; ++lv) {
         const int32_t* lrow = levels + (long long)lv * w;
-        slab_begin(cache, lv);
         // phase A: each lane's metadata, la row and parents (one round trip
-        // for the metadata and the la row, a second for pre-train parents),
-        // and its request for the parent round's slab
+        // for the metadata and the la row, a second for pre-train parents)
         for (int i = warp; i < w; i += TL_WARPS) {
             const int pos = lrow[i];
             if (pos < 0) {  // padding lane (warp-uniform)
@@ -143,13 +133,10 @@ tl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
                 s_lt[i] = (int)((unsigned)max(sp_lt, op_lt) + 1u);
                 s_fix[i] = fixed;
                 s_c[i] = c;
-                if (pr >= 0) slab_request(cache, lv, babble_clamp(pr, 0, r_cap - 1));
             }
         }
         __syncthreads();
-        slab_fill(cache, lv, fd_cmp);
-        __syncthreads();
-        // phase C: the strongly-seen counts, from the cached slabs
+        // phase C: the strongly-seen counts
         for (int i = warp; i < w; i += TL_WARPS) {
             const int p = s_p[i];
             if (p < 0) continue;  // warp-uniform
@@ -157,7 +144,7 @@ tl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
             const int prc = babble_clamp(pr, 0, r_cap - 1);
             const uint8_t* wv_r = wv + prc * n;
             const bool sees = pr >= 0 && babble_warp_sees_majority(
-                la_lane + i * n, slab_rows(cache, lv, prc, fd_cmp), n, super_majority,
+                la_lane + i * n, fd_cmp + (long long)prc * n * n, n, super_majority,
                 [wv_r](int wi) { return wv_r[wi] != 0; });
             if (lane == 0) {
                 int rd = pr + (sees ? 1 : 0);
@@ -170,7 +157,7 @@ tl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
             }
         }
         __syncthreads();
-        // write phase: the carries, the compare copies (and their cache)
+        // write phase: the carries and the compare copies
         for (int i = threadIdx.x; i < w; i += blockDim.x) {
             const int p = s_p[i];
             if (p < 0) continue;
@@ -183,11 +170,8 @@ tl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
             const int i = k / n, q = k % n;
             const int slot = s_slot[i];
             if (slot < 0) continue;
-            const int v = tl_fd_row(fd, rows[s_p[i]], q, n, e_cap);
-            fd_cmp[(long long)slot * n + q] = v;
-            slab_write(cache, lv, slot / n, (slot % n) * n + q, v);
+            fd_cmp[(long long)slot * n + q] = tl_fd_row(fd, rows[s_p[i]], q, n, e_cap);
         }
-        slab_end(cache, lv);
         __syncthreads();
     }
 
@@ -261,14 +245,13 @@ extern "C" int babble_train_levels(
     const int32_t* la_rows, const uint8_t* coin, const int32_t* fixed_round,
     const int32_t* levels, int32_t* fd_cmp,
     int e_cap, int n, int r_cap, int kb, int t_lv, int w, int super_majority,
-    int slots, int device, void* stream) {
+    int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const long long total = (long long)r_cap * n * n;
     tl_init<<<babble_stride_blocks(total, 256), 256, 0, s>>>(fd_w, fd_cmp, total);
     BABBLE_CHECK_LAUNCH();
-    size_t smem = ((size_t)2 * kb + (size_t)9 * w + (size_t)w * n
-                   + (size_t)slots * (n * n + 3)) * sizeof(int32_t)
+    size_t smem = ((size_t)2 * kb + (size_t)9 * w + (size_t)w * n) * sizeof(int32_t)
                   + (size_t)kb + (size_t)r_cap * n;
     if (smem > 48 * 1024) {
         BABBLE_CHECK(cudaFuncSetAttribute(
@@ -278,7 +261,7 @@ extern "C" int babble_train_levels(
         fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w, idx_w,
         coin_w, rounds_decided, last_round, count, stale, rows, creator, index,
         sp_row, op_row, sp_pos, op_pos, la_rows, coin, fixed_round, levels,
-        fd_cmp, e_cap, n, r_cap, kb, t_lv, w, super_majority, slots);
+        fd_cmp, e_cap, n, r_cap, kb, t_lv, w, super_majority);
     BABBLE_CHECK_LAUNCH();
     return 0;
 }

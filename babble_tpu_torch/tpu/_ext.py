@@ -59,11 +59,11 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
         "apply_deltas.cu", "babble_apply_deltas", "ppppppppppppp" "iiiii",
     ),
     "step_levels": (
-        "step_levels.cu", "babble_step_levels", "ppppppppppppppppppppppp" "iiiiiiii",
+        "step_levels.cu", "babble_step_levels", "ppppppppppppppppppppppp" "iiiiiii",
     ),
     "train_levels": (
         "train_levels.cu", "babble_train_levels",
-        "pppppppppppppppppppppppppp" "iiiiiiii",
+        "pppppppppppppppppppppppppp" "iiiiiii",
     ),
     "decide_window": (
         "decide_window.cu", "babble_decide_window",
@@ -73,9 +73,6 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
 
 # largest dynamic shared memory one block may use on an H100
 MAX_SMEM_BYTES = 232448
-# rounds' fd slabs the level kernels cache in shared memory, at most
-# (fewer where a slab of N x N int32 does not fit)
-SLAB_SLOTS = 4
 
 # launches of each kernel's C entry point since the last reset
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -483,17 +480,16 @@ def step_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
     check_tensor("levels", levels, torch.int32, (l_lv, w), dev)
     if b < 1 or w < 1:
         raise ValueError("step_levels: needs a non-empty batch and level width")
-    base = (7 * w + l_lv * w + 7 * b + w * n) * 4 + r_cap * n
-    if base > MAX_SMEM_BYTES:
+    smem = (7 * w + l_lv * w + 7 * b + w * n) * 4 + r_cap * n
+    if smem > MAX_SMEM_BYTES:
         raise ValueError(f"step_levels: {n} validators exceed one block's shared memory")
-    slots = min(SLAB_SLOTS, (MAX_SMEM_BYTES - base) // ((n * n + 3) * 4))
     _launch("step_levels", dev, (
         fd, rounds, lamport, witness.view(torch.uint8), wtable, w_of_row,
         la_w, fd_w, idx_w, coin_w.view(torch.uint8),
         rounds_decided.view(torch.uint8), last_round, count,
         stale.view(torch.uint8), rows, creator, index, sp_row, op_row,
         la_rows, coin.view(torch.uint8), fixed_round, levels,
-        e_cap, n, r_cap, b, l_lv, w, super_majority, slots,
+        e_cap, n, r_cap, b, l_lv, w, super_majority,
     ))
 
 
@@ -521,10 +517,9 @@ def train_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
         raise ValueError("train_levels: needs a non-empty train and level width")
     if e_cap >= 1 << 24:
         raise ValueError("train_levels: event capacity exceeds the 2^24 compare range")
-    base = kb * 9 + r_cap * n + (9 * w + w * n) * 4
-    if base > MAX_SMEM_BYTES:
+    smem = kb * 9 + r_cap * n + (9 * w + w * n) * 4
+    if smem > MAX_SMEM_BYTES:
         raise ValueError(f"train_levels: a train of {kb} rows exceeds one block's shared memory")
-    slots = min(SLAB_SLOTS, (MAX_SMEM_BYTES - base) // ((n * n + 3) * 4))
     fd_cmp = torch.empty((r_cap, n, n), dtype=torch.int32, device=dev)
     _launch("train_levels", dev, (
         fd, rounds, lamport, witness.view(torch.uint8), wtable, w_of_row,
@@ -532,7 +527,7 @@ def train_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
         rounds_decided.view(torch.uint8), last_round, count,
         stale.view(torch.uint8), rows, creator, index, sp_row, op_row, sp_pos,
         op_pos, la_rows, coin.view(torch.uint8), fixed_round, levels, fd_cmp,
-        e_cap, n, r_cap, kb, t_lv, w, super_majority, slots,
+        e_cap, n, r_cap, kb, t_lv, w, super_majority,
     ))
 
 
