@@ -1,0 +1,330 @@
+"""Signed DAG vertex (reference: src/hashgraph/event.go).
+
+An Event carries payload transactions, two parent hashes (self-parent first),
+the creator's public key, the creator-sequence index, and block signatures.
+The hash identifying an event is the SHA-256 of the canonical encoding of its
+body; the wire form replaces parent hashes with dense (creatorID, index) int
+pairs (reference: src/hashgraph/event.go:353-368) — which is also exactly the
+coordinate encoding the TPU kernels consume.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
+
+from .. import crypto
+from ..utils.codec import canonical_dumps, b64e
+
+
+def root_self_parent(participant_id: int) -> str:
+    return f"Root{participant_id}"
+
+
+@dataclass
+class EventBody:
+    transactions: List[bytes] = field(default_factory=list)
+    parents: List[str] = field(default_factory=lambda: ["", ""])  # [self, other]
+    creator: bytes = b""
+    index: int = -1
+    block_signatures: List["BlockSignature"] = field(default_factory=list)
+
+    # wire info (not part of the canonical hash, like the reference's
+    # unexported fields, reference: src/hashgraph/event.go:25-28)
+    self_parent_index: int = -1
+    other_parent_creator_id: int = -1
+    other_parent_index: int = -1
+    creator_id: int = -1
+
+    def to_canonical(self) -> dict:
+        return {
+            "Transactions": [b64e(t) for t in self.transactions],
+            "Parents": list(self.parents),
+            "Creator": b64e(self.creator),
+            "Index": self.index,
+            "BlockSignatures": [bs.to_canonical() for bs in self.block_signatures],
+        }
+
+    def marshal(self) -> bytes:
+        return canonical_dumps(self.to_canonical())
+
+    def hash(self) -> bytes:
+        return crypto.sha256(self.marshal())
+
+
+class Event:
+    __slots__ = (
+        "body",
+        "signature",
+        "topological_index",
+        "round",
+        "lamport_timestamp",
+        "round_received",
+        "last_ancestors",
+        "first_descendants",
+        "_creator",
+        "_hash",
+        "_hex",
+    )
+
+    def __init__(
+        self,
+        transactions: Optional[List[bytes]] = None,
+        block_signatures: Optional[List["BlockSignature"]] = None,
+        parents: Optional[List[str]] = None,
+        creator: bytes = b"",
+        index: int = -1,
+    ):
+        self.body = EventBody(
+            transactions=list(transactions or []),
+            block_signatures=list(block_signatures or []),
+            parents=list(parents or ["", ""]),
+            creator=creator,
+            index=index,
+        )
+        self.signature: str = ""
+        self.topological_index: int = -1
+        self.round: Optional[int] = None
+        self.lamport_timestamp: Optional[int] = None
+        self.round_received: Optional[int] = None
+        # dense coordinate rows: [peer position] -> (index, hash) per creator;
+        # the vector-clock-like structures making ancestry O(1)
+        # (reference: src/hashgraph/event.go:115-116)
+        self.last_ancestors: Optional[List[Tuple[int, str]]] = None
+        self.first_descendants: Optional[List[Tuple[int, str]]] = None
+        self._creator: str = ""
+        self._hash: bytes = b""
+        self._hex: str = ""
+
+    # -- identity ----------------------------------------------------------
+
+    def creator(self) -> str:
+        if not self._creator:
+            self._creator = "0x" + self.body.creator.hex().upper()
+        return self._creator
+
+    def self_parent(self) -> str:
+        return self.body.parents[0]
+
+    def other_parent(self) -> str:
+        return self.body.parents[1]
+
+    def transactions(self) -> List[bytes]:
+        return self.body.transactions
+
+    def index(self) -> int:
+        return self.body.index
+
+    def block_signatures(self) -> List["BlockSignature"]:
+        return self.body.block_signatures
+
+    def is_loaded(self) -> bool:
+        """True if the event carries payload or is its creator's first event."""
+        if self.body.index == 0:
+            return True
+        return bool(self.body.transactions)
+
+    def hash(self) -> bytes:
+        if not self._hash:
+            self._hash = self.body.hash()
+        return self._hash
+
+    def hex(self) -> str:
+        if not self._hex:
+            self._hex = "0x" + self.hash().hex().upper()
+        return self._hex
+
+    # -- signature ---------------------------------------------------------
+
+    def sign(self, key) -> None:
+        r, s = crypto.sign(key, self.body.hash())
+        self.signature = crypto.encode_signature(r, s)
+
+    def verify(self) -> bool:
+        pub = crypto.pub_key_from_bytes(self.body.creator)
+        r, s = crypto.decode_signature(self.signature)
+        return crypto.verify(pub, self.body.hash(), r, s)
+
+    # -- consensus metadata ------------------------------------------------
+
+    def set_round(self, r: int) -> None:
+        self.round = r
+
+    def set_lamport_timestamp(self, t: int) -> None:
+        self.lamport_timestamp = t
+
+    def set_round_received(self, rr: int) -> None:
+        self.round_received = rr
+
+    def set_wire_info(
+        self,
+        self_parent_index: int,
+        other_parent_creator_id: int,
+        other_parent_index: int,
+        creator_id: int,
+    ) -> None:
+        self.body.self_parent_index = self_parent_index
+        self.body.other_parent_creator_id = other_parent_creator_id
+        self.body.other_parent_index = other_parent_index
+        self.body.creator_id = creator_id
+
+    # -- wire --------------------------------------------------------------
+
+    def to_wire(self) -> "WireEvent":
+        return WireEvent(
+            body=WireBody(
+                transactions=list(self.body.transactions),
+                block_signatures=[bs.to_wire() for bs in self.body.block_signatures],
+                self_parent_index=self.body.self_parent_index,
+                other_parent_creator_id=self.body.other_parent_creator_id,
+                other_parent_index=self.body.other_parent_index,
+                creator_id=self.body.creator_id,
+                index=self.body.index,
+            ),
+            signature=self.signature,
+        )
+
+    # -- serialization (store / frames) ------------------------------------
+
+    def to_canonical(self) -> dict:
+        return {"Body": self.body.to_canonical(), "Signature": self.signature}
+
+    def to_json(self) -> dict:
+        d = self.to_canonical()
+        d["WireInfo"] = [
+            self.body.self_parent_index,
+            self.body.other_parent_creator_id,
+            self.body.other_parent_index,
+            self.body.creator_id,
+        ]
+        return d
+
+    @classmethod
+    def from_json(cls, d: dict) -> "Event":
+        from .block import BlockSignature
+        from ..utils.codec import b64d
+
+        body = d["Body"]
+        ev = cls(
+            transactions=[b64d(t) for t in body["Transactions"]],
+            block_signatures=[BlockSignature.from_canonical(b) for b in body["BlockSignatures"]],
+            parents=list(body["Parents"]),
+            creator=b64d(body["Creator"]),
+            index=body["Index"],
+        )
+        ev.signature = d.get("Signature", "")
+        wi = d.get("WireInfo")
+        if wi:
+            ev.set_wire_info(wi[0], wi[1], wi[2], wi[3])
+        return ev
+
+    def to_store_json(self) -> dict:
+        """Full serialization including consensus metadata and coordinate
+        rows — used by persistent stores so a cache-evicted event read back
+        from disk is indistinguishable from the live object. (The reference
+        loses the unexported coordinate fields on a Badger read-back,
+        reference: src/hashgraph/badger_store.go:343-360; restoring them
+        here makes the persistent store safe under LRU eviction.)"""
+        d = self.to_json()
+        d["Meta"] = {
+            "Topo": self.topological_index,
+            "Round": self.round,
+            "Lamport": self.lamport_timestamp,
+            "RoundReceived": self.round_received,
+            "LastAncestors": self.last_ancestors,
+            "FirstDescendants": self.first_descendants,
+        }
+        return d
+
+    @classmethod
+    def from_store_json(cls, d: dict) -> "Event":
+        ev = cls.from_json(d)
+        meta = d.get("Meta")
+        if meta:
+            ev.topological_index = meta["Topo"]
+            ev.round = meta["Round"]
+            ev.lamport_timestamp = meta["Lamport"]
+            ev.round_received = meta["RoundReceived"]
+            if meta["LastAncestors"] is not None:
+                ev.last_ancestors = [tuple(x) for x in meta["LastAncestors"]]
+            if meta["FirstDescendants"] is not None:
+                ev.first_descendants = [tuple(x) for x in meta["FirstDescendants"]]
+        return ev
+
+    def __repr__(self) -> str:
+        return f"Event({self.creator()[:10]}..#{self.index()})"
+
+
+def by_lamport_key(ev: Event) -> Tuple[int, int]:
+    """Total-order sort key: Lamport timestamp, ties broken by the numeric
+    value of the signature's r component (reference: src/hashgraph/event.go:328-347)."""
+    lt = ev.lamport_timestamp if ev.lamport_timestamp is not None else -1
+    try:
+        r, _ = crypto.decode_signature(ev.signature)
+    except (ValueError, IndexError):
+        r = 0
+    return (lt, r)
+
+
+@dataclass
+class WireBody:
+    transactions: List[bytes] = field(default_factory=list)
+    block_signatures: List["WireBlockSignature"] = field(default_factory=list)
+    self_parent_index: int = -1
+    other_parent_creator_id: int = -1
+    other_parent_index: int = -1
+    creator_id: int = -1
+    index: int = -1
+
+
+@dataclass
+class WireEvent:
+    body: WireBody
+    signature: str = ""
+
+    def block_signatures(self, validator: bytes) -> List["BlockSignature"]:
+        from .block import BlockSignature
+
+        return [
+            BlockSignature(validator=validator, index=ws.index, signature=ws.signature)
+            for ws in self.body.block_signatures
+        ]
+
+    def to_json(self) -> dict:
+        return {
+            "Body": {
+                "Transactions": [b64e(t) for t in self.body.transactions],
+                "BlockSignatures": [
+                    {"Index": ws.index, "Signature": ws.signature}
+                    for ws in self.body.block_signatures
+                ],
+                "SelfParentIndex": self.body.self_parent_index,
+                "OtherParentCreatorID": self.body.other_parent_creator_id,
+                "OtherParentIndex": self.body.other_parent_index,
+                "CreatorID": self.body.creator_id,
+                "Index": self.body.index,
+            },
+            "Signature": self.signature,
+        }
+
+    @classmethod
+    def from_json(cls, d: dict) -> "WireEvent":
+        from .block import WireBlockSignature
+        from ..utils.codec import b64d
+
+        b = d["Body"]
+        return cls(
+            body=WireBody(
+                transactions=[b64d(t) for t in b["Transactions"]],
+                block_signatures=[
+                    WireBlockSignature(index=w["Index"], signature=w["Signature"])
+                    for w in b["BlockSignatures"]
+                ],
+                self_parent_index=b["SelfParentIndex"],
+                other_parent_creator_id=b["OtherParentCreatorID"],
+                other_parent_index=b["OtherParentIndex"],
+                creator_id=b["CreatorID"],
+                index=b["Index"],
+            ),
+            signature=d.get("Signature", ""),
+        )

@@ -1,14 +1,22 @@
 """Device layer of the PyTorch/CUDA port: the one-shot consensus engines
-(round-frontier pipeline, level scan, log-diameter cold path) and the
-incremental append engine (step, multi_step, train_step, multi_train),
-with hand-written CUDA kernels for the H100."""
+(round-frontier pipeline, level scan, log-diameter cold path), the
+incremental append engine (step, multi_step, train_step, multi_train) and
+the hashgraph seam (run_consensus_device, the live engine behind
+run_consensus_live), with hand-written CUDA kernels for the H100."""
 
-from .doubling import run_doubling_passes
-from .engine import PassResults, run_frontier_passes, run_passes
+from .doubling import maybe_cold_replay, run_doubling_passes
+from .engine import (
+    PassResults,
+    integrate_pass_results,
+    run_consensus_device,
+    run_frontier_passes,
+    run_passes,
+)
 from .grid import (
     DagGrid,
     GridUnsupported,
     grid_from_arrays,
+    grid_from_hashgraph,
     section_grid,
     synthetic_grid,
 )
@@ -30,21 +38,29 @@ from .incremental import (
     train_step,
     trains_from_grid,
 )
+from .live import LiveDeviceEngine, flush_live_engine, run_consensus_live
 
 __all__ = [
     "Batch",
     "DagGrid",
     "GridUnsupported",
     "IncState",
+    "LiveDeviceEngine",
     "PassResults",
     "Train",
     "batches_from_grid",
     "device_put",
     "empty_batch",
+    "flush_live_engine",
     "grid_from_arrays",
+    "grid_from_hashgraph",
     "init_state",
+    "integrate_pass_results",
+    "maybe_cold_replay",
     "multi_step",
     "multi_train",
+    "run_consensus_device",
+    "run_consensus_live",
     "run_doubling_passes",
     "run_frontier_passes",
     "run_passes",

@@ -69,6 +69,9 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
         "decide_window.cu", "babble_decide_window",
         "pppppppppppppppppppppp" "iiiiiiii",
     ),
+    "pack_results": (
+        "pack_results.cu", "babble_pack_results", "ppppppppppp" "iiiii",
+    ),
 }
 
 # largest dynamic shared memory one block may use on an H100
@@ -576,3 +579,34 @@ def decide_window(wtable, la_w, fd_w, idx_w, coin_w, fame_decided, famous,
         e_cap, n, r_cap, r_win, e_win, super_majority, n_participants,
         d_unroll,
     ))
+
+
+def pack_results(rounds, lamport, witness, received, wtable, fame_decided,
+                 famous, stale, fame_lag, last_round, lo: int, e_win: int
+                 ) -> torch.Tensor:
+    """K13: a fresh int32 vector of 4 * e_win + 3 * R_cap * N + 3 words —
+    the (E_cap,) row fields over [lo', lo' + e_win) with lo' = lo (plus
+    E_cap when negative) clamped to [0, E_cap - e_win], the three
+    (R_cap, N) tables row-major, then
+    stale, fame_lag and last_round (0-d tensors, read on the device)."""
+    dev = rounds.device
+    e_cap = rounds.shape[0]
+    r_cap, n = wtable.shape
+    for what, t in (("rounds", rounds), ("lamport", lamport), ("received", received)):
+        check_tensor(what, t, torch.int32, (e_cap,), dev)
+    check_tensor("witness", witness, torch.bool, (e_cap,), dev)
+    check_tensor("wtable", wtable, torch.int32, (r_cap, n), dev)
+    for what, t in (("fame_decided", fame_decided), ("famous", famous)):
+        check_tensor(what, t, torch.bool, (r_cap, n), dev)
+    _check_state_scalars(dev, stale=(stale, torch.bool), fame_lag=(fame_lag, torch.bool),
+                         last_round=(last_round, torch.int32))
+    if not 1 <= e_win <= e_cap:
+        raise ValueError(f"pack_results: e_win {e_win} must lie in [1, {e_cap}]")
+    out = torch.empty((4 * e_win + 3 * r_cap * n + 3,), dtype=torch.int32, device=dev)
+    _launch("pack_results", dev, (
+        rounds, lamport, witness.view(torch.uint8), received, wtable,
+        fame_decided.view(torch.uint8), famous.view(torch.uint8),
+        stale.view(torch.uint8), fame_lag.view(torch.uint8), last_round, out,
+        lo, e_cap, e_win, r_cap, n,
+    ))
+    return out

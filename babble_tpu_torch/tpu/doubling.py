@@ -26,8 +26,10 @@ version on a CPU tensor and launches its hand-written kernel
 (babble_tpu_torch/csrc/closure_la.cu, walk_chunk.cu, lamport_scan.cu) on a
 CUDA tensor. Host staging is numpy, copied from the reference.
 
-Not ported yet: maybe_cold_replay and observe_catchup (they need the
-host Hashgraph and the observability layer of the node seam).
+`maybe_cold_replay` is the live engine's bootstrap hook: a deep or
+post-reset hashgraph is settled through this path and stamped into the
+store before the frontier attach; `observe_catchup` is the telemetry the
+one-shot ladder and the hook share.
 """
 
 from __future__ import annotations
@@ -696,4 +698,42 @@ def run_doubling_passes(
         received=received.astype(np.int32),
         last_round=last_round + offset,
         round_offset=offset,
+    )
+
+
+def maybe_cold_replay(hg, grid: DagGrid,
+                      device: Optional[Union[str, torch.device]] = None) -> bool:
+    """Live-engine bootstrap hook: replay a deep/post-reset grid through
+    the cold path on `device` and stamp its results into the store, so the
+    frontier attach that follows only carries the unsettled tail. Returns
+    False (and leaves no trace) when the grid is shallow or unsupported."""
+    if not use_doubling(grid):
+        return False
+    from .engine import integrate_pass_results
+
+    clock = hg.obs.clock
+    t0 = clock.monotonic()
+    st: dict = {}
+    try:
+        res = run_doubling_passes(grid, stats=st, device=device)
+    except GridUnsupported:
+        return False
+    integrate_pass_results(hg, grid, res)
+    dt = clock.monotonic() - t0
+    observe_catchup(hg.obs, st, dt)
+    return True
+
+
+def observe_catchup(obs, stats: dict, seconds: float) -> None:
+    """Shared cold-path telemetry: the replay histogram, plus the
+    flight-recorder record."""
+    obs.histogram(
+        "babble_catchup_replay_seconds",
+        "Cold-path (pointer-doubling) section replay wall time",
+    ).observe(seconds)
+    obs.flightrec.record(
+        "catchup.replay",
+        depth=int(stats.get("depth", 0)),
+        passes=int(stats.get("passes", 0)),
+        ms=round(seconds * 1e3, 3),
     )

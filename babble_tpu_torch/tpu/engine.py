@@ -9,9 +9,13 @@ pipeline on the card (or, when asked, on the CPU through the plain
 versions) and stages the results back to numpy. The log-diameter cold
 path is in doubling.py.
 
-Not ported yet: the node seam (grid_from_hashgraph /
-integrate_pass_results / run_consensus_device), the packed voting layout
-and the device-time ledger.
+The hashgraph seam is here too: `run_consensus_device` stages a host
+Hashgraph with grid_from_hashgraph, runs the reference's rung order
+(cold path when deep, else the frontier walk on base grids, else the
+level scan) and writes the results back through the same validation
+gates (`validate_round_writeback`, `admissible_receptions`,
+`integrate_pass_results`), so the host's passes 4-5 commit byte-identical
+blocks. Not ported yet: the mesh branch and the packed voting layout.
 """
 
 from __future__ import annotations
@@ -27,12 +31,9 @@ from .device import resolve_device, to_device
 from .frontier import (
     build_inv, chain_table, frontier_pipeline, level_lamport, sp_index_of,
 )
-from .grid import MAX_INT32, MIN_INT32, DagGrid, GridUnsupported
+from .grid import MAX_INT32, MIN_INT32, DagGrid, GridUnsupported, grid_from_hashgraph
 from .kernels import consensus_pipeline
-
-# validator count from which the reference picks the packed voting layout
-# by default (babble_tpu/tpu/packed.py); the port has the wide layout only
-PACKED_AUTO_MIN_N = 128
+from .packed import observe_table_bytes, resolve_packed
 
 
 @dataclass
@@ -106,8 +107,9 @@ def pad_grid(grid: DagGrid) -> DagGrid:
 
 def refuse_packed(grid: DagGrid, packed: Optional[bool]) -> None:
     """NotImplementedError for the packed voting layout: packed=True, or
-    packed=None where the reference would pick it (>= 128 validators)."""
-    if packed or (packed is None and grid.n >= PACKED_AUTO_MIN_N):
+    packed=None where the reference's knob picks it (by default from 128
+    validators up; tpu/packed.py)."""
+    if resolve_packed(packed, grid.n):
         raise NotImplementedError(
             "the packed voting layout is not ported yet; pass packed=False"
         )
@@ -360,3 +362,422 @@ def run_passes(
         last_round=int(res.last_round) + offset,
         round_offset=offset,
     )
+
+
+def validate_round_writeback(hg, proposed) -> None:
+    """Boundary gate for every device->host round stamp: the host round
+    function is write-once and the source of all downstream consensus
+    metadata, so a single wrong stamp silently diverges the node forever
+    (observed on long-lived post-reset states: a re-joined node minting
+    one empty block per sync, thousands ahead of its peers). Before
+    anything is written, enforce two theorems of the hashgraph round
+    function on the whole batch:
+
+    1. never overwrite: an event with a known host round must be proposed
+       the SAME round;
+    2. parent bounds: round(e) is in [max(parent rounds), max + 1]
+       (rounds are non-decreasing along chains and advance by at most one
+       per event), checked against every parent whose round is resolvable
+       from the batch or the store.
+
+    Violations raise GridUnsupported — the caller's ladder falls back to
+    a sound engine instead of stamping garbage."""
+    from ..common import StoreErr
+
+    pro = dict(proposed)
+    for h, (rnum, lam) in pro.items():
+        ev = hg.store.get_event(h)
+        if ev.round is not None and ev.round != rnum:
+            raise GridUnsupported(
+                f"round write-back would overwrite {ev.round} with {rnum} "
+                f"({h[:18]}…)"
+            )
+        if (
+            lam is not None
+            and ev.lamport_timestamp is not None
+            and ev.lamport_timestamp != lam
+        ):
+            # lamports order events inside frames; overwriting one reorders
+            # committed frame bodies and diverges the FrameHash
+            raise GridUnsupported(
+                f"lamport write-back would overwrite {ev.lamport_timestamp} "
+                f"with {lam} ({h[:18]}…)"
+            )
+        pmax = None
+        lmax = None
+        lam_known = True
+        for ph in (ev.self_parent(), ev.other_parent()):
+            if not ph:
+                continue
+            pr = pl = None
+            got = pro.get(ph)
+            if got is not None:
+                pr, pl = got
+            else:
+                try:
+                    pev = hg.store.get_event(ph)
+                    pr, pl = pev.round, pev.lamport_timestamp
+                except StoreErr:
+                    pass
+            if pr is not None:
+                pmax = pr if pmax is None else max(pmax, pr)
+            if pl is not None:
+                lmax = pl if lmax is None else max(lmax, pl)
+            else:
+                lam_known = False
+        if pmax is not None and not (pmax <= rnum <= pmax + 1):
+            raise GridUnsupported(
+                f"round write-back violates parent bounds: {rnum} vs "
+                f"parents<= {pmax} ({h[:18]}…)"
+            )
+        if (
+            lam is not None and lam_known and lmax is not None
+            and lam != lmax + 1
+        ):
+            # lamport(e) is EXACTLY max(parent lamports) + 1 when every
+            # parent's lamport is resolvable
+            raise GridUnsupported(
+                f"lamport write-back violates parent identity: {lam} vs "
+                f"max(parents)+1 = {lmax + 1} ({h[:18]}…)"
+            )
+
+
+def admissible_receptions(hg, round_infos, proposed) -> bool:
+    """Boundary gate for device->host round_received stamps, mirroring the
+    host rule (decide_round_received): an event is received at round rr
+    only if every round in (round(x), rr] is known and fully fame-decided
+    in the HOST's state. The device recomputes fame over the whole grid
+    and can "unblock" a round the host froze forever (a late witness in an
+    already-decided round) — stamping such a reception diverges this node
+    from every host-disciplined peer.
+
+    Returns True iff EVERY proposal is admissible. On False the caller
+    must NOT stamp device receptions at all and instead run the host's
+    own decide_round_received for this call: merely skipping the
+    inadmissible ones would delay receptions past their round's block
+    composition and diverge block bodies from a host-engine peer."""
+    from ..common import StoreErr
+
+    for h, rr in proposed:
+        ev = hg.store.get_event(h)
+        if ev.round is None:
+            # the host rule checks every round in (round(x), rr]; with the
+            # event's round unknown that range is unknowable — force the
+            # host's own reception pass rather than guess (DivideRounds
+            # write-back normally runs first, but nothing enforces it)
+            return False
+        r0 = ev.round
+        for i in range(r0 + 1, rr + 1):
+            ri = round_infos.get(i)
+            if ri is None:
+                try:
+                    ri = hg.store.get_round(i)
+                except StoreErr:
+                    if hg.reset_floor is not None and i <= hg.reset_floor:
+                        continue
+                    return False
+            if not ri.witnesses_decided():
+                return False
+    return True
+
+
+def run_consensus_device(
+    hg,
+    d_max: Optional[int] = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> None:
+    """Full five-pass pipeline with passes 1-3 on the device (the CUDA
+    card unless the caller passes device="cpu").
+
+    Equivalent to Hashgraph.run_consensus() on a freshly-inserted DAG:
+    extract grid -> device passes -> write rounds/witness/lamport/fame/
+    received back into the store -> host ProcessDecidedRounds +
+    ProcessSigPool (unchanged, so blocks come out byte-identical). Deep
+    grids take the cold path, base grids the round-frontier walk,
+    post-reset states the level scan. Raises NotImplementedError where
+    the packed voting layout resolves (tpu/packed.py), before anything is
+    staged."""
+    dev = resolve_device(device)
+    # resolve the voting-table layout once so every engine rung below runs
+    # the same one; the port has the wide one only
+    pk = resolve_packed(None, len(hg.participants.to_peer_slice()))
+    if pk:
+        raise NotImplementedError(
+            "the packed voting layout is not ported yet; set "
+            "BABBLE_PACKED_VOTING=0"
+        )
+    obs, clock = hg.obs, hg.obs.clock
+    _t0 = clock.monotonic()
+    grid = grid_from_hashgraph(hg)
+    _stage_s = clock.monotonic() - _t0
+    if grid.e == 0:
+        hg.process_decided_rounds()
+        hg.process_sig_pool()
+        return
+    # per-call staging-vs-device breakdown: the one-shot restage is O(E)
+    # host work per call
+    _path = "oneshot"
+    obs.histogram(
+        "babble_device_stage_seconds",
+        "Host staging (restage) time per device consensus call",
+        labels=("path",),
+    ).labels(path=_path).observe(_stage_s)
+    _m_run = obs.histogram(
+        "babble_device_run_seconds",
+        "Device wall time per device consensus call",
+        labels=("path",),
+    )
+    _led = obs.devledger
+    _layout = "packed" if pk else "wide"
+    from .doubling import observe_catchup, run_doubling_passes, use_doubling
+
+    res = None
+    _engine = "oneshot"
+    if use_doubling(grid):
+        _t1 = clock.monotonic()
+        _dbl_stats = {}
+        try:
+            with _led.activate("doubling", layout=_layout):
+                res = run_doubling_passes(
+                    grid, d_max=d_max, stats=_dbl_stats, device=dev, packed=pk
+                )
+        except GridUnsupported:
+            res = None
+        if res is not None:
+            _run_s = clock.monotonic() - _t1
+            _m_run.labels(path="oneshot").observe(_run_s)
+            observe_catchup(obs, _dbl_stats, _run_s)
+            _led.component("doubling", "stage", _stage_s, layout=_layout)
+            _engine = "doubling"
+    if res is None and _frontier_safe(grid):
+        _t1 = clock.monotonic()
+        with _led.activate("frontier", layout=_layout):
+            res = run_frontier_passes(grid, d_max=d_max, device=dev, packed=pk)
+        _m_run.labels(path="oneshot").observe(clock.monotonic() - _t1)
+        _led.component("frontier", "stage", _stage_s, layout=_layout)
+    elif res is None:
+        _t1 = clock.monotonic()
+        with _led.activate("oneshot", layout=_layout):
+            res = run_passes(
+                grid, d_max=d_max, bucketed=True, adaptive_r=True,
+                device=dev, packed=pk,
+            )
+        _m_run.labels(path="oneshot").observe(clock.monotonic() - _t1)
+        _led.component("oneshot", "stage", _stage_s, layout=_layout)
+
+    observe_table_bytes(obs, grid.n, res.witness_table.shape[0], pk)
+    _ti0 = _led.now()
+    integrate_pass_results(hg, grid, res, engine=_engine)
+    _ti = _led.now() - _ti0
+    if _engine == "doubling":
+        _led.component("doubling", "integrate", _ti, layout=_layout)
+    elif _frontier_safe(grid):
+        _led.component("frontier", "integrate", _ti, layout=_layout)
+    else:
+        _led.component("oneshot", "integrate", _ti, layout=_layout)
+
+
+def integrate_pass_results(hg, grid, res, topo_hi: Optional[int] = None,
+                           engine: str = "device") -> None:
+    """Write device pass results back into the host hashgraph and run the
+    host passes 4-5 — the shared integration tail of every one-shot-style
+    device call.
+
+    `engine` labels the decision-provenance capture (obs/provenance.py):
+    every cell below is fingerprinted from the ALREADY-FETCHED host numpy
+    buffers (res.* / grid.*) as it is stamped, so provenance adds no
+    device work and no host syncs to the staged paths.
+
+    `topo_hi` (the hashgraph's topological index at STAGING time) is the
+    queued-dispatch escape hatch (the reference's mesh dispatch queue): by
+    integration time the hashgraph may hold events the grid never modeled. An undetermined
+    event inserted at/after topo_hi is simply not covered by this dispatch
+    (the next staging models it); an unmodeled event from BEFORE the
+    staging means the walk silently lost one — GridUnsupported, because
+    silently never receiving it would skew block composition. With
+    topo_hi=None (the synchronous one-shot path) every undetermined event
+    must be in the grid, as before."""
+    from ..common import StoreErr, StoreErrType, is_store_err
+    from ..hashgraph import RoundInfo, PendingRound
+
+    # --- write-back: DivideRounds (reference: hashgraph.go:767-849) ---
+    # validate the WHOLE batch before stamping anything: a partial stamp
+    # of wrong rounds poisons the host's (write-once) round function
+    validate_round_writeback(
+        hg,
+        (
+            (grid.hashes[r], (int(res.rounds[r]), int(res.lamport[r])))
+            for r in range(grid.e)
+        ),
+    )
+    undetermined = set(hg.undetermined_events)
+    row_of = {h: r for r, h in enumerate(grid.hashes)}
+    round_infos = {}
+    prov = hg.obs.provenance
+    prov_cells = 0
+    for r in range(grid.e):  # rows are topo-ordered
+        h = grid.hashes[r]
+        ev = hg.store.get_event(h)
+        ev.set_round(int(res.rounds[r]))
+        ev.set_lamport_timestamp(int(res.lamport[r]))
+        hg.store.set_event(ev)
+        if h in undetermined:
+            rnum = int(res.rounds[r])
+            prov_cells += prov.note_event(
+                h, rnum, int(res.lamport[r]), grid.last_ancestors[r],
+            )
+            if bool(res.witness[r]):
+                prov_cells += prov.note_witness(h, rnum, int(grid.creator[r]))
+            ri = round_infos.get(rnum)
+            if ri is None:
+                try:
+                    ri = hg.store.get_round(rnum)
+                except StoreErr as err:
+                    if not is_store_err(err, StoreErrType.KEY_NOT_FOUND):
+                        raise
+                    ri = RoundInfo()
+                round_infos[rnum] = ri
+            if not ri.queued and (
+                hg.last_consensus_round is None or rnum >= hg.last_consensus_round
+            ):
+                hg.pending_rounds.append(PendingRound(rnum, False))
+                ri.queued = True
+            elif (
+                bool(res.witness[r])
+                and ri.queued
+                and not ri.is_decided(h)
+                # rounds at/below a fast-sync cut are the donor's to decide
+                and (hg.reset_floor is None or rnum > hg.reset_floor)
+                and not any(p.index == rnum for p in hg.pending_rounds)
+            ):
+                # late witness into a decided-and-dequeued round: re-queue
+                # so fame resolves, mirroring the host divide_rounds rule —
+                # otherwise the cpu engine un-freezes the round this call
+                # and a device-backend node diverges from it
+                hg.pending_rounds.append(PendingRound(rnum, False))
+            ri.add_event(h, bool(res.witness[r]))
+
+    # --- write-back: DecideFame (reference: hashgraph.go:852-947) ---
+    if hg.reset_floor is not None:
+        # POST-RESET DELEGATION: fame/reception DECISION TIMING must match
+        # the host engine call-for-call — block composition locks in when
+        # a round is processed, and on post-reset states the device's
+        # whole-grid fame can decide rounds on a different call than the
+        # host's pending-round scan (observed as a one-event difference in
+        # a committed block body between a cpu- and a tpu-backend joiner
+        # fed identical syncs). The device still contributes the O(E*N)
+        # DivideRounds bulk above; fame + received run host-side until the
+        # reset ages out.
+        for rnum, ri in round_infos.items():
+            hg.store.set_round(rnum, ri)
+        if prov_cells:
+            prov.mark("prov.capture", engine=engine, cells=prov_cells)
+        hg.decide_fame()
+        hg.decide_round_received()
+        hg.process_decided_rounds()
+        hg.process_sig_pool()
+        return
+    # the (R, N) tables are indexed by round - round_offset (rebasing)
+    decided_rounds = set()
+    for pr in hg.pending_rounds:
+        ri = round_infos.get(pr.index)
+        if ri is None:
+            ri = hg.store.get_round(pr.index)
+            round_infos[pr.index] = ri
+        ti = pr.index - res.round_offset
+        if ti < 0 or ti >= res.witness_table.shape[0]:
+            continue
+        for c in range(grid.n):
+            wrow = int(res.witness_table[ti, c])
+            if wrow < 0:
+                continue
+            if res.fame_decided[ti, c]:
+                ri.set_fame(grid.hashes[wrow], bool(res.famous[ti, c]))
+                prov_cells += prov.note_fame(
+                    grid.hashes[wrow], pr.index, bool(res.famous[ti, c]),
+                    engine=engine,
+                )
+        if ri.witnesses_decided():
+            decided_rounds.add(pr.index)
+    undecided_pending = [
+        pr for pr in hg.pending_rounds if pr.index not in decided_rounds
+    ]
+    for pr in hg.pending_rounds:
+        pr.decided = pr.index in decided_rounds
+    if undecided_pending:
+        # completeness net: a re-queued round can sit below the device
+        # table's rebased window (ti out of range above), so its late
+        # witness would never get fame from the device write-back. The
+        # host pass skips every already-decided witness, so on a healthy
+        # state this is O(pending) dict lookups; it only votes for the
+        # stragglers — and recomputes pr.decided itself.
+        for rnum, ri in round_infos.items():
+            hg.store.set_round(rnum, ri)
+        hg.decide_fame()
+        for pr in hg.pending_rounds:
+            ri = round_infos.get(pr.index)
+            if ri is not None:
+                round_infos[pr.index] = hg.store.get_round(pr.index)
+
+    # --- write-back: DecideRoundReceived (reference: hashgraph.go:951-1036) ---
+    def _covered(h):
+        """Grid row for h, or None when h postdates this dispatch's
+        staging (queued path only — the next staging covers it)."""
+        row = row_of.get(h)
+        if row is not None:
+            return row
+        if topo_hi is not None:
+            try:
+                ev = hg.store.get_event(h)
+            except StoreErr:
+                ev = None
+            if ev is not None and ev.topological_index >= topo_hi:
+                return None
+        raise GridUnsupported(f"undetermined event unmodeled ({h[:18]}…)")
+
+    def _proposed():
+        for h in hg.undetermined_events:
+            row = _covered(h)
+            if row is None:
+                continue
+            rr = int(res.received[row])
+            if rr >= 0:
+                yield h, rr
+
+    rr_clean = admissible_receptions(hg, round_infos, _proposed())
+    if rr_clean:
+        new_undetermined = []
+        for h in hg.undetermined_events:
+            row = _covered(h)
+            rr = -1 if row is None else int(res.received[row])
+            if rr >= 0:
+                ev = hg.store.get_event(h)
+                ev.set_round_received(rr)
+                prov_cells += prov.note_received(h, rr)
+                hg.store.set_event(ev)
+                tri = round_infos.get(rr)
+                if tri is None:
+                    tri = hg.store.get_round(rr)
+                    round_infos[rr] = tri
+                tri.set_consensus_event(h)
+            else:
+                new_undetermined.append(h)
+        hg.undetermined_events = new_undetermined
+
+        for rnum, ri in round_infos.items():
+            hg.store.set_round(rnum, ri)
+    else:
+        # the device "unblocked" at least one reception the host rule
+        # refuses (post-reset frozen/missing rounds): persist the fame
+        # state and run the HOST's own reception pass this call — exact
+        # host timing, so block composition cannot skew
+        for rnum, ri in round_infos.items():
+            hg.store.set_round(rnum, ri)
+        hg.decide_round_received()
+
+    if prov_cells:
+        prov.mark("prov.capture", engine=engine, cells=prov_cells)
+
+    # --- host passes 4-5 ---
+    hg.process_decided_rounds()
+    hg.process_sig_pool()

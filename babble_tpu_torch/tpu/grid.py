@@ -1,7 +1,8 @@
 """Dense host staging of the gossip DAG for the PyTorch port.
 
 The port's own copy of the reference grid layer (babble_tpu/tpu/grid.py):
-the `DagGrid` record, the topological level table and the synthetic
+the `DagGrid` record, `grid_from_hashgraph` (the dense grid of one of the
+port's own Hashgraphs), the topological level table and the synthetic
 gossip generator, which draws the same numpy RNG stream so one seed gives
 the same grid in both packages. `grid_from_arrays` carries a grid built
 elsewhere (for example by the reference's `grid_from_hashgraph`) across as
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -89,6 +90,139 @@ _ARRAY_FIELDS = tuple(
     if f.name not in ("n", "e", "super_majority", "num_levels", "hashes",
                       "fd_update_stream")
 )
+
+
+def grid_from_hashgraph(hg) -> DagGrid:
+    """Extract the dense grid from a host Hashgraph's store.
+
+    Handles base and post-reset states: parents covered by roots
+    (self-parent hashes, `others` entries) are folded into the per-event
+    external metadata the same way the host round/lamport recursion
+    resolves them (reference: src/hashgraph/hashgraph.go:205-278)."""
+    from ..hashgraph.hashgraph import middle_bit
+
+    participants = hg.participants.to_peer_slice()
+    n = len(participants)
+
+    roots = {p.pub_key_hex: hg.store.get_root(p.pub_key_hex) for p in participants}
+    roots_by_sp = hg.store.roots_by_self_parent()
+
+    from ..common import StoreErr
+
+    events = []
+    try:
+        for p in participants:
+            # post-reset stores hold no history below the root: enumerate
+            # from the root's self-parent index, not from the beginning of
+            # time (a rolled/reset RollingIndex raises TooLate on skip=-1)
+            skip = roots[p.pub_key_hex].self_parent.index
+            for h in hg.store.participant_events(p.pub_key_hex, skip):
+                events.append(hg.store.get_event(h))
+    except StoreErr as err:
+        # a rolled cache window means part of the history is no longer
+        # reachable as full events — the dense full-DAG grid can't be built
+        raise GridUnsupported(f"store window rolled: {err}") from err
+    events.sort(key=lambda ev: ev.topological_index)
+
+    e_count = len(events)
+    row_of: Dict[str, int] = {ev.hex(): i for i, ev in enumerate(events)}
+
+    creator = np.zeros(e_count, dtype=np.int32)
+    index = np.zeros(e_count, dtype=np.int32)
+    self_parent = np.full(e_count, -1, dtype=np.int32)
+    other_parent = np.full(e_count, -1, dtype=np.int32)
+    la = np.full((e_count, n), -1, dtype=np.int32)
+    fd = np.full((e_count, n), MAX_INT32, dtype=np.int32)
+    coin = np.zeros(e_count, dtype=bool)
+    fixed_round = np.full(e_count, -1, dtype=np.int32)
+    ext_sp_round = np.full(e_count, -1, dtype=np.int32)
+    ext_op_round = np.full(e_count, -1, dtype=np.int32)
+    ext_sp_lamport = np.full(e_count, -1, dtype=np.int32)
+    ext_op_lamport = np.full(e_count, MIN_INT32, dtype=np.int32)
+    fixed_lamport = np.full(e_count, MIN_INT32, dtype=np.int32)
+    hashes = [ev.hex() for ev in events]
+
+    for i, ev in enumerate(events):
+        creator[i] = hg.peer_position(ev.creator())
+        index[i] = ev.index()
+        root = roots[ev.creator()]
+        other = root.others.get(ev.hex())
+        sp = ev.self_parent()
+        op = ev.other_parent()
+
+        if sp in row_of:
+            self_parent[i] = row_of[sp]
+        elif sp == root.self_parent.hash:
+            ext_sp_round[i] = root.self_parent.round
+            ext_sp_lamport[i] = root.self_parent.lamport_timestamp
+            # directly attached to the root: round is forced to next_round
+            # (reference: hashgraph.go:207-236)
+            if op == "" or (other is not None and other.hash == op):
+                fixed_round[i] = root.next_round
+        else:
+            raise GridUnsupported(f"self-parent unresolvable: {sp[:18]}…")
+
+        if op != "":
+            if other is not None and other.hash == op:
+                # other-parent covered by the root's `others` map
+                ext_op_round[i] = root.next_round
+                ext_op_lamport[i] = other.lamport_timestamp
+            elif op in row_of:
+                other_parent[i] = row_of[op]
+            elif op in roots_by_sp:
+                opr = roots_by_sp[op]
+                ext_op_round[i] = opr.self_parent.round
+                # mirrors the host lamport cache-miss behavior for root
+                # self-parent hashes (hashgraph.py _lamport_once): stays MIN
+            elif op in hg.frozen_refs:
+                # other-parent below a fast-sync section cut: the FrozenRef
+                # carries its authoritative round. Lamport deliberately
+                # stays MIN — the host recursion consults only its memo
+                # cache and root `others` for lamports (hashgraph.py
+                # _lamport_once), so MIN is the bit-exact mirror; the
+                # section events that actually reference frozen refs carry
+                # pinned lamports anyway (fixed_lamport below).
+                ext_op_round[i] = hg.frozen_refs[op].round
+            else:
+                raise GridUnsupported(f"other-parent unresolvable: {op[:18]}…")
+
+        # already-determined consensus metadata is authoritative, exactly
+        # like the host engine's memo caches (reference: hashgraph.go:36-40)
+        # — critically, post-reset it carries donor section state that a
+        # recompute from the amnesiac base could not reproduce (incomplete
+        # witness sets around the anchor)
+        if ev.round is not None:
+            fixed_round[i] = ev.round
+        if ev.lamport_timestamp is not None:
+            fixed_lamport[i] = ev.lamport_timestamp
+
+        la[i] = [c[0] for c in ev.last_ancestors]
+        fd[i] = [c[0] for c in ev.first_descendants]
+        coin[i] = middle_bit(ev.hex())
+
+    levels, num_levels = build_levels(n, self_parent, other_parent)
+
+    return DagGrid(
+        n=n,
+        e=e_count,
+        super_majority=hg.super_majority,
+        creator=creator,
+        index=index,
+        self_parent=self_parent,
+        other_parent=other_parent,
+        last_ancestors=la,
+        first_descendants=fd,
+        coin_bit=coin,
+        fixed_round=fixed_round,
+        ext_sp_round=ext_sp_round,
+        ext_op_round=ext_op_round,
+        ext_sp_lamport=ext_sp_lamport,
+        ext_op_lamport=ext_op_lamport,
+        fixed_lamport=fixed_lamport,
+        levels=levels,
+        num_levels=num_levels,
+        hashes=hashes,
+    )
 
 
 def grid_from_arrays(d: Mapping) -> DagGrid:

@@ -62,9 +62,44 @@ Phases, in order; any failure raises and exits non-zero:
    on the card on rows [:e] of rounds, lamport, witness and received, with
    last_round 26, 28,065 received and no latch set, each path's kernels
    launched, and events appended per second (32,768 / the median wall
-   time over 5 warm runs from a fresh state, one synchronize at the end).
+   time over 5 warm runs from a fresh state, one synchronize at the end);
+11. K13 pack_results (the live engine's one result fetch) against its
+   plain version, torch.equal, on the live step state that phase 10's step
+   run leaves (n 64, e_cap 65,536, r_cap 64, e_win 8,192) at window starts
+   0, count - e_win, past the clamp (e_cap - e_win + 1000) and negative
+   (counted from the end, as jax.lax.dynamic_slice counts it), and on the
+   8-validator fixture's state, with the launches and CUDA-event times
+   (device work behind a spin, and with the host's wrapper in the window);
+12. the hashgraph path at full width: the signed events of the bench grid
+   built once with the port's own crypto and hashgraph (HAVE_REAL_CRYPTO is
+   printed; without the cryptography package the stub backend signs), then
+   fed to a fresh port Hashgraph per run: (a) the host engine
+   (run_consensus on the CPU), the reference of every other run; (b)
+   run_consensus_device on the card, with the rung it took (the cold path:
+   the bench grid's 1,506 levels pass the crossover); (c)
+   run_consensus_live after each sync of 64 events (512 calls) at the
+   engine's defaults, then flush_live_engine: the main path of this slice;
+   (d) r_cap 16, the pipelined fetch and syncs of 256 (advance takes
+   multi_step): rebases, pipelined integrations and multi_step launches
+   must all be above zero; (e) a late attach: 16,384 events inserted before
+   the first call, whose bootstrap replays them through maybe_cold_replay
+   (the doubling crossover set to 512 levels for that run, below the
+   prefix's 744: at the reference's 1,024 the ladder's one-shot rung
+   would take the call) and attaches from the frontier with fewer kept
+   rows, then syncs of 64. Each call goes down a node's ladder (a
+   GridUnsupported drops the engine, the one-shot rung takes the call and
+   the live rung re-attaches at once from the settled store); the
+   demotions are printed. Each of (b)-(e) must give blocks byte-identical
+   to (a) and the same round, lamport and round received for every event
+   (a) received, and witnesses and fame in every round (a) decided; each
+   path's kernels must launch. Printed per run: calls, blocks, events
+   received, the summed wall seconds of the consensus calls, events
+   brought to consensus per second, and the per-layer milliseconds (batch
+   build, device span of the step / multi_step / pack launches by CUDA
+   events, fetch, integrate, host passes 4-5), and the phase's seconds.
 
-The next-to-last line is the per-kernel JSON summary; the last line is
+The phases take about seven minutes on an H100, phase 12 about four. The
+next-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX and
 nothing of the babble_tpu package.
 """
@@ -160,6 +195,7 @@ REPLACES = {
     "step_levels": ("babble_tpu_torch/csrc/step_levels.cu", "babble_tpu/tpu/incremental.py:243"),
     "train_levels": ("babble_tpu_torch/csrc/train_levels.cu", "babble_tpu/tpu/incremental.py:570"),
     "decide_window": ("babble_tpu_torch/csrc/decide_window.cu", "babble_tpu/tpu/incremental.py:361"),
+    "pack_results": ("babble_tpu_torch/csrc/pack_results.cu", "babble_tpu/tpu/live.py:757"),
 }
 # the kernels each engine's call must launch
 PATH_KERNELS = {
@@ -173,7 +209,24 @@ PATH_KERNELS = {
     "multi_step": ("apply_deltas", "step_levels", "decide_window"),
     "train_step": ("apply_deltas", "train_levels", "decide_window"),
     "multi_train": ("apply_deltas", "train_levels", "decide_window"),
+    "run_consensus_live": ("apply_deltas", "step_levels", "decide_window", "pack_results"),
+    "late attach": ("closure_la", "build_inv", "walk_chunk", "decide_fame",
+                    "round_received", "apply_deltas", "step_levels", "decide_window",
+                    "pack_results"),
 }
+# run_consensus_device's rungs (the ledger's cell names) -> their kernels
+RUNG_PATHS = {"doubling": "run_doubling_passes", "frontier": "run_frontier_passes",
+              "oneshot": "run_passes"}
+# the hashgraph path (phase 12): the bench grid's events in syncs, the live
+# engine's defaults for (c), r_cap 16 as test_device_backend.py uses it
+# with the pipelined fetch and syncs of 256 for (d), a late attach after
+# half the events for (e), with the doubling crossover below that prefix's
+# depth (744 levels) so that its bootstrap takes the cold path
+HG_SYNC = 64
+HG_REBASE = dict(r_cap=16, async_fetch=True, sync=256)
+HG_LATE_ATTACH = 16384
+HG_CROSSOVER = "512"
+HG_CACHE = 1 << 16
 
 
 def log(*a):
@@ -190,6 +243,26 @@ def cuda_ms(fn, reps, warmup=2):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def spun_ms(fn, reps, warmup=2):
+    """Median milliseconds of fn()'s device work over reps runs: the card
+    spins before the first event, so the host's wrapper and enqueue time
+    overlap the spin and the events time the launches' device work."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -429,6 +502,323 @@ def inc_work_decide(st, r_win, e_win):
               + r_cap + e_win * 16 + lo * 8)
     return nbytes, pairs * n, 2 * 8 * r_win * n ** 3
 
+
+
+def build_signed_events(grid, hashgraph_mod, crypto, peers_mod):
+    """The grid's DAG as signed events, built with the port's own crypto
+    and hashgraph and inserted into a first Hashgraph as they are made:
+    (that hashgraph, peer JSON, event JSON in topological order). Keys
+    are derived from the validator position, so a run's hashes repeat."""
+    keys = [crypto.derive_key(1 + c) for c in range(grid.n)]
+    participants = peers_mod.Peers.from_slice([
+        peers_mod.Peer(net_addr="", pub_key_hex="0x" + crypto.pub_key_bytes(k).hex().upper())
+        for k in keys
+    ])
+    plist = participants.to_peer_slice()
+    by_pub = {"0x" + crypto.pub_key_bytes(k).hex().upper(): k for k in keys}
+    sorted_keys = [by_pub[p.pub_key_hex] for p in plist]
+    hg = hashgraph_mod.Hashgraph(participants, hashgraph_mod.InmemStore(participants, HG_CACHE))
+    rows = []
+    for i in range(grid.e):
+        c = int(grid.creator[i])
+        sp_row, op_row = int(grid.self_parent[i]), int(grid.other_parent[i])
+        sp = rows[sp_row].hex() if sp_row >= 0 else hashgraph_mod.root_self_parent(plist[c].id)
+        op = rows[op_row].hex() if op_row >= 0 else ""
+        ev = hashgraph_mod.Event(transactions=[f"tx{i}".encode()], parents=[sp, op],
+                                 creator=crypto.pub_key_bytes(sorted_keys[c]),
+                                 index=int(grid.index[i]))
+        ev.sign(sorted_keys[c])
+        hg.insert_event(ev, True)
+        rows.append(ev)
+    return hg, [p.to_json() for p in plist], [ev.to_json() for ev in rows]
+
+
+def consensus_view(hg):
+    """(per-event (round, lamport, round received), per decided round
+    {witness: fame}) of a base hashgraph's store."""
+    events = {}
+    for p in hg.participants.to_peer_slice():
+        for h in hg.store.participant_events(p.pub_key_hex, -1):
+            ev = hg.store.get_event(h)
+            events[h] = (ev.round, ev.lamport_timestamp, ev.round_received)
+    rounds = {}
+    for r in range(hg.store.last_round() + 1):
+        ri = hg.store.get_round(r)
+        if ri.witnesses_decided():
+            rounds[r] = {w: int(ri.events[w].famous) for w in ri.witnesses()}
+    return events, rounds
+
+
+def require_same_consensus(label, ref, ref_blocks, hg, blocks):
+    """Blocks byte for byte; every event the reference received with the
+    same round, lamport and round received; every round the reference
+    decided with the same witnesses and fame."""
+    if [b.marshal() for b in blocks] != [b.marshal() for b in ref_blocks]:
+        raise AssertionError(f"{label}: {len(blocks)} blocks differ from the host "
+                             f"engine's {len(ref_blocks)}")
+    ref_events, ref_rounds = ref
+    events, rounds = consensus_view(hg)
+    bad = [h for h, f in ref_events.items() if f[2] is not None and events.get(h) != f]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} received events differ, first {bad[0][:18]}")
+    bad = [r for r, w in ref_rounds.items() if rounds.get(r) != w]
+    if bad:
+        raise AssertionError(f"{label}: witnesses or fame differ in rounds {bad[:5]}")
+
+
+class LayerTimes:
+    """Per-layer times of the live rung, taken by wrapping its functions:
+    host seconds of the batch build and of the host passes 4-5, and the
+    device span (CUDA events on the compute stream) of each step,
+    multi_step and pack launch sequence."""
+
+    def __init__(self, live, cuda):
+        self.live, self.cuda = live, cuda
+        self.host = {"build": 0.0, "passes": 0.0}
+        self.spans = []
+        self.calls = {"step": 0, "multi_step": 0, "_pack_results": 0,
+                      "_integrate_oldest": 0}
+        self._saved = []
+
+    def _patch(self, owner, name, wrapper):
+        real = getattr(owner, name)
+        self._saved.append((owner, name, real))
+        setattr(owner, name, wrapper(real))
+
+    def _host(self, key):
+        def wrap(real):
+            def timed(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return real(*a, **kw)
+                finally:
+                    self.host[key] += time.perf_counter() - t0
+            return timed
+        return wrap
+
+    def _device(self, name):
+        def wrap(real):
+            def timed(*a, **kw):
+                self.calls[name] += 1
+                if not self.cuda:
+                    return real(*a, **kw)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = real(*a, **kw)
+                ev[1].record()
+                self.spans.append(ev)
+                return out
+            return timed
+        return wrap
+
+    def _count(self, name):
+        def wrap(real):
+            def counted(*a, **kw):
+                self.calls[name] += 1
+                return real(*a, **kw)
+            return counted
+        return wrap
+
+    def __enter__(self):
+        eng = self.live.LiveDeviceEngine
+        self._patch(eng, "_build_batch", self._host("build"))
+        self._patch(eng, "_depth_cut", self._host("build"))
+        for name in ("step", "multi_step", "_pack_results"):
+            self._patch(self.live, name, self._device(name))
+        self._patch(self.live, "_integrate_oldest", self._count("_integrate_oldest"))
+        return self
+
+    def watch(self, hg):
+        """Time the host passes 4-5 of this hashgraph."""
+        for name in ("process_decided_rounds", "process_sig_pool"):
+            setattr(hg, name, self._host("passes")(getattr(hg, name)))
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self._saved):
+            setattr(owner, name, real)
+
+    def device_ms(self):
+        if not self.cuda:
+            return 0.0
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.spans)
+
+
+def hashgraph_phase(dev, log_fn):
+    """Phase 12 on `dev` ("cuda", or "cpu" to rehearse on the plain
+    versions): returns {run: stats} and the launches of run (c)."""
+    from babble_tpu_torch import crypto, hashgraph as hgm, peers as peers_mod
+    from babble_tpu_torch.tpu import _ext, engine, live
+    from babble_tpu_torch.tpu.grid import GridUnsupported, synthetic_grid
+
+    cuda = torch.device(dev).type == "cuda"
+    t_phase = time.perf_counter()
+    grid = synthetic_grid(BENCH["n"], BENCH["e_count"], seed=BENCH["seed"],
+                          zipf_a=BENCH["zipf_a"])
+    t0 = time.perf_counter()
+    host, peers_json, events = build_signed_events(grid, hgm, crypto, peers_mod)
+    log_fn(f"hashgraph path: {len(events)} signed events of the bench grid built and "
+           f"inserted in {time.perf_counter() - t0:.1f} s (HAVE_REAL_CRYPTO "
+           f"{crypto.HAVE_REAL_CRYPTO})")
+    host_blocks = []
+    host.commit_callback = host_blocks.append
+    t0 = time.perf_counter()
+    host.run_consensus()
+    host_s = time.perf_counter() - t0
+    ref = consensus_view(host)
+    n_recv = sum(1 for f in ref[0].values() if f[2] is not None)
+    log_fn(f"  (a) host run_consensus: {host_s:.1f} s, {len(host_blocks)} blocks, "
+           f"{n_recv} events received, last round {host.store.last_round()}")
+    stats = {"host": dict(blocks=len(host_blocks), received=n_recv, seconds=host_s)}
+
+    def fresh(k):
+        blocks = []
+        hg = hgm.hashgraph_from_events(peers_json, events[:k], cache_size=HG_CACHE,
+                                       commit_callback=blocks.append)
+        return hg, blocks
+
+    def insert(hg, lo, hi):
+        for d in events[lo:hi]:
+            hg.insert_event(hgm.Event.from_json(d), True)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def launches_of(label, want):
+        sync()
+        got = dict(_ext.LAUNCHES)
+        missing = [k for k in PATH_KERNELS[want] if got[k] == 0]
+        if missing:
+            raise AssertionError(f"{label}: never launched {missing}")
+        return {k: v for k, v in got.items() if v}
+
+    # (b) the one-shot rung
+    hg, blocks = fresh(len(events))
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    engine.run_consensus_device(hg, device=dev)
+    sync()
+    secs = time.perf_counter() - t0
+    rung = [k.split("/")[0] for k in hg.obs.devledger.snapshot() if k.endswith("/integrate")]
+    if len(rung) != 1 or rung[0] not in RUNG_PATHS:
+        raise AssertionError(f"(b) run_consensus_device booked the rungs {rung}")
+    got = launches_of("(b) run_consensus_device", RUNG_PATHS[rung[0]]) if cuda else {}
+    require_same_consensus("(b) run_consensus_device", ref, host_blocks, hg, blocks)
+    recv = sum(1 for f in consensus_view(hg)[0].values() if f[2] is not None)
+    stats["oneshot"] = dict(calls=1, blocks=len(blocks), received=recv, seconds=secs,
+                            rung=rung[0])
+    log_fn(f"  (b) run_consensus_device == host: rung {rung[0]}, {secs:.3f} s, "
+           f"{len(blocks)} blocks, {recv} received, {recv / secs:.0f} events brought to "
+           f"consensus/s; launches {got}")
+
+    def live_run(label, settings, first, step_n, path_kernels, crossover=None):
+        """One live run down the node's ladder; returns its stats."""
+        saved = dict(live.ENGINE_DEFAULTS)
+        env = os.environ.get("BABBLE_DOUBLING_CROSSOVER")
+        live.ENGINE_DEFAULTS.update(settings)
+        hg, blocks = fresh(first)
+        st = dict(calls=0, demotions=0, reattach_failures=0, seconds=0.0)
+        try:
+            with LayerTimes(live, cuda) as lt:
+                lt.watch(hg)
+                _ext.reset_launches()
+                pos = first
+                while pos < len(events) or st["calls"] == 0:
+                    hi = min(pos + step_n, len(events)) if st["calls"] or not first else first
+                    insert(hg, pos, hi)
+                    pos = hi
+                    if crossover is not None:
+                        if st["calls"] == 0:
+                            os.environ["BABBLE_DOUBLING_CROSSOVER"] = crossover
+                        elif env is None:
+                            os.environ.pop("BABBLE_DOUBLING_CROSSOVER", None)
+                        else:
+                            os.environ["BABBLE_DOUBLING_CROSSOVER"] = env
+                    t0 = time.perf_counter()
+                    try:
+                        live.run_consensus_live(hg, device=dev)
+                    except GridUnsupported as err:
+                        st["demotions"] += 1
+                        st.setdefault("first_demotion", f"call {st['calls'] + 1}: {err}")
+                        eng = getattr(hg, "_live_device_engine", None)
+                        if eng is not None:
+                            eng.detach()
+                        hg._live_device_engine = None
+                        engine.run_consensus_device(hg, device=dev)
+                        try:  # the re-attach from the settled store
+                            live.run_consensus_live(hg, device=dev)
+                        except GridUnsupported:
+                            st["reattach_failures"] += 1
+                            eng = getattr(hg, "_live_device_engine", None)
+                            if eng is not None:
+                                eng.detach()
+                            hg._live_device_engine = None
+                    sync()
+                    st["seconds"] += time.perf_counter() - t0
+                    st["calls"] += 1
+                    if st["calls"] == 1:
+                        eng = getattr(hg, "_live_device_engine", None)
+                        st["kept_at_attach"] = len(eng.hashes) if eng is not None else None
+                        st["cold_replay"] = any(r.name == "catchup.replay"
+                                                for r in hg.obs.flightrec.records())
+                t0 = time.perf_counter()
+                live.flush_live_engine(hg)
+                sync()
+                st["seconds"] += time.perf_counter() - t0
+                launches = launches_of(label, path_kernels) if cuda else {}
+                st["device_ms"] = lt.device_ms()
+                st.update(build_ms=lt.host["build"] * 1e3, passes_ms=lt.host["passes"] * 1e3,
+                          calls_by_fn=dict(lt.calls))
+        finally:
+            live.ENGINE_DEFAULTS.clear()
+            live.ENGINE_DEFAULTS.update(saved)
+            if env is None:
+                os.environ.pop("BABBLE_DOUBLING_CROSSOVER", None)
+            else:
+                os.environ["BABBLE_DOUBLING_CROSSOVER"] = env
+        cells = hg.obs.devledger.snapshot()
+        st["fetch_ms"] = cells.get("live/dispatch/wide/fetch", [0, 0.0])[1] * 1e3
+        st["integrate_ms"] = cells.get("live/dispatch/wide/integrate", [0, 0.0])[1] * 1e3
+        eng = getattr(hg, "_live_device_engine", None)
+        st["rebases"] = eng.rebases if eng is not None else None
+        st["launches"] = launches
+        require_same_consensus(label, ref, host_blocks, hg, blocks)
+        st["blocks"] = len(blocks)
+        st["received"] = sum(1 for f in consensus_view(hg)[0].values() if f[2] is not None)
+        log_fn(f"  {label} == host: {st['calls']} calls, {st['blocks']} blocks, "
+               f"{st['received']} received in {st['seconds']:.3f} s of consensus calls, "
+               f"{st['received'] / st['seconds']:.0f} events brought to consensus/s; "
+               f"layers: batch build {st['build_ms']:.1f} ms, device span of the launches "
+               f"{st['device_ms']:.1f} ms, fetch {st['fetch_ms']:.1f} ms, integrate "
+               f"{st['integrate_ms']:.1f} ms, host passes 4-5 {st['passes_ms']:.1f} ms; "
+               f"rebases {st['rebases']}, demotions {st['demotions']} "
+               f"({st.get('first_demotion', 'none')}), failed re-attaches "
+               f"{st['reattach_failures']}, calls {st['calls_by_fn']}; launches {launches}")
+        return st
+
+    stats["live"] = live_run("(c) run_consensus_live, defaults", {}, 0, HG_SYNC,
+                             "run_consensus_live")
+    c_launches = dict(stats["live"]["launches"])
+    d = dict(HG_REBASE)
+    step_n = d.pop("sync")
+    st = live_run(f"(d) run_consensus_live, r_cap {d['r_cap']}, pipelined, syncs of {step_n}",
+                  d, 0, step_n, "run_consensus_live")
+    if not (st["rebases"] and st["calls_by_fn"]["_integrate_oldest"]
+            and st["calls_by_fn"]["multi_step"]):
+        raise AssertionError(f"(d): rebases {st['rebases']}, pipelined integrations "
+                             f"{st['calls_by_fn']['_integrate_oldest']}, multi_step calls "
+                             f"{st['calls_by_fn']['multi_step']}: each must be above 0")
+    stats["rebase"] = st
+    st = live_run(f"(e) late attach after {HG_LATE_ATTACH} events", {}, HG_LATE_ATTACH,
+                  HG_SYNC, "late attach", crossover=HG_CROSSOVER)
+    if st["kept_at_attach"] is None or st["kept_at_attach"] >= HG_LATE_ATTACH:
+        raise AssertionError(f"(e): kept {st['kept_at_attach']} rows at the attach")
+    log_fn(f"  (e) attach kept {st['kept_at_attach']} of {HG_LATE_ATTACH} rows; cold "
+           f"replay fired: {st['cold_replay']}")
+    stats["attach"] = st
+    log_fn(f"hashgraph path: {time.perf_counter() - t_phase:.1f} s for phase 12")
+    return stats, c_launches
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -919,6 +1309,8 @@ def main() -> int:
                         inc.init_state(fgrid.n, fx["e"], r_cap, device=dev))
         for b in fb:
             step_calls(run, b, r_win, fx["e_win"], False)
+        if r_cap == fx["r_cap"]:
+            fixture_state = run.k
         trun = PairedRun(run.label + ", trains", inc.init_state(fgrid.n, fx["e"], r_cap, device=dev))
         for t in ft:
             train_calls(trun, t, r_win, fx["e_win"], False)
@@ -1009,6 +1401,8 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         check_path(label, st)
+        if label == "step":
+            step_state = st
         wall = statistics.median(walls[2:])
         log(f"e2e {label} on the bench grid: median {wall * 1e3:.3f} ms over {INC_RUNS} warm "
             f"runs, {e / wall:.0f} events appended/s; {res}; card: {smi}")
@@ -1030,6 +1424,47 @@ def main() -> int:
         summary[name] = {"max_abs_err": 0, "ms": k_ms / calls, "plain_ms": p_ms / calls}
         work[name] = (nbytes / calls, (alu / ALU_OPS_S + tc / INT8_TC_OPS_S) / calls)
 
+    # 11. K13 pack_results against its plain version
+    from babble_tpu_torch.tpu import live
+
+    e_cap_s, e_win_s, r_cap_s = INC_STEP["e_cap"], INC_STEP["e_win"], INC_STEP["r_cap"]
+    count = int(step_state.count)
+    lo_live = max(count - e_win_s, 0)
+    pack_cases = [("live step state", step_state, e_win_s, r_cap_s, n, lo)
+                  for lo in (0, lo_live, e_cap_s - e_win_s + 1000, -100)]
+    pack_cases.append(("8-validator fixture", fixture_state, fx["e_win"], fx["r_cap"],
+                       fgrid.n, max(int(fixture_state.count) - fx["e_win"], 0)))
+    _ext.reset_launches()
+    for label, st_, ew, rc, nn, lo in pack_cases:
+        got = live._pack_results(st_, lo, ew, rc, nn)
+        want = live._pack_results_plain(st_, lo, ew, rc, nn)
+        torch.cuda.synchronize()
+        require_equal(f"pack_results on the {label} at lo {lo}", got, want)
+        log(f"pack_results == plain on the {label} (e_win {ew}, r_cap {rc}, n {nn}) at lo "
+            f"{lo}: {got.numel()} words, window start "
+            f"{live.pack_window_start(lo, st_.rounds.shape[0], ew)}")
+    def kern():
+        return live._pack_results(step_state, lo_live, e_win_s, r_cap_s, n)
+
+    def plain():
+        return live._pack_results_plain(step_state, lo_live, e_win_s, r_cap_s, n)
+
+    k_ms, p_ms = spun_ms(kern, 50), spun_ms(plain, 20)
+    k_host_ms, p_host_ms = cuda_ms(kern, 50), cuda_ms(plain, 20)
+    log(f"  pack_results at the live step shape (lo {lo_live}): {k_ms * 1e3:.2f} us, plain "
+        f"{p_ms * 1e3:.2f} us of device work (CUDA events behind a spin); with the host's "
+        f"wrapper and enqueue in the window {k_host_ms * 1e3:.2f} us, plain "
+        f"{p_host_ms * 1e3:.2f} us; {_ext.LAUNCHES['pack_results']} launches in this phase")
+    summary["pack_results"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+    # each source element read once (three int32 row fields and the bool
+    # witness over the window, the int32 table and two bool tables, the
+    # three scalars), each output word written once
+    work["pack_results"] = (e_win_s * 13 + r_cap_s * n * 6 + 6
+                            + (4 * e_win_s + 3 * r_cap_s * n + 3) * 4, 0.0)
+
+    # 12. the hashgraph path at full width
+    _, live_launches = hashgraph_phase(DEVICE, log)
+    launches["pack_results"] = live_launches["pack_results"]
 
     out = []
     for name, (source, replaces) in REPLACES.items():

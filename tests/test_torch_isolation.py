@@ -1,6 +1,8 @@
-"""The port stands alone: importing every babble_tpu_torch module loads
-neither jax nor anything of the babble_tpu package, chip_smoke.py imports
-neither, and the entry point refuses to run on the CPU unless asked."""
+"""The port stands alone: importing every babble_tpu_torch module (the
+device layer with the live engine, and its own host copies: hashgraph,
+common, crypto, peers, utils, obs) loads neither jax nor anything of the
+babble_tpu package, chip_smoke.py imports neither, and the entry point
+refuses to run on the CPU unless asked."""
 
 import ast
 import json
@@ -32,8 +34,10 @@ def test_port_modules_import_no_jax_and_no_reference():
             babble_tpu_torch.__path__, prefix="babble_tpu_torch."
         )
     )
-    assert "babble_tpu_torch.tpu.engine" in modules
-    assert "babble_tpu_torch.tpu.incremental" in modules
+    for m in ("tpu.engine", "tpu.incremental", "tpu.live", "tpu.packed", "hashgraph",
+              "hashgraph.hashgraph", "common", "crypto", "peers", "utils.codec", "obs",
+              "obs.devledger", "obs.provenance"):
+        assert "babble_tpu_torch." + m in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {['babble_tpu_torch'] + modules!r}:\n"
@@ -46,7 +50,8 @@ def test_port_modules_import_no_jax_and_no_reference():
         text=True, timeout=120, check=True,
     ).stdout
     loaded = json.loads(out.strip().splitlines()[-1])
-    assert "babble_tpu_torch.tpu.kernels" in loaded
+    for m in ("tpu.kernels", "tpu.live", "hashgraph", "common", "crypto", "obs"):
+        assert "babble_tpu_torch." + m in loaded
     assert [m for m in loaded if is_forbidden(m)] == []
 
 
