@@ -98,8 +98,9 @@ Phases, in order; any failure raises and exits non-zero:
    build, device span of the step / multi_step / pack launches by CUDA
    events, fetch, integrate, host passes 4-5), and the phase's seconds.
 
-The phases take about seven minutes on an H100, phase 12 about four. The
-next-to-last line is the per-kernel JSON summary; the last line is
+The phases take five to seven minutes on an H100, phase 12 three to
+four. The next-to-last line is the per-kernel JSON summary; the last
+line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX and
 nothing of the babble_tpu package.
 """
