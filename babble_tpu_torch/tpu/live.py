@@ -19,9 +19,11 @@ blocks remain byte-identical by construction.
 Scope and fallback: base-state hashgraphs only (no resets — the dense
 incremental state has no external-parent metadata). Any unsupported
 condition (post-reset state, capacity overflow, fame-unroll exhaustion,
-received-window staleness) raises GridUnsupported, and the caller falls
-back to the one-shot device path (which itself falls back to the CPU
-engine).
+received-window staleness) raises GridUnsupported. The caller decides
+what runs next: a node's ladder takes the one-shot device path
+(run_consensus_device), and only the caller's ladder may go on to the
+host engine. The port itself never moves to the CPU unless the caller
+passes device="cpu".
 
 The engine holds its device (the CUDA card unless the caller passes
 device="cpu") and updates its IncState there in place: K9-K12 per append

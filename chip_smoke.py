@@ -75,8 +75,8 @@ Phases, in order; any failure raises and exits non-zero:
    printed; without the cryptography package the stub backend signs), then
    fed to a fresh port Hashgraph per run: (a) the host engine
    (run_consensus on the CPU), the reference of every other run; (b)
-   run_consensus_device on the card, with the rung it took (the cold path:
-   the bench grid's 1,506 levels pass the crossover); (c)
+   run_consensus_device on the card, which must take the cold path (the
+   bench grid's 1,506 levels pass the crossover); (c)
    run_consensus_live after each sync of 64 events (512 calls) at the
    engine's defaults, then flush_live_engine: the main path of this slice;
    (d) r_cap 16, the pipelined fetch and syncs of 256 (advance takes
@@ -86,14 +86,16 @@ Phases, in order; any failure raises and exits non-zero:
    (the doubling crossover set to 512 levels for that run, below the
    prefix's 744: at the reference's 1,024 the ladder's one-shot rung
    would take the call) and attaches from the frontier with fewer kept
-   rows, then syncs of 64. Each call goes down a node's ladder (a
-   GridUnsupported drops the engine, the one-shot rung takes the call and
-   the live rung re-attaches at once from the settled store); the
-   demotions are printed. Each of (b)-(e) must give blocks byte-identical
+   rows, then syncs of 64. Every call of (c)-(e) must stay on the live
+   rung: a GridUnsupported from its write-back gates fails the phase, with
+   no one-shot rung to take the call over. Each of (b)-(e) must give blocks
+   byte-identical
    to (a) and the same round, lamport and round received for every event
    (a) received, and witnesses and fame in every round (a) decided; each
    path's kernels must launch. Printed per run: calls, blocks, events
-   received, the summed wall seconds of the consensus calls, events
+   received, the summed host-clock seconds of the consensus calls (no
+   synchronize after each call, so the pipelined fetch of (d) overlaps as
+   in a node; one after the flush), events
    brought to consensus per second, and the per-layer milliseconds (batch
    build, device span of the step / multi_step / pack launches by CUDA
    events, fetch, integrate, host passes 4-5), and the phase's seconds.
@@ -215,9 +217,9 @@ PATH_KERNELS = {
                     "round_received", "apply_deltas", "step_levels", "decide_window",
                     "pack_results"),
 }
-# run_consensus_device's rungs (the ledger's cell names) -> their kernels
-RUNG_PATHS = {"doubling": "run_doubling_passes", "frontier": "run_frontier_passes",
-              "oneshot": "run_passes"}
+# run_consensus_device's rung on the bench DAG (its 1,506 levels pass the
+# 1,024-level crossover) and that rung's kernels
+HG_ONESHOT_RUNG = ("doubling", "run_doubling_passes")
 # the hashgraph path (phase 12): the bench grid's events in syncs, the live
 # engine's defaults for (c), r_cap 16 as test_device_backend.py uses it
 # with the pipelined fetch and syncs of 256 for (d), a late attach after
@@ -650,7 +652,7 @@ def hashgraph_phase(dev, log_fn):
     versions): returns {run: stats} and the launches of run (c)."""
     from babble_tpu_torch import crypto, hashgraph as hgm, peers as peers_mod
     from babble_tpu_torch.tpu import _ext, engine, live
-    from babble_tpu_torch.tpu.grid import GridUnsupported, synthetic_grid
+    from babble_tpu_torch.tpu.grid import synthetic_grid
 
     cuda = torch.device(dev).type == "cuda"
     t_phase = time.perf_counter()
@@ -702,9 +704,10 @@ def hashgraph_phase(dev, log_fn):
     sync()
     secs = time.perf_counter() - t0
     rung = [k.split("/")[0] for k in hg.obs.devledger.snapshot() if k.endswith("/integrate")]
-    if len(rung) != 1 or rung[0] not in RUNG_PATHS:
-        raise AssertionError(f"(b) run_consensus_device booked the rungs {rung}")
-    got = launches_of("(b) run_consensus_device", RUNG_PATHS[rung[0]]) if cuda else {}
+    if rung != [HG_ONESHOT_RUNG[0]]:
+        raise AssertionError(f"(b) run_consensus_device booked the rungs {rung}, not "
+                             f"[{HG_ONESHOT_RUNG[0]!r}]")
+    got = launches_of("(b) run_consensus_device", HG_ONESHOT_RUNG[1]) if cuda else {}
     require_same_consensus("(b) run_consensus_device", ref, host_blocks, hg, blocks)
     recv = sum(1 for f in consensus_view(hg)[0].values() if f[2] is not None)
     stats["oneshot"] = dict(calls=1, blocks=len(blocks), received=recv, seconds=secs,
@@ -714,12 +717,12 @@ def hashgraph_phase(dev, log_fn):
            f"consensus/s; launches {got}")
 
     def live_run(label, settings, first, step_n, path_kernels, crossover=None):
-        """One live run down the node's ladder; returns its stats."""
+        """One live run, every call on the live rung; returns its stats."""
         saved = dict(live.ENGINE_DEFAULTS)
         env = os.environ.get("BABBLE_DOUBLING_CROSSOVER")
         live.ENGINE_DEFAULTS.update(settings)
         hg, blocks = fresh(first)
-        st = dict(calls=0, demotions=0, reattach_failures=0, seconds=0.0)
+        st = dict(calls=0, seconds=0.0)
         try:
             with LayerTimes(live, cuda) as lt:
                 lt.watch(hg)
@@ -737,25 +740,7 @@ def hashgraph_phase(dev, log_fn):
                         else:
                             os.environ["BABBLE_DOUBLING_CROSSOVER"] = env
                     t0 = time.perf_counter()
-                    try:
-                        live.run_consensus_live(hg, device=dev)
-                    except GridUnsupported as err:
-                        st["demotions"] += 1
-                        st.setdefault("first_demotion", f"call {st['calls'] + 1}: {err}")
-                        eng = getattr(hg, "_live_device_engine", None)
-                        if eng is not None:
-                            eng.detach()
-                        hg._live_device_engine = None
-                        engine.run_consensus_device(hg, device=dev)
-                        try:  # the re-attach from the settled store
-                            live.run_consensus_live(hg, device=dev)
-                        except GridUnsupported:
-                            st["reattach_failures"] += 1
-                            eng = getattr(hg, "_live_device_engine", None)
-                            if eng is not None:
-                                eng.detach()
-                            hg._live_device_engine = None
-                    sync()
+                    live.run_consensus_live(hg, device=dev)
                     st["seconds"] += time.perf_counter() - t0
                     st["calls"] += 1
                     if st["calls"] == 1:
@@ -793,9 +778,7 @@ def hashgraph_phase(dev, log_fn):
                f"layers: batch build {st['build_ms']:.1f} ms, device span of the launches "
                f"{st['device_ms']:.1f} ms, fetch {st['fetch_ms']:.1f} ms, integrate "
                f"{st['integrate_ms']:.1f} ms, host passes 4-5 {st['passes_ms']:.1f} ms; "
-               f"rebases {st['rebases']}, demotions {st['demotions']} "
-               f"({st.get('first_demotion', 'none')}), failed re-attaches "
-               f"{st['reattach_failures']}, calls {st['calls_by_fn']}; launches {launches}")
+               f"rebases {st['rebases']}, calls {st['calls_by_fn']}; launches {launches}")
         return st
 
     stats["live"] = live_run("(c) run_consensus_live, defaults", {}, 0, HG_SYNC,
