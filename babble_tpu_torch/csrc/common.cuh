@@ -106,3 +106,89 @@ __device__ __forceinline__ bool babble_warp_sees_majority(const int32_t* la_e,
     }
     return seen >= super_majority;
 }
+
+// The packed strongly-seen row of one event, decided by a whole warp, and
+// its popcount:
+//   word k, bit b  <->  witness w = 32 k + b, set when fd_row(w) is not
+//   null (the witness is present) and |{q < n : la_e[q] >= fd_row(w)[q]}|
+//   >= super_majority;
+//   c_seen = the sum of the words' popcounts,
+// the same on every lane. The count over the n coordinates is a ballot per
+// 32 lanes and a popcount; BABBLE_WG witnesses' loads are issued before
+// their ballots. Unlike babble_warp_sees_majority the whole row is built:
+// c_seen is its popcount, as the packed layout counts it. A coordinate
+// past n compares against MAX_INT32, which no real lastAncestors entry
+// reaches.
+template <typename FdRow>
+__device__ __forceinline__ int babble_warp_ss_popcount(const int32_t* la_e, int n,
+                                                       int super_majority, FdRow fd_row) {
+    const int lane = threadIdx.x & 31;
+    int c_seen = 0;  // warp-uniform
+    for (int w0 = 0; w0 < n; w0 += 32) {
+        const int w_end = min(w0 + 32, n);
+        unsigned word = 0;
+        for (int u0 = w0; u0 < w_end; u0 += BABBLE_WG) {
+            const int32_t* rows[BABBLE_WG];
+            int cnt[BABBLE_WG];
+#pragma unroll
+            for (int u = 0; u < BABBLE_WG; ++u) {
+                rows[u] = u0 + u < w_end ? fd_row(u0 + u) : nullptr;
+                cnt[u] = 0;
+            }
+            for (int q0 = 0; q0 < n; q0 += 32) {
+                const int q = q0 + lane;
+                const int la_q = q < n ? la_e[q] : 0;
+                int v[BABBLE_WG];
+#pragma unroll
+                for (int u = 0; u < BABBLE_WG; ++u) {
+                    v[u] = (rows[u] != nullptr && q < n) ? rows[u][q] : BABBLE_MAX_INT32;
+                }
+#pragma unroll
+                for (int u = 0; u < BABBLE_WG; ++u) {
+                    cnt[u] += __popc(__ballot_sync(BABBLE_FULL_MASK, la_q >= v[u]));
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < BABBLE_WG; ++u) {
+                if (rows[u] != nullptr && cnt[u] >= super_majority) word |= 1u << (u0 + u - w0);
+            }
+        }
+        c_seen += __popc(word);
+    }
+    return c_seen;
+}
+
+// Row stride, in int32 words, of a staged (rows, n) tile that is read 16
+// bytes at a time: a multiple of 4 whose count of 16-byte units is odd,
+// so that the lanes of a quarter warp reading one unit of eight different
+// rows hit eight different bank groups.
+__host__ __device__ __forceinline__ int babble_tile_ld(int n) {
+    return 4 * (((n + 3) / 4) | 1);
+}
+
+// |{q < ld : a[q] >= b[q]}| over two staged rows of stride
+// babble_tile_ld(n), 16 bytes per load; the padding past n holds MIN_INT32
+// in a and MAX_INT32 in b, which never compares true.
+__device__ __forceinline__ int babble_tile_count_ge(const int32_t* a, const int32_t* b, int ld) {
+    const int4* a4 = reinterpret_cast<const int4*>(a);
+    const int4* b4 = reinterpret_cast<const int4*>(b);
+    int cnt = 0;
+    for (int k = 0; k < ld / 4; ++k) {
+        const int4 x = a4[k], y = b4[k];
+        cnt += (x.x >= y.x) + (x.y >= y.y) + (x.z >= y.z) + (x.w >= y.w);
+    }
+    return cnt;
+}
+
+// Stage up to 32 event rows (n int32 each) into a tile of stride ld:
+// tile row r gets src_row(r) (null: the whole row is `fill`), the columns
+// past n get `fill`. All threads of the block take part; the caller syncs.
+template <typename SrcRow>
+__device__ __forceinline__ void babble_stage_tile(int32_t* tile, int ld, int n,
+                                                  int32_t fill, SrcRow src_row) {
+    for (int k = threadIdx.x; k < 32 * ld; k += blockDim.x) {
+        const int r = k / ld, q = k % ld;
+        const int32_t* row = src_row(r);
+        tile[k] = (row != nullptr && q < n) ? row[q] : fill;
+    }
+}

@@ -23,8 +23,33 @@
 // per offset, far below the card's rate. Votes live in a (R, 2, N, N)
 // uint8 scratch the wrapper allocates (read back from L1/L2); per-round
 // flags live in shared memory.
+//
+// The packed layout (babble_tpu/tpu/kernels.py:209 and :256-317 with
+// packed=True, tpu/packed.py) holds the voted-witness axis in uint32
+// words, bit k of word w for witness 32 w + k:
+//   ss    (R, N_y, W) words: the setup runs one block per (round j, tile
+//         of 32 rows y), the la rows of its tile staged in shared memory
+//         and the fd rows of round j-1 passed through a second tile 32
+//         rows at a time; one warp per row y and one lane per witness w
+//         count la >= fd with 16-byte loads, and the warp packs its 32
+//         verdicts with __ballot_sync (lane 0 stores the word);
+//   votes (R, N_x, W) words, transposed as pack_votes_t lays them out:
+//         the same block packs the d = 1 votes of round j-1 whose voters
+//         are its 32 rows y, one word per witness x;
+// then one block per round i votes with the whole round in shared memory
+// (the votes and the next step's, the voting round's ss words, W / N x 4
+// = 1/8 of the wide scratch's bytes at N = 256):
+//   yays[y, x] = sum_w popc(ss[j, y, w] & vT[x, w]), total[y] = the ss
+//   row's popcount; the step's verdicts are packed by ballot over 32
+//   voters y into the next vote words, a coin step taking the voter's
+//   wide coin bit where not strong.
+// The early per-round exit is the wide kernel's. Zero padding bits add
+// nothing to any popcount, so every integer equals the wide layout's.
 
 #include "common.cuh"
+
+#define DF_THREADS 1024
+#define DF_WARPS (DF_THREADS / 32)
 
 __global__ void fame_setup(const int32_t* __restrict__ wtable,
                            const int32_t* __restrict__ la,
@@ -159,17 +184,229 @@ __global__ void fame_vote(const int32_t* __restrict__ wtable,
     if (threadIdx.x == 0) rounds_decided[i] = all_done && any_valid;
 }
 
+
+// the packed setup: grid (r_max, words), one block per (round j, y tile)
+__global__ void __launch_bounds__(DF_THREADS)
+fame_setup_packed(const int32_t* __restrict__ wtable,
+                  const int32_t* __restrict__ la,
+                  const int32_t* __restrict__ fd,
+                  const int32_t* __restrict__ index,
+                  uint32_t* ss, uint32_t* vt0,
+                  int r_max, int n, int e, int words, int super_majority) {
+    extern __shared__ int32_t smem[];
+    const int ld = babble_tile_ld(n);
+    int32_t* tile_a = smem;              // (32, ld) la rows of round j, this y tile
+    int32_t* tile_b = tile_a + 32 * ld;  // (32, ld) fd rows of round j - 1, a w tile
+    int32_t* wv_j = tile_b + 32 * ld;    // (n,) witness present in round j
+    int32_t* wv_p = wv_j + n;            // ... in round j - 1
+    int32_t* idx_p = wv_p + n;           // (n,) index of round j - 1's witness rows
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int j = blockIdx.x;
+    const int yt = blockIdx.y;
+    const int y = yt * 32 + warp;
+    const int32_t* wt_j = wtable + (long long)j * n;
+    const int32_t* wt_p = wtable + (long long)(j - 1) * n;
+
+    for (int x = threadIdx.x; x < n; x += blockDim.x) {
+        wv_j[x] = wt_j[x] >= 0;
+        wv_p[x] = j > 0 && wt_p[x] >= 0;
+        // an absent witness reads row 0, as the reference's gather clamps
+        idx_p[x] = j > 0 ? index[babble_clamp(wt_p[x], 0, e - 1)] : 0;
+    }
+    babble_stage_tile(tile_a, ld, n, BABBLE_MIN_INT32, [&](int r) {
+        const int yy = yt * 32 + r;
+        return yy < n ? la + (long long)babble_clamp(wt_j[yy], 0, e - 1) * n : nullptr;
+    });
+    __syncthreads();
+    const int any_y = __syncthreads_or(j > 0 && y < n && wv_j[y]);
+
+    // ss words: word wt of row y holds witnesses w = 32 wt + lane
+    for (int wt = 0; wt < words; ++wt) {
+        const int w = wt * 32 + lane;
+        const int go = any_y && __syncthreads_or(w < n && wv_p[w]);
+        int s = 0;
+        if (go) {
+            babble_stage_tile(tile_b, ld, n, BABBLE_MAX_INT32, [&](int r) {
+                const int ww = wt * 32 + r;
+                return ww < n ? fd + (long long)babble_clamp(wt_p[ww], 0, e - 1) * n : nullptr;
+            });
+            __syncthreads();
+            if (y < n && w < n && wv_j[y] && wv_p[w]) {
+                s = babble_tile_count_ge(tile_a + warp * ld, tile_b + lane * ld, ld)
+                    >= super_majority;
+            }
+        }
+        const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, s);
+        if (lane == 0 && y < n) ss[((long long)j * n + y) * words + wt] = bits;
+        __syncthreads();  // tile_b is restaged next
+    }
+
+    // the d = 1 votes of round i = j - 1, voters y of round j: word yt of
+    // witness x's column. Round R - 1 has no voters above it: block j = 0
+    // zeroes its words.
+    const int yv = yt * 32 + lane;
+    const int i = j > 0 ? j - 1 : r_max - 1;
+    for (int x = warp; x < n; x += DF_WARPS) {
+        int v = 0;
+        if (j > 0 && yv < n && wv_j[yv]) v = tile_a[lane * ld + x] >= idx_p[x];
+        const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, v);
+        if (lane == 0) vt0[((long long)i * n + x) * words + yt] = bits;
+    }
+}
+
+// the packed vote: one block per round i, the round's words in shared memory
+__global__ void __launch_bounds__(DF_THREADS)
+fame_vote_packed(const int32_t* __restrict__ wtable,
+                 const uint8_t* __restrict__ coin_bit,
+                 const int32_t* __restrict__ last_round,
+                 const uint32_t* __restrict__ ss, const uint32_t* __restrict__ vt0,
+                 uint8_t* decided, uint8_t* famous, uint8_t* rounds_decided,
+                 int r_max, int n, int e, int words, int super_majority,
+                 int n_participants, int d_cap) {
+    extern __shared__ int32_t smem[];
+    const int nw = n * words;
+    const int ldw = words | 1;  // odd row stride: lanes over rows y hit distinct banks
+    uint32_t* vt = (uint32_t*)smem;    // (n, words) vote words of round i
+    uint32_t* vt_next = vt + nw;
+    uint32_t* ss_s = vt_next + nw;     // (n, ldw) ss words of the voting round
+    int32_t* tot = (int32_t*)(ss_s + n * ldw);  // (n,) popcount of each ss row
+    int32_t* vy = tot + n;             // (n,) voter y present and j <= last_round
+    int32_t* coin = vy + n;            // (n,) voter y's coin bit
+    int32_t* wv = coin + n;            // wvalid[i, x]
+    int32_t* dec = wv + n;             // decided[i, x]
+    int32_t* fam = dec + n;            // famous[i, x]
+    int32_t* any_dec = fam + n;        // this step's decisions
+    int32_t* any_fam = any_dec + n;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int i = blockIdx.x;
+    const int lr = *last_round;
+    for (int k = threadIdx.x; k < nw; k += blockDim.x) vt[k] = vt0[(long long)i * nw + k];
+    for (int x = threadIdx.x; x < n; x += blockDim.x) {
+        wv[x] = wtable[(long long)i * n + x] >= 0;
+        dec[x] = fam[x] = any_dec[x] = any_fam[x] = 0;
+    }
+    __syncthreads();
+
+    for (int d = 2;; ++d) {
+        int act = 0;
+        if (i + d <= lr) {
+            for (int x = threadIdx.x; x < n; x += blockDim.x) act |= wv[x] && !dec[x];
+        }
+        if (!__syncthreads_or(act) || d > d_cap) break;
+
+        const int j = i + d;
+        const bool j_ok = j <= lr;
+        const int jc = babble_clamp(j, 0, r_max - 1);
+        for (int k = threadIdx.x; k < nw; k += blockDim.x) {
+            ss_s[(k / words) * ldw + k % words] = j_ok ? ss[(long long)jc * nw + k] : 0u;
+        }
+        for (int yy = threadIdx.x; yy < n; yy += blockDim.x) {
+            const int wy = wtable[(long long)jc * n + yy];
+            vy[yy] = j_ok && wy >= 0;
+            coin[yy] = coin_bit[babble_clamp(wy, 0, e - 1)];
+        }
+        __syncthreads();
+        for (int yy = threadIdx.x; yy < n; yy += blockDim.x) {
+            int t = 0;
+            for (int k = 0; k < words; ++k) t += __popc(ss_s[yy * ldw + k]);
+            tot[yy] = t;
+        }
+        __syncthreads();
+
+        const bool is_coin = (d % n_participants) == 0;
+        for (int task = warp; task < nw; task += DF_WARPS) {
+            const int x = task / words, wd = task % words;
+            const int y = wd * 32 + lane;
+            int nv = 0, dn = 0, dv = 0;
+            if (y < n) {
+                int yays = 0;
+                for (int k = 0; k < words; ++k) yays += __popc(ss_s[y * ldw + k] & vt[x * words + k]);
+                const int nays = tot[y] - yays;
+                const int v = yays >= nays;
+                const bool strong = (v ? yays : nays) >= super_majority;
+                if (is_coin) {
+                    nv = strong ? v : coin[y];
+                } else {
+                    nv = v;
+                    dn = strong && vy[y] && wv[x] && !dec[x];
+                    dv = dn && v;
+                }
+            }
+            const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, nv);
+            const unsigned b_dn = __ballot_sync(BABBLE_FULL_MASK, dn);
+            const unsigned b_dv = __ballot_sync(BABBLE_FULL_MASK, dv);
+            if (lane == 0) {
+                vt_next[task] = bits;
+                // benign races: every writer stores 1
+                if (b_dn) any_dec[x] = 1;
+                if (b_dv) any_fam[x] = 1;
+            }
+        }
+        __syncthreads();
+        for (int x = threadIdx.x; x < n; x += blockDim.x) {
+            if (any_dec[x]) {
+                fam[x] = any_fam[x];
+                dec[x] = 1;
+                any_dec[x] = any_fam[x] = 0;
+            }
+        }
+        for (int k = threadIdx.x; k < nw; k += blockDim.x) vt[k] = vt_next[k];
+        __syncthreads();
+    }
+
+    int all_done = 1, any_valid = 0;
+    for (int x = threadIdx.x; x < n; x += blockDim.x) {
+        decided[(long long)i * n + x] = dec[x];
+        famous[(long long)i * n + x] = fam[x];
+        all_done &= dec[x] || !wv[x];
+        any_valid |= wv[x];
+    }
+    all_done = __syncthreads_and(all_done);
+    any_valid = __syncthreads_or(any_valid);
+    if (threadIdx.x == 0) rounds_decided[i] = all_done && any_valid;
+}
+
 extern "C" int babble_decide_fame(
     const int32_t* wtable, const int32_t* la, const int32_t* fd,
     const int32_t* index, const uint8_t* coin_bit, const int32_t* last_round,
-    uint8_t* ss, uint8_t* votes, uint8_t* decided, uint8_t* famous,
+    void* ss, void* votes, uint8_t* decided, uint8_t* famous,
     uint8_t* rounds_decided, int r_max, int n, int e, int super_majority,
-    int n_participants, int d_cap, int device, void* stream) {
+    int n_participants, int d_cap, int packed, int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (packed) {
+        // ss (r_max, n, words) and votes (r_max, n, words) uint32 words
+        const int words = (n + 31) / 32;
+        const size_t smem_setup =
+            ((size_t)64 * babble_tile_ld(n) + (size_t)3 * n) * sizeof(int32_t);
+        if (smem_setup > 48 * 1024) {
+            BABBLE_CHECK(cudaFuncSetAttribute(fame_setup_packed,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_setup));
+        }
+        fame_setup_packed<<<dim3(r_max, words), DF_THREADS, smem_setup, s>>>(
+            wtable, la, fd, index, (uint32_t*)ss, (uint32_t*)votes, r_max, n, e,
+            words, super_majority);
+        BABBLE_CHECK_LAUNCH();
+        const size_t smem_vote =
+            ((size_t)2 * n * words + (size_t)n * (words | 1) + (size_t)8 * n) * sizeof(int32_t);
+        if (smem_vote > 48 * 1024) {
+            BABBLE_CHECK(cudaFuncSetAttribute(fame_vote_packed,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_vote));
+        }
+        fame_vote_packed<<<r_max, DF_THREADS, smem_vote, s>>>(
+            wtable, coin_bit, last_round, (const uint32_t*)ss, (const uint32_t*)votes,
+            decided, famous, rounds_decided, r_max, n, e, words, super_majority,
+            n_participants, d_cap);
+        BABBLE_CHECK_LAUNCH();
+        return 0;
+    }
+    uint8_t* ss8 = (uint8_t*)ss;
+    uint8_t* votes8 = (uint8_t*)votes;
     long long cells = (long long)r_max * n * n;
     fame_setup<<<babble_blocks(cells, 256), 256, 0, s>>>(
-        wtable, la, fd, index, ss, votes, r_max, n, e, super_majority);
+        wtable, la, fd, index, ss8, votes8, r_max, n, e, super_majority);
     BABBLE_CHECK_LAUNCH();
     size_t smem = (size_t)6 * n * sizeof(int32_t);
     if (smem > 48 * 1024) {
@@ -177,7 +414,7 @@ extern "C" int babble_decide_fame(
             fame_vote, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
     }
     fame_vote<<<r_max, 256, smem, s>>>(
-        wtable, coin_bit, last_round, ss, votes, decided, famous, rounds_decided,
+        wtable, coin_bit, last_round, ss8, votes8, decided, famous, rounds_decided,
         r_max, n, e, super_majority, n_participants, d_cap);
     BABBLE_CHECK_LAUNCH();
     return 0;

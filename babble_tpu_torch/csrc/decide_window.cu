@@ -30,14 +30,26 @@
 // int32, 2 MB at 64 rounds of 64 x 64) and the e_win rows' index /
 // creator / rounds / received; the tallies are 8 x r_win x N x N popcounts
 // of N / 32 words. The card's time goes to chains of dependent loads, so
-// each launch fetches what it needs in one round trip: setup (one block
-// per window round: the la_w / fd_w rows of its round and both
-// neighbours staged in shared memory padded to N + 1 words, then ss rows
-// and the d = 1 vote columns as bit words), vote (one block per window
-// round, all eight offsets' rows fetched at once, the votes in shared
-// memory), tables (one block per round, eight loads in flight per thread)
-// and events (a grid over all E_cap rows: received in the window, the
-// stale detector below it; the horizon scanned in shared memory).
+// each launch fetches what it needs in one round trip: setup, vote (one
+// block per window round, all eight offsets' rows fetched at once, the
+// votes in shared memory), tables (one block per round, eight loads in
+// flight per thread) and events (a grid over all E_cap rows: received in
+// the window, the stale detector below it; the horizon scanned in shared
+// memory). Setup runs one block per (window round, tile of 32 rows y):
+// the la_w rows of its tile stay in shared memory while the fd_w rows of
+// the round below pass through a second tile 32 rows at a time (one warp
+// per row y, one lane per witness w, 16-byte loads), each giving one ss
+// bit word by ballot; then the second tile takes the la_w rows of the
+// round above and gives the d = 1 vote columns' word of this tile. Two
+// tiles of 32 rows, not whole rounds, so the setup's shared memory grows
+// as 64 N words: the width limit is the vote launch's, whose votes and
+// eight ss offsets of N rows of W = ceil(N / 32) words (the ss rows
+// padded to an odd stride, W | 1, so that lanes over rows hit distinct
+// banks) are (2 N W + 8 N (W | 1) + 21 N) x 4 bytes, 384 validators at
+// most (the wrapper checks it).
+//
+// Both voting-table layouts launch this kernel: its tallies are bit words
+// already, so the packed layout (tpu/packed.py) has nothing to change.
 
 #include "common.cuh"
 
@@ -69,65 +81,83 @@ dw_setup(const int32_t* __restrict__ wtable, const int32_t* __restrict__ la_w,
          uint32_t* ss_bits, uint32_t* vt0, int n, int r_cap, int r_win,
          int words, int super_majority) {
     extern __shared__ int32_t smem[];
-    const int ld = n + 1;            // padded row stride: conflict-free columns
-    int32_t* la_s = smem;            // (n, ld) la_w rows of round a
-    int32_t* fd_s = la_s + n * ld;   // (n, ld) fd_w rows of round a - 1
-    int32_t* la_n = fd_s + n * ld;   // (n, ld) la_w rows of round a + 1
-    int32_t* wv_j = la_n + n * ld;   // (n,) witness present in round a
-    int32_t* wv_p = wv_j + n;        // ... in round a - 1 (inside the window)
-    int32_t* wv_n = wv_p + n;        // ... in round a + 1 (inside the window)
-    int32_t* idx_a = wv_n + n;       // (n,) idx_w of round a
+    const int ld = babble_tile_ld(n);
+    int32_t* tile_a = smem;            // (32, ld) la_w rows y of round a, this y tile
+    int32_t* tile_b = tile_a + 32 * ld;  // (32, ld) fd_w rows of round a - 1 (a w
+                                       // tile), then la_w rows y of round a + 1
+    int32_t* wv_j = tile_b + 32 * ld;  // (n,) witness present in round a
+    int32_t* wv_p = wv_j + n;          // ... in round a - 1 (inside the window)
+    int32_t* wv_n = wv_p + n;          // ... in round a + 1 (inside the window)
+    int32_t* idx_a = wv_n + n;         // (n,) idx_w of round a
     __shared__ int sh_floor;
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int j = blockIdx.x;
+    const int yt = blockIdx.y;  // rows y = 32 yt + warp, and vote word yt
+    const int y = yt * 32 + warp;
 
     if (threadIdx.x == 0) {
         int ft, fl;
         dw_floor(rounds_decided, *last_round, r_cap, r_win, &ft, &fl);
         sh_floor = fl;
-        if (j == 0) {
+        if (j == 0 && yt == 0) {
             scal[0] = fl;
             scal[1] = ft;
         }
     }
     __syncthreads();
     const int a = sh_floor + j;
-    for (int k = threadIdx.x; k < n * n; k += blockDim.x) {
-        const int y = k / n, q = k % n;
-        la_s[y * ld + q] = la_w[(long long)a * n * n + k];
-        if (j > 0) fd_s[y * ld + q] = fd_w[(long long)(a - 1) * n * n + k];
-        if (j + 1 < r_win) la_n[y * ld + q] = la_w[(long long)(a + 1) * n * n + k];
+    const long long nn = (long long)n * n;
+    for (int x = threadIdx.x; x < n; x += blockDim.x) {
+        wv_j[x] = wtable[(long long)a * n + x] >= 0;
+        wv_p[x] = j > 0 && wtable[(long long)(a - 1) * n + x] >= 0;
+        wv_n[x] = j + 1 < r_win && wtable[(long long)(a + 1) * n + x] >= 0;
+        idx_a[x] = idx_w[(long long)a * n + x];
     }
-    for (int y = threadIdx.x; y < n; y += blockDim.x) {
-        wv_j[y] = wtable[(long long)a * n + y] >= 0;
-        wv_p[y] = j > 0 && wtable[(long long)(a - 1) * n + y] >= 0;
-        wv_n[y] = j + 1 < r_win && wtable[(long long)(a + 1) * n + y] >= 0;
-        idx_a[y] = idx_w[(long long)a * n + y];
-    }
+    babble_stage_tile(tile_a, ld, n, BABBLE_MIN_INT32, [&](int r) {
+        const int yy = yt * 32 + r;
+        return yy < n ? la_w + a * nn + (long long)yy * n : nullptr;
+    });
     __syncthreads();
+    // the tile holds a row to count only where round a - 1 exists
+    const int any_y = __syncthreads_or(j > 0 && y < n && wv_j[y]);
 
-    // ss row bits: word wd of row y holds witnesses w = 32 wd + lane
-    for (int task = warp; task < n * words; task += DW_WARPS) {
-        const int y = task / words, wd = task % words;
-        const int wi = wd * 32 + lane;
+    // ss row bits: word wt of row y holds witnesses w = 32 wt + lane
+    for (int wt = 0; wt < words; ++wt) {
+        const int w = wt * 32 + lane;
+        const int go = any_y && __syncthreads_or(w < n && wv_p[w]);
         int s = 0;
-        if (wi < n && wv_j[y] && wv_p[wi]) {
-            int cnt = 0;
-            for (int q = 0; q < n; ++q) cnt += la_s[y * ld + q] >= fd_s[wi * ld + q];
-            s = cnt >= super_majority;
+        if (go) {
+            babble_stage_tile(tile_b, ld, n, BABBLE_MAX_INT32, [&](int r) {
+                const int ww = wt * 32 + r;
+                return ww < n ? fd_w + (a - 1) * nn + (long long)ww * n : nullptr;
+            });
+            __syncthreads();
+            if (y < n && w < n && wv_j[y] && wv_p[w]) {
+                s = babble_tile_count_ge(tile_a + warp * ld, tile_b + lane * ld, ld)
+                    >= super_majority;
+            }
         }
         const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, s);
-        if (lane == 0) ss_bits[((long long)j * n + y) * words + wd] = bits;
+        if (lane == 0 && y < n) ss_bits[((long long)j * n + y) * words + wt] = bits;
+        __syncthreads();  // tile_b is restaged next
     }
-    // d = 1 vote column bits: word wd of column x holds voters y = 32 wd + lane
-    for (int task = warp; task < n * words; task += DW_WARPS) {
-        const int x = task / words, wd = task % words;
-        const int y = wd * 32 + lane;
+
+    // d = 1 vote column bits: word yt of column x holds voters y = 32 yt +
+    // lane of round a + 1
+    if (j + 1 < r_win) {
+        babble_stage_tile(tile_b, ld, n, 0, [&](int r) {
+            const int yy = yt * 32 + r;
+            return yy < n ? la_w + (a + 1) * nn + (long long)yy * n : nullptr;
+        });
+    }
+    __syncthreads();
+    const int yv = yt * 32 + lane;
+    for (int x = warp; x < n; x += DW_WARPS) {
         int v = 0;
-        if (y < n && wv_n[y]) v = la_n[y * ld + x] >= idx_a[x];
+        if (yv < n && wv_n[yv]) v = tile_b[lane * ld + x] >= idx_a[x];
         const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, v);
-        if (lane == 0) vt0[((long long)j * n + x) * words + wd] = bits;
+        if (lane == 0) vt0[((long long)j * n + x) * words + yt] = bits;
     }
 }
 
@@ -140,10 +170,14 @@ dw_vote(const int32_t* __restrict__ wtable, const uint8_t* __restrict__ coin_w,
         int n_participants, int d_unroll) {
     extern __shared__ int32_t smem[];
     const int nw = n * words;
+    // ss rows are read by lanes over rows y: an odd row stride keeps the
+    // 32 lanes on 32 banks
+    const int ldw = words | 1;
+    const int nl = n * ldw;
     uint32_t* vt = (uint32_t*)smem;  // (n, words) vote columns of round i
     uint32_t* vt_next = vt + nw;
-    uint32_t* ss_all = vt_next + nw; // (d_unroll, n, words) ss rows of each voting round
-    int32_t* wv_i = (int32_t*)(ss_all + d_unroll * nw);  // (n,) witness x present in round i
+    uint32_t* ss_all = vt_next + nw; // (d_unroll, n, ldw) ss rows of each voting round
+    int32_t* wv_i = (int32_t*)(ss_all + d_unroll * nl);  // (n,) witness x present in round i
     int32_t* wv_all = wv_i + n;      // (d_unroll, n) voter y present in each voting round
     int32_t* coin_all = wv_all + d_unroll * n;  // (d_unroll, n) voter y's coin bit
     int32_t* dec = coin_all + d_unroll * n;     // (n,) decided[x]
@@ -166,7 +200,9 @@ dw_vote(const int32_t* __restrict__ wtable, const uint8_t* __restrict__ coin_w,
     for (int k = threadIdx.x; k < d_unroll * nw; k += blockDim.x) {
         const int j = i + 2 + k / nw;
         const bool j_ok = j <= lrr && j <= r_win - 1;
-        ss_all[k] = j_ok ? ss_bits[(long long)babble_clamp(j, 0, r_win - 1) * nw + k % nw] : 0u;
+        const int yk = k % nw;
+        ss_all[(k / nw) * nl + (yk / words) * ldw + yk % words] =
+            j_ok ? ss_bits[(long long)babble_clamp(j, 0, r_win - 1) * nw + yk] : 0u;
     }
     for (int k = threadIdx.x; k < d_unroll * n; k += blockDim.x) {
         const long long aj = (long long)(fl + babble_clamp(i + 2 + k / n, 0, r_win - 1)) * n;
@@ -177,7 +213,7 @@ dw_vote(const int32_t* __restrict__ wtable, const uint8_t* __restrict__ coin_w,
     for (int d = 2; d < 2 + d_unroll; ++d) {
         const int j = i + d;
         const bool j_ok = j <= lrr && j <= r_win - 1;
-        const uint32_t* ss_r = ss_all + (d - 2) * nw;  // zero where !j_ok
+        const uint32_t* ss_r = ss_all + (d - 2) * nl;  // zero where !j_ok
         const int32_t* wv_j = wv_all + (d - 2) * n;
         const int32_t* coin_j = coin_all + (d - 2) * n;
         const bool is_coin = (d % n_participants) == 0;
@@ -188,7 +224,7 @@ dw_vote(const int32_t* __restrict__ wtable, const uint8_t* __restrict__ coin_w,
             if (y < n) {
                 int yays = 0, total = 0;
                 for (int k = 0; k < words; ++k) {
-                    const uint32_t s = ss_r[y * words + k];
+                    const uint32_t s = ss_r[y * ldw + k];
                     yays += __popc(s & vt[x * words + k]);
                     total += __popc(s);
                 }
@@ -351,17 +387,18 @@ extern "C" int babble_decide_window(
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int words = (n + 31) / 32;
 
-    size_t smem_setup = ((size_t)3 * n * (n + 1) + (size_t)4 * n) * sizeof(int32_t);
+    size_t smem_setup = ((size_t)64 * babble_tile_ld(n) + (size_t)4 * n) * sizeof(int32_t);
     if (smem_setup > 48 * 1024) {
         BABBLE_CHECK(cudaFuncSetAttribute(
             dw_setup, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_setup));
     }
-    dw_setup<<<r_win, DW_THREADS, smem_setup, s>>>(
+    dw_setup<<<dim3(r_win, words), DW_THREADS, smem_setup, s>>>(
         wtable, la_w, fd_w, idx_w, rounds_decided, last_round, scal, ss_bits,
         vt0, n, r_cap, r_win, words, super_majority);
     BABBLE_CHECK_LAUNCH();
 
-    size_t smem_vote = ((size_t)(2 + d_unroll) * n * words + (size_t)(5 + 2 * d_unroll) * n)
+    size_t smem_vote = ((size_t)2 * n * words + (size_t)d_unroll * n * (words | 1)
+                        + (size_t)(5 + 2 * d_unroll) * n)
                        * sizeof(int32_t);
     if (smem_vote > 48 * 1024) {
         BABBLE_CHECK(cudaFuncSetAttribute(

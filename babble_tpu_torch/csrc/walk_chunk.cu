@@ -19,10 +19,20 @@
 // Bound: the chain of dependent steps. A step needs N*N fd words, up to
 // N*steps la rows and N*N INV words, and N*steps*N*N compares: a few
 // microseconds of bytes for a whole chunk, but step r+1 starts from X(r+1).
-// Design: one launch per chunk, one block. The frontier, fd_w (N x N, rows
-// padded to N + 1 words so that lanes reading one column of different rows
-// hit different banks) and m0 stay in shared memory for the whole chunk.
-// Per step: all threads load fd_w; a barrier; one warp per chain runs its
+// Design: one launch per chunk, one block. The frontier and m0 stay in
+// shared memory for the whole chunk, and so does the frontier rows' fd
+// table where it fits: it is kept transposed, fdT[p * ld + w] with ld = N
+// rounded up to odd, so that lanes reading the rows of consecutive
+// witnesses w at one coordinate p read consecutive words (no bank
+// conflict, and one cache line where the table lies in device memory).
+// Beside the probe rows (N int32 per warp), the table takes N x ld words:
+// past 223 validators it no longer fits in one block's shared memory, and
+// it lives in a scratch the wrapper allocates (L1- and L2-resident: N x ld
+// int32 is 257 KB at N = 256). The code is the same in both places; the
+// block's shared memory then holds (4 N + 32 N) words, 1,614 validators
+// at most (the wrapper checks it).
+// Per step: one warp per frontier row loads its fd row (lanes over p,
+// coalesced) into the table; a barrier; one warp per chain runs its
 // binary search (the probed la row is cached per warp in shared memory,
 // lanes count over the frontier rows, a warp sum gives the predicate); a
 // barrier; one warp per chain takes the cross-chain closure as a warp
@@ -33,6 +43,8 @@
 #include "common.cuh"
 
 #define WC_MAX_WARPS 32
+// largest dynamic shared memory one block may use on an H100
+#define WC_MAX_SMEM 232448
 
 __global__ void walk_chunk_kernel(const int32_t* __restrict__ inv,
                                   const int32_t* __restrict__ rows_by,
@@ -42,7 +54,7 @@ __global__ void walk_chunk_kernel(const int32_t* __restrict__ inv,
                                   const int32_t* __restrict__ seeds,
                                   const int32_t* __restrict__ r_abs,
                                   const int32_t* __restrict__ first_nw,
-                                  int32_t* x_last, int32_t* xs,
+                                  int32_t* x_last, int32_t* xs, int32_t* fd_scratch,
                                   int n, int l, int e_fd, int e_la,
                                   int super_majority, int length, int steps,
                                   int use_seeds) {
@@ -51,12 +63,15 @@ __global__ void walk_chunk_kernel(const int32_t* __restrict__ inv,
     int32_t* m0 = xc + n;          // (n,)
     int32_t* wok = m0 + n;         // (n,) countable frontier rows
     int32_t* clen = wok + n;       // (n,) chain lengths
-    int32_t* fdw = clen + n;       // (n, n + 1) frontier rows' fd, padded
-    const int ld = n + 1;
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int n_warps = blockDim.x >> 5;
-    int32_t* la_mid = fdw + n * ld + warp * n;  // (n,) this warp's probe row
+    int32_t* la_mid = clen + n + warp * n;  // (n,) this warp's probe row
+    const int ld = n | 1;
+    // (n, ld) frontier rows' fd, transposed: shared memory after the probe
+    // rows, or the scratch (no restrict, no read-only loads: this block
+    // writes it between the reads)
+    int32_t* fdT = fd_scratch != nullptr ? fd_scratch : clen + n + n_warps * n;
 
     for (int c = warp; c < n; c += n_warps) {
         int cnt = 0;
@@ -69,20 +84,17 @@ __global__ void walk_chunk_kernel(const int32_t* __restrict__ inv,
 
     for (int k = 0; k < length; ++k) {
         const int r_cur = r_abs[k];
-        // the frontier rows and their fd vectors
-        for (int t = threadIdx.x; t < n * n; t += blockDim.x) {
-            const int w = t / n, p = t % n;
+        // the frontier rows and their fd vectors, one warp per row
+        for (int w = warp; w < n; w += n_warps) {
             const int x = xc[w];
             bool ok = x < l;
             if (use_seeds) ok = ok && !(x == 0 && r_cur == first_nw[w]);
-            int v = BABBLE_MAX_INT32;
-            if (ok) {
-                const int row = babble_clamp(
-                    rows_by[(long long)w * l + babble_clamp(x, 0, l - 1)], 0, e_fd - 1);
-                v = fd[(long long)row * n + p];
+            const int row = ok ? babble_clamp(
+                rows_by[(long long)w * l + babble_clamp(x, 0, l - 1)], 0, e_fd - 1) : 0;
+            for (int p = lane; p < n; p += 32) {
+                fdT[p * ld + w] = ok ? fd[(long long)row * n + p] : BABBLE_MAX_INT32;
             }
-            fdw[w * ld + p] = v;
-            if (p == 0) wok[w] = ok;
+            if (lane == 0) wok[w] = ok;
         }
         __syncthreads();
         // m0: one warp per chain, exactly `steps` probes from lo = X[c]
@@ -99,9 +111,8 @@ __global__ void walk_chunk_kernel(const int32_t* __restrict__ inv,
                 int seen = 0;
                 for (int w = lane; w < n; w += 32) {
                     if (!wok[w]) continue;
-                    const int32_t* f = fdw + w * ld;
                     int cnt = 0;
-                    for (int p = 0; p < n; ++p) cnt += la_mid[p] >= f[p];
+                    for (int p = 0; p < n; ++p) cnt += la_mid[p] >= fdT[p * ld + w];
                     seen += cnt >= super_majority;
                 }
                 seen = __reduce_add_sync(BABBLE_FULL_MASK, seen);
@@ -139,19 +150,26 @@ extern "C" int babble_walk_chunk(
     const int32_t* inv, const int32_t* rows_by, const int32_t* fd,
     const int32_t* la, const int32_t* x0, const int32_t* seeds,
     const int32_t* r_abs, const int32_t* first_nw, int32_t* x_last,
-    int32_t* xs, int n, int l, int e_fd, int e_la, int super_majority,
-    int length, int steps, int use_seeds, int device, void* stream) {
+    int32_t* xs, int32_t* fd_scratch, int n, int l, int e_fd, int e_la,
+    int super_majority, int length, int steps, int use_seeds, int device,
+    void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int warps = n < WC_MAX_WARPS ? n : WC_MAX_WARPS;
-    const size_t smem = ((size_t)4 * n + (size_t)n * (n + 1) + (size_t)warps * n) * sizeof(int32_t);
+    // fd_scratch holds (n, n | 1) int32; the table goes to shared memory
+    // whenever it fits beside the frontier and the probe rows
+    const size_t base = ((size_t)4 * n + (size_t)warps * n) * sizeof(int32_t);
+    const size_t table = (size_t)n * (n | 1) * sizeof(int32_t);
+    const bool in_smem = base + table <= WC_MAX_SMEM;
+    const size_t smem = in_smem ? base + table : base;
     if (smem > 48 * 1024) {
         BABBLE_CHECK(cudaFuncSetAttribute(
             walk_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
     }
     walk_chunk_kernel<<<1, 32 * warps, smem, s>>>(
-        inv, rows_by, fd, la, x0, seeds, r_abs, first_nw, x_last, xs, n, l,
-        e_fd, e_la, super_majority, length, steps, use_seeds);
+        inv, rows_by, fd, la, x0, seeds, r_abs, first_nw, x_last, xs,
+        in_smem ? nullptr : fd_scratch, n, l, e_fd, e_la, super_majority,
+        length, steps, use_seeds);
     BABBLE_CHECK_LAUNCH();
     return 0;
 }

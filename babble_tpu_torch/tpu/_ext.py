@@ -8,9 +8,13 @@ Nothing here runs at import: the CPU tests import every module, and a
 host without a card never reaches the build.
 
 Every launch function checks device, dtype, shape and contiguity of its
-tensors, allocates its outputs and scratch with `torch.empty`, launches on
-PyTorch's current stream, raises if the C entry point returns a CUDA
-error, and only then adds one to its kernel's count in `LAUNCHES`.
+tensors and its block's shared memory, allocates its outputs and scratch
+with `torch.empty`, launches on PyTorch's current stream, raises if the C
+entry point returns a CUDA error, and only then adds one to its kernel's
+count in `LAUNCHES`. The four kernels that take the voting-table layout
+(`PACKED_KERNELS`) count a launch in the packed layout under
+"<name>/packed" and a wide one under "<name>", so a run can show which
+form ran: the two layouts give equal integers by design.
 """
 
 from __future__ import annotations
@@ -39,18 +43,18 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
     "frontier_rounds": (
         "frontier_walk.cu", "babble_frontier_rounds", "pppppppppppp" "iiiiii",
     ),
-    "decide_fame": ("decide_fame.cu", "babble_decide_fame", "ppppppppppp" "iiiiii"),
+    "decide_fame": ("decide_fame.cu", "babble_decide_fame", "ppppppppppp" "iiiiiii"),
     "round_received": (
         "round_received.cu", "babble_round_received", "pppppppppppppp" "iiii",
     ),
     "divide_rounds": (
-        "divide_rounds.cu", "babble_divide_rounds", "ppppppppppppppppp" "iiiiii",
+        "divide_rounds.cu", "babble_divide_rounds", "ppppppppppppppppp" "iiiiiii",
     ),
     "closure_la": (
         "closure_la.cu", "babble_closure_la_pass", "pppppppppp" "iiii",
     ),
     "walk_chunk": (
-        "walk_chunk.cu", "babble_walk_chunk", "pppppppppp" "iiiiiiii",
+        "walk_chunk.cu", "babble_walk_chunk", "ppppppppppp" "iiiiiiii",
     ),
     "lamport_scan": (
         "lamport_scan.cu", "babble_lamport_scan", "pppppppp" "iii",
@@ -59,7 +63,7 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
         "apply_deltas.cu", "babble_apply_deltas", "ppppppppppppp" "iiiii",
     ),
     "step_levels": (
-        "step_levels.cu", "babble_step_levels", "ppppppppppppppppppppppp" "iiiiiii",
+        "step_levels.cu", "babble_step_levels", "ppppppppppppppppppppppp" "iiiiiiii",
     ),
     "train_levels": (
         "train_levels.cu", "babble_train_levels",
@@ -74,11 +78,16 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
     ),
 }
 
+# the kernels that take the voting-table layout (tpu/packed.py)
+PACKED_KERNELS = ("decide_fame", "divide_rounds", "step_levels", "decide_window")
+
 # largest dynamic shared memory one block may use on an H100
 MAX_SMEM_BYTES = 232448
 
-# launches of each kernel's C entry point since the last reset
-LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# launches of each kernel's C entry point since the last reset, the
+# packed layout's under "<name>/packed"
+LAUNCHES: Dict[str, int] = dict.fromkeys(
+    list(KERNELS) + [f"{k}/packed" for k in PACKED_KERNELS], 0)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -176,7 +185,68 @@ def check_tensor(what: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{what}: not contiguous")
 
 
-def _launch(name: str, device: torch.device, args: Sequence) -> None:
+def _tile_ld(n: int) -> int:
+    """common.cuh babble_tile_ld: the int32 row stride of a staged tile."""
+    return 4 * (((n + 3) // 4) | 1)
+
+
+def smem_bytes(name: str, n: int, packed: bool = False, d_unroll: int = 8,
+               **shape) -> int:
+    """Dynamic shared memory of the largest block `name` launches with n
+    validators, as its C entry point sizes it. `shape` carries the other
+    sizes the level kernels take (divide_rounds: n_lvl; step_levels: w,
+    l_lv, b, r_cap)."""
+    words = (n + 31) // 32
+    if name == "decide_fame":
+        if not packed:
+            return 6 * n * 4
+        setup = 64 * _tile_ld(n) + 3 * n
+        vote = 2 * n * words + n * (words | 1) + 8 * n
+        return max(setup, vote) * 4
+    if name == "decide_window":
+        setup = 64 * _tile_ld(n) + 4 * n
+        vote = 2 * n * words + d_unroll * n * (words | 1) + (5 + 2 * d_unroll) * n
+        return max(setup, vote) * 4
+    if name == "walk_chunk":
+        # the transposed fd table moves to device memory where it does not
+        # fit; the frontier, the chain lengths and the probe rows stay
+        base = (4 * n + min(n, 32) * n) * 4
+        table = n * (n | 1) * 4
+        return base + table if base + table <= MAX_SMEM_BYTES else base
+    if name == "divide_rounds":
+        n_lvl = shape["n_lvl"]
+        return (3 * n_lvl + min(max(n_lvl, 1), 32) * 2 * n) * 4
+    if name == "step_levels":
+        w, l_lv, b, r_cap = shape["w"], shape["l_lv"], shape["b"], shape["r_cap"]
+        return (7 * w + l_lv * w + 7 * b + w * n) * 4 + r_cap * n
+    raise KeyError(name)
+
+
+def max_width(name: str, packed: bool = False, d_unroll: int = 8) -> int:
+    """The largest validator count whose blocks of `name` fit one block's
+    shared memory (decide_fame, decide_window, walk_chunk)."""
+    n = 1
+    while smem_bytes(name, n + 1, packed=packed, d_unroll=d_unroll) <= MAX_SMEM_BYTES:
+        n += 1
+        if n >= 1 << 16:
+            break
+    return n
+
+
+def check_smem(name: str, n: int, packed: bool = False, d_unroll: int = 8,
+               **shape) -> None:
+    """ValueError unless `name`'s blocks fit one block's shared memory."""
+    need = smem_bytes(name, n, packed=packed, d_unroll=d_unroll, **shape)
+    if need > MAX_SMEM_BYTES:
+        layout = "packed" if packed else "wide"
+        raise ValueError(
+            f"{name} ({layout}): {n} validators need {need} bytes of one "
+            f"block's shared memory, above the card's {MAX_SMEM_BYTES}"
+        )
+
+
+def _launch(name: str, device: torch.device, args: Sequence,
+            packed: bool = False) -> None:
     lib = _lib(name)
     _, fn, kinds = KERNELS[name]
     if len(args) != len(kinds):
@@ -190,7 +260,7 @@ def _launch(name: str, device: torch.device, args: Sequence) -> None:
     if rc != 0:
         msg = lib.babble_cuda_error_string(rc).decode()
         raise RuntimeError(f"{fn}: CUDA error {rc} ({msg})")
-    LAUNCHES[name] += 1
+    LAUNCHES[f"{name}/packed" if packed else name] += 1
 
 
 def build_inv(rows_by: torch.Tensor, la: torch.Tensor) -> torch.Tensor:
@@ -235,9 +305,10 @@ def frontier_rounds(inv, rows_by, creator, index, sp_index, fd,
 
 
 def decide_fame(wtable, la, fd, index, coin_bit, last_round,
-                super_majority: int, n_participants: int, d_cap: int):
-    """K3: virtual voting. Returns (decided (R, N) bool, famous (R, N)
-    bool, rounds_decided (R,) bool)."""
+                super_majority: int, n_participants: int, d_cap: int,
+                packed: bool = False):
+    """K3 (K3p with `packed`): virtual voting. Returns (decided (R, N)
+    bool, famous (R, N) bool, rounds_decided (R,) bool)."""
     dev = wtable.device
     r_max, n = wtable.shape
     e = la.shape[0]
@@ -249,16 +320,24 @@ def decide_fame(wtable, la, fd, index, coin_bit, last_round,
     check_tensor("last_round", last_round, torch.int32, (), dev)
     if e < 1 or n_participants < 1:
         raise ValueError("decide_fame: needs events and n_participants >= 1")
-    ss = torch.empty((r_max, n, n), dtype=torch.uint8, device=dev)
-    votes = torch.empty((r_max, 2, n, n), dtype=torch.uint8, device=dev)
+    check_smem("decide_fame", n, packed=packed)
+    if packed:
+        # (R, N, W) ss words, and the d = 1 votes as (R, N_x, W) words; the
+        # vote loop keeps each round's words in shared memory
+        words = (n + 31) // 32
+        ss = torch.empty((r_max, n, words), dtype=torch.int32, device=dev)
+        votes = torch.empty((r_max, n, words), dtype=torch.int32, device=dev)
+    else:
+        ss = torch.empty((r_max, n, n), dtype=torch.uint8, device=dev)
+        votes = torch.empty((r_max, 2, n, n), dtype=torch.uint8, device=dev)
     decided = torch.empty((r_max, n), dtype=torch.uint8, device=dev)
     famous = torch.empty((r_max, n), dtype=torch.uint8, device=dev)
     rounds_decided = torch.empty((r_max,), dtype=torch.uint8, device=dev)
     _launch("decide_fame", dev, (
         wtable, la, fd, index, coin_bit.view(torch.uint8), last_round, ss,
         votes, decided, famous, rounds_decided, r_max, n, e, super_majority,
-        n_participants, d_cap,
-    ))
+        n_participants, d_cap, int(packed),
+    ), packed=packed)
     return (decided.view(torch.bool), famous.view(torch.bool),
             rounds_decided.view(torch.bool))
 
@@ -296,8 +375,8 @@ def round_received(wtable, la, index, creator, rounds, decided, famous,
 def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
                   ext_sp_round, ext_op_round, fixed_round, ext_sp_lamport,
                   ext_op_lamport, fixed_lamport, super_majority: int,
-                  r_max: int):
-    """K5: the level scan. Returns (rounds (E,) int32, witness (E,) bool,
+                  r_max: int, packed: bool = False):
+    """K5 (K5p with `packed`): the level scan. Returns (rounds (E,) int32, witness (E,) bool,
     lamport (E,) int32, wtable (r_max, N) int32). `index` is not read (the
     reference's signature carries it)."""
     dev = la.device
@@ -315,9 +394,7 @@ def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
         check_tensor(what, t, torch.int32, (e,), dev)
     if e < 1 or r_max < 1:
         raise ValueError("divide_rounds: needs events and r_max >= 1")
-    warps = min(max(n_lvl, 1), 32)
-    if (3 * n_lvl + warps * 2 * n) * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"divide_rounds: {n} validators exceed one block's shared memory")
+    check_smem("divide_rounds", n, packed=packed, n_lvl=n_lvl)
     rounds = torch.empty((e,), dtype=torch.int32, device=dev)
     witness = torch.empty((e,), dtype=torch.uint8, device=dev)
     lamport = torch.empty((e,), dtype=torch.int32, device=dev)
@@ -327,8 +404,8 @@ def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
         levels, creator, self_parent, other_parent, la, fd, ext_sp_round,
         ext_op_round, fixed_round, ext_sp_lamport, ext_op_lamport,
         fixed_lamport, rounds, witness, lamport, wtable, last_level,
-        l_lv, n_lvl, e, n, super_majority, r_max,
-    ))
+        l_lv, n_lvl, e, n, super_majority, r_max, int(packed),
+    ), packed=packed)
     return rounds, witness.view(torch.bool), lamport, wtable
 
 
@@ -379,13 +456,15 @@ def walk_chunk(inv, rows_by, fd, la, x0, seeds, r_abs, first_nw,
     check_tensor("first_nw", first_nw, torch.int32, (n,), dev)
     if length < 1 or l < 1 or e_fd < 1 or e_la < 1:
         raise ValueError("walk_chunk: needs length >= 1, l >= 1 and events")
-    if (4 * n + n * (n + 1) + min(n, 32) * n) * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"walk_chunk: {n} validators exceed one block's shared memory")
+    check_smem("walk_chunk", n)
     x_last = torch.empty((n,), dtype=torch.int32, device=dev)
     xs = torch.empty((length, n), dtype=torch.int32, device=dev)
+    # the transposed fd table, where it does not fit in shared memory
+    fd_scratch = torch.empty((n, n | 1), dtype=torch.int32, device=dev)
     _launch("walk_chunk", dev, (
         inv, rows_by, fd, la, x0, seeds, r_abs, first_nw, x_last, xs,
-        n, l, e_fd, e_la, super_majority, length, steps, int(use_seeds),
+        fd_scratch, n, l, e_fd, e_la, super_majority, length, steps,
+        int(use_seeds),
     ))
     return x_last, xs
 
@@ -465,9 +544,11 @@ def _check_level_state(dev, fd, rounds, lamport, witness, wtable, w_of_row,
 def step_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
                 idx_w, coin_w, rounds_decided, last_round, count, stale,
                 rows, creator, index, sp_row, op_row, la_rows, coin,
-                fixed_round, levels, super_majority: int) -> None:
-    """K10, in place: the batch's (L, W) level table walked in order by one
-    block, witness registration, then last_round, count and the latches."""
+                fixed_round, levels, super_majority: int,
+                packed: bool = False) -> None:
+    """K10 (K10p with `packed`), in place: the batch's (L, W) level table
+    walked in order by one block, witness registration, then last_round,
+    count and the latches."""
     dev = fd.device
     e_cap, n, r_cap = _check_level_state(
         dev, fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
@@ -483,17 +564,15 @@ def step_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
     check_tensor("levels", levels, torch.int32, (l_lv, w), dev)
     if b < 1 or w < 1:
         raise ValueError("step_levels: needs a non-empty batch and level width")
-    smem = (7 * w + l_lv * w + 7 * b + w * n) * 4 + r_cap * n
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"step_levels: {n} validators exceed one block's shared memory")
+    check_smem("step_levels", n, packed=packed, w=w, l_lv=l_lv, b=b, r_cap=r_cap)
     _launch("step_levels", dev, (
         fd, rounds, lamport, witness.view(torch.uint8), wtable, w_of_row,
         la_w, fd_w, idx_w, coin_w.view(torch.uint8),
         rounds_decided.view(torch.uint8), last_round, count,
         stale.view(torch.uint8), rows, creator, index, sp_row, op_row,
         la_rows, coin.view(torch.uint8), fixed_round, levels,
-        e_cap, n, r_cap, b, l_lv, w, super_majority,
-    ))
+        e_cap, n, r_cap, b, l_lv, w, super_majority, int(packed),
+    ), packed=packed)
 
 
 def train_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
@@ -538,10 +617,12 @@ def decide_window(wtable, la_w, fd_w, idx_w, coin_w, fame_decided, famous,
                   rounds_decided, last_round, count, index, creator, rounds,
                   received, stale, fame_lag, super_majority: int,
                   n_participants: int, r_win: int, e_win: int,
-                  d_unroll: int) -> None:
+                  d_unroll: int, packed: bool = False) -> None:
     """K12, in place: fame over the r_win-round window from the first
     undecided round (freeze mask below it), round received over the
-    trailing e_win rows, the stale detector and the fame_lag latch."""
+    trailing e_win rows, the stale detector and the fame_lag latch. Its
+    tallies are bit words in both layouts, so `packed` launches the same
+    kernel and counts it as decide_window/packed."""
     dev = wtable.device
     r_cap, n = wtable.shape
     e_cap = index.shape[0]
@@ -562,8 +643,7 @@ def decide_window(wtable, la_w, fd_w, idx_w, coin_w, fame_decided, famous,
     if not (1 <= r_win <= r_cap and 1 <= e_win <= e_cap) or n_participants < 1:
         raise ValueError("decide_window: windows must fit the capacities")
     words = (n + 31) // 32
-    if (3 * n * (n + 1) + 4 * n) * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"decide_window: {n} validators exceed one block's shared memory")
+    check_smem("decide_window", n, packed=packed, d_unroll=d_unroll)
     scal = torch.empty((2,), dtype=torch.int32, device=dev)
     ss_bits = torch.empty((r_win, n, words), dtype=torch.int32, device=dev)
     vt0 = torch.empty((r_win, n, words), dtype=torch.int32, device=dev)
@@ -578,7 +658,7 @@ def decide_window(wtable, la_w, fd_w, idx_w, coin_w, fame_decided, famous,
         scal, ss_bits, vt0, min_la, famous_count, i_ok,
         e_cap, n, r_cap, r_win, e_win, super_majority, n_participants,
         d_unroll,
-    ))
+    ), packed=packed)
 
 
 def pack_results(rounds, lamport, witness, received, wtable, fame_decided,

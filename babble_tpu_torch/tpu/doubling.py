@@ -21,7 +21,8 @@ is replayed in O(log depth) device passes instead of one step per level
    `_lamport_levels_scan`, the lamport slice of the level scan.
 
 Fame and round-received reuse decide_fame / decide_round_received over the
-host-assembled witness table. Each kernel wrapper runs its plain PyTorch
+host-assembled witness table, the fame vote in the voting-table layout the
+knob resolves (tpu/packed.py). Each kernel wrapper runs its plain PyTorch
 version on a CPU tensor and launches its hand-written kernel
 (babble_tpu_torch/csrc/closure_la.cu, walk_chunk.cu, lamport_scan.cu) on a
 CUDA tensor. Host staging is numpy, copied from the reference.
@@ -50,11 +51,11 @@ from .engine import (
     _frontier_safe,
     pad_grid,
     rebase_rounds,
-    refuse_packed,
 )
 from .frontier import build_inv, level_lamport
 from .grid import MAX_INT32, MIN_INT32, DagGrid, GridUnsupported
 from .kernels import decide_fame, decide_round_received, last_level
+from .packed import resolve_packed
 
 # ---------------------------------------------------------------------------
 # crossover selection (engine ladder)
@@ -325,12 +326,14 @@ def _doubling_walk(put, inv, rows_by_d, fd_d, la_d, x0, s_np, first_nw,
 
 
 def _fame_received(wtable, la, fd, index, creator, coin, rounds, last_round,
-                   super_majority: int, n_participants: int, d_cap: int):
-    """DecideFame then DecideRoundReceived over a host-assembled witness
-    table: (decided, famous, rounds_decided, received)."""
+                   super_majority: int, n_participants: int, d_cap: int,
+                   packed: bool = False):
+    """DecideFame (in the layout `packed` names) then DecideRoundReceived
+    over a host-assembled witness table: (decided, famous, rounds_decided,
+    received)."""
     fame = decide_fame(
         wtable, la, fd, index, coin, last_round,
-        super_majority, n_participants, d_cap,
+        super_majority, n_participants, d_cap, packed=packed,
     )
     received = decide_round_received(
         wtable, la, index, creator, rounds,
@@ -659,11 +662,11 @@ def run_doubling_passes(
     """Passes 1-3 through the cold path, on the CUDA card by default
     (device="cpu" runs the plain versions); the same PassResults contract
     as run_passes / run_frontier_passes. `stats` receives closure_passes,
-    walk_chunks, depth, rounds and passes. Raises GridUnsupported on
-    anything the cold path cannot certify, and NotImplementedError for the
-    packed layout."""
+    walk_chunks, depth, rounds and passes. The fame vote's layout is
+    `packed`, or the knob's when None. Raises GridUnsupported on anything
+    the cold path cannot certify."""
     dev = resolve_device(device)
-    refuse_packed(grid, packed)
+    pk = resolve_packed(packed, grid.n)
     st = stats if stats is not None else {}
     (grid_rb, offset, rounds_np, witness_np, lamport_np, wtable_np,
      last_round) = _doubling_stage1(grid, dev, st)
@@ -678,7 +681,7 @@ def run_doubling_passes(
         put(grid_p.first_descendants), put(grid_p.index), put(grid_p.creator),
         put(grid_p.coin_bit.astype(bool)), put(rounds_p),
         torch.tensor(last_round, dtype=torch.int32, device=dev),
-        grid.super_majority, grid.n, d_cap,
+        grid.super_majority, grid.n, d_cap, packed=pk,
     )
     received = received.cpu().numpy()[:e_real]
     st["passes"] = st.get("closure_passes", 0) + st.get("walk_chunks", 0) + 1

@@ -15,7 +15,9 @@ Hashgraph with grid_from_hashgraph, runs the reference's rung order
 level scan) and writes the results back through the same validation
 gates (`validate_round_writeback`, `admissible_receptions`,
 `integrate_pass_results`), so the host's passes 4-5 commit byte-identical
-blocks. Not ported yet: the mesh branch and the packed voting layout.
+blocks. The voting-table layout resolves as in the reference
+(`resolve_packed(packed, n)`: the packed one from 128 validators up by
+default, tpu/packed.py). Not ported yet: the mesh branch.
 """
 
 from __future__ import annotations
@@ -103,16 +105,6 @@ def pad_grid(grid: DagGrid) -> DagGrid:
         num_levels=l_b,
         hashes=grid.hashes,
     )
-
-
-def refuse_packed(grid: DagGrid, packed: Optional[bool]) -> None:
-    """NotImplementedError for the packed voting layout: packed=True, or
-    packed=None where the reference's knob picks it (by default from 128
-    validators up; tpu/packed.py)."""
-    if resolve_packed(packed, grid.n):
-        raise NotImplementedError(
-            "the packed voting layout is not ported yet; pass packed=False"
-        )
 
 
 def rebase_rounds(grid: DagGrid):
@@ -240,12 +232,12 @@ def run_frontier_passes(
     the CUDA card by default (device="cpu" runs the plain versions).
     Bucketed shapes and the adaptive round axis as in the reference.
 
-    Raises GridUnsupported on a grid that is not frontier-safe (post-reset
-    grids take run_passes or run_doubling_passes) and NotImplementedError
-    for the packed layout (packed=True, or packed=None at >= 128
-    validators)."""
+    The voting-table layout is `packed`, or the knob's when None (the
+    packed one from 128 validators up). Raises GridUnsupported on a grid
+    that is not frontier-safe (post-reset grids take run_passes or
+    run_doubling_passes)."""
     dev = resolve_device(device)
-    refuse_packed(grid, packed)
+    pk = resolve_packed(packed, grid.n)
     if not _frontier_safe(grid):
         raise GridUnsupported(
             "post-reset grid: the round-frontier walk covers base grids only; "
@@ -261,7 +253,7 @@ def run_frontier_passes(
         return frontier_pipeline(
             inv, st.rows_by, st.creator, st.index, st.sp_index, st.la, st.fd,
             st.lamport, st.coin_bit, grid.super_majority, grid.n, r_cap,
-            d_cap=d_max,
+            d_cap=d_max, packed=pk,
         )
 
     res, last_round = _adaptive_r_loop(run_fn, grid.n, st.rows_by.shape[1] + 2)
@@ -321,10 +313,9 @@ def run_passes(
     With bucketed=True, the round axis is rebased and shapes are padded as
     in the reference; with adaptive_r, the fame/received round axis starts
     from the grow-only hint shared with run_frontier_passes and re-runs one
-    bucket up on overflow. Raises NotImplementedError for the packed
-    layout, as run_frontier_passes does."""
+    bucket up on overflow. The layout resolves as in run_frontier_passes."""
     dev = resolve_device(device)
-    refuse_packed(grid, packed)
+    pk = resolve_packed(packed, grid.n)
     e_real = grid.e
     grid, offset, r_max = scan_layout(grid, bucketed)
     inputs = stage_scan(grid, dev)
@@ -335,6 +326,7 @@ def run_passes(
         d_cap = d_max if d_max is not None else r_fame + 2
         return consensus_pipeline(
             *inputs, grid.super_majority, grid.n, r_max, r_fame, d_cap,
+            packed=pk,
         )
 
     if adaptive_r:
@@ -494,18 +486,12 @@ def run_consensus_device(
     received back into the store -> host ProcessDecidedRounds +
     ProcessSigPool (unchanged, so blocks come out byte-identical). Deep
     grids take the cold path, base grids the round-frontier walk,
-    post-reset states the level scan. Raises NotImplementedError where
-    the packed voting layout resolves (tpu/packed.py), before anything is
-    staged."""
+    post-reset states the level scan, each in the voting-table layout
+    the knob resolves for this validator count (tpu/packed.py)."""
     dev = resolve_device(device)
     # resolve the voting-table layout once so every engine rung below runs
-    # the same one; the port has the wide one only
+    # the same one
     pk = resolve_packed(None, len(hg.participants.to_peer_slice()))
-    if pk:
-        raise NotImplementedError(
-            "the packed voting layout is not ported yet; set "
-            "BABBLE_PACKED_VOTING=0"
-        )
     obs, clock = hg.obs, hg.obs.clock
     _t0 = clock.monotonic()
     grid = grid_from_hashgraph(hg)

@@ -264,16 +264,19 @@ def frontier_pipeline(
     n_participants: int,
     r_cap: int,
     d_cap: Optional[int] = None,
+    packed: bool = False,
 ) -> PipelineResult:
     """DivideRounds (frontier walk) + DecideFame + DecideRoundReceived;
     the same output contract as the reference's frontier_pipeline. d_cap
-    caps the fame voting offset; default r_cap + 2. Wide layout only."""
+    caps the fame voting offset; default r_cap + 2. `packed` picks the
+    fame vote's voting-table layout."""
     fr = frontier_rounds(
         inv, rows_by, creator, index, sp_index, fd, super_majority, r_cap, la=la,
     )
     fame = decide_fame(
         fr.witness_table, la, fd, index, coin_bit, fr.last_round,
         super_majority, n_participants, r_cap + 2 if d_cap is None else d_cap,
+        packed=packed,
     )
     received = decide_round_received(
         fr.witness_table, la, index, creator, fr.rounds,

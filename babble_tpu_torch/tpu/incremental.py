@@ -1,7 +1,7 @@
 """Incremental device consensus for the PyTorch port: persistent DAG state
 on the card, advanced by gossip-sized append batches and by whole trains.
 
-Counterpart of babble_tpu/tpu/incremental.py, wide layout. The host ships
+Counterpart of babble_tpu/tpu/incremental.py. The host ships
 O(batch) data per append: the new rows' coordinates, identity and parent
 pointers, the write-once first-descendant cell writes their inserts cause,
 and a dependency-level table. Everything the strongly-see / fame /
@@ -34,6 +34,11 @@ Four kernels carry the card path (babble_tpu_torch/csrc/):
 
 `step` = K9 -> K10 -> K12, `multi_step` = K x (K9 -> K10) then K12,
 `train_step` = K9 -> K11 -> K12, `multi_train` = K x (K9 -> K11) then K12.
+`step` and `multi_step` take either voting-table layout (`packed`, as in
+the reference: K10 and K12 count by popcount over uint32 lanes, with the
+same integers); the train paths have the wide layout only and raise
+NotImplementedError for the packed one (K11's packed branch is still to
+be ported).
 Each wrapper runs its plain PyTorch version when the state lies on the
 CPU and its kernel when it lies on a CUDA card. The plain versions repeat
 the reference's integer arithmetic with explicit index masks where JAX
@@ -60,6 +65,7 @@ from .device import resolve_device, to_device
 from .frontier import level_lamport
 from .grid import MAX_INT32, DagGrid
 from .kernels import _fame_setup_tables, received_core, suffix_min
+from .packed import pack_bits, pack_votes_t, packed_count, packed_tally, popcount_sum
 
 # cap for "no first descendant yet" sentinels: every real event index is
 # < 2^24, so a 2^24 sentinel loses exactly like MAX_INT32 against any
@@ -228,9 +234,11 @@ def device_put(x: Inputs, device=None) -> Inputs:
 
 
 def _refuse_packed(packed: bool) -> None:
+    """The train paths' K11 has the wide layout only."""
     if packed:
         raise NotImplementedError(
-            "the packed voting layout is not ported yet; pass packed=False"
+            "the packed layout of the train paths (K11) is not ported yet; "
+            "pass packed=False or use step / multi_step"
         )
 
 
@@ -306,11 +314,13 @@ def _late_witness(state: IncState, rounds_b, witness_b, valid) -> torch.Tensor:
     return (witness_b & valid & rd & (rounds_b >= 0) & (rounds_b < r_cap)).any()
 
 
-def _step_levels_plain(state: IncState, batch: Batch, super_majority: int) -> None:
+def _step_levels_plain(state: IncState, batch: Batch, super_majority: int,
+                       packed: bool = False) -> None:
     """Rounds / lamport / witness of the batch's rows, one level at a time
     (each level reads the carry in full before it writes), witness
     registration into the dense buffers, then last_round, count and the
-    round-capacity and late-witness latches."""
+    round-capacity and late-witness latches. `packed` counts by popcount
+    over uint32 lanes, as the reference's packed branch does."""
     e_cap, n = state.la.shape
     r_cap = state.wtable.shape[0]
     n_b = batch.rows.shape[0]
@@ -328,9 +338,14 @@ def _step_levels_plain(state: IncState, batch: Batch, super_majority: int) -> No
         pr = parent_round.clamp(0, r_cap - 1).long()
         wvalid = (state.wtable[pr] >= 0) & (parent_round[:, None] >= 0)
         la_e = batch.la_rows[p]
-        counts = (la_e[:, None, :] >= state.fd_w[pr]).sum(dim=-1, dtype=_I32)
-        ss = (counts >= super_majority) & wvalid
-        c_seen = ss.sum(dim=-1, dtype=_I32)
+        if packed:
+            counts = packed_count(la_e[:, None, :] >= state.fd_w[pr])
+            ss = (counts >= super_majority) & wvalid
+            c_seen = packed_count(ss)
+        else:
+            counts = (la_e[:, None, :] >= state.fd_w[pr]).sum(dim=-1, dtype=_I32)
+            ss = (counts >= super_majority) & wvalid
+            c_seen = ss.sum(dim=-1, dtype=_I32)
 
         new_round = parent_round + (c_seen >= super_majority).to(_I32)
         fixed = batch.fixed_round[p]
@@ -376,11 +391,13 @@ def _step_levels_plain(state: IncState, batch: Batch, super_majority: int) -> No
     state.stale.logical_or_(overflow | late)
 
 
-def _step_levels(state: IncState, batch: Batch, super_majority: int) -> None:
+def _step_levels(state: IncState, batch: Batch, super_majority: int,
+                 packed: bool = False) -> None:
     """K10 (the level half of babble_tpu/tpu/incremental.py:243
-    _step_body). CPU: the plain version; CUDA: csrc/step_levels.cu."""
+    _step_body). CPU: the plain version; CUDA: csrc/step_levels.cu, in
+    the layout `packed` names."""
     if state.la.device.type == "cpu":
-        _step_levels_plain(state, batch, super_majority)
+        _step_levels_plain(state, batch, super_majority, packed)
         return
     _ext.step_levels(
         state.fd, state.rounds, state.lamport, state.witness, state.wtable,
@@ -388,16 +405,16 @@ def _step_levels(state: IncState, batch: Batch, super_majority: int) -> None:
         state.rounds_decided, state.last_round, state.count, state.stale,
         batch.rows, batch.creator, batch.index, batch.sp_row, batch.op_row,
         batch.la_rows, batch.coin, batch.fixed_round, batch.levels,
-        super_majority,
+        super_majority, packed=packed,
     )
 
 
 def _step_body(state: IncState, batch: Batch, super_majority: int,
-               n_participants: int) -> IncState:
+               n_participants: int, packed: bool = False) -> IncState:
     """Append one batch: K9 then K10. Fame and received are _decide_body's."""
     batch = device_put(batch, state.la.device)
     _apply_deltas_and_stage(state, batch)
-    _step_levels(state, batch, super_majority)
+    _step_levels(state, batch, super_majority, packed)
     return state
 
 
@@ -531,19 +548,27 @@ def _train_body(state: IncState, train: Train, super_majority: int,
 
 
 def _fame_window(w_valid, la_w, fd_w, idx_w, coin_w, last_round_rel,
-                 super_majority: int, n_participants: int):
+                 super_majority: int, n_participants: int,
+                 packed: bool = False):
     """DecideFame over a contiguous window of r_win rounds, with the fixed
     offsets d = 2 .. D_UNROLL + 1 and no early exit. Returns (decided,
     famous, rounds_decided, overflow); overflow reports witnesses that
     needed votes beyond the unroll or the window top. The reference rolls
     the round axis and masks the wrapped rows; here the neighbour round is
-    indexed directly and the same rows are masked."""
+    indexed directly and the same rows are masked. With `packed` the
+    strongly-see tensor and the carried votes hold their voted-witness
+    axis in uint32 lanes and the tallies are popcounts, as in the
+    reference's packed branch."""
     r_win, n = w_valid.shape
     dev = w_valid.device
     ss, votes, _, _ = _fame_setup_tables(
-        w_valid, la_w, fd_w, idx_w, coin_w, super_majority)
+        w_valid, la_w, fd_w, idx_w, coin_w, super_majority, packed=packed)
     lrr = torch.as_tensor(last_round_rel, dtype=_I32, device=dev)
     i_arr = torch.arange(r_win, device=dev)
+    if packed:
+        ss_p = pack_bits(ss)  # (r_win, N_y, W)
+        total_p = popcount_sum(ss_p)
+        votes = pack_votes_t(votes)
     decided = torch.zeros((r_win, n), dtype=torch.bool, device=dev)
     famous = torch.zeros_like(decided)
     for d in range(2, 2 + D_UNROLL):
@@ -553,9 +578,14 @@ def _fame_window(w_valid, la_w, fd_w, idx_w, coin_w, last_round_rel,
         j_ok = (j <= lrr) & (j <= r_win - 1)
         jc = j.clamp(0, r_win - 1)
         vy = w_valid[jc] & j_ok[:, None]
-        ss_d = ss[jc] & j_ok[:, None, None]
-        yays = (ss_d[:, :, :, None] & votes[:, None, :, :]).sum(dim=2, dtype=_I32)
-        total = ss_d.sum(dim=-1, dtype=_I32)
+        if packed:
+            ss_d = torch.where(j_ok[:, None, None], ss_p[jc], torch.zeros_like(ss_p[jc]))
+            yays = packed_tally(ss_d, votes)
+            total = torch.where(j_ok[:, None], total_p[jc], torch.zeros_like(total_p[jc]))
+        else:
+            ss_d = ss[jc] & j_ok[:, None, None]
+            yays = (ss_d[:, :, :, None] & votes[:, None, :, :]).sum(dim=2, dtype=_I32)
+            total = ss_d.sum(dim=-1, dtype=_I32)
         nays = total[:, :, None] - yays
         v = yays >= nays
         t = torch.where(v, yays, nays)
@@ -570,6 +600,9 @@ def _fame_window(w_valid, la_w, fd_w, idx_w, coin_w, last_round_rel,
             famous = torch.where(any_decide, fame_val, famous)
             decided = decided | any_decide
             votes = v
+        if packed:
+            # voters y of this step are the next step's voted witnesses
+            votes = pack_votes_t(votes)
     rounds_decided = (decided | ~w_valid).all(dim=1) & w_valid.any(dim=1)
     overflow = (
         (w_valid & ~decided & ((i_arr[:, None] + 2 + D_UNROLL) <= lrr)).any()
@@ -589,7 +622,7 @@ def _check_windows(state: IncState, r_win: int, e_win: int) -> None:
 
 
 def _decide_body_plain(state: IncState, super_majority: int, n_participants: int,
-                       r_win: int, e_win: int) -> None:
+                       r_win: int, e_win: int, packed: bool = False) -> None:
     """Fame over the r_win rounds from the first undecided one (rounds
     below it are settled for good: the freeze keeps their stored values),
     round received over the trailing e_win rows, the stale detector over
@@ -607,7 +640,7 @@ def _decide_body_plain(state: IncState, super_majority: int, n_participants: int
     dec_w, fam_w, rdec_w, fame_overflow = _fame_window(
         state.wtable[win] >= 0, state.la_w[win], state.fd_w[win],
         state.idx_w[win], state.coin_w[win], last_round - floor,
-        super_majority, n_participants,
+        super_majority, n_participants, packed=packed,
     )
     frozen = (floor + torch.arange(r_win, device=dev)) < floor_true
     state.fame_decided[win] = torch.where(frozen[:, None], state.fame_decided[win], dec_w)
@@ -647,21 +680,24 @@ def _decide_body_plain(state: IncState, super_majority: int, n_participants: int
 
 
 def _decide_body(state: IncState, super_majority: int, n_participants: int,
-                 r_win: int = 32, e_win: int = 8192) -> IncState:
+                 r_win: int = 32, e_win: int = 8192,
+                 packed: bool = False) -> IncState:
     """K12 (babble_tpu/tpu/incremental.py:361 _decide_body with :125
     _fame_window). Timing-independent: running it once per K appended
     batches gives the values per-batch evaluation would. CPU: the plain
-    version; CUDA: csrc/decide_window.cu. The entry points check the
-    windows before they change the state."""
+    version; CUDA: csrc/decide_window.cu, whose tallies are bit words in
+    both layouts (the packed launch is counted as decide_window/packed).
+    The entry points check the windows before they change the state."""
     if state.la.device.type == "cpu":
-        _decide_body_plain(state, super_majority, n_participants, r_win, e_win)
+        _decide_body_plain(state, super_majority, n_participants, r_win, e_win,
+                           packed)
         return state
     _ext.decide_window(
         state.wtable, state.la_w, state.fd_w, state.idx_w, state.coin_w,
         state.fame_decided, state.famous, state.rounds_decided,
         state.last_round, state.count, state.index, state.creator,
         state.rounds, state.received, state.stale, state.fame_lag,
-        super_majority, n_participants, r_win, e_win, D_UNROLL,
+        super_majority, n_participants, r_win, e_win, D_UNROLL, packed=packed,
     )
     return state
 
@@ -674,11 +710,12 @@ def _decide_body(state: IncState, super_majority: int, n_participants: int,
 def _step_full(state: IncState, batch: Batch, super_majority: int,
                n_participants: int, r_win: int = 32, e_win: int = 8192,
                packed: bool = False) -> IncState:
-    """Append one batch and decide: K9 -> K10 -> K12, in place."""
-    _refuse_packed(packed)
+    """Append one batch and decide: K9 -> K10 -> K12, in place, in the
+    voting-table layout `packed` names."""
     _check_windows(state, r_win, e_win)
-    _step_body(state, batch, super_majority, n_participants)
-    return _decide_body(state, super_majority, n_participants, r_win=r_win, e_win=e_win)
+    _step_body(state, batch, super_majority, n_participants, packed)
+    return _decide_body(state, super_majority, n_participants, r_win=r_win,
+                        e_win=e_win, packed=packed)
 
 
 step = _step_full
@@ -693,12 +730,13 @@ def multi_step(state: IncState, stacked: Batch, super_majority: int,
                packed: bool = False) -> IncState:
     """K stacked batches (every field with a leading K axis), then one
     decide. Equal to K step calls: decisions are timing-independent."""
-    _refuse_packed(packed)
     _check_windows(state, r_win, e_win)
     stacked = device_put(stacked, state.la.device)
     for k in range(stacked.rows.shape[0]):
-        _step_body(state, _unstack(stacked, k), super_majority, n_participants)
-    return _decide_body(state, super_majority, n_participants, r_win=r_win, e_win=e_win)
+        _step_body(state, _unstack(stacked, k), super_majority, n_participants,
+                   packed)
+    return _decide_body(state, super_majority, n_participants, r_win=r_win,
+                        e_win=e_win, packed=packed)
 
 
 def train_step(state: IncState, train: Train, super_majority: int,

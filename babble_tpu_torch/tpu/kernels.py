@@ -3,11 +3,12 @@ PyTorch port.
 
 Counterparts of babble_tpu/tpu/kernels.py (suffix_min, the level scan
 _divide_rounds, the DecideFame tables and loop, the round-received tables
-and search, consensus_pipeline), wide layout only. Each public function is
-a wrapper: on a CPU tensor it runs the plain PyTorch version below, on a
-CUDA tensor it launches the hand-written kernel
-(babble_tpu_torch/csrc/divide_rounds.cu, decide_fame.cu,
-round_received.cu) or raises. The plain versions repeat the reference's integer arithmetic with
+and search, consensus_pipeline), in both voting-table layouts: `packed`
+takes the reference's packed branch (tpu/packed.py), integer-equal to the
+wide one. Each public function is a wrapper: on a CPU tensor it runs the
+plain PyTorch version below, on a CUDA tensor it launches the hand-written
+kernel (babble_tpu_torch/csrc/divide_rounds.cu, decide_fame.cu,
+round_received.cu) in the same layout, or raises. The plain versions repeat the reference's integer arithmetic with
 explicit index masks where JAX clamps gathers; they are the CPU path and
 the yardstick the kernels are held to on the card.
 
@@ -23,6 +24,7 @@ import torch
 
 from . import _ext
 from .grid import MAX_INT32, MIN_INT32
+from .packed import pack_bits, pack_votes_t, packed_count, packed_tally, popcount_sum
 
 Scalar = Union[int, torch.Tensor]
 
@@ -69,11 +71,13 @@ def last_level(levels: torch.Tensor) -> int:
 def _divide_rounds_plain(levels, creator, index, self_parent, other_parent,
                          la, fd, ext_sp_round, ext_op_round, fixed_round,
                          ext_sp_lamport, ext_op_lamport, fixed_lamport,
-                         super_majority: int, r_max: int) -> DivideRoundsResult:
+                         super_majority: int, r_max: int,
+                         packed: bool = False) -> DivideRoundsResult:
     """The reference's lax.scan over topological levels, one loop step per
     level. Each step reads the carry in full before it writes, as the scan
     does; dropped scatters land in one sink slot past the end of each
-    buffer (event row E, witness-table row r_max)."""
+    buffer (event row E, witness-table row r_max). `packed` counts by
+    popcount over uint32 lanes, as the reference's packed branch does."""
     e_count, n = la.shape
     dev = la.device
     i32 = torch.int32
@@ -102,9 +106,15 @@ def _divide_rounds_plain(levels, creator, index, self_parent, other_parent,
         wrows = wtable[parent_round.clamp(0, r_max - 1).long()]  # (N_lvl, N)
         wvalid = (wrows >= 0) & (parent_round[:, None] >= 0)
         fd_w = fd[wrows.clamp(0, e_count - 1).long()]  # (N_lvl, N, N)
-        counts = (la[rows][:, None, :] >= fd_w).sum(dim=-1, dtype=i32)
-        ss = (counts >= super_majority) & wvalid
-        c_seen = ss.sum(dim=-1, dtype=i32)
+        la_e = la[rows]  # (N_lvl, N)
+        if packed:
+            counts = packed_count(la_e[:, None, :] >= fd_w)
+            ss = (counts >= super_majority) & wvalid
+            c_seen = packed_count(ss)
+        else:
+            counts = (la_e[:, None, :] >= fd_w).sum(dim=-1, dtype=i32)
+            ss = (counts >= super_majority) & wvalid
+            c_seen = ss.sum(dim=-1, dtype=i32)
 
         new_round = parent_round + (c_seen >= super_majority).to(i32)
         fixed = fixed_round[rows]
@@ -133,15 +143,15 @@ def _divide_rounds_plain(levels, creator, index, self_parent, other_parent,
 def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
                   ext_sp_round, ext_op_round, fixed_round, ext_sp_lamport,
                   ext_op_lamport, fixed_lamport, super_majority: int,
-                  r_max: int) -> DivideRoundsResult:
+                  r_max: int, packed: bool = False) -> DivideRoundsResult:
     """DivideRounds by a scan over the (L, N) level table: rounds, witness
     flags, lamport timestamps and the (r_max, N) witness table. External
     parents take the host-supplied ext_* values; fixed_round >= 0 and
     fixed_lamport != MIN_INT32 override. CPU: the plain version; CUDA: the
-    kernel."""
+    kernel, in the layout `packed` names."""
     args = (levels, creator, index, self_parent, other_parent, la, fd,
             ext_sp_round, ext_op_round, fixed_round, ext_sp_lamport,
-            ext_op_lamport, fixed_lamport, super_majority, r_max)
+            ext_op_lamport, fixed_lamport, super_majority, r_max, packed)
     if la.device.type == "cpu":
         return _divide_rounds_plain(*args)
     return DivideRoundsResult(*_ext.divide_rounds(*args))
@@ -153,17 +163,19 @@ def _rows(table: torch.Tensor, e: int) -> torch.Tensor:
     return table.clamp(0, e - 1).long()
 
 
-def _fame_setup_tables(wvalid, la_w, fd_w, idx_w, coin_w, super_majority: int):
+def _fame_setup_tables(wvalid, la_w, fd_w, idx_w, coin_w, super_majority: int,
+                       packed: bool = False):
     """Round-adjacent strongly-see tensor ss[j, y, w] and the d=1 ancestry
     votes votes0[i, y, x]. The reference rolls the round axis and masks the
     wrapped row; here the neighbouring round is indexed directly and the
-    same rows are masked."""
+    same rows are masked. `packed` counts the compares by popcount over
+    uint32 lanes (integer-equal)."""
     r_max, n = wvalid.shape
     ss = torch.zeros((r_max, n, n), dtype=torch.bool, device=wvalid.device)
     votes0 = torch.zeros_like(ss)
     if r_max > 1:
         cmp = la_w[1:, :, None, :] >= fd_w[:-1, None, :, :]  # (R-1, y, w, p)
-        counts = cmp.sum(dim=-1)
+        counts = packed_count(cmp) if packed else cmp.sum(dim=-1)
         ss[1:] = (
             (counts >= super_majority)
             & wvalid[1:, :, None]
@@ -174,27 +186,40 @@ def _fame_setup_tables(wvalid, la_w, fd_w, idx_w, coin_w, super_majority: int):
     return ss, votes0, wvalid, coin_w
 
 
-def _fame_setup(wtable, la, fd, index, coin_bit, super_majority: int):
+def _fame_setup(wtable, la, fd, index, coin_bit, super_majority: int,
+                packed: bool = False):
     """Gather the per-witness tables, then the table math."""
     wvalid = wtable >= 0
     wrows = _rows(wtable, la.shape[0])
     return _fame_setup_tables(
         wvalid, la[wrows], fd[wrows], index[wrows], coin_bit[wrows],
-        super_majority,
+        super_majority, packed=packed,
     )
 
 
 def _decide_fame_tables(ss, votes0, wvalid, coin_w, last_round: Scalar,
                         super_majority: int, n_participants: int,
-                        d_cap: int) -> FameResult:
+                        d_cap: int, packed: bool = False) -> FameResult:
     """Virtual voting from a prebuilt strongly-see tensor, batched over
     every round i; a loop over the round offset d (voters of round i + d)
-    that stops once no undecided witness has voters left."""
+    that stops once no undecided witness has voters left.
+
+    With `packed`, as in the reference: ss packs its voted-witness axis
+    into words (ss_p, with row tallies total_p), the carried votes are the
+    transposed-packed (R, N_x, W) matrix, and the yay tally is the
+    popcount of ANDed words (packed_tally). The step's verdict v is wide
+    (the coin step reads wide coin bits) and is re-packed for the next
+    step."""
     r_max, n = wvalid.shape
     dev = wvalid.device
     last_round = int(last_round)
     i_arr = torch.arange(r_max, device=dev)
-    votes = votes0
+    if packed:
+        ss_p = pack_bits(ss)  # (R, N_y, W)
+        total_p = popcount_sum(ss_p)  # (R, N_y)
+        votes = pack_votes_t(votes0)
+    else:
+        votes = votes0
     decided = torch.zeros((r_max, n), dtype=torch.bool, device=dev)
     famous = torch.zeros_like(decided)
     d = 2
@@ -206,10 +231,15 @@ def _decide_fame_tables(ss, votes0, wvalid, coin_w, last_round: Scalar,
         j_ok = j <= last_round
         jc = j.clamp(0, r_max - 1)
         vy = wvalid[jc] & j_ok[:, None]  # (R, N_y)
-        ss_d = ss[jc] & j_ok[:, None, None]  # (R, N_y, N_w)
-        # yays[r, y, x] = sum_w ss_d[r, y, w] * votes[r, w, x], as a count
-        yays = (ss_d[:, :, :, None] & votes[:, None, :, :]).sum(dim=2, dtype=torch.int32)
-        total = ss_d.sum(dim=-1, dtype=torch.int32)
+        if packed:
+            ss_d = torch.where(j_ok[:, None, None], ss_p[jc], torch.zeros_like(ss_p[jc]))
+            yays = packed_tally(ss_d, votes)  # (R, N_y, N_x)
+            total = torch.where(j_ok[:, None], total_p[jc], torch.zeros_like(total_p[jc]))
+        else:
+            ss_d = ss[jc] & j_ok[:, None, None]  # (R, N_y, N_w)
+            # yays[r, y, x] = sum_w ss_d[r, y, w] * votes[r, w, x], as a count
+            yays = (ss_d[:, :, :, None] & votes[:, None, :, :]).sum(dim=2, dtype=torch.int32)
+            total = ss_d.sum(dim=-1, dtype=torch.int32)
         nays = total[:, :, None] - yays
         v = yays >= nays
         t = torch.where(v, yays, nays)
@@ -224,35 +254,40 @@ def _decide_fame_tables(ss, votes0, wvalid, coin_w, last_round: Scalar,
             famous = torch.where(any_decide, fame_val, famous)
             decided = decided | any_decide
             votes = v
+        if packed:
+            # this step's voters y are the next step's voted witnesses w
+            votes = pack_votes_t(votes)
         d += 1
     rounds_decided = (decided | ~wvalid).all(dim=1) & wvalid.any(dim=1)
     return FameResult(decided, famous, rounds_decided)
 
 
 def _decide_fame_plain(wtable, la, fd, index, coin_bit, last_round,
-                       super_majority, n_participants, d_cap) -> FameResult:
+                       super_majority, n_participants, d_cap,
+                       packed: bool = False) -> FameResult:
     ss, votes0, wvalid, coin_w = _fame_setup(
-        wtable, la, fd, index, coin_bit, super_majority
+        wtable, la, fd, index, coin_bit, super_majority, packed=packed
     )
     return _decide_fame_tables(
         ss, votes0, wvalid, coin_w, last_round,
-        super_majority, n_participants, d_cap,
+        super_majority, n_participants, d_cap, packed=packed,
     )
 
 
 def decide_fame(wtable, la, fd, index, coin_bit, last_round,
                 super_majority: int, n_participants: int,
-                d_cap: int) -> FameResult:
+                d_cap: int, packed: bool = False) -> FameResult:
     """DecideFame over the witness table (R, N) with tables gathered from
-    the flat event arrays. CPU: the plain version; CUDA: the kernel."""
+    the flat event arrays. CPU: the plain version; CUDA: the kernel, in
+    the layout `packed` names."""
     if wtable.device.type == "cpu":
         return _decide_fame_plain(
             wtable, la, fd, index, coin_bit, last_round,
-            super_majority, n_participants, d_cap,
+            super_majority, n_participants, d_cap, packed=packed,
         )
     return FameResult(*_ext.decide_fame(
         wtable, la, fd, index, coin_bit, last_round,
-        super_majority, n_participants, d_cap,
+        super_majority, n_participants, d_cap, packed=packed,
     ))
 
 
@@ -334,22 +369,24 @@ def consensus_pipeline(levels, creator, index, self_parent, other_parent, la,
                        fd, ext_sp_round, ext_op_round, fixed_round,
                        ext_sp_lamport, ext_op_lamport, fixed_lamport,
                        coin_bit, super_majority: int, n_participants: int,
-                       r_max: int, r_fame: int, d_cap: int) -> PipelineResult:
+                       r_max: int, r_fame: int, d_cap: int,
+                       packed: bool = False) -> PipelineResult:
     """Level-scan DivideRounds + DecideFame + DecideRoundReceived, with
     last_round reduced on the device. r_max bounds the scan's witness
     table, r_fame the round axis of the fame and received tables; a caller
     checks last_round + 2 <= r_fame and re-runs one bucket up otherwise.
-    Inputs are never written."""
+    `packed` picks the voting-table layout of the level scan and the fame
+    vote. Inputs are never written."""
     dr = divide_rounds(
         levels, creator, index, self_parent, other_parent, la, fd,
         ext_sp_round, ext_op_round, fixed_round, ext_sp_lamport,
-        ext_op_lamport, fixed_lamport, super_majority, r_max,
+        ext_op_lamport, fixed_lamport, super_majority, r_max, packed=packed,
     )
     last_round = dr.rounds.max()
     wtable = dr.witness_table[:r_fame]
     fame = decide_fame(
         wtable, la, fd, index, coin_bit, last_round,
-        super_majority, n_participants, d_cap,
+        super_majority, n_participants, d_cap, packed=packed,
     )
     received = decide_round_received(
         wtable, la, index, creator, dr.rounds,

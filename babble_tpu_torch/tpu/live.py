@@ -119,14 +119,9 @@ class LiveDeviceEngine:
         self.device = resolve_device(device)
         self.hg = hg
         self.n = len(hg.participants.to_peer_slice())
-        # voting-table layout, resolved once at engine construction; the
-        # port has the wide one only, and refuses before any state exists
+        # voting-table layout, resolved once at engine construction
+        # (tpu/packed.py; per-engine override via BABBLE_PACKED_VOTING)
         self.packed = packed_enabled(self.n)
-        if self.packed:
-            raise NotImplementedError(
-                "the packed voting layout is not ported yet; set "
-                "BABBLE_PACKED_VOTING=0"
-            )
         self.e_cap = d["e_cap"] if e_cap is None else e_cap
         self.r_cap = d["r_cap"] if r_cap is None else r_cap
         self.batch_cap = d["batch_cap"] if batch_cap is None else batch_cap

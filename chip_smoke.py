@@ -70,21 +70,23 @@ Phases, in order; any failure raises and exits non-zero:
    (counted from the end, as jax.lax.dynamic_slice counts it), and on the
    8-validator fixture's state, with the launches and CUDA-event times
    (device work behind a spin, and with the host's wrapper in the window);
-12. the hashgraph path at full width: the signed events of the bench grid
-   built once with the port's own crypto and hashgraph (HAVE_REAL_CRYPTO is
+12. the hashgraph path at full width: the signed events of the bench grid's
+   first 24,576 rows (the depth is cut from 32,768 so that the whole
+   script stays near ten minutes; 1,140 levels) built once with the port's
+   own crypto and hashgraph (HAVE_REAL_CRYPTO is
    printed; without the cryptography package the stub backend signs), then
    fed to a fresh port Hashgraph per run: (a) the host engine
    (run_consensus on the CPU), the reference of every other run; (b)
    run_consensus_device on the card, which must take the cold path (the
-   bench grid's 1,506 levels pass the crossover); (c)
-   run_consensus_live after each sync of 64 events (512 calls) at the
+   prefix's 1,140 levels pass the crossover); (c)
+   run_consensus_live after each sync of 64 events (384 calls) at the
    engine's defaults, then flush_live_engine: the main path of this slice;
    (d) r_cap 16, the pipelined fetch and syncs of 256 (advance takes
    multi_step): rebases, pipelined integrations and multi_step launches
-   must all be above zero; (e) a late attach: 16,384 events inserted before
+   must all be above zero; (e) a late attach: 12,288 events inserted before
    the first call, whose bootstrap replays them through maybe_cold_replay
    (the doubling crossover set to 512 levels for that run, below the
-   prefix's 744: at the reference's 1,024 the ladder's one-shot rung
+   prefix's 571: at the reference's 1,024 the ladder's one-shot rung
    would take the call) and attaches from the frontier with fewer kept
    rows, then syncs of 64. Every call of (c)-(e) must stay on the live
    rung: a GridUnsupported from its write-back gates fails the phase, with
@@ -100,9 +102,40 @@ Phases, in order; any failure raises and exits non-zero:
    build, device span of the step / multi_step / pack launches by CUDA
    events, fetch, integrate, host passes 4-5), and the phase's seconds.
 
-The phases take five to seven minutes on an H100, phase 12 three to
-four. The next-to-last line is the per-kernel JSON summary; the last
-line is
+13. the packed voting layout's kernels (K3p decide_fame/packed, K5p
+   divide_rounds/packed, K10p step_levels/packed, K12p
+   decide_window/packed) and the two kernels repaired for 256 validators
+   (walk_chunk, decide_window) against their plain versions on the card,
+   torch.equal, on BASELINE.json config #4's grid at full width
+   (synthetic_grid(256, 65536, seed=11, zipf_a=1.05, byzantine_frac=1/3),
+   677 levels): K3p on its witness table, on test_packed.py's 7- and
+   33-validator fixtures and on the coin cases; K5p on the grid and a
+   pinned section of it; walk_chunk on every chunk of its walk; K10p and
+   K12p after every call on a state driven through its 1,024 batches of 64
+   (the live engine's defaults, upd_cap the least power of two that holds
+   the largest fd burst), the wide K12 every 8th call; launches and
+   CUDA-event times behind a spin;
+14. config #4 through run_frontier_passes, run_passes and
+   run_doubling_passes in the knob's layout (packed at 256) and with
+   packed=False: each pair equal field for field, the engines equal to
+   each other, last_round 7, 32,341 received and 1,853 witnesses (the JAX
+   reference's result), packed launches above zero and no wide form of a
+   layout kernel on a packed path; events/s per engine; step and
+   multi_step (packed) over the same batches equal to run_passes on rows
+   [:e] (e_win 65,536: the undecided tail outgrows smaller windows); K10
+   and K12 timed by CUDA events in both layouts on one state per layout,
+   the two states equal at the end;
+15. the hashgraph path at the layout's switch: synthetic_grid(128, 32768,
+   seed=0, zipf_a=1.1) as signed events, (a) the host engine (7 blocks,
+   last round 10), (b) run_consensus_device, which must take the
+   frontier rung in the packed layout, (c) run_consensus_live after each
+   sync of 64 at the engine's defaults, every call on the live rung with
+   the engine in the packed layout; blocks byte-identical to (a), with
+   the per-layer milliseconds as in phase 12.
+
+The phases take about ten minutes on an H100: phase 12 about two and a
+half, phase 13 two, phase 15 three (most of them host Python). The
+next-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX and
 nothing of the babble_tpu package.
 """
@@ -185,6 +218,48 @@ SPIN_CYCLES = 1_000_000
 INC_FIXTURE = dict(n=8, e=768, seed=3, zipf_a=1.1, batch=32, train=256, w_cap=16,
                    t_cap=96, r_cap=64, e_win=512)
 
+# BASELINE.json config #4 at its published widths (256 validators, a third
+# byzantine, Zipf 1.05) with 65,536 events: at bench_scale.py's 16,384
+# (and at 32,768) fame decides nothing. The JAX reference's results on
+# the CPU, equal in all three engines and both layouts
+WIDE = dict(n=256, e_count=65536, seed=11, zipf_a=1.05, byzantine_frac=1.0 / 3.0)
+WIDE_EXPECT = dict(last_round=7, received=32341, witnesses=1853)
+WIDE_LEVELS = 677
+# the round axis of the frontier walk whose witness table phase 13 votes on
+WIDE_R_CAP = 16
+# the append state phase 13 drives (the live engine's defaults) and phase
+# 14's append paths; upd_cap is the least power of two that holds the
+# grid's largest fd burst, found in the run
+WIDE_STEP = dict(batch=64, e_cap=65536, r_cap=64, r_win=64, e_win=8192)
+# the wide K12 is held to its plain version after every WIDE_WIDE_EVERY-th
+# packed decide, on the same state
+WIDE_WIDE_EVERY = 8
+# phase 14's append paths hold every row in their write-back window: with
+# about 8,200 events a round and fame settling two to three rounds behind,
+# the undecided tail of this grid outgrows e_win 8,192, 16,384 and 32,768
+# (the stale latch fires and received stays short, on the H100 as in the
+# plain versions: the window semantics are the JAX reference's)
+WIDE_APPEND_E_WIN = 65536
+WIDE_RUNS = 3
+# test_packed.py's non-lane-aligned and word-crossing fixtures
+PACKED_FIXTURES = [(7, 160, 9), (33, 400, 4)]
+# the hashgraph path at the packed layout's switch (phase 15): the bench
+# grid's generator at 128 validators (790 levels: the frontier rung), and
+# the host engine's result on it
+SWITCH = dict(n=128, e_count=32768, seed=0, zipf_a=1.1)
+SWITCH_EXPECT = (7, 10)  # blocks, last round
+SWITCH_ONESHOT_RUNG = ("frontier", "run_frontier_passes, packed")
+# run (c)'s two changes to the engine's defaults, which are sized for 64
+# validators. At 128 a batch of 64 carries up to 15,281 fd updates
+# (batches_from_grid on this grid), past the default upd_cap of 8,192; and
+# the undecided tail (about 3,300 events a round) outgrows the default
+# write-back window e_win of 8,192. The JAX reference's live rung refuses
+# this DAG the same way on the CPU: GridUnsupported at its 36th call at
+# the defaults, at its 133rd with upd_cap 16,384 (stale at e_win 8,192)
+# and its 295th at e_win 16,384; with upd_cap 16,384 and e_win 32,768 it
+# takes all 512 calls to 7 blocks and last round 10
+SWITCH_LIVE = {"upd_cap": 16384, "e_win": 32768}
+
 REPLACES = {
     "build_inv": ("babble_tpu_torch/csrc/build_inv.cu", "babble_tpu/tpu/frontier.py:116"),
     "frontier_rounds": ("babble_tpu_torch/csrc/frontier_walk.cu", "babble_tpu/tpu/frontier.py:299"),
@@ -199,6 +274,15 @@ REPLACES = {
     "train_levels": ("babble_tpu_torch/csrc/train_levels.cu", "babble_tpu/tpu/incremental.py:570"),
     "decide_window": ("babble_tpu_torch/csrc/decide_window.cu", "babble_tpu/tpu/incremental.py:361"),
     "pack_results": ("babble_tpu_torch/csrc/pack_results.cu", "babble_tpu/tpu/live.py:757"),
+    # the packed layout's launches of the four kernels that take it
+    "decide_fame/packed": ("babble_tpu_torch/csrc/decide_fame.cu",
+                           "babble_tpu/tpu/kernels.py:335"),
+    "divide_rounds/packed": ("babble_tpu_torch/csrc/divide_rounds.cu",
+                             "babble_tpu/tpu/kernels.py:118"),
+    "step_levels/packed": ("babble_tpu_torch/csrc/step_levels.cu",
+                           "babble_tpu/tpu/incremental.py:243"),
+    "decide_window/packed": ("babble_tpu_torch/csrc/decide_window.cu",
+                             "babble_tpu/tpu/incremental.py:361"),
 }
 # the kernels each engine's call must launch
 PATH_KERNELS = {
@@ -216,18 +300,33 @@ PATH_KERNELS = {
     "late attach": ("closure_la", "build_inv", "walk_chunk", "decide_fame",
                     "round_received", "apply_deltas", "step_levels", "decide_window",
                     "pack_results"),
+    # the packed layout: a path whose label ends in ", packed" must launch
+    # these and no wide form of the four kernels that take the layout
+    "run_frontier_passes, packed": ("build_inv", "frontier_rounds", "decide_fame/packed",
+                                    "round_received"),
+    "run_passes, packed": ("divide_rounds/packed", "decide_fame/packed", "round_received"),
+    "run_doubling_passes, packed": ("closure_la", "build_inv", "walk_chunk",
+                                    "decide_fame/packed", "round_received"),
+    "step, packed": ("apply_deltas", "step_levels/packed", "decide_window/packed"),
+    "multi_step, packed": ("apply_deltas", "step_levels/packed", "decide_window/packed"),
+    "run_consensus_live, packed": ("apply_deltas", "step_levels/packed",
+                                   "decide_window/packed", "pack_results"),
 }
-# run_consensus_device's rung on the bench DAG (its 1,506 levels pass the
+WIDE_FORMS = ("decide_fame", "divide_rounds", "step_levels", "decide_window")
+# run_consensus_device's rung on phase 12's DAG (its 1,140 levels pass the
 # 1,024-level crossover) and that rung's kernels
 HG_ONESHOT_RUNG = ("doubling", "run_doubling_passes")
-# the hashgraph path (phase 12): the bench grid's events in syncs, the live
-# engine's defaults for (c), r_cap 16 as test_device_backend.py uses it
-# with the pipelined fetch and syncs of 256 for (d), a late attach after
-# half the events for (e), with the doubling crossover below that prefix's
-# depth (744 levels) so that its bootstrap takes the cold path
+# the hashgraph path (phase 12): the bench grid's first HG_DEPTH events
+# (cut from 32,768 to keep the script near ten minutes with phases 13-15;
+# still past the crossover) in syncs, the live engine's defaults for (c),
+# r_cap 16 as test_device_backend.py uses it with the pipelined fetch and
+# syncs of 256 for (d), a late attach after half the events for (e), with
+# the doubling crossover below that prefix's depth (571 levels) so that
+# its bootstrap takes the cold path
+HG_DEPTH = 24576
 HG_SYNC = 64
 HG_REBASE = dict(r_cap=16, async_fetch=True, sync=256)
-HG_LATE_ATTACH = 16384
+HG_LATE_ATTACH = 12288
 HG_CROSSOVER = "512"
 HG_CACHE = 1 << 16
 
@@ -360,11 +459,21 @@ def run_path(label, fn):
     res = fn()
     torch.cuda.synchronize()
     launches = dict(_ext.LAUNCHES)
-    missing = [k for k in PATH_KERNELS[label] if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"{label}: never launched {missing}")
+    require_path_launches(label, label, launches)
     log(f"  {label}: launches {({k: v for k, v in launches.items() if v})}")
     return res, launches
+
+
+def require_path_launches(what, path, launches):
+    """Fail unless each kernel of PATH_KERNELS[path] launched, and, on a
+    packed path, unless no wide form of a layout kernel did."""
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: never launched {missing}")
+    if path.endswith(", packed"):
+        wide = [k for k in WIDE_FORMS if launches[k]]
+        if wide:
+            raise AssertionError(f"{what}: launched the wide layout of {wide}")
 
 
 def scan_pair_count(levels, sp, op, ext_sp_round, ext_op_round, rounds, wtable):
@@ -437,6 +546,41 @@ class PairedRun:
                 sum(e[2].elapsed_time(e[3]) for e in evs))
 
 
+def fame_work(wtable, n):
+    """(bytes, seconds at the peak rates) decide_fame needs for a witness
+    table: the table, the la and fd rows of the witnesses present, their
+    index and coin bit, last_round and the (R, N) outputs; the strongly-see
+    compares of adjacent rounds' witness pairs at the ALU rate and the
+    tallies as 0/1 products at the int8 tensor-core rate."""
+    r_max = wtable.shape[0]
+    wvalid = wtable >= 0
+    n_wit = int(wvalid.sum().item())
+    valid_rounds = int(wvalid.any(dim=1).sum().item())
+    n_pairs = int((wvalid[1:].sum(dim=1) * wvalid[:-1].sum(dim=1)).sum().item())
+    return (r_max * n * 4 + n_wit * n * 4 * 2 + n_wit * 5 + 4 + r_max * n * 2 + r_max,
+            n_pairs * (n + 1) / ALU_OPS_S + valid_rounds * 2 * n ** 3 / INT8_TC_OPS_S)
+
+
+def scan_work(g, ins, dr, scan_r_max):
+    """((bytes, seconds at the peak rates), pairs, witnesses) of one level
+    scan over grid g (ins: its staged inputs, dr: the scan's outputs):
+    the used level rows, each event's metadata and la row, the witnesses'
+    fd rows and the outputs; the (event, witness) compares at the ALU
+    rate."""
+    from babble_tpu_torch.tpu.kernels import last_level
+
+    n_s = g.n
+    lv_c, _, _, sp_c, op_c, la_c, fd_c, esr_c, eor_c = (
+        ins[i].cpu() for i in (0, 1, 2, 3, 4, 5, 6, 7, 8))
+    e_b = la_c.shape[0]
+    used_level_bytes = (last_level(lv_c) + 1) * lv_c.shape[1] * 4
+    n_wit = int(dr[1].sum().item())
+    pairs = scan_pair_count(lv_c, sp_c, op_c, esr_c, eor_c, dr[0].cpu(), dr[3].cpu())
+    return ((used_level_bytes + g.e * (9 * 4 + n_s * 4) + n_wit * n_s * 4
+             + e_b * 9 + scan_r_max * n_s * 4,
+             (pairs * n_s + g.e * 4) / ALU_OPS_S), pairs, n_wit)
+
+
 def inc_work_deltas(st, x):
     """(bytes, ALU ops, tensor-core ops) apply_deltas needs for input x:
     each real delta's 12 bytes, its row's slot and one fd cell (and one
@@ -507,8 +651,9 @@ def inc_work_decide(st, r_win, e_win):
 
 
 
-def build_signed_events(grid, hashgraph_mod, crypto, peers_mod):
-    """The grid's DAG as signed events, built with the port's own crypto
+def build_signed_events(grid, hashgraph_mod, crypto, peers_mod, count=None):
+    """The grid's DAG (its first `count` rows, topological order) as
+    signed events, built with the port's own crypto
     and hashgraph and inserted into a first Hashgraph as they are made:
     (that hashgraph, peer JSON, event JSON in topological order). Keys
     are derived from the validator position, so a run's hashes repeat."""
@@ -522,7 +667,7 @@ def build_signed_events(grid, hashgraph_mod, crypto, peers_mod):
     sorted_keys = [by_pub[p.pub_key_hex] for p in plist]
     hg = hashgraph_mod.Hashgraph(participants, hashgraph_mod.InmemStore(participants, HG_CACHE))
     rows = []
-    for i in range(grid.e):
+    for i in range(grid.e if count is None else count):
         c = int(grid.creator[i])
         sp_row, op_row = int(grid.self_parent[i]), int(grid.other_parent[i])
         sp = rows[sp_row].hex() if sp_row >= 0 else hashgraph_mod.root_self_parent(plist[c].id)
@@ -647,22 +792,33 @@ class LayerTimes:
         return sum(a.elapsed_time(b) for a, b in self.spans)
 
 
-def hashgraph_phase(dev, log_fn):
-    """Phase 12 on `dev` ("cuda", or "cpu" to rehearse on the plain
-    versions): returns {run: stats} and the launches of run (c)."""
+def hashgraph_phase(dev, log_fn, spec=BENCH, oneshot=HG_ONESHOT_RUNG, full=True,
+                    expect=None, title="phase 12", live_settings=None, depth=None):
+    """The hashgraph path on `dev` ("cuda", or "cpu" to rehearse on the
+    plain versions) over the signed events of synthetic_grid(**spec):
+    runs (a)-(c), and with `full` (phase 12) (d) and (e) too. `oneshot` is
+    run (b)'s expected rung and its PATH_KERNELS entry; the live runs'
+    entry is "run_consensus_live" plus the layout's suffix. `expect`
+    (blocks, last_round) gates run (a); `live_settings` changes run (c)'s
+    engine defaults; `depth` keeps the grid's first rows only. Returns
+    {run: stats} and the launches of run (c)."""
     from babble_tpu_torch import crypto, hashgraph as hgm, peers as peers_mod
     from babble_tpu_torch.tpu import _ext, engine, live
     from babble_tpu_torch.tpu.grid import synthetic_grid
+    from babble_tpu_torch.tpu.packed import resolve_packed
 
     cuda = torch.device(dev).type == "cuda"
     t_phase = time.perf_counter()
-    grid = synthetic_grid(BENCH["n"], BENCH["e_count"], seed=BENCH["seed"],
-                          zipf_a=BENCH["zipf_a"])
+    grid = synthetic_grid(spec["n"], spec["e_count"], seed=spec["seed"],
+                          zipf_a=spec["zipf_a"])
+    layout = "packed" if resolve_packed(None, grid.n) else "wide"
+    live_path = "run_consensus_live" + (", packed" if layout == "packed" else "")
     t0 = time.perf_counter()
-    host, peers_json, events = build_signed_events(grid, hgm, crypto, peers_mod)
-    log_fn(f"hashgraph path: {len(events)} signed events of the bench grid built and "
-           f"inserted in {time.perf_counter() - t0:.1f} s (HAVE_REAL_CRYPTO "
-           f"{crypto.HAVE_REAL_CRYPTO})")
+    host, peers_json, events = build_signed_events(grid, hgm, crypto, peers_mod, depth)
+    log_fn(f"hashgraph path ({title}): {len(events)} signed events of "
+           f"synthetic_grid({grid.n}, {grid.e}) built and inserted in "
+           f"{time.perf_counter() - t0:.1f} s (HAVE_REAL_CRYPTO {crypto.HAVE_REAL_CRYPTO}); "
+           f"voting-table layout {layout}")
     host_blocks = []
     host.commit_callback = host_blocks.append
     t0 = time.perf_counter()
@@ -672,6 +828,9 @@ def hashgraph_phase(dev, log_fn):
     n_recv = sum(1 for f in ref[0].values() if f[2] is not None)
     log_fn(f"  (a) host run_consensus: {host_s:.1f} s, {len(host_blocks)} blocks, "
            f"{n_recv} events received, last round {host.store.last_round()}")
+    if expect is not None and (len(host_blocks), host.store.last_round()) != expect:
+        raise AssertionError(f"(a): {len(host_blocks)} blocks, last round "
+                             f"{host.store.last_round()}; expected {expect}")
     stats = {"host": dict(blocks=len(host_blocks), received=n_recv, seconds=host_s)}
 
     def fresh(k):
@@ -691,9 +850,7 @@ def hashgraph_phase(dev, log_fn):
     def launches_of(label, want):
         sync()
         got = dict(_ext.LAUNCHES)
-        missing = [k for k in PATH_KERNELS[want] if got[k] == 0]
-        if missing:
-            raise AssertionError(f"{label}: never launched {missing}")
+        require_path_launches(label, want, got)
         return {k: v for k, v in got.items() if v}
 
     # (b) the one-shot rung
@@ -703,16 +860,18 @@ def hashgraph_phase(dev, log_fn):
     engine.run_consensus_device(hg, device=dev)
     sync()
     secs = time.perf_counter() - t0
-    rung = [k.split("/")[0] for k in hg.obs.devledger.snapshot() if k.endswith("/integrate")]
-    if rung != [HG_ONESHOT_RUNG[0]]:
-        raise AssertionError(f"(b) run_consensus_device booked the rungs {rung}, not "
-                             f"[{HG_ONESHOT_RUNG[0]!r}]")
-    got = launches_of("(b) run_consensus_device", HG_ONESHOT_RUNG[1]) if cuda else {}
+    cells = [k.split("/") for k in hg.obs.devledger.snapshot() if k.endswith("/integrate")]
+    rung = [c[0] for c in cells]
+    if rung != [oneshot[0]] or cells[0][2] != layout:
+        raise AssertionError(f"(b) run_consensus_device booked the rungs {rung} in the "
+                             f"layout {cells[0][2] if cells else None}, not "
+                             f"[{oneshot[0]!r}] in the {layout} layout")
+    got = launches_of("(b) run_consensus_device", oneshot[1]) if cuda else {}
     require_same_consensus("(b) run_consensus_device", ref, host_blocks, hg, blocks)
     recv = sum(1 for f in consensus_view(hg)[0].values() if f[2] is not None)
     stats["oneshot"] = dict(calls=1, blocks=len(blocks), received=recv, seconds=secs,
-                            rung=rung[0])
-    log_fn(f"  (b) run_consensus_device == host: rung {rung[0]}, {secs:.3f} s, "
+                            rung=rung[0], launches=got)
+    log_fn(f"  (b) run_consensus_device == host: rung {rung[0]} ({layout}), {secs:.3f} s, "
            f"{len(blocks)} blocks, {recv} received, {recv / secs:.0f} events brought to "
            f"consensus/s; launches {got}")
 
@@ -743,8 +902,11 @@ def hashgraph_phase(dev, log_fn):
                     live.run_consensus_live(hg, device=dev)
                     st["seconds"] += time.perf_counter() - t0
                     st["calls"] += 1
+                    eng = getattr(hg, "_live_device_engine", None)
+                    if eng is not None and eng.packed != (layout == "packed"):
+                        raise AssertionError(f"{label}: call {st['calls']} ran an engine "
+                                             f"outside the {layout} layout")
                     if st["calls"] == 1:
-                        eng = getattr(hg, "_live_device_engine", None)
                         st["kept_at_attach"] = len(eng.hashes) if eng is not None else None
                         st["cold_replay"] = any(r.name == "catchup.replay"
                                                 for r in hg.obs.flightrec.records())
@@ -764,8 +926,8 @@ def hashgraph_phase(dev, log_fn):
             else:
                 os.environ["BABBLE_DOUBLING_CROSSOVER"] = env
         cells = hg.obs.devledger.snapshot()
-        st["fetch_ms"] = cells.get("live/dispatch/wide/fetch", [0, 0.0])[1] * 1e3
-        st["integrate_ms"] = cells.get("live/dispatch/wide/integrate", [0, 0.0])[1] * 1e3
+        st["fetch_ms"] = cells.get(f"live/dispatch/{layout}/fetch", [0, 0.0])[1] * 1e3
+        st["integrate_ms"] = cells.get(f"live/dispatch/{layout}/integrate", [0, 0.0])[1] * 1e3
         eng = getattr(hg, "_live_device_engine", None)
         st["rebases"] = eng.rebases if eng is not None else None
         st["launches"] = launches
@@ -781,9 +943,13 @@ def hashgraph_phase(dev, log_fn):
                f"rebases {st['rebases']}, calls {st['calls_by_fn']}; launches {launches}")
         return st
 
-    stats["live"] = live_run("(c) run_consensus_live, defaults", {}, 0, HG_SYNC,
-                             "run_consensus_live")
+    settings = dict(live_settings or {})
+    stats["live"] = live_run(f"(c) run_consensus_live, defaults{settings or ''}", settings, 0,
+                             HG_SYNC, live_path)
     c_launches = dict(stats["live"]["launches"])
+    if not full:
+        log_fn(f"hashgraph path: {time.perf_counter() - t_phase:.1f} s for {title}")
+        return stats, c_launches
     d = dict(HG_REBASE)
     step_n = d.pop("sync")
     st = live_run(f"(d) run_consensus_live, r_cap {d['r_cap']}, pipelined, syncs of {step_n}",
@@ -801,8 +967,286 @@ def hashgraph_phase(dev, log_fn):
     log_fn(f"  (e) attach kept {st['kept_at_attach']} of {HG_LATE_ATTACH} rows; cold "
            f"replay fired: {st['cold_replay']}")
     stats["attach"] = st
-    log_fn(f"hashgraph path: {time.perf_counter() - t_phase:.1f} s for phase 12")
+    log_fn(f"hashgraph path: {time.perf_counter() - t_phase:.1f} s for {title}")
     return stats, c_launches
+def least_pow2(x):
+    """The least power of two >= x (1 for x <= 1)."""
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+def packed_kernel_phase(g, dev, log_fn):
+    """Phase 13: the packed kernels and the two repaired ones against their
+    plain versions on the card, torch.equal, on the 256-validator grid g
+    (WIDE) and small fixtures, with launches and CUDA-event times behind a
+    spin. Returns (summary, work, upd_cap, batches on the card)."""
+    from babble_tpu_torch.tpu import _ext, doubling, engine, frontier, kernels
+    from babble_tpu_torch.tpu import incremental as inc
+    from babble_tpu_torch.tpu.grid import section_grid, synthetic_grid
+
+    t_phase = time.perf_counter()
+    summary, work = {}, {}
+    sm, n = g.super_majority, g.n
+
+    def held(what, kern, plain):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        require_equal(what, got, want)
+        return got
+
+    def fame_pair(args):
+        return (lambda: tuple(kernels.decide_fame(*args, packed=True)),
+                lambda: tuple(kernels._decide_fame_plain(*args, packed=True)))
+
+    # K3p: a non-lane-aligned and a word-crossing fixture, the coin cases
+    for fx in PACKED_FIXTURES:
+        fg = synthetic_grid(fx[0], fx[1], seed=fx[2])
+        fst = engine.stage_frontier(fg, dev)
+        ffr = frontier.frontier_rounds(
+            frontier.build_inv(fst.rows_by, fst.la), fst.rows_by, fst.creator, fst.index,
+            fst.sp_index, fst.fd, fg.super_majority, R_CAP)
+        args = (ffr.witness_table, fst.la, fst.fd, fst.index, fst.coin_bit, ffr.last_round,
+                fg.super_majority, fg.n, R_CAP + 2)
+        got = held(f"decide_fame/packed on fixture {fx}", *fame_pair(args))
+        require_equal(f"decide_fame packed == wide on fixture {fx}", got,
+                      tuple(kernels.decide_fame(*args)))
+    for n_c, r, seed in COIN_CASES:
+        case = coin_round_case(n_c, r, seed)
+        for c in (case["coin_bit"], ~case["coin_bit"]):
+            held(f"decide_fame/packed on coin case n={n_c} rounds={r} seed={seed}",
+                 *fame_pair(coin_fame_args(case, c, dev)))
+    log_fn(f"decide_fame/packed == plain on fixtures {PACKED_FIXTURES} (and == the wide "
+           f"kernel) and on the coin cases {COIN_CASES}, both coin settings")
+
+    # K3p on the grid's witness table (the frontier walk's)
+    st = engine.stage_frontier(g, dev)
+    inv = frontier.build_inv(st.rows_by, st.la)
+    fr = frontier.frontier_rounds(inv, st.rows_by, st.creator, st.index, st.sp_index, st.fd,
+                                  sm, WIDE_R_CAP)
+    del inv
+    if int(fr.last_round) + 2 > WIDE_R_CAP:
+        raise AssertionError(f"256 grid: last_round {int(fr.last_round)} overflows r_cap "
+                             f"{WIDE_R_CAP}")
+    fame_args = (fr.witness_table, st.la, st.fd, st.index, st.coin_bit, fr.last_round, sm, n,
+                 WIDE_R_CAP + 2)
+    kern, plain = fame_pair(fame_args)
+    _ext.reset_launches()
+    got = held(f"decide_fame/packed on the {n}-validator grid", kern, plain)
+    launched = _ext.LAUNCHES["decide_fame/packed"]
+    wide_kern = lambda: tuple(kernels.decide_fame(*fame_args))  # noqa: E731
+    require_equal(f"decide_fame packed == wide on the {n}-validator grid", got, wide_kern())
+    k_ms, p_ms, w_ms = spun_ms(kern, 20), spun_ms(plain, 3, warmup=1), spun_ms(wide_kern, 10)
+    summary["decide_fame/packed"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+    work["decide_fame/packed"] = fame_work(fr.witness_table, n)
+    log_fn(f"decide_fame/packed == plain == wide on the {n}-validator grid's witness table "
+           f"(r_cap {WIDE_R_CAP}, last_round {int(fr.last_round)}, "
+           f"{int((fr.witness_table >= 0).sum())} witnesses): {launched} launch, "
+           f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, wide kernel {w_ms:.4f} ms")
+
+    # K5p on the grid and on a pinned section of it
+    res = engine.run_frontier_passes(g, device=dev)
+    sec = section_grid(g, res, g.num_levels // 2)
+    for label, sg in ((f"{n}-validator grid", g), (f"pinned section of the {n}-validator grid", sec)):
+        gp, _, scan_r_max = engine.scan_layout(sg, True)
+        ins = engine.stage_scan(gp, dev)
+        dr_args = ins[:13] + (gp.super_majority, scan_r_max)
+        kern = lambda: tuple(kernels.divide_rounds(*dr_args, packed=True))  # noqa: E731
+        plain = lambda: tuple(kernels._divide_rounds_plain(*dr_args, packed=True))  # noqa: E731
+        _ext.reset_launches()
+        dr = held(f"divide_rounds/packed on the {label}", kern, plain)
+        launched = _ext.LAUNCHES["divide_rounds/packed"]
+        wide_kern = lambda: tuple(kernels.divide_rounds(*dr_args))  # noqa: E731
+        require_equal(f"divide_rounds packed == wide on the {label}", dr, wide_kern())
+        line = (f"divide_rounds/packed == plain == wide on the {label} ({sg.e} events, "
+                f"{sg.num_levels} levels): {launched} launch")
+        if sg is g:
+            k_ms, w_ms = spun_ms(kern, 5), spun_ms(wide_kern, 5)
+            p_ms = spun_ms(plain, 1, warmup=0)
+            summary["divide_rounds/packed"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+            work["divide_rounds/packed"], pairs, _ = scan_work(gp, ins, dr, scan_r_max)
+            line += (f", {k_ms:.3f} ms, plain {p_ms:.1f} ms, wide kernel {w_ms:.3f} ms; "
+                     f"{pairs} (event, witness) pairs")
+        log_fn(line)
+
+    # the repaired K7 on every chunk of the grid's walk (its table in
+    # device memory past 223 validators)
+    cs = doubling.stage_doubling(g, dev)
+    inv_c = frontier.build_inv(cs.rows_by_d, cs.la_d)
+    s_np, first_nw, x0 = doubling.walk_seeds(g, cs)
+    chunks = []
+
+    def walk(*a):
+        got = doubling._walk_chunk(*a)
+        want = doubling._walk_chunk_plain(*a)
+        torch.cuda.synchronize()
+        require_equal(f"walk_chunk (length {a[10]}) on the {n}-validator grid", got, want)
+        chunks.append(a)
+        return got
+
+    doubling._doubling_walk(
+        lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev), inv_c, cs.rows_by_d,
+        cs.fd_d, cs.la_d, x0, s_np, first_nw, sm, cs.l_b, cs.seeded, {}, walk=walk)
+    big = max(chunks, key=lambda a: a[10])
+    k_ms = spun_ms(lambda: doubling._walk_chunk(*big), 5)
+    p_ms = spun_ms(lambda: doubling._walk_chunk_plain(*big), 1, warmup=0)
+    log_fn(f"walk_chunk == plain on every chunk of the {n}-validator grid's walk "
+           f"({', '.join(str(a[10]) for a in chunks)} steps, table in device memory: "
+           f"{_ext.smem_bytes('walk_chunk', n)} bytes of shared memory); largest chunk "
+           f"{big[10]} steps x {big[11]} probes {k_ms:.4f} ms, plain {p_ms:.2f} ms")
+    del inv_c, cs
+
+    # K10p and K12p (and the repaired wide K12) on the append state
+    cfg = WIDE_STEP
+    t0 = time.perf_counter()
+    upd_cap = cfg["e_cap"]
+    while True:
+        try:
+            batches = inc.batches_from_grid(g, cfg["batch"], upd_cap, cfg["e_cap"])
+            break
+        except ValueError:  # a burst above the cap
+            upd_cap *= 2
+    burst = max(int((b.upd_row < cfg["e_cap"]).sum()) for b in batches)
+    if least_pow2(burst) != upd_cap:
+        upd_cap = least_pow2(burst)
+        batches = inc.batches_from_grid(g, cfg["batch"], upd_cap, cfg["e_cap"])
+    batches_d = [inc.device_put(b, dev) for b in batches]
+    torch.cuda.synchronize()
+    log_fn(f"{n}-validator append inputs: {len(batches)} batches of {cfg['batch']}, largest fd "
+           f"burst {burst}, upd_cap {upd_cap}; {time.perf_counter() - t0:.1f} s to build and "
+           f"copy")
+    run = PairedRun(f"{n}-validator step state", inc.init_state(
+        n, cfg["e_cap"], cfg["r_cap"], device=dev))
+    r_win, e_win = cfg["r_win"], cfg["e_win"]
+    _ext.reset_launches()
+    for k, b in enumerate(batches_d):
+        run.call("apply_deltas", lambda st: inc._apply_deltas_and_stage(st, b),
+                 lambda st: inc._apply_deltas_and_stage_plain(st, b))
+        run.call("step_levels/packed",
+                 lambda st: inc._step_levels(st, b, sm, packed=True),
+                 lambda st: inc._step_levels_plain(st, b, sm, packed=True),
+                 lambda st: inc_work_levels(st, b, True))
+        run.call("decide_window/packed",
+                 lambda st: inc._decide_body(st, sm, n, r_win=r_win, e_win=e_win, packed=True),
+                 lambda st: inc._decide_body_plain(st, sm, n, r_win, e_win, packed=True),
+                 lambda st: inc_work_decide(st, r_win, e_win))
+        if k % WIDE_WIDE_EVERY == WIDE_WIDE_EVERY - 1:
+            run.call("decide_window",
+                     lambda st: inc._decide_body(st, sm, n, r_win=r_win, e_win=e_win),
+                     lambda st: inc._decide_body_plain(st, sm, n, r_win, e_win))
+    launches = {k: v for k, v in _ext.LAUNCHES.items() if v}
+    fin = run.k
+    log_fn(f"apply_deltas, step_levels/packed, decide_window/packed (and decide_window "
+           f"every {WIDE_WIDE_EVERY}th call) == plain after every call on the {n}-validator "
+           f"step state ({len(batches_d)} batches, r_win {r_win}, e_win {e_win}): last_round "
+           f"{int(fin.last_round)}, {int((fin.received >= 0).sum())} received, stale "
+           f"{bool(fin.stale)}, fame_lag {bool(fin.fame_lag)}; launches {launches}")
+    for name in ("step_levels/packed", "decide_window/packed", "decide_window"):
+        calls, k_ms, p_ms = run.times(name)
+        log_fn(f"  {name} at the {n}-validator step shape: {calls} calls, kernel "
+               f"{k_ms:.3f} ms in all ({k_ms / calls:.4f} ms per call), plain {p_ms:.1f} ms "
+               f"in all")
+        if name in run.work:
+            nbytes, alu, tc = run.work[name]
+            summary[name] = {"max_abs_err": 0, "ms": k_ms / calls, "plain_ms": p_ms / calls}
+            work[name] = (nbytes / calls, (alu / ALU_OPS_S + tc / INT8_TC_OPS_S) / calls)
+    log_fn(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return summary, work, upd_cap, batches_d
+
+
+def wide_engine_phase(g, dev, log_fn, upd_cap, batches_d):
+    """Phase 14: config #4's grid g through the three one-shot engines in
+    the knob's layout (packed) and the wide one, and through step and
+    multi_step; returns each packed path's launches."""
+    from babble_tpu_torch.tpu import doubling, engine
+    from babble_tpu_torch.tpu import incremental as inc
+
+    t_phase = time.perf_counter()
+    n = g.n
+    engines = {
+        "run_frontier_passes": lambda **kw: engine.run_frontier_passes(g, device=dev, **kw),
+        "run_passes": lambda **kw: engine.run_passes(
+            g, bucketed=True, adaptive_r=True, device=dev, **kw),
+        "run_doubling_passes": lambda **kw: doubling.run_doubling_passes(g, device=dev, **kw),
+    }
+    results, launches = {}, {}
+    for name, fn in engines.items():
+        packed, launches[name] = run_path(f"{name}, packed", fn)
+        wide, _ = run_path(name, lambda: fn(packed=False))
+        require_same_results(f"{name}: packed == wide", packed, wide)
+        results[name] = packed
+    ref = results["run_frontier_passes"]
+    for name in ("run_passes", "run_doubling_passes"):
+        require_same_results(f"{name} == run_frontier_passes", results[name], ref)
+    got = dict(last_round=ref.last_round, received=int((ref.received >= 0).sum()),
+               witnesses=int(ref.witness.sum()))
+    if got != WIDE_EXPECT:
+        raise AssertionError(f"256 grid: {got}, the reference gives {WIDE_EXPECT}")
+    log_fn(f"config #4 grid: the three engines agree in both layouts field for field: {got}")
+    for name, fn in engines.items():
+        ms = wall_ms(fn, WIDE_RUNS)
+        log_fn(f"e2e {name} (packed) on the {n}-validator grid: median {ms:.3f} ms over {WIDE_RUNS} "
+               f"warm runs, {g.e / ms * 1e3:.0f} events/s")
+
+    cfg = WIDE_STEP
+    sm, n, e = g.super_majority, g.n, g.e
+    empty = inc.device_put(inc.empty_batch(n, cfg["batch"], upd_cap, cfg["e_cap"]), dev)
+    groups = []
+    for i in range(0, len(batches_d), MULTI_STEP_K):
+        group = batches_d[i : i + MULTI_STEP_K]
+        group = group + [empty] * (MULTI_STEP_K - len(group))
+        groups.append(inc.Batch(*[torch.stack(f) for f in zip(*group)]))
+    e_win = WIDE_APPEND_E_WIN
+    paths = {
+        "step, packed": lambda st: [inc.step(st, b, sm, n, r_win=cfg["r_win"], e_win=e_win,
+                                             packed=True)
+                                    for b in batches_d],
+        "multi_step, packed": lambda st: [inc.multi_step(
+            st, gr, sm, n, r_win=cfg["r_win"], e_win=e_win, packed=True)
+            for gr in groups],
+    }
+    for label, drive in paths.items():
+        st = inc.init_state(n, cfg["e_cap"], cfg["r_cap"], device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, launches[label] = run_path(label, lambda: drive(st))
+        wall = time.perf_counter() - t0
+        for f in ("rounds", "lamport", "witness", "received"):
+            if not (getattr(st, f)[:e].cpu().numpy() == getattr(ref, f)).all():
+                raise AssertionError(f"{label}: {f} differs from run_passes on the card")
+        if bool(st.stale) or bool(st.fame_lag):
+            raise AssertionError(f"{label}: stale {bool(st.stale)}, fame_lag "
+                                 f"{bool(st.fame_lag)}")
+        log_fn(f"{label} over the {n}-validator grid's {len(batches_d)} batches (r_win "
+               f"{cfg['r_win']}, e_win {e_win}) == run_passes on rows [:e], no latch: "
+               f"{wall * 1e3:.1f} ms (first run), {e / wall:.0f} events appended/s")
+    # K10 and K12 in both layouts at this width, each launch between CUDA
+    # events, on one state per layout driven through the same batches;
+    # the two states must end equal field for field
+    states = {}
+    for packed in (False, True):
+        st = inc.init_state(n, cfg["e_cap"], cfg["r_cap"], device=dev)
+        evs = {"step_levels": [], "decide_window": []}
+        for b in batches_d:
+            inc._apply_deltas_and_stage(st, b)
+            for name, fn in (("step_levels", lambda: inc._step_levels(st, b, sm, packed=packed)),
+                             ("decide_window", lambda: inc._decide_body(
+                                 st, sm, n, r_win=cfg["r_win"], e_win=e_win, packed=packed))):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                fn()
+                ev[1].record()
+                evs[name].append(ev)
+        torch.cuda.synchronize()
+        states[packed] = st
+        per = {k: sum(a.elapsed_time(b) for a, b in v) / len(v) for k, v in evs.items()}
+        log_fn(f"  {'packed' if packed else 'wide'} layout at the {n}-validator step shape: "
+               f"step_levels {per['step_levels']:.4f} ms per batch, decide_window "
+               f"{per['decide_window']:.4f} ms per call (CUDA events, {len(batches_d)} calls)")
+    diff = state_diff(states[False], states[True])
+    if diff:
+        raise AssertionError(f"append path at {n} validators: the layouts differ in {diff}")
+    log_fn(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -960,10 +1404,7 @@ def main() -> int:
             + valid_rounds * n * n * 4 + st.rows_by.numel() * 4 + 3 * e_b * 4
             + e_b * 5 + R_CAP * n * 4 + 4,
             (valid_rounds * (n ** 3 + n * n) + e_b * valid_rounds) / ALU_OPS_S),
-        "decide_fame": (
-            r_max * n * 4 + n_wit * n * 4 * 2 + n_wit * 5 + 4
-            + r_max * n * 2 + r_max,
-            n_pairs * (n + 1) / ALU_OPS_S + valid_rounds * 2 * n ** 3 / INT8_TC_OPS_S),
+        "decide_fame": fame_work(fr.witness_table, n),
         "round_received": (
             r_max * n * 4 + n_famous * n * 4 + r_max * n * 2 + r_max + 4
             + 3 * e_b * 4 + e_b * 4,
@@ -1132,17 +1573,7 @@ def main() -> int:
             return x.cpu()
 
         n_s = g.n
-        lv_c, _, _, sp_c, op_c, la_c, fd_c, esr_c, eor_c = (
-            cpu(ins[i]) for i in (0, 1, 2, 3, 4, 5, 6, 7, 8))
-        e_b = la_c.shape[0]
-        last_lv = kernels.last_level(lv_c)
-        used_level_bytes = (last_lv + 1) * lv_c.shape[1] * 4
-        n_wit = int(dr[1].sum().item())
-        pairs = scan_pair_count(lv_c, sp_c, op_c, esr_c, eor_c, cpu(dr[0]), cpu(dr[3]))
-        work["divide_rounds"] = (
-            used_level_bytes + g.e * (9 * 4 + n_s * 4) + n_wit * n_s * 4
-            + e_b * 9 + scan_r_max * n_s * 4,
-            (pairs * n_s + g.e * 4) / ALU_OPS_S)
+        work["divide_rounds"], pairs, n_wit = scan_work(g, ins, dr, scan_r_max)
         work["lamport_scan"] = (
             (kernels.last_level(cpu(lam_args[0])) + 1) * lam_args[0].shape[1] * 4
             + g.e * 5 * 4 + lam_args[1].shape[0] * 4,
@@ -1447,8 +1878,31 @@ def main() -> int:
                             + (4 * e_win_s + 3 * r_cap_s * n + 3) * 4, 0.0)
 
     # 12. the hashgraph path at full width
-    _, live_launches = hashgraph_phase(DEVICE, log)
+    _, live_launches = hashgraph_phase(DEVICE, log, depth=HG_DEPTH)
     launches["pack_results"] = live_launches["pack_results"]
+
+    # 13-15. the packed layout: config #4's grid, then the hashgraph path at
+    # the layout's switch
+    t0 = time.perf_counter()
+    wide = synthetic_grid(WIDE["n"], WIDE["e_count"], seed=WIDE["seed"],
+                          zipf_a=WIDE["zipf_a"], byzantine_frac=WIDE["byzantine_frac"],
+                          record_fd_updates=True)
+    if wide.num_levels != WIDE_LEVELS:
+        raise AssertionError(f"config #4 grid: {wide.num_levels} levels, expected {WIDE_LEVELS}")
+    log(f"config #4 grid: {wide.n} validators, {wide.e} events, {wide.num_levels} levels; "
+        f"{time.perf_counter() - t0:.1f} s to generate")
+    p_summary, p_work, upd_cap, wide_batches = packed_kernel_phase(wide, dev, log)
+    summary.update(p_summary)
+    work.update(p_work)
+    wide_launches = wide_engine_phase(wide, dev, log, upd_cap, wide_batches)
+    del wide, wide_batches
+    launches["decide_fame/packed"] = wide_launches["run_frontier_passes"]["decide_fame/packed"]
+    launches["divide_rounds/packed"] = wide_launches["run_passes"]["divide_rounds/packed"]
+    _, switch_launches = hashgraph_phase(DEVICE, log, spec=SWITCH, oneshot=SWITCH_ONESHOT_RUNG,
+                                         full=False, expect=SWITCH_EXPECT, title="phase 15",
+                                         live_settings=SWITCH_LIVE)
+    launches["step_levels/packed"] = switch_launches["step_levels/packed"]
+    launches["decide_window/packed"] = switch_launches["decide_window/packed"]
 
     out = []
     for name, (source, replaces) in REPLACES.items():

@@ -222,9 +222,12 @@ def test_crossover_and_ladder_predicate(monkeypatch):
 def test_run_doubling_passes_refuses_packed_empty_and_a_missing_card(monkeypatch):
     import dataclasses
 
-    g = grid_from_arrays(vars(fixture_grid(("synthetic", 4, 64, 1, 0.0, 0.0))))
-    with pytest.raises(NotImplementedError):
-        port.run_doubling_passes(g, device="cpu", packed=True)
+    ref_g = fixture_grid(("synthetic", 4, 64, 1, 0.0, 0.0))
+    g = grid_from_arrays(vars(ref_g))
+    # the packed layout, once refused, equals the reference's and the wide run
+    got = port.run_doubling_passes(g, device="cpu", packed=True)
+    assert_matches(got, ref.run_doubling_passes(ref_g, packed=True), "packed")
+    assert_matches(got, port.run_doubling_passes(g, device="cpu", packed=False), "wide")
     with pytest.raises(GridUnsupported):
         port.run_doubling_passes(dataclasses.replace(g, e=0), device="cpu")
     assert not port.use_doubling(dataclasses.replace(g, e=0))

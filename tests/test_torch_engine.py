@@ -115,12 +115,17 @@ def test_post_reset_grid_is_refused():
 
 
 def test_packed_layout_is_refused():
-    g = grid_from_arrays(vars(synthetic_grid(4, 64, seed=1)))
-    with pytest.raises(NotImplementedError):
-        port_engine.run_frontier_passes(g, device="cpu", packed=True)
-    wide = grid_from_arrays(vars(synthetic_grid(128, 200, seed=1)))
-    with pytest.raises(NotImplementedError):
-        port_engine.run_frontier_passes(wide, device="cpu")
-    # the wide layout stays available there when asked for
+    """The packed layout, once refused, now runs: packed=True equals the
+    reference's packed run; at 128 validators the knob's default (packed)
+    equals the reference's default and the port's wide run."""
+    ref_small = synthetic_grid(4, 64, seed=1)
+    g = grid_from_arrays(vars(ref_small))
+    got = port_engine.run_frontier_passes(g, device="cpu", packed=True)
+    assert_same_passes(got, ref_engine.run_frontier_passes(ref_small, packed=True))
+    ref_wide = synthetic_grid(128, 200, seed=1)
+    wide = grid_from_arrays(vars(ref_wide))
+    got = port_engine.run_frontier_passes(wide, device="cpu")
+    assert_same_passes(got, ref_engine.run_frontier_passes(ref_wide))
     res = port_engine.run_frontier_passes(wide, device="cpu", packed=False)
     assert res.rounds.shape == (200,)
+    assert_same_passes(got, res)

@@ -408,10 +408,29 @@ def test_decide_body_on_states_carried_from_the_reference(label, r_cap, r_win):
 
 
 def test_entry_points_refuse_packed_and_bad_windows():
+    """step takes the packed layout (equal to the reference's packed step
+    and to the wide one); the train paths still refuse it, and bad windows
+    are refused, before the state changes."""
+    fixture = (8, 512, 5, 1.1)
+    g, pg = grids(*fixture)
+    jb, pb = both_batches(fixture)
+    js = ref.init_state(g.n, g.e, 64)
+    ps = inc.init_state(g.n, g.e, 64, device="cpu")
+    ws = inc.init_state(g.n, g.e, 64, device="cpu")
+    for k, (a, b) in enumerate(zip(jb[:6], pb[:6])):
+        js = ref.step(js, a, g.super_majority, g.n, e_win=512, packed=True)
+        inc.step(ps, b, g.super_majority, g.n, e_win=512, packed=True)
+        inc.step(ws, b, g.super_majority, g.n, e_win=512, packed=False)
+        assert_state_equal(ps, js, f"packed step {k}")
+        assert_state_equal(ws, js, f"wide step {k}")
+    tr = inc.trains_from_grid(pg, 128, 8192, g.e, w_cap=16, t_cap=64)
+    before = inc.clone_state(ps)
+    with pytest.raises(NotImplementedError):
+        inc.train_step(ps, tr[0], g.super_majority, g.n, e_win=512, packed=True)
+    for f in inc.IncState._fields:
+        assert torch.equal(getattr(ps, f), getattr(before, f)), f
     st = inc.init_state(4, 64, 8, device="cpu")
     b = inc.Batch(*[np.zeros(1, np.int32)] * 12)
-    with pytest.raises(NotImplementedError):
-        inc.step(st, b, 3, 4, packed=True)
     before = inc.clone_state(st)
     with pytest.raises(ValueError):
         inc.step(st, b, 3, 4, r_win=16, e_win=64)

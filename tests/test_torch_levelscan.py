@@ -185,9 +185,13 @@ def test_post_reset_refusal_points_at_the_other_engines():
 
 
 def test_run_passes_refuses_packed_and_a_missing_card(monkeypatch):
-    g = grid_from_arrays(vars(synthetic_grid(4, 64, seed=1)))
-    with pytest.raises(NotImplementedError):
-        port_engine.run_passes(g, device="cpu", packed=True)
+    """packed=True (once refused) equals the reference's packed run and the
+    port's wide one; a host without a card still raises."""
+    ref_g = synthetic_grid(4, 64, seed=1)
+    g = grid_from_arrays(vars(ref_g))
+    got = port_engine.run_passes(g, device="cpu", packed=True)
+    assert_matches(got, ref_engine.run_passes(ref_g, packed=True), "packed")
+    assert_matches(got, port_engine.run_passes(g, device="cpu", packed=False), "wide")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_engine.run_passes(g)

@@ -352,23 +352,35 @@ def test_live_engine_attaches_large_history(monkeypatch):
 
 def test_both_rungs_refuse_a_host_without_cuda(monkeypatch):
     """No card and no device="cpu": both rungs raise before they change
-    anything; where the packed layout resolves, both raise
-    NotImplementedError before anything is staged."""
+    anything. Where the packed layout resolves (once refused), both rungs
+    run it: the one-shot rung equals the JAX package's and the host
+    engine, and the live engine resolves it as the JAX package's does."""
     ref_hg = dag(*LIVE_GRID)
-    port = carry(ref_hg, ref_events(ref_hg)[:48])
+    events = ref_events(ref_hg)[:48]
+    port = carry(ref_hg, events)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_consensus_device(port)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         live.run_consensus_live(port)
-    monkeypatch.setenv("BABBLE_PACKED_VOTING", "1")
-    with pytest.raises(NotImplementedError, match="packed"):
-        run_consensus_device(port, device="cpu")
-    with pytest.raises(NotImplementedError, match="packed"):
-        live.run_consensus_live(port, device="cpu")
     assert getattr(port, "_live_device_engine", None) is None
     assert port.insert_listener is None
     assert all(port.store.get_event(h).round is None for h in port.undetermined_events)
-    monkeypatch.delenv("BABBLE_PACKED_VOTING")
+    monkeypatch.setenv("BABBLE_PACKED_VOTING", "1")
+    ref_blocks, port_blocks, host_blocks = [], [], []
+    ref = carry_ref(ref_hg, events, ref_blocks)
+    one = carry(ref_hg, events, commit_callback=port_blocks.append)
+    host = carry(ref_hg, events, commit_callback=host_blocks.append)
+    ref_run_consensus_device(ref)
+    run_consensus_device(one, device="cpu")
+    host.run_consensus()
+    assert any("/packed/" in k for k in one.obs.devledger.snapshot())
+    assert_same_consensus(ref, ref_blocks, one, port_blocks, "packed one-shot vs JAX")
+    assert_same_consensus(host, host_blocks, one, port_blocks, "packed one-shot vs host")
     live.run_consensus_live(port, device="cpu")
-    assert port._live_device_engine.device.type == "cpu"
+    assert port._live_device_engine.packed
+    monkeypatch.delenv("BABBLE_PACKED_VOTING")
+    fresh = carry(ref_hg, events)
+    live.run_consensus_live(fresh, device="cpu")
+    assert fresh._live_device_engine.device.type == "cpu"
+    assert not fresh._live_device_engine.packed
