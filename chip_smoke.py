@@ -254,10 +254,11 @@ SWITCH_ONESHOT_RUNG = ("frontier", "run_frontier_passes, packed")
 # (batches_from_grid on this grid), past the default upd_cap of 8,192; and
 # the undecided tail (about 3,300 events a round) outgrows the default
 # write-back window e_win of 8,192. The JAX reference's live rung refuses
-# this DAG the same way on the CPU: GridUnsupported at its 36th call at
-# the defaults, at its 133rd with upd_cap 16,384 (stale at e_win 8,192)
-# and its 295th at e_win 16,384; with upd_cap 16,384 and e_win 32,768 it
-# takes all 512 calls to 7 blocks and last round 10
+# this DAG the same way (scripts/live_capacity_check.py on a CPU):
+# GridUnsupported at its 36th call at the defaults, at its 133rd with
+# upd_cap 16,384 (stale at e_win 8,192) and its 295th at e_win 16,384;
+# with upd_cap 16,384 and e_win 32,768 it takes all 512 calls to 7 blocks
+# and last round 10
 SWITCH_LIVE = {"upd_cap": 16384, "e_win": 32768}
 
 REPLACES = {
