@@ -1,7 +1,8 @@
 // decide_fame: Hashgraph virtual voting over the witness table.
 //
 // Replaces babble_tpu/tpu/kernels.py:335 _decide_fame (_fame_setup_tables
-// and the while_loop of _decide_fame_tables), wide layout.
+// and the while_loop of _decide_fame_tables), in both voting-table
+// layouts: the wide one first, the packed one below.
 //
 // Setup, one thread per (j, y, w):
 //   ss[j, y, w]     = witness y of round j strongly sees witness w of round

@@ -239,9 +239,11 @@ def check_smem(name: str, n: int, packed: bool = False, d_unroll: int = 8,
     need = smem_bytes(name, n, packed=packed, d_unroll=d_unroll, **shape)
     if need > MAX_SMEM_BYTES:
         layout = "packed" if packed else "wide"
+        limit = "" if shape else (
+            f"; it holds at most {max_width(name, packed=packed, d_unroll=d_unroll)}")
         raise ValueError(
             f"{name} ({layout}): {n} validators need {need} bytes of one "
-            f"block's shared memory, above the card's {MAX_SMEM_BYTES}"
+            f"block's shared memory, above the card's {MAX_SMEM_BYTES}{limit}"
         )
 
 

@@ -16,7 +16,8 @@ the TPU's matrix unit; here every INV lookup is a direct int32 indexed
 load, in the plain versions and in the CUDA kernels alike
 (babble_tpu_torch/csrc/build_inv.cu, frontier_walk.cu). INV stays int32.
 
-Scope: base (non-reset) grids, wide layout. Host staging (chain_table,
+Scope: base (non-reset) grids; the fame vote of frontier_pipeline takes
+either voting-table layout (`packed`). Host staging (chain_table,
 sp_index_of, level_lamport) is numpy, as in the reference.
 """
 
