@@ -107,57 +107,6 @@ __device__ __forceinline__ bool babble_warp_sees_majority(const int32_t* la_e,
     return seen >= super_majority;
 }
 
-// The packed strongly-seen row of one event, decided by a whole warp, and
-// its popcount:
-//   word k, bit b  <->  witness w = 32 k + b, set when fd_row(w) is not
-//   null (the witness is present) and |{q < n : la_e[q] >= fd_row(w)[q]}|
-//   >= super_majority;
-//   c_seen = the sum of the words' popcounts,
-// the same on every lane. The count over the n coordinates is a ballot per
-// 32 lanes and a popcount; BABBLE_WG witnesses' loads are issued before
-// their ballots. Unlike babble_warp_sees_majority the whole row is built:
-// c_seen is its popcount, as the packed layout counts it. A coordinate
-// past n compares against MAX_INT32, which no real lastAncestors entry
-// reaches.
-template <typename FdRow>
-__device__ __forceinline__ int babble_warp_ss_popcount(const int32_t* la_e, int n,
-                                                       int super_majority, FdRow fd_row) {
-    const int lane = threadIdx.x & 31;
-    int c_seen = 0;  // warp-uniform
-    for (int w0 = 0; w0 < n; w0 += 32) {
-        const int w_end = min(w0 + 32, n);
-        unsigned word = 0;
-        for (int u0 = w0; u0 < w_end; u0 += BABBLE_WG) {
-            const int32_t* rows[BABBLE_WG];
-            int cnt[BABBLE_WG];
-#pragma unroll
-            for (int u = 0; u < BABBLE_WG; ++u) {
-                rows[u] = u0 + u < w_end ? fd_row(u0 + u) : nullptr;
-                cnt[u] = 0;
-            }
-            for (int q0 = 0; q0 < n; q0 += 32) {
-                const int q = q0 + lane;
-                const int la_q = q < n ? la_e[q] : 0;
-                int v[BABBLE_WG];
-#pragma unroll
-                for (int u = 0; u < BABBLE_WG; ++u) {
-                    v[u] = (rows[u] != nullptr && q < n) ? rows[u][q] : BABBLE_MAX_INT32;
-                }
-#pragma unroll
-                for (int u = 0; u < BABBLE_WG; ++u) {
-                    cnt[u] += __popc(__ballot_sync(BABBLE_FULL_MASK, la_q >= v[u]));
-                }
-            }
-#pragma unroll
-            for (int u = 0; u < BABBLE_WG; ++u) {
-                if (rows[u] != nullptr && cnt[u] >= super_majority) word |= 1u << (u0 + u - w0);
-            }
-        }
-        c_seen += __popc(word);
-    }
-    return c_seen;
-}
-
 // Row stride, in int32 words, of a staged (rows, n) tile that is read 16
 // bytes at a time: a multiple of 4 whose count of 16-byte units is odd,
 // so that the lanes of a quarter warp reading one unit of eight different

@@ -34,12 +34,9 @@
 // level that holds an event, since padding rows change nothing.
 //
 // The packed layout (babble_tpu/tpu/kernels.py:147-153, packed=True)
-// builds each event's strongly-seen row as uint32 words instead: per
-// witness the count of la_e[p] >= fd_w[p] over the N coordinates is a
-// ballot per 32 lanes and a popcount, each bit is count >= super_majority,
-// and c_seen is the popcount of the row's words (common.cuh
-// babble_warp_ss_popcount). The same integers as the wide count; every
-// other step is the wide kernel's.
+// counts the same compares with packed_count and c_seen as the popcount of
+// the strongly-seen words: the same integers as these counts, so the
+// wrapper launches this kernel for both layouts (counted apart).
 //
 // Launches per call: three (init, last level, walk).
 
@@ -62,8 +59,7 @@ __global__ void dr_init(int32_t* rounds, int32_t* lamport, uint8_t* witness,
     for (long long k = k0; k < wt_total; k += stride) wtable[k] = -1;
 }
 
-template <bool PACKED>
-__global__ void __launch_bounds__(DR_MAX_WARPS * 32) dr_walk(const int32_t* __restrict__ levels,
+__global__ void dr_walk(const int32_t* __restrict__ levels,
                         const int32_t* __restrict__ creator,
                         const int32_t* __restrict__ self_parent,
                         const int32_t* __restrict__ other_parent,
@@ -107,12 +103,7 @@ __global__ void __launch_bounds__(DR_MAX_WARPS * 32) dr_walk(const int32_t* __re
             }
             __syncwarp();
             int seen = 0;  // the same on every lane after the warp sums
-            if (PACKED) {
-                seen = babble_warp_ss_popcount(la_e, n, super_majority, [&](int w) {
-                    const int wr = wrow[w];
-                    return wr >= 0 ? fd + (long long)min(wr, e - 1) * n : nullptr;
-                });
-            } else if (n <= 32) {
+            if (n <= 32) {
                 const int wr = lane < n ? wrow[lane] : -1;
                 if (wr >= 0) {
                     const int32_t* fd_w = fd + (long long)min(wr, e - 1) * n;
@@ -175,7 +166,7 @@ extern "C" int babble_divide_rounds(
     int32_t* rounds, uint8_t* witness, int32_t* lamport, int32_t* wtable,
     int32_t* last_level,
     int l_lv, int n_lvl, int e, int n, int super_majority, int r_max,
-    int packed, int device, void* stream) {
+    int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     long long wt_total = (long long)r_max * n;
@@ -191,12 +182,11 @@ extern "C" int babble_divide_rounds(
     }
     int warps = n_lvl < DR_MAX_WARPS ? (n_lvl > 0 ? n_lvl : 1) : DR_MAX_WARPS;
     size_t smem = ((size_t)3 * n_lvl + (size_t)warps * 2 * n) * sizeof(int32_t);
-    auto walk = packed ? dr_walk<true> : dr_walk<false>;
     if (smem > 48 * 1024) {
         BABBLE_CHECK(cudaFuncSetAttribute(
-            walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+            dr_walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
     }
-    walk<<<1, 32 * warps, smem, s>>>(
+    dr_walk<<<1, 32 * warps, smem, s>>>(
         levels, creator, self_parent, other_parent, la, fd, ext_sp_round,
         ext_op_round, fixed_round, ext_sp_lamport, ext_op_lamport,
         fixed_lamport, last_level, rounds, witness, lamport, wtable, n_lvl, e,

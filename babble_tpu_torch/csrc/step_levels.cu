@@ -37,18 +37,15 @@
 // phase stores. A padding lane writes nothing (JAX's dropped scatter).
 //
 // The packed layout (babble_tpu/tpu/incremental.py:280-283, packed=True)
-// builds each lane's strongly-seen row as uint32 words in phase C: per
-// witness a ballot per 32 coordinates and a popcount, a bit per witness,
-// and c_seen is the popcount of the row (common.cuh
-// babble_warp_ss_popcount; the whole row, no early stop). The same
-// integers as the wide verdict; every other phase is the wide kernel's.
+// counts the same compares with packed_count and c_seen as the popcount of
+// the strongly-seen words: the same verdicts, so the wrapper launches this
+// kernel for both layouts (counted apart).
 
 #include "common.cuh"
 
 #define SL_THREADS 1024
 #define SL_WARPS (SL_THREADS / 32)
 
-template <bool PACKED>
 __global__ void __launch_bounds__(SL_THREADS)
 sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
         uint8_t* witness, int32_t* wtable, int32_t* w_of_row, int32_t* la_w,
@@ -139,18 +136,9 @@ sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
             const int pr = s_pr[i];
             const int prc = babble_clamp(pr, 0, r_cap - 1);
             const uint8_t* wv_r = wv + prc * n;
-            const int32_t* fd_r = fd_w + (long long)prc * n * n;
-            bool sees;
-            if (PACKED) {
-                sees = pr >= 0 && babble_warp_ss_popcount(
-                    la_lane + i * n, n, super_majority, [&](int wi) {
-                        return wv_r[wi] ? fd_r + (long long)wi * n : nullptr;
-                    }) >= super_majority;
-            } else {
-                sees = pr >= 0 && babble_warp_sees_majority(
-                    la_lane + i * n, fd_r, n, super_majority,
-                    [wv_r](int wi) { return wv_r[wi] != 0; });
-            }
+            const bool sees = pr >= 0 && babble_warp_sees_majority(
+                la_lane + i * n, fd_w + (long long)prc * n * n, n, super_majority,
+                [wv_r](int wi) { return wv_r[wi] != 0; });
             if (lane == 0) {
                 int rd = pr + (sees ? 1 : 0);
                 if (b_fixed[p] >= 0) rd = b_fixed[p];
@@ -238,18 +226,17 @@ extern "C" int babble_step_levels(
     const int32_t* op_row, const int32_t* la_rows, const uint8_t* coin,
     const int32_t* fixed_round, const int32_t* levels,
     int e_cap, int n, int r_cap, int b, int l_lv, int w, int super_majority,
-    int packed, int device, void* stream) {
+    int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     size_t smem = ((size_t)7 * w + (size_t)l_lv * w + (size_t)7 * b + (size_t)w * n)
                       * sizeof(int32_t)
                   + (size_t)r_cap * n;
-    auto walk = packed ? sl_walk<true> : sl_walk<false>;
     if (smem > 48 * 1024) {
         BABBLE_CHECK(cudaFuncSetAttribute(
-            walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+            sl_walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
     }
-    walk<<<1, SL_THREADS, smem, s>>>(
+    sl_walk<<<1, SL_THREADS, smem, s>>>(
         fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w, idx_w,
         coin_w, rounds_decided, last_round, count, stale, rows, creator, index,
         sp_row, op_row, la_rows, coin, fixed_round, levels, e_cap, n, r_cap, b,

@@ -48,7 +48,7 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
         "round_received.cu", "babble_round_received", "pppppppppppppp" "iiii",
     ),
     "divide_rounds": (
-        "divide_rounds.cu", "babble_divide_rounds", "ppppppppppppppppp" "iiiiiii",
+        "divide_rounds.cu", "babble_divide_rounds", "ppppppppppppppppp" "iiiiii",
     ),
     "closure_la": (
         "closure_la.cu", "babble_closure_la_pass", "pppppppppp" "iiii",
@@ -63,7 +63,7 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
         "apply_deltas.cu", "babble_apply_deltas", "ppppppppppppp" "iiiii",
     ),
     "step_levels": (
-        "step_levels.cu", "babble_step_levels", "ppppppppppppppppppppppp" "iiiiiiii",
+        "step_levels.cu", "babble_step_levels", "ppppppppppppppppppppppp" "iiiiiii",
     ),
     "train_levels": (
         "train_levels.cu", "babble_train_levels",
@@ -208,11 +208,18 @@ def smem_bytes(name: str, n: int, packed: bool = False, d_unroll: int = 8,
         vote = 2 * n * words + d_unroll * n * (words | 1) + (5 + 2 * d_unroll) * n
         return max(setup, vote) * 4
     if name == "walk_chunk":
-        # the transposed fd table moves to device memory where it does not
-        # fit; the frontier, the chain lengths and the probe rows stay
-        base = (4 * n + min(n, 32) * n) * 4
-        table = n * (n | 1) * 4
-        return base + table if base + table <= MAX_SMEM_BYTES else base
+        # walk_chunk.cu: up to 32 validators one block holds the frontier
+        # state, a probe row per warp and the (n, n | 1) table; above, a
+        # block per chain holds its probe row and slice counts, and the
+        # frontier rows' fd table where it fits (wc_grid_shape)
+        if n <= 32:
+            return (4 * n + n * n + n * (n | 1)) * 4
+        ld4 = (n + 3) // 4 * 4
+        threads = 32 * min((n + 15) // 16, 16)
+        slices = threads // (ld4 // 4) if threads >= ld4 // 4 else 1
+        own = ld4 + min(slices, max(n // 8, 1)) * ld4
+        table = n * ld4 + ld4
+        return (own + table) * 4 if (own + table) * 4 <= MAX_SMEM_BYTES else own * 4
     if name == "divide_rounds":
         n_lvl = shape["n_lvl"]
         return (3 * n_lvl + min(max(n_lvl, 1), 32) * 2 * n) * 4
@@ -378,9 +385,11 @@ def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
                   ext_sp_round, ext_op_round, fixed_round, ext_sp_lamport,
                   ext_op_lamport, fixed_lamport, super_majority: int,
                   r_max: int, packed: bool = False):
-    """K5 (K5p with `packed`): the level scan. Returns (rounds (E,) int32, witness (E,) bool,
+    """K5: the level scan. Returns (rounds (E,) int32, witness (E,) bool,
     lamport (E,) int32, wtable (r_max, N) int32). `index` is not read (the
-    reference's signature carries it)."""
+    reference's signature carries it). The packed layout's counts are the
+    same integers, so `packed` launches the same kernel and counts it as
+    divide_rounds/packed."""
     dev = la.device
     l_lv, n_lvl = levels.shape
     e, n = la.shape
@@ -396,7 +405,7 @@ def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
         check_tensor(what, t, torch.int32, (e,), dev)
     if e < 1 or r_max < 1:
         raise ValueError("divide_rounds: needs events and r_max >= 1")
-    check_smem("divide_rounds", n, packed=packed, n_lvl=n_lvl)
+    check_smem("divide_rounds", n, n_lvl=n_lvl)
     rounds = torch.empty((e,), dtype=torch.int32, device=dev)
     witness = torch.empty((e,), dtype=torch.uint8, device=dev)
     lamport = torch.empty((e,), dtype=torch.int32, device=dev)
@@ -406,7 +415,7 @@ def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
         levels, creator, self_parent, other_parent, la, fd, ext_sp_round,
         ext_op_round, fixed_round, ext_sp_lamport, ext_op_lamport,
         fixed_lamport, rounds, witness, lamport, wtable, last_level,
-        l_lv, n_lvl, e, n, super_majority, r_max, int(packed),
+        l_lv, n_lvl, e, n, super_majority, r_max,
     ), packed=packed)
     return rounds, witness.view(torch.bool), lamport, wtable
 
@@ -447,6 +456,7 @@ def walk_chunk(inv, rows_by, fd, la, x0, seeds, r_abs, first_nw,
     (x_last (N,) int32, xs (length, N) int32)."""
     dev = rows_by.device
     n = rows_by.shape[0]
+    check_smem("walk_chunk", n)
     e_fd, e_la = fd.shape[0], la.shape[0]
     check_tensor("inv", inv, torch.int32, (n, n, l), dev)
     check_tensor("rows_by", rows_by, torch.int32, (n, l), dev)
@@ -458,14 +468,16 @@ def walk_chunk(inv, rows_by, fd, la, x0, seeds, r_abs, first_nw,
     check_tensor("first_nw", first_nw, torch.int32, (n,), dev)
     if length < 1 or l < 1 or e_fd < 1 or e_la < 1:
         raise ValueError("walk_chunk: needs length >= 1, l >= 1 and events")
-    check_smem("walk_chunk", n)
     x_last = torch.empty((n,), dtype=torch.int32, device=dev)
     xs = torch.empty((length, n), dtype=torch.int32, device=dev)
-    # the transposed fd table, where it does not fit in shared memory
-    fd_scratch = torch.empty((n, n | 1), dtype=torch.int32, device=dev)
+    # the frontier rows' fd table (N, N padded to a multiple of 4), the
+    # frontier, m0, the countable rows, the chain lengths and the grid
+    # barrier's count
+    scratch = torch.empty((n * ((n + 3) // 4 * 4) + 4 * n + 1,), dtype=torch.int32,
+                          device=dev)
     _launch("walk_chunk", dev, (
         inv, rows_by, fd, la, x0, seeds, r_abs, first_nw, x_last, xs,
-        fd_scratch, n, l, e_fd, e_la, super_majority, length, steps,
+        scratch, n, l, e_fd, e_la, super_majority, length, steps,
         int(use_seeds),
     ))
     return x_last, xs
@@ -548,9 +560,10 @@ def step_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
                 rows, creator, index, sp_row, op_row, la_rows, coin,
                 fixed_round, levels, super_majority: int,
                 packed: bool = False) -> None:
-    """K10 (K10p with `packed`), in place: the batch's (L, W) level table
-    walked in order by one block, witness registration, then last_round,
-    count and the latches."""
+    """K10, in place: the batch's (L, W) level table walked in order by one
+    block, witness registration, then last_round, count and the latches.
+    The packed layout's verdicts are the same, so `packed` launches the
+    same kernel and counts it as step_levels/packed."""
     dev = fd.device
     e_cap, n, r_cap = _check_level_state(
         dev, fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
@@ -566,14 +579,14 @@ def step_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
     check_tensor("levels", levels, torch.int32, (l_lv, w), dev)
     if b < 1 or w < 1:
         raise ValueError("step_levels: needs a non-empty batch and level width")
-    check_smem("step_levels", n, packed=packed, w=w, l_lv=l_lv, b=b, r_cap=r_cap)
+    check_smem("step_levels", n, w=w, l_lv=l_lv, b=b, r_cap=r_cap)
     _launch("step_levels", dev, (
         fd, rounds, lamport, witness.view(torch.uint8), wtable, w_of_row,
         la_w, fd_w, idx_w, coin_w.view(torch.uint8),
         rounds_decided.view(torch.uint8), last_round, count,
         stale.view(torch.uint8), rows, creator, index, sp_row, op_row,
         la_rows, coin.view(torch.uint8), fixed_round, levels,
-        e_cap, n, r_cap, b, l_lv, w, super_majority, int(packed),
+        e_cap, n, r_cap, b, l_lv, w, super_majority,
     ), packed=packed)
 
 

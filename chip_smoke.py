@@ -104,17 +104,21 @@ Phases, in order; any failure raises and exits non-zero:
 
 13. the packed voting layout's kernels (K3p decide_fame/packed, K5p
    divide_rounds/packed, K10p step_levels/packed, K12p
-   decide_window/packed) and the two kernels repaired for 256 validators
-   (walk_chunk, decide_window) against their plain versions on the card,
-   torch.equal, on BASELINE.json config #4's grid at full width
-   (synthetic_grid(256, 65536, seed=11, zipf_a=1.05, byzantine_frac=1/3),
-   677 levels): K3p on its witness table, on test_packed.py's 7- and
-   33-validator fixtures and on the coin cases; K5p on the grid and a
-   pinned section of it; walk_chunk on every chunk of its walk; K10p and
-   K12p after every call on a state driven through its 1,024 batches of 64
-   (the live engine's defaults, upd_cap the least power of two that holds
-   the largest fd burst), the wide K12 every 8th call; launches and
-   CUDA-event times behind a spin;
+   decide_window/packed; K5p, K10p and K12p launch the wide kernels, whose
+   counts are the packed layout's integers) and the two kernels repaired
+   for 256 validators (walk_chunk, decide_window) against their plain
+   versions on the card, torch.equal, on BASELINE.json config #4's grid at
+   full width (synthetic_grid(256, 65536, seed=11, zipf_a=1.05,
+   byzantine_frac=1/3), 677 levels): K3p on its witness table, on
+   test_packed.py's 7- and 33-validator fixtures and on the coin cases;
+   K5p on the grid and a pinned section of it; walk_chunk on every chunk
+   of its walk; on a state driven through its 1,024 batches of 64 (the
+   live engine's defaults but e_win 65,536, phase 14's window; upd_cap the
+   least power of two that holds the largest fd burst) apply_deltas and
+   K10p after every call and the decide, packed and wide in turn, after
+   every 8th (the kernels advance both states in between), and again at
+   e_win 8,192, where the stale latch must fire, K10p and the decide every
+   8th call; launches and CUDA-event times behind a spin;
 14. config #4 through run_frontier_passes, run_passes and
    run_doubling_passes in the knob's layout (packed at 256) and with
    packed=False: each pair equal field for field, the engines equal to
@@ -122,19 +126,24 @@ Phases, in order; any failure raises and exits non-zero:
    reference's result), packed launches above zero and no wide form of a
    layout kernel on a packed path; events/s per engine; step and
    multi_step (packed) over the same batches equal to run_passes on rows
-   [:e] (e_win 65,536: the undecided tail outgrows smaller windows); K10
-   and K12 timed by CUDA events in both layouts on one state per layout,
-   the two states equal at the end;
+   [:e] (e_win 65,536: the undecided tail outgrows smaller windows);
 15. the hashgraph path at the layout's switch: synthetic_grid(128, 32768,
-   seed=0, zipf_a=1.1) as signed events, (a) the host engine (7 blocks,
-   last round 10), (b) run_consensus_device, which must take the
-   frontier rung in the packed layout, (c) run_consensus_live after each
-   sync of 64 at the engine's defaults, every call on the live rung with
-   the engine in the packed layout; blocks byte-identical to (a), with
-   the per-layer milliseconds as in phase 12.
+   seed=0, zipf_a=1.1). First its 512 batches of 64 at run (c)'s shape
+   (upd_cap 16,384, e_win 32,768, r_cap and r_win 64) through apply_deltas,
+   K10p and K12p, each held to its plain version after every call, no
+   latch and events received at the end: the kernels line's times and
+   bounds of K10p and K12p. Then the grid as signed events: (a) the host
+   engine (7 blocks, last round 10), (b) run_consensus_device, which must
+   take the frontier rung in the packed layout, (c) run_consensus_live
+   after each sync of 64 at the engine's defaults but upd_cap 16,384 and
+   e_win 32,768 (the defaults are sized for 64 validators), every call on
+   the live rung with the engine in the packed layout; blocks
+   byte-identical to (a), with the per-layer milliseconds as in phase 12.
+   The kernels line's launches of K10p and K12p are run (c)'s.
 
-The phases take about ten minutes on an H100: phase 12 about two and a
-half, phase 13 two, phase 15 three (most of them host Python). The
+The phases take about ten minutes on an H100: phase 12 about two, phase
+13 one, phase 15 nearly four (its kernel check half a minute; the rest
+mostly host Python). The
 next-to-last line is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX and
 nothing of the babble_tpu package.
@@ -227,19 +236,22 @@ WIDE_EXPECT = dict(last_round=7, received=32341, witnesses=1853)
 WIDE_LEVELS = 677
 # the round axis of the frontier walk whose witness table phase 13 votes on
 WIDE_R_CAP = 16
-# the append state phase 13 drives (the live engine's defaults) and phase
-# 14's append paths; upd_cap is the least power of two that holds the
-# grid's largest fd burst, found in the run
-WIDE_STEP = dict(batch=64, e_cap=65536, r_cap=64, r_win=64, e_win=8192)
-# the wide K12 is held to its plain version after every WIDE_WIDE_EVERY-th
-# packed decide, on the same state
-WIDE_WIDE_EVERY = 8
-# phase 14's append paths hold every row in their write-back window: with
-# about 8,200 events a round and fame settling two to three rounds behind,
-# the undecided tail of this grid outgrows e_win 8,192, 16,384 and 32,768
-# (the stale latch fires and received stays short, on the H100 as in the
-# plain versions: the window semantics are the JAX reference's)
-WIDE_APPEND_E_WIN = 65536
+# the append state of phases 13-14: the live engine's defaults but e_win;
+# upd_cap is the least power of two that holds the grid's largest fd
+# burst, found in the run. The append paths hold every row in their
+# write-back window: with about 8,200 events a round and fame settling two
+# to three rounds behind, the undecided tail of this grid outgrows e_win
+# 8,192, 16,384 and 32,768 (the stale latch fires and received stays
+# short, on the H100 as in the plain versions: the window semantics are
+# the JAX reference's)
+WIDE_STEP = dict(batch=64, e_cap=65536, r_cap=64, r_win=64, e_win=65536)
+# phase 13 holds the decide to its plain version after every
+# WIDE_CHECK_EVERY-th call (packed and wide in turn; the kernel advances
+# both states in between), apply_deltas and step_levels after every call
+WIDE_CHECK_EVERY = 8
+# and again at the live default e_win, where the latch fires on this grid,
+# holding step_levels and the decide every WIDE_CHECK_EVERY-th call
+WIDE_LATCH_E_WIN = 8192
 WIDE_RUNS = 3
 # test_packed.py's non-lane-aligned and word-crossing fixtures
 PACKED_FIXTURES = [(7, 160, 9), (33, 400, 4)]
@@ -250,16 +262,20 @@ SWITCH = dict(n=128, e_count=32768, seed=0, zipf_a=1.1)
 SWITCH_EXPECT = (7, 10)  # blocks, last round
 SWITCH_ONESHOT_RUNG = ("frontier", "run_frontier_passes, packed")
 # run (c)'s two changes to the engine's defaults, which are sized for 64
-# validators. At 128 a batch of 64 carries up to 15,281 fd updates
-# (batches_from_grid on this grid), past the default upd_cap of 8,192; and
-# the undecided tail (about 3,300 events a round) outgrows the default
-# write-back window e_win of 8,192. The JAX reference's live rung refuses
-# this DAG the same way (scripts/live_capacity_check.py on a CPU):
-# GridUnsupported at its 36th call at the defaults, at its 133rd with
-# upd_cap 16,384 (stale at e_win 8,192) and its 295th at e_win 16,384;
-# with upd_cap 16,384 and e_win 32,768 it takes all 512 calls to 7 blocks
-# and last round 10
+# validators: at 128 a batch of 64 carries more fd updates than the
+# default upd_cap of 8,192, and the undecided tail (about 3,300 events a
+# round) outgrows the default write-back window e_win of 8,192 and 16,384
+# (phase 15's kernel check prints the largest burst and drives the
+# kernels at both short windows); a live rung refuses such a DAG alike in
+# both packages (tests/test_torch_packed.py
+# test_live_capacities_refuse_alike_at_128_validators)
 SWITCH_LIVE = {"upd_cap": 16384, "e_win": 32768}
+SWITCH_SHORT_E_WINS = (8192, 16384)
+# phase 15's kernel check at run (c)'s shape: the switch grid's 512 batches
+# of 64 through apply_deltas, step_levels/packed and decide_window/packed,
+# each held to its plain version after every call (the live engine's r_cap
+# 64, r_win 64, e_cap 65,536 with SWITCH_LIVE)
+SWITCH_STEP = dict(batch=64, e_cap=65536, r_cap=64, r_win=64, **SWITCH_LIVE)
 
 REPLACES = {
     "build_inv": ("babble_tpu_torch/csrc/build_inv.cu", "babble_tpu/tpu/frontier.py:116"),
@@ -503,8 +519,9 @@ def state_diff(a, b):
 class PairedRun:
     """One incremental state driven through the kernels and a clone of it
     through the plain versions, call by call: every IncState field is held
-    torch.equal after each call, and each call's kernel and plain times
-    (CUDA events) and the work its data needs are kept by kernel name."""
+    torch.equal after each checked call, and each checked call's kernel and
+    plain times (CUDA events) and the work its data needs are kept by
+    kernel name. An unchecked call runs the kernel on both states."""
 
     def __init__(self, label, state):
         from babble_tpu_torch.tpu import incremental as inc
@@ -515,7 +532,11 @@ class PairedRun:
         self.events = {}
         self.work = {}
 
-    def call(self, name, kern, plain, work=None):
+    def call(self, name, kern, plain, work=None, check=True):
+        if not check:
+            kern(self.k)
+            kern(self.p)
+            return
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         # the card spins while the host runs the wrapper and enqueues the
         # launch, so the events time the kernel and not the enqueue
@@ -1055,21 +1076,18 @@ def packed_kernel_phase(g, dev, log_fn):
         _ext.reset_launches()
         dr = held(f"divide_rounds/packed on the {label}", kern, plain)
         launched = _ext.LAUNCHES["divide_rounds/packed"]
-        wide_kern = lambda: tuple(kernels.divide_rounds(*dr_args))  # noqa: E731
-        require_equal(f"divide_rounds packed == wide on the {label}", dr, wide_kern())
-        line = (f"divide_rounds/packed == plain == wide on the {label} ({sg.e} events, "
+        line = (f"divide_rounds/packed == plain on the {label} ({sg.e} events, "
                 f"{sg.num_levels} levels): {launched} launch")
         if sg is g:
-            k_ms, w_ms = spun_ms(kern, 5), spun_ms(wide_kern, 5)
+            k_ms = spun_ms(kern, 5)
             p_ms = spun_ms(plain, 1, warmup=0)
             summary["divide_rounds/packed"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
             work["divide_rounds/packed"], pairs, _ = scan_work(gp, ins, dr, scan_r_max)
-            line += (f", {k_ms:.3f} ms, plain {p_ms:.1f} ms, wide kernel {w_ms:.3f} ms; "
-                     f"{pairs} (event, witness) pairs")
+            line += f", {k_ms:.3f} ms, plain {p_ms:.1f} ms; {pairs} (event, witness) pairs"
         log_fn(line)
 
-    # the repaired K7 on every chunk of the grid's walk (its table in
-    # device memory past 223 validators)
+    # the repaired K7 (a block per chain, its table in device memory) on
+    # every chunk of the grid's walk
     cs = doubling.stage_doubling(g, dev)
     inv_c = frontier.build_inv(cs.rows_by_d, cs.la_d)
     s_np, first_nw, x0 = doubling.walk_seeds(g, cs)
@@ -1090,12 +1108,13 @@ def packed_kernel_phase(g, dev, log_fn):
     k_ms = spun_ms(lambda: doubling._walk_chunk(*big), 5)
     p_ms = spun_ms(lambda: doubling._walk_chunk_plain(*big), 1, warmup=0)
     log_fn(f"walk_chunk == plain on every chunk of the {n}-validator grid's walk "
-           f"({', '.join(str(a[10]) for a in chunks)} steps, table in device memory: "
-           f"{_ext.smem_bytes('walk_chunk', n)} bytes of shared memory); largest chunk "
+           f"({', '.join(str(a[10]) for a in chunks)} steps, "
+           f"{_ext.smem_bytes('walk_chunk', n)} bytes of shared memory a block); largest chunk "
            f"{big[10]} steps x {big[11]} probes {k_ms:.4f} ms, plain {p_ms:.2f} ms")
     del inv_c, cs
 
-    # K10p and K12p (and the repaired wide K12) on the append state
+    # K10p and K12p (and the repaired wide K12) on the append state, at
+    # phase 14's window and at the live default's, where the latch fires
     cfg = WIDE_STEP
     t0 = time.perf_counter()
     upd_cap = cfg["e_cap"]
@@ -1105,7 +1124,7 @@ def packed_kernel_phase(g, dev, log_fn):
             break
         except ValueError:  # a burst above the cap
             upd_cap *= 2
-    burst = max(int((b.upd_row < cfg["e_cap"]).sum()) for b in batches)
+    burst = max_fd_burst(batches, cfg["e_cap"])
     if least_pow2(burst) != upd_cap:
         upd_cap = least_pow2(burst)
         batches = inc.batches_from_grid(g, cfg["batch"], upd_cap, cfg["e_cap"])
@@ -1114,9 +1133,38 @@ def packed_kernel_phase(g, dev, log_fn):
     log_fn(f"{n}-validator append inputs: {len(batches)} batches of {cfg['batch']}, largest fd "
            f"burst {burst}, upd_cap {upd_cap}; {time.perf_counter() - t0:.1f} s to build and "
            f"copy")
-    run = PairedRun(f"{n}-validator step state", inc.init_state(
-        n, cfg["e_cap"], cfg["r_cap"], device=dev))
-    r_win, e_win = cfg["r_win"], cfg["e_win"]
+    for e_win, every_step in ((cfg["e_win"], 1), (WIDE_LATCH_E_WIN, WIDE_CHECK_EVERY)):
+        run = drive_paired(f"{n}-validator step state at e_win {e_win}", g, cfg, e_win,
+                           batches_d, dev, every_step, WIDE_CHECK_EVERY, log_fn)
+        fin = run.k
+        received = int((fin.received >= 0).sum())
+        latched = bool(fin.stale)
+        if latched != (e_win == WIDE_LATCH_E_WIN) or (not latched and received == 0):
+            raise AssertionError(f"{n}-validator step state at e_win {e_win}: stale "
+                                 f"{latched}, {received} received")
+    log_fn(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return summary, work, upd_cap, batches_d
+
+
+def max_fd_burst(batches, e_cap):
+    """The most fd updates one batch carries."""
+    return max(int((b.upd_row < e_cap).sum()) for b in batches)
+
+
+def drive_paired(label, g, cfg, e_win, batches_d, dev, every_step, every_decide, log_fn):
+    """A PairedRun from a fresh state of shape cfg through batches_d:
+    apply_deltas after every call, step_levels/packed after every
+    every_step-th and the decide after every every_decide-th held to their
+    plain versions (the decide packed and wide in turn when every_decide >
+    1, packed only when it is 1); the kernels advance both states in
+    between. Logs the final state, the launches and the per-call times;
+    returns the run."""
+    from babble_tpu_torch.tpu import _ext
+    from babble_tpu_torch.tpu import incremental as inc
+
+    sm, n = g.super_majority, g.n
+    r_win = cfg["r_win"]
+    run = PairedRun(label, inc.init_state(n, cfg["e_cap"], cfg["r_cap"], device=dev))
     _ext.reset_launches()
     for k, b in enumerate(batches_d):
         run.call("apply_deltas", lambda st: inc._apply_deltas_and_stage(st, b),
@@ -1124,33 +1172,76 @@ def packed_kernel_phase(g, dev, log_fn):
         run.call("step_levels/packed",
                  lambda st: inc._step_levels(st, b, sm, packed=True),
                  lambda st: inc._step_levels_plain(st, b, sm, packed=True),
-                 lambda st: inc_work_levels(st, b, True))
-        run.call("decide_window/packed",
-                 lambda st: inc._decide_body(st, sm, n, r_win=r_win, e_win=e_win, packed=True),
-                 lambda st: inc._decide_body_plain(st, sm, n, r_win, e_win, packed=True),
-                 lambda st: inc_work_decide(st, r_win, e_win))
-        if k % WIDE_WIDE_EVERY == WIDE_WIDE_EVERY - 1:
-            run.call("decide_window",
-                     lambda st: inc._decide_body(st, sm, n, r_win=r_win, e_win=e_win),
-                     lambda st: inc._decide_body_plain(st, sm, n, r_win, e_win))
+                 lambda st: inc_work_levels(st, b, True), check=k % every_step == every_step - 1)
+        packed = every_decide == 1 or (k // every_decide) % 2 == 0
+        run.call("decide_window/packed" if packed else "decide_window",
+                 lambda st: inc._decide_body(st, sm, n, r_win=r_win, e_win=e_win, packed=packed),
+                 lambda st: inc._decide_body_plain(st, sm, n, r_win, e_win, packed=packed),
+                 lambda st: inc_work_decide(st, r_win, e_win),
+                 check=k % every_decide == every_decide - 1)
     launches = {k: v for k, v in _ext.LAUNCHES.items() if v}
     fin = run.k
-    log_fn(f"apply_deltas, step_levels/packed, decide_window/packed (and decide_window "
-           f"every {WIDE_WIDE_EVERY}th call) == plain after every call on the {n}-validator "
-           f"step state ({len(batches_d)} batches, r_win {r_win}, e_win {e_win}): last_round "
-           f"{int(fin.last_round)}, {int((fin.received >= 0).sum())} received, stale "
-           f"{bool(fin.stale)}, fame_lag {bool(fin.fame_lag)}; launches {launches}")
+    layouts = "packed" if every_decide == 1 else "packed and wide in turn"
+    log_fn(f"apply_deltas, step_levels/packed (every {every_step}) and decide_window, "
+           f"{layouts} (every {every_decide}) == plain on the {label} ({len(batches_d)} "
+           f"batches, r_win {r_win}): last_round {int(fin.last_round)}, "
+           f"{int((fin.received >= 0).sum())} received, stale {bool(fin.stale)}, fame_lag "
+           f"{bool(fin.fame_lag)}; launches on both states {launches}")
     for name in ("step_levels/packed", "decide_window/packed", "decide_window"):
+        if name not in run.events:
+            continue
         calls, k_ms, p_ms = run.times(name)
-        log_fn(f"  {name} at the {n}-validator step shape: {calls} calls, kernel "
-               f"{k_ms:.3f} ms in all ({k_ms / calls:.4f} ms per call), plain {p_ms:.1f} ms "
-               f"in all")
-        if name in run.work:
-            nbytes, alu, tc = run.work[name]
-            summary[name] = {"max_abs_err": 0, "ms": k_ms / calls, "plain_ms": p_ms / calls}
-            work[name] = (nbytes / calls, (alu / ALU_OPS_S + tc / INT8_TC_OPS_S) / calls)
-    log_fn(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
-    return summary, work, upd_cap, batches_d
+        log_fn(f"  {name}: {calls} checked calls, kernel {k_ms / calls:.4f} ms per call, "
+               f"plain {p_ms / calls:.2f} ms per call")
+    return run
+
+
+def run_summary(run, names):
+    """(summary, work) entries of the kernels line from a PairedRun: the
+    per-call means of its checked calls."""
+    summary, work = {}, {}
+    for name in names:
+        calls, k_ms, p_ms = run.times(name)
+        nbytes, alu, tc = run.work[name]
+        summary[name] = {"max_abs_err": 0, "ms": k_ms / calls, "plain_ms": p_ms / calls}
+        work[name] = (nbytes / calls, (alu / ALU_OPS_S + tc / INT8_TC_OPS_S) / calls)
+    return summary, work
+
+
+def switch_kernel_phase(dev, log_fn):
+    """Phase 15's kernel check: K9, K10p and K12p at the shape of run (c)
+    (SWITCH_STEP) on the switch grid, every call held to the plain
+    versions. Returns (summary, work) of the two packed kernels."""
+    from babble_tpu_torch.tpu import incremental as inc
+    from babble_tpu_torch.tpu.grid import synthetic_grid
+
+    t0 = time.perf_counter()
+    cfg = SWITCH_STEP
+    g = synthetic_grid(SWITCH["n"], SWITCH["e_count"], seed=SWITCH["seed"],
+                       zipf_a=SWITCH["zipf_a"], record_fd_updates=True)
+    batches = inc.batches_from_grid(g, cfg["batch"], cfg["upd_cap"], cfg["e_cap"])
+    burst = max_fd_burst(batches, cfg["e_cap"])
+    batches_d = [inc.device_put(b, dev) for b in batches]
+    log_fn(f"{g.n}-validator append inputs: {len(batches_d)} batches of {cfg['batch']}, "
+           f"largest fd burst {burst} (the live default upd_cap is 8,192), upd_cap "
+           f"{cfg['upd_cap']}")
+    run = drive_paired(f"{g.n}-validator live shape, e_win {cfg['e_win']}", g, cfg,
+                       cfg["e_win"], batches_d, dev, 1, 1, log_fn)
+    fin = run.k
+    if bool(fin.stale) or bool(fin.fame_lag) or int((fin.received >= 0).sum()) == 0:
+        raise AssertionError(f"{g.n}-validator live shape: stale {bool(fin.stale)}, fame_lag "
+                             f"{bool(fin.fame_lag)}, {int((fin.received >= 0).sum())} received")
+    summary = run_summary(run, ("step_levels/packed", "decide_window/packed"))
+    # the kernels alone through step at the live default's windows
+    for e_win in SWITCH_SHORT_E_WINS:
+        st = inc.init_state(g.n, cfg["e_cap"], cfg["r_cap"], device=dev)
+        for b in batches_d:
+            inc.step(st, b, g.super_majority, g.n, r_win=cfg["r_win"], e_win=e_win,
+                     packed=True)
+        log_fn(f"  step at e_win {e_win} on the same batches: stale {bool(st.stale)}, "
+               f"fame_lag {bool(st.fame_lag)}, {int((st.received >= 0).sum())} received")
+    log_fn(f"phase 15 kernel check: {time.perf_counter() - t0:.1f} s")
+    return summary
 
 
 def wide_engine_phase(g, dev, log_fn, upd_cap, batches_d):
@@ -1195,7 +1286,7 @@ def wide_engine_phase(g, dev, log_fn, upd_cap, batches_d):
         group = batches_d[i : i + MULTI_STEP_K]
         group = group + [empty] * (MULTI_STEP_K - len(group))
         groups.append(inc.Batch(*[torch.stack(f) for f in zip(*group)]))
-    e_win = WIDE_APPEND_E_WIN
+    e_win = cfg["e_win"]
     paths = {
         "step, packed": lambda st: [inc.step(st, b, sm, n, r_win=cfg["r_win"], e_win=e_win,
                                              packed=True)
@@ -1219,32 +1310,6 @@ def wide_engine_phase(g, dev, log_fn, upd_cap, batches_d):
         log_fn(f"{label} over the {n}-validator grid's {len(batches_d)} batches (r_win "
                f"{cfg['r_win']}, e_win {e_win}) == run_passes on rows [:e], no latch: "
                f"{wall * 1e3:.1f} ms (first run), {e / wall:.0f} events appended/s")
-    # K10 and K12 in both layouts at this width, each launch between CUDA
-    # events, on one state per layout driven through the same batches;
-    # the two states must end equal field for field
-    states = {}
-    for packed in (False, True):
-        st = inc.init_state(n, cfg["e_cap"], cfg["r_cap"], device=dev)
-        evs = {"step_levels": [], "decide_window": []}
-        for b in batches_d:
-            inc._apply_deltas_and_stage(st, b)
-            for name, fn in (("step_levels", lambda: inc._step_levels(st, b, sm, packed=packed)),
-                             ("decide_window", lambda: inc._decide_body(
-                                 st, sm, n, r_win=cfg["r_win"], e_win=e_win, packed=packed))):
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                ev[0].record()
-                fn()
-                ev[1].record()
-                evs[name].append(ev)
-        torch.cuda.synchronize()
-        states[packed] = st
-        per = {k: sum(a.elapsed_time(b) for a, b in v) / len(v) for k, v in evs.items()}
-        log_fn(f"  {'packed' if packed else 'wide'} layout at the {n}-validator step shape: "
-               f"step_levels {per['step_levels']:.4f} ms per batch, decide_window "
-               f"{per['decide_window']:.4f} ms per call (CUDA events, {len(batches_d)} calls)")
-    diff = state_diff(states[False], states[True])
-    if diff:
-        raise AssertionError(f"append path at {n} validators: the layouts differ in {diff}")
     log_fn(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -1899,6 +1964,10 @@ def main() -> int:
     del wide, wide_batches
     launches["decide_fame/packed"] = wide_launches["run_frontier_passes"]["decide_fame/packed"]
     launches["divide_rounds/packed"] = wide_launches["run_passes"]["divide_rounds/packed"]
+    # K10p and K12p at run (c)'s shape: the kernels line's times and bounds
+    s_summary, s_work = switch_kernel_phase(dev, log)
+    summary.update(s_summary)
+    work.update(s_work)
     _, switch_launches = hashgraph_phase(DEVICE, log, spec=SWITCH, oneshot=SWITCH_ONESHOT_RUNG,
                                          full=False, expect=SWITCH_EXPECT, title="phase 15",
                                          live_settings=SWITCH_LIVE)

@@ -460,6 +460,52 @@ def test_knob_switch_at_128_validators_live_rung(monkeypatch):
     assert_same_consensus(host, host_blocks, port, port_blocks, "port live vs host")
 
 
+@pytest.mark.parametrize("caps,refusal", [
+    ({"upd_cap": 600}, "fd update burst exceeds device staging"),
+    ({"e_win": 256}, "device window/unroll exhausted"),
+    ({}, None),
+], ids=["upd_cap-below-a-burst", "e_win-below-the-tail", "held"])
+def test_live_capacities_refuse_alike_at_128_validators(monkeypatch, caps, refusal):
+    """The live engine's capacities decide whether its rung holds a wider
+    DAG, alike in both packages: on the 128-validator hashgraph in syncs of
+    64, an upd_cap below a sync's fd burst, or an e_win below the
+    undecided tail, makes both packages' live rungs raise GridUnsupported
+    at the same call for the same reason; capacities that cover the DAG
+    hold every call, in the packed layout."""
+    from babble_tpu.hashgraph import Event as RefEvent
+    from babble_tpu.tpu import GridUnsupported as RefGridUnsupported
+    from babble_tpu_torch.hashgraph import Event
+    from babble_tpu_torch.tpu import GridUnsupported
+    from test_torch_hashgraph import ref_events
+    from test_torch_live import carry_ref, patch_both
+
+    patch_both(monkeypatch, {"r_cap": 16, "r_win": 8, "e_cap": 1024, "e_win": 512,
+                             "async_fetch": False, **caps})
+    ref_hg = switch_dag()
+    events = ref_events(ref_hg)
+    ref = carry_ref(ref_hg, [], [])
+    port = carry(ref_hg, [])
+    rungs = ((ref, ref_live.run_consensus_live, RefGridUnsupported),
+             (port, lambda h: live.run_consensus_live(h, device="cpu"), GridUnsupported))
+    for call, i in enumerate(range(0, len(events), 64), 1):
+        for ev in events[i : i + 64]:
+            ref.insert_event(RefEvent.from_json(ev.to_json()), True)
+            port.insert_event(Event.from_json(ev.to_json()), True)
+        outcome = []
+        for hg, run, unsupported in rungs:
+            try:
+                run(hg)
+                outcome.append(None)
+            except unsupported as e:
+                outcome.append(str(e))
+        assert outcome[0] == outcome[1], f"call {call}: JAX {outcome[0]!r}, port {outcome[1]!r}"
+        if outcome[0] is not None:
+            assert refusal is not None and refusal in outcome[0], f"call {call}: {outcome[0]}"
+            return
+        assert port._live_device_engine.packed and ref._live_device_engine.packed
+    assert refusal is None, f"no call refused; expected {refusal!r}"
+
+
 # ---------------------------------------------------------------------------
 # the kernels repaired for 256 validators: their plain versions at that
 # width, and the wrappers' shared-memory checks
@@ -544,7 +590,7 @@ def test_shared_memory_formula_holds_256_and_refuses_past_its_maximum(name, pack
     """Each repaired or packed kernel's blocks fit one block's shared memory
     at 256 validators and not past the stated maximum, where the check the
     wrapper runs first raises ValueError."""
-    top = {"decide_window": 384, "walk_chunk": 1614, "decide_fame": 736}[name]
+    top = {"decide_window": 384, "walk_chunk": 29056, "decide_fame": 736}[name]
     assert _ext.max_width(name, packed=packed) == top
     assert _ext.smem_bytes(name, 256, packed=packed) <= _ext.MAX_SMEM_BYTES
     assert _ext.smem_bytes(name, top, packed=packed) <= _ext.MAX_SMEM_BYTES
@@ -567,7 +613,9 @@ def test_wrappers_run_the_width_check_before_anything_else():
                            b(r_cap, n), b(r_cap, n), b(r_cap, n), b(r_cap), z(), z(),
                            z(e_cap), z(e_cap), z(e_cap), z(e_cap), b(), b(),
                            3, n, 1, 1, inc.D_UNROLL)
-    n, l = 1615, 1
-    with pytest.raises(ValueError, match="1615 validators"):
-        _ext.walk_chunk(z(n, n, l), z(n, l), z(1, n), z(1, n), z(n), z(1, n), z(1), z(n),
+    # walk_chunk reads the width off rows_by and checks it first, so the
+    # (N, N, L) table need not be built at this width
+    n, l = 29057, 1
+    with pytest.raises(ValueError, match="29057 validators"):
+        _ext.walk_chunk(z(1, 1, l), z(n, l), z(1, 1), z(1, 1), z(1), z(1, 1), z(1), z(1),
                         3, l, 1, 1, False)
