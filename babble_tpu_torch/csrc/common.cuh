@@ -42,6 +42,35 @@ static inline unsigned babble_stride_blocks(long long work, int threads) {
         if (babble_err_ != cudaSuccess) return (int)babble_err_; \
     } while (0)
 
+// The staging area of a block: its rows, carries and bit words. A launch
+// whose blocks fit one block's shared memory keeps them in dynamic shared
+// memory (DEV false); a wider one runs the same kernel code with them in
+// the block's own slice of a device scratch the wrapper allocates (DEV
+// true; tpu/_ext.py staging chooses, and the launcher follows its pointer),
+// `words` int32 words per block in block order, read and written through
+// L1/L2. __syncthreads and __syncwarp order global memory within the block
+// as they order shared memory, so the barriers stay as they are.
+template <bool DEV>
+__device__ __forceinline__ int32_t* babble_staging(int32_t* stage, long long words) {
+    extern __shared__ int32_t babble_dyn_smem[];
+    if (DEV) return stage + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * words;
+    return babble_dyn_smem;
+}
+
+// Int32 words of one block's slice of the device staging scratch: the
+// launch's shared-memory bytes in words, rounded up to 16 bytes so that
+// every slice keeps the int4 alignment of the staged tiles.
+static inline long long babble_stage_words(size_t smem_bytes) {
+    return (long long)((smem_bytes / 4 + 3) / 4 * 4);
+}
+
+// Allow a shared-memory launch above the default 48 KB.
+template <typename Kernel>
+static inline cudaError_t babble_allow_smem(Kernel kernel, size_t smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 __device__ __forceinline__ int babble_clamp(int x, int lo, int hi) {
     return x < lo ? lo : (x > hi ? hi : x);
 }

@@ -46,6 +46,10 @@
 //   wide coin bit where not strong.
 // The early per-round exit is the wide kernel's. Zero padding bits add
 // nothing to any popcount, so every integer equals the wide layout's.
+// Past 736 validators the vote's words (and past 860 the setup's two
+// tiles) no longer fit one block's shared memory: that launch then stages
+// them in its block's slice of a device scratch (common.cuh
+// babble_staging), the same code reading them through L1/L2.
 
 #include "common.cuh"
 
@@ -187,14 +191,16 @@ __global__ void fame_vote(const int32_t* __restrict__ wtable,
 
 
 // the packed setup: grid (r_max, words), one block per (round j, y tile)
+template <bool DEV>
 __global__ void __launch_bounds__(DF_THREADS)
 fame_setup_packed(const int32_t* __restrict__ wtable,
                   const int32_t* __restrict__ la,
                   const int32_t* __restrict__ fd,
                   const int32_t* __restrict__ index,
                   uint32_t* ss, uint32_t* vt0,
-                  int r_max, int n, int e, int words, int super_majority) {
-    extern __shared__ int32_t smem[];
+                  int r_max, int n, int e, int words, int super_majority,
+                  int32_t* stage, long long stage_words) {
+    int32_t* smem = babble_staging<DEV>(stage, stage_words);
     const int ld = babble_tile_ld(n);
     int32_t* tile_a = smem;              // (32, ld) la rows of round j, this y tile
     int32_t* tile_b = tile_a + 32 * ld;  // (32, ld) fd rows of round j - 1, a w tile
@@ -257,6 +263,7 @@ fame_setup_packed(const int32_t* __restrict__ wtable,
 }
 
 // the packed vote: one block per round i, the round's words in shared memory
+template <bool DEV>
 __global__ void __launch_bounds__(DF_THREADS)
 fame_vote_packed(const int32_t* __restrict__ wtable,
                  const uint8_t* __restrict__ coin_bit,
@@ -264,8 +271,8 @@ fame_vote_packed(const int32_t* __restrict__ wtable,
                  const uint32_t* __restrict__ ss, const uint32_t* __restrict__ vt0,
                  uint8_t* decided, uint8_t* famous, uint8_t* rounds_decided,
                  int r_max, int n, int e, int words, int super_majority,
-                 int n_participants, int d_cap) {
-    extern __shared__ int32_t smem[];
+                 int n_participants, int d_cap, int32_t* stage, long long stage_words) {
+    int32_t* smem = babble_staging<DEV>(stage, stage_words);
     const int nw = n * words;
     const int ldw = words | 1;  // odd row stride: lanes over rows y hit distinct banks
     uint32_t* vt = (uint32_t*)smem;    // (n, words) vote words of round i
@@ -373,33 +380,44 @@ extern "C" int babble_decide_fame(
     const int32_t* wtable, const int32_t* la, const int32_t* fd,
     const int32_t* index, const uint8_t* coin_bit, const int32_t* last_round,
     void* ss, void* votes, uint8_t* decided, uint8_t* famous,
-    uint8_t* rounds_decided, int r_max, int n, int e, int super_majority,
+    uint8_t* rounds_decided, int32_t* stage_setup, int32_t* stage_vote, int r_max, int n,
+    int e, int super_majority,
     int n_participants, int d_cap, int packed, int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (packed) {
-        // ss (r_max, n, words) and votes (r_max, n, words) uint32 words
+        // ss (r_max, n, words) and votes (r_max, n, words) uint32 words;
+        // a launch handed a scratch stages in it (tpu/_ext.py staging
+        // chooses the form per launch), else in shared memory
         const int words = (n + 31) / 32;
         const size_t smem_setup =
             ((size_t)64 * babble_tile_ld(n) + (size_t)3 * n) * sizeof(int32_t);
-        if (smem_setup > 48 * 1024) {
-            BABBLE_CHECK(cudaFuncSetAttribute(fame_setup_packed,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_setup));
+        const dim3 grid_setup(r_max, words);
+        if (stage_setup != nullptr) {
+            fame_setup_packed<true><<<grid_setup, DF_THREADS, 0, s>>>(
+                wtable, la, fd, index, (uint32_t*)ss, (uint32_t*)votes, r_max, n, e,
+                words, super_majority, stage_setup, babble_stage_words(smem_setup));
+        } else {
+            BABBLE_CHECK(babble_allow_smem(fame_setup_packed<false>, smem_setup));
+            fame_setup_packed<false><<<grid_setup, DF_THREADS, smem_setup, s>>>(
+                wtable, la, fd, index, (uint32_t*)ss, (uint32_t*)votes, r_max, n, e,
+                words, super_majority, nullptr, 0);
         }
-        fame_setup_packed<<<dim3(r_max, words), DF_THREADS, smem_setup, s>>>(
-            wtable, la, fd, index, (uint32_t*)ss, (uint32_t*)votes, r_max, n, e,
-            words, super_majority);
         BABBLE_CHECK_LAUNCH();
         const size_t smem_vote =
             ((size_t)2 * n * words + (size_t)n * (words | 1) + (size_t)8 * n) * sizeof(int32_t);
-        if (smem_vote > 48 * 1024) {
-            BABBLE_CHECK(cudaFuncSetAttribute(fame_vote_packed,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_vote));
+        if (stage_vote != nullptr) {
+            fame_vote_packed<true><<<r_max, DF_THREADS, 0, s>>>(
+                wtable, coin_bit, last_round, (const uint32_t*)ss, (const uint32_t*)votes,
+                decided, famous, rounds_decided, r_max, n, e, words, super_majority,
+                n_participants, d_cap, stage_vote, babble_stage_words(smem_vote));
+        } else {
+            BABBLE_CHECK(babble_allow_smem(fame_vote_packed<false>, smem_vote));
+            fame_vote_packed<false><<<r_max, DF_THREADS, smem_vote, s>>>(
+                wtable, coin_bit, last_round, (const uint32_t*)ss, (const uint32_t*)votes,
+                decided, famous, rounds_decided, r_max, n, e, words, super_majority,
+                n_participants, d_cap, nullptr, 0);
         }
-        fame_vote_packed<<<r_max, DF_THREADS, smem_vote, s>>>(
-            wtable, coin_bit, last_round, (const uint32_t*)ss, (const uint32_t*)votes,
-            decided, famous, rounds_decided, r_max, n, e, words, super_majority,
-            n_participants, d_cap);
         BABBLE_CHECK_LAUNCH();
         return 0;
     }
@@ -410,10 +428,7 @@ extern "C" int babble_decide_fame(
         wtable, la, fd, index, ss8, votes8, r_max, n, e, super_majority);
     BABBLE_CHECK_LAUNCH();
     size_t smem = (size_t)6 * n * sizeof(int32_t);
-    if (smem > 48 * 1024) {
-        BABBLE_CHECK(cudaFuncSetAttribute(
-            fame_vote, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-    }
+    BABBLE_CHECK(babble_allow_smem(fame_vote, smem));
     fame_vote<<<r_max, 256, smem, s>>>(
         wtable, coin_bit, last_round, ss8, votes8, decided, famous, rounds_decided,
         r_max, n, e, super_majority, n_participants, d_cap);

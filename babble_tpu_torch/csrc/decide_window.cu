@@ -46,7 +46,11 @@
 // eight ss offsets of N rows of W = ceil(N / 32) words (the ss rows
 // padded to an odd stride, W | 1, so that lanes over rows hit distinct
 // banks) are (2 N W + 8 N (W | 1) + 21 N) x 4 bytes, 384 validators at
-// most (the wrapper checks it).
+// most in shared memory. Past that the launch stages its block's words
+// in the block's slice of a device scratch instead (common.cuh
+// babble_staging; the setup's two tiles too once they pass the limit),
+// the same code reading them through L1/L2: no width limit below the
+// card's memory.
 //
 // Both voting-table layouts launch this kernel: its tallies are bit words
 // already, so the packed layout (tpu/packed.py) has nothing to change.
@@ -73,14 +77,15 @@ __device__ void dw_floor(const uint8_t* rounds_decided, int lr, int r_cap,
     *floor = babble_clamp(ft, 0, r_cap - r_win);
 }
 
+template <bool DEV>
 __global__ void __launch_bounds__(DW_THREADS)
 dw_setup(const int32_t* __restrict__ wtable, const int32_t* __restrict__ la_w,
          const int32_t* __restrict__ fd_w, const int32_t* __restrict__ idx_w,
          const uint8_t* __restrict__ rounds_decided,
          const int32_t* __restrict__ last_round, int32_t* scal,
          uint32_t* ss_bits, uint32_t* vt0, int n, int r_cap, int r_win,
-         int words, int super_majority) {
-    extern __shared__ int32_t smem[];
+         int words, int super_majority, int32_t* stage, long long stage_words) {
+    int32_t* smem = babble_staging<DEV>(stage, stage_words);
     const int ld = babble_tile_ld(n);
     int32_t* tile_a = smem;            // (32, ld) la_w rows y of round a, this y tile
     int32_t* tile_b = tile_a + 32 * ld;  // (32, ld) fd_w rows of round a - 1 (a w
@@ -161,14 +166,15 @@ dw_setup(const int32_t* __restrict__ wtable, const int32_t* __restrict__ la_w,
     }
 }
 
+template <bool DEV>
 __global__ void __launch_bounds__(DW_THREADS)
 dw_vote(const int32_t* __restrict__ wtable, const uint8_t* __restrict__ coin_w,
         const int32_t* __restrict__ last_round, const int32_t* __restrict__ scal,
         const uint32_t* __restrict__ ss_bits, const uint32_t* __restrict__ vt0,
         uint8_t* fame_decided, uint8_t* famous, uint8_t* rounds_decided,
         uint8_t* fame_lag, int n, int r_win, int words, int super_majority,
-        int n_participants, int d_unroll) {
-    extern __shared__ int32_t smem[];
+        int n_participants, int d_unroll, int32_t* stage, long long stage_words) {
+    int32_t* smem = babble_staging<DEV>(stage, stage_words);
     const int nw = n * words;
     // ss rows are read by lanes over rows y: an odd row stride keeps the
     // 32 lanes on 32 banks
@@ -380,34 +386,46 @@ extern "C" int babble_decide_window(
     const int32_t* count, const int32_t* index, const int32_t* creator,
     const int32_t* rounds, int32_t* received, uint8_t* stale, uint8_t* fame_lag,
     int32_t* scal, uint32_t* ss_bits, uint32_t* vt0, int32_t* min_la,
-    int32_t* famous_count, uint8_t* i_ok,
+    int32_t* famous_count, uint8_t* i_ok, int32_t* stage_setup, int32_t* stage_vote,
     int e_cap, int n, int r_cap, int r_win, int e_win, int super_majority,
     int n_participants, int d_unroll, int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int words = (n + 31) / 32;
 
-    size_t smem_setup = ((size_t)64 * babble_tile_ld(n) + (size_t)4 * n) * sizeof(int32_t);
-    if (smem_setup > 48 * 1024) {
-        BABBLE_CHECK(cudaFuncSetAttribute(
-            dw_setup, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_setup));
+    // a launch handed a scratch stages in it (tpu/_ext.py staging chooses
+    // the form per launch), else in shared memory
+    const size_t smem_setup =
+        ((size_t)64 * babble_tile_ld(n) + (size_t)4 * n) * sizeof(int32_t);
+    const dim3 grid_setup(r_win, words);
+    if (stage_setup != nullptr) {
+        dw_setup<true><<<grid_setup, DW_THREADS, 0, s>>>(
+            wtable, la_w, fd_w, idx_w, rounds_decided, last_round, scal, ss_bits,
+            vt0, n, r_cap, r_win, words, super_majority, stage_setup,
+            babble_stage_words(smem_setup));
+    } else {
+        BABBLE_CHECK(babble_allow_smem(dw_setup<false>, smem_setup));
+        dw_setup<false><<<grid_setup, DW_THREADS, smem_setup, s>>>(
+            wtable, la_w, fd_w, idx_w, rounds_decided, last_round, scal, ss_bits,
+            vt0, n, r_cap, r_win, words, super_majority, nullptr, 0);
     }
-    dw_setup<<<dim3(r_win, words), DW_THREADS, smem_setup, s>>>(
-        wtable, la_w, fd_w, idx_w, rounds_decided, last_round, scal, ss_bits,
-        vt0, n, r_cap, r_win, words, super_majority);
     BABBLE_CHECK_LAUNCH();
 
-    size_t smem_vote = ((size_t)2 * n * words + (size_t)d_unroll * n * (words | 1)
-                        + (size_t)(5 + 2 * d_unroll) * n)
-                       * sizeof(int32_t);
-    if (smem_vote > 48 * 1024) {
-        BABBLE_CHECK(cudaFuncSetAttribute(
-            dw_vote, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_vote));
+    const size_t smem_vote = ((size_t)2 * n * words + (size_t)d_unroll * n * (words | 1)
+                              + (size_t)(5 + 2 * d_unroll) * n)
+                             * sizeof(int32_t);
+    if (stage_vote != nullptr) {
+        dw_vote<true><<<r_win, DW_THREADS, 0, s>>>(
+            wtable, coin_w, last_round, scal, ss_bits, vt0, fame_decided, famous,
+            rounds_decided, fame_lag, n, r_win, words, super_majority,
+            n_participants, d_unroll, stage_vote, babble_stage_words(smem_vote));
+    } else {
+        BABBLE_CHECK(babble_allow_smem(dw_vote<false>, smem_vote));
+        dw_vote<false><<<r_win, DW_THREADS, smem_vote, s>>>(
+            wtable, coin_w, last_round, scal, ss_bits, vt0, fame_decided, famous,
+            rounds_decided, fame_lag, n, r_win, words, super_majority,
+            n_participants, d_unroll, nullptr, 0);
     }
-    dw_vote<<<r_win, DW_THREADS, smem_vote, s>>>(
-        wtable, coin_w, last_round, scal, ss_bits, vt0, fame_decided, famous,
-        rounds_decided, fame_lag, n, r_win, words, super_majority,
-        n_participants, d_unroll);
     BABBLE_CHECK_LAUNCH();
 
     size_t smem_tables = (size_t)n * sizeof(int32_t);

@@ -38,6 +38,10 @@
 // the strongly-seen words: the same integers as these counts, so the
 // wrapper launches this kernel for both layouts (counted apart).
 //
+// The block's per-lane values and per-warp rows take (3 n_lvl + 64 n) x 4
+// bytes: past one block's shared memory (about 900 validators) they live
+// in a device scratch instead (common.cuh babble_staging), the same code.
+//
 // Launches per call: three (init, last level, walk).
 
 #include "common.cuh"
@@ -59,6 +63,7 @@ __global__ void dr_init(int32_t* rounds, int32_t* lamport, uint8_t* witness,
     for (long long k = k0; k < wt_total; k += stride) wtable[k] = -1;
 }
 
+template <bool DEV>
 __global__ void dr_walk(const int32_t* __restrict__ levels,
                         const int32_t* __restrict__ creator,
                         const int32_t* __restrict__ self_parent,
@@ -74,8 +79,8 @@ __global__ void dr_walk(const int32_t* __restrict__ levels,
                         const int32_t* __restrict__ last_level,
                         int32_t* rounds, uint8_t* witness, int32_t* lamport,
                         int32_t* wtable, int n_lvl, int e, int n,
-                        int super_majority, int r_max) {
-    extern __shared__ int32_t smem[];
+                        int super_majority, int r_max, int32_t* stage) {
+    int32_t* smem = babble_staging<DEV>(stage, 0);
     int32_t* s_round = smem;             // (n_lvl,) new round per lane
     int32_t* s_lt = s_round + n_lvl;     // (n_lvl,) new lamport
     int32_t* s_wit = s_lt + n_lvl;       // (n_lvl,) new witness flag
@@ -164,7 +169,7 @@ extern "C" int babble_divide_rounds(
     const int32_t* fixed_round, const int32_t* ext_sp_lamport,
     const int32_t* ext_op_lamport, const int32_t* fixed_lamport,
     int32_t* rounds, uint8_t* witness, int32_t* lamport, int32_t* wtable,
-    int32_t* last_level,
+    int32_t* last_level, int32_t* stage,
     int l_lv, int n_lvl, int e, int n, int super_majority, int r_max,
     int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
@@ -181,16 +186,23 @@ extern "C" int babble_divide_rounds(
         BABBLE_CHECK_LAUNCH();
     }
     int warps = n_lvl < DR_MAX_WARPS ? (n_lvl > 0 ? n_lvl : 1) : DR_MAX_WARPS;
-    size_t smem = ((size_t)3 * n_lvl + (size_t)warps * 2 * n) * sizeof(int32_t);
-    if (smem > 48 * 1024) {
-        BABBLE_CHECK(cudaFuncSetAttribute(
-            dr_walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+    // the block's staging in `stage` where the wrapper hands it one
+    // (tpu/_ext.py staging chooses the form), else in shared memory
+    const size_t smem = ((size_t)3 * n_lvl + (size_t)warps * 2 * n) * sizeof(int32_t);
+    if (stage != nullptr) {
+        dr_walk<true><<<1, 32 * warps, 0, s>>>(
+            levels, creator, self_parent, other_parent, la, fd, ext_sp_round,
+            ext_op_round, fixed_round, ext_sp_lamport, ext_op_lamport,
+            fixed_lamport, last_level, rounds, witness, lamport, wtable, n_lvl, e,
+            n, super_majority, r_max, stage);
+    } else {
+        BABBLE_CHECK(babble_allow_smem(dr_walk<false>, smem));
+        dr_walk<false><<<1, 32 * warps, smem, s>>>(
+            levels, creator, self_parent, other_parent, la, fd, ext_sp_round,
+            ext_op_round, fixed_round, ext_sp_lamport, ext_op_lamport,
+            fixed_lamport, last_level, rounds, witness, lamport, wtable, n_lvl, e,
+            n, super_majority, r_max, nullptr);
     }
-    dr_walk<<<1, 32 * warps, smem, s>>>(
-        levels, creator, self_parent, other_parent, la, fd, ext_sp_round,
-        ext_op_round, fixed_round, ext_sp_lamport, ext_op_lamport,
-        fixed_lamport, last_level, rounds, witness, lamport, wtable, n_lvl, e,
-        n, super_majority, r_max);
     BABBLE_CHECK_LAUNCH();
     return 0;
 }

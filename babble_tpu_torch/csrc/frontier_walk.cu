@@ -22,6 +22,31 @@
 // 50 MB L2), the per-event pass reads the (E,) arrays once. The walk is
 // sequential over r_cap steps, two launches per step (walk_m0, walk_close)
 // plus three more: 2 * (r_cap - 1) + 3 launches per call.
+//
+// frontier_window (babble_frontier_window) is the walk half of the
+// frontier-live engine's decide, replacing babble_tpu/tpu/frontier_live.py
+// :184 _decide up to its fame vote. Over the maintained tables (INV,
+// rows_by, the stored frontier history x_hist, the dirty chains):
+//   floor = min over dirty chains of |{r : x_hist[r, c] < L}| (R_cap if
+//           none), clipped to [0, R_cap - r_win]; start = max(floor - 1, 0);
+//   seed  = X(0) if floor = 0, else x_hist[start];
+//   r_win steps from the seed, fd_w[w, p] = INV[p, w, X[w]] (MAX where
+//           that is L or X[w] = L: the first descendant on chain p of
+//           frontier row w, fd[e, p] == INV[p, creator(e), index(e)]),
+//           written to rows start .. start + r_win - 1 of a copy of
+//           x_hist; r_over latches when X(start + r_win) still holds a row;
+//   the post pass over the whole history, sp_index = index - 1;
+//   the witness tables of the voting: la_w[r, c] = la[row], idx_w (MAX
+//           where absent), coin_w, fd_w[r, c, p] = INV[p, c, idx_w[r, c]]
+//           (MAX where absent or L), and the compact table wtable_c[r, c]
+//           = r N + c (-1 where absent) through which decide_fame and
+//           round_received read them.
+// The reference forces the binary-search m0 here; the count-based
+// selection of walk_m0 gives the same integers (both find the first
+// chain index seeing a supermajority of the frontier rows, by lastAncestors
+// or by the INV built from them). Bound: operations, about N^2 INV loads
+// and compares per step (N^3 with the selection's probes); launches:
+// 2 r_win + 5.
 
 #include "common.cuh"
 
@@ -48,7 +73,10 @@ __global__ void walk_x0(const int32_t* __restrict__ rows_by, int32_t* x0, int n,
     if (c < n) x0[c] = rows_by[(long long)c * l] >= 0 ? 0 : l;
 }
 
-// one block per chain c: m0[c] from the frontier X(r)
+// one block per chain c: m0[c] from the frontier X(r). The frontier rows'
+// first descendants come from fd (FROM_INV false), or from INV itself:
+// fd_w[w, p] = INV[p, w, X(r)[w]], L meaning none (FROM_INV true)
+template <bool FROM_INV>
 __global__ void walk_m0(const int32_t* __restrict__ inv,
                         const int32_t* __restrict__ rows_by,
                         const int32_t* __restrict__ fd,
@@ -73,10 +101,19 @@ __global__ void walk_m0(const int32_t* __restrict__ inv,
             if (lane == 0) t[w] = l;
             continue;
         }
-        int row = babble_clamp(rows_by[(long long)w * l + x], 0, e_fd - 1);
-        const int32_t* fd_row = fd + (long long)row * n;
+        const int32_t* fd_row = nullptr;
+        if (!FROM_INV) {
+            const int row = babble_clamp(rows_by[(long long)w * l + x], 0, e_fd - 1);
+            fd_row = fd + (long long)row * n;
+        }
         for (int p = lane; p < n; p += 32) {
-            int f = fd_row[p];
+            int f;
+            if (FROM_INV) {
+                const int v = inv[((long long)p * n + w) * l + x];
+                f = v < l ? v : BABBLE_MAX_INT32;
+            } else {
+                f = fd_row[p];
+            }
             u[p] = f < BABBLE_MAX_INT32
                        ? inv_c[(long long)p * l + babble_clamp(f, 0, l - 1)]
                        : l;
@@ -141,7 +178,8 @@ __global__ void post_events(const int32_t* __restrict__ x_hist,
     int rd = BABBLE_MIN_INT32;
     if (k < e) {
         int c = babble_clamp(creator[k], 0, n - 1);
-        int idx = index[k], spi = sp_index[k];
+        // no sp_index table: each event's self-parent is its index - 1
+        int idx = index[k], spi = sp_index != nullptr ? sp_index[k] : idx - 1;
         int cnt = 0, spc = 0;
         for (int r = 0; r < r_cap; ++r) {
             int xv = x_hist[r * n + c];
@@ -166,16 +204,13 @@ extern "C" int babble_frontier_rounds(
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     size_t smem = (size_t)(2 + WALK_WARPS) * n * sizeof(int32_t);
-    if (smem > 48 * 1024) {
-        BABBLE_CHECK(cudaFuncSetAttribute(
-            walk_m0, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-    }
+    BABBLE_CHECK(babble_allow_smem(walk_m0<false>, smem));
     walk_x0<<<babble_blocks(n, 128), 128, 0, s>>>(rows_by, x_hist, n, l);
     BABBLE_CHECK_LAUNCH();
     for (int r = 0; r + 1 < r_cap; ++r) {
         const int32_t* x_cur = x_hist + (long long)r * n;
         int32_t* x_next = x_hist + (long long)(r + 1) * n;
-        walk_m0<<<n, 32 * WALK_WARPS, smem, s>>>(
+        walk_m0<false><<<n, 32 * WALK_WARPS, smem, s>>>(
             inv, rows_by, fd, x_cur, m0, n, l, e_fd, super_majority);
         BABBLE_CHECK_LAUNCH();
         walk_close<<<n, 32, 0, s>>>(inv, m0, x_cur, x_next, n, l);
@@ -186,6 +221,125 @@ extern "C" int babble_frontier_rounds(
     BABBLE_CHECK_LAUNCH();
     post_events<<<babble_blocks(e, 256), 256, 0, s>>>(
         x_hist, creator, index, sp_index, rounds, witness, last_round, e, r_cap, n);
+    BABBLE_CHECK_LAUNCH();
+    return 0;
+}
+
+// the window's seed: floor and start from the stored history and the
+// dirty chains (scal[0] = start), and xs[0] = X(0) or x_hist[start]
+__global__ void fw_seed(const int32_t* __restrict__ x_hist,
+                        const int32_t* __restrict__ rows_by,
+                        const uint8_t* __restrict__ dirty, int32_t* xs, int32_t* scal,
+                        int n, int l, int r_cap, int r_win) {
+    __shared__ int s_floor;
+    if (threadIdx.x == 0) s_floor = r_cap;
+    __syncthreads();
+    int best = r_cap;
+    for (int c = threadIdx.x; c < n; c += blockDim.x) {
+        if (!dirty[c]) continue;
+        int cnt = 0;  // X(r)[c] is non-decreasing in r: the first sentinel row
+        for (int r = 0; r < r_cap; ++r) cnt += x_hist[(long long)r * n + c] < l;
+        best = min(best, cnt);
+    }
+    best = __reduce_min_sync(BABBLE_FULL_MASK, best);
+    if ((threadIdx.x & 31) == 0) atomicMin(&s_floor, best);
+    __syncthreads();
+    const int floor = babble_clamp(s_floor, 0, r_cap - r_win);
+    const int start = max(floor - 1, 0);
+    if (threadIdx.x == 0) scal[0] = start;
+    for (int c = threadIdx.x; c < n; c += blockDim.x) {
+        xs[c] = floor == 0 ? (rows_by[(long long)c * l] >= 0 ? 0 : l)
+                           : x_hist[(long long)start * n + c];
+    }
+}
+
+// rows start .. start + r_win - 1 of the history from the window's steps,
+// and the r_over latch from the step past them
+__global__ void fw_place(const int32_t* __restrict__ xs,
+                         const int32_t* __restrict__ scal, int32_t* x_hist,
+                         uint8_t* r_over, int n, int l, int r_win) {
+    const int start = scal[0];
+    const long long total = (long long)(r_win + 1) * n;
+    int over = 0;
+    for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < total;
+         k += (long long)gridDim.x * blockDim.x) {
+        const int r = (int)(k / n);
+        if (r < r_win) x_hist[(long long)start * n + k] = xs[k];
+        else over |= xs[k] < l;
+    }
+    over = __reduce_or_sync(BABBLE_FULL_MASK, over);
+    if ((threadIdx.x & 31) == 0 && over) *r_over = 1;  // benign race: every writer stores 1
+}
+
+// the voting's witness tables: a warp per (round, chain) slot, lanes over
+// the coordinate p
+__global__ void fw_tables(const int32_t* __restrict__ wtable,
+                          const int32_t* __restrict__ inv,
+                          const int32_t* __restrict__ la,
+                          const int32_t* __restrict__ index,
+                          const uint8_t* __restrict__ coin,
+                          int32_t* la_w, int32_t* idx_w, uint8_t* coin_w, int32_t* fd_w,
+                          int32_t* wtable_c, int n, int l, int e_cap, int r_cap) {
+    const long long slot = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (slot >= (long long)r_cap * n) return;  // warp-uniform
+    const int c = (int)(slot % n);
+    const int wrow = wtable[slot];
+    const bool valid = wrow >= 0;
+    const int row = babble_clamp(wrow, 0, e_cap - 1);
+    const int idx = valid ? index[row] : BABBLE_MAX_INT32;
+    const int v = babble_clamp(idx, 0, l - 1);
+    if (lane == 0) {
+        idx_w[slot] = idx;
+        coin_w[slot] = coin[row];
+        wtable_c[slot] = valid ? (int)slot : -1;
+    }
+    for (int p = lane; p < n; p += 32) {
+        la_w[slot * n + p] = la[(long long)row * n + p];
+        const int f = inv[((long long)p * n + c) * l + v];
+        fd_w[slot * n + p] = (valid && f < l) ? f : BABBLE_MAX_INT32;
+    }
+}
+
+extern "C" int babble_frontier_window(
+    const int32_t* inv, const int32_t* rows_by, const int32_t* x_hist_in,
+    const uint8_t* dirty, const int32_t* creator, const int32_t* index,
+    const uint8_t* coin, const int32_t* la, int32_t* x_hist, int32_t* xs,
+    int32_t* m0, int32_t* scal, uint8_t* r_over, int32_t* rounds, uint8_t* witness,
+    int32_t* wtable, int32_t* last_round, int32_t* la_w, int32_t* idx_w,
+    uint8_t* coin_w, int32_t* fd_w, int32_t* wtable_c,
+    int n, int l, int e_cap, int r_cap, int r_win, int super_majority,
+    int device, void* stream) {
+    BABBLE_CHECK(cudaSetDevice(device));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const size_t smem = (size_t)(2 + WALK_WARPS) * n * sizeof(int32_t);
+    BABBLE_CHECK(babble_allow_smem(walk_m0<true>, smem));
+    BABBLE_CHECK(cudaMemcpyAsync(x_hist, x_hist_in, (size_t)r_cap * n * sizeof(int32_t),
+                                 cudaMemcpyDeviceToDevice, s));
+    fw_seed<<<1, 1024, 0, s>>>(x_hist_in, rows_by, dirty, xs, scal, n, l, r_cap, r_win);
+    BABBLE_CHECK_LAUNCH();
+    for (int k = 0; k < r_win; ++k) {
+        const int32_t* x_cur = xs + (long long)k * n;
+        int32_t* x_next = xs + (long long)(k + 1) * n;
+        walk_m0<true><<<n, 32 * WALK_WARPS, smem, s>>>(
+            inv, rows_by, nullptr, x_cur, m0, n, l, 1, super_majority);
+        BABBLE_CHECK_LAUNCH();
+        walk_close<<<n, 32, 0, s>>>(inv, m0, x_cur, x_next, n, l);
+        BABBLE_CHECK_LAUNCH();
+    }
+    const long long xs_total = (long long)(r_win + 1) * n;
+    fw_place<<<babble_stride_blocks(xs_total, 256), 256, 0, s>>>(
+        xs, scal, x_hist, r_over, n, l, r_win);
+    BABBLE_CHECK_LAUNCH();
+    post_table<<<babble_blocks((long long)r_cap * n, 256), 256, 0, s>>>(
+        x_hist, rows_by, wtable, last_round, r_cap, n, l);
+    BABBLE_CHECK_LAUNCH();
+    post_events<<<babble_blocks(e_cap, 256), 256, 0, s>>>(
+        x_hist, creator, index, nullptr, rounds, witness, last_round, e_cap, r_cap, n);
+    BABBLE_CHECK_LAUNCH();
+    fw_tables<<<babble_blocks((long long)r_cap * n * 32, 256), 256, 0, s>>>(
+        wtable, inv, la, index, coin, la_w, idx_w, coin_w, fd_w, wtable_c, n, l, e_cap,
+        r_cap);
     BABBLE_CHECK_LAUNCH();
     return 0;
 }

@@ -40,12 +40,17 @@
 // counts the same compares with packed_count and c_seen as the popcount of
 // the strongly-seen words: the same verdicts, so the wrapper launches this
 // kernel for both layouts (counted apart).
+//
+// Where the staged arrays pass one block's shared memory (past 702
+// validators for batches of 64 at R_cap 64) they live in a device
+// scratch instead (common.cuh babble_staging), the same code.
 
 #include "common.cuh"
 
 #define SL_THREADS 1024
 #define SL_WARPS (SL_THREADS / 32)
 
+template <bool DEV>
 __global__ void __launch_bounds__(SL_THREADS)
 sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
         uint8_t* witness, int32_t* wtable, int32_t* w_of_row, int32_t* la_w,
@@ -57,8 +62,9 @@ sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
         const int32_t* __restrict__ op_row, const int32_t* __restrict__ la_rows,
         const uint8_t* __restrict__ coin, const int32_t* __restrict__ fixed_round,
         const int32_t* __restrict__ levels,
-        int e_cap, int n, int r_cap, int b, int l_lv, int w, int super_majority) {
-    extern __shared__ int32_t smem[];
+        int e_cap, int n, int r_cap, int b, int l_lv, int w, int super_majority,
+        int32_t* stage) {
+    int32_t* smem = babble_staging<DEV>(stage, 0);
     int32_t* s_p = smem;           // (w,) per lane: batch position, -1 = padding
     int32_t* s_pr = s_p + w;       //   parent round
     int32_t* s_spr = s_pr + w;     //   self-parent round
@@ -224,23 +230,30 @@ extern "C" int babble_step_levels(
     int32_t* last_round, int32_t* count, uint8_t* stale, const int32_t* rows,
     const int32_t* creator, const int32_t* index, const int32_t* sp_row,
     const int32_t* op_row, const int32_t* la_rows, const uint8_t* coin,
-    const int32_t* fixed_round, const int32_t* levels,
+    const int32_t* fixed_round, const int32_t* levels, int32_t* stage,
     int e_cap, int n, int r_cap, int b, int l_lv, int w, int super_majority,
     int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    size_t smem = ((size_t)7 * w + (size_t)l_lv * w + (size_t)7 * b + (size_t)w * n)
-                      * sizeof(int32_t)
-                  + (size_t)r_cap * n;
-    if (smem > 48 * 1024) {
-        BABBLE_CHECK(cudaFuncSetAttribute(
-            sl_walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+    // the block's staging in `stage` where the wrapper hands it one
+    // (tpu/_ext.py staging chooses the form), else in shared memory
+    const size_t smem = ((size_t)7 * w + (size_t)l_lv * w + (size_t)7 * b + (size_t)w * n)
+                            * sizeof(int32_t)
+                        + (size_t)r_cap * n;
+    if (stage != nullptr) {
+        sl_walk<true><<<1, SL_THREADS, 0, s>>>(
+            fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w, idx_w,
+            coin_w, rounds_decided, last_round, count, stale, rows, creator, index,
+            sp_row, op_row, la_rows, coin, fixed_round, levels, e_cap, n, r_cap, b,
+            l_lv, w, super_majority, stage);
+    } else {
+        BABBLE_CHECK(babble_allow_smem(sl_walk<false>, smem));
+        sl_walk<false><<<1, SL_THREADS, smem, s>>>(
+            fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w, idx_w,
+            coin_w, rounds_decided, last_round, count, stale, rows, creator, index,
+            sp_row, op_row, la_rows, coin, fixed_round, levels, e_cap, n, r_cap, b,
+            l_lv, w, super_majority, nullptr);
     }
-    sl_walk<<<1, SL_THREADS, smem, s>>>(
-        fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w, idx_w,
-        coin_w, rounds_decided, last_round, count, stale, rows, creator, index,
-        sp_row, op_row, la_rows, coin, fixed_round, levels, e_cap, n, r_cap, b,
-        l_lv, w, super_majority);
     BABBLE_CHECK_LAUNCH();
     return 0;
 }

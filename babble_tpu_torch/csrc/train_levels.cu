@@ -33,7 +33,14 @@
 // Per level, phase A reads each lane's inputs, phase C decides each lane's
 // supermajority against the compare copy with ballots (common.cuh
 // babble_warp_sees_majority), and the write phase updates the carries.
-// The write-back and the latches run once after the scan.
+// The write-back and the latches run once after the scan. Where the
+// carries pass one block's shared memory (a train of 8,192 rows at about
+// 490 validators) they live in a device scratch instead (common.cuh
+// babble_staging), the same code.
+//
+// The packed layout (babble_tpu/tpu/incremental.py:649-652) counts the
+// same compares with packed_count over uint32 words: the same integers,
+// so the wrapper launches this kernel for both layouts (counted apart).
 
 #include "common.cuh"
 
@@ -63,6 +70,7 @@ __device__ __forceinline__ int tl_fd_row(const int32_t* fd, int row, int q,
                                      : TL_FD_CLAMP;
 }
 
+template <bool DEV>
 __global__ void __launch_bounds__(TL_THREADS)
 tl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
         uint8_t* witness, int32_t* wtable, int32_t* w_of_row, int32_t* la_w,
@@ -75,8 +83,9 @@ tl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
         const int32_t* __restrict__ op_pos, const int32_t* __restrict__ la_rows,
         const uint8_t* __restrict__ coin, const int32_t* __restrict__ fixed_round,
         const int32_t* __restrict__ levels, int32_t* fd_cmp,
-        int e_cap, int n, int r_cap, int kb, int t_lv, int w, int super_majority) {
-    extern __shared__ int32_t smem[];
+        int e_cap, int n, int r_cap, int kb, int t_lv, int w, int super_majority,
+        int32_t* stage) {
+    int32_t* smem = babble_staging<DEV>(stage, 0);
     int32_t* rb = smem;              // (kb,) rounds carry
     int32_t* lb = rb + kb;           // (kb,) lamport carry
     int32_t* s_p = lb + kb;          // (w,) per lane: train position, -1 = padding
@@ -243,7 +252,7 @@ extern "C" int babble_train_levels(
     const int32_t* creator, const int32_t* index, const int32_t* sp_row,
     const int32_t* op_row, const int32_t* sp_pos, const int32_t* op_pos,
     const int32_t* la_rows, const uint8_t* coin, const int32_t* fixed_round,
-    const int32_t* levels, int32_t* fd_cmp,
+    const int32_t* levels, int32_t* fd_cmp, int32_t* stage,
     int e_cap, int n, int r_cap, int kb, int t_lv, int w, int super_majority,
     int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
@@ -251,17 +260,24 @@ extern "C" int babble_train_levels(
     const long long total = (long long)r_cap * n * n;
     tl_init<<<babble_stride_blocks(total, 256), 256, 0, s>>>(fd_w, fd_cmp, total);
     BABBLE_CHECK_LAUNCH();
-    size_t smem = ((size_t)2 * kb + (size_t)9 * w + (size_t)w * n) * sizeof(int32_t)
-                  + (size_t)kb + (size_t)r_cap * n;
-    if (smem > 48 * 1024) {
-        BABBLE_CHECK(cudaFuncSetAttribute(
-            tl_walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+    // the block's carries in `stage` where the wrapper hands it one
+    // (tpu/_ext.py staging chooses the form), else in shared memory
+    const size_t smem = ((size_t)2 * kb + (size_t)9 * w + (size_t)w * n) * sizeof(int32_t)
+                        + (size_t)kb + (size_t)r_cap * n;
+    if (stage != nullptr) {
+        tl_walk<true><<<1, TL_THREADS, 0, s>>>(
+            fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w, idx_w,
+            coin_w, rounds_decided, last_round, count, stale, rows, creator, index,
+            sp_row, op_row, sp_pos, op_pos, la_rows, coin, fixed_round, levels,
+            fd_cmp, e_cap, n, r_cap, kb, t_lv, w, super_majority, stage);
+    } else {
+        BABBLE_CHECK(babble_allow_smem(tl_walk<false>, smem));
+        tl_walk<false><<<1, TL_THREADS, smem, s>>>(
+            fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w, idx_w,
+            coin_w, rounds_decided, last_round, count, stale, rows, creator, index,
+            sp_row, op_row, sp_pos, op_pos, la_rows, coin, fixed_round, levels,
+            fd_cmp, e_cap, n, r_cap, kb, t_lv, w, super_majority, nullptr);
     }
-    tl_walk<<<1, TL_THREADS, smem, s>>>(
-        fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w, idx_w,
-        coin_w, rounds_decided, last_round, count, stale, rows, creator, index,
-        sp_row, op_row, sp_pos, op_pos, la_rows, coin, fixed_round, levels,
-        fd_cmp, e_cap, n, r_cap, kb, t_lv, w, super_majority);
     BABBLE_CHECK_LAUNCH();
     return 0;
 }

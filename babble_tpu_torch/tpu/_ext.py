@@ -8,13 +8,23 @@ Nothing here runs at import: the CPU tests import every module, and a
 host without a card never reaches the build.
 
 Every launch function checks device, dtype, shape and contiguity of its
-tensors and its block's shared memory, allocates its outputs and scratch
-with `torch.empty`, launches on PyTorch's current stream, raises if the C
-entry point returns a CUDA error, and only then adds one to its kernel's
-count in `LAUNCHES`. The four kernels that take the voting-table layout
-(`PACKED_KERNELS`) count a launch in the packed layout under
-"<name>/packed" and a wide one under "<name>", so a run can show which
-form ran: the two layouts give equal integers by design.
+tensors, allocates its outputs and scratch with `torch.empty`, launches
+on PyTorch's current stream, raises if the C entry point returns a CUDA
+error, and only then adds one to its kernel's count in `LAUNCHES`. The
+kernels that take the voting-table layout (`PACKED_KERNELS`) count a
+launch in the packed layout under "<name>/packed" and a wide one under
+"<name>", so a run can show which form ran: the two layouts give equal
+integers by design.
+
+The kernels whose blocks stage rows, carries or bit words
+(`STAGED_KERNELS`) keep them in shared memory wherever one block's share
+holds them (`staging` says "shared" for that launch); past that the same
+kernel code stages them in the block's slice of a device scratch the
+wrapper allocates ("device"), and the call counts under "<key>/dev".
+`staging` alone makes the choice: the wrapper passes a scratch pointer to
+exactly the launches it names "device" and NULL to the others, and the C
+launcher takes the device form where its pointer is not NULL. Both forms
+give equal integers by design; only a failed scratch allocation raises.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,12 +53,12 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
     "frontier_rounds": (
         "frontier_walk.cu", "babble_frontier_rounds", "pppppppppppp" "iiiiii",
     ),
-    "decide_fame": ("decide_fame.cu", "babble_decide_fame", "ppppppppppp" "iiiiiii"),
+    "decide_fame": ("decide_fame.cu", "babble_decide_fame", "ppppppppppppp" "iiiiiii"),
     "round_received": (
         "round_received.cu", "babble_round_received", "pppppppppppppp" "iiii",
     ),
     "divide_rounds": (
-        "divide_rounds.cu", "babble_divide_rounds", "ppppppppppppppppp" "iiiiii",
+        "divide_rounds.cu", "babble_divide_rounds", "pppppppppppppppppp" "iiiiii",
     ),
     "closure_la": (
         "closure_la.cu", "babble_closure_la_pass", "pppppppppp" "iiii",
@@ -63,31 +73,48 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
         "apply_deltas.cu", "babble_apply_deltas", "ppppppppppppp" "iiiii",
     ),
     "step_levels": (
-        "step_levels.cu", "babble_step_levels", "ppppppppppppppppppppppp" "iiiiiii",
+        "step_levels.cu", "babble_step_levels", "pppppppppppppppppppppppp" "iiiiiii",
     ),
     "train_levels": (
         "train_levels.cu", "babble_train_levels",
-        "pppppppppppppppppppppppppp" "iiiiiii",
+        "ppppppppppppppppppppppppppp" "iiiiiii",
     ),
     "decide_window": (
         "decide_window.cu", "babble_decide_window",
-        "pppppppppppppppppppppp" "iiiiiiii",
+        "pppppppppppppppppppppppp" "iiiiiiii",
     ),
     "pack_results": (
         "pack_results.cu", "babble_pack_results", "ppppppppppp" "iiiii",
     ),
+    "frontier_append": (
+        "frontier_append.cu", "babble_frontier_append", "ppppppppppppppppppp" "iiii",
+    ),
+    "frontier_window": (
+        "frontier_walk.cu", "babble_frontier_window", "pppppppppppppppppppppp" "iiiiii",
+    ),
 }
 
 # the kernels that take the voting-table layout (tpu/packed.py)
-PACKED_KERNELS = ("decide_fame", "divide_rounds", "step_levels", "decide_window")
+PACKED_KERNELS = ("decide_fame", "divide_rounds", "step_levels", "train_levels",
+                  "decide_window")
+
+# the kernels with a device-memory staging form, and the layouts in which
+# they have it (the wide decide_fame stages nothing past 9,685 validators)
+STAGED_KERNELS = ("decide_fame", "divide_rounds", "step_levels", "train_levels",
+                  "decide_window")
+STAGED_FORMS = ("decide_fame/packed", "divide_rounds", "divide_rounds/packed",
+                "step_levels", "step_levels/packed", "train_levels",
+                "train_levels/packed", "decide_window", "decide_window/packed")
 
 # largest dynamic shared memory one block may use on an H100
 MAX_SMEM_BYTES = 232448
 
-# launches of each kernel's C entry point since the last reset, the
-# packed layout's under "<name>/packed"
+# launches of each kernel's C entry point since the last reset: the packed
+# layout's under "<name>/packed", the device staging form's under
+# "<key>/dev"
 LAUNCHES: Dict[str, int] = dict.fromkeys(
-    list(KERNELS) + [f"{k}/packed" for k in PACKED_KERNELS], 0)
+    list(KERNELS) + [f"{k}/packed" for k in PACKED_KERNELS]
+    + [f"{k}/dev" for k in STAGED_FORMS], 0)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -126,21 +153,21 @@ def build_all() -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: _lib_path(src) for name, (src, _, _) in KERNELS.items()}
     procs = {}
-    for name, (src, _, _) in KERNELS.items():
-        out = paths[name]
+    for src in sorted({src for src, _, _ in KERNELS.values()}):
+        out = _lib_path(src)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        procs[name] = (subprocess.Popen(
+        procs[src] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ), tmp, out)
     failures = []
-    for name, (proc, tmp, out) in procs.items():
+    for src, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         out.with_suffix(".ptxas.txt").write_text(log)
         if proc.returncode != 0:
-            failures.append(f"{KERNELS[name][0]} (rc {proc.returncode}):\n{log}")
+            failures.append(f"{src} (rc {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
@@ -190,48 +217,59 @@ def _tile_ld(n: int) -> int:
     return 4 * (((n + 3) // 4) | 1)
 
 
-def smem_bytes(name: str, n: int, packed: bool = False, d_unroll: int = 8,
-               **shape) -> int:
-    """Dynamic shared memory of the largest block `name` launches with n
-    validators, as its C entry point sizes it. `shape` carries the other
-    sizes the level kernels take (divide_rounds: n_lvl; step_levels: w,
-    l_lv, b, r_cap)."""
+def block_smem(name: str, n: int, packed: bool = False, d_unroll: int = 8,
+               **shape) -> Dict[str, int]:
+    """Dynamic shared memory of one block of each launch `name` makes with
+    n validators, as its C entry point sizes it, by launch. `shape` carries
+    the other sizes the level kernels take (divide_rounds: n_lvl;
+    step_levels: w, l_lv, b, r_cap; train_levels: kb, w, r_cap)."""
     words = (n + 31) // 32
     if name == "decide_fame":
         if not packed:
-            return 6 * n * 4
-        setup = 64 * _tile_ld(n) + 3 * n
-        vote = 2 * n * words + n * (words | 1) + 8 * n
-        return max(setup, vote) * 4
+            return {"vote": 6 * n * 4}
+        return {"setup": (64 * _tile_ld(n) + 3 * n) * 4,
+                "vote": (2 * n * words + n * (words | 1) + 8 * n) * 4}
     if name == "decide_window":
-        setup = 64 * _tile_ld(n) + 4 * n
-        vote = 2 * n * words + d_unroll * n * (words | 1) + (5 + 2 * d_unroll) * n
-        return max(setup, vote) * 4
+        return {"setup": (64 * _tile_ld(n) + 4 * n) * 4,
+                "vote": (2 * n * words + d_unroll * n * (words | 1)
+                         + (5 + 2 * d_unroll) * n) * 4}
     if name == "walk_chunk":
         # walk_chunk.cu: up to 32 validators one block holds the frontier
         # state, a probe row per warp and the (n, n | 1) table; above, a
         # block per chain holds its probe row and slice counts, and the
         # frontier rows' fd table where it fits (wc_grid_shape)
         if n <= 32:
-            return (4 * n + n * n + n * (n | 1)) * 4
+            return {"walk": (4 * n + n * n + n * (n | 1)) * 4}
         ld4 = (n + 3) // 4 * 4
         threads = 32 * min((n + 15) // 16, 16)
         slices = threads // (ld4 // 4) if threads >= ld4 // 4 else 1
         own = ld4 + min(slices, max(n // 8, 1)) * ld4
         table = n * ld4 + ld4
-        return (own + table) * 4 if (own + table) * 4 <= MAX_SMEM_BYTES else own * 4
+        return {"walk": (own + table) * 4 if (own + table) * 4 <= MAX_SMEM_BYTES
+                else own * 4}
     if name == "divide_rounds":
         n_lvl = shape["n_lvl"]
-        return (3 * n_lvl + min(max(n_lvl, 1), 32) * 2 * n) * 4
+        return {"walk": (3 * n_lvl + min(max(n_lvl, 1), 32) * 2 * n) * 4}
     if name == "step_levels":
         w, l_lv, b, r_cap = shape["w"], shape["l_lv"], shape["b"], shape["r_cap"]
-        return (7 * w + l_lv * w + 7 * b + w * n) * 4 + r_cap * n
+        return {"walk": (7 * w + l_lv * w + 7 * b + w * n) * 4 + r_cap * n}
+    if name == "train_levels":
+        kb, w, r_cap = shape["kb"], shape["w"], shape["r_cap"]
+        return {"walk": (2 * kb + 9 * w + w * n) * 4 + kb + r_cap * n}
     raise KeyError(name)
+
+
+def smem_bytes(name: str, n: int, packed: bool = False, d_unroll: int = 8,
+               **shape) -> int:
+    """Dynamic shared memory of the largest block `name` launches with n
+    validators (block_smem's largest)."""
+    return max(block_smem(name, n, packed=packed, d_unroll=d_unroll, **shape).values())
 
 
 def max_width(name: str, packed: bool = False, d_unroll: int = 8) -> int:
     """The largest validator count whose blocks of `name` fit one block's
-    shared memory (decide_fame, decide_window, walk_chunk)."""
+    shared memory (decide_fame, decide_window, walk_chunk): the widest
+    shared form of a kernel that has a device staging form."""
     n = 1
     while smem_bytes(name, n + 1, packed=packed, d_unroll=d_unroll) <= MAX_SMEM_BYTES:
         n += 1
@@ -242,7 +280,9 @@ def max_width(name: str, packed: bool = False, d_unroll: int = 8) -> int:
 
 def check_smem(name: str, n: int, packed: bool = False, d_unroll: int = 8,
                **shape) -> None:
-    """ValueError unless `name`'s blocks fit one block's shared memory."""
+    """ValueError unless `name`'s blocks fit one block's shared memory (the
+    kernels without a device staging form: walk_chunk, the wide
+    decide_fame)."""
     need = smem_bytes(name, n, packed=packed, d_unroll=d_unroll, **shape)
     if need > MAX_SMEM_BYTES:
         layout = "packed" if packed else "wide"
@@ -254,14 +294,69 @@ def check_smem(name: str, n: int, packed: bool = False, d_unroll: int = 8,
         )
 
 
+def staging(name: str, n: int, packed: bool = False, d_unroll: int = 8,
+            **shape) -> Dict[str, str]:
+    """Where each launch of a STAGED_KERNELS call with n validators stages
+    its blocks' rows, by launch (block_smem's keys): "shared" where the
+    launch's block fits one block's shared memory, else "device". The one
+    place the form is chosen: _stage_scratch hands a scratch to the
+    "device" launches only, and each C launcher takes the device form
+    exactly where it is handed one."""
+    if name not in STAGED_KERNELS:
+        raise KeyError(name)
+    return {k: "shared" if b <= MAX_SMEM_BYTES else "device"
+            for k, b in block_smem(name, n, packed=packed, d_unroll=d_unroll,
+                                   **shape).items()}
+
+
+def stage_words(block_bytes: int) -> int:
+    """Int32 words of one block's slice of the staging scratch
+    (common.cuh babble_stage_words: rounded up to 16 bytes)."""
+    return (block_bytes // 4 + 3) // 4 * 4
+
+
+def _stage_scratch(name: str, n: int, dev: torch.device, blocks: Dict[str, int],
+                   packed: bool = False, d_unroll: int = 8,
+                   **shape) -> Dict[str, Optional[torch.Tensor]]:
+    """The device staging scratch of each launch of a call, by launch: None
+    where staging() says "shared", else a slice per block (`blocks`: the
+    launch's block count). The call's launches run in turn on one stream,
+    so they share one allocation of the largest. Raises ValueError where
+    the allocation fails."""
+    forms = staging(name, n, packed=packed, d_unroll=d_unroll, **shape)
+    per_block = block_smem(name, n, packed=packed, d_unroll=d_unroll, **shape)
+    words = max((stage_words(per_block[k]) * blocks[k] for k, f in forms.items()
+                 if f == "device"), default=0)
+    if not words:
+        return dict.fromkeys(forms)
+    try:
+        scratch = torch.empty((words,), dtype=torch.int32, device=dev)
+    except RuntimeError as err:  # torch.OutOfMemoryError among them
+        raise ValueError(
+            f"{name}: {n} validators need {words * 4} bytes of device staging "
+            f"scratch past one block's shared memory, and its allocation "
+            f"failed ({err})"
+        ) from err
+    return {k: scratch if f == "device" else None for k, f in forms.items()}
+
+
+def _staged(stage: Dict[str, Optional[torch.Tensor]]) -> bool:
+    """Whether any launch of a call takes the device staging form."""
+    return any(t is not None for t in stage.values())
+
+
 def _launch(name: str, device: torch.device, args: Sequence,
-            packed: bool = False) -> None:
+            packed: bool = False, staged: bool = False) -> None:
+    """Launch `name`'s C entry point on args (a None pointer passes NULL)
+    and count it under its key: "/packed" for the packed layout, "/dev"
+    for the device staging form."""
     lib = _lib(name)
     _, fn, kinds = KERNELS[name]
     if len(args) != len(kinds):
         raise TypeError(f"{fn}: {len(args)} arguments, expected {len(kinds)}")
     c_args = [
-        a.data_ptr() if k == "p" else int(a) for a, k in zip(args, kinds)
+        (0 if a is None else a.data_ptr()) if k == "p" else int(a)
+        for a, k in zip(args, kinds)
     ]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -269,7 +364,7 @@ def _launch(name: str, device: torch.device, args: Sequence,
     if rc != 0:
         msg = lib.babble_cuda_error_string(rc).decode()
         raise RuntimeError(f"{fn}: CUDA error {rc} ({msg})")
-    LAUNCHES[f"{name}/packed" if packed else name] += 1
+    LAUNCHES[name + ("/packed" if packed else "") + ("/dev" if staged else "")] += 1
 
 
 def build_inv(rows_by: torch.Tensor, la: torch.Tensor) -> torch.Tensor:
@@ -317,7 +412,8 @@ def decide_fame(wtable, la, fd, index, coin_bit, last_round,
                 super_majority: int, n_participants: int, d_cap: int,
                 packed: bool = False):
     """K3 (K3p with `packed`): virtual voting. Returns (decided (R, N)
-    bool, famous (R, N) bool, rounds_decided (R,) bool)."""
+    bool, famous (R, N) bool, rounds_decided (R,) bool). The packed
+    launches stage in device memory past 736 validators."""
     dev = wtable.device
     r_max, n = wtable.shape
     e = la.shape[0]
@@ -329,7 +425,13 @@ def decide_fame(wtable, la, fd, index, coin_bit, last_round,
     check_tensor("last_round", last_round, torch.int32, (), dev)
     if e < 1 or n_participants < 1:
         raise ValueError("decide_fame: needs events and n_participants >= 1")
-    check_smem("decide_fame", n, packed=packed)
+    if packed:
+        stage = _stage_scratch("decide_fame", n, dev,
+                               {"setup": r_max * ((n + 31) // 32), "vote": r_max},
+                               packed=True)
+    else:
+        check_smem("decide_fame", n)
+        stage = {"setup": None, "vote": None}
     if packed:
         # (R, N, W) ss words, and the d = 1 votes as (R, N_x, W) words; the
         # vote loop keeps each round's words in shared memory
@@ -344,9 +446,9 @@ def decide_fame(wtable, la, fd, index, coin_bit, last_round,
     rounds_decided = torch.empty((r_max,), dtype=torch.uint8, device=dev)
     _launch("decide_fame", dev, (
         wtable, la, fd, index, coin_bit.view(torch.uint8), last_round, ss,
-        votes, decided, famous, rounds_decided, r_max, n, e, super_majority,
-        n_participants, d_cap, int(packed),
-    ), packed=packed)
+        votes, decided, famous, rounds_decided, stage["setup"], stage["vote"],
+        r_max, n, e, super_majority, n_participants, d_cap, int(packed),
+    ), packed=packed, staged=_staged(stage))
     return (decided.view(torch.bool), famous.view(torch.bool),
             rounds_decided.view(torch.bool))
 
@@ -405,7 +507,7 @@ def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
         check_tensor(what, t, torch.int32, (e,), dev)
     if e < 1 or r_max < 1:
         raise ValueError("divide_rounds: needs events and r_max >= 1")
-    check_smem("divide_rounds", n, n_lvl=n_lvl)
+    stage = _stage_scratch("divide_rounds", n, dev, {"walk": 1}, n_lvl=n_lvl)["walk"]
     rounds = torch.empty((e,), dtype=torch.int32, device=dev)
     witness = torch.empty((e,), dtype=torch.uint8, device=dev)
     lamport = torch.empty((e,), dtype=torch.int32, device=dev)
@@ -414,9 +516,9 @@ def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
     _launch("divide_rounds", dev, (
         levels, creator, self_parent, other_parent, la, fd, ext_sp_round,
         ext_op_round, fixed_round, ext_sp_lamport, ext_op_lamport,
-        fixed_lamport, rounds, witness, lamport, wtable, last_level,
+        fixed_lamport, rounds, witness, lamport, wtable, last_level, stage,
         l_lv, n_lvl, e, n, super_majority, r_max,
-    ), packed=packed)
+    ), packed=packed, staged=stage is not None)
     return rounds, witness.view(torch.bool), lamport, wtable
 
 
@@ -579,24 +681,28 @@ def step_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
     check_tensor("levels", levels, torch.int32, (l_lv, w), dev)
     if b < 1 or w < 1:
         raise ValueError("step_levels: needs a non-empty batch and level width")
-    check_smem("step_levels", n, w=w, l_lv=l_lv, b=b, r_cap=r_cap)
+    stage = _stage_scratch("step_levels", n, dev, {"walk": 1}, w=w, l_lv=l_lv, b=b,
+                           r_cap=r_cap)["walk"]
     _launch("step_levels", dev, (
         fd, rounds, lamport, witness.view(torch.uint8), wtable, w_of_row,
         la_w, fd_w, idx_w, coin_w.view(torch.uint8),
         rounds_decided.view(torch.uint8), last_round, count,
         stale.view(torch.uint8), rows, creator, index, sp_row, op_row,
-        la_rows, coin.view(torch.uint8), fixed_round, levels,
+        la_rows, coin.view(torch.uint8), fixed_round, levels, stage,
         e_cap, n, r_cap, b, l_lv, w, super_majority,
-    ), packed=packed)
+    ), packed=packed, staged=stage is not None)
 
 
 def train_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
                  idx_w, coin_w, rounds_decided, last_round, count, stale,
                  rows, creator, index, sp_row, op_row, sp_pos, op_pos,
-                 la_rows, coin, fixed_round, levels, super_majority: int) -> None:
+                 la_rows, coin, fixed_round, levels, super_majority: int,
+                 packed: bool = False) -> None:
     """K11, in place: a train's (T, W) level scan on train-local carries
-    (shared memory) and a clamped compare copy of fd_w (scratch), then the
-    bulk registration, the write-back and the latches."""
+    (shared memory, or device staging past it) and a clamped compare copy
+    of fd_w (scratch), then the bulk registration, the write-back and the
+    latches. The packed layout's counts are the same integers, so `packed`
+    launches the same kernel and counts it as train_levels/packed."""
     dev = fd.device
     e_cap, n, r_cap = _check_level_state(
         dev, fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
@@ -614,9 +720,8 @@ def train_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
         raise ValueError("train_levels: needs a non-empty train and level width")
     if e_cap >= 1 << 24:
         raise ValueError("train_levels: event capacity exceeds the 2^24 compare range")
-    smem = kb * 9 + r_cap * n + (9 * w + w * n) * 4
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"train_levels: a train of {kb} rows exceeds one block's shared memory")
+    stage = _stage_scratch("train_levels", n, dev, {"walk": 1}, kb=kb, w=w,
+                           r_cap=r_cap)["walk"]
     fd_cmp = torch.empty((r_cap, n, n), dtype=torch.int32, device=dev)
     _launch("train_levels", dev, (
         fd, rounds, lamport, witness.view(torch.uint8), wtable, w_of_row,
@@ -624,8 +729,8 @@ def train_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
         rounds_decided.view(torch.uint8), last_round, count,
         stale.view(torch.uint8), rows, creator, index, sp_row, op_row, sp_pos,
         op_pos, la_rows, coin.view(torch.uint8), fixed_round, levels, fd_cmp,
-        e_cap, n, r_cap, kb, t_lv, w, super_majority,
-    ))
+        stage, e_cap, n, r_cap, kb, t_lv, w, super_majority,
+    ), packed=packed, staged=stage is not None)
 
 
 def decide_window(wtable, la_w, fd_w, idx_w, coin_w, fame_decided, famous,
@@ -658,7 +763,8 @@ def decide_window(wtable, la_w, fd_w, idx_w, coin_w, fame_decided, famous,
     if not (1 <= r_win <= r_cap and 1 <= e_win <= e_cap) or n_participants < 1:
         raise ValueError("decide_window: windows must fit the capacities")
     words = (n + 31) // 32
-    check_smem("decide_window", n, packed=packed, d_unroll=d_unroll)
+    stage = _stage_scratch("decide_window", n, dev, {"setup": r_win * words, "vote": r_win},
+                           d_unroll=d_unroll)
     scal = torch.empty((2,), dtype=torch.int32, device=dev)
     ss_bits = torch.empty((r_win, n, words), dtype=torch.int32, device=dev)
     vt0 = torch.empty((r_win, n, words), dtype=torch.int32, device=dev)
@@ -670,10 +776,10 @@ def decide_window(wtable, la_w, fd_w, idx_w, coin_w, fame_decided, famous,
         fame_decided.view(torch.uint8), famous.view(torch.uint8),
         rounds_decided.view(torch.uint8), last_round, count, index, creator,
         rounds, received, stale.view(torch.uint8), fame_lag.view(torch.uint8),
-        scal, ss_bits, vt0, min_la, famous_count, i_ok,
-        e_cap, n, r_cap, r_win, e_win, super_majority, n_participants,
-        d_unroll,
-    ), packed=packed)
+        scal, ss_bits, vt0, min_la, famous_count, i_ok, stage["setup"],
+        stage["vote"], e_cap, n, r_cap, r_win, e_win, super_majority,
+        n_participants, d_unroll,
+    ), packed=packed, staged=_staged(stage))
 
 
 def pack_results(rounds, lamport, witness, received, wtable, fame_decided,
@@ -705,3 +811,83 @@ def pack_results(rounds, lamport, witness, received, wtable, fame_decided,
         lo, e_cap, e_win, r_cap, n,
     ))
     return out
+
+
+def frontier_append(la, creator, index, lamport, coin, rows_by, inv, dirty, count,
+                    l_over, t_rows, t_creator, t_index, t_lamport, t_coin, t_sp_row,
+                    t_sp_pos, t_la_rows) -> None:
+    """K14, in place: a train's INV scatter-min and the dirty planes'
+    re-closure, the rows' staging, rows_by, dirty, count and l_over."""
+    dev = la.device
+    e_cap, n = la.shape
+    l = rows_by.shape[1]
+    kb = t_rows.shape[0]
+    check_tensor("la", la, torch.int32, (e_cap, n), dev)
+    for what, t in (("creator", creator), ("index", index), ("lamport", lamport)):
+        check_tensor(what, t, torch.int32, (e_cap,), dev)
+    check_tensor("coin", coin, torch.bool, (e_cap,), dev)
+    check_tensor("rows_by", rows_by, torch.int32, (n, l), dev)
+    check_tensor("inv", inv, torch.int32, (n, n, l), dev)
+    check_tensor("dirty", dirty, torch.bool, (n,), dev)
+    _check_state_scalars(dev, count=(count, torch.int32), l_over=(l_over, torch.bool))
+    for what, t in (("t_rows", t_rows), ("t_creator", t_creator), ("t_index", t_index),
+                    ("t_lamport", t_lamport), ("t_sp_row", t_sp_row),
+                    ("t_sp_pos", t_sp_pos)):
+        check_tensor(what, t, torch.int32, (kb,), dev)
+    check_tensor("t_coin", t_coin, torch.bool, (kb,), dev)
+    check_tensor("t_la_rows", t_la_rows, torch.int32, (kb, n), dev)
+    if kb < 1 or l < 1:
+        raise ValueError("frontier_append: needs a non-empty train and index axis")
+    last_pos = torch.empty((n,), dtype=torch.int32, device=dev)
+    _launch("frontier_append", dev, (
+        la, creator, index, lamport, coin.view(torch.uint8), rows_by, inv,
+        dirty.view(torch.uint8), count, l_over.view(torch.uint8), last_pos, t_rows,
+        t_creator, t_index, t_lamport, t_coin.view(torch.uint8), t_sp_row, t_sp_pos,
+        t_la_rows, e_cap, n, l, kb,
+    ))
+
+
+def frontier_window(inv, rows_by, x_hist, dirty, creator, index, coin, la, r_over,
+                    super_majority: int, r_win: int):
+    """K15: the frontier-live decide's windowed walk, post pass and witness
+    tables. Returns (x_hist, r_over, rounds, witness, wtable, last_round,
+    la_w, idx_w, coin_w, fd_w, wtable_c), fresh tensors: x_hist with the
+    window's rows rewritten, r_over the input's latched by the window."""
+    dev = inv.device
+    n, l = rows_by.shape
+    r_cap = x_hist.shape[0]
+    e_cap = la.shape[0]
+    check_tensor("inv", inv, torch.int32, (n, n, l), dev)
+    check_tensor("rows_by", rows_by, torch.int32, (n, l), dev)
+    check_tensor("x_hist", x_hist, torch.int32, (r_cap, n), dev)
+    check_tensor("dirty", dirty, torch.bool, (n,), dev)
+    for what, t in (("creator", creator), ("index", index)):
+        check_tensor(what, t, torch.int32, (e_cap,), dev)
+    check_tensor("coin", coin, torch.bool, (e_cap,), dev)
+    check_tensor("la", la, torch.int32, (e_cap, n), dev)
+    _check_state_scalars(dev, r_over=(r_over, torch.bool))
+    if not 1 <= r_win <= r_cap or e_cap < 1 or l < 1:
+        raise ValueError("frontier_window: needs 1 <= r_win <= r_cap, rows and an index axis")
+    i32 = dict(dtype=torch.int32, device=dev)
+    x_out = torch.empty((r_cap, n), **i32)
+    xs = torch.empty((r_win + 1, n), **i32)
+    m0 = torch.empty((n,), **i32)
+    scal = torch.empty((1,), **i32)
+    r_over_out = r_over.clone()
+    rounds = torch.empty((e_cap,), **i32)
+    witness = torch.empty((e_cap,), dtype=torch.uint8, device=dev)
+    wtable = torch.empty((r_cap, n), **i32)
+    last_round = torch.empty((), **i32)
+    la_w = torch.empty((r_cap, n, n), **i32)
+    idx_w = torch.empty((r_cap, n), **i32)
+    coin_w = torch.empty((r_cap, n), dtype=torch.uint8, device=dev)
+    fd_w = torch.empty((r_cap, n, n), **i32)
+    wtable_c = torch.empty((r_cap, n), **i32)
+    _launch("frontier_window", dev, (
+        inv, rows_by, x_hist, dirty.view(torch.uint8), creator, index,
+        coin.view(torch.uint8), la, x_out, xs, m0, scal, r_over_out.view(torch.uint8),
+        rounds, witness, wtable, last_round, la_w, idx_w, coin_w, fd_w, wtable_c,
+        n, l, e_cap, r_cap, r_win, super_majority,
+    ))
+    return (x_out, r_over_out, rounds, witness.view(torch.bool), wtable, last_round,
+            la_w, idx_w, coin_w.view(torch.bool), fd_w, wtable_c)

@@ -171,12 +171,18 @@ def make_walk_step(inv, rows_by, fd, la, super_majority: int,
                    m0_mode: str = "auto"):
     """The one-round transition X(r) -> X(r+1) over the given tables
     (plain version). m0_mode: "auto" picks by N (M0_BINSEARCH_MIN_N), or
-    force "binsearch" / "sort". fd is required here (the reference also
-    derives it from INV for its frontier-live engine, not yet ported)."""
+    force "binsearch" / "sort".
+
+    fd may be None: the frontier rows' first descendants then come from
+    INV by the identity fd[e, p] == INV[p, creator(e), index(e)], a direct
+    gather fd_w[c, p] = INV[p, c, X[c]] where the reference contracts a
+    one-hot with INV; INV's sentinel L maps to MAX_INT32 (the frontier-live
+    engine keeps no fd matrix)."""
     n, l = rows_by.shape
-    e_fd = fd.shape[0]
     dev = rows_by.device
-    rb = rows_by.clamp(0, max(e_fd - 1, 0))
+    # event rows, clamped as the reference's gathers clamp them
+    e_rows = (fd if fd is not None else la).shape[0]
+    rb = rows_by.clamp(0, max(e_rows - 1, 0))
     cc = torch.arange(n, device=dev)
     use_binsearch = m0_mode == "binsearch" or (
         m0_mode == "auto" and n >= M0_BINSEARCH_MIN_N and la is not None
@@ -186,8 +192,13 @@ def make_walk_step(inv, rows_by, fd, la, super_majority: int,
 
     def step(x_cur):
         w_ok = x_cur < l
-        w_row = rb[cc, x_cur.clamp(0, l - 1).long()].long()  # (N,)
-        fd_w = torch.where(w_ok[:, None], fd[w_row], torch.full_like(fd[w_row], MAX_INT32))
+        xc = x_cur.clamp(0, l - 1).long()
+        if fd is None:
+            fdw = inv[cc[None, :], cc[:, None], xc[:, None]]  # (N_w, N_p)
+            fd_w = torch.where(w_ok[:, None] & (fdw < l), fdw, torch.full_like(fdw, MAX_INT32))
+        else:
+            w_row = rb[cc, xc].long()  # (N,)
+            fd_w = torch.where(w_ok[:, None], fd[w_row], torch.full_like(fd[w_row], MAX_INT32))
         if use_binsearch:
             m0 = _m0_binsearch(fd_w, w_ok, rb, chain_len, la, super_majority, l)
         else:

@@ -34,11 +34,9 @@ Four kernels carry the card path (babble_tpu_torch/csrc/):
 
 `step` = K9 -> K10 -> K12, `multi_step` = K x (K9 -> K10) then K12,
 `train_step` = K9 -> K11 -> K12, `multi_train` = K x (K9 -> K11) then K12.
-`step` and `multi_step` take either voting-table layout (`packed`, as in
-the reference: K10 and K12 count by popcount over uint32 lanes, with the
-same integers); the train paths have the wide layout only and raise
-NotImplementedError for the packed one (K11's packed branch is still to
-be ported).
+Every entry point takes either voting-table layout (`packed`, as in the
+reference: K10, K11 and K12 count by popcount over uint32 lanes, with the
+same integers).
 Each wrapper runs its plain PyTorch version when the state lies on the
 CPU and its kernel when it lies on a CUDA card. The plain versions repeat
 the reference's integer arithmetic with explicit index masks where JAX
@@ -64,8 +62,8 @@ from . import _ext
 from .device import resolve_device, to_device
 from .frontier import level_lamport
 from .grid import MAX_INT32, DagGrid
-from .kernels import _fame_setup_tables, received_core, suffix_min
-from .packed import pack_bits, pack_votes_t, packed_count, packed_tally, popcount_sum
+from .kernels import _fame_setup_tables, received_core, suffix_min, vote_tallies
+from .packed import pack_bits, pack_votes_t, packed_count, popcount_sum
 
 # cap for "no first descendant yet" sentinels: every real event index is
 # < 2^24, so a 2^24 sentinel loses exactly like MAX_INT32 against any
@@ -231,15 +229,6 @@ def device_put(x: Inputs, device=None) -> Inputs:
         else to_device(np.asarray(f), dev)
         for f in x
     ])
-
-
-def _refuse_packed(packed: bool) -> None:
-    """The train paths' K11 has the wide layout only."""
-    if packed:
-        raise NotImplementedError(
-            "the packed layout of the train paths (K11) is not ported yet; "
-            "pass packed=False or use step / multi_step"
-        )
 
 
 def _row_get(a: torch.Tensor, rows: torch.Tensor, fill) -> torch.Tensor:
@@ -423,11 +412,14 @@ def _step_body(state: IncState, batch: Batch, super_majority: int,
 # ---------------------------------------------------------------------------
 
 
-def _train_levels_plain(state: IncState, train: Train, super_majority: int) -> None:
+def _train_levels_plain(state: IncState, train: Train, super_majority: int,
+                        packed: bool = False) -> None:
     """A whole train after its deltas: pre-gathers, the level scan over
     train-local carries (with compare copies of fd_w, clamped to FD_CLAMP,
     and of the witness-valid mask, which in-train registrations update),
-    then one bulk registration, one write-back and the latches."""
+    then one bulk registration, one write-back and the latches. `packed`
+    counts by popcount over uint32 lanes, as the reference's packed branch
+    (babble_tpu/tpu/incremental.py:649-652) does."""
     e_cap, n = state.la.shape
     r_cap = state.wtable.shape[0]
     kb = train.rows.shape[0]
@@ -463,9 +455,15 @@ def _train_levels_plain(state: IncState, train: Train, super_majority: int) -> N
         pr = parent_round.clamp(0, r_cap - 1).long()
         slots = pr[:, None] * n + torch.arange(n, device=dev)[None, :]  # (w, N)
         wvalid = wv[slots] & (parent_round[:, None] >= 0)
-        counts = (train.la_rows[p][:, None, :] >= fd_cmp[slots]).sum(dim=-1, dtype=_I32)
-        ss = (counts >= super_majority) & wvalid
-        c_seen = ss.sum(dim=-1, dtype=_I32)
+        cmp = train.la_rows[p][:, None, :] >= fd_cmp[slots]
+        if packed:
+            counts = packed_count(cmp)
+            ss = (counts >= super_majority) & wvalid
+            c_seen = packed_count(ss)
+        else:
+            counts = cmp.sum(dim=-1, dtype=_I32)
+            ss = (counts >= super_majority) & wvalid
+            c_seen = ss.sum(dim=-1, dtype=_I32)
 
         new_round = parent_round + (c_seen >= super_majority).to(_I32)
         fixed = train.fixed_round[p]
@@ -515,11 +513,14 @@ def _train_levels_plain(state: IncState, train: Train, super_majority: int) -> N
     state.stale.logical_or_(overflow | late)
 
 
-def _train_levels(state: IncState, train: Train, super_majority: int) -> None:
+def _train_levels(state: IncState, train: Train, super_majority: int,
+                  packed: bool = False) -> None:
     """K11 (babble_tpu/tpu/incremental.py:570 _train_body after its
-    deltas). CPU: the plain version; CUDA: csrc/train_levels.cu."""
+    deltas; K11p its packed branch). CPU: the plain version; CUDA:
+    csrc/train_levels.cu, whose counts are the packed layout's integers
+    too (the packed launch is counted as train_levels/packed)."""
     if state.la.device.type == "cpu":
-        _train_levels_plain(state, train, super_majority)
+        _train_levels_plain(state, train, super_majority, packed)
         return
     _ext.train_levels(
         state.fd, state.rounds, state.lamport, state.witness, state.wtable,
@@ -527,18 +528,18 @@ def _train_levels(state: IncState, train: Train, super_majority: int) -> None:
         state.rounds_decided, state.last_round, state.count, state.stale,
         train.rows, train.creator, train.index, train.sp_row, train.op_row,
         train.sp_pos, train.op_pos, train.la_rows, train.coin,
-        train.fixed_round, train.levels, super_majority,
+        train.fixed_round, train.levels, super_majority, packed=packed,
     )
 
 
 def _train_body(state: IncState, train: Train, super_majority: int,
-                n_participants: int) -> IncState:
+                n_participants: int, packed: bool = False) -> IncState:
     """Append a whole train: K9 then K11. Equal to running its batches
     through _step_body one by one, apart from the clamped fd rows the
     train registers (see _train_levels_plain)."""
     train = device_put(train, state.la.device)
     _apply_deltas_and_stage(state, train)
-    _train_levels(state, train, super_majority)
+    _train_levels(state, train, super_majority, packed)
     return state
 
 
@@ -580,11 +581,11 @@ def _fame_window(w_valid, la_w, fd_w, idx_w, coin_w, last_round_rel,
         vy = w_valid[jc] & j_ok[:, None]
         if packed:
             ss_d = torch.where(j_ok[:, None, None], ss_p[jc], torch.zeros_like(ss_p[jc]))
-            yays = packed_tally(ss_d, votes)
+            yays = vote_tallies(ss_d, votes, True)
             total = torch.where(j_ok[:, None], total_p[jc], torch.zeros_like(total_p[jc]))
         else:
             ss_d = ss[jc] & j_ok[:, None, None]
-            yays = (ss_d[:, :, :, None] & votes[:, None, :, :]).sum(dim=2, dtype=_I32)
+            yays = vote_tallies(ss_d, votes, False)
             total = ss_d.sum(dim=-1, dtype=_I32)
         nays = total[:, :, None] - yays
         v = yays >= nays
@@ -742,24 +743,25 @@ def multi_step(state: IncState, stacked: Batch, super_majority: int,
 def train_step(state: IncState, train: Train, super_majority: int,
                n_participants: int, r_win: int = 32, e_win: int = 8192,
                packed: bool = False) -> IncState:
-    """One whole train, then one decide: K9 -> K11 -> K12, in place. The
-    throughput path of the incremental engine."""
-    _refuse_packed(packed)
+    """One whole train, then one decide: K9 -> K11 -> K12, in place, in
+    the voting-table layout `packed` names. The throughput path of the
+    incremental engine."""
     _check_windows(state, r_win, e_win)
-    _train_body(state, train, super_majority, n_participants)
-    return _decide_body(state, super_majority, n_participants, r_win=r_win, e_win=e_win)
+    _train_body(state, train, super_majority, n_participants, packed)
+    return _decide_body(state, super_majority, n_participants, r_win=r_win, e_win=e_win,
+                        packed=packed)
 
 
 def multi_train(state: IncState, stacked: Train, super_majority: int,
                 n_participants: int, r_win: int = 32, e_win: int = 8192,
                 packed: bool = False) -> IncState:
     """K stacked trains, then one decide. Equal to K train_step calls."""
-    _refuse_packed(packed)
     _check_windows(state, r_win, e_win)
     stacked = device_put(stacked, state.la.device)
     for k in range(stacked.rows.shape[0]):
-        _train_body(state, _unstack(stacked, k), super_majority, n_participants)
-    return _decide_body(state, super_majority, n_participants, r_win=r_win, e_win=e_win)
+        _train_body(state, _unstack(stacked, k), super_majority, n_participants, packed)
+    return _decide_body(state, super_majority, n_participants, r_win=r_win, e_win=e_win,
+                        packed=packed)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,10 @@ explicit index masks where JAX clamps gathers; they are the CPU path and
 the yardstick the kernels are held to on the card.
 
 All arithmetic is exact int32 / bool: the reference's float32 vote tally
-(an einsum of 0/1 values) is an integer count here.
+(an einsum of 0/1 values) is an integer count here. The fame setup's
+compares and the vote tallies, (rounds, N, N, N) tensors in the
+reference, are taken a chunk of rounds at a time (PLAIN_CHUNK_CELLS):
+the same integers, without 32 GiB tensors at 1,024 validators.
 """
 
 from __future__ import annotations
@@ -27,6 +30,35 @@ from .grid import MAX_INT32, MIN_INT32
 from .packed import pack_bits, pack_votes_t, packed_count, packed_tally, popcount_sum
 
 Scalar = Union[int, torch.Tensor]
+
+# elements of one chunk of the plain versions' (rounds, N, N, N) compares
+# and tallies: a round's N^3 is 1 G at 1,024 validators, so there a chunk
+# is one round
+PLAIN_CHUNK_CELLS = 1 << 28
+
+
+def round_chunks(rounds: int, cells_per_round: int):
+    """Slices of at most PLAIN_CHUNK_CELLS // cells_per_round rounds (at
+    least one) covering range(rounds)."""
+    step = max(1, PLAIN_CHUNK_CELLS // max(cells_per_round, 1))
+    return [slice(a, min(a + step, rounds)) for a in range(0, rounds, step)]
+
+
+def vote_tallies(ss_d: torch.Tensor, votes: torch.Tensor, packed: bool) -> torch.Tensor:
+    """yays[r, y, x] = |{w : ss_d[r, y, w] and votes[r, w, x]}| (int32),
+    or with `packed` sum_w popcount(ss_d[r, y, w] & votes[r, x, w]) over
+    the words, a chunk of rounds at a time."""
+    r, n = ss_d.shape[0], ss_d.shape[1]
+    cells = n * n * ss_d.shape[2]
+    parts = []
+    for c in round_chunks(r, cells):
+        if packed:
+            parts.append(packed_tally(ss_d[c], votes[c]))
+        else:
+            parts.append((ss_d[c][:, :, :, None] & votes[c][:, None, :, :])
+                         .sum(dim=2, dtype=torch.int32))
+    return torch.cat(parts) if parts else torch.zeros((0, n, n), dtype=torch.int32,
+                                                      device=ss_d.device)
 
 
 def suffix_min(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -174,13 +206,15 @@ def _fame_setup_tables(wvalid, la_w, fd_w, idx_w, coin_w, super_majority: int,
     ss = torch.zeros((r_max, n, n), dtype=torch.bool, device=wvalid.device)
     votes0 = torch.zeros_like(ss)
     if r_max > 1:
-        cmp = la_w[1:, :, None, :] >= fd_w[:-1, None, :, :]  # (R-1, y, w, p)
-        counts = packed_count(cmp) if packed else cmp.sum(dim=-1)
-        ss[1:] = (
-            (counts >= super_majority)
-            & wvalid[1:, :, None]
-            & wvalid[:-1, None, :]
-        )
+        for c in round_chunks(r_max - 1, n ** 3):
+            j = slice(c.start + 1, c.stop + 1)
+            cmp = la_w[j, :, None, :] >= fd_w[c, None, :, :]  # (rounds, y, w, p)
+            counts = packed_count(cmp) if packed else cmp.sum(dim=-1)
+            ss[j] = (
+                (counts >= super_majority)
+                & wvalid[j, :, None]
+                & wvalid[c, None, :]
+            )
         see0 = la_w[1:] >= idx_w[:-1, None, :]  # y of round i+1 sees x of round i
         votes0[:-1] = see0 & wvalid[1:, :, None]
     return ss, votes0, wvalid, coin_w
@@ -233,12 +267,12 @@ def _decide_fame_tables(ss, votes0, wvalid, coin_w, last_round: Scalar,
         vy = wvalid[jc] & j_ok[:, None]  # (R, N_y)
         if packed:
             ss_d = torch.where(j_ok[:, None, None], ss_p[jc], torch.zeros_like(ss_p[jc]))
-            yays = packed_tally(ss_d, votes)  # (R, N_y, N_x)
+            yays = vote_tallies(ss_d, votes, True)  # (R, N_y, N_x)
             total = torch.where(j_ok[:, None], total_p[jc], torch.zeros_like(total_p[jc]))
         else:
             ss_d = ss[jc] & j_ok[:, None, None]  # (R, N_y, N_w)
             # yays[r, y, x] = sum_w ss_d[r, y, w] * votes[r, w, x], as a count
-            yays = (ss_d[:, :, :, None] & votes[:, None, :, :]).sum(dim=2, dtype=torch.int32)
+            yays = vote_tallies(ss_d, votes, False)
             total = ss_d.sum(dim=-1, dtype=torch.int32)
         nays = total[:, :, None] - yays
         v = yays >= nays

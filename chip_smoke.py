@@ -132,21 +132,44 @@ Phases, in order; any failure raises and exits non-zero:
    (upd_cap 16,384, e_win 32,768, r_cap and r_win 64) through apply_deltas,
    K10p and K12p, each held to its plain version after every call, no
    latch and events received at the end: the kernels line's times and
-   bounds of K10p and K12p. Then the grid as signed events: (a) the host
-   engine (7 blocks, last round 10), (b) run_consensus_device, which must
-   take the frontier rung in the packed layout, (c) run_consensus_live
-   after each sync of 64 at the engine's defaults but upd_cap 16,384 and
-   e_win 32,768 (the defaults are sized for 64 validators), every call on
-   the live rung with the engine in the packed layout; blocks
-   byte-identical to (a), with the per-layer milliseconds as in phase 12.
-   The kernels line's launches of K10p and K12p are run (c)'s.
+   bounds of K10p and K12p. Then the grid's first 20,480 events (cut from
+   32,768 to pay for phase 16) as signed events: (a) the host engine (3 blocks, last
+   round 6), (b) run_consensus_device, which must take the frontier rung
+   in the packed layout, (c) run_consensus_live after each sync of 64 at
+   the engine's defaults but upd_cap 16,384 and e_win 32,768 (the defaults
+   are sized for 64 validators), every call on the live rung with the
+   engine in the packed layout; blocks byte-identical to (a), with the
+   per-layer milliseconds as in phase 12. The kernels line's launches of
+   K10p and K12p are run (c)'s.
+16. the frontier-live engine (tpu/frontier_live.py: K14 frontier_append,
+   K15 frontier_window, then K3 / K3p and K4): (a) bench_incremental.py's
+   cell, the bench grid's 4 trains of 8,192 at l_cap 4,096 and r_cap 128
+   (INV 64 MiB) through frontier_train_step, K14, K15 and the decide held
+   to their plain versions after every train, equal to run_passes on rows
+   [:e] (last_round 26, 28,065 received, no latch), and
+   frontier_multi_train over pairs of trains, with events appended per
+   second (32,768 / the median of 5 warm runs from a fresh state); (b)
+   config #4 in trains of 8,192 (l_cap 512, r_cap 32) in both layouts,
+   the packed run held to the plain versions after every train and the
+   wide one to the packed, both equal to phase 14's engines (7, 32,341,
+   1,853 witnesses, no latch), then train_step (K11p held to its plain
+   version after every train) and multi_train in the packed layout equal
+   to the wide train_step; (c) bootstrap_frontier_state of the bench grid
+   equal to run_frontier_passes; (d) config #5's width, synthetic_grid(1024,
+   16384, seed=0, zipf_a=1.1, record_fd_updates=True) (depth cut: it stays
+   in round 0), where K3p, K5, K10, K11p and K12 (both layouts) take their
+   device staging forms, each held to its plain version (the votes also on
+   coin_round_case tables at 1,024 validators, where witnesses are
+   decided), and frontier_train_step (packed), K14 and K15 held to their
+   plain versions after every train, equal to run_frontier_passes
+   (packed); launches of the device forms under "<key>/dev", counted on
+   runs of the entry points a user calls (run_passes, step, multi_step,
+   train_step, frontier_train_step) with nothing else in the window.
 
-The phases take about ten minutes on an H100: phase 12 about two, phase
-13 one, phase 15 nearly four (its kernel check half a minute; the rest
-mostly host Python). The
-next-to-last line is the per-kernel JSON summary; the last line is
-{"ok": true, "device": {...}}. The script imports nothing of JAX and
-nothing of the babble_tpu package.
+The phases take ten to twelve minutes on an H100; each phase's seconds
+are printed. The next-to-last line is the per-kernel JSON summary; the
+last line is {"ok": true, "device": {...}}. The script imports nothing of
+JAX and nothing of the babble_tpu package.
 """
 
 from __future__ import annotations
@@ -259,7 +282,12 @@ PACKED_FIXTURES = [(7, 160, 9), (33, 400, 4)]
 # grid's generator at 128 validators (790 levels: the frontier rung), and
 # the host engine's result on it
 SWITCH = dict(n=128, e_count=32768, seed=0, zipf_a=1.1)
-SWITCH_EXPECT = (7, 10)  # blocks, last round
+# the hashgraph runs take the grid's first SWITCH_DEPTH events (cut from
+# 32,768 to pay for phase 16: the host engine alone took 88 s
+# there), and the host engine's result on them (the whole grid gives 7
+# blocks, last round 10)
+SWITCH_DEPTH = 20480
+SWITCH_EXPECT = (3, 6)  # blocks, last round
 SWITCH_ONESHOT_RUNG = ("frontier", "run_frontier_passes, packed")
 # run (c)'s two changes to the engine's defaults, which are sized for 64
 # validators: at 128 a batch of 64 carries more fd updates than the
@@ -276,6 +304,34 @@ SWITCH_SHORT_E_WINS = (8192, 16384)
 # each held to its plain version after every call (the live engine's r_cap
 # 64, r_win 64, e_cap 65,536 with SWITCH_LIVE)
 SWITCH_STEP = dict(batch=64, e_cap=65536, r_cap=64, r_win=64, **SWITCH_LIVE)
+
+# phase 16, the frontier-live engine: (a) bench_incremental.py's train
+# cell, phase 10's four trains with its l_cap and r_cap (INV 64 MiB), and
+# (c) the cold-start bootstrap of the bench grid at the same capacities
+FL_BENCH = dict(l_cap=4096, r_cap=128)
+FL_RUNS = 5
+# (b) config #4 in trains of 8,192: l_cap the least power of two above the
+# hottest chain plus a margin, r_cap 32 (at least R_WIN; last_round 7); the
+# incremental train paths at the same trains, e_win holding every row as
+# phase 14's step does
+FL_WIDE = dict(train=8192, upd_cap=1 << 22, t_cap=832, l_margin=64, r_cap=32)
+FL_WIDE_INC = dict(e_cap=65536, r_cap=64, r_win=64, e_win=65536)
+# (d) BASELINE.json config #5's width (1,024 validators) at a cut depth:
+# 16,384 events, a few rounds and nothing received (config #5's depth waits
+# for a host grid generator that scales: ROADMAP). Every kernel with a
+# device staging form runs it here, held to its plain version: K10 after
+# every batch, the decide after every FL_WIDTH_CHECK_EVERY-th (packed and
+# wide in turn); the launch counts come from the entry points' own runs
+# (run_passes, step, multi_step, train_step, frontier_train_step)
+FL_WIDTH = dict(n=1024, e_count=16384, seed=0, zipf_a=1.1)
+FL_WIDTH_BATCH = 64
+FL_WIDTH_TRAIN = 8192
+FL_WIDTH_CHECK_EVERY = 64
+# the grid stays in round 0 at that depth, so the device forms of the votes
+# (K3p, K12) are also held on coin_round_case tables at 1,024 validators:
+# (n, rounds, seed), strongly-seeing common and the votes split, so that
+# witnesses are decided
+FL_WIDTH_COIN = (1024, 6, 3)
 
 REPLACES = {
     "build_inv": ("babble_tpu_torch/csrc/build_inv.cu", "babble_tpu/tpu/frontier.py:116"),
@@ -300,6 +356,27 @@ REPLACES = {
                            "babble_tpu/tpu/incremental.py:243"),
     "decide_window/packed": ("babble_tpu_torch/csrc/decide_window.cu",
                              "babble_tpu/tpu/incremental.py:361"),
+    "train_levels/packed": ("babble_tpu_torch/csrc/train_levels.cu",
+                            "babble_tpu/tpu/incremental.py:570"),
+    # the frontier-live engine (phase 16)
+    "frontier_append": ("babble_tpu_torch/csrc/frontier_append.cu",
+                        "babble_tpu/tpu/frontier_live.py:113"),
+    "frontier_window": ("babble_tpu_torch/csrc/frontier_walk.cu",
+                        "babble_tpu/tpu/frontier_live.py:184"),
+    # the device staging forms past one block's shared memory, at 1,024
+    # validators (phase 16(d))
+    "decide_fame/packed/dev": ("babble_tpu_torch/csrc/decide_fame.cu",
+                               "babble_tpu/tpu/kernels.py:335"),
+    "divide_rounds/dev": ("babble_tpu_torch/csrc/divide_rounds.cu",
+                          "babble_tpu/tpu/kernels.py:118"),
+    "step_levels/packed/dev": ("babble_tpu_torch/csrc/step_levels.cu",
+                               "babble_tpu/tpu/incremental.py:243"),
+    "train_levels/packed/dev": ("babble_tpu_torch/csrc/train_levels.cu",
+                                "babble_tpu/tpu/incremental.py:570"),
+    "decide_window/packed/dev": ("babble_tpu_torch/csrc/decide_window.cu",
+                                 "babble_tpu/tpu/incremental.py:361"),
+    "decide_window/dev": ("babble_tpu_torch/csrc/decide_window.cu",
+                          "babble_tpu/tpu/incremental.py:361"),
 }
 # the kernels each engine's call must launch
 PATH_KERNELS = {
@@ -328,8 +405,33 @@ PATH_KERNELS = {
     "multi_step, packed": ("apply_deltas", "step_levels/packed", "decide_window/packed"),
     "run_consensus_live, packed": ("apply_deltas", "step_levels/packed",
                                    "decide_window/packed", "pack_results"),
+    "train_step, packed": ("apply_deltas", "train_levels/packed", "decide_window/packed"),
+    "multi_train, packed": ("apply_deltas", "train_levels/packed", "decide_window/packed"),
+    # the frontier-live engine
+    "frontier_train_step": ("frontier_append", "frontier_window", "decide_fame",
+                            "round_received"),
+    "frontier_multi_train": ("frontier_append", "frontier_window", "decide_fame",
+                             "round_received"),
+    "frontier_train_step, packed": ("frontier_append", "frontier_window",
+                                    "decide_fame/packed", "round_received"),
+    "bootstrap_frontier_state": ("build_inv", "walk_chunk", "frontier_window",
+                                 "decide_fame", "round_received"),
+    # at 1,024 validators the packed vote stages in device memory
+    "run_frontier_passes (1,024), packed": ("build_inv", "frontier_rounds",
+                                            "decide_fame/packed/dev", "round_received"),
+    "frontier_train_step (1,024), packed": ("frontier_append", "frontier_window",
+                                            "decide_fame/packed/dev", "round_received"),
+    "run_passes (1,024)": ("divide_rounds/dev", "decide_fame", "round_received"),
+    "step (1,024), packed": ("apply_deltas", "step_levels/packed/dev",
+                             "decide_window/packed/dev"),
+    "multi_step (1,024)": ("apply_deltas", "step_levels/dev", "decide_window/dev"),
+    "train_step (1,024), packed": ("apply_deltas", "train_levels/packed/dev",
+                                   "decide_window/packed/dev"),
 }
-WIDE_FORMS = ("decide_fame", "divide_rounds", "step_levels", "decide_window")
+# the wide forms of the layout kernels, which a packed path must not launch
+WIDE_FORMS = ("decide_fame", "divide_rounds", "step_levels", "train_levels",
+              "decide_window", "divide_rounds/dev", "step_levels/dev", "train_levels/dev",
+              "decide_window/dev")
 # run_consensus_device's rung on phase 12's DAG (its 1,140 levels pass the
 # 1,024-level crossover) and that rung's kernels
 HG_ONESHOT_RUNG = ("doubling", "run_doubling_passes")
@@ -350,6 +452,23 @@ HG_CACHE = 1 << 16
 
 def log(*a):
     print(*a, flush=True)
+
+
+class PhaseClock:
+    """Logs each phase's host-clock seconds when the next one starts, and
+    the script's total at the end."""
+
+    def __init__(self, log_fn):
+        self.log, self.t0 = log_fn, time.perf_counter()
+        self.name, self.start = None, self.t0
+
+    def next(self, name):
+        now = time.perf_counter()
+        if self.name is not None:
+            self.log(f"phase {self.name}: {now - self.start:.1f} s")
+        self.name, self.start = name, now
+        if name is None:
+            self.log(f"all phases: {now - self.t0:.1f} s")
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -411,6 +530,38 @@ def coin_round_case(n, r, seed):
         last_round=r - 1, super_majority=2 * n // 3 + 1, n_participants=n,
         d_cap=r + 2,
     )
+
+
+def coin_case_state(case, device):
+    """An IncState holding a coin_round_case's voting tables as registered
+    witnesses (round r's witnesses on rows r * n .. r * n + n - 1, each
+    row's round its table row), every row occupied and undetermined, for
+    the decide alone."""
+    from babble_tpu_torch.tpu import incremental as inc
+
+    wt = case["wtable"]
+    r, n = wt.shape
+    e = r * n
+    st = inc.init_state(n, e, r, device=device)
+    ok = wt >= 0
+    rows = np.where(ok, wt, 0)
+
+    def put(t, a):
+        t.copy_(torch.from_numpy(np.ascontiguousarray(a)).to(device))
+
+    put(st.wtable, wt)
+    put(st.la_w, case["la"][rows])
+    put(st.fd_w, case["fd"][rows])
+    put(st.idx_w, np.where(ok, case["index"][rows], np.iinfo(np.int32).max))
+    put(st.coin_w, case["coin_bit"][rows])
+    put(st.la, case["la"])
+    put(st.fd, case["fd"])
+    put(st.index, case["index"])
+    put(st.creator, np.arange(e, dtype=np.int32) % n)
+    put(st.rounds, np.arange(e, dtype=np.int32) // n)
+    st.last_round.fill_(case["last_round"])
+    st.count.fill_(e)
+    return st
 
 
 def coin_fame_args(case, coin_bit, device):
@@ -1247,7 +1398,8 @@ def switch_kernel_phase(dev, log_fn):
 def wide_engine_phase(g, dev, log_fn, upd_cap, batches_d):
     """Phase 14: config #4's grid g through the three one-shot engines in
     the knob's layout (packed) and the wide one, and through step and
-    multi_step; returns each packed path's launches."""
+    multi_step; returns each packed path's launches and the engines'
+    result."""
     from babble_tpu_torch.tpu import doubling, engine
     from babble_tpu_torch.tpu import incremental as inc
 
@@ -1311,7 +1463,577 @@ def wide_engine_phase(g, dev, log_fn, upd_cap, batches_d):
                f"{cfg['r_win']}, e_win {e_win}) == run_passes on rows [:e], no latch: "
                f"{wall * 1e3:.1f} ms (first run), {e / wall:.0f} events appended/s")
     log_fn(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, ref
+
+
+def fr_diff(a, b, fields=None):
+    """Names of the fields (all by default) in which two states differ."""
+    return [f for f in (fields or a._fields) if not torch.equal(getattr(a, f), getattr(b, f))]
+
+
+class PlainFame:
+    """Inside the block frontier_live's decide votes and receives with the
+    plain versions of K3 / K3p and K4 (the yardstick on the card)."""
+
+    def __enter__(self):
+        from babble_tpu_torch.tpu import frontier_live as fl, kernels
+
+        self.saved = (fl.decide_fame, fl.decide_round_received)
+        fl.decide_fame = kernels._decide_fame_plain
+        fl.decide_round_received = kernels._decide_round_received_plain
+        return self
+
+    def __exit__(self, *exc):
+        from babble_tpu_torch.tpu import frontier_live as fl
+
+        fl.decide_fame, fl.decide_round_received = self.saved
+
+
+def fl_work_append(st, t):
+    """(bytes, ALU ops, 0) K14 needs for train t on state st (after the
+    append): each train row's inputs read once, each real row's staging
+    written once, and every dirty chain's (N, L) planes read and written
+    once; a compare per (row, coordinate)."""
+    e_cap, n = st.la.shape
+    l = st.rows_by.shape[1]
+    kb = t.rows.shape[0]
+    real = int((t.rows >= 0).sum())
+    dirty = int(st.dirty.sum())
+    return (kb * (n + 7) * 4 + real * (n + 5) * 4 + real * 8 + 2 * dirty * n * l * 4,
+            kb * n + dirty * n * l, 0)
+
+
+def fl_work_window(st, win):
+    """(bytes, ALU ops, 0) K15 needs: the INV entries of the frontier
+    rows' fd gathers (N for each distinct (chain, index) pair the window's
+    history holds, each read once), the history read and written, the
+    rows' metadata in and rounds / witness out, the witness rows of la in
+    and the tables out; the steps' N^3 + N^2 lookups and compares and the
+    post pass's per-row round counts."""
+    from babble_tpu_torch.tpu import frontier_live as fl
+
+    e_cap, n = st.la.shape
+    l = st.rows_by.shape[1]
+    r_cap = st.x_hist.shape[0]
+    steps = min(fl.R_WIN, r_cap)
+    n_wit = int((win.wtable >= 0).sum())
+    xh = win.x_hist
+    chain = torch.arange(n, device=xh.device).expand_as(xh)
+    pairs = int(torch.unique((chain * l + xh)[xh < l]).numel())
+    return (pairs * n * 4 + 2 * r_cap * n * 4 + e_cap * 9 + e_cap * 5
+            + n_wit * n * 4 + r_cap * n * (4 * 3 + 1) + 2 * r_cap * n * n * 4,
+            steps * (n ** 3 + n * n) + e_cap * r_cap, 0)
+
+
+class FlPaired:
+    """A frontier-live state driven train by train through the kernels,
+    each kernel held torch.equal to its plain version on the same input
+    (K14 on a clone of the state, K15 on the appended state, the decide's
+    K3 / K3p and K4 over the window's tables against the plain fame and
+    received), with CUDA-event times and the work of each checked call."""
+
+    def __init__(self, st, sm, n, packed):
+        self.st, self.sm, self.n, self.packed = st, sm, n, packed
+        self.events, self.work = {}, {}
+
+    def _timed(self, name, kern, plain, work=None):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        # K14's wrapper checks some twenty tensors and makes five calls into
+        # the library: a longer spin keeps the host's side out of the events
+        torch.cuda._sleep(4 * SPIN_CYCLES)
+        ev[0].record()
+        got = kern()
+        ev[1].record()
+        ev[2].record()
+        want = plain()
+        ev[3].record()
+        self.events.setdefault(name, []).append(ev)
+        if work is not None:
+            acc = self.work.setdefault(name, [0, 0, 0])
+            for i, w in enumerate(work(got)):
+                acc[i] += w
+        return got, want
+
+    def train(self, t, label):
+        from babble_tpu_torch.tpu import frontier_live as fl
+
+        st, sm = self.st, self.sm
+        clone = fl.clone_frontier_state(st)
+        self._timed("frontier_append", lambda: fl._append_train(st, t),
+                    lambda: fl._append_train_plain(clone, t),
+                    lambda _: fl_work_append(st, t))
+        bad = fr_diff(st, clone)
+        if bad:
+            raise AssertionError(f"frontier_append on the {label}: {bad} differ from the plain version")
+        win, want = self._timed("frontier_window", lambda: fl._decide_window(st, sm),
+                                lambda: fl._decide_window_plain(st, sm),
+                                lambda w: fl_work_window(st, w))
+        bad = [f for f in win._fields if not torch.equal(getattr(win, f), getattr(want, f))]
+        if bad:
+            raise AssertionError(f"frontier_window on the {label}: {bad} differ from the plain version")
+        got = fl._decide_from(st, win, sm, self.n, self.packed)
+        with PlainFame():
+            ref = fl._decide_from(st, want, sm, self.n, self.packed)
+        bad = fr_diff(got, ref)
+        if bad:
+            raise AssertionError(f"the decide on the {label}: {bad} differ from the plain fame "
+                                 f"and received")
+        fl._assign(st, got)
+
+    def summary(self, name):
+        """(calls, kernel ms per call, plain ms per call, (bytes, seconds at
+        the peak rates) per call)."""
+        torch.cuda.synchronize()
+        evs = self.events[name]
+        calls = len(evs)
+        nbytes, alu, _ = self.work[name]
+        return (calls, sum(e[0].elapsed_time(e[1]) for e in evs) / calls,
+                sum(e[2].elapsed_time(e[3]) for e in evs) / calls,
+                (nbytes / calls, alu / ALU_OPS_S / calls))
+
+
+def require_rows(label, st, ref, e):
+    """Rows [:e] of rounds, witness, lamport and received equal a one-shot
+    PassResults, and the same last_round."""
+    for f in ("rounds", "witness", "lamport", "received"):
+        if not (getattr(st, f)[:e].cpu().numpy() == getattr(ref, f)).all():
+            raise AssertionError(f"{label}: {f} differs from the one-shot engines")
+    if int(st.last_round) != ref.last_round:
+        raise AssertionError(f"{label}: last_round {int(st.last_round)} != {ref.last_round}")
+
+
+def latches(st):
+    return dict(l_over=bool(st.l_over), r_over=bool(st.r_over),
+                frozen_violation=bool(st.frozen_violation))
+
+
+def fl_bench_phase(bench, trains, res, dev, log_fn):
+    """Phase 16 (a) and (c): the bench cell's four trains through
+    frontier_train_step, K14 and K15 held to their plain versions after
+    every train; frontier_multi_train over groups of MULTI_TRAIN_K stacked
+    trains (a decide per group: its R_WIN rounds cover what two trains
+    add, not four); events appended per second; the bootstrap. Returns
+    (summary, work, launches)."""
+    from babble_tpu_torch.tpu import _ext
+    from babble_tpu_torch.tpu import frontier_live as fl
+    from babble_tpu_torch.tpu import incremental as inc
+
+    t_phase = time.perf_counter()
+    sm, n, e = bench.super_majority, bench.n, bench.e
+    e_cap, l_cap, r_cap = INC_TRAIN["e_cap"], FL_BENCH["l_cap"], FL_BENCH["r_cap"]
+    trains_d = [inc.device_put(t, dev) for t in trains]
+    groups = [inc.device_put(inc.stack_trains(trains[i : i + MULTI_TRAIN_K]), dev)
+              for i in range(0, len(trains), MULTI_TRAIN_K)]
+    want = dict(last_round=BENCH_LAST_ROUND, received=BENCH_RECEIVED,
+                l_over=False, r_over=False, frozen_violation=False)
+
+    def final(label, st):
+        require_rows(label, st, res, e)
+        got = dict(last_round=int(st.last_round), received=int((st.received[:e] >= 0).sum()),
+                   **latches(st))
+        if got != want:
+            raise AssertionError(f"{label}: {got}, the reference gives {want}")
+        return got
+
+    # the first launches of K14 and K15 load their code on the card: one
+    # throwaway train keeps that out of the timed calls
+    fl.frontier_train_step(fl.init_frontier_state(n, e_cap, l_cap, r_cap, device=dev),
+                           trains_d[0], sm, n)
+    run = FlPaired(fl.init_frontier_state(n, e_cap, l_cap, r_cap, device=dev), sm, n, False)
+    _ext.reset_launches()
+    for k, t in enumerate(trains_d):
+        run.train(t, f"bench cell, train {k}")
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    require_path_launches("frontier_train_step on the bench cell", "frontier_train_step",
+                          launches)
+    got = final("frontier_train_step", run.st)
+    log_fn(f"frontier_train_step over the bench cell's {len(trains_d)} trains (l_cap {l_cap}, "
+           f"r_cap {r_cap}, INV {run.st.inv.numel() * 4 >> 20} MiB): frontier_append, "
+           f"frontier_window and the decide == plain after every train; == run_frontier_passes "
+           f"on rows [:e]: {got}; launches {({k: v for k, v in launches.items() if v})}")
+    summary, work, launches_all = {}, {}, launches
+    launches = {}
+    for name in ("frontier_append", "frontier_window"):
+        calls, k_ms, p_ms, w = run.summary(name)
+        summary[name] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+        work[name] = w
+        launches[name] = launches_all[name]
+        log_fn(f"  {name}: {calls} checked calls, kernel {k_ms:.4f} ms per call, plain "
+               f"{p_ms:.2f} ms per call; work {w[0]:.0f} bytes per call")
+    st = fl.init_frontier_state(n, e_cap, l_cap, r_cap, device=dev)
+    run_path("frontier_multi_train", lambda: [fl.frontier_multi_train(st, gr, sm, n)
+                                              for gr in groups])
+    bad = fr_diff(st, run.st, ("rounds", "witness", "lamport", "received", "wtable",
+                               "fame_decided", "famous", "rounds_decided", "last_round",
+                               "inv", "rows_by", "la", "count"))
+    if bad:
+        raise AssertionError(f"frontier_multi_train: {bad} differ from the per-train steps")
+    final("frontier_multi_train", st)
+    for label, drive in (
+        ("frontier_train_step", lambda st: [fl.frontier_train_step(st, t, sm, n)
+                                            for t in trains_d]),
+        ("frontier_multi_train", lambda st: [fl.frontier_multi_train(st, gr, sm, n)
+                                             for gr in groups]),
+    ):
+        walls = []
+        for _ in range(FL_RUNS + 2):
+            st = fl.init_frontier_state(n, e_cap, l_cap, r_cap, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drive(st)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        final(label, st)
+        wall = statistics.median(walls[2:])
+        log_fn(f"e2e {label} on the bench cell: median {wall * 1e3:.3f} ms over {FL_RUNS} warm "
+               f"runs from a fresh state, {e / wall:.0f} events appended/s")
+
+    # (c) the cold-start bootstrap of the same grid
+    _ext.reset_launches()
+    t0 = time.perf_counter()
+    bst = fl.bootstrap_frontier_state(bench, e_cap, l_cap, r_cap, n, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    b_launches = dict(_ext.LAUNCHES)
+    require_path_launches("bootstrap_frontier_state", "bootstrap_frontier_state", b_launches)
+    got = final("bootstrap_frontier_state", bst)
+    if int(bst.count) != e:
+        raise AssertionError(f"bootstrap_frontier_state: count {int(bst.count)} != {e}")
+    log_fn(f"bootstrap_frontier_state on the bench grid == run_frontier_passes: {got}, "
+           f"{secs:.3f} s (first call); launches {({k: v for k, v in b_launches.items() if v})}")
+    log_fn(f"phase 16 (a), (c): {time.perf_counter() - t_phase:.1f} s")
+    return summary, work, launches
+
+
+def fl_wide_phase(g, ref, dev, log_fn):
+    """Phase 16 (b): config #4 in trains of 8,192 through frontier_train_step
+    in both layouts (packed: K14, K15 and the decide held to their plain
+    versions after every train; wide: equal to packed after every train),
+    equal to phase 14's one-shot result; then train_step (K11p held to its
+    plain version after every train) and multi_train in the packed layout,
+    equal to the wide train_step. Returns (summary, work, launches) of
+    train_levels/packed."""
+    from babble_tpu_torch.tpu import _ext
+    from babble_tpu_torch.tpu import frontier_live as fl
+    from babble_tpu_torch.tpu import incremental as inc
+
+    t_phase = time.perf_counter()
+    sm, n, e = g.super_majority, g.n, g.e
+    cfg = FL_WIDE
+    t0 = time.perf_counter()
+    trains = inc.trains_from_grid(g, cfg["train"], cfg["upd_cap"], FL_WIDE_INC["e_cap"],
+                                  t_cap=cfg["t_cap"])
+    trains_d = [inc.device_put(t, dev) for t in trains]
+    torch.cuda.synchronize()
+    l_cap = least_pow2(int(g.index.max()) + 1 + cfg["l_margin"])
+    r_cap = cfg["r_cap"]
+    log_fn(f"{n}-validator trains: {len(trains)} of {cfg['train']} (levels "
+           f"{[t.levels.shape[0] for t in trains]}), hottest chain "
+           f"{int(g.index.max()) + 1} events, l_cap {l_cap}; "
+           f"{time.perf_counter() - t0:.1f} s to build and copy")
+    e_cap = FL_WIDE_INC["e_cap"]
+    run = FlPaired(fl.init_frontier_state(n, e_cap, l_cap, r_cap, device=dev), sm, n, True)
+    snaps = []
+    _ext.reset_launches()
+    for k, t in enumerate(trains_d):
+        run.train(t, f"{n}-validator grid, train {k}")
+        snaps.append(fl.clone_frontier_state(run.st))
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    require_path_launches(f"frontier_train_step, packed, {n} validators",
+                          "frontier_train_step, packed", launches)
+    wide = fl.init_frontier_state(n, e_cap, l_cap, r_cap, device=dev)
+    for k, t in enumerate(trains_d):
+        fl.frontier_train_step(wide, t, sm, n, packed=False)
+        bad = fr_diff(wide, snaps[k])
+        if bad:
+            raise AssertionError(f"frontier_train_step at {n} validators, train {k}: the wide "
+                                 f"layout's {bad} differ from the packed")
+    del snaps
+    require_rows(f"frontier-live at {n} validators", run.st, ref, e)
+    got = dict(last_round=int(run.st.last_round), received=int((run.st.received >= 0).sum()),
+               witnesses=int(run.st.witness.sum()), **latches(run.st))
+    if got != dict(WIDE_EXPECT, l_over=False, r_over=False, frozen_violation=False):
+        raise AssertionError(f"frontier-live at {n} validators: {got}")
+    log_fn(f"frontier_train_step over config #4's {len(trains_d)} trains (l_cap {l_cap}, r_cap "
+           f"{r_cap}): packed == plain after every train, wide == packed, both == the one-shot "
+           f"engines: {got}; launches {({k: v for k, v in launches.items() if v})}")
+    for name in ("frontier_append", "frontier_window"):
+        calls, k_ms, p_ms, _ = run.summary(name)
+        log_fn(f"  {name} at {n} validators: {calls} checked calls, kernel {k_ms:.4f} ms per "
+               f"call, plain {p_ms:.2f} ms per call")
+
+    # the incremental train paths on the same trains, packed against wide
+    ic = FL_WIDE_INC
+    prun = PairedRun(f"{n}-validator train shape", inc.init_state(n, ic["e_cap"], ic["r_cap"],
+                                                                   device=dev))
+    _ext.reset_launches()
+    for t in trains_d:
+        prun.call("apply_deltas", lambda st: inc._apply_deltas_and_stage(st, t), None,
+                  check=False)
+        prun.call("train_levels/packed",
+                  lambda st: inc._train_levels(st, t, sm, packed=True),
+                  lambda st: inc._train_levels_plain(st, t, sm, packed=True),
+                  lambda st: inc_work_levels(st, t, False))
+        prun.call("decide_window/packed",
+                  lambda st: inc._decide_body(st, sm, n, r_win=ic["r_win"], e_win=ic["e_win"],
+                                              packed=True), None, check=False)
+    wide_st = inc.init_state(n, ic["e_cap"], ic["r_cap"], device=dev)
+    _, w_launches = run_path("train_step", lambda: [inc.train_step(
+        wide_st, t, sm, n, r_win=ic["r_win"], e_win=ic["e_win"]) for t in trains_d])
+    bad = state_diff(prun.k, wide_st)
+    if bad:
+        raise AssertionError(f"train_step, packed at {n} validators: {bad} differ from the wide")
+    pk_st = inc.init_state(n, ic["e_cap"], ic["r_cap"], device=dev)
+    _, p_launches = run_path("train_step, packed", lambda: [inc.train_step(
+        pk_st, t, sm, n, r_win=ic["r_win"], e_win=ic["e_win"], packed=True) for t in trains_d])
+    groups = [inc.device_put(inc.stack_trains(trains[i : i + MULTI_TRAIN_K]), dev)
+              for i in range(0, len(trains), MULTI_TRAIN_K)]
+    mt_st = inc.init_state(n, ic["e_cap"], ic["r_cap"], device=dev)
+    run_path("multi_train, packed", lambda: [inc.multi_train(
+        mt_st, gr, sm, n, r_win=ic["r_win"], e_win=ic["e_win"], packed=True) for gr in groups])
+    for label, st in (("train_step, packed", pk_st), ("multi_train, packed", mt_st)):
+        bad = state_diff(st, wide_st)
+        if bad:
+            raise AssertionError(f"{label} at {n} validators: {bad} differ from train_step")
+    require_rows(f"train_step at {n} validators", wide_st, ref, e)
+    res = dict(last_round=int(wide_st.last_round), received=int((wide_st.received >= 0).sum()),
+               stale=bool(wide_st.stale), fame_lag=bool(wide_st.fame_lag))
+    if res != dict(last_round=WIDE_EXPECT["last_round"], received=WIDE_EXPECT["received"],
+                   stale=False, fame_lag=False):
+        raise AssertionError(f"train_step at {n} validators: {res}")
+    log_fn(f"train_step and multi_train (packed) over the same trains == train_step (wide) == "
+           f"the one-shot engines on rows [:e], K11p == plain after every train: {res}")
+    calls, k_ms, p_ms = prun.times("train_levels/packed")
+    nbytes, alu, tc = prun.work["train_levels/packed"]
+    summary = {"train_levels/packed": {"max_abs_err": 0, "ms": k_ms / calls,
+                                       "plain_ms": p_ms / calls}}
+    work = {"train_levels/packed": (nbytes / calls, alu / ALU_OPS_S / calls)}
+    log_fn(f"  train_levels/packed at {n} validators: {calls} checked calls, kernel "
+           f"{k_ms / calls:.3f} ms per train, plain {p_ms / calls:.1f} ms per train")
+    log_fn(f"phase 16 (b): {time.perf_counter() - t_phase:.1f} s")
+    return summary, work, {"train_levels/packed": p_launches["train_levels/packed"]}
+
+
+def fl_width_phase(dev, log_fn):
+    """Phase 16 (d): config #5's width, 1,024 validators, where every
+    kernel with a device staging form takes it: each held torch.equal to
+    its plain version (K3p on the frontier walk's witness table, K5 on the
+    level scan, K10 and the decide on the append state, K11p on the
+    trains, K14 and K15 after every train of frontier-live), and every
+    entry point whose path holds a device form run on its own (run_path)
+    against run_frontier_passes (packed): its launches are the counts of
+    the kernels line. Returns (summary, work, launches) of the device
+    forms."""
+    from babble_tpu_torch.tpu import _ext, engine, frontier, kernels
+    from babble_tpu_torch.tpu import frontier_live as fl
+    from babble_tpu_torch.tpu import incremental as inc
+    from babble_tpu_torch.tpu.grid import synthetic_grid
+
+    t_phase = time.perf_counter()
+    g = synthetic_grid(FL_WIDTH["n"], FL_WIDTH["e_count"], seed=FL_WIDTH["seed"],
+                       zipf_a=FL_WIDTH["zipf_a"], record_fd_updates=True)
+    sm, n, e = g.super_majority, g.n, g.e
+    log_fn(f"{n}-validator grid: {e} events, {g.num_levels} levels, hottest chain "
+           f"{int(g.index.max()) + 1} events; {time.perf_counter() - t_phase:.1f} s to generate")
+    for name, pk in (("decide_fame", True), ("decide_window", False)):
+        forms = _ext.staging(name, n, packed=pk)
+        if set(forms.values()) != {"device"}:
+            raise AssertionError(f"{name} at {n} validators: staging {forms}, not the device "
+                                 f"form in every launch")
+    summary, work, launches = {}, {}, {}
+
+    def held(what, kern, plain):
+        """kern() against plain() with CUDA-event times of both calls:
+        (result, kernel ms, plain ms)."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev[0].record()
+        got = kern()
+        ev[1].record()
+        ev[2].record()
+        want = plain()
+        ev[3].record()
+        torch.cuda.synchronize()
+        require_equal(what, got, want)
+        return got, ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])
+
+    # the one-shot frontier engine, packed: K3p's device form
+    res, l_launches = run_path("run_frontier_passes (1,024), packed",
+                               lambda: engine.run_frontier_passes(g, device=dev, packed=True))
+    r_fame = res.witness_table.shape[0]
+    st = engine.stage_frontier(g, dev)
+    inv = frontier.build_inv(st.rows_by, st.la)
+    fr = frontier.frontier_rounds(inv, st.rows_by, st.creator, st.index, st.sp_index, st.fd,
+                                  sm, r_fame)
+    del inv
+    fame_args = (fr.witness_table, st.la, st.fd, st.index, st.coin_bit, fr.last_round, sm, n,
+                 r_fame + 2)
+    _, k_ms, p_ms = held(f"decide_fame/packed/dev at {n} validators",
+                         lambda: tuple(kernels.decide_fame(*fame_args, packed=True)),
+                         lambda: tuple(kernels._decide_fame_plain(*fame_args, packed=True)))
+    summary["decide_fame/packed/dev"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+    work["decide_fame/packed/dev"] = fame_work(fr.witness_table, n)
+    launches["decide_fame/packed/dev"] = l_launches["decide_fame/packed/dev"]
+    log_fn(f"run_frontier_passes (packed) at {n} validators: last_round {res.last_round}, "
+           f"{int((res.received >= 0).sum())} received; decide_fame/packed/dev == plain on its "
+           f"witness table (r {r_fame}): {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+    del st, fr
+
+    # the votes' device forms where witnesses get decided: random tables
+    case = coin_round_case(*FL_WIDTH_COIN)
+    c_args = coin_fame_args(case, case["coin_bit"], dev)
+    fame, k_ms, p_ms = held(f"decide_fame/packed/dev on coin case {FL_WIDTH_COIN}",
+                            lambda: tuple(kernels.decide_fame(*c_args, packed=True)),
+                            lambda: tuple(kernels._decide_fame_plain(*c_args, packed=True)))
+    cst = coin_case_state(case, dev)
+
+    def decide_plain(st, sm_, n_, r_win, e_win, pk):
+        inc._decide_body_plain(st, sm_, n_, r_win, e_win, packed=pk)
+        return tuple(st)
+
+    for pk in (True, False):
+        ref_st = inc.clone_state(cst)
+        got_st = inc.clone_state(cst)
+        r = cst.wtable.shape[0]
+        _, dk_ms, dp_ms = held(
+            f"decide_window{'/packed' if pk else ''}/dev on coin case {FL_WIDTH_COIN}",
+            lambda: tuple(inc._decide_body(got_st, case["super_majority"], n, r_win=r,
+                                           e_win=r * n, packed=pk)),
+            lambda: decide_plain(ref_st, case["super_majority"], n, r, r * n, pk))
+        log_fn(f"  decide_window{'/packed' if pk else ''}/dev == plain on the coin case's "
+               f"state: {int(got_st.fame_decided.sum())} witnesses decided, "
+               f"{int((got_st.received >= 0).sum())} received; {dk_ms:.3f} ms, plain "
+               f"{dp_ms:.1f} ms")
+    decided = int(fame[0].sum())
+    if not decided or not int(got_st.fame_decided.sum()):
+        raise AssertionError(f"coin case {FL_WIDTH_COIN}: no witness decided")
+    log_fn(f"decide_fame/packed/dev == plain on coin case {FL_WIDTH_COIN} ({decided} witnesses "
+           f"decided): {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+
+    # K5's device form on the level scan
+    gp, _, scan_r_max = engine.scan_layout(g, True)
+    ins = engine.stage_scan(gp, dev)
+    dr_args = ins[:13] + (gp.super_majority, scan_r_max)
+    n_lvl = ins[0].shape[1]
+    dr, k_ms, p_ms = held(f"divide_rounds/dev at {n} validators",
+                          lambda: tuple(kernels.divide_rounds(*dr_args)),
+                          lambda: tuple(kernels._divide_rounds_plain(*dr_args)))
+    res_s, s_launches = run_path("run_passes (1,024)", lambda: engine.run_passes(
+        g, bucketed=True, device=dev, packed=False))
+    require_same_results(f"run_passes (wide) == run_frontier_passes (packed) at {n} "
+                         f"validators", res_s, res)
+    launches["divide_rounds/dev"] = s_launches["divide_rounds/dev"]
+    summary["divide_rounds/dev"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+    work["divide_rounds/dev"], pairs, _ = scan_work(gp, ins, dr, scan_r_max)
+    log_fn(f"divide_rounds/dev == plain at {n} validators ({g.num_levels} levels of width "
+           f"{n_lvl}): {k_ms:.3f} ms, plain {p_ms:.1f} ms; {pairs} (event, witness) pairs")
+    del ins, dr
+
+    # K10 and the decide (K12, both layouts) on the append state
+    r_cap = max(32, least_pow2(res.last_round + 3))
+    cfg = dict(batch=FL_WIDTH_BATCH, e_cap=e, r_cap=r_cap, r_win=r_cap)
+    upd_cap = e
+    while True:
+        try:
+            batches = inc.batches_from_grid(g, cfg["batch"], upd_cap, e)
+            break
+        except ValueError:  # a burst above the cap
+            upd_cap *= 2
+    batches_d = [inc.device_put(b, dev) for b in batches]
+    srun = drive_paired(f"{n}-validator step state", g, cfg, e, batches_d, dev, 1,
+                        FL_WIDTH_CHECK_EVERY, log_fn)
+    for name in ("step_levels/packed", "decide_window/packed", "decide_window"):
+        calls, k_ms, p_ms = srun.times(name)
+        nbytes, alu, tc = srun.work[name]
+        summary[name + "/dev"] = {"max_abs_err": 0, "ms": k_ms / calls, "plain_ms": p_ms / calls}
+        work[name + "/dev"] = (nbytes / calls, (alu / ALU_OPS_S + tc / INT8_TC_OPS_S) / calls)
+    del srun
+
+    def inc_path(label, drive):
+        """A fresh state driven through an entry point on its own; its rows
+        equal the one-shot engines'. Returns the path's launches."""
+        st = inc.init_state(n, e, r_cap, device=dev)
+        _, got = run_path(label, lambda: drive(st))
+        for f in ("rounds", "lamport", "witness", "received"):
+            if not (getattr(st, f)[:e].cpu().numpy() == getattr(res, f)).all():
+                raise AssertionError(f"{label}: {f} differs from run_frontier_passes")
+        if bool(st.stale) or bool(st.fame_lag):
+            raise AssertionError(f"{label}: stale {bool(st.stale)}, fame_lag {bool(st.fame_lag)}")
+        return got
+
+    empty = inc.device_put(inc.empty_batch(n, cfg["batch"], upd_cap, e), dev)
+    groups = []
+    for i in range(0, len(batches_d), MULTI_STEP_K):
+        group = batches_d[i : i + MULTI_STEP_K]
+        group = group + [empty] * (MULTI_STEP_K - len(group))
+        groups.append(inc.Batch(*[torch.stack(f) for f in zip(*group)]))
+    got = inc_path("step (1,024), packed", lambda st: [
+        inc.step(st, b, sm, n, r_win=r_cap, e_win=e, packed=True) for b in batches_d])
+    for name in ("step_levels/packed/dev", "decide_window/packed/dev"):
+        launches[name] = got[name]
+    got = inc_path("multi_step (1,024)", lambda st: [
+        inc.multi_step(st, gr, sm, n, r_win=r_cap, e_win=e, packed=False) for gr in groups])
+    launches["decide_window/dev"] = got["decide_window/dev"]
+    log_fn(f"step (packed) over the {n}-validator grid's {len(batches_d)} batches and "
+           f"multi_step (wide) over groups of {MULTI_STEP_K} == run_frontier_passes on rows "
+           f"[:e], no latch")
+    del batches_d, groups
+
+    # K11p's device form on the trains
+    trains = inc.trains_from_grid(g, FL_WIDTH_TRAIN, 1 << 24, e, t_cap=832)
+    trains_d = [inc.device_put(t, dev) for t in trains]
+    trun = PairedRun(f"{n}-validator train state", inc.init_state(n, e, r_cap, device=dev))
+    for t in trains_d:
+        trun.call("apply_deltas", lambda st: inc._apply_deltas_and_stage(st, t), None,
+                  check=False)
+        trun.call("train_levels/packed/dev",
+                  lambda st: inc._train_levels(st, t, sm, packed=True),
+                  lambda st: inc._train_levels_plain(st, t, sm, packed=True),
+                  lambda st: inc_work_levels(st, t, False))
+        trun.call("decide_window/packed",
+                  lambda st: inc._decide_body(st, sm, n, r_win=r_cap, e_win=e, packed=True),
+                  None, check=False)
+    got = inc_path("train_step (1,024), packed", lambda st: [
+        inc.train_step(st, t, sm, n, r_win=r_cap, e_win=e, packed=True) for t in trains_d])
+    launches["train_levels/packed/dev"] = got["train_levels/packed/dev"]
+    calls, k_ms, p_ms = trun.times("train_levels/packed/dev")
+    nbytes, alu, tc = trun.work["train_levels/packed/dev"]
+    summary["train_levels/packed/dev"] = {"max_abs_err": 0, "ms": k_ms / calls,
+                                          "plain_ms": p_ms / calls}
+    work["train_levels/packed/dev"] = (nbytes / calls, alu / ALU_OPS_S / calls)
+    log_fn(f"apply_deltas, train_levels/packed/dev (== plain after every train) and the packed "
+           f"decide over the {n}-validator grid's {len(trains)} trains: kernel "
+           f"{k_ms / calls:.3f} ms per train, plain {p_ms / calls:.1f} ms per train; last_round "
+           f"{int(trun.k.last_round)}, stale {bool(trun.k.stale)}")
+
+    # frontier-live (packed) end to end
+    l_cap = least_pow2(int(g.index.max()) + 1 + 32)
+    f_r_cap = max(fl.R_WIN, r_cap)
+    paired = FlPaired(fl.init_frontier_state(n, e, l_cap, f_r_cap, device=dev), sm, n, True)
+    for k, t in enumerate(trains_d):
+        paired.train(t, f"{n}-validator grid's train {k}")
+    fst = fl.init_frontier_state(n, e, l_cap, f_r_cap, device=dev)
+    t0 = time.perf_counter()
+    run_path("frontier_train_step (1,024), packed", lambda: [
+        fl.frontier_train_step(fst, t, sm, n, packed=True) for t in trains_d])
+    secs = time.perf_counter() - t0
+    bad = fr_diff(fst, paired.st)
+    if bad:
+        raise AssertionError(f"frontier-live at {n} validators: {bad} differ between the path "
+                             f"and the paired run")
+    require_rows(f"frontier-live at {n} validators", fst, res, e)
+    if any(latches(fst).values()):
+        raise AssertionError(f"frontier-live at {n} validators: latched {latches(fst)}")
+    times = {k: paired.summary(k)[1:3] for k in ("frontier_append", "frontier_window")}
+    log_fn(f"frontier_train_step (packed) over the {n}-validator grid's {len(trains)} trains "
+           f"(l_cap {l_cap}) == run_frontier_passes (packed) on rows [:e], no latch, K14, K15 "
+           f"and the decide == plain after every train (kernel, plain ms per train: "
+           f"{ {k: (round(a, 3), round(b, 1)) for k, (a, b) in times.items()} }): "
+           f"{secs:.2f} s (first run)")
+    log_fn(f"phase 16 (d): {time.perf_counter() - t_phase:.1f} s")
+    return summary, work, launches
 
 
 def main() -> int:
@@ -1325,6 +2047,8 @@ def main() -> int:
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False  # the bmm yardstick stays exact
 
+    phase_clock = PhaseClock(log)
+    phase_clock.next("1")
     # 1. device
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1334,6 +2058,7 @@ def main() -> int:
     log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
 
+    phase_clock.next("2")
     # 2. build
     t0 = time.perf_counter()
     paths = _ext.build_all()
@@ -1345,6 +2070,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    phase_clock.next("3")
     # 3. each kernel against its plain version
     def pipeline_inputs(grid, st, r_cap):
         inv = frontier.build_inv(st.rows_by, st.la)
@@ -1479,6 +2205,7 @@ def main() -> int:
     log(f"bound inputs: {real_rows} chain rows, {valid_rounds} rounds with witnesses, "
         f"{n_wit} witnesses, {n_famous} famous")
 
+    phase_clock.next("4")
     # 4. end to end
     t0 = time.perf_counter()
     cpu = engine.run_frontier_passes(bench, device="cpu")
@@ -1533,6 +2260,7 @@ def main() -> int:
     log(f"tally yardstick: one torch.bmm of ({r_max}, {n}, {n}) 0/1 float32 "
         f"matrices {tally_bmm_ms:.4f} ms (never called by the port)")
 
+    phase_clock.next("5")
     # 5. grids of the cold path
     t0 = time.perf_counter()
     deep = synthetic_deep_grid(CATCHUP["n"], CATCHUP["depth"], seed=CATCHUP["seed"],
@@ -1552,6 +2280,7 @@ def main() -> int:
         f"{sec.e} events, {sec.num_levels} levels; unpinned section {usec.e} events, "
         f"{usec.num_levels} levels; {time.perf_counter() - t0:.1f} s to build")
 
+    phase_clock.next("6")
     # 6. the level scan's and the cold path's kernels against their plain
     #    versions, on the bench grid and both sections; timed on the bench
     #    grid and the catch-up section
@@ -1668,6 +2397,7 @@ def main() -> int:
             f"{n_wit} witnesses, closure {int(passes)} passes with {nonneg_0} -> "
             f"{nonneg_fin} set coordinates, {working} working walk steps of {big[10]}")
 
+    phase_clock.next("7")
     # 7. the bench grid through the level scan and the cold path
     bstats = {}
     dbl_b, _ = run_path("run_doubling_passes", lambda: doubling.run_doubling_passes(
@@ -1691,6 +2421,7 @@ def main() -> int:
         f"{dbl_b.last_round}, {int((dbl_b.received >= 0).sum())} received, "
         f"closure passes {bstats['closure_passes']}, walk chunks {bstats['walk_chunks']}")
 
+    phase_clock.next("8")
     # 8. the catch-up cell
     t0 = time.perf_counter()
     cpu_stats = {}
@@ -1727,6 +2458,7 @@ def main() -> int:
     for k in ("closure_la", "walk_chunk", "lamport_scan"):
         launches[k] = launches_d[k]
 
+    phase_clock.next("9")
     # 9. the incremental engine's kernels against their plain versions
     from babble_tpu_torch.tpu import incremental as inc
 
@@ -1824,6 +2556,7 @@ def main() -> int:
             if label == "live step shape" or name == "train_levels":
                 inc_summary[name] = (calls, k_ms, p_ms, nbytes, alu, tc)
 
+    phase_clock.next("10")
     # 10. both append paths end to end
     e = bench.e
     scan_ref = engine.run_passes(bench, device=dev)
@@ -1905,6 +2638,7 @@ def main() -> int:
         summary[name] = {"max_abs_err": 0, "ms": k_ms / calls, "plain_ms": p_ms / calls}
         work[name] = (nbytes / calls, (alu / ALU_OPS_S + tc / INT8_TC_OPS_S) / calls)
 
+    phase_clock.next("11")
     # 11. K13 pack_results against its plain version
     from babble_tpu_torch.tpu import live
 
@@ -1943,10 +2677,12 @@ def main() -> int:
     work["pack_results"] = (e_win_s * 13 + r_cap_s * n * 6 + 6
                             + (4 * e_win_s + 3 * r_cap_s * n + 3) * 4, 0.0)
 
+    phase_clock.next("12")
     # 12. the hashgraph path at full width
     _, live_launches = hashgraph_phase(DEVICE, log, depth=HG_DEPTH)
     launches["pack_results"] = live_launches["pack_results"]
 
+    phase_clock.next("13-15")
     # 13-15. the packed layout: config #4's grid, then the hashgraph path at
     # the layout's switch
     t0 = time.perf_counter()
@@ -1960,8 +2696,8 @@ def main() -> int:
     p_summary, p_work, upd_cap, wide_batches = packed_kernel_phase(wide, dev, log)
     summary.update(p_summary)
     work.update(p_work)
-    wide_launches = wide_engine_phase(wide, dev, log, upd_cap, wide_batches)
-    del wide, wide_batches
+    wide_launches, wide_ref = wide_engine_phase(wide, dev, log, upd_cap, wide_batches)
+    del wide_batches
     launches["decide_fame/packed"] = wide_launches["run_frontier_passes"]["decide_fame/packed"]
     launches["divide_rounds/packed"] = wide_launches["run_passes"]["divide_rounds/packed"]
     # K10p and K12p at run (c)'s shape: the kernels line's times and bounds
@@ -1970,10 +2706,22 @@ def main() -> int:
     work.update(s_work)
     _, switch_launches = hashgraph_phase(DEVICE, log, spec=SWITCH, oneshot=SWITCH_ONESHOT_RUNG,
                                          full=False, expect=SWITCH_EXPECT, title="phase 15",
-                                         live_settings=SWITCH_LIVE)
+                                         live_settings=SWITCH_LIVE, depth=SWITCH_DEPTH)
     launches["step_levels/packed"] = switch_launches["step_levels/packed"]
     launches["decide_window/packed"] = switch_launches["decide_window/packed"]
 
+    phase_clock.next("16")
+    # 16. the frontier-live engine: (a), (c) the bench cell and the
+    # bootstrap, (b) config #4 in trains, (d) config #5's width
+    for part, args in ((fl_bench_phase, (bench, trains, scan_ref)),
+                       (fl_wide_phase, (wide, wide_ref)), (fl_width_phase, ())):
+        f_summary, f_work, f_launches = part(*args, dev, log)
+        summary.update(f_summary)
+        work.update(f_work)
+        launches.update(f_launches)
+    del wide
+
+    phase_clock.next(None)
     out = []
     for name, (source, replaces) in REPLACES.items():
         nbytes, ops_s = work[name]

@@ -408,9 +408,9 @@ def test_decide_body_on_states_carried_from_the_reference(label, r_cap, r_win):
 
 
 def test_entry_points_refuse_packed_and_bad_windows():
-    """step takes the packed layout (equal to the reference's packed step
-    and to the wide one); the train paths still refuse it, and bad windows
-    are refused, before the state changes."""
+    """step and train_step take the packed layout (equal to the
+    reference's packed step and train_step and to the wide ones); bad
+    windows are refused before the state changes."""
     fixture = (8, 512, 5, 1.1)
     g, pg = grids(*fixture)
     jb, pb = both_batches(fixture)
@@ -423,12 +423,13 @@ def test_entry_points_refuse_packed_and_bad_windows():
         inc.step(ws, b, g.super_majority, g.n, e_win=512, packed=False)
         assert_state_equal(ps, js, f"packed step {k}")
         assert_state_equal(ws, js, f"wide step {k}")
+    jt = ref.trains_from_grid(g, 128, 8192, g.e, w_cap=16, t_cap=64)
     tr = inc.trains_from_grid(pg, 128, 8192, g.e, w_cap=16, t_cap=64)
-    before = inc.clone_state(ps)
-    with pytest.raises(NotImplementedError):
-        inc.train_step(ps, tr[0], g.super_majority, g.n, e_win=512, packed=True)
-    for f in inc.IncState._fields:
-        assert torch.equal(getattr(ps, f), getattr(before, f)), f
+    js = ref.train_step(js, jt[0], g.super_majority, g.n, e_win=512, packed=True)
+    inc.train_step(ps, tr[0], g.super_majority, g.n, e_win=512, packed=True)
+    inc.train_step(ws, tr[0], g.super_majority, g.n, e_win=512, packed=False)
+    assert_state_equal(ps, js, "packed train_step")
+    assert_state_equal(ws, js, "wide train_step")
     st = inc.init_state(4, 64, 8, device="cpu")
     b = inc.Batch(*[np.zeros(1, np.int32)] * 12)
     before = inc.clone_state(st)

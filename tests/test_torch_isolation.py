@@ -34,7 +34,8 @@ def test_port_modules_import_no_jax_and_no_reference():
             babble_tpu_torch.__path__, prefix="babble_tpu_torch."
         )
     )
-    for m in ("tpu.engine", "tpu.incremental", "tpu.live", "tpu.packed", "hashgraph",
+    for m in ("tpu.engine", "tpu.incremental", "tpu.live", "tpu.packed",
+              "tpu.frontier_live", "hashgraph",
               "hashgraph.hashgraph", "common", "crypto", "peers", "utils.codec", "obs",
               "obs.devledger", "obs.provenance"):
         assert "babble_tpu_torch." + m in modules
@@ -50,7 +51,8 @@ def test_port_modules_import_no_jax_and_no_reference():
         text=True, timeout=120, check=True,
     ).stdout
     loaded = json.loads(out.strip().splitlines()[-1])
-    for m in ("tpu.kernels", "tpu.live", "hashgraph", "common", "crypto", "obs"):
+    for m in ("tpu.kernels", "tpu.live", "tpu.frontier_live", "hashgraph", "common",
+              "crypto", "obs"):
         assert "babble_tpu_torch." + m in loaded
     assert [m for m in loaded if is_forbidden(m)] == []
 

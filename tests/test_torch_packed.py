@@ -2,14 +2,15 @@
 packed branches of the plain versions, on the CPU) against the JAX
 package's: the lane helpers bit for bit (words compared as uint32); the
 packed plain versions of K3 decide_fame, K5 divide_rounds, K10
-step_levels and K12 decide_window with their intermediate words, on
-test_packed.py's fixtures, section cuts, the consensus fixture and a
-coin-round table; the three one-shot engines and the append paths with
+step_levels, K11 train_levels and K12 decide_window with their
+intermediate words, on test_packed.py's fixtures, section cuts, the
+consensus fixture and a coin-round table; the three one-shot engines and
+the append paths (step, multi_step, train_step, multi_train) with
 packed=True; the knob's switch at 128 validators on both node rungs; the
 plain versions of the two kernels repaired for 256 validators (K7
-walk_chunk, K12 decide_window) at that width; and the shared-memory
-formulas behind the wrappers' width checks. Exact equality, no
-tolerance."""
+walk_chunk, K12 decide_window) at that width; the plain versions' round
+chunks against one chunk; and the shared-memory formulas behind the
+wrappers' choice of staging form. Exact equality, no tolerance."""
 
 import functools
 
@@ -317,19 +318,69 @@ def test_fame_window_packed_on_a_coin_window():
 
 
 def test_train_paths_still_refuse_packed():
-    """K11's packed branch is not ported: the train paths raise before
-    they change the state; the step paths take the layout."""
+    """K11's packed branch (K11p) is ported: train_step and multi_train
+    take packed=True, equal to the reference's packed branch and to the
+    port's wide train paths, every IncState field."""
     g, pg = step_grids()
-    st = inc.init_state(g.n, g.e, 64, device="cpu")
-    before = inc.clone_state(st)
-    tr = inc.trains_from_grid(pg, 128, 8192, g.e, w_cap=16, t_cap=64)
-    with pytest.raises(NotImplementedError, match="K11"):
-        inc.train_step(st, tr[0], g.super_majority, g.n, e_win=512, packed=True)
-    with pytest.raises(NotImplementedError, match="K11"):
-        inc.multi_train(st, inc.stack_trains(tr[:2]), g.super_majority, g.n, e_win=512,
-                        packed=True)
+    n, sm, e = g.n, g.super_majority, g.e
+    jt = ref_inc.trains_from_grid(g, 128, 8192, e, w_cap=16, t_cap=64)
+    pt = inc.trains_from_grid(pg, 128, 8192, e, w_cap=16, t_cap=64)
+    js = ref_inc.init_state(n, e, 64)
+    ps = inc.init_state(n, e, 64, device="cpu")
+    ws = inc.init_state(n, e, 64, device="cpu")
+    js = ref_inc.train_step(js, jt[0], sm, n, e_win=512, packed=True)
+    inc.train_step(ps, pt[0], sm, n, e_win=512, packed=True)
+    inc.train_step(ws, pt[0], sm, n, e_win=512)
+    assert_state_equal(ps, js, "packed train_step")
+    js = ref_inc.multi_train(js, ref_inc.stack_trains(jt[1:3]), sm, n, e_win=512, packed=True)
+    inc.multi_train(ps, inc.stack_trains(pt[1:3]), sm, n, e_win=512, packed=True)
+    inc.multi_train(ws, inc.stack_trains(pt[1:3]), sm, n, e_win=512)
+    assert_state_equal(ps, js, "packed multi_train")
     for f in inc.IncState._fields:
-        assert torch.equal(getattr(st, f), getattr(before, f)), f
+        assert torch.equal(getattr(ps, f), getattr(ws, f)), f
+
+
+@pytest.mark.parametrize("r_cap,r_win", [(64, 32), (16, 8)])
+def test_train_step_packed_matches_reference_and_wide(r_cap, r_win):
+    """K11p: train_step with packed=True against the reference's packed
+    train_step, every IncState field after every train, and against the
+    port's wide train_step; r_win < r_cap moves the window."""
+    g, pg = step_grids()
+    n, sm, e = g.n, g.super_majority, g.e
+    jt = ref_inc.trains_from_grid(g, 64, 8192, e, w_cap=16, t_cap=64)
+    pt = inc.trains_from_grid(pg, 64, 8192, e, w_cap=16, t_cap=64)
+    js = ref_inc.init_state(n, e, r_cap)
+    ps = inc.init_state(n, e, r_cap, device="cpu")
+    ws = inc.init_state(n, e, r_cap, device="cpu")
+    for k, (a, b) in enumerate(zip(jt, pt)):
+        js = ref_inc.train_step(js, a, sm, n, r_win=r_win, e_win=512, packed=True)
+        inc.train_step(ps, b, sm, n, r_win=r_win, e_win=512, packed=True)
+        inc.train_step(ws, b, sm, n, r_win=r_win, e_win=512)
+        assert_state_equal(ps, js, f"packed train_step {k}")
+        for f in inc.IncState._fields:
+            assert torch.equal(getattr(ps, f), getattr(ws, f)), f"train {k}: {f}"
+    assert int(ps.last_round) > 2 and int((ps.received >= 0).sum()) > 0
+
+
+def test_train_levels_packed_plain_matches_reference_body():
+    """The packed level scan alone (K11p's plain version after K9) equals
+    the reference's packed _train_body on a 33-validator grid, whose
+    words cross a lane boundary."""
+    kw = dict(seed=4, record_fd_updates=True)
+    from babble_tpu_torch.tpu.grid import synthetic_grid as port_synthetic_grid
+
+    g, pg = synthetic_grid(33, 400, **kw), port_synthetic_grid(33, 400, **kw)
+    n, sm, e = g.n, g.super_majority, g.e
+    body = jax.jit(functools.partial(ref_inc._train_body, super_majority=sm,
+                                     n_participants=n, packed=True))
+    js = ref_inc.init_state(n, e, 32)
+    ps = inc.init_state(n, e, 32, device="cpu")
+    for k, (a, b) in enumerate(zip(ref_inc.trains_from_grid(g, 100, 65536, e),
+                                   inc.trains_from_grid(pg, 100, 65536, e))):
+        js = body(js, a)
+        inc._apply_deltas_and_stage(ps, inc.device_put(b, "cpu"))
+        inc._train_levels_plain(ps, inc.device_put(b, "cpu"), sm, packed=True)
+        assert_state_equal(ps, js, f"train body {k}")
 
 
 # ---------------------------------------------------------------------------
@@ -584,35 +635,140 @@ def test_fame_window_plain_at_256_validators_matches_reference():
     assert bool(got[0].any())
 
 
-@pytest.mark.parametrize("name,packed", [("decide_window", False), ("walk_chunk", False),
-                                         ("decide_fame", True)])
-def test_shared_memory_formula_holds_256_and_refuses_past_its_maximum(name, packed):
-    """Each repaired or packed kernel's blocks fit one block's shared memory
-    at 256 validators and not past the stated maximum, where the check the
-    wrapper runs first raises ValueError."""
-    top = {"decide_window": 384, "walk_chunk": 29056, "decide_fame": 736}[name]
-    assert _ext.max_width(name, packed=packed) == top
-    assert _ext.smem_bytes(name, 256, packed=packed) <= _ext.MAX_SMEM_BYTES
-    assert _ext.smem_bytes(name, top, packed=packed) <= _ext.MAX_SMEM_BYTES
-    assert _ext.smem_bytes(name, top + 1, packed=packed) > _ext.MAX_SMEM_BYTES
-    _ext.check_smem(name, 256, packed=packed)
-    with pytest.raises(ValueError, match=f"{top + 1} validators"):
-        _ext.check_smem(name, top + 1, packed=packed)
+@pytest.mark.parametrize("packed", [False, True])
+def test_plain_round_chunks_equal_one_chunk(monkeypatch, packed):
+    """The plain fame setup and vote tallies (K3's, and K12's window) taken
+    one round at a time equal the same functions in one chunk, on a coin
+    case's voting tables (decisions and a coin round) and a coin
+    window."""
+    from test_torch_incremental import COIN_WINDOW
+
+    case = coin_round_case(*COIN_CASES[1])
+    fame_args = (t(case["wtable"]), t(case["la"]), t(case["fd"]), t(case["index"]),
+                 t(case["coin_bit"]), case["last_round"], case["super_majority"],
+                 case["n_participants"], case["d_cap"])
+    n, r, seed = COIN_WINDOW
+    c = coin_window(n, r, seed)
+    win_args = (t(c["w_valid"]), t(c["la_w"]), t(c["fd_w"]), t(c["idx_w"]), t(c["coin_w"]),
+                r - 1, 2 * n // 3 + 1, n)
+    whole = (port_kernels._decide_fame_plain(*fame_args, packed=packed),
+             inc._fame_window(*win_args, packed=packed))
+    monkeypatch.setattr(port_kernels, "PLAIN_CHUNK_CELLS", 1)
+    assert len(port_kernels.round_chunks(5, 33 ** 3)) == 5
+    chunked = (port_kernels._decide_fame_plain(*fame_args, packed=packed),
+               inc._fame_window(*win_args, packed=packed))
+    for a, b in zip(whole, chunked):
+        for x, y in zip(a, b):
+            assert torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+    assert bool(whole[0].decided.any())
+
+
+# the shared form's widest width of each kernel with a device staging
+# form (at the shapes named), and K7's limit, which it still enforces
+SHARED_TOPS = {
+    ("decide_window", False, ()): 384,
+    ("decide_fame", True, ()): 736,
+    ("divide_rounds", False, (("n_lvl", 32),)): 906,
+    ("step_levels", False, (("w", 64), ("l_lv", 16), ("b", 64), ("r_cap", 64))): 702,
+    ("train_levels", False, (("kb", 8192), ("w", 64), ("r_cap", 64))): 488,
+}
+
+
+@pytest.mark.parametrize("name,packed,shape", [("decide_window", False, ()),
+                                               ("walk_chunk", False, ()),
+                                               ("decide_fame", True, ())]
+                         + [k for k in SHARED_TOPS if k[0] not in
+                            ("decide_window", "decide_fame")])
+def test_shared_memory_formula_holds_256_and_refuses_past_its_maximum(name, packed, shape):
+    """Each kernel's blocks fit one block's shared memory at 256 validators
+    and up to its old maximum, where the shared form still runs; past it a
+    kernel with a device staging form takes that form and nothing raises
+    up to 1,024 validators, while K7 (no staging form, 29,056 validators)
+    still refuses past its maximum with the check its wrapper runs first."""
+    kw = dict(shape)
+    if name == "walk_chunk":
+        top = 29056
+        assert _ext.max_width(name) == top
+        assert _ext.smem_bytes(name, 256) <= _ext.MAX_SMEM_BYTES
+        assert _ext.smem_bytes(name, top + 1) > _ext.MAX_SMEM_BYTES
+        _ext.check_smem(name, 256)
+        with pytest.raises(ValueError, match=f"{top + 1} validators"):
+            _ext.check_smem(name, top + 1)
+        return
+    top = SHARED_TOPS[(name, packed, shape)]
+    if not shape:
+        assert _ext.max_width(name, packed=packed) == top
+    assert _ext.smem_bytes(name, 256, packed=packed, **kw) <= _ext.MAX_SMEM_BYTES
+    assert _ext.smem_bytes(name, top, packed=packed, **kw) <= _ext.MAX_SMEM_BYTES
+    assert _ext.smem_bytes(name, top + 1, packed=packed, **kw) > _ext.MAX_SMEM_BYTES
+    assert set(_ext.staging(name, 256, packed=packed, **kw).values()) == {"shared"}
+    assert set(_ext.staging(name, top, packed=packed, **kw).values()) == {"shared"}
+    assert "device" in _ext.staging(name, top + 1, packed=packed, **kw).values()
+    assert set(_ext.staging(name, 1024, packed=packed, **kw).values()) == {"device"}
+
+
+@pytest.mark.parametrize("n,want", [
+    (256, ("shared", "shared", "shared", "shared")),
+    (384, ("shared", "shared", "shared", "shared")),
+    (385, ("shared", "device", "shared", "shared")),
+    (736, ("shared", "device", "shared", "shared")),
+    (737, ("shared", "device", "shared", "device")),
+    (1024, ("device", "device", "device", "device")),
+])
+def test_staging_choice_around_the_old_limits(n, want):
+    """The staging form of each launch of K12 (both layouts: one kernel)
+    and K3p at the widths around their old limits (384 and 736): the vote
+    launch of each leaves shared memory first, the setup past 852 and 860.
+    The scratch the wrappers hand the launches follows that choice and
+    nothing else: a slice per block for each "device" launch, one
+    allocation shared by the call's launches, None for a "shared" one."""
+    forms = (_ext.staging("decide_window", n), _ext.staging("decide_fame", n, packed=True))
+    assert (forms[0]["setup"], forms[0]["vote"], forms[1]["setup"], forms[1]["vote"]) == want
+    assert _ext.staging("decide_window", n, packed=True) == forms[0]
+    for (name, packed), form in zip((("decide_window", False), ("decide_fame", True)), forms):
+        blocks = {"setup": 3, "vote": 2}
+        stage = _ext._stage_scratch(name, n, torch.device("cpu"), blocks, packed=packed)
+        assert {k: "shared" if t is None else "device" for k, t in stage.items()} == form
+        per_block = _ext.block_smem(name, n, packed=packed)
+        need = [_ext.stage_words(per_block[k]) * blocks[k] for k in form if form[k] == "device"]
+        staged = {id(t): t for t in stage.values() if t is not None}
+        assert len(staged) == (1 if need else 0)
+        for t in staged.values():
+            assert t.numel() == max(need)
+    with pytest.raises(KeyError):
+        _ext.staging("walk_chunk", n)
 
 
 def test_wrappers_run_the_width_check_before_anything_else():
-    """The launch wrappers raise the width ValueError on tensors past the
-    maximum before they build or launch anything (CPU tensors here)."""
+    """Past its old limit of 384 validators the K12 wrapper no longer
+    raises: it sizes the device staging scratch of the launch that passes
+    one block's shared memory (the vote) and hands it to that launch alone,
+    NULL to the setup, counted as the device form (the launch is stubbed:
+    CPU tensors here). K7 still runs its width check before anything
+    else."""
     n = 385
-    r_cap, e_cap = 1, 4
+    r_cap, e_cap, r_win = 1, 4, 1
     i32 = torch.int32
     z = lambda *s: torch.zeros(s, dtype=i32)  # noqa: E731
     b = lambda *s: torch.zeros(s, dtype=torch.bool)  # noqa: E731
-    with pytest.raises(ValueError, match="385 validators"):
+    seen = []
+    real = _ext._launch
+    _ext._launch = lambda name, dev, args, packed=False, staged=False: seen.append(
+        (name, args, packed, staged))
+    try:
         _ext.decide_window(z(r_cap, n), z(r_cap, n, n), z(r_cap, n, n), z(r_cap, n),
                            b(r_cap, n), b(r_cap, n), b(r_cap, n), b(r_cap), z(), z(),
                            z(e_cap), z(e_cap), z(e_cap), z(e_cap), b(), b(),
-                           3, n, 1, 1, inc.D_UNROLL)
+                           3, n, r_win, 1, inc.D_UNROLL, packed=True)
+    finally:
+        _ext._launch = real
+    (name, args, packed, staged), = seen
+    assert (name, packed, staged) == ("decide_window", True, True)
+    stage_setup, stage_vote = args[22:24]
+    vote = _ext.block_smem("decide_window", n)["vote"]
+    assert vote > _ext.MAX_SMEM_BYTES >= _ext.block_smem("decide_window", n)["setup"]
+    assert stage_setup is None
+    assert stage_vote.numel() == _ext.stage_words(vote) * r_win
     # walk_chunk reads the width off rows_by and checks it first, so the
     # (N, N, L) table need not be built at this width
     n, l = 29057, 1
