@@ -50,6 +50,11 @@
 // tiles) no longer fit one block's shared memory: that launch then stages
 // them in its block's slice of a device scratch (common.cuh
 // babble_staging), the same code reading them through L1/L2.
+//
+// babble_fame_setup launches the setup alone, in either layout, for the
+// device mesh (babble_tpu/tpu/sharded.py:384, kernels._fame_setup run
+// replicated before the rounds-sharded vote): wide ss (R, N, N) and votes0
+// (R, N, N) uint8, or packed ss (R, N, W) and votes0 (R, N_x, W) words.
 
 #include "common.cuh"
 
@@ -60,7 +65,7 @@ __global__ void fame_setup(const int32_t* __restrict__ wtable,
                            const int32_t* __restrict__ la,
                            const int32_t* __restrict__ fd,
                            const int32_t* __restrict__ index,
-                           uint8_t* ss, uint8_t* votes,
+                           uint8_t* ss, uint8_t* votes, long long votes_stride,
                            int r_max, int n, int e, int super_majority) {
     long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     long long nn = (long long)n * n;
@@ -83,7 +88,8 @@ __global__ void fame_setup(const int32_t* __restrict__ wtable,
     }
     ss[k] = s;
 
-    // votes0[j, y, x = w]: buffer 0 of round j's ping-pong pair
+    // votes0[j, y, x = w]: round j's first (N, N) plane, votes_stride
+    // elements apart (buffer 0 of the vote's ping-pong pair)
     uint8_t v = 0;
     if (j + 1 < r_max) {
         int wn = wtable[(long long)(j + 1) * n + y];
@@ -92,7 +98,7 @@ __global__ void fame_setup(const int32_t* __restrict__ wtable,
             v = la[(long long)babble_clamp(wn, 0, e - 1) * n + w] >= index[rx];
         }
     }
-    votes[(long long)j * 2 * nn + (long long)y * n + w] = v;
+    votes[(long long)j * votes_stride + (long long)y * n + w] = v;
 }
 
 __global__ void fame_vote(const int32_t* __restrict__ wtable,
@@ -425,13 +431,46 @@ extern "C" int babble_decide_fame(
     uint8_t* votes8 = (uint8_t*)votes;
     long long cells = (long long)r_max * n * n;
     fame_setup<<<babble_blocks(cells, 256), 256, 0, s>>>(
-        wtable, la, fd, index, ss8, votes8, r_max, n, e, super_majority);
+        wtable, la, fd, index, ss8, votes8, 2 * (long long)n * n, r_max, n, e,
+        super_majority);
     BABBLE_CHECK_LAUNCH();
     size_t smem = (size_t)6 * n * sizeof(int32_t);
     BABBLE_CHECK(babble_allow_smem(fame_vote, smem));
     fame_vote<<<r_max, 256, smem, s>>>(
         wtable, coin_bit, last_round, ss8, votes8, decided, famous, rounds_decided,
         r_max, n, e, super_majority, n_participants, d_cap);
+    BABBLE_CHECK_LAUNCH();
+    return 0;
+}
+
+extern "C" int babble_fame_setup(
+    const int32_t* wtable, const int32_t* la, const int32_t* fd, const int32_t* index,
+    void* ss, void* votes, int32_t* stage_setup, int r_max, int n, int e,
+    int super_majority, int packed, int device, void* stream) {
+    BABBLE_CHECK(cudaSetDevice(device));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (packed) {
+        const int words = (n + 31) / 32;
+        const size_t smem_setup =
+            ((size_t)64 * babble_tile_ld(n) + (size_t)3 * n) * sizeof(int32_t);
+        const dim3 grid_setup(r_max, words);
+        if (stage_setup != nullptr) {
+            fame_setup_packed<true><<<grid_setup, DF_THREADS, 0, s>>>(
+                wtable, la, fd, index, (uint32_t*)ss, (uint32_t*)votes, r_max, n, e,
+                words, super_majority, stage_setup, babble_stage_words(smem_setup));
+        } else {
+            BABBLE_CHECK(babble_allow_smem(fame_setup_packed<false>, smem_setup));
+            fame_setup_packed<false><<<grid_setup, DF_THREADS, smem_setup, s>>>(
+                wtable, la, fd, index, (uint32_t*)ss, (uint32_t*)votes, r_max, n, e,
+                words, super_majority, nullptr, 0);
+        }
+        BABBLE_CHECK_LAUNCH();
+        return 0;
+    }
+    const long long cells = (long long)r_max * n * n;
+    fame_setup<<<babble_blocks(cells, 256), 256, 0, s>>>(
+        wtable, la, fd, index, (uint8_t*)ss, (uint8_t*)votes, (long long)n * n, r_max, n,
+        e, super_majority);
     BABBLE_CHECK_LAUNCH();
     return 0;
 }

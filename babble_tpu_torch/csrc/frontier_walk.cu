@@ -48,6 +48,24 @@
 // and compares per step (N^3 with the selection's probes); launches:
 // 2 r_win + 5.
 
+// The device mesh (babble_tpu/tpu/sharded.py:549 local_walk, replaced
+// here) walks the same frontier with INV and the chain table sharded over
+// chains: each position owns B chains, fd and la are replicated, and the
+// frontier rows and m0 cross the mesh by two tiled all-gathers per step.
+// Three launches per step per position:
+//   shard_rows   fd_w_local[b, p] = fd[rows_by[b, X[b]], p] (MAX where X[b]
+//                = L) and w_ok[b] = X[b] < L, a block per local chain;
+//   shard_m0     m0_local[c] from the gathered (N_w, N_p) frontier rows and
+//                the local INV slice: walk_m0's count-based selection fed
+//                the rows directly (one selection gives the integers of the
+//                reference's sort form and of its binary search, as above);
+//   shard_close  walk_close on the local chains from the gathered m0,
+//                its coordinates cut to the real width N_p, writing X(r+1).
+// babble_frontier_post launches post_table and post_events alone: the
+// witness table and the events' rounds from the gathered history
+// (sharded.py:691). Bound: bytes; each step reads the frontier rows' fd
+// (N_w x N_p int32) and one INV value per (chain, coordinate) probed.
+
 #include "common.cuh"
 
 #define WALK_WARPS 8
@@ -341,5 +359,129 @@ extern "C" int babble_frontier_window(
         wtable, inv, la, index, coin, la_w, idx_w, coin_w, fd_w, wtable_c, n, l, e_cap,
         r_cap);
     BABBLE_CHECK_LAUNCH();
+    return 0;
+}
+
+// the frontier rows of the local chains: a block per chain, threads over p
+__global__ void shard_rows(const int32_t* __restrict__ rows_by,
+                           const int32_t* __restrict__ fd,
+                           const int32_t* __restrict__ x_cur, int32_t* fd_w,
+                           uint8_t* w_ok, int n_p, int l, int e_fd) {
+    const int b = blockIdx.x;
+    const int x = x_cur[b];
+    const bool ok = x < l;
+    const int row = babble_clamp(
+        max(rows_by[(long long)b * l + babble_clamp(x, 0, l - 1)], 0), 0, e_fd - 1);
+    for (int p = threadIdx.x; p < n_p; p += blockDim.x) {
+        fd_w[(long long)b * n_p + p] = ok ? fd[(long long)row * n_p + p] : BABBLE_MAX_INT32;
+    }
+    if (threadIdx.x == 0) w_ok[b] = ok;
+}
+
+// m0 of one local chain c (a block) from every frontier row w < n_w
+__global__ void shard_m0(const int32_t* __restrict__ inv,
+                         const int32_t* __restrict__ fd_w,
+                         const uint8_t* __restrict__ w_ok, int32_t* m0_local,
+                         int n_w, int n_p, int l, int super_majority) {
+    extern __shared__ int32_t smem[];
+    int32_t* t = smem;          // (n_w,) t[w] for this chain
+    int32_t* ubuf = t + n_w;    // (WALK_WARPS, n_p) one row per warp
+    const int c = blockIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    int32_t* u = ubuf + (long long)warp * n_p;
+    const int32_t* inv_c = inv + (long long)c * n_p * l;
+    for (int w = warp; w < n_w; w += WALK_WARPS) {
+        if (!w_ok[w]) {  // no frontier row on chain w: every u is L
+            if (lane == 0) t[w] = l;
+            continue;
+        }
+        const int32_t* row = fd_w + (long long)w * n_p;
+        for (int p = lane; p < n_p; p += 32) {
+            const int f = row[p];
+            u[p] = f < BABBLE_MAX_INT32 ? inv_c[(long long)p * l + babble_clamp(f, 0, l - 1)]
+                                        : l;
+        }
+        __syncwarp();
+        const int tw = warp_select(u, n_p, super_majority, l);
+        if (lane == 0) t[w] = tw;
+        __syncwarp();
+    }
+    __syncthreads();
+    if (warp == 0) {
+        const int m = warp_select(t, n_w, super_majority, l);
+        if (lane == 0) m0_local[c] = m;
+    }
+}
+
+// one warp per local chain c: the closure over the gathered m0 (the first
+// n_p entries are the coordinates; the chain's own m0 at c_off + c)
+__global__ void shard_close(const int32_t* __restrict__ inv,
+                            const int32_t* __restrict__ m0_all,
+                            const int32_t* __restrict__ x_cur, int32_t* x_next,
+                            int n_p, int l, int c_off) {
+    const int c = blockIdx.x;
+    const int lane = threadIdx.x;
+    int r = l;
+    const int32_t* inv_c = inv + (long long)c * n_p * l;
+    for (int c2 = lane; c2 < n_p; c2 += 32) {
+        const int mc = m0_all[c2];
+        if (mc < l) r = min(r, inv_c[(long long)c2 * l + mc]);
+    }
+    r = __reduce_min_sync(BABBLE_FULL_MASK, r);
+    if (lane == 0) {
+        const int xn = min(m0_all[c_off + c], r);
+        x_next[c] = min(max(xn, x_cur[c]), l);
+    }
+}
+
+extern "C" int babble_shard_walk_rows(
+    const int32_t* rows_by, const int32_t* fd, const int32_t* x_cur, int32_t* fd_w,
+    uint8_t* w_ok, int b_rows, int n_p, int l, int e_fd, int device, void* stream) {
+    BABBLE_CHECK(cudaSetDevice(device));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    shard_rows<<<b_rows, 128, 0, s>>>(rows_by, fd, x_cur, fd_w, w_ok, n_p, l, e_fd);
+    BABBLE_CHECK_LAUNCH();
+    return 0;
+}
+
+extern "C" int babble_shard_walk_m0(
+    const int32_t* inv, const int32_t* fd_w, const uint8_t* w_ok, int32_t* m0_local,
+    int b_rows, int n_w, int n_p, int l, int super_majority, int device, void* stream) {
+    BABBLE_CHECK(cudaSetDevice(device));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const size_t smem = ((size_t)n_w + (size_t)WALK_WARPS * n_p) * sizeof(int32_t);
+    BABBLE_CHECK(babble_allow_smem(shard_m0, smem));
+    shard_m0<<<b_rows, 32 * WALK_WARPS, smem, s>>>(inv, fd_w, w_ok, m0_local, n_w, n_p, l,
+                                                  super_majority);
+    BABBLE_CHECK_LAUNCH();
+    return 0;
+}
+
+extern "C" int babble_shard_walk_close(
+    const int32_t* inv, const int32_t* m0_all, const int32_t* x_cur, int32_t* x_next,
+    int b_rows, int n_p, int l, int c_off, int device, void* stream) {
+    BABBLE_CHECK(cudaSetDevice(device));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    shard_close<<<b_rows, 32, 0, s>>>(inv, m0_all, x_cur, x_next, n_p, l, c_off);
+    BABBLE_CHECK_LAUNCH();
+    return 0;
+}
+
+extern "C" int babble_frontier_post(
+    const int32_t* x_hist, const int32_t* rows_by, const int32_t* creator,
+    const int32_t* index, const int32_t* sp_index, int32_t* rounds, uint8_t* witness,
+    int32_t* wtable, int32_t* last_round, int n, int l, int e, int r_cap,
+    int device, void* stream) {
+    BABBLE_CHECK(cudaSetDevice(device));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    post_table<<<babble_blocks((long long)r_cap * n, 256), 256, 0, s>>>(
+        x_hist, rows_by, wtable, last_round, r_cap, n, l);
+    BABBLE_CHECK_LAUNCH();
+    if (e > 0) {
+        post_events<<<babble_blocks(e, 256), 256, 0, s>>>(
+            x_hist, creator, index, sp_index, rounds, witness, last_round, e, r_cap, n);
+        BABBLE_CHECK_LAUNCH();
+    }
     return 0;
 }

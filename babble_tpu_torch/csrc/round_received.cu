@@ -18,6 +18,16 @@
 // Bound: bytes. The function reads the witness rows of la (R * N * N
 // int32), the (E,) index / creator / rounds and writes received (E,) once:
 // about 1.8 MB at 65,536 padded events and R = N = 64.
+//
+// The device mesh (babble_tpu/tpu/sharded.py) splits the same work in two
+// entry points of their own:
+//   babble_fame_tables      replaces sharded.py:329 _fame_tables: one launch
+//                           of the rounds_decided reduction (all witnesses
+//                           of a round decided, and at least one), then
+//                           recv_tables and recv_horizon, replicated;
+//   babble_received_search  replaces sharded.py:302 local_received:
+//                           recv_events over one position's event shard,
+//                           against the replicated tables.
 
 #include "common.cuh"
 
@@ -112,6 +122,59 @@ extern "C" int babble_round_received(
     BABBLE_CHECK_LAUNCH();
     recv_horizon<<<1, 32, 0, s>>>(i_ok, horizon, r_max);
     BABBLE_CHECK_LAUNCH();
+    if (e > 0) {
+        recv_events<<<babble_blocks(e, 256), 256, 0, s>>>(
+            index, creator, rounds, min_la, famous_count, i_ok, horizon,
+            received, r_max, n, e);
+        BABBLE_CHECK_LAUNCH();
+    }
+    return 0;
+}
+
+// rounds_decided[r] = all(decided | ~wvalid) & any(wvalid) over round r's row
+__global__ void recv_rounds_decided(const int32_t* __restrict__ wtable,
+                                    const uint8_t* __restrict__ decided,
+                                    uint8_t* rounds_decided, int n) {
+    const int r = blockIdx.x;
+    int done = 1, any_valid = 0;
+    for (int x = threadIdx.x; x < n; x += blockDim.x) {
+        const long long k = (long long)r * n + x;
+        const bool wv = wtable[k] >= 0;
+        done &= decided[k] || !wv;
+        any_valid |= wv;
+    }
+    done = __syncthreads_and(done);
+    any_valid = __syncthreads_or(any_valid);
+    if (threadIdx.x == 0) rounds_decided[r] = done && any_valid;
+}
+
+extern "C" int babble_fame_tables(
+    const int32_t* wtable, const int32_t* la, const uint8_t* decided,
+    const uint8_t* famous, const int32_t* last_round, int32_t* min_la,
+    int32_t* famous_count, uint8_t* i_ok, int32_t* horizon, uint8_t* rounds_decided,
+    int r_max, int n, int e_la, int device, void* stream) {
+    BABBLE_CHECK(cudaSetDevice(device));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    recv_rounds_decided<<<r_max, 128, 0, s>>>(wtable, decided, rounds_decided, n);
+    BABBLE_CHECK_LAUNCH();
+    const size_t smem = (size_t)n * sizeof(int32_t);
+    BABBLE_CHECK(babble_allow_smem(recv_tables, smem));
+    recv_tables<<<r_max, 128, smem, s>>>(
+        wtable, la, decided, famous, rounds_decided, last_round,
+        min_la, famous_count, i_ok, n, e_la);
+    BABBLE_CHECK_LAUNCH();
+    recv_horizon<<<1, 32, 0, s>>>(i_ok, horizon, r_max);
+    BABBLE_CHECK_LAUNCH();
+    return 0;
+}
+
+extern "C" int babble_received_search(
+    const int32_t* index, const int32_t* creator, const int32_t* rounds,
+    const int32_t* min_la, const int32_t* famous_count, const uint8_t* i_ok,
+    const int32_t* horizon, int32_t* received, int r_max, int n, int e,
+    int device, void* stream) {
+    BABBLE_CHECK(cudaSetDevice(device));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (e > 0) {
         recv_events<<<babble_blocks(e, 256), 256, 0, s>>>(
             index, creator, rounds, min_la, famous_count, i_ok, horizon,

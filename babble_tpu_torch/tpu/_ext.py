@@ -92,11 +92,25 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
     "frontier_window": (
         "frontier_walk.cu", "babble_frontier_window", "pppppppppppppppppppppp" "iiiiii",
     ),
+    # the device mesh (tpu/sharded.py): B21's three launches, B22, B23,
+    # B24's three, and two launches of K3 / K2 on their own
+    "shard_fame/tally": ("shard_fame.cu", "babble_shard_fame_tally", "pppppp" "iiiiii"),
+    "shard_fame/decide": (
+        "shard_fame.cu", "babble_shard_fame_decide", "pppppppppp" "iiiiiiiii",
+    ),
+    "shard_fame/active": ("shard_fame.cu", "babble_shard_fame_active", "ppppp" "iii"),
+    "received_search": ("round_received.cu", "babble_received_search", "pppppppp" "iii"),
+    "fame_tables": ("round_received.cu", "babble_fame_tables", "pppppppppp" "iii"),
+    "shard_walk/rows": ("frontier_walk.cu", "babble_shard_walk_rows", "ppppp" "iiii"),
+    "shard_walk/m0": ("frontier_walk.cu", "babble_shard_walk_m0", "pppp" "iiiii"),
+    "shard_walk/close": ("frontier_walk.cu", "babble_shard_walk_close", "pppp" "iiii"),
+    "fame_setup": ("decide_fame.cu", "babble_fame_setup", "ppppppp" "iiiii"),
+    "frontier_post": ("frontier_walk.cu", "babble_frontier_post", "ppppppppp" "iiii"),
 }
 
 # the kernels that take the voting-table layout (tpu/packed.py)
 PACKED_KERNELS = ("decide_fame", "divide_rounds", "step_levels", "train_levels",
-                  "decide_window")
+                  "decide_window", "shard_fame/tally", "shard_fame/decide", "fame_setup")
 
 # the kernels with a device-memory staging form, and the layouts in which
 # they have it (the wide decide_fame stages nothing past 9,685 validators)
@@ -104,7 +118,8 @@ STAGED_KERNELS = ("decide_fame", "divide_rounds", "step_levels", "train_levels",
                   "decide_window")
 STAGED_FORMS = ("decide_fame/packed", "divide_rounds", "divide_rounds/packed",
                 "step_levels", "step_levels/packed", "train_levels",
-                "train_levels/packed", "decide_window", "decide_window/packed")
+                "train_levels/packed", "decide_window", "decide_window/packed",
+                "fame_setup/packed")
 
 # largest dynamic shared memory one block may use on an H100
 MAX_SMEM_BYTES = 232448
@@ -891,3 +906,234 @@ def frontier_window(inv, rows_by, x_hist, dirty, creator, index, coin, la, r_ove
     ))
     return (x_out, r_over_out, rounds, witness.view(torch.bool), wtable, last_round,
             la_w, idx_w, coin_w.view(torch.bool), fd_w, wtable_c)
+
+
+# ---------------------------------------------------------------------------
+# the device mesh (tpu/sharded.py): one position's shard per launch
+# ---------------------------------------------------------------------------
+
+
+def fame_setup(wtable, la, fd, index, super_majority: int, packed: bool = False):
+    """K3's setup alone (babble_fame_setup): (ss, votes0). Wide: two (R, N,
+    N) bool tensors; packed: ss (R, N, W) and votes0 (R, N_x, W) int32
+    words. The packed launch stages in device memory past 860 validators,
+    as K3p's setup does."""
+    dev = wtable.device
+    r_max, n = wtable.shape
+    e = la.shape[0]
+    check_tensor("wtable", wtable, torch.int32, (r_max, n), dev)
+    check_tensor("la", la, torch.int32, (e, n), dev)
+    check_tensor("fd", fd, torch.int32, (e, n), dev)
+    check_tensor("index", index, torch.int32, (e,), dev)
+    if e < 1 or r_max < 1:
+        raise ValueError("fame_setup: needs events and rounds")
+    if packed:
+        words = (n + 31) // 32
+        stage = _stage_scratch("decide_fame", n, dev, {"setup": r_max * words, "vote": 1},
+                               packed=True)["setup"]
+        ss = torch.empty((r_max, n, words), dtype=torch.int32, device=dev)
+        votes = torch.empty((r_max, n, words), dtype=torch.int32, device=dev)
+    else:
+        stage = None
+        ss = torch.empty((r_max, n, n), dtype=torch.uint8, device=dev)
+        votes = torch.empty((r_max, n, n), dtype=torch.uint8, device=dev)
+    _launch("fame_setup", dev, (
+        wtable, la, fd, index, ss, votes, stage, r_max, n, e, super_majority, int(packed),
+    ), packed=packed, staged=stage is not None)
+    if packed:
+        return ss, votes
+    return ss.view(torch.bool), votes.view(torch.bool)
+
+
+def shard_fame_tally(ss_s, votes, i_rows, last_round, d: int, packed: bool):
+    """B21 (a): (yays (B, N_y, N_x), total (B, N_y)) int32 of one voting step
+    on a position's shard. Wide: ss_s (B, N_y, N_w) bool, votes (B, N_w,
+    N_x) bool; packed: ss_s (B, N_y, W_l), votes (B, N_x, W_l) int32 words."""
+    dev = ss_s.device
+    b, ny, nw = ss_s.shape
+    nx = votes.shape[1] if packed else votes.shape[2]
+    dtype = torch.int32 if packed else torch.bool
+    check_tensor("ss_s", ss_s, dtype, (b, ny, nw), dev)
+    check_tensor("votes", votes, dtype, (b, nx, nw) if packed else (b, nw, nx), dev)
+    check_tensor("i_rows", i_rows, torch.int32, (b,), dev)
+    check_tensor("last_round", last_round, torch.int32, (), dev)
+    if b < 1 or ny < 1 or nx < 1 or ny > 65535:
+        raise ValueError(f"shard_fame/tally: unsupported shard shape {(b, ny, nw, nx)}")
+    yays = torch.empty((b, ny, nx), dtype=torch.int32, device=dev)
+    total = torch.empty((b, ny), dtype=torch.int32, device=dev)
+    if not packed:
+        ss_s, votes = ss_s.view(torch.uint8), votes.view(torch.uint8)
+    _launch("shard_fame/tally", dev, (
+        ss_s, votes, i_rows, last_round, yays, total, b, ny, nw, nx, d, int(packed),
+    ), packed=packed)
+    return yays, total
+
+
+def shard_fame_decide(yays, total, i_rows, last_round, wvalid, decided, famous, wv_s,
+                      coin_s, votes, v_off: int, d: int, n_participants: int,
+                      super_majority: int, packed: bool) -> None:
+    """B21 (b), in place: decided, famous and the shard's slice of the next
+    votes (rows, or words, [v_off, v_off + the shard's extent))."""
+    dev = yays.device
+    b, ny, nx = yays.shape
+    v_len = votes.shape[2] if packed else votes.shape[1]
+    check_tensor("yays", yays, torch.int32, (b, ny, nx), dev)
+    check_tensor("total", total, torch.int32, (b, ny), dev)
+    check_tensor("i_rows", i_rows, torch.int32, (b,), dev)
+    check_tensor("last_round", last_round, torch.int32, (), dev)
+    for what, t in (("wvalid", wvalid), ("decided", decided), ("famous", famous)):
+        check_tensor(what, t, torch.bool, (b, nx), dev)
+    for what, t in (("wv_s", wv_s), ("coin_s", coin_s)):
+        check_tensor(what, t, torch.bool, (b, ny), dev)
+    if packed:
+        check_tensor("votes", votes, torch.int32, (b, nx, v_len), dev)
+        if ny % 32 or (v_off + v_len) * 32 > ny:
+            raise ValueError("shard_fame/decide: packed voters must fill whole words")
+    else:
+        check_tensor("votes", votes, torch.bool, (b, v_len, nx), dev)
+        if v_off + v_len > ny:
+            raise ValueError("shard_fame/decide: the vote slice passes the voters")
+    if n_participants < 1:
+        raise ValueError("shard_fame/decide: needs n_participants >= 1")
+    _launch("shard_fame/decide", dev, (
+        yays, total, i_rows, last_round, wvalid.view(torch.uint8),
+        decided.view(torch.uint8), famous.view(torch.uint8), wv_s.view(torch.uint8),
+        coin_s.view(torch.uint8), votes if packed else votes.view(torch.uint8),
+        b, ny, nx, v_off, v_len, d, n_participants, super_majority, int(packed),
+    ), packed=packed)
+
+
+def shard_fame_active(wvalid, decided, i_rows, last_round, d0: int) -> torch.Tensor:
+    """B21 (c): a (1,) int32 flag, 1 where a valid undecided witness of the
+    shard has a voting round i + d0 <= last_round left."""
+    dev = wvalid.device
+    b, nx = wvalid.shape
+    check_tensor("wvalid", wvalid, torch.bool, (b, nx), dev)
+    check_tensor("decided", decided, torch.bool, (b, nx), dev)
+    check_tensor("i_rows", i_rows, torch.int32, (b,), dev)
+    check_tensor("last_round", last_round, torch.int32, (), dev)
+    flag = torch.empty((1,), dtype=torch.int32, device=dev)
+    _launch("shard_fame/active", dev, (
+        wvalid.view(torch.uint8), decided.view(torch.uint8), i_rows, last_round, flag,
+        b, nx, d0,
+    ))
+    return flag
+
+
+def fame_tables(wtable, la, decided, famous, last_round):
+    """B23: (min_la (R, N) int32, famous_count (R,) int32, i_ok (R,) bool,
+    horizon (R,) int32, rounds_decided (R,) bool)."""
+    dev = wtable.device
+    r_max, n = wtable.shape
+    e_la = la.shape[0]
+    check_tensor("wtable", wtable, torch.int32, (r_max, n), dev)
+    check_tensor("la", la, torch.int32, (e_la, n), dev)
+    check_tensor("decided", decided, torch.bool, (r_max, n), dev)
+    check_tensor("famous", famous, torch.bool, (r_max, n), dev)
+    check_tensor("last_round", last_round, torch.int32, (), dev)
+    if e_la < 1 or r_max < 1:
+        raise ValueError("fame_tables: needs la rows and rounds")
+    min_la = torch.empty((r_max, n), dtype=torch.int32, device=dev)
+    famous_count = torch.empty((r_max,), dtype=torch.int32, device=dev)
+    i_ok = torch.empty((r_max,), dtype=torch.uint8, device=dev)
+    horizon = torch.empty((r_max,), dtype=torch.int32, device=dev)
+    rounds_decided = torch.empty((r_max,), dtype=torch.uint8, device=dev)
+    _launch("fame_tables", dev, (
+        wtable, la, decided.view(torch.uint8), famous.view(torch.uint8), last_round,
+        min_la, famous_count, i_ok, horizon, rounds_decided, r_max, n, e_la,
+    ))
+    return (min_la, famous_count, i_ok.view(torch.bool), horizon,
+            rounds_decided.view(torch.bool))
+
+
+def received_search(index, creator, rounds, min_la, famous_count, i_ok, horizon):
+    """B22: received (E_s,) int32 of one event shard."""
+    dev = index.device
+    e = index.shape[0]
+    r_max, n = min_la.shape
+    for what, t in (("index", index), ("creator", creator), ("rounds", rounds)):
+        check_tensor(what, t, torch.int32, (e,), dev)
+    check_tensor("min_la", min_la, torch.int32, (r_max, n), dev)
+    check_tensor("famous_count", famous_count, torch.int32, (r_max,), dev)
+    check_tensor("i_ok", i_ok, torch.bool, (r_max,), dev)
+    check_tensor("horizon", horizon, torch.int32, (r_max,), dev)
+    received = torch.empty((e,), dtype=torch.int32, device=dev)
+    _launch("received_search", dev, (
+        index, creator, rounds, min_la, famous_count, i_ok.view(torch.uint8), horizon,
+        received, r_max, n, e,
+    ))
+    return received
+
+
+def shard_walk_rows(rows_by, fd, x_cur):
+    """B24 (a): the local chains' frontier rows (B, N_p) int32 (MAX where
+    X = L) and w_ok (B,) bool."""
+    dev = rows_by.device
+    b, l = rows_by.shape
+    e_fd, n_p = fd.shape
+    check_tensor("rows_by", rows_by, torch.int32, (b, l), dev)
+    check_tensor("fd", fd, torch.int32, (e_fd, n_p), dev)
+    check_tensor("x_cur", x_cur, torch.int32, (b,), dev)
+    if e_fd < 1 or l < 1:
+        raise ValueError("shard_walk/rows: needs fd rows and an index axis")
+    fd_w = torch.empty((b, n_p), dtype=torch.int32, device=dev)
+    w_ok = torch.empty((b,), dtype=torch.uint8, device=dev)
+    _launch("shard_walk/rows", dev, (rows_by, fd, x_cur, fd_w, w_ok, b, n_p, l, e_fd))
+    return fd_w, w_ok.view(torch.bool)
+
+
+def shard_walk_m0(inv, fd_w, w_ok, super_majority: int) -> torch.Tensor:
+    """B24 (b): m0 (B,) int32 of the local chains from the gathered
+    frontier rows fd_w (N_w, N_p) and w_ok (N_w,)."""
+    dev = inv.device
+    b, n_p, l = inv.shape
+    n_w = fd_w.shape[0]
+    check_tensor("inv", inv, torch.int32, (b, n_p, l), dev)
+    check_tensor("fd_w", fd_w, torch.int32, (n_w, n_p), dev)
+    check_tensor("w_ok", w_ok, torch.bool, (n_w,), dev)
+    if (n_w + 8 * n_p) * 4 > MAX_SMEM_BYTES:
+        raise ValueError(f"shard_walk/m0: {n_w} frontier rows of {n_p} coordinates pass "
+                         f"one block's shared memory")
+    m0 = torch.empty((b,), dtype=torch.int32, device=dev)
+    _launch("shard_walk/m0", dev, (inv, fd_w, w_ok.view(torch.uint8), m0, b, n_w, n_p, l,
+                                   super_majority))
+    return m0
+
+
+def shard_walk_close(inv, m0_all, x_cur, x_next, c_off: int) -> None:
+    """B24 (c), into x_next: the closure of the local chains over the
+    gathered m0 (its first N_p entries are the coordinates)."""
+    dev = inv.device
+    b, n_p, l = inv.shape
+    n_all = m0_all.shape[0]
+    check_tensor("inv", inv, torch.int32, (b, n_p, l), dev)
+    check_tensor("m0_all", m0_all, torch.int32, (n_all,), dev)
+    check_tensor("x_cur", x_cur, torch.int32, (b,), dev)
+    check_tensor("x_next", x_next, torch.int32, (b,), dev)
+    if n_all < n_p or c_off + b > n_all:
+        raise ValueError("shard_walk/close: the gathered m0 does not cover the chains")
+    _launch("shard_walk/close", dev, (inv, m0_all, x_cur, x_next, b, n_p, l, c_off))
+
+
+def frontier_post(x_hist, rows_by, creator, index, sp_index):
+    """K2's post pass alone: (rounds (E,) int32, witness (E,) bool, wtable
+    (r_cap, N) int32, last_round () int32) from a frontier history."""
+    dev = x_hist.device
+    r_cap, n = x_hist.shape
+    l = rows_by.shape[1]
+    e = creator.shape[0]
+    check_tensor("x_hist", x_hist, torch.int32, (r_cap, n), dev)
+    check_tensor("rows_by", rows_by, torch.int32, (n, l), dev)
+    for what, t in (("creator", creator), ("index", index), ("sp_index", sp_index)):
+        check_tensor(what, t, torch.int32, (e,), dev)
+    if r_cap < 1 or n < 1 or l < 1:
+        raise ValueError("frontier_post: needs a history and chains")
+    rounds = torch.empty((e,), dtype=torch.int32, device=dev)
+    witness = torch.empty((e,), dtype=torch.uint8, device=dev)
+    wtable = torch.empty((r_cap, n), dtype=torch.int32, device=dev)
+    last_round = torch.empty((), dtype=torch.int32, device=dev)
+    _launch("frontier_post", dev, (
+        x_hist, rows_by, creator, index, sp_index, rounds, witness, wtable, last_round,
+        n, l, e, r_cap,
+    ))
+    return rounds, witness.view(torch.bool), wtable, last_round

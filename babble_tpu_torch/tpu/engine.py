@@ -17,7 +17,8 @@ gates (`validate_round_writeback`, `admissible_receptions`,
 `integrate_pass_results`), so the host's passes 4-5 commit byte-identical
 blocks. The voting-table layout resolves as in the reference
 (`resolve_packed(packed, n)`: the packed one from 128 validators up by
-default, tpu/packed.py). Not ported yet: the mesh branch.
+default, tpu/packed.py). With `mesh` (a tpu/mesh.py DeviceMesh) the same
+rungs run sharded over its positions (tpu/sharded.py).
 """
 
 from __future__ import annotations
@@ -477,6 +478,7 @@ def run_consensus_device(
     hg,
     d_max: Optional[int] = None,
     device: Optional[Union[str, torch.device]] = None,
+    mesh=None,
 ) -> None:
     """Full five-pass pipeline with passes 1-3 on the device (the CUDA
     card unless the caller passes device="cpu").
@@ -487,7 +489,17 @@ def run_consensus_device(
     ProcessSigPool (unchanged, so blocks come out byte-identical). Deep
     grids take the cold path, base grids the round-frontier walk,
     post-reset states the level scan, each in the voting-table layout
-    the knob resolves for this validator count (tpu/packed.py)."""
+    the knob resolves for this validator count (tpu/packed.py). With
+    `mesh` (a DeviceMesh) the same rungs run sharded over its positions
+    (tpu/sharded.py); the device is the mesh's, and a `device` naming
+    another raises ValueError."""
+    if mesh is not None:
+        if device is not None:
+            want, have = torch.device(device), mesh.device
+            if (want.type, want.index or 0) != (have.type, have.index or 0):
+                raise ValueError(f"run_consensus_device: device {device} is not the "
+                                 f"mesh's {have}")
+        return _run_consensus_mesh(hg, mesh)
     dev = resolve_device(device)
     # resolve the voting-table layout once so every engine rung below runs
     # the same one
@@ -561,6 +573,82 @@ def run_consensus_device(
         _led.component("frontier", "integrate", _ti, layout=_layout)
     else:
         _led.component("oneshot", "integrate", _ti, layout=_layout)
+
+
+def _run_consensus_mesh(hg, mesh) -> None:
+    """The mesh branch of run_consensus_device: the rungs of the one-shot
+    path (the sharded cold path when deep, falling through on
+    GridUnsupported; the sharded frontier walk on base grids; else the
+    sharded level scan), serialized against queued-mesh workers."""
+    from .dispatch import _MESH_EXEC_LOCK
+    from .doubling import observe_catchup, use_doubling
+    from .sharded import (
+        mesh_validator_shards,
+        sharded_doubling_passes,
+        sharded_engine_tag,
+        sharded_frontier_passes,
+        sharded_run_passes,
+    )
+
+    obs, clock = hg.obs, hg.obs.clock
+    _t0 = clock.monotonic()
+    grid = grid_from_hashgraph(hg)
+    _stage_s = clock.monotonic() - _t0
+    if grid.e == 0:
+        hg.process_decided_rounds()
+        hg.process_sig_pool()
+        return
+    # one layout for every rung below
+    pk = resolve_packed(None, grid.n)
+    obs.histogram(
+        "babble_device_stage_seconds",
+        "Host staging (restage) time per device consensus call",
+        labels=("path",),
+    ).labels(path="mesh").observe(_stage_s)
+    _m_run = obs.histogram(
+        "babble_device_run_seconds",
+        "Device wall time per device consensus call",
+        labels=("path",),
+    )
+    _led = obs.devledger
+    _layout = "packed" if pk else "wide"
+    _led.component("sharded", "stage", _stage_s, layout=_layout)
+    _t1 = clock.monotonic()
+    _dbl_stats = None
+    # serialize against queued-mesh workers: an orphaned dispatch would
+    # otherwise interleave its collectives with this call's
+    with _MESH_EXEC_LOCK, _led.activate("sharded", layout=_layout):
+        res = None
+        if use_doubling(grid):
+            # deep section: the log-diameter cold path, sharded
+            _dbl_stats = {}
+            try:
+                res = sharded_doubling_passes(mesh, grid, stats=_dbl_stats, packed=pk)
+            except GridUnsupported:
+                res, _dbl_stats = None, None
+        if res is None:
+            if _frontier_safe(grid):
+                res = sharded_frontier_passes(mesh, grid, packed=pk)
+            else:
+                res = sharded_run_passes(mesh, grid, packed=pk)
+    _engine = sharded_engine_tag(mesh, doubling=_dbl_stats is not None)
+    _run_s = clock.monotonic() - _t1
+    _m_run.labels(path="mesh").observe(_run_s)
+    if _dbl_stats is not None:
+        observe_catchup(obs, _dbl_stats, _run_s)
+    obs.gauge(
+        "babble_mesh_staged_events",
+        "Events staged onto the mesh in the latest mesh call",
+    ).set(grid.e)
+    obs.gauge(
+        "babble_mesh_validator_shards",
+        "Validator-axis shards in the active mesh layout",
+    ).set(mesh_validator_shards(mesh))
+
+    observe_table_bytes(obs, grid.n, res.witness_table.shape[0], pk)
+    _ti0 = _led.now()
+    integrate_pass_results(hg, grid, res, engine=_engine)
+    _led.component("sharded", "integrate", _led.now() - _ti0, layout=_layout)
 
 
 def integrate_pass_results(hg, grid, res, topo_hi: Optional[int] = None,

@@ -14,7 +14,10 @@ Parents outside the grid (roots, reset `others` entries) arrive as
 per-event external metadata; the round-frontier path handles base grids
 only, where every chain is anchored at a genesis root, and the level scan
 and the cold path also take post-reset grids. `section_grid` cuts such a
-grid out of a solved one, as a fast-sync joiner receives it.
+grid out of a solved one, as a fast-sync joiner receives it. `GridStager`
+(host numpy, copied from the reference) keeps a hashgraph's staged arrays
+resident and appends only the rows inserted since its last call, for the
+queued mesh dispatch (tpu/dispatch.py).
 """
 
 from __future__ import annotations
@@ -240,6 +243,320 @@ def grid_from_arrays(d: Mapping) -> DagGrid:
         hashes=list(hashes) if hashes is not None else None,
         **arrays,
     )
+
+
+class _StagerRestage(Exception):
+    """Internal: the resident delta staging cannot extend its arrays
+    consistently (per-creator index gap, membership change) — rebuild
+    from the store."""
+
+
+class GridStager:
+    """Resident incremental staging for the queued-mesh dispatch path
+    (tpu/dispatch.py), copied from the reference's GridStager.
+
+    `grid_from_hashgraph` walks the WHOLE store every dispatch — O(E)
+    python-and-store work per call that grows with node lifetime. The
+    stager keeps the staged arrays resident across dispatches and
+    appends only the delta rows inserted since the last call, replaying
+    the host insert's coordinate updates (the `synthetic_grid` /
+    reference hashgraph.go:439-544 walk) so the resident
+    first-descendant matrix stays byte-identical to a fresh restage.
+
+    Snapshot discipline — a returned DagGrid must stay frozen while its
+    dispatch is in flight:
+
+    - append-only columns (creator/index/parents/lastAncestors/coin/
+      external metadata) are handed out as views; later appends only
+      write rows >= e and geometric growth reallocates, never mutates;
+    - `first_descendants` and the level table DO mutate under later
+      inserts (descendant marks land in old rows, levels gain slots), so
+      those two are copied per snapshot — a memcpy, not a store walk.
+
+    Already-integrated rounds/lamports are deliberately NOT re-pinned
+    onto old rows: on the base-state graphs this path serves, the device
+    recompute equals the pins (the `_frontier_safe` argument), and
+    `validate_round_writeback` refuses any mismatch before stamping, so
+    a violation falls the ladder instead of poisoning the store.
+    Post-reset states are refused outright (the dispatch queue already
+    does); any inconsistency triggers one full restage, and a store
+    whose per-creator indexes are not contiguous (would need fork rows)
+    pins the stager to full restages permanently.
+    """
+
+    def __init__(self, hg):
+        self.hg = hg
+        self.full_restages = 0
+        self.delta_stages = 0
+        self.last_delta_rows = 0
+        self._force_full = False
+        self._e = 0
+        self._cap = 0
+        self._n = 0
+        self._arrays = False
+        self._num_levels = 0
+        self._lcap = 0
+
+    # -- public ------------------------------------------------------------
+
+    def stage(self) -> DagGrid:
+        """Stage the hashgraph: delta-append when possible, full rebuild
+        otherwise. Raises GridUnsupported exactly where
+        grid_from_hashgraph would (rolled windows, unresolvable
+        parents, post-reset states)."""
+        hg = self.hg
+        if hg.reset_floor is not None:
+            raise GridUnsupported("resident stager on post-reset state")
+        if not self._arrays or self._force_full or (
+            len(hg.participants.to_peer_slice()) != self._n
+        ):
+            return self._full()
+        try:
+            return self._delta()
+        except _StagerRestage:
+            return self._full()
+
+    # -- full rebuild ------------------------------------------------------
+
+    def _full(self) -> DagGrid:
+        grid = grid_from_hashgraph(self.hg)
+        self.full_restages += 1
+        self.last_delta_rows = grid.e
+        self._n = grid.n
+        # fresh buffers sized to the new store (a rebuild replaces the
+        # resident state wholesale; in-flight snapshots keep their views
+        # of the old buffers)
+        self._arrays = False
+        self._cap = 0
+        self._e = 0
+        self._reserve(grid.e)
+        self._e = grid.e
+        for name, src in self._columns(grid):
+            getattr(self, name)[: grid.e] = src
+        self._hashes = list(grid.hashes)
+        self._row_of = {h: r for r, h in enumerate(self._hashes)}
+        self._rows_by = [[] for _ in range(self._n)]
+        for r in range(grid.e):
+            c = int(grid.creator[r])
+            if int(grid.index[r]) != len(self._rows_by[c]):
+                # forked / gapped chain: index->row is ambiguous, the
+                # delta walk can't replay inserts — full restages only
+                self._force_full = True
+            else:
+                self._rows_by[c].append(r)
+        # per-row levels + resident (L, N) table
+        self._num_levels = grid.num_levels
+        self._lcap = 0
+        self._reserve_levels(max(grid.num_levels, 1))
+        self._levels[: grid.levels.shape[0]] = grid.levels
+        self._lslot[: grid.levels.shape[0]] = np.sum(
+            grid.levels >= 0, axis=1
+        )
+        self._rlevel[: grid.e] = row_levels(grid)
+        self._arrays = True
+        return self._snapshot()
+
+    # -- delta append ------------------------------------------------------
+
+    def _delta(self) -> DagGrid:
+        from ..common import StoreErr
+        from ..hashgraph.hashgraph import middle_bit
+
+        hg = self.hg
+        participants = hg.participants.to_peer_slice()
+        roots = {
+            p.pub_key_hex: hg.store.get_root(p.pub_key_hex)
+            for p in participants
+        }
+        roots_by_sp = hg.store.roots_by_self_parent()
+        new_events = []
+        try:
+            for p in participants:
+                pos = hg.peer_position(p.pub_key_hex)
+                skip = len(self._rows_by[pos]) - 1
+                for h in hg.store.participant_events(p.pub_key_hex, skip):
+                    new_events.append(hg.store.get_event(h))
+        except StoreErr as err:
+            raise GridUnsupported(f"store window rolled: {err}") from err
+        new_events.sort(key=lambda ev: ev.topological_index)
+        self.last_delta_rows = len(new_events)
+        if not new_events:
+            return self._snapshot()
+        self.delta_stages += 1
+        self._reserve(self._e + len(new_events))
+
+        for ev in new_events:
+            i = self._e
+            h = ev.hex()
+            c = hg.peer_position(ev.creator())
+            idx = ev.index()
+            if idx != len(self._rows_by[c]):
+                raise _StagerRestage  # fork or gap in the chain
+            root = roots[ev.creator()]
+            other = root.others.get(h)
+            sp = ev.self_parent()
+            op = ev.other_parent()
+
+            self._creator[i] = c
+            self._index[i] = idx
+            sp_row = op_row = -1
+            if sp in self._row_of:
+                sp_row = self._row_of[sp]
+                self._self_parent[i] = sp_row
+            elif sp == root.self_parent.hash:
+                self._self_parent[i] = -1
+                self._ext_sp_round[i] = root.self_parent.round
+                self._ext_sp_lamport[i] = root.self_parent.lamport_timestamp
+                if op == "" or (other is not None and other.hash == op):
+                    self._fixed_round[i] = root.next_round
+            else:
+                raise GridUnsupported(f"self-parent unresolvable: {sp[:18]}…")
+
+            self._other_parent[i] = -1
+            if op != "":
+                if other is not None and other.hash == op:
+                    self._ext_op_round[i] = root.next_round
+                    self._ext_op_lamport[i] = other.lamport_timestamp
+                elif op in self._row_of:
+                    op_row = self._row_of[op]
+                    self._other_parent[i] = op_row
+                elif op in roots_by_sp:
+                    self._ext_op_round[i] = roots_by_sp[op].self_parent.round
+                elif op in hg.frozen_refs:
+                    self._ext_op_round[i] = hg.frozen_refs[op].round
+                else:
+                    raise GridUnsupported(
+                        f"other-parent unresolvable: {op[:18]}…"
+                    )
+
+            if ev.round is not None:
+                self._fixed_round[i] = ev.round
+            if ev.lamport_timestamp is not None:
+                self._fixed_lamport[i] = ev.lamport_timestamp
+
+            self._last_ancestors[i] = [x[0] for x in ev.last_ancestors]
+            self._coin_bit[i] = middle_bit(h)
+
+            # first-descendant delta: REPLAY the host insert's walk
+            # instead of re-reading every row from the store — each new
+            # event marks itself down its ancestors' self-parent chains
+            # until it hits an already-marked cell. Replaying in
+            # topological order reproduces the store's matrix exactly
+            # (reading new rows from the store instead would pre-mark
+            # cells and truncate earlier walks into old rows).
+            self._first_descendants[i] = MAX_INT32
+            self._first_descendants[i, c] = idx
+            self._rows_by[c].append(i)
+            self._row_of[h] = i
+            self._hashes.append(h)
+            fd = self._first_descendants
+            for p in range(self._n):
+                a = int(self._last_ancestors[i, p])
+                while a >= 0:
+                    row = self._rows_by[p][a]
+                    if fd[row, c] == MAX_INT32:
+                        fd[row, c] = idx
+                        a -= 1
+                    else:
+                        break
+
+            lv = 0
+            if sp_row >= 0:
+                lv = int(self._rlevel[sp_row]) + 1
+            if op_row >= 0:
+                lv = max(lv, int(self._rlevel[op_row]) + 1)
+            self._rlevel[i] = lv
+            self._reserve_levels(lv + 1)
+            self._levels[lv, self._lslot[lv]] = i
+            self._lslot[lv] += 1
+            self._num_levels = max(self._num_levels, lv + 1)
+            self._e += 1
+        return self._snapshot()
+
+    # -- storage -----------------------------------------------------------
+
+    def _columns(self, grid: DagGrid):
+        return (
+            ("_creator", grid.creator),
+            ("_index", grid.index),
+            ("_self_parent", grid.self_parent),
+            ("_other_parent", grid.other_parent),
+            ("_last_ancestors", grid.last_ancestors),
+            ("_first_descendants", grid.first_descendants),
+            ("_coin_bit", grid.coin_bit),
+            ("_fixed_round", grid.fixed_round),
+            ("_ext_sp_round", grid.ext_sp_round),
+            ("_ext_op_round", grid.ext_op_round),
+            ("_ext_sp_lamport", grid.ext_sp_lamport),
+            ("_ext_op_lamport", grid.ext_op_lamport),
+            ("_fixed_lamport", grid.fixed_lamport),
+        )
+
+    _FILLS = dict(
+        _creator=(0, np.int32, 1), _index=(0, np.int32, 1),
+        _self_parent=(-1, np.int32, 1), _other_parent=(-1, np.int32, 1),
+        _last_ancestors=(-1, np.int32, 2),
+        _first_descendants=(MAX_INT32, np.int32, 2),
+        _coin_bit=(False, bool, 1),
+        _fixed_round=(-1, np.int32, 1), _ext_sp_round=(-1, np.int32, 1),
+        _ext_op_round=(-1, np.int32, 1), _ext_sp_lamport=(-1, np.int32, 1),
+        _ext_op_lamport=(MIN_INT32, np.int32, 1),
+        _fixed_lamport=(MIN_INT32, np.int32, 1),
+        _rlevel=(0, np.int32, 1),
+    )
+
+    def _reserve(self, need: int) -> None:
+        if self._arrays and need <= self._cap:
+            return
+        cap = max(self._cap, 256)
+        while cap < need:
+            cap *= 2
+        old_e = self._e if self._arrays else 0
+        for name, (fill, dtype, nd) in self._FILLS.items():
+            shape = (cap, self._n) if nd == 2 else (cap,)
+            arr = np.full(shape, fill, dtype=dtype)
+            if old_e and hasattr(self, name):
+                arr[:old_e] = getattr(self, name)[:old_e]
+            setattr(self, name, arr)
+        self._cap = cap
+
+    def _reserve_levels(self, need: int) -> None:
+        if self._lcap >= need:
+            return
+        lcap = max(self._lcap, 64)
+        while lcap < need:
+            lcap *= 2
+        levels = np.full((lcap, self._n), -1, dtype=np.int32)
+        lslot = np.zeros(lcap, dtype=np.int64)
+        if self._lcap:
+            levels[: self._lcap] = self._levels
+            lslot[: self._lcap] = self._lslot
+        self._levels, self._lslot, self._lcap = levels, lslot, lcap
+
+    def _snapshot(self) -> DagGrid:
+        e = self._e
+        nl = self._num_levels
+        return DagGrid(
+            n=self._n,
+            e=e,
+            super_majority=self.hg.super_majority,
+            creator=self._creator[:e],
+            index=self._index[:e],
+            self_parent=self._self_parent[:e],
+            other_parent=self._other_parent[:e],
+            last_ancestors=self._last_ancestors[:e],
+            first_descendants=self._first_descendants[:e].copy(),
+            coin_bit=self._coin_bit[:e],
+            fixed_round=self._fixed_round[:e],
+            ext_sp_round=self._ext_sp_round[:e],
+            ext_op_round=self._ext_op_round[:e],
+            ext_sp_lamport=self._ext_sp_lamport[:e],
+            ext_op_lamport=self._ext_op_lamport[:e],
+            fixed_lamport=self._fixed_lamport[:e],
+            levels=self._levels[: max(nl, 1)].copy(),
+            num_levels=nl,
+            hashes=self._hashes[:e],
+        )
 
 
 def build_levels(n: int, self_parent: np.ndarray, other_parent: np.ndarray):

@@ -165,8 +165,32 @@ Phases, in order; any failure raises and exits non-zero:
    (packed); launches of the device forms under "<key>/dev", counted on
    runs of the entry points a user calls (run_passes, step, multi_step,
    train_step, frontier_train_step) with nothing else in the window.
+17. the device mesh (tpu/mesh.py, tpu/sharded.py, tpu/dispatch.py), every
+   position of every mesh on the one card (torch.cuda.device_count() is
+   printed; no number measures an interconnect): (a) each mesh kernel
+   (B21 shard_fame/tally, /decide, /active; B22 received_search; B23
+   fame_tables; B24 shard_walk/rows, /m0, /close; K3's setup fame_setup
+   and K2's post frontier_post launched on their own) held torch.equal to
+   its plain version after every launch, with CUDA-event times behind a
+   spin: sharded_frontier_passes on config #4 on the 1-D mesh of 8
+   (packed; every step of its walk), sharded_run_passes on the 1-D mesh
+   (wide) and on the 2-D (2, 4) mesh (both layouts), the voting tables of
+   coin_round_case(8, 20, 52) (coin steps at d = 8 and 16) and
+   coin_round_case(1024, 6, 3) on the 2-D mesh, equal to decide_fame's
+   verdicts, and sharded_frontier_passes on synthetic_grid(1024, 16384,
+   seed=0, zipf_a=1.1) (128 chains per position: the plain walk's binary
+   search), equal to run_frontier_passes; (b) the three sharded engines
+   on config #4 on both meshes and both layouts, each launching its
+   path's kernels (run_path) and equal to phase 14's engines (7, 32,341,
+   1,853 witnesses; fame on the overlap), the median wall of 3 warm runs
+   per engine and mesh (packed), and the bench cell through
+   sharded_frontier_passes on the 1-D mesh (26, 28,065); (c) phase 15's
+   20,480 signed events: run_consensus_device with the 2-D mesh, and
+   run_consensus_mesh_queued (queue depth 4) after each sync of 1,024,
+   then flush, both byte-identical to the host engine, every call on the
+   queued rung and the stager's delta path taken.
 
-The phases take ten to twelve minutes on an H100; each phase's seconds
+The phases take about twelve minutes on an H100; each phase's seconds
 are printed. The next-to-last line is the per-kernel JSON summary; the
 last line is {"ok": true, "device": {...}}. The script imports nothing of
 JAX and nothing of the babble_tpu package.
@@ -333,6 +357,36 @@ FL_WIDTH_CHECK_EVERY = 64
 # witnesses are decided
 FL_WIDTH_COIN = (1024, 6, 3)
 
+# the device mesh (phase 17): every position of every mesh on the one card
+MESH_1D = ((8,), ("rounds",))
+MESH_2D = ((2, 4), ("validators", "rounds"))
+MESH_RUNS = 3
+# voting tables that reach coin steps on a mesh (8 validators, 20 rounds:
+# d = 8 and 16), and the 1,024-validator tables of phase 16(d), where
+# witnesses are decided (a coin step there needs d = 1,024)
+MESH_COIN_CASES = ((8, 20, 52), FL_WIDTH_COIN)
+MESH_WIDTH = dict(n=1024, e_count=16384, seed=0, zipf_a=1.1)
+# run (c): phase 15's signed events in syncs of MESH_SYNC, the queue depth
+MESH_SYNC = 1024
+MESH_QUEUE_DEPTH = 4
+# the cell whose checked calls give each mesh kernel's times and bound in
+# the kernels line (the others' are printed)
+MESH_TIMED_CELL = {
+    "shard_fame/tally/packed": "config #4 frontier, 1-D 8, packed",
+    "shard_fame/decide/packed": "config #4 frontier, 1-D 8, packed",
+    "shard_fame/active": "config #4 frontier, 1-D 8, packed",
+    "fame_tables": "config #4 frontier, 1-D 8, packed",
+    "received_search": "config #4 frontier, 1-D 8, packed",
+    "fame_setup/packed": "config #4 frontier, 1-D 8, packed",
+    "shard_walk/rows": "config #4 frontier, 1-D 8, packed",
+    "shard_walk/m0": "config #4 frontier, 1-D 8, packed",
+    "shard_walk/close": "config #4 frontier, 1-D 8, packed",
+    "frontier_post": "config #4 frontier, 1-D 8, packed",
+    "shard_fame/tally": "config #4 level scan, 1-D 8, wide",
+    "shard_fame/decide": "config #4 level scan, 1-D 8, wide",
+    "fame_setup": "config #4 level scan, 1-D 8, wide",
+    "fame_setup/packed/dev": "width cell frontier, 1-D 8, packed",
+}
 REPLACES = {
     "build_inv": ("babble_tpu_torch/csrc/build_inv.cu", "babble_tpu/tpu/frontier.py:116"),
     "frontier_rounds": ("babble_tpu_torch/csrc/frontier_walk.cu", "babble_tpu/tpu/frontier.py:299"),
@@ -377,6 +431,30 @@ REPLACES = {
                                  "babble_tpu/tpu/incremental.py:361"),
     "decide_window/dev": ("babble_tpu_torch/csrc/decide_window.cu",
                           "babble_tpu/tpu/incremental.py:361"),
+    # the device mesh (phase 17)
+    "shard_fame/tally": ("babble_tpu_torch/csrc/shard_fame.cu", "babble_tpu/tpu/sharded.py:149"),
+    "shard_fame/tally/packed": ("babble_tpu_torch/csrc/shard_fame.cu",
+                                "babble_tpu/tpu/sharded.py:149"),
+    "shard_fame/decide": ("babble_tpu_torch/csrc/shard_fame.cu", "babble_tpu/tpu/sharded.py:149"),
+    "shard_fame/decide/packed": ("babble_tpu_torch/csrc/shard_fame.cu",
+                                 "babble_tpu/tpu/sharded.py:149"),
+    "shard_fame/active": ("babble_tpu_torch/csrc/shard_fame.cu", "babble_tpu/tpu/sharded.py:149"),
+    "received_search": ("babble_tpu_torch/csrc/round_received.cu",
+                        "babble_tpu/tpu/sharded.py:302"),
+    "fame_tables": ("babble_tpu_torch/csrc/round_received.cu", "babble_tpu/tpu/sharded.py:329"),
+    "shard_walk/rows": ("babble_tpu_torch/csrc/frontier_walk.cu",
+                        "babble_tpu/tpu/sharded.py:549"),
+    "shard_walk/m0": ("babble_tpu_torch/csrc/frontier_walk.cu", "babble_tpu/tpu/sharded.py:549"),
+    "shard_walk/close": ("babble_tpu_torch/csrc/frontier_walk.cu",
+                         "babble_tpu/tpu/sharded.py:549"),
+    # K3's setup and K2's post pass launched on their own by the mesh path
+    "fame_setup": ("babble_tpu_torch/csrc/decide_fame.cu", "babble_tpu/tpu/kernels.py:335"),
+    "fame_setup/packed": ("babble_tpu_torch/csrc/decide_fame.cu",
+                          "babble_tpu/tpu/kernels.py:335"),
+    "fame_setup/packed/dev": ("babble_tpu_torch/csrc/decide_fame.cu",
+                              "babble_tpu/tpu/kernels.py:335"),
+    "frontier_post": ("babble_tpu_torch/csrc/frontier_walk.cu",
+                      "babble_tpu/tpu/frontier.py:299"),
 }
 # the kernels each engine's call must launch
 PATH_KERNELS = {
@@ -427,11 +505,41 @@ PATH_KERNELS = {
     "multi_step (1,024)": ("apply_deltas", "step_levels/dev", "decide_window/dev"),
     "train_step (1,024), packed": ("apply_deltas", "train_levels/packed/dev",
                                    "decide_window/packed/dev"),
+    # the device mesh: passes 2+3 of every sharded engine
+    "sharded_frontier_passes": ("build_inv", "shard_walk/rows", "shard_walk/m0",
+                                "shard_walk/close", "frontier_post", "fame_setup",
+                                "shard_fame/tally", "shard_fame/decide", "shard_fame/active",
+                                "fame_tables", "received_search"),
+    "sharded_frontier_passes, packed": ("build_inv", "shard_walk/rows", "shard_walk/m0",
+                                        "shard_walk/close", "frontier_post",
+                                        "fame_setup/packed", "shard_fame/tally/packed",
+                                        "shard_fame/decide/packed", "shard_fame/active",
+                                        "fame_tables", "received_search"),
+    "sharded_run_passes": ("divide_rounds", "fame_setup", "shard_fame/tally",
+                           "shard_fame/decide", "shard_fame/active", "fame_tables",
+                           "received_search"),
+    "sharded_run_passes, packed": ("divide_rounds/packed", "fame_setup/packed",
+                                   "shard_fame/tally/packed", "shard_fame/decide/packed",
+                                   "shard_fame/active", "fame_tables", "received_search"),
+    "sharded_doubling_passes": ("closure_la", "build_inv", "walk_chunk", "fame_setup",
+                                "shard_fame/tally", "shard_fame/decide", "shard_fame/active",
+                                "fame_tables", "received_search"),
+    "sharded_doubling_passes, packed": ("closure_la", "build_inv", "walk_chunk",
+                                        "fame_setup/packed", "shard_fame/tally/packed",
+                                        "shard_fame/decide/packed", "shard_fame/active",
+                                        "fame_tables", "received_search"),
+    "sharded_frontier_passes (1,024), packed": ("build_inv", "shard_walk/rows",
+                                                "shard_walk/m0", "shard_walk/close",
+                                                "frontier_post", "fame_setup/packed/dev",
+                                                "shard_fame/tally/packed",
+                                                "shard_fame/decide/packed",
+                                                "shard_fame/active", "fame_tables",
+                                                "received_search"),
 }
 # the wide forms of the layout kernels, which a packed path must not launch
 WIDE_FORMS = ("decide_fame", "divide_rounds", "step_levels", "train_levels",
               "decide_window", "divide_rounds/dev", "step_levels/dev", "train_levels/dev",
-              "decide_window/dev")
+              "decide_window/dev", "shard_fame/tally", "shard_fame/decide", "fame_setup")
 # run_consensus_device's rung on phase 12's DAG (its 1,140 levels pass the
 # 1,024-level crossover) and that rung's kernels
 HG_ONESHOT_RUNG = ("doubling", "run_doubling_passes")
@@ -966,7 +1074,8 @@ class LayerTimes:
 
 
 def hashgraph_phase(dev, log_fn, spec=BENCH, oneshot=HG_ONESHOT_RUNG, full=True,
-                    expect=None, title="phase 12", live_settings=None, depth=None):
+                    expect=None, title="phase 12", live_settings=None, depth=None,
+                    keep=False):
     """The hashgraph path on `dev` ("cuda", or "cpu" to rehearse on the
     plain versions) over the signed events of synthetic_grid(**spec):
     runs (a)-(c), and with `full` (phase 12) (d) and (e) too. `oneshot` is
@@ -974,7 +1083,8 @@ def hashgraph_phase(dev, log_fn, spec=BENCH, oneshot=HG_ONESHOT_RUNG, full=True,
     entry is "run_consensus_live" plus the layout's suffix. `expect`
     (blocks, last_round) gates run (a); `live_settings` changes run (c)'s
     engine defaults; `depth` keeps the grid's first rows only. Returns
-    {run: stats} and the launches of run (c)."""
+    {run: stats} and the launches of run (c); with `keep`, stats["kept"]
+    holds the signed events and run (a)'s hashgraph and blocks."""
     from babble_tpu_torch import crypto, hashgraph as hgm, peers as peers_mod
     from babble_tpu_torch.tpu import _ext, engine, live
     from babble_tpu_torch.tpu.grid import synthetic_grid
@@ -1005,6 +1115,9 @@ def hashgraph_phase(dev, log_fn, spec=BENCH, oneshot=HG_ONESHOT_RUNG, full=True,
         raise AssertionError(f"(a): {len(host_blocks)} blocks, last round "
                              f"{host.store.last_round()}; expected {expect}")
     stats = {"host": dict(blocks=len(host_blocks), received=n_recv, seconds=host_s)}
+    if keep:
+        stats["kept"] = dict(peers_json=peers_json, events=events, host=host,
+                             host_blocks=host_blocks, ref=ref)
 
     def fresh(k):
         blocks = []
@@ -2036,6 +2149,483 @@ def fl_width_phase(dev, log_fn):
     return summary, work, launches
 
 
+class MeshCheck:
+    """Every mesh kernel wrapper of tpu/sharded.py patched, while the
+    context is open, to launch its kernel and run its plain version on the
+    same inputs (in-place kernels against clones), torch.equal after every
+    launch, with CUDA-event times behind a spin and the work each call's
+    data needs, by cell (`self.cell`) and kernel name (the packed layout's
+    launches under "<name>/packed", the device staging form's "/dev")."""
+
+    NAMES = ("shard_tally", "shard_decide", "shard_active", "fame_tables", "local_received",
+             "walk_rows", "walk_m0", "walk_close", "post", "fame_setup")
+
+    def __init__(self, log_fn):
+        self.log = log_fn
+        self.cell = None
+        self.events, self.work, self.calls = {}, {}, {}
+
+    def __enter__(self):
+        from babble_tpu_torch.tpu import sharded as sh
+
+        self.sh = sh
+        self.real = {k: getattr(sh, k) for k in self.NAMES}
+        for k in self.NAMES:
+            setattr(sh, k, getattr(self, "_" + k))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.real.items():
+            setattr(self.sh, k, fn)
+
+    def _timed(self, name, kern, plain, work):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev[0].record()
+        got = kern()
+        ev[1].record()
+        ev[2].record()
+        want = plain()
+        ev[3].record()
+        key = (self.cell, name)
+        calls = self.events.setdefault(key, [])
+        require_equal(f"{name} on the {self.cell}, call {len(calls)}", got, want)
+        calls.append(ev)
+        nbytes, secs = work(got)
+        acc = self.work.setdefault(key, [0, 0.0])
+        acc[0] += nbytes
+        acc[1] += secs
+        return got
+
+    def summary(self, cell, name):
+        """(calls, kernel ms per call, plain ms per call, (bytes, seconds at
+        the peak rates) per call)."""
+        torch.cuda.synchronize()
+        evs = self.events[(cell, name)]
+        calls = len(evs)
+        nbytes, secs = self.work[(cell, name)]
+        return (calls, sum(e[0].elapsed_time(e[1]) for e in evs) / calls,
+                sum(e[2].elapsed_time(e[3]) for e in evs) / calls,
+                (nbytes / calls, secs / calls))
+
+    def names(self, cell):
+        return sorted(n for c, n in self.events if c == cell)
+
+    # the wrappers
+
+    def _shard_tally(self, ss_s, votes, i_rows, last_round, d, packed):
+        sh = self.sh
+        b, ny, nw = ss_s.shape
+        nx = votes.shape[1] if packed else votes.shape[2]
+
+        def work(_):
+            b_ok = int(((i_rows + d) <= last_round).sum().item())
+            es = 4 if packed else 1
+            nbytes = (b_ok * (ny * nw + nw * nx) * es + b * ny * (nx + 1) * 4 + b * 4 + 4)
+            if packed:  # AND + popcount + add per word pair
+                return nbytes, b_ok * ny * nx * nw * 3 / ALU_OPS_S
+            return nbytes, 2 * b_ok * ny * nx * nw / INT8_TC_OPS_S
+
+        return self._timed(
+            "shard_fame/tally" + ("/packed" if packed else ""),
+            lambda: self.real["shard_tally"](ss_s, votes, i_rows, last_round, d, packed),
+            lambda: sh._shard_tally_plain(ss_s, votes, i_rows, last_round, d, packed), work)
+
+    def _shard_decide(self, yays, total, i_rows, last_round, wvalid, decided, famous, wv_s,
+                      coin_s, votes, v_off, d, n_participants, super_majority, packed):
+        sh = self.sh
+        dc, fc, vc = decided.clone(), famous.clone(), votes.clone()
+        b, ny, nx = yays.shape
+        v_bytes = votes.numel() * votes.element_size()
+
+        def kern():
+            self.real["shard_decide"](yays, total, i_rows, last_round, wvalid, decided, famous,
+                                      wv_s, coin_s, votes, v_off, d, n_participants,
+                                      super_majority, packed)
+            return decided, famous, votes
+
+        def plain():
+            sh._shard_decide_plain(yays, total, i_rows, last_round, wvalid, dc, fc, wv_s,
+                                   coin_s, vc, v_off, d, n_participants, super_majority, packed)
+            return dc, fc, vc
+
+        return self._timed(
+            "shard_fame/decide" + ("/packed" if packed else ""), kern, plain,
+            lambda _: (b * ny * (nx + 1) * 4 + b * nx * 5 + b * ny * 2 + v_bytes + b * 4 + 4,
+                       b * ny * nx * 6 / ALU_OPS_S))
+
+    def _shard_active(self, wvalid, decided, i_rows, last_round, d0):
+        b, nx = wvalid.shape
+        return self._timed(
+            "shard_fame/active",
+            lambda: self.real["shard_active"](wvalid, decided, i_rows, last_round, d0),
+            lambda: self.sh._shard_active_plain(wvalid, decided, i_rows, last_round, d0),
+            lambda _: (b * nx * 2 + b * 4 + 8, b * nx * 3 / ALU_OPS_S))
+
+    def _fame_tables(self, wtable, la, decided, famous, last_round):
+        r, n = wtable.shape
+
+        def work(_):
+            n_famous = int((decided & famous & (wtable >= 0)).sum().item())
+            return (r * n * 4 + n_famous * n * 4 + r * n * 2 + 4 + r * n * 4 + r * 10,
+                    (n_famous * n + r * n) / ALU_OPS_S)
+
+        return self._timed(
+            "fame_tables",
+            lambda: tuple(self.real["fame_tables"](wtable, la, decided, famous, last_round)),
+            lambda: tuple(self.sh._fame_tables_plain(wtable, la, decided, famous, last_round)),
+            work)
+
+    def _local_received(self, index, creator, rounds, min_la, famous_count, i_ok, horizon):
+        from babble_tpu_torch.tpu.kernels import received_search
+
+        e = index.shape[0]
+        r, n = min_la.shape
+
+        def work(recv):
+            # the rounds each event's scan passes: round(e) + 1 to its
+            # reception, or to its horizon when nothing is received
+            start = (rounds + 1).clamp(0, r - 1).long()
+            stop = torch.where(recv >= 0, recv, horizon[start].clamp(max=r) - 1)
+            scans = int((stop - rounds).clamp(min=0).sum().item())
+            return (e * 16 + r * n * 4 + r * 9, scans / ALU_OPS_S)
+
+        return self._timed(
+            "received_search",
+            lambda: self.real["local_received"](index, creator, rounds, min_la, famous_count,
+                                                i_ok, horizon),
+            lambda: received_search(index, creator, rounds, min_la, famous_count, i_ok,
+                                    horizon), work)
+
+    def _walk_rows(self, rows_by, fd, x_cur):
+        b, l = rows_by.shape
+        n_p = fd.shape[1]
+
+        def work(got):
+            ok = int(got[1].sum().item())
+            return b * 8 + ok * n_p * 4 + b * n_p * 4 + b, 0.0
+
+        return self._timed(
+            "shard_walk/rows", lambda: tuple(self.real["walk_rows"](rows_by, fd, x_cur)),
+            lambda: tuple(self.sh._walk_rows_plain(rows_by, fd, x_cur)), work)
+
+    def _walk_m0(self, inv, fd_w, w_ok, rows_by, la, super_majority, l, use_binsearch):
+        b, n_p, _ = inv.shape
+        n_w = fd_w.shape[0]
+
+        def work(_):
+            ok = int(w_ok.sum().item())
+            probes = b * ok * n_p  # one INV value per (chain, frontier row, coordinate)
+            return (n_w * n_p * 4 + n_w + min(inv.numel() * 4, probes * 4) + b * 4,
+                    2 * probes / ALU_OPS_S)
+
+        return self._timed(
+            "shard_walk/m0",
+            lambda: self.real["walk_m0"](inv, fd_w, w_ok, rows_by, la, super_majority, l,
+                                         use_binsearch),
+            lambda: self.sh._walk_m0_plain(inv, fd_w, w_ok, rows_by, la, super_majority, l,
+                                           use_binsearch), work)
+
+    def _walk_close(self, inv, m0_all, c_off, x_cur, x_next):
+        b, n_p, l = inv.shape
+        want = x_next.clone()
+
+        def kern():
+            self.real["walk_close"](inv, m0_all, c_off, x_cur, x_next)
+            return x_next
+
+        def plain():
+            want.copy_(self.sh._walk_close_plain(inv, m0_all, m0_all[c_off: c_off + b], x_cur,
+                                                 n_p, l))
+            return want
+
+        def work(_):
+            live = int((m0_all[:n_p] < l).sum().item())
+            return b * live * 4 + n_p * 4 + b * 12, b * n_p * 2 / ALU_OPS_S
+
+        return self._timed("shard_walk/close", kern, plain, work)
+
+    def _post(self, x_hist, rows_by, creator, index, sp_index):
+        from babble_tpu_torch.tpu.frontier import frontier_post
+
+        r_cap, n = x_hist.shape
+        e = creator.shape[0]
+        return self._timed(
+            "frontier_post",
+            lambda: tuple(self.real["post"](x_hist, rows_by, creator, index, sp_index)),
+            lambda: tuple(frontier_post(x_hist, rows_by, creator, index, sp_index)),
+            lambda _: (3 * r_cap * n * 4 + e * 12 + e * 5 + 4, e * r_cap * 2 / ALU_OPS_S))
+
+    def _fame_setup(self, wtable, la, fd, index, coin_bit, super_majority, packed):
+        from babble_tpu_torch.tpu import _ext
+
+        r, n = wtable.shape
+        name = "fame_setup"
+        if packed:
+            name += "/packed"
+            if _ext.staging("decide_fame", n, packed=True)["setup"] == "device":
+                name += "/dev"
+
+        def plain():
+            ss, votes0 = self.sh._fame_setup_plain(wtable, la, fd, index, super_majority,
+                                                   packed)
+            return ss, votes0, wtable >= 0, coin_bit[wtable.clamp(0, coin_bit.shape[0] - 1)
+                                                     .long()]
+
+        def work(got):
+            wv = wtable >= 0
+            n_wit = int(wv.sum().item())
+            n_pairs = int((wv[1:].sum(dim=1) * wv[:-1].sum(dim=1)).sum().item())
+            out = sum(t.numel() * t.element_size() for t in got[:2])
+            return (r * n * 4 + n_wit * (2 * n * 4 + 4) + out,
+                    (n_pairs * (n + 1) + r * n * n) / ALU_OPS_S)
+
+        return self._timed(
+            name, lambda: tuple(self.real["fame_setup"](wtable, la, fd, index, coin_bit,
+                                                        super_majority, packed)),
+            plain, work)
+
+
+def same_as(label, got, want, tables="overlap"):
+    """PassResults equality: rounds, witness, lamport, received and
+    last_round in full; fame tables on their overlap (the mesh's round
+    axis is the walk's r_cap, the one-shot engine's adaptive), famous where
+    decided."""
+    for f in ("rounds", "witness", "lamport", "received"):
+        g, w = np.asarray(getattr(got, f)), np.asarray(getattr(want, f))
+        if g.shape != w.shape or not (g == w).all():
+            raise AssertionError(f"{label}: {f} differs from the one-shot engine")
+    if got.last_round != want.last_round:
+        raise AssertionError(f"{label}: last_round {got.last_round} != {want.last_round}")
+    r = min(got.fame_decided.shape[0], want.fame_decided.shape[0])
+    gd, wd = got.fame_decided[:r], want.fame_decided[:r]
+    if not (gd == wd).all() or not ((got.famous[:r] & gd) == (want.famous[:r] & wd)).all():
+        raise AssertionError(f"{label}: the fame tables differ on their overlap")
+
+
+def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
+    """Phase 17, the device mesh on the one card: (a) every mesh kernel
+    against its plain version after every launch (MeshCheck) on config #4
+    (1-D 8 and 2-D (2, 4), both layouts), the coin tables, and the width
+    cell's walk in the binary-search form; (b) the three sharded engines on
+    config #4 on both meshes and layouts, equal to phase 14's one-shot
+    engines, with their launches and walls, and the bench cell's walk on
+    the 1-D mesh; (c) the hashgraph seam on phase 15's signed events:
+    run_consensus_device with a 2-D mesh, and run_consensus_mesh_queued in
+    syncs, blocks byte-identical to the host engine. Returns (summary,
+    work, launches) of the mesh kernels."""
+    from types import SimpleNamespace
+
+    from babble_tpu_torch import hashgraph as hgm
+    from babble_tpu_torch.tpu import _ext, engine
+    from babble_tpu_torch.tpu import sharded as sh
+    from babble_tpu_torch.tpu.device import to_device
+    from babble_tpu_torch.tpu.dispatch import run_consensus_mesh_queued
+    from babble_tpu_torch.tpu.grid import GridUnsupported, synthetic_grid
+    from babble_tpu_torch.tpu.mesh import DeviceMesh
+
+    t_phase = time.perf_counter()
+    log_fn(f"mesh: every position on {torch.cuda.get_device_name(0)} "
+           f"(torch.cuda.device_count() {torch.cuda.device_count()}); no number here "
+           f"measures an interconnect")
+    m1 = DeviceMesh.on(dev, *MESH_1D)
+    m2 = DeviceMesh.on(dev, *MESH_2D)
+    meshes = {"1-D 8": m1, "2-D (2, 4)": m2}
+    engines = {
+        "sharded_frontier_passes": lambda m, g, **kw: sh.sharded_frontier_passes(m, g, **kw),
+        "sharded_run_passes": lambda m, g, **kw: sh.sharded_run_passes(m, g, **kw),
+        "sharded_doubling_passes": lambda m, g, **kw: sh.sharded_doubling_passes(m, g, **kw),
+    }
+    checks = MeshCheck(log_fn)
+
+    # (a) the kernels, each against its plain version after every launch;
+    # one unchecked run of each layout first keeps the kernels' first
+    # launches (their modules' loading) out of the checked calls' times
+    t0 = time.perf_counter()
+    sh.sharded_frontier_passes(m1, wide, packed=True)
+    sh.sharded_run_passes(m1, wide, packed=False)
+    with checks:
+        for cell, fn in (
+            ("config #4 frontier, 1-D 8, packed",
+             lambda: sh.sharded_frontier_passes(m1, wide, packed=True)),
+            ("config #4 level scan, 1-D 8, wide",
+             lambda: sh.sharded_run_passes(m1, wide, packed=False)),
+            ("config #4 level scan, 2-D (2, 4), packed",
+             lambda: sh.sharded_run_passes(m2, wide, packed=True)),
+            ("config #4 level scan, 2-D (2, 4), wide",
+             lambda: sh.sharded_run_passes(m2, wide, packed=False)),
+        ):
+            checks.cell = cell
+            res = fn()
+            same_as(cell, res, wide_ref)
+            log_fn(f"  {cell}: every mesh kernel == plain after each launch, results == "
+                   f"phase 14's; checked {checks.names(cell)}")
+        for n, r, seed in MESH_COIN_CASES:
+            case = coin_round_case(n, r, seed)
+            g = SimpleNamespace(n=n, super_majority=case["super_majority"],
+                                coin_bit=case["coin_bit"])
+            la, fd, index = (to_device(case[k], dev) for k in ("la", "fd", "index"))
+            lr = torch.tensor(case["last_round"], dtype=torch.int32, device=dev)
+            for pk in ((True, False) if n <= 64 else (True,)):
+                checks.cell = f"coin case {(n, r, seed)}, 2-D (2, 4), " + (
+                    "packed" if pk else "wide")
+                stage = sh.stage_fame(m2, g, case["wtable"], la, fd, index, pk)
+                decided, famous = sh.sharded_fame(m2, stage, lr, 8, n,
+                                                  case["super_majority"], pk)
+                sh.fame_tables(stage.wtable, la, decided, famous, lr)
+                want = kernels_decide(case, dev, pk)
+                r_rows = case["wtable"].shape[0]
+                if not (torch.equal(decided[:r_rows], want[0])
+                        and torch.equal(famous[:r_rows] & decided[:r_rows], want[1] & want[0])):
+                    raise AssertionError(f"{checks.cell}: the mesh's fame differs from "
+                                         f"decide_fame's")
+                steps = len(checks.events[(checks.cell, "shard_fame/active")]) * 8
+                log_fn(f"  {checks.cell}: {int(decided.sum())} witnesses decided in {steps} "
+                       f"voting steps (coin steps at d % {n} == 0); == decide_fame's verdicts")
+        wg = synthetic_grid(MESH_WIDTH["n"], MESH_WIDTH["e_count"], seed=MESH_WIDTH["seed"],
+                            zipf_a=MESH_WIDTH["zipf_a"])
+        checks.cell = "width cell frontier, 1-D 8, packed"
+        w_res = sh.sharded_frontier_passes(m1, wg, packed=True)
+    w_ref = engine.run_frontier_passes(wg, device=dev, packed=True)
+    same_as(checks.cell, w_res, w_ref)
+    log_fn(f"  {checks.cell}: {wg.n} validators, {wg.e} events, 128 chains per position "
+           f"(the plain walk in the binary-search form): == run_frontier_passes, "
+           f"last_round {w_res.last_round}; checked {checks.names(checks.cell)}")
+    log_fn(f"phase 17 (a): {time.perf_counter() - t0:.1f} s")
+
+    # (b) end to end: config #4, both meshes, both layouts, the three engines
+    t0 = time.perf_counter()
+    launches, paths = {}, {}
+    for mname, m in meshes.items():
+        for ename, fn in engines.items():
+            for pk in (True, False):
+                label = ename + (", packed" if pk else "")
+                res, got = run_path(label, lambda: fn(m, wide, packed=pk))
+                same_as(f"{label} on {mname}", res, wide_ref)
+                counts = dict(last_round=res.last_round,
+                              received=int((res.received >= 0).sum()),
+                              witnesses=int(res.witness.sum()))
+                if counts != WIDE_EXPECT:
+                    raise AssertionError(f"{label} on {mname}: {counts}, the reference "
+                                         f"gives {WIDE_EXPECT}")
+                paths[(mname, label)] = got
+        for ename, fn in engines.items():
+            ms = wall_ms(lambda: fn(m, wide), MESH_RUNS)
+            log_fn(f"e2e {ename} (packed) on the {mname} mesh, config #4: median {ms:.1f} ms "
+                   f"over {MESH_RUNS} warm runs, {wide.e / ms * 1e3:.0f} events/s; card: one "
+                   f"{torch.cuda.get_device_name(0)}")
+    log_fn(f"config #4 through the three sharded engines on both meshes in both layouts == "
+           f"phase 14's engines: {WIDE_EXPECT}")
+    for name in ("shard_fame/tally/packed", "shard_fame/decide/packed", "shard_fame/active",
+                 "fame_tables", "received_search", "fame_setup/packed", "shard_walk/rows",
+                 "shard_walk/m0", "shard_walk/close", "frontier_post"):
+        launches[name] = paths[("1-D 8", "sharded_frontier_passes, packed")][name]
+    for name in ("shard_fame/tally", "shard_fame/decide", "fame_setup"):
+        launches[name] = paths[("1-D 8", "sharded_run_passes")][name]
+    w_run, w_launches = run_path("sharded_frontier_passes (1,024), packed",
+                                 lambda: sh.sharded_frontier_passes(m1, wg, packed=True))
+    same_as("sharded_frontier_passes (1,024)", w_run, w_ref)
+    launches["fame_setup/packed/dev"] = w_launches["fame_setup/packed/dev"]
+    b_ref = engine.run_frontier_passes(bench, device=dev)
+    b_res, _ = run_path("sharded_frontier_passes", lambda: sh.sharded_frontier_passes(m1, bench))
+    same_as("the bench cell on the 1-D mesh", b_res, b_ref)
+    n_recv = int((b_res.received >= 0).sum())
+    if (b_res.last_round, n_recv) != (BENCH_LAST_ROUND, BENCH_RECEIVED):
+        raise AssertionError(f"bench cell on the mesh: {b_res.last_round}, {n_recv}")
+    ms = wall_ms(lambda: sh.sharded_frontier_passes(m1, bench), MESH_RUNS)
+    log_fn(f"e2e sharded_frontier_passes on the 1-D 8 mesh, bench cell: last_round "
+           f"{b_res.last_round}, {n_recv} received (== run_frontier_passes); median {ms:.1f} "
+           f"ms over {MESH_RUNS} warm runs, {bench.e / ms * 1e3:.0f} events/s")
+    log_fn(f"phase 17 (b): {time.perf_counter() - t0:.1f} s")
+
+    # (c) the hashgraph seam on phase 15's signed events
+    t0 = time.perf_counter()
+    k = hg_kept
+
+    def fresh(count):
+        blocks = []
+        hg = hgm.hashgraph_from_events(k["peers_json"], k["events"][:count],
+                                       cache_size=HG_CACHE, commit_callback=blocks.append)
+        return hg, blocks
+
+    hg, blocks = fresh(len(k["events"]))
+    _ext.reset_launches()
+    t1 = time.perf_counter()
+    engine.run_consensus_device(hg, mesh=m2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    got = dict(_ext.LAUNCHES)
+    require_path_launches("run_consensus_device on the 2-D mesh",
+                          "sharded_frontier_passes, packed", got)
+    require_same_consensus("run_consensus_device on the 2-D mesh", k["ref"],
+                           k["host_blocks"], hg, blocks)
+    cells = [c for c in hg.obs.devledger.snapshot() if c.endswith("/integrate")]
+    log_fn(f"  run_consensus_device(hg, mesh=2-D (2, 4)) == host: 1 call, {len(blocks)} "
+           f"blocks, {secs:.2f} s; ledger {cells}")
+
+    hg, blocks = fresh(0)
+    events = k["events"]
+    calls, secs = 0, 0.0
+    _ext.reset_launches()
+    for lo in range(0, len(events), MESH_SYNC):
+        for d in events[lo: lo + MESH_SYNC]:
+            hg.insert_event(hgm.Event.from_json(d), True)
+        t1 = time.perf_counter()
+        try:
+            run_consensus_mesh_queued(hg, m2, queue_depth=MESH_QUEUE_DEPTH)
+        except GridUnsupported as err:
+            raise AssertionError(f"run_consensus_mesh_queued left its rung at call "
+                                 f"{calls + 1}: {err}") from err
+        secs += time.perf_counter() - t1
+        calls += 1
+    q = hg._mesh_dispatch_queue
+    t1 = time.perf_counter()
+    q.flush()
+    torch.cuda.synchronize()
+    secs += time.perf_counter() - t1
+    require_same_consensus("run_consensus_mesh_queued", k["ref"], k["host_blocks"], hg, blocks)
+    if q.stager.delta_stages == 0:
+        raise AssertionError("run_consensus_mesh_queued: the stager never took the delta path")
+    got = {kk: v for kk, v in _ext.LAUNCHES.items() if v}
+    log_fn(f"  run_consensus_mesh_queued (queue depth {MESH_QUEUE_DEPTH}, syncs of "
+           f"{MESH_SYNC}) then flush == host: {calls} calls, {q.dispatches} dispatches, "
+           f"{q.integrations} integrations, {len(blocks)} blocks, {secs:.2f} s of calls; "
+           f"stager: {q.stager.full_restages} full, {q.stager.delta_stages} delta; "
+           f"launches {got}")
+    log_fn(f"phase 17 (c): {time.perf_counter() - t0:.1f} s")
+
+    summary, work = {}, {}
+    for name, cell in MESH_TIMED_CELL.items():
+        calls_n, k_ms, p_ms, (nbytes, secs_ops) = checks.summary(cell, name)
+        summary[name] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+        work[name] = (nbytes, secs_ops)
+    for cell in sorted({c for c, _ in checks.events}):
+        for name in checks.names(cell):
+            calls_n, k_ms, p_ms, (nbytes, secs_ops) = checks.summary(cell, name)
+            bound = max(nbytes / HBM_BYTES_S, secs_ops) * 1e3
+            log_fn(f"  {cell}: {name} x{calls_n}: {k_ms:.4f} ms per launch (plain "
+                   f"{p_ms:.3f}), bound {bound:.6f} ms")
+    # the wide tally as one batched 0/1 product at the shape of its timed
+    # cell (config #4's level scan, 1-D 8: 85 rounds per position), a
+    # yardstick the port never calls
+    b_rows = -(-wide.r_max // MESH_1D[0][0])
+    a = (torch.rand((b_rows, wide.n, wide.n), device=dev) < 0.5).float()
+    bm = (torch.rand((b_rows, wide.n, wide.n), device=dev) < 0.5).float()
+    log_fn(f"tally yardstick: one torch.bmm of ({b_rows}, {wide.n}, {wide.n}) 0/1 float32 "
+           f"matrices {cuda_ms(lambda: torch.bmm(a, bm), 20):.4f} ms (never called by the "
+           f"port)")
+    log_fn(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return summary, work, launches
+
+
+def kernels_decide(case, dev, packed):
+    """decide_fame's (decided, famous) on a coin case, on the card."""
+    from babble_tpu_torch.tpu import kernels
+
+    fame = kernels.decide_fame(*coin_fame_args(case, case["coin_bit"], dev), packed=packed)
+    return fame.decided, fame.famous
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2704,9 +3294,9 @@ def main() -> int:
     s_summary, s_work = switch_kernel_phase(dev, log)
     summary.update(s_summary)
     work.update(s_work)
-    _, switch_launches = hashgraph_phase(DEVICE, log, spec=SWITCH, oneshot=SWITCH_ONESHOT_RUNG,
-                                         full=False, expect=SWITCH_EXPECT, title="phase 15",
-                                         live_settings=SWITCH_LIVE, depth=SWITCH_DEPTH)
+    switch_stats, switch_launches = hashgraph_phase(
+        DEVICE, log, spec=SWITCH, oneshot=SWITCH_ONESHOT_RUNG, full=False, expect=SWITCH_EXPECT,
+        title="phase 15", live_settings=SWITCH_LIVE, depth=SWITCH_DEPTH, keep=True)
     launches["step_levels/packed"] = switch_launches["step_levels/packed"]
     launches["decide_window/packed"] = switch_launches["decide_window/packed"]
 
@@ -2719,6 +3309,14 @@ def main() -> int:
         summary.update(f_summary)
         work.update(f_work)
         launches.update(f_launches)
+
+    phase_clock.next("17")
+    # 17. the device mesh, every position on the one card
+    m_summary, m_work, m_launches = mesh_phase(wide, wide_ref, bench, switch_stats.pop("kept"),
+                                               dev, log)
+    summary.update(m_summary)
+    work.update(m_work)
+    launches.update(m_launches)
     del wide
 
     phase_clock.next(None)
@@ -2735,6 +3333,7 @@ def main() -> int:
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
             "library_ms": None,
         })
+    log(f"card (nvidia-smi name, power limit): {smi}")
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

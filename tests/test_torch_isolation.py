@@ -35,7 +35,7 @@ def test_port_modules_import_no_jax_and_no_reference():
         )
     )
     for m in ("tpu.engine", "tpu.incremental", "tpu.live", "tpu.packed",
-              "tpu.frontier_live", "hashgraph",
+              "tpu.frontier_live", "tpu.mesh", "tpu.sharded", "tpu.dispatch", "hashgraph",
               "hashgraph.hashgraph", "common", "crypto", "peers", "utils.codec", "obs",
               "obs.devledger", "obs.provenance"):
         assert "babble_tpu_torch." + m in modules

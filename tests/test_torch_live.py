@@ -197,10 +197,13 @@ def assert_engines_equal(port_hg, ref_hg, what):
 
 
 LIVE_VARIANTS = {
-    "defaults": {},
-    "rebase": {"r_cap": 16},
+    # the pipelined fetch pinned off except where it is the point: left to
+    # the host clock, either engine could switch to it on its own under
+    # load (three slow fetches)
+    "defaults": {"async_fetch": False},
+    "rebase": {"r_cap": 16, "async_fetch": False},
     "pipelined": {"async_fetch": True},
-    "multi_step": {"batch_cap": 4},
+    "multi_step": {"batch_cap": 4, "async_fetch": False},
 }
 
 
@@ -329,7 +332,7 @@ def test_live_engine_attaches_large_history(monkeypatch):
     ref_hg = dag(5, 480, 13)
     events = ref_events(ref_hg)
     first = 360
-    settings = {"e_win": 256, "batch_cap": 16}
+    settings = {"e_win": 256, "batch_cap": 16, "async_fetch": False}
     eng, rungs = drive_live(monkeypatch, settings, first, SYNC, ref_hg)
     assert rungs == ["live"] * len(rungs) and len(eng.hashes) < len(events)
     # attaches with a sync's events not yet rounded: both packages demote
