@@ -170,3 +170,145 @@ __device__ __forceinline__ void babble_stage_tile(int32_t* tile, int ld, int n,
         tile[k] = (row != nullptr && q < n) ? row[q] : fill;
     }
 }
+
+// Every block of a co-resident grid (a cooperative launch) waits here
+// until all have arrived. `count` only grows: the k-th barrier of a launch
+// waits for k * gridDim.x arrivals, so a block that runs ahead to the next
+// barrier cannot release a slow one early. The fences order each block's
+// global writes before its arrival and the others' reads after it.
+__device__ __forceinline__ void babble_grid_sync(unsigned int* count, unsigned int& target) {
+    __syncthreads();
+    target += gridDim.x;
+    if (threadIdx.x == 0) {
+        __threadfence();
+        atomicAdd(count, 1u);
+        while (*(volatile unsigned int*)count < target) {
+        }
+        __threadfence();
+    }
+    __syncthreads();
+}
+
+// Asynchronous copies from global to shared memory (cp.async, sm_80 and
+// up): 16 bytes through L2 only, or 4 bytes; commit and wait by group.
+__device__ __forceinline__ void babble_cp_async16(void* smem, const void* gmem) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void babble_cp_async4(void* smem, const void* gmem) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void babble_cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void babble_cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage columns [col0, col0 + COLS) of ROWS int32 rows into a shared tile
+// of row stride LD words (a multiple of 4), asynchronously: row r starts
+// at rows(r) (null: the whole row is `fill`),
+// columns at or past ncols get `fill`. 16-byte copies where `aligned16`
+// (every row pointer 16-byte aligned, col0 a multiple of 4), else 4-byte
+// copies. Every thread of the block takes part; the caller commits and
+// waits.
+template <int ROWS, int COLS, int LD, typename RowPtr>
+__device__ __forceinline__ void babble_stage_async(int32_t* tile, RowPtr rows, int col0,
+                                                   int ncols, int32_t fill, bool aligned16) {
+    static_assert(COLS % 4 == 0 && LD % 4 == 0, "16-byte groups");
+    for (int k = threadIdx.x; k < ROWS * (COLS / 4); k += blockDim.x) {
+        const int r = k / (COLS / 4), c = (k % (COLS / 4)) * 4;
+        const int32_t* src = rows(r);
+        int32_t* dst = tile + r * LD + c;
+        const int q = col0 + c;
+        if (src != nullptr && aligned16 && q + 4 <= ncols) {
+            babble_cp_async16(dst, src + q);
+            continue;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            if (src != nullptr && q + u < ncols) babble_cp_async4(dst + u, src + q + u);
+            else dst[u] = fill;
+        }
+    }
+}
+
+// The compare-count tile: for BM rows a_m and BN rows b_w of n int32
+// coordinates each, every thread of a block of (BM / TM) x (BN / TN)
+// threads counts
+//   cnt[i][j] = |{q < n : a_m[q] >= b_w[q]}|,  m = ty + i * (BM / TM),
+//                                              w = tx + j * (BN / TN),
+// with ty = threadIdx.x / (BN / TN) and tx = threadIdx.x % (BN / TN): a
+// register micro-tile of TM x TN pairs, GEMM-shaped, so that one 16-byte
+// shared load of a row feeds TN (or TM) x 4 compares. The coordinate axis
+// passes through shared memory BABBLE_CT_BK words at a time in a ring of
+// STAGES tiles filled by cp.async (the next chunks in flight while this
+// one is counted). a_rows / b_rows: shared arrays of row pointers; a null
+// row, and the columns past n, hold MIN_INT32 in a and MAX_INT32 in b,
+// which never compare true. Rows of a warp's pairs are strided (not
+// blocked), so that the lanes of a quarter warp read eight rows in eight
+// bank groups: the tile's row stride is an odd number of 16-byte units.
+// smem: babble_count_tile_words<BM, BN, STAGES>() int32 words; every thread
+// of the block calls this, and the tile is free again when it returns.
+#define BABBLE_CT_BK 32
+#define BABBLE_CT_LD 36
+template <int BM, int BN, int STAGES>
+__host__ __device__ constexpr int babble_count_tile_words() {
+    return STAGES * (BM + BN) * BABBLE_CT_LD;
+}
+
+template <int BM, int BN, int TM, int TN, int STAGES>
+__device__ __forceinline__ void babble_count_ge_tile(int32_t* smem, int n,
+                                                     const int32_t* const* a_rows,
+                                                     const int32_t* const* b_rows,
+                                                     bool aligned16, int (&cnt)[TM][TN]) {
+    constexpr int LD = BABBLE_CT_LD, BK = BABBLE_CT_BK;
+    constexpr int TX = BN / TN, TY = BM / TM;
+    constexpr int STAGE = (BM + BN) * LD;
+    const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) cnt[i][j] = 0;
+    const int chunks = (n + BK - 1) / BK;
+    auto load = [&](int c) {
+        int32_t* st = smem + (c % STAGES) * STAGE;
+        babble_stage_async<BM, BK, LD>(st, [&](int r) { return a_rows[r]; }, c * BK, n,
+                                       BABBLE_MIN_INT32, aligned16);
+        babble_stage_async<BN, BK, LD>(st + BM * LD, [&](int r) { return b_rows[r]; }, c * BK,
+                                       n, BABBLE_MAX_INT32, aligned16);
+    };
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+        if (s < chunks) load(s);
+        babble_cp_async_commit();
+    }
+    for (int c = 0; c < chunks; ++c) {
+        babble_cp_async_wait<STAGES - 2>();
+        __syncthreads();
+        if (c + STAGES - 1 < chunks) load(c + STAGES - 1);
+        babble_cp_async_commit();
+        const int32_t* a = smem + (c % STAGES) * STAGE;
+        const int32_t* b = a + BM * LD;
+#pragma unroll
+        for (int k = 0; k < BK; k += 4) {
+            int4 av[TM], bv[TN];
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+                av[i] = *reinterpret_cast<const int4*>(a + (ty + i * TY) * LD + k);
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+                bv[j] = *reinterpret_cast<const int4*>(b + (tx + j * TX) * LD + k);
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+#pragma unroll
+                for (int j = 0; j < TN; ++j)
+                    cnt[i][j] += (av[i].x >= bv[j].x) + (av[i].y >= bv[j].y)
+                                 + (av[i].z >= bv[j].z) + (av[i].w >= bv[j].w);
+        }
+    }
+    babble_cp_async_wait<0>();
+    __syncthreads();
+}

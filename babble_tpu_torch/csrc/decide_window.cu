@@ -26,42 +26,54 @@
 // integers; here the tally is a popcount of bit rows (32 voters or
 // witnesses to a word), and the lookups are integer loads.
 //
-// Bound: bytes and launches. The window reads la_w / fd_w (2 x r_win x N x N
-// int32, 2 MB at 64 rounds of 64 x 64) and the e_win rows' index /
-// creator / rounds / received; the tallies are 8 x r_win x N x N popcounts
-// of N / 32 words. The card's time goes to chains of dependent loads, so
-// each launch fetches what it needs in one round trip: setup, vote (one
-// block per window round, all eight offsets' rows fetched at once, the
-// votes in shared memory), tables (one block per round, eight loads in
-// flight per thread) and events (a grid over all E_cap rows: received in
-// the window, the stale detector below it; the horizon scanned in shared
-// memory). Setup runs one block per (window round, tile of 32 rows y):
-// the la_w rows of its tile stay in shared memory while the fd_w rows of
-// the round below pass through a second tile 32 rows at a time (one warp
-// per row y, one lane per witness w, 16-byte loads), each giving one ss
-// bit word by ballot; then the second tile takes the la_w rows of the
-// round above and gives the d = 1 vote columns' word of this tile. Two
-// tiles of 32 rows, not whole rounds, so the setup's shared memory grows
-// as 64 N words: the width limit is the vote launch's, whose votes and
-// eight ss offsets of N rows of W = ceil(N / 32) words (the ss rows
-// padded to an odd stride, W | 1, so that lanes over rows hit distinct
-// banks) are (2 N W + 8 N (W | 1) + 21 N) x 4 bytes, 384 validators at
-// most in shared memory. Past that the launch stages its block's words
-// in the block's slice of a device scratch instead (common.cuh
-// babble_staging; the setup's two tiles too once they pass the limit),
-// the same code reading them through L1/L2: no width limit below the
-// card's memory.
+// Bound: operations at 1,024 validators (the strongly-see compares,
+// r_win x N^3, and the eight offsets' tallies, 8 x r_win x N^2 x N / 32
+// words), bytes below that (the window's la_w / fd_w rows and the e_win
+// rows' index / creator / rounds / received). Four launches, each over
+// the whole card, with shared memory that does not grow with N:
+//   dw_setup, a block per (window round j, tile of 64 rows y, tile of 64
+//     witnesses w): the compare-count tile (common.cuh
+//     babble_count_ge_tile: la_w[j] rows y against fd_w[j-1] rows w, the
+//     coordinates through shared memory by cp.async, a 4 x 4 register tile
+//     per thread) gives the tile's ss bit words by ballot; a tile with no
+//     present pair writes zeros without counting. The same block writes
+//     the d = 1 vote words of columns x = its witness tile, voters y = its
+//     row tile (la_w[j+1] read coalesced, turned by a shared tile).
+//   dw_vote, a block per (window round i, 32 columns x): vote column x of
+//     offset d depends only on column x of offset d - 1 and on the voting
+//     round's ss rows, and so do decided[x] and famous[x]. Per offset the
+//     block streams the ss rows of round i + d, 64 rows y x 32 words at a
+//     time, with its columns' vote words, through a ring of two shared
+//     tiles (cp.async), each thread holding a 2 x 4 tile of (y, x) tallies;
+//     the next offset's vote words go back to a global buffer (two, in
+//     turn; each block owns its columns). It stops at the first offset
+//     whose voters lie above last_round or the window, or once every
+//     column is decided or absent: nothing after that changes an output.
+//     A round's rounds_decided needs all its column blocks: each adds its
+//     verdicts into per-round counts, and the last block to finish (a
+//     ticket) writes it. The freeze keeps a settled round's stored values.
+//   dw_tables, a block per (round, 128 columns c): the famous-witness
+//     count, the min over famous witnesses of la_w[r, w, c] (only the
+//     famous ones are read), and whether r is decided.
+//   dw_events, a grid over all E_cap rows: received in the window, the
+//     stale detector below it (the horizon scanned in shared memory).
 //
 // Both voting-table layouts launch this kernel: its tallies are bit words
 // already, so the packed layout (tpu/packed.py) has nothing to change.
 
 #include "common.cuh"
 
-// setup and vote give each block all 32 warps: their per-warp work is a
-// chain of shared-memory round trips, so more warps hide more latency
-#define DW_THREADS 1024
-#define DW_WARPS (DW_THREADS / 32)
 #define DW_FD_CLAMP (1 << 24)
+// dw_setup: 64 x 64 (y, w) pairs a block, a 4 x 4 register tile a thread
+#define DW_ST 64
+#define DW_SETUP_THREADS 256
+#define DW_SETUP_STAGES 3
+// dw_vote: XT columns x a block, YC rows y and KC words a stage
+#define DW_XT 32
+#define DW_YC 64
+#define DW_KC_MAX 32
+#define DW_VOTE_THREADS 256
+#define DW_VOTE_LD 36  // the widest stage's row stride (KC 32)
 
 // floor_true and floor from the rounds_decided table as it stands
 __device__ void dw_floor(const uint8_t* rounds_decided, int lr, int r_cap,
@@ -77,253 +89,344 @@ __device__ void dw_floor(const uint8_t* rounds_decided, int lr, int r_cap,
     *floor = babble_clamp(ft, 0, r_cap - r_win);
 }
 
-template <bool DEV>
-__global__ void __launch_bounds__(DW_THREADS)
+__global__ void __launch_bounds__(DW_SETUP_THREADS)
 dw_setup(const int32_t* __restrict__ wtable, const int32_t* __restrict__ la_w,
          const int32_t* __restrict__ fd_w, const int32_t* __restrict__ idx_w,
          const uint8_t* __restrict__ rounds_decided,
          const int32_t* __restrict__ last_round, int32_t* scal,
-         uint32_t* ss_bits, uint32_t* vt0, int n, int r_cap, int r_win,
-         int words, int super_majority, int32_t* stage, long long stage_words) {
-    int32_t* smem = babble_staging<DEV>(stage, stage_words);
-    const int ld = babble_tile_ld(n);
-    int32_t* tile_a = smem;            // (32, ld) la_w rows y of round a, this y tile
-    int32_t* tile_b = tile_a + 32 * ld;  // (32, ld) fd_w rows of round a - 1 (a w
-                                       // tile), then la_w rows y of round a + 1
-    int32_t* wv_j = tile_b + 32 * ld;  // (n,) witness present in round a
-    int32_t* wv_p = wv_j + n;          // ... in round a - 1 (inside the window)
-    int32_t* wv_n = wv_p + n;          // ... in round a + 1 (inside the window)
-    int32_t* idx_a = wv_n + n;         // (n,) idx_w of round a
+         uint32_t* ss_bits, uint32_t* vt0, int32_t* rcnt, int n, int r_cap, int r_win,
+         int words, int super_majority) {
+    extern __shared__ int4 dw_smem4[];
+    int32_t* smem = reinterpret_cast<int32_t*>(dw_smem4);
+    __shared__ const int32_t* a_rows[DW_ST];  // la_w rows y of round a (present, j > 0)
+    __shared__ const int32_t* b_rows[DW_ST];  // fd_w rows w of round a - 1 (present)
+    __shared__ int wv_n[DW_ST];               // voter y present in round a + 1
+    __shared__ int idx_x[DW_ST];              // idx_w of column x in round a
     __shared__ int sh_floor;
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
+    constexpr int TM = 4, TN = 4, TX = DW_ST / TN, TY = DW_ST / TM;
+    constexpr int FLD = DW_ST + 1;  // the verdict tiles' row stride
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n_warps = DW_SETUP_THREADS / 32;
     const int j = blockIdx.x;
-    const int yt = blockIdx.y;  // rows y = 32 yt + warp, and vote word yt
-    const int y = yt * 32 + warp;
+    const int y0 = blockIdx.y * DW_ST, w0 = blockIdx.z * DW_ST;
+    const long long nn = (long long)n * n;
 
     if (threadIdx.x == 0) {
         int ft, fl;
         dw_floor(rounds_decided, *last_round, r_cap, r_win, &ft, &fl);
         sh_floor = fl;
-        if (j == 0 && yt == 0) {
+        if (j == 0 && blockIdx.y == 0 && blockIdx.z == 0) {
             scal[0] = fl;
             scal[1] = ft;
+        }
+        // the vote's per-round counts start at 0
+        if (blockIdx.y == 0 && blockIdx.z == 0) {
+            rcnt[3 * j] = rcnt[3 * j + 1] = rcnt[3 * j + 2] = 0;
         }
     }
     __syncthreads();
     const int a = sh_floor + j;
-    const long long nn = (long long)n * n;
-    for (int x = threadIdx.x; x < n; x += blockDim.x) {
-        wv_j[x] = wtable[(long long)a * n + x] >= 0;
-        wv_p[x] = j > 0 && wtable[(long long)(a - 1) * n + x] >= 0;
-        wv_n[x] = j + 1 < r_win && wtable[(long long)(a + 1) * n + x] >= 0;
-        idx_a[x] = idx_w[(long long)a * n + x];
+    int has_a = 0, has_b = 0;
+    if (threadIdx.x < DW_ST) {
+        const int t = threadIdx.x, y = y0 + t, w = w0 + t;
+        const bool yj = j > 0 && y < n && wtable[(long long)a * n + y] >= 0;
+        const bool wp = j > 0 && w < n && wtable[(long long)(a - 1) * n + w] >= 0;
+        a_rows[t] = yj ? la_w + a * nn + (long long)y * n : nullptr;
+        b_rows[t] = wp ? fd_w + (a - 1) * nn + (long long)w * n : nullptr;
+        wv_n[t] = j + 1 < r_win && y < n && wtable[(long long)(a + 1) * n + y] >= 0;
+        idx_x[t] = w < n ? idx_w[(long long)a * n + w] : 0;
+        has_a = yj;
+        has_b = wp;
     }
-    babble_stage_tile(tile_a, ld, n, BABBLE_MIN_INT32, [&](int r) {
-        const int yy = yt * 32 + r;
-        return yy < n ? la_w + a * nn + (long long)yy * n : nullptr;
-    });
-    __syncthreads();
-    // the tile holds a row to count only where round a - 1 exists
-    const int any_y = __syncthreads_or(j > 0 && y < n && wv_j[y]);
-
-    // ss row bits: word wt of row y holds witnesses w = 32 wt + lane
-    for (int wt = 0; wt < words; ++wt) {
-        const int w = wt * 32 + lane;
-        const int go = any_y && __syncthreads_or(w < n && wv_p[w]);
-        int s = 0;
-        if (go) {
-            babble_stage_tile(tile_b, ld, n, BABBLE_MAX_INT32, [&](int r) {
-                const int ww = wt * 32 + r;
-                return ww < n ? fd_w + (a - 1) * nn + (long long)ww * n : nullptr;
-            });
-            __syncthreads();
-            if (y < n && w < n && wv_j[y] && wv_p[w]) {
-                s = babble_tile_count_ge(tile_a + warp * ld, tile_b + lane * ld, ld)
-                    >= super_majority;
+    // count only where the tile holds a present pair
+    const int any_a = __syncthreads_or(has_a);
+    const int any_b = __syncthreads_or(has_b);
+    const bool go = any_a && any_b;
+    int* flags = smem;  // (DW_ST, FLD) verdicts; the tile's ring before
+    int cnt[TM][TN];
+    if (go) {
+        babble_count_ge_tile<DW_ST, DW_ST, TM, TN, DW_SETUP_STAGES>(
+            smem, n, a_rows, b_rows, (n & 3) == 0, cnt);
+        const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int q = 0; q < TN; ++q) {
+                const int m = ty + i * TY, w = tx + q * TX;
+                flags[m * FLD + w] = a_rows[m] != nullptr && b_rows[w] != nullptr
+                                     && cnt[i][q] >= super_majority;
             }
-        }
-        const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, s);
-        if (lane == 0 && y < n) ss_bits[((long long)j * n + y) * words + wt] = bits;
-        __syncthreads();  // tile_b is restaged next
+        __syncthreads();
     }
-
-    // d = 1 vote column bits: word yt of column x holds voters y = 32 yt +
-    // lane of round a + 1
-    if (j + 1 < r_win) {
-        babble_stage_tile(tile_b, ld, n, 0, [&](int r) {
-            const int yy = yt * 32 + r;
-            return yy < n ? la_w + (a + 1) * nn + (long long)yy * n : nullptr;
-        });
+    // ss row bits: word (w0 / 32 + h) of row y holds witnesses w0 + 32 h + lane
+    for (int k = warp; k < DW_ST * (DW_ST / 32); k += n_warps) {
+        const int m = k / (DW_ST / 32), h = k % (DW_ST / 32);
+        const int wd = w0 / 32 + h;
+        const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, go && flags[m * FLD + 32 * h + lane]);
+        if (lane == 0 && y0 + m < n && wd < words) {
+            ss_bits[((long long)j * n + y0 + m) * words + wd] = bits;
+        }
+    }
+    __syncthreads();  // flags is rewritten next
+    // d = 1 vote column bits: word (y0 / 32 + h) of column x holds voters
+    // y0 + 32 h + lane of round a + 1
+    const bool up = j + 1 < r_win;
+    constexpr int PER = DW_ST * DW_ST / DW_SETUP_THREADS;  // every load in flight at once
+    int v[PER];
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+        const int k = threadIdx.x + u * DW_SETUP_THREADS;
+        const int m = k / DW_ST, xl = k % DW_ST;
+        const int y = y0 + m, x = w0 + xl;
+        v[u] = 0;
+        if (up && y < n && x < n && wv_n[m]) {
+            v[u] = la_w[(a + 1) * nn + (long long)y * n + x] >= idx_x[xl];
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+        const int k = threadIdx.x + u * DW_SETUP_THREADS;
+        flags[(k / DW_ST) * FLD + k % DW_ST] = v[u];
     }
     __syncthreads();
-    const int yv = yt * 32 + lane;
-    for (int x = warp; x < n; x += DW_WARPS) {
-        int v = 0;
-        if (yv < n && wv_n[yv]) v = tile_b[lane * ld + x] >= idx_a[x];
-        const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, v);
-        if (lane == 0) vt0[((long long)j * n + x) * words + yt] = bits;
+    for (int k = warp; k < DW_ST * (DW_ST / 32); k += n_warps) {
+        const int xl = k / (DW_ST / 32), h = k % (DW_ST / 32);
+        const int wd = y0 / 32 + h;
+        const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, flags[(32 * h + lane) * FLD + xl]);
+        if (lane == 0 && w0 + xl < n && wd < words) {
+            vt0[((long long)j * n + w0 + xl) * words + wd] = bits;
+        }
     }
 }
 
-template <bool DEV>
-__global__ void __launch_bounds__(DW_THREADS)
+template <int KC>
+__global__ void __launch_bounds__(DW_VOTE_THREADS)
 dw_vote(const int32_t* __restrict__ wtable, const uint8_t* __restrict__ coin_w,
         const int32_t* __restrict__ last_round, const int32_t* __restrict__ scal,
-        const uint32_t* __restrict__ ss_bits, const uint32_t* __restrict__ vt0,
+        const uint32_t* __restrict__ ss_bits, uint32_t* vt0, uint32_t* vt1, int32_t* rcnt,
         uint8_t* fame_decided, uint8_t* famous, uint8_t* rounds_decided,
         uint8_t* fame_lag, int n, int r_win, int words, int super_majority,
-        int n_participants, int d_unroll, int32_t* stage, long long stage_words) {
-    int32_t* smem = babble_staging<DEV>(stage, stage_words);
-    const int nw = n * words;
-    // ss rows are read by lanes over rows y: an odd row stride keeps the
-    // 32 lanes on 32 banks
-    const int ldw = words | 1;
-    const int nl = n * ldw;
-    uint32_t* vt = (uint32_t*)smem;  // (n, words) vote columns of round i
-    uint32_t* vt_next = vt + nw;
-    uint32_t* ss_all = vt_next + nw; // (d_unroll, n, ldw) ss rows of each voting round
-    int32_t* wv_i = (int32_t*)(ss_all + d_unroll * nl);  // (n,) witness x present in round i
-    int32_t* wv_all = wv_i + n;      // (d_unroll, n) voter y present in each voting round
-    int32_t* coin_all = wv_all + d_unroll * n;  // (d_unroll, n) voter y's coin bit
-    int32_t* dec = coin_all + d_unroll * n;     // (n,) decided[x]
-    int32_t* fam = dec + n;          // (n,) famous[x]
-    int32_t* any_dec = fam + n;      // (n,) this offset's decisions
-    int32_t* any_fam = any_dec + n;
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int i = blockIdx.x;
+        int n_participants, int d_unroll) {
+    extern __shared__ int4 dw_smem4[];
+    int32_t* ring = reinterpret_cast<int32_t*>(dw_smem4);
+    constexpr int LD = 4 * ((KC / 4) | 1);  // an odd count of 16-byte units
+    constexpr int STAGE = (DW_YC + DW_XT) * LD;
+    constexpr int XW = DW_XT / (DW_VOTE_THREADS / 32);  // columns per warp
+    __shared__ int wv_i[DW_XT], dec[DW_XT], fam[DW_XT], any_dec[DW_XT], any_fam[DW_XT];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int i = blockIdx.x, x0 = blockIdx.y * DW_XT;
     const int fl = scal[0], ft = scal[1];
     const int lrr = *last_round - fl;
     const int a = fl + i;
+    const bool aligned16 = (words & 3) == 0;
 
-    for (int k = threadIdx.x; k < nw; k += blockDim.x) vt[k] = vt0[(long long)i * nw + k];
-    for (int x = threadIdx.x; x < n; x += blockDim.x) {
-        wv_i[x] = wtable[(long long)a * n + x] >= 0;
-        dec[x] = fam[x] = any_dec[x] = any_fam[x] = 0;
-    }
-    // every offset's voting rows at once: one round trip, not one per offset
-    for (int k = threadIdx.x; k < d_unroll * nw; k += blockDim.x) {
-        const int j = i + 2 + k / nw;
-        const bool j_ok = j <= lrr && j <= r_win - 1;
-        const int yk = k % nw;
-        ss_all[(k / nw) * nl + (yk / words) * ldw + yk % words] =
-            j_ok ? ss_bits[(long long)babble_clamp(j, 0, r_win - 1) * nw + yk] : 0u;
-    }
-    for (int k = threadIdx.x; k < d_unroll * n; k += blockDim.x) {
-        const long long aj = (long long)(fl + babble_clamp(i + 2 + k / n, 0, r_win - 1)) * n;
-        wv_all[k] = wtable[aj + k % n] >= 0;
-        coin_all[k] = coin_w[aj + k % n];
+    if (threadIdx.x < DW_XT) {
+        const int x = x0 + threadIdx.x;
+        wv_i[threadIdx.x] = x < n && wtable[(long long)a * n + x] >= 0;
+        dec[threadIdx.x] = fam[threadIdx.x] = 0;
     }
     __syncthreads();
+    const uint32_t* cur = vt0;
+    uint32_t* nxt = vt1;
+    const int n_yc = (n + DW_YC - 1) / DW_YC, n_kc = (words + KC - 1) / KC;
     for (int d = 2; d < 2 + d_unroll; ++d) {
         const int j = i + d;
-        const bool j_ok = j <= lrr && j <= r_win - 1;
-        const uint32_t* ss_r = ss_all + (d - 2) * nl;  // zero where !j_ok
-        const int32_t* wv_j = wv_all + (d - 2) * n;
-        const int32_t* coin_j = coin_all + (d - 2) * n;
+        // voters above last_round or the window: no decision from here on
+        if (j > lrr || j > r_win - 1) break;
+        // every column decided or absent: nothing left to change
+        if (__syncthreads_and(threadIdx.x >= DW_XT || !wv_i[threadIdx.x] || dec[threadIdx.x])) {
+            break;
+        }
+        const long long aj = (long long)(fl + j) * n;
         const bool is_coin = (d % n_participants) == 0;
-        for (int task = warp; task < nw; task += DW_WARPS) {
-            const int x = task / words, wd = task % words;
-            const int y = wd * 32 + lane;
-            int nv = 0, dn = 0, dv = 0;
-            if (y < n) {
-                int yays = 0, total = 0;
-                for (int k = 0; k < words; ++k) {
-                    const uint32_t s = ss_r[y * ldw + k];
-                    yays += __popc(s & vt[x * words + k]);
-                    total += __popc(s);
-                }
-                const int nays = total - yays;
-                const int v = yays >= nays;
-                const bool strong = (v ? yays : nays) >= super_majority;
-                if (is_coin) {
-                    nv = strong ? v : coin_j[y];
-                } else {
-                    nv = v;
-                    dn = strong && j_ok && wv_j[y] && wv_i[x] && !dec[x];
-                    dv = dn && v;
+        if (threadIdx.x < DW_XT) any_dec[threadIdx.x] = any_fam[threadIdx.x] = 0;
+        const uint32_t* ss_j = ss_bits + (long long)j * n * words;
+        const uint32_t* vt_i = cur + (long long)i * n * words;
+        // chunk c: rows y of chunk c / n_kc, words of chunk c % n_kc
+        auto load = [&](int c) {
+            int32_t* st = ring + (c & 1) * STAGE;
+            const int yc = (c / n_kc) * DW_YC, kc = (c % n_kc) * KC;
+            babble_stage_async<DW_YC, KC, LD>(st, [&](int r) {
+                return yc + r < n ? (const int32_t*)ss_j + (long long)(yc + r) * words : nullptr;
+            }, kc, words, 0, aligned16);
+            babble_stage_async<DW_XT, KC, LD>(st + DW_YC * LD, [&](int r) {
+                return x0 + r < n ? (const int32_t*)vt_i + (long long)(x0 + r) * words : nullptr;
+            }, kc, words, 0, aligned16);
+        };
+        const int chunks = n_yc * n_kc;
+        load(0);
+        babble_cp_async_commit();
+        int yays[2][XW], total[2];
+        for (int c = 0; c < chunks; ++c) {
+            babble_cp_async_wait<0>();
+            __syncthreads();
+            if (c + 1 < chunks) load(c + 1);
+            babble_cp_async_commit();
+            if (c % n_kc == 0) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    total[h] = 0;
+#pragma unroll
+                    for (int m = 0; m < XW; ++m) yays[h][m] = 0;
                 }
             }
-            const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, nv);
-            const unsigned b_dn = __ballot_sync(BABBLE_FULL_MASK, dn);
-            const unsigned b_dv = __ballot_sync(BABBLE_FULL_MASK, dv);
-            if (lane == 0) {
-                vt_next[task] = bits;
-                // benign races: every writer stores 1
-                if (b_dn) any_dec[x] = 1;
-                if (b_dv) any_fam[x] = 1;
+            const int32_t* ss_t = ring + (c & 1) * STAGE;
+            const int32_t* vt_t = ss_t + DW_YC * LD;
+#pragma unroll
+            for (int k = 0; k < KC; k += 4) {
+                uint4 sv[2], vv[XW];
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                    sv[h] = *reinterpret_cast<const uint4*>(ss_t + (lane + 32 * h) * LD + k);
+#pragma unroll
+                for (int m = 0; m < XW; ++m)
+                    vv[m] = *reinterpret_cast<const uint4*>(vt_t + (warp + 8 * m) * LD + k);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    total[h] += __popc(sv[h].x) + __popc(sv[h].y) + __popc(sv[h].z)
+                                + __popc(sv[h].w);
+#pragma unroll
+                    for (int m = 0; m < XW; ++m)
+                        yays[h][m] += __popc(sv[h].x & vv[m].x) + __popc(sv[h].y & vv[m].y)
+                                      + __popc(sv[h].z & vv[m].z) + __popc(sv[h].w & vv[m].w);
+                }
+            }
+            if (c % n_kc != n_kc - 1) continue;
+            // the y chunk's tallies are complete: its votes and decisions
+            const int yc = (c / n_kc) * DW_YC;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int y = yc + 32 * h + lane;
+                const bool y_ok = y < n;
+                const bool wv_j = y_ok && wtable[aj + y] >= 0;
+                const int coin = y_ok ? coin_w[aj + y] : 0;
+#pragma unroll
+                for (int m = 0; m < XW; ++m) {
+                    const int xl = warp + 8 * m;
+                    int nv = 0, dn = 0, dv = 0;
+                    if (y_ok) {
+                        const int nays = total[h] - yays[h][m];
+                        const int v = yays[h][m] >= nays;
+                        const bool strong = (v ? yays[h][m] : nays) >= super_majority;
+                        if (is_coin) {
+                            nv = strong ? v : coin;
+                        } else {
+                            nv = v;
+                            dn = strong && wv_j && wv_i[xl] && !dec[xl];
+                            dv = dn && v;
+                        }
+                    }
+                    const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, nv);
+                    const unsigned b_dn = __ballot_sync(BABBLE_FULL_MASK, dn);
+                    const unsigned b_dv = __ballot_sync(BABBLE_FULL_MASK, dv);
+                    const int wd = yc / 32 + h;
+                    if (lane == 0) {
+                        if (x0 + xl < n && wd < words) {
+                            nxt[((long long)i * n + x0 + xl) * words + wd] = bits;
+                        }
+                        // column xl belongs to this warp alone
+                        if (b_dn) any_dec[xl] = 1;
+                        if (b_dv) any_fam[xl] = 1;
+                    }
+                }
             }
         }
+        babble_cp_async_wait<0>();
+        // the next offset's vote words: visible to this block's cp.async reads
+        __threadfence();
         __syncthreads();
-        for (int x = threadIdx.x; x < n; x += blockDim.x) {
-            if (any_dec[x]) {
-                fam[x] = any_fam[x];
-                dec[x] = 1;
-                any_dec[x] = any_fam[x] = 0;
-            }
+        if (threadIdx.x < DW_XT && any_dec[threadIdx.x]) {
+            fam[threadIdx.x] = any_fam[threadIdx.x];
+            dec[threadIdx.x] = 1;
         }
-        for (int k = threadIdx.x; k < nw; k += blockDim.x) vt[k] = vt_next[k];
+        const uint32_t* t = cur;
+        cur = nxt;
+        nxt = const_cast<uint32_t*>(t);
         __syncthreads();
     }
 
-    int all_done = 1, any_valid = 0, lag = 0;
-    for (int x = threadIdx.x; x < n; x += blockDim.x) {
-        all_done &= dec[x] || !wv_i[x];
-        any_valid |= wv_i[x];
-        lag |= wv_i[x] && !dec[x] && i + 2 + d_unroll <= lrr;
+    int not_done = 0, valid = 0, lag = 0;
+    if (threadIdx.x < DW_XT) {
+        const int t = threadIdx.x;
+        not_done = wv_i[t] && !dec[t];
+        valid = wv_i[t];
+        lag = wv_i[t] && !dec[t] && i + 2 + d_unroll <= lrr;
     }
-    all_done = __syncthreads_and(all_done);
-    any_valid = __syncthreads_or(any_valid);
+    not_done = __syncthreads_or(not_done);
+    valid = __syncthreads_or(valid);
     lag = __syncthreads_or(lag);
-    if (threadIdx.x == 0 && (lag || (i == 0 && lrr >= r_win))) *fame_lag = 1;
+    if (threadIdx.x == 0 && (lag || (i == 0 && blockIdx.y == 0 && lrr >= r_win))) *fame_lag = 1;
     if (a < ft) return;  // frozen: a settled round keeps its stored fame
-    for (int x = threadIdx.x; x < n; x += blockDim.x) {
-        fame_decided[(long long)a * n + x] = (uint8_t)dec[x];
-        famous[(long long)a * n + x] = (uint8_t)fam[x];
+    if (threadIdx.x < DW_XT && x0 + threadIdx.x < n) {
+        const long long k = (long long)a * n + x0 + threadIdx.x;
+        fame_decided[k] = (uint8_t)dec[threadIdx.x];
+        famous[k] = (uint8_t)fam[threadIdx.x];
     }
-    if (threadIdx.x == 0) rounds_decided[a] = all_done && any_valid;
+    if (threadIdx.x == 0) {
+        // the round's verdict once every column block has added its own
+        int32_t* c = rcnt + 3 * i;
+        if (not_done) atomicAdd(c, 1);
+        if (valid) atomicAdd(c + 1, 1);
+        __threadfence();
+        if (atomicAdd(c + 2, 1) == (int)gridDim.y - 1) {
+            __threadfence();
+            rounds_decided[a] = atomicAdd(c, 0) == 0 && atomicAdd(c + 1, 0) > 0;
+        }
+    }
 }
 
 // per round r: the famous-witness count, the min over famous witnesses of
-// la_w[r, w, c], and whether r is decided and <= last_round
-__global__ void dw_tables(const int32_t* __restrict__ wtable,
-                          const int32_t* __restrict__ la_w,
-                          const uint8_t* __restrict__ fame_decided,
-                          const uint8_t* __restrict__ famous,
-                          const uint8_t* __restrict__ rounds_decided,
-                          const int32_t* __restrict__ last_round,
-                          int32_t* min_la, int32_t* famous_count, uint8_t* i_ok,
-                          int n) {
-    extern __shared__ int32_t fw[];  // (n,) famous flag of each witness
+// la_w[r, w, c], and whether r is decided and <= last_round. A block per
+// (round, 128 columns c): the round's famous flags as bits in shared
+// memory, then each thread walks the set bits only (every thread the same
+// bits, so each load is coalesced over c), eight loads in flight.
+#define DW_TABLES_THREADS 128
+__global__ void __launch_bounds__(DW_TABLES_THREADS)
+dw_tables(const int32_t* __restrict__ wtable, const int32_t* __restrict__ la_w,
+          const uint8_t* __restrict__ fame_decided, const uint8_t* __restrict__ famous,
+          const uint8_t* __restrict__ rounds_decided, const int32_t* __restrict__ last_round,
+          int32_t* min_la, int32_t* famous_count, uint8_t* i_ok, int n) {
+    extern __shared__ uint32_t fw[];  // (ceil(n / 32),) famous flags, a bit a witness
     __shared__ int total;
     const int r = blockIdx.x;
+    const long long rn = (long long)r * n;
+    const int lane = threadIdx.x & 31;
+    const int words = (n + 31) / 32;
     if (threadIdx.x == 0) total = 0;
     __syncthreads();
-    int local = 0;
-    for (int w = threadIdx.x; w < n; w += blockDim.x) {
-        const long long k = (long long)r * n + w;
-        fw[w] = fame_decided[k] && famous[k] && wtable[k] >= 0;
-        local += fw[w];
-    }
-    if (local) atomicAdd(&total, local);
-    __syncthreads();
-    for (int c = threadIdx.x; c < n; c += blockDim.x) {
-        int m = BABBLE_MAX_INT32;
-        for (int w0 = 0; w0 < n; w0 += 8) {
-            int v[8];
-#pragma unroll
-            for (int u = 0; u < 8; ++u) {
-                const int w = w0 + u;
-                v[u] = (w < n && fw[w]) ? la_w[((long long)r * n + w) * n + c]
-                                        : BABBLE_MAX_INT32;
-            }
-#pragma unroll
-            for (int u = 0; u < 8; ++u) m = min(m, v[u]);
+    for (int w0 = threadIdx.x - lane; w0 < n; w0 += blockDim.x) {
+        const int w = w0 + lane;
+        const bool f = w < n && fame_decided[rn + w] && famous[rn + w] && wtable[rn + w] >= 0;
+        const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, f);
+        if (lane == 0) {
+            fw[w0 >> 5] = bits;
+            if (bits) atomicAdd(&total, __popc(bits));
         }
-        min_la[(long long)r * n + c] = m;
     }
-    if (threadIdx.x == 0) {
+    __syncthreads();
+    const int c = blockIdx.y * blockDim.x + threadIdx.x;
+    if (c < n) {
+        int m = BABBLE_MAX_INT32;
+        for (int k = 0; k < words; ++k) {
+            unsigned bits = fw[k];
+            while (bits) {
+                int v[8];
+#pragma unroll
+                for (int u = 0; u < 8; ++u) {
+                    v[u] = BABBLE_MAX_INT32;
+                    if (bits) {
+                        const int w = 32 * k + __ffs(bits) - 1;
+                        bits &= bits - 1;
+                        v[u] = la_w[(rn + w) * n + c];
+                    }
+                }
+#pragma unroll
+                for (int u = 0; u < 8; ++u) m = min(m, v[u]);
+            }
+        }
+        min_la[rn + c] = m;
+    }
+    if (threadIdx.x == 0 && blockIdx.y == 0) {
         famous_count[r] = total;
         i_ok[r] = rounds_decided[r] && r <= *last_round;
     }
@@ -385,64 +488,50 @@ extern "C" int babble_decide_window(
     uint8_t* famous, uint8_t* rounds_decided, const int32_t* last_round,
     const int32_t* count, const int32_t* index, const int32_t* creator,
     const int32_t* rounds, int32_t* received, uint8_t* stale, uint8_t* fame_lag,
-    int32_t* scal, uint32_t* ss_bits, uint32_t* vt0, int32_t* min_la,
-    int32_t* famous_count, uint8_t* i_ok, int32_t* stage_setup, int32_t* stage_vote,
+    int32_t* scal, uint32_t* ss_bits, uint32_t* vt0, uint32_t* vt1, int32_t* rcnt,
+    int32_t* min_la, int32_t* famous_count, uint8_t* i_ok,
     int e_cap, int n, int r_cap, int r_win, int e_win, int super_majority,
     int n_participants, int d_unroll, int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int words = (n + 31) / 32;
+    const int tiles = (n + DW_ST - 1) / DW_ST;
 
-    // a launch handed a scratch stages in it (tpu/_ext.py staging chooses
-    // the form per launch), else in shared memory
     const size_t smem_setup =
-        ((size_t)64 * babble_tile_ld(n) + (size_t)4 * n) * sizeof(int32_t);
-    const dim3 grid_setup(r_win, words);
-    if (stage_setup != nullptr) {
-        dw_setup<true><<<grid_setup, DW_THREADS, 0, s>>>(
-            wtable, la_w, fd_w, idx_w, rounds_decided, last_round, scal, ss_bits,
-            vt0, n, r_cap, r_win, words, super_majority, stage_setup,
-            babble_stage_words(smem_setup));
-    } else {
-        BABBLE_CHECK(babble_allow_smem(dw_setup<false>, smem_setup));
-        dw_setup<false><<<grid_setup, DW_THREADS, smem_setup, s>>>(
-            wtable, la_w, fd_w, idx_w, rounds_decided, last_round, scal, ss_bits,
-            vt0, n, r_cap, r_win, words, super_majority, nullptr, 0);
-    }
+        babble_count_tile_words<DW_ST, DW_ST, DW_SETUP_STAGES>() * sizeof(int32_t);
+    BABBLE_CHECK(babble_allow_smem(dw_setup, smem_setup));
+    dw_setup<<<dim3(r_win, tiles, tiles), DW_SETUP_THREADS, smem_setup, s>>>(
+        wtable, la_w, fd_w, idx_w, rounds_decided, last_round, scal, ss_bits, vt0, rcnt,
+        n, r_cap, r_win, words, super_majority);
     BABBLE_CHECK_LAUNCH();
 
-    const size_t smem_vote = ((size_t)2 * n * words + (size_t)d_unroll * n * (words | 1)
-                              + (size_t)(5 + 2 * d_unroll) * n)
-                             * sizeof(int32_t);
-    if (stage_vote != nullptr) {
-        dw_vote<true><<<r_win, DW_THREADS, 0, s>>>(
-            wtable, coin_w, last_round, scal, ss_bits, vt0, fame_decided, famous,
-            rounds_decided, fame_lag, n, r_win, words, super_majority,
-            n_participants, d_unroll, stage_vote, babble_stage_words(smem_vote));
-    } else {
-        BABBLE_CHECK(babble_allow_smem(dw_vote<false>, smem_vote));
-        dw_vote<false><<<r_win, DW_THREADS, smem_vote, s>>>(
-            wtable, coin_w, last_round, scal, ss_bits, vt0, fame_decided, famous,
-            rounds_decided, fame_lag, n, r_win, words, super_majority,
-            n_participants, d_unroll, nullptr, 0);
-    }
+    // the ring is sized for the widest stage at every width; narrower
+    // vote words take a narrower stage (no popcounts of padding)
+    const size_t smem_vote = (size_t)2 * (DW_YC + DW_XT) * DW_VOTE_LD * sizeof(int32_t);
+    const dim3 grid_vote(r_win, (n + DW_XT - 1) / DW_XT);
+#define DW_VOTE_LAUNCH(KC)                                                            \
+    do {                                                                              \
+        BABBLE_CHECK(babble_allow_smem(dw_vote<KC>, smem_vote));                      \
+        dw_vote<KC><<<grid_vote, DW_VOTE_THREADS, smem_vote, s>>>(                    \
+            wtable, coin_w, last_round, scal, ss_bits, vt0, vt1, rcnt, fame_decided,  \
+            famous, rounds_decided, fame_lag, n, r_win, words, super_majority,        \
+            n_participants, d_unroll);                                                \
+    } while (0)
+    if (words <= 4) DW_VOTE_LAUNCH(4);
+    else if (words <= 8) DW_VOTE_LAUNCH(8);
+    else if (words <= 16) DW_VOTE_LAUNCH(16);
+    else DW_VOTE_LAUNCH(DW_KC_MAX);
+#undef DW_VOTE_LAUNCH
     BABBLE_CHECK_LAUNCH();
 
-    size_t smem_tables = (size_t)n * sizeof(int32_t);
-    if (smem_tables > 48 * 1024) {
-        BABBLE_CHECK(cudaFuncSetAttribute(
-            dw_tables, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_tables));
-    }
-    dw_tables<<<r_cap, 128, smem_tables, s>>>(
-        wtable, la_w, fame_decided, famous, rounds_decided, last_round, min_la,
-        famous_count, i_ok, n);
+    const dim3 grid_tables(r_cap, (n + DW_TABLES_THREADS - 1) / DW_TABLES_THREADS);
+    dw_tables<<<grid_tables, DW_TABLES_THREADS, (size_t)words * sizeof(uint32_t), s>>>(
+        wtable, la_w, fame_decided, famous, rounds_decided, last_round, min_la, famous_count,
+        i_ok, n);
     BABBLE_CHECK_LAUNCH();
 
     size_t smem_events = (size_t)r_cap * sizeof(int32_t);
-    if (smem_events > 48 * 1024) {
-        BABBLE_CHECK(cudaFuncSetAttribute(
-            dw_events, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_events));
-    }
+    BABBLE_CHECK(babble_allow_smem(dw_events, smem_events));
     dw_events<<<babble_stride_blocks(e_cap, 256), 256, smem_events, s>>>(
         index, creator, rounds, count, min_la, famous_count, i_ok, received,
         stale, e_cap, n, r_cap, e_win);

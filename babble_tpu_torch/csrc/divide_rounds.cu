@@ -17,41 +17,74 @@
 // Bound: the chain of dependent levels, not bytes or operations. The
 // function reads each event's metadata and la row once, the witnesses' fd
 // rows, and writes the (E,) outputs and the (r_max, N) table: a few MB,
-// about a microsecond at 3.35 TB/s. But level k+1 reads what level k wrote,
-// so the levels run in order. Design: one thread block walks every level
-// (a launch per level would mean 10,180 launches on a deep section).
-// Inside a level, one warp per lane: the warp caches la[e] and the parent
-// round's witness-table row in shared memory. Up to 32 validators each
-// lane takes one witness and reads its fd row with independent loads, so
-// one L2 round trip serves the whole count, and a warp sum gives c_seen;
-// above 32, the fd row of each witness in turn is read coalesced (lanes
-// over p) and summed across the warp, where reading N rows with lanes over
-// rows would touch 32 cache lines per load. A barrier separates the read phase of a level from
-// its write phase (the reference reads the whole carry before it scatters,
-// so no lane may see another lane's write of the same level), and a second
-// barrier makes the writes visible to the next level. Padding lanes write
-// nothing (the reference's dropped scatter); the walk stops after the last
-// level that holds an event, since padding rows change nothing.
+// about a microsecond at 3.35 TB/s; its compares (lanes x witnesses x N per
+// level) take a fraction of a millisecond at the ALU rate. But level k+1
+// reads what level k wrote, so the levels run in order. Two forms, chosen
+// by the wrapper (tpu/_ext.py divide_rounds_form: by width):
+//
+// dr_walk, narrow levels: one thread block walks every level (a launch per
+// level would mean 10,180 launches on a deep section; a barrier across the
+// grid costs more than such a level). One warp per lane: the warp caches
+// la[e] and the parent round's witness-table row in shared memory. Up to
+// 32 validators each lane takes one witness and reads its fd row with
+// independent loads, so one L2 round trip serves the whole count, and a
+// warp sum gives c_seen; above 32, the fd row of each witness in turn is
+// read coalesced (lanes over p) and summed across the warp, and the walk
+// stops once the verdict is known (only c_seen >= super_majority is used).
+// A barrier separates the read phase of a level from its write phase (the
+// reference reads the whole carry before it scatters, so no lane may see
+// another lane's write of the same level), and a second barrier makes the
+// writes visible to the next level.
+//
+// dr_grid, wider levels: a cooperative launch over as many blocks as the
+// card holds at once (at most one per work item), two barriers across the
+// grid per level:
+//   (A) a work item is (8 lanes) x (32 witnesses) of the level; the block
+//       takes the lanes' parent rounds from the rounds written at earlier
+//       levels, and per distinct parent round among them counts the lanes'
+//       la rows against the fd rows of that round's witnesses through the
+//       compare-count tile (common.cuh babble_count_ge_tile: coordinates
+//       through shared memory by cp.async, a register tile per thread), and
+//       adds each lane's verdicts (count >= super_majority) into its c_seen
+//       in global memory; a lane whose c_seen already reaches the
+//       supermajority skips its remaining items. The item of witness tile 0
+//       also records each lane's parent round, self-parent round and new
+//       lamport number, read before any write of the level;
+//   (B) after the barrier, each lane's round, witness flag and lamport
+//       follow from those and c_seen, are written with the witness-table
+//       scatter, and c_seen is reset; then the second barrier.
+// Everything the walk writes and reads back (rounds, lamport, the witness
+// table, the per-lane carries) goes through L2 (__ldcg / __stcg). Shared
+// memory per block is the tile's ring, the same at every width.
+//
+// Padding lanes write nothing (the reference's dropped scatter); both forms
+// stop after the last level that holds an event, since padding rows change
+// nothing.
 //
 // The packed layout (babble_tpu/tpu/kernels.py:147-153, packed=True)
 // counts the same compares with packed_count and c_seen as the popcount of
 // the strongly-seen words: the same integers as these counts, so the
 // wrapper launches this kernel for both layouts (counted apart).
 //
-// The block's per-lane values and per-warp rows take (3 n_lvl + 64 n) x 4
-// bytes: past one block's shared memory (about 900 validators) they live
-// in a device scratch instead (common.cuh babble_staging), the same code.
-//
 // Launches per call: three (init, last level, walk).
 
 #include "common.cuh"
 
 #define DR_MAX_WARPS 32
+// dr_grid's work item: DR_LT lanes x DR_WT witnesses, a TM x TN register
+// tile per thread, the coordinate ring DR_STAGES deep
+#define DR_LT 8
+#define DR_WT 32
+#define DR_TM 2
+#define DR_TN 1
+#define DR_STAGES 4
+#define DR_GRID_THREADS ((DR_LT / DR_TM) * (DR_WT / DR_TN))
 
-// outputs to their initial values; *last_level = -1
+// outputs to their initial values; *last_level = -1; the grid form's
+// per-lane c_seen and barrier count (scratch, 4 n_lvl + 1 words) to 0
 __global__ void dr_init(int32_t* rounds, int32_t* lamport, uint8_t* witness,
-                        int32_t* wtable, int32_t* last_level, int e,
-                        long long wt_total) {
+                        int32_t* wtable, int32_t* last_level, int32_t* scratch, int e,
+                        long long wt_total, int n_lvl) {
     long long stride = (long long)gridDim.x * blockDim.x;
     long long k0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (k0 == 0) *last_level = -1;
@@ -61,9 +94,12 @@ __global__ void dr_init(int32_t* rounds, int32_t* lamport, uint8_t* witness,
         witness[k] = 0;
     }
     for (long long k = k0; k < wt_total; k += stride) wtable[k] = -1;
+    if (scratch != nullptr) {
+        for (long long k = k0; k < n_lvl; k += stride) scratch[k] = 0;
+        if (k0 == 0) scratch[4LL * n_lvl] = 0;
+    }
 }
 
-template <bool DEV>
 __global__ void dr_walk(const int32_t* __restrict__ levels,
                         const int32_t* __restrict__ creator,
                         const int32_t* __restrict__ self_parent,
@@ -79,8 +115,8 @@ __global__ void dr_walk(const int32_t* __restrict__ levels,
                         const int32_t* __restrict__ last_level,
                         int32_t* rounds, uint8_t* witness, int32_t* lamport,
                         int32_t* wtable, int n_lvl, int e, int n,
-                        int super_majority, int r_max, int32_t* stage) {
-    int32_t* smem = babble_staging<DEV>(stage, 0);
+                        int super_majority, int r_max) {
+    extern __shared__ int32_t smem[];
     int32_t* s_round = smem;             // (n_lvl,) new round per lane
     int32_t* s_lt = s_round + n_lvl;     // (n_lvl,) new lamport
     int32_t* s_wit = s_lt + n_lvl;       // (n_lvl,) new witness flag
@@ -119,6 +155,8 @@ __global__ void dr_walk(const int32_t* __restrict__ levels,
                 seen = __reduce_add_sync(BABBLE_FULL_MASK, seen);
             } else {
                 for (int w = 0; w < n; ++w) {
+                    // only seen >= super_majority is read: stop once known
+                    if (seen >= super_majority || seen + (n - w) < super_majority) break;
                     const int wr = wrow[w];
                     if (wr < 0) continue;  // warp-uniform
                     const int32_t* fd_w = fd + (long long)min(wr, e - 1) * n;
@@ -162,6 +200,156 @@ __global__ void dr_walk(const int32_t* __restrict__ levels,
     }
 }
 
+__global__ void __launch_bounds__(DR_GRID_THREADS)
+dr_grid(const int32_t* __restrict__ levels,
+        const int32_t* __restrict__ creator,
+        const int32_t* __restrict__ self_parent,
+        const int32_t* __restrict__ other_parent,
+        const int32_t* __restrict__ la,
+        const int32_t* __restrict__ fd,
+        const int32_t* __restrict__ ext_sp_round,
+        const int32_t* __restrict__ ext_op_round,
+        const int32_t* __restrict__ fixed_round,
+        const int32_t* __restrict__ ext_sp_lamport,
+        const int32_t* __restrict__ ext_op_lamport,
+        const int32_t* __restrict__ fixed_lamport,
+        const int32_t* __restrict__ last_level,
+        int32_t* rounds, uint8_t* witness, int32_t* lamport,
+        int32_t* wtable, int32_t* scratch, int n_lvl, int e, int n,
+        int super_majority, int r_max) {
+    extern __shared__ int4 dr_smem4[];
+    int32_t* tile = reinterpret_cast<int32_t*>(dr_smem4);
+    __shared__ const int32_t* a_lane[DR_LT];  // the item's lanes' la rows
+    __shared__ const int32_t* a_pass[DR_LT];  // ... of this pass's lanes, else null
+    __shared__ const int32_t* b_rows[DR_WT];  // the pass's witnesses' fd rows
+    __shared__ int s_pr[DR_LT], s_todo[DR_LT], s_add[DR_LT];
+    __shared__ int s_p;
+    constexpr int TX = DR_WT / DR_TN, TY = DR_LT / DR_TM;
+    static_assert(TX == 32, "a warp owns whole lane rows of the tile");
+    // per lane of the level: c_seen, parent round, self-parent round, new
+    // lamport; then the barrier's count
+    int32_t* c_seen = scratch;
+    int32_t* l_pr = c_seen + n_lvl;
+    int32_t* l_spr = l_pr + n_lvl;
+    int32_t* l_lt = l_spr + n_lvl;
+    unsigned int* bar = reinterpret_cast<unsigned int*>(l_lt + n_lvl);
+    unsigned int bar_target = 0;
+    const int last = *last_level;
+    const int n_wt = (n + DR_WT - 1) / DR_WT;
+    const int items = (n_lvl + DR_LT - 1) / DR_LT * n_wt;
+    const bool aligned16 = (n & 3) == 0;
+    const int lane = threadIdx.x & 31, ty = threadIdx.x / TX;
+
+    for (int lv = 0; lv <= last; ++lv) {
+        const int32_t* lrow = levels + (long long)lv * n_lvl;
+        // (A) strongly-see counts, item by item
+        for (int it = blockIdx.x; it < items; it += gridDim.x) {
+            const int lt = it / n_wt, wt = it % n_wt;
+            if (threadIdx.x < DR_LT) {
+                const int i = lt * DR_LT + threadIdx.x;
+                const int row = i < n_lvl ? lrow[i] : -1;
+                int pr = -1, todo = 0;
+                a_lane[threadIdx.x] = nullptr;
+                if (row >= 0) {
+                    const int sp = self_parent[row], op = other_parent[row];
+                    const int spr = sp >= 0 ? __ldcg(rounds + min(sp, e - 1)) : ext_sp_round[row];
+                    const int opr = op >= 0 ? __ldcg(rounds + min(op, e - 1)) : ext_op_round[row];
+                    pr = max(spr, opr);
+                    if (wt == 0) {
+                        const int sp_lt = sp >= 0 ? __ldcg(lamport + min(sp, e - 1))
+                                                  : ext_sp_lamport[row];
+                        const int op_lt = op >= 0 ? __ldcg(lamport + min(op, e - 1))
+                                                  : ext_op_lamport[row];
+                        // int32 wrap-around, as the reference's int32 add
+                        int lt_new = (int)((unsigned)max(sp_lt, op_lt) + 1u);
+                        const int fl = fixed_lamport[row];
+                        if (fl != BABBLE_MIN_INT32) lt_new = fl;
+                        __stcg(l_pr + i, pr);
+                        __stcg(l_spr + i, spr);
+                        __stcg(l_lt + i, lt_new);
+                    }
+                    // parent_round < 0: no witness to count
+                    todo = pr >= 0 && __ldcg(c_seen + i) < super_majority;
+                    a_lane[threadIdx.x] = la + (long long)row * n;
+                }
+                s_pr[threadIdx.x] = pr;
+                s_todo[threadIdx.x] = todo;
+            }
+            __syncthreads();
+            // one pass per distinct parent round among the item's lanes
+            while (true) {
+                if (threadIdx.x == 0) {
+                    int p = -1;
+                    for (int t = 0; t < DR_LT; ++t) {
+                        if (s_todo[t]) {
+                            p = s_pr[t];
+                            break;
+                        }
+                    }
+                    s_p = p;
+                }
+                __syncthreads();
+                const int p = s_p;
+                if (p < 0) break;  // block-uniform
+                if (threadIdx.x < DR_LT) {
+                    const bool mine = s_todo[threadIdx.x] && s_pr[threadIdx.x] == p;
+                    a_pass[threadIdx.x] = mine ? a_lane[threadIdx.x] : nullptr;
+                    s_add[threadIdx.x] = 0;
+                }
+                int wr = -1;
+                if (threadIdx.x < DR_WT) {
+                    const int w = wt * DR_WT + threadIdx.x;
+                    wr = w < n ? __ldcg(wtable + (long long)min(p, r_max - 1) * n + w) : -1;
+                    b_rows[threadIdx.x] = wr >= 0 ? fd + (long long)min(wr, e - 1) * n : nullptr;
+                }
+                const int any_b = __syncthreads_or(wr >= 0);
+                if (threadIdx.x < DR_LT && s_todo[threadIdx.x] && s_pr[threadIdx.x] == p) {
+                    s_todo[threadIdx.x] = 0;  // read again only after the next barrier
+                }
+                if (any_b) {
+                    int cnt[DR_TM][DR_TN];
+                    babble_count_ge_tile<DR_LT, DR_WT, DR_TM, DR_TN, DR_STAGES>(
+                        tile, n, a_pass, b_rows, aligned16, cnt);
+#pragma unroll
+                    for (int m = 0; m < DR_TM; ++m) {
+                        const int r = ty + m * TY;
+                        const unsigned v = __ballot_sync(
+                            BABBLE_FULL_MASK, a_pass[r] != nullptr && b_rows[lane] != nullptr
+                                                  && cnt[m][0] >= super_majority);
+                        if (lane == 0) s_add[r] = __popc(v);
+                    }
+                    __syncthreads();
+                    if (threadIdx.x < DR_LT && s_add[threadIdx.x] > 0) {
+                        atomicAdd(c_seen + lt * DR_LT + threadIdx.x, s_add[threadIdx.x]);
+                    }
+                }
+                __syncthreads();  // the pass's rows are rewritten next
+            }
+        }
+        babble_grid_sync(bar, bar_target);
+        // (B) every lane's results from the counts and the carry as read
+        for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_lvl;
+             i += gridDim.x * blockDim.x) {
+            const int row = lrow[i];
+            if (row < 0) continue;
+            const int seen = __ldcg(c_seen + i);
+            __stcg(c_seen + i, 0);
+            int rd = __ldcg(l_pr + i) + (seen >= super_majority ? 1 : 0);
+            const int fixed = fixed_round[row];
+            if (fixed >= 0) rd = fixed;
+            const bool wit = rd > __ldcg(l_spr + i);
+            __stcg(rounds + row, rd);
+            __stcg(lamport + row, __ldcg(l_lt + i));
+            witness[row] = (uint8_t)wit;
+            const int c = creator[row];
+            if (wit && c >= 0 && c < n) {
+                __stcg(wtable + (long long)babble_clamp(rd, 0, r_max - 1) * n + c, row);
+            }
+        }
+        babble_grid_sync(bar, bar_target);
+    }
+}
+
 extern "C" int babble_divide_rounds(
     const int32_t* levels, const int32_t* creator, const int32_t* self_parent,
     const int32_t* other_parent, const int32_t* la, const int32_t* fd,
@@ -169,15 +357,17 @@ extern "C" int babble_divide_rounds(
     const int32_t* fixed_round, const int32_t* ext_sp_lamport,
     const int32_t* ext_op_lamport, const int32_t* fixed_lamport,
     int32_t* rounds, uint8_t* witness, int32_t* lamport, int32_t* wtable,
-    int32_t* last_level, int32_t* stage,
+    int32_t* last_level, int32_t* scratch,
     int l_lv, int n_lvl, int e, int n, int super_majority, int r_max,
     int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     long long wt_total = (long long)r_max * n;
     long long work = wt_total > e ? wt_total : e;
+    // the grid form where the wrapper hands a scratch (tpu/_ext.py
+    // divide_rounds_form chooses), else the one-block walk
     dr_init<<<babble_stride_blocks(work, 256), 256, 0, s>>>(
-        rounds, lamport, witness, wtable, last_level, e, wt_total);
+        rounds, lamport, witness, wtable, last_level, scratch, e, wt_total, n_lvl);
     BABBLE_CHECK_LAUNCH();
     long long lv_total = (long long)l_lv * n_lvl;
     if (lv_total > 0) {
@@ -185,24 +375,43 @@ extern "C" int babble_divide_rounds(
             levels, last_level, lv_total, n_lvl);
         BABBLE_CHECK_LAUNCH();
     }
-    int warps = n_lvl < DR_MAX_WARPS ? (n_lvl > 0 ? n_lvl : 1) : DR_MAX_WARPS;
-    // the block's staging in `stage` where the wrapper hands it one
-    // (tpu/_ext.py staging chooses the form), else in shared memory
-    const size_t smem = ((size_t)3 * n_lvl + (size_t)warps * 2 * n) * sizeof(int32_t);
-    if (stage != nullptr) {
-        dr_walk<true><<<1, 32 * warps, 0, s>>>(
+    if (scratch == nullptr) {
+        int warps = n_lvl < DR_MAX_WARPS ? (n_lvl > 0 ? n_lvl : 1) : DR_MAX_WARPS;
+        const size_t smem = ((size_t)3 * n_lvl + (size_t)warps * 2 * n) * sizeof(int32_t);
+        BABBLE_CHECK(babble_allow_smem(dr_walk, smem));
+        dr_walk<<<1, 32 * warps, smem, s>>>(
             levels, creator, self_parent, other_parent, la, fd, ext_sp_round,
             ext_op_round, fixed_round, ext_sp_lamport, ext_op_lamport,
             fixed_lamport, last_level, rounds, witness, lamport, wtable, n_lvl, e,
-            n, super_majority, r_max, stage);
-    } else {
-        BABBLE_CHECK(babble_allow_smem(dr_walk<false>, smem));
-        dr_walk<false><<<1, 32 * warps, smem, s>>>(
-            levels, creator, self_parent, other_parent, la, fd, ext_sp_round,
-            ext_op_round, fixed_round, ext_sp_lamport, ext_op_lamport,
-            fixed_lamport, last_level, rounds, witness, lamport, wtable, n_lvl, e,
-            n, super_majority, r_max, nullptr);
+            n, super_majority, r_max);
+        BABBLE_CHECK_LAUNCH();
+        return 0;
     }
+    const size_t smem = babble_count_tile_words<DR_LT, DR_WT, DR_STAGES>() * sizeof(int32_t);
+    BABBLE_CHECK(babble_allow_smem(dr_grid, smem));
+    // as many blocks as can be resident at once (the grid barrier needs
+    // every block running), at most one per work item
+    int per_sm = 0, sms = 0;
+    BABBLE_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dr_grid,
+                                                               DR_GRID_THREADS, smem));
+    BABBLE_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+    const long long items =
+        (long long)(n_lvl + DR_LT - 1) / DR_LT * ((n + DR_WT - 1) / DR_WT);
+    if (items == 0) return 0;  // no lane: nothing to walk
+    long long grid = (long long)per_sm * sms;
+    if (grid > items) grid = items;
+    if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    int g = (int)grid;
+    void* args[] = {
+        (void*)&levels, (void*)&creator, (void*)&self_parent, (void*)&other_parent,
+        (void*)&la, (void*)&fd, (void*)&ext_sp_round, (void*)&ext_op_round,
+        (void*)&fixed_round, (void*)&ext_sp_lamport, (void*)&ext_op_lamport,
+        (void*)&fixed_lamport, (void*)&last_level, (void*)&rounds, (void*)&witness,
+        (void*)&lamport, (void*)&wtable, (void*)&scratch, (void*)&n_lvl, (void*)&e,
+        (void*)&n, (void*)&super_majority, (void*)&r_max,
+    };
+    BABBLE_CHECK(cudaLaunchCooperativeKernel((const void*)dr_grid, dim3(g),
+                                             dim3(DR_GRID_THREADS), args, smem, s));
     BABBLE_CHECK_LAUNCH();
     return 0;
 }

@@ -63,23 +63,6 @@
 // walk_chunk_block up to this many validators
 #define WC_BLOCK_MAX 32
 
-// Every block of the (co-resident) grid waits here until all have
-// arrived. `count` only grows: the k-th barrier of a launch waits for
-// k * gridDim.x arrivals, so a block that runs ahead to the next barrier
-// cannot release a slow one early.
-__device__ __forceinline__ void wc_grid_sync(unsigned int* count, unsigned int& target) {
-    __syncthreads();
-    target += gridDim.x;
-    if (threadIdx.x == 0) {
-        __threadfence();
-        atomicAdd(count, 1u);
-        while (*(volatile unsigned int*)count < target) {
-        }
-        __threadfence();
-    }
-    __syncthreads();
-}
-
 // Coordinate slices per quad of witnesses in walk_chunk_grid: the
 // block's threads over the quads, each slice at least 8 coordinates long.
 __host__ __device__ __forceinline__ int wc_slices(int n, int threads) {
@@ -294,7 +277,7 @@ __global__ void walk_chunk_grid(const int32_t* __restrict__ inv,
 
     int probe_no = 0;  // block-uniform
     for (int k = 0; k < length; ++k) {
-        wc_grid_sync(bar, bar_target);
+        babble_grid_sync(bar, bar_target);
         if (tab_in_smem) {  // this step's table and countable rows
             const int4* src = reinterpret_cast<const int4*>(g_tab);
             int4* dst = reinterpret_cast<int4*>(tab);
@@ -338,7 +321,7 @@ __global__ void walk_chunk_grid(const int32_t* __restrict__ inv,
             }
             if (threadIdx.x == 0) __stcg(m0 + c, hi < len ? hi : l);
         }
-        wc_grid_sync(bar, bar_target);
+        babble_grid_sync(bar, bar_target);
         // advance: cross-chain closure, seed row, clamp, then the next
         // step's frontier row; chain c's warp alone reads and writes xc[c]
         for (int c = gw; c < n; c += all_warps) {

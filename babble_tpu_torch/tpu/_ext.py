@@ -25,6 +25,11 @@ wrapper allocates ("device"), and the call counts under "<key>/dev".
 exactly the launches it names "device" and NULL to the others, and the C
 launcher takes the device form where its pointer is not NULL. Both forms
 give equal integers by design; only a failed scratch allocation raises.
+
+divide_rounds walks narrow levels in one block and wider ones in a
+cooperative launch across the card (`divide_rounds_form` chooses by
+width; the grid form counts under "<key>/grid"); decide_window's launches
+use the same shared memory at every width. Neither has a staging form.
 """
 
 from __future__ import annotations
@@ -114,22 +119,39 @@ PACKED_KERNELS = ("decide_fame", "divide_rounds", "step_levels", "train_levels",
 
 # the kernels with a device-memory staging form, and the layouts in which
 # they have it (the wide decide_fame stages nothing past 9,685 validators)
-STAGED_KERNELS = ("decide_fame", "divide_rounds", "step_levels", "train_levels",
-                  "decide_window")
-STAGED_FORMS = ("decide_fame/packed", "divide_rounds", "divide_rounds/packed",
-                "step_levels", "step_levels/packed", "train_levels",
-                "train_levels/packed", "decide_window", "decide_window/packed",
-                "fame_setup/packed")
+STAGED_KERNELS = ("decide_fame", "step_levels", "train_levels")
+STAGED_FORMS = ("decide_fame/packed", "step_levels", "step_levels/packed", "train_levels",
+                "train_levels/packed", "fame_setup/packed")
+# divide_rounds' cooperative grid walk, in both layouts
+GRID_FORMS = ("divide_rounds", "divide_rounds/packed")
 
 # largest dynamic shared memory one block may use on an H100
 MAX_SMEM_BYTES = 232448
 
 # launches of each kernel's C entry point since the last reset: the packed
 # layout's under "<name>/packed", the device staging form's under
-# "<key>/dev"
+# "<key>/dev", divide_rounds' grid walk under "<key>/grid"
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     list(KERNELS) + [f"{k}/packed" for k in PACKED_KERNELS]
-    + [f"{k}/dev" for k in STAGED_FORMS], 0)
+    + [f"{k}/dev" for k in STAGED_FORMS] + [f"{k}/grid" for k in GRID_FORMS], 0)
+
+# divide_rounds' two walks: one block up to DIVIDE_ROUNDS_GRID_FROM - 1
+# validators (where its rows fit one block's shared memory), a cooperative
+# launch across the card from there (divide_rounds_form). The crossover is
+# measured (scripts/time_divide_rounds.py on an H100, bench-generator grids
+# of 32,768 events): the block walk takes 1.3-2.4 us a level up to 24
+# validators and 7.0 at 32, the grid walk about 6 at every width
+DIVIDE_ROUNDS_FORMS = ("block", "grid")
+DIVIDE_ROUNDS_GRID_FROM = 32
+
+# the per-block shared memory of the launches whose blocks tile their
+# work, the same at every width: rings of stages of rows of 36 int32 words
+# (common.cuh babble_count_tile_words): dr_grid's 8 lanes + 32 witnesses,
+# 4 stages; dw_setup's 64 rows + 64 witnesses, 3 stages; dw_vote's 64 rows
+# + 32 columns, 2 stages
+DR_GRID_SMEM = 4 * (8 + 32) * 36 * 4
+DW_SETUP_SMEM = 3 * (64 + 64) * 36 * 4
+DW_VOTE_SMEM = 2 * (64 + 32) * 36 * 4
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -232,8 +254,7 @@ def _tile_ld(n: int) -> int:
     return 4 * (((n + 3) // 4) | 1)
 
 
-def block_smem(name: str, n: int, packed: bool = False, d_unroll: int = 8,
-               **shape) -> Dict[str, int]:
+def block_smem(name: str, n: int, packed: bool = False, **shape) -> Dict[str, int]:
     """Dynamic shared memory of one block of each launch `name` makes with
     n validators, as its C entry point sizes it, by launch. `shape` carries
     the other sizes the level kernels take (divide_rounds: n_lvl;
@@ -245,9 +266,7 @@ def block_smem(name: str, n: int, packed: bool = False, d_unroll: int = 8,
         return {"setup": (64 * _tile_ld(n) + 3 * n) * 4,
                 "vote": (2 * n * words + n * (words | 1) + 8 * n) * 4}
     if name == "decide_window":
-        return {"setup": (64 * _tile_ld(n) + 4 * n) * 4,
-                "vote": (2 * n * words + d_unroll * n * (words | 1)
-                         + (5 + 2 * d_unroll) * n) * 4}
+        return {"setup": DW_SETUP_SMEM, "vote": DW_VOTE_SMEM}
     if name == "walk_chunk":
         # walk_chunk.cu: up to 32 validators one block holds the frontier
         # state, a probe row per warp and the (n, n | 1) table; above, a
@@ -264,7 +283,9 @@ def block_smem(name: str, n: int, packed: bool = False, d_unroll: int = 8,
                 else own * 4}
     if name == "divide_rounds":
         n_lvl = shape["n_lvl"]
-        return {"walk": (3 * n_lvl + min(max(n_lvl, 1), 32) * 2 * n) * 4}
+        if divide_rounds_form(n, n_lvl) == "grid":
+            return {"grid": DR_GRID_SMEM}
+        return {"walk": _dr_walk_smem(n, n_lvl)}
     if name == "step_levels":
         w, l_lv, b, r_cap = shape["w"], shape["l_lv"], shape["b"], shape["r_cap"]
         return {"walk": (7 * w + l_lv * w + 7 * b + w * n) * 4 + r_cap * n}
@@ -274,43 +295,64 @@ def block_smem(name: str, n: int, packed: bool = False, d_unroll: int = 8,
     raise KeyError(name)
 
 
-def smem_bytes(name: str, n: int, packed: bool = False, d_unroll: int = 8,
-               **shape) -> int:
+def _dr_walk_smem(n: int, n_lvl: int) -> int:
+    """dr_walk's block: (3 n_lvl + warps x 2 n) words."""
+    return (3 * n_lvl + min(max(n_lvl, 1), 32) * 2 * n) * 4
+
+
+def divide_rounds_form_fits(form: str, n: int, n_lvl: int) -> bool:
+    """Whether divide_rounds' `form` can run n validators at level width
+    n_lvl: the grid walk always (its blocks' shared memory is fixed), the
+    one-block walk where its rows fit one block's shared memory."""
+    if form not in DIVIDE_ROUNDS_FORMS:
+        raise ValueError(f"divide_rounds: no form {form!r}")
+    return form == "grid" or _dr_walk_smem(n, n_lvl) <= MAX_SMEM_BYTES
+
+
+def divide_rounds_form(n: int, n_lvl: int) -> str:
+    """The walk divide_rounds launches for n validators at level width
+    n_lvl (the one place it is chosen): the one-block walk below
+    DIVIDE_ROUNDS_GRID_FROM validators, where a barrier across the card
+    would cost more than a level's work, the grid walk from there."""
+    if n < DIVIDE_ROUNDS_GRID_FROM and divide_rounds_form_fits("block", n, n_lvl):
+        return "block"
+    return "grid"
+
+
+def smem_bytes(name: str, n: int, packed: bool = False, **shape) -> int:
     """Dynamic shared memory of the largest block `name` launches with n
     validators (block_smem's largest)."""
-    return max(block_smem(name, n, packed=packed, d_unroll=d_unroll, **shape).values())
+    return max(block_smem(name, n, packed=packed, **shape).values())
 
 
-def max_width(name: str, packed: bool = False, d_unroll: int = 8) -> int:
+def max_width(name: str, packed: bool = False) -> int:
     """The largest validator count whose blocks of `name` fit one block's
-    shared memory (decide_fame, decide_window, walk_chunk): the widest
+    shared memory (decide_fame, walk_chunk), up to 65,536: the widest
     shared form of a kernel that has a device staging form."""
     n = 1
-    while smem_bytes(name, n + 1, packed=packed, d_unroll=d_unroll) <= MAX_SMEM_BYTES:
+    while smem_bytes(name, n + 1, packed=packed) <= MAX_SMEM_BYTES:
         n += 1
         if n >= 1 << 16:
             break
     return n
 
 
-def check_smem(name: str, n: int, packed: bool = False, d_unroll: int = 8,
-               **shape) -> None:
+def check_smem(name: str, n: int, packed: bool = False, **shape) -> None:
     """ValueError unless `name`'s blocks fit one block's shared memory (the
     kernels without a device staging form: walk_chunk, the wide
     decide_fame)."""
-    need = smem_bytes(name, n, packed=packed, d_unroll=d_unroll, **shape)
+    need = smem_bytes(name, n, packed=packed, **shape)
     if need > MAX_SMEM_BYTES:
         layout = "packed" if packed else "wide"
         limit = "" if shape else (
-            f"; it holds at most {max_width(name, packed=packed, d_unroll=d_unroll)}")
+            f"; it holds at most {max_width(name, packed=packed)}")
         raise ValueError(
             f"{name} ({layout}): {n} validators need {need} bytes of one "
             f"block's shared memory, above the card's {MAX_SMEM_BYTES}{limit}"
         )
 
 
-def staging(name: str, n: int, packed: bool = False, d_unroll: int = 8,
-            **shape) -> Dict[str, str]:
+def staging(name: str, n: int, packed: bool = False, **shape) -> Dict[str, str]:
     """Where each launch of a STAGED_KERNELS call with n validators stages
     its blocks' rows, by launch (block_smem's keys): "shared" where the
     launch's block fits one block's shared memory, else "device". The one
@@ -320,8 +362,7 @@ def staging(name: str, n: int, packed: bool = False, d_unroll: int = 8,
     if name not in STAGED_KERNELS:
         raise KeyError(name)
     return {k: "shared" if b <= MAX_SMEM_BYTES else "device"
-            for k, b in block_smem(name, n, packed=packed, d_unroll=d_unroll,
-                                   **shape).items()}
+            for k, b in block_smem(name, n, packed=packed, **shape).items()}
 
 
 def stage_words(block_bytes: int) -> int:
@@ -331,15 +372,15 @@ def stage_words(block_bytes: int) -> int:
 
 
 def _stage_scratch(name: str, n: int, dev: torch.device, blocks: Dict[str, int],
-                   packed: bool = False, d_unroll: int = 8,
+                   packed: bool = False,
                    **shape) -> Dict[str, Optional[torch.Tensor]]:
     """The device staging scratch of each launch of a call, by launch: None
     where staging() says "shared", else a slice per block (`blocks`: the
     launch's block count). The call's launches run in turn on one stream,
     so they share one allocation of the largest. Raises ValueError where
     the allocation fails."""
-    forms = staging(name, n, packed=packed, d_unroll=d_unroll, **shape)
-    per_block = block_smem(name, n, packed=packed, d_unroll=d_unroll, **shape)
+    forms = staging(name, n, packed=packed, **shape)
+    per_block = block_smem(name, n, packed=packed, **shape)
     words = max((stage_words(per_block[k]) * blocks[k] for k, f in forms.items()
                  if f == "device"), default=0)
     if not words:
@@ -361,10 +402,10 @@ def _staged(stage: Dict[str, Optional[torch.Tensor]]) -> bool:
 
 
 def _launch(name: str, device: torch.device, args: Sequence,
-            packed: bool = False, staged: bool = False) -> None:
+            packed: bool = False, staged: bool = False, grid: bool = False) -> None:
     """Launch `name`'s C entry point on args (a None pointer passes NULL)
     and count it under its key: "/packed" for the packed layout, "/dev"
-    for the device staging form."""
+    for the device staging form, "/grid" for the grid walk."""
     lib = _lib(name)
     _, fn, kinds = KERNELS[name]
     if len(args) != len(kinds):
@@ -379,7 +420,8 @@ def _launch(name: str, device: torch.device, args: Sequence,
     if rc != 0:
         msg = lib.babble_cuda_error_string(rc).decode()
         raise RuntimeError(f"{fn}: CUDA error {rc} ({msg})")
-    LAUNCHES[name + ("/packed" if packed else "") + ("/dev" if staged else "")] += 1
+    LAUNCHES[name + ("/packed" if packed else "") + ("/dev" if staged else "")
+             + ("/grid" if grid else "")] += 1
 
 
 def build_inv(rows_by: torch.Tensor, la: torch.Tensor) -> torch.Tensor:
@@ -501,12 +543,15 @@ def round_received(wtable, la, index, creator, rounds, decided, famous,
 def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
                   ext_sp_round, ext_op_round, fixed_round, ext_sp_lamport,
                   ext_op_lamport, fixed_lamport, super_majority: int,
-                  r_max: int, packed: bool = False):
+                  r_max: int, packed: bool = False, form: Optional[str] = None):
     """K5: the level scan. Returns (rounds (E,) int32, witness (E,) bool,
     lamport (E,) int32, wtable (r_max, N) int32). `index` is not read (the
     reference's signature carries it). The packed layout's counts are the
     same integers, so `packed` launches the same kernel and counts it as
-    divide_rounds/packed."""
+    divide_rounds/packed. The walk is divide_rounds_form's unless `form`
+    names one ("block" or "grid"; scripts/time_divide_rounds.py times
+    both); the grid walk counts under "<key>/grid", and raises where the
+    card cannot hold its blocks at once."""
     dev = la.device
     l_lv, n_lvl = levels.shape
     e, n = la.shape
@@ -522,7 +567,15 @@ def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
         check_tensor(what, t, torch.int32, (e,), dev)
     if e < 1 or r_max < 1:
         raise ValueError("divide_rounds: needs events and r_max >= 1")
-    stage = _stage_scratch("divide_rounds", n, dev, {"walk": 1}, n_lvl=n_lvl)["walk"]
+    if form is None:
+        form = divide_rounds_form(n, n_lvl)
+    if not divide_rounds_form_fits(form, n, n_lvl):
+        raise ValueError(f"divide_rounds: the one-block walk cannot hold {n} validators at "
+                         f"level width {n_lvl} in one block's shared memory")
+    # the grid walk's per-lane c_seen, parent round, self-parent round and
+    # lamport, and its barrier count
+    scratch = (torch.empty((4 * n_lvl + 1,), dtype=torch.int32, device=dev)
+               if form == "grid" else None)
     rounds = torch.empty((e,), dtype=torch.int32, device=dev)
     witness = torch.empty((e,), dtype=torch.uint8, device=dev)
     lamport = torch.empty((e,), dtype=torch.int32, device=dev)
@@ -531,9 +584,9 @@ def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
     _launch("divide_rounds", dev, (
         levels, creator, self_parent, other_parent, la, fd, ext_sp_round,
         ext_op_round, fixed_round, ext_sp_lamport, ext_op_lamport,
-        fixed_lamport, rounds, witness, lamport, wtable, last_level, stage,
+        fixed_lamport, rounds, witness, lamport, wtable, last_level, scratch,
         l_lv, n_lvl, e, n, super_majority, r_max,
-    ), packed=packed, staged=stage is not None)
+    ), packed=packed, grid=form == "grid")
     return rounds, witness.view(torch.bool), lamport, wtable
 
 
@@ -757,7 +810,8 @@ def decide_window(wtable, la_w, fd_w, idx_w, coin_w, fame_decided, famous,
     undecided round (freeze mask below it), round received over the
     trailing e_win rows, the stale detector and the fame_lag latch. Its
     tallies are bit words in both layouts, so `packed` launches the same
-    kernel and counts it as decide_window/packed."""
+    kernel and counts it as decide_window/packed. Its launches' shared
+    memory is the same at every width (no staging form)."""
     dev = wtable.device
     r_cap, n = wtable.shape
     e_cap = index.shape[0]
@@ -778,11 +832,13 @@ def decide_window(wtable, la_w, fd_w, idx_w, coin_w, fame_decided, famous,
     if not (1 <= r_win <= r_cap and 1 <= e_win <= e_cap) or n_participants < 1:
         raise ValueError("decide_window: windows must fit the capacities")
     words = (n + 31) // 32
-    stage = _stage_scratch("decide_window", n, dev, {"setup": r_win * words, "vote": r_win},
-                           d_unroll=d_unroll)
     scal = torch.empty((2,), dtype=torch.int32, device=dev)
     ss_bits = torch.empty((r_win, n, words), dtype=torch.int32, device=dev)
+    # the vote words of the offsets in turn, and per window round the
+    # vote's column blocks not done, with a witness, and finished
     vt0 = torch.empty((r_win, n, words), dtype=torch.int32, device=dev)
+    vt1 = torch.empty((r_win, n, words), dtype=torch.int32, device=dev)
+    rcnt = torch.empty((3 * r_win,), dtype=torch.int32, device=dev)
     min_la = torch.empty((r_cap, n), dtype=torch.int32, device=dev)
     famous_count = torch.empty((r_cap,), dtype=torch.int32, device=dev)
     i_ok = torch.empty((r_cap,), dtype=torch.uint8, device=dev)
@@ -791,10 +847,9 @@ def decide_window(wtable, la_w, fd_w, idx_w, coin_w, fame_decided, famous,
         fame_decided.view(torch.uint8), famous.view(torch.uint8),
         rounds_decided.view(torch.uint8), last_round, count, index, creator,
         rounds, received, stale.view(torch.uint8), fame_lag.view(torch.uint8),
-        scal, ss_bits, vt0, min_la, famous_count, i_ok, stage["setup"],
-        stage["vote"], e_cap, n, r_cap, r_win, e_win, super_majority,
-        n_participants, d_unroll,
-    ), packed=packed, staged=_staged(stage))
+        scal, ss_bits, vt0, vt1, rcnt, min_la, famous_count, i_ok, e_cap, n, r_cap,
+        r_win, e_win, super_majority, n_participants, d_unroll,
+    ), packed=packed)
 
 
 def pack_results(rounds, lamport, witness, received, wtable, fame_decided,

@@ -30,7 +30,10 @@ Phases, in order; any failure raises and exits non-zero:
    the bench grid and the catch-up section, walk_chunk on every chunk of
    the bench grid's walk (unseeded) and both sections' (seeded; the
    first_nw mask must fire on the unpinned section), with launches and
-   CUDA-event times;
+   CUDA-event times; divide_rounds takes the one-block walk on the
+   sections (8 validators) and the grid walk on the bench grid, where both
+   walks are held to the plain version and timed (the crossover's two
+   sides; again at 128 in phase 15);
 7. the bench grid through run_doubling_passes and run_passes(bucketed,
    adaptive_r) on the card: equal to run_frontier_passes field for field,
    closure passes 5 and walk chunks 2, each path's kernels launched, and
@@ -118,7 +121,9 @@ Phases, in order; any failure raises and exits non-zero:
    K10p after every call and the decide, packed and wide in turn, after
    every 8th (the kernels advance both states in between), and again at
    e_win 8,192, where the stale latch must fire, K10p and the decide every
-   8th call; launches and CUDA-event times behind a spin;
+   8th call, once with r_win 64 and once with r_win 62 < r_cap 64, where
+   the window's floor clips below the first undecided round and the
+   decide's freeze must hold; launches and CUDA-event times behind a spin;
 14. config #4 through run_frontier_passes, run_passes and
    run_doubling_passes in the knob's layout (packed at 256) and with
    packed=False: each pair equal field for field, the engines equal to
@@ -128,7 +133,8 @@ Phases, in order; any failure raises and exits non-zero:
    multi_step (packed) over the same batches equal to run_passes on rows
    [:e] (e_win 65,536: the undecided tail outgrows smaller windows);
 15. the hashgraph path at the layout's switch: synthetic_grid(128, 32768,
-   seed=0, zipf_a=1.1). First its 512 batches of 64 at run (c)'s shape
+   seed=0, zipf_a=1.1). First divide_rounds' two walks held to the plain
+   version on its level scan and timed; then its 512 batches of 64 at run (c)'s shape
    (upd_cap 16,384, e_win 32,768, r_cap and r_win 64) through apply_deltas,
    K10p and K12p, each held to its plain version after every call, no
    latch and events received at the end: the kernels line's times and
@@ -157,14 +163,16 @@ Phases, in order; any failure raises and exits non-zero:
    to the wide train_step; (c) bootstrap_frontier_state of the bench grid
    equal to run_frontier_passes; (d) config #5's width, synthetic_grid(1024,
    16384, seed=0, zipf_a=1.1, record_fd_updates=True) (depth cut: it stays
-   in round 0), where K3p, K5, K10, K11p and K12 (both layouts) take their
-   device staging forms, each held to its plain version (the votes also on
-   coin_round_case tables at 1,024 validators, where witnesses are
+   in round 0), where K3p, K10 and K11p take their device staging forms
+   and K5 its grid walk, while K12 (both layouts) keeps the shared memory
+   it takes at every width, each held to its plain version (the votes also
+   on coin_round_case tables at 1,024 validators, where witnesses are
    decided), and frontier_train_step (packed), K14 and K15 held to their
    plain versions after every train, equal to run_frontier_passes
-   (packed); launches of the device forms under "<key>/dev", counted on
-   runs of the entry points a user calls (run_passes, step, multi_step,
-   train_step, frontier_train_step) with nothing else in the window.
+   (packed); launches of the device forms under "<key>/dev" and of the
+   grid walk under "divide_rounds/grid", counted on runs of the entry
+   points a user calls (run_passes, step, multi_step, train_step,
+   frontier_train_step) with nothing else in the window.
 17. the device mesh (tpu/mesh.py, tpu/sharded.py, tpu/dispatch.py), every
    position of every mesh on the one card (torch.cuda.device_count() is
    printed; no number measures an interconnect): (a) each mesh kernel
@@ -299,6 +307,10 @@ WIDE_CHECK_EVERY = 8
 # and again at the live default e_win, where the latch fires on this grid,
 # holding step_levels and the decide every WIDE_CHECK_EVERY-th call
 WIDE_LATCH_E_WIN = 8192
+# and once more at that window with r_win below r_cap: the window's floor
+# clips to r_cap - r_win = 2, below the first undecided round, so the
+# decide's freeze keeps the settled rounds between them as stored
+WIDE_FREEZE_R_WIN = 62
 WIDE_RUNS = 3
 # test_packed.py's non-lane-aligned and word-crossing fixtures
 PACKED_FIXTURES = [(7, 160, 9), (33, 400, 4)]
@@ -404,8 +416,8 @@ REPLACES = {
     # the packed layout's launches of the four kernels that take it
     "decide_fame/packed": ("babble_tpu_torch/csrc/decide_fame.cu",
                            "babble_tpu/tpu/kernels.py:335"),
-    "divide_rounds/packed": ("babble_tpu_torch/csrc/divide_rounds.cu",
-                             "babble_tpu/tpu/kernels.py:118"),
+    "divide_rounds/packed/grid": ("babble_tpu_torch/csrc/divide_rounds.cu",
+                                  "babble_tpu/tpu/kernels.py:118"),
     "step_levels/packed": ("babble_tpu_torch/csrc/step_levels.cu",
                            "babble_tpu/tpu/incremental.py:243"),
     "decide_window/packed": ("babble_tpu_torch/csrc/decide_window.cu",
@@ -421,16 +433,16 @@ REPLACES = {
     # validators (phase 16(d))
     "decide_fame/packed/dev": ("babble_tpu_torch/csrc/decide_fame.cu",
                                "babble_tpu/tpu/kernels.py:335"),
-    "divide_rounds/dev": ("babble_tpu_torch/csrc/divide_rounds.cu",
-                          "babble_tpu/tpu/kernels.py:118"),
+    "divide_rounds/grid": ("babble_tpu_torch/csrc/divide_rounds.cu",
+                           "babble_tpu/tpu/kernels.py:118"),
     "step_levels/packed/dev": ("babble_tpu_torch/csrc/step_levels.cu",
                                "babble_tpu/tpu/incremental.py:243"),
     "train_levels/packed/dev": ("babble_tpu_torch/csrc/train_levels.cu",
                                 "babble_tpu/tpu/incremental.py:570"),
-    "decide_window/packed/dev": ("babble_tpu_torch/csrc/decide_window.cu",
-                                 "babble_tpu/tpu/incremental.py:361"),
-    "decide_window/dev": ("babble_tpu_torch/csrc/decide_window.cu",
-                          "babble_tpu/tpu/incremental.py:361"),
+    "decide_window/packed (1,024)": ("babble_tpu_torch/csrc/decide_window.cu",
+                                     "babble_tpu/tpu/incremental.py:361"),
+    "decide_window (1,024)": ("babble_tpu_torch/csrc/decide_window.cu",
+                              "babble_tpu/tpu/incremental.py:361"),
     # the device mesh (phase 17)
     "shard_fame/tally": ("babble_tpu_torch/csrc/shard_fame.cu", "babble_tpu/tpu/sharded.py:149"),
     "shard_fame/tally/packed": ("babble_tpu_torch/csrc/shard_fame.cu",
@@ -459,7 +471,11 @@ REPLACES = {
 # the kernels each engine's call must launch
 PATH_KERNELS = {
     "run_frontier_passes": ("build_inv", "frontier_rounds", "decide_fame", "round_received"),
-    "run_passes": ("divide_rounds", "decide_fame", "round_received"),
+    # divide_rounds walks the levels across the grid from
+    # _ext.DIVIDE_ROUNDS_GRID_FROM validators (the bench grid and up), in
+    # one block below (the catch-up section's 8)
+    "run_passes": ("divide_rounds/grid", "decide_fame", "round_received"),
+    "run_passes, catch-up section": ("divide_rounds", "decide_fame", "round_received"),
     "run_doubling_passes": ("closure_la", "build_inv", "walk_chunk", "decide_fame",
                             "round_received"),
     "run_doubling_passes, seeded": ("closure_la", "build_inv", "walk_chunk", "lamport_scan",
@@ -476,7 +492,8 @@ PATH_KERNELS = {
     # these and no wide form of the four kernels that take the layout
     "run_frontier_passes, packed": ("build_inv", "frontier_rounds", "decide_fame/packed",
                                     "round_received"),
-    "run_passes, packed": ("divide_rounds/packed", "decide_fame/packed", "round_received"),
+    "run_passes, packed": ("divide_rounds/packed/grid", "decide_fame/packed",
+                           "round_received"),
     "run_doubling_passes, packed": ("closure_la", "build_inv", "walk_chunk",
                                     "decide_fame/packed", "round_received"),
     "step, packed": ("apply_deltas", "step_levels/packed", "decide_window/packed"),
@@ -499,12 +516,12 @@ PATH_KERNELS = {
                                             "decide_fame/packed/dev", "round_received"),
     "frontier_train_step (1,024), packed": ("frontier_append", "frontier_window",
                                             "decide_fame/packed/dev", "round_received"),
-    "run_passes (1,024)": ("divide_rounds/dev", "decide_fame", "round_received"),
+    "run_passes (1,024)": ("divide_rounds/grid", "decide_fame", "round_received"),
     "step (1,024), packed": ("apply_deltas", "step_levels/packed/dev",
-                             "decide_window/packed/dev"),
-    "multi_step (1,024)": ("apply_deltas", "step_levels/dev", "decide_window/dev"),
+                             "decide_window/packed"),
+    "multi_step (1,024)": ("apply_deltas", "step_levels/dev", "decide_window"),
     "train_step (1,024), packed": ("apply_deltas", "train_levels/packed/dev",
-                                   "decide_window/packed/dev"),
+                                   "decide_window/packed"),
     # the device mesh: passes 2+3 of every sharded engine
     "sharded_frontier_passes": ("build_inv", "shard_walk/rows", "shard_walk/m0",
                                 "shard_walk/close", "frontier_post", "fame_setup",
@@ -515,10 +532,10 @@ PATH_KERNELS = {
                                         "fame_setup/packed", "shard_fame/tally/packed",
                                         "shard_fame/decide/packed", "shard_fame/active",
                                         "fame_tables", "received_search"),
-    "sharded_run_passes": ("divide_rounds", "fame_setup", "shard_fame/tally",
+    "sharded_run_passes": ("divide_rounds/grid", "fame_setup", "shard_fame/tally",
                            "shard_fame/decide", "shard_fame/active", "fame_tables",
                            "received_search"),
-    "sharded_run_passes, packed": ("divide_rounds/packed", "fame_setup/packed",
+    "sharded_run_passes, packed": ("divide_rounds/packed/grid", "fame_setup/packed",
                                    "shard_fame/tally/packed", "shard_fame/decide/packed",
                                    "shard_fame/active", "fame_tables", "received_search"),
     "sharded_doubling_passes": ("closure_la", "build_inv", "walk_chunk", "fame_setup",
@@ -538,8 +555,8 @@ PATH_KERNELS = {
 }
 # the wide forms of the layout kernels, which a packed path must not launch
 WIDE_FORMS = ("decide_fame", "divide_rounds", "step_levels", "train_levels",
-              "decide_window", "divide_rounds/dev", "step_levels/dev", "train_levels/dev",
-              "decide_window/dev", "shard_fame/tally", "shard_fame/decide", "fame_setup")
+              "decide_window", "divide_rounds/grid", "step_levels/dev", "train_levels/dev",
+              "shard_fame/tally", "shard_fame/decide", "fame_setup")
 # run_consensus_device's rung on phase 12's DAG (its 1,140 levels pass the
 # 1,024-level crossover) and that rung's kernels
 HG_ONESHOT_RUNG = ("doubling", "run_doubling_passes")
@@ -912,8 +929,11 @@ def inc_work_decide(st, r_win, e_win):
     witness rows of la_w and fd_w and its tables, the famous witnesses' la
     rows, the fame tables, the trailing e_win rows (index, creator,
     rounds, received) and the rows below them the stale detector reads;
-    the strongly-see compares at ALU rate and the eight offsets' 0/1
-    tallies at the int8 tensor-core rate."""
+    the strongly-see compares at ALU rate and, at the int8 tensor-core
+    rate, the 0/1 tallies the data needs: for each window round i and
+    offset d whose voting round j = i + d lies at or below last_round and
+    in the window (no later offset can decide anything), the present
+    voters of j x the present witnesses of i x those of j - 1."""
     e_cap, n = st.la.shape
     r_cap = st.wtable.shape[0]
     lr = int(st.last_round)
@@ -928,7 +948,13 @@ def inc_work_decide(st, r_win, e_win):
     lo = min(max(int(st.count) - e_win, 0), e_cap - e_win)
     nbytes = (n_wit * (8 * n + 5) + r_win * n * 4 + n_famous * n * 4 + r_cap * n * 6
               + r_cap + e_win * 16 + lo * 8)
-    return nbytes, pairs * n, 2 * 8 * r_win * n ** 3
+    from babble_tpu_torch.tpu.incremental import D_UNROLL
+
+    per_round = wv.sum(dim=1).tolist()
+    top = min(lr - floor, r_win - 1)
+    tallies = sum(2 * per_round[i + d] * per_round[i] * per_round[i + d - 1]
+                  for i in range(r_win) for d in range(2, 2 + D_UNROLL) if i + d <= top)
+    return nbytes, pairs * n, tallies
 
 
 
@@ -1339,14 +1365,15 @@ def packed_kernel_phase(g, dev, log_fn):
         plain = lambda: tuple(kernels._divide_rounds_plain(*dr_args, packed=True))  # noqa: E731
         _ext.reset_launches()
         dr = held(f"divide_rounds/packed on the {label}", kern, plain)
-        launched = _ext.LAUNCHES["divide_rounds/packed"]
+        launched = _ext.LAUNCHES["divide_rounds/packed/grid"]
         line = (f"divide_rounds/packed == plain on the {label} ({sg.e} events, "
                 f"{sg.num_levels} levels): {launched} launch")
         if sg is g:
             k_ms = spun_ms(kern, 5)
             p_ms = spun_ms(plain, 1, warmup=0)
-            summary["divide_rounds/packed"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
-            work["divide_rounds/packed"], pairs, _ = scan_work(gp, ins, dr, scan_r_max)
+            summary["divide_rounds/packed/grid"] = {"max_abs_err": 0, "ms": k_ms,
+                                                    "plain_ms": p_ms}
+            work["divide_rounds/packed/grid"], pairs, _ = scan_work(gp, ins, dr, scan_r_max)
             line += f", {k_ms:.3f} ms, plain {p_ms:.1f} ms; {pairs} (event, witness) pairs"
         log_fn(line)
 
@@ -1397,17 +1424,55 @@ def packed_kernel_phase(g, dev, log_fn):
     log_fn(f"{n}-validator append inputs: {len(batches)} batches of {cfg['batch']}, largest fd "
            f"burst {burst}, upd_cap {upd_cap}; {time.perf_counter() - t0:.1f} s to build and "
            f"copy")
-    for e_win, every_step in ((cfg["e_win"], 1), (WIDE_LATCH_E_WIN, WIDE_CHECK_EVERY)):
-        run = drive_paired(f"{n}-validator step state at e_win {e_win}", g, cfg, e_win,
-                           batches_d, dev, every_step, WIDE_CHECK_EVERY, log_fn)
+    for e_win, every_step, r_win in ((cfg["e_win"], 1, cfg["r_win"]),
+                                     (WIDE_LATCH_E_WIN, WIDE_CHECK_EVERY, cfg["r_win"]),
+                                     (WIDE_LATCH_E_WIN, WIDE_CHECK_EVERY, WIDE_FREEZE_R_WIN)):
+        run = drive_paired(f"{n}-validator step state at e_win {e_win}, r_win {r_win}", g,
+                           dict(cfg, r_win=r_win), e_win, batches_d, dev, every_step,
+                           WIDE_CHECK_EVERY, log_fn)
         fin = run.k
         received = int((fin.received >= 0).sum())
         latched = bool(fin.stale)
         if latched != (e_win == WIDE_LATCH_E_WIN) or (not latched and received == 0):
             raise AssertionError(f"{n}-validator step state at e_win {e_win}: stale "
                                  f"{latched}, {received} received")
+        if r_win < cfg["r_cap"]:
+            lr = int(fin.last_round)
+            undecided = torch.nonzero(~fin.rounds_decided[: lr + 1].cpu())
+            floor_true = int(undecided[0]) if undecided.numel() else lr
+            if floor_true <= cfg["r_cap"] - r_win:
+                raise AssertionError(f"r_win {r_win}: first undecided round {floor_true}, the "
+                                     f"window's floor never clipped below it")
+            log_fn(f"  r_win {r_win} < r_cap {cfg['r_cap']}: floor {cfg['r_cap'] - r_win}, "
+                   f"first undecided round {floor_true}: the freeze held rounds "
+                   f"{cfg['r_cap'] - r_win} .. {floor_true - 1} in the last calls")
     log_fn(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
     return summary, work, upd_cap, batches_d
+
+
+def hold_k5_forms(label, g, dev, log_fn):
+    """K5's two walks (the one block, the grid) held torch.equal to the
+    plain version on grid g's level scan as run_passes stages it, with
+    their CUDA-event times: the crossover's two sides at g's width."""
+    from babble_tpu_torch.tpu import _ext, engine, kernels
+
+    gp, _, scan_r_max = engine.scan_layout(g, True)
+    ins = engine.stage_scan(gp, dev)
+    dr_args = ins[:13] + (gp.super_majority, scan_r_max)
+    want = tuple(kernels._divide_rounds_plain(*dr_args))
+    n_lvl = ins[0].shape[1]
+    line = []
+    for form in _ext.DIVIDE_ROUNDS_FORMS:
+        if not _ext.divide_rounds_form_fits(form, g.n, n_lvl):
+            continue
+        run = lambda: tuple(_ext.divide_rounds(*dr_args, form=form))  # noqa: E731
+        got = run()
+        torch.cuda.synchronize()
+        require_equal(f"divide_rounds ({form} walk) on the {label}", got, want)
+        line.append(f"{form} walk {spun_ms(run, 5):.3f} ms")
+    log_fn(f"divide_rounds, both walks == plain on the {label} ({g.n} validators, "
+           f"{g.num_levels} levels; the wrapper takes the "
+           f"{_ext.divide_rounds_form(g.n, n_lvl)} walk): {', '.join(line)}")
 
 
 def max_fd_burst(batches, e_cap):
@@ -1483,6 +1548,7 @@ def switch_kernel_phase(dev, log_fn):
     cfg = SWITCH_STEP
     g = synthetic_grid(SWITCH["n"], SWITCH["e_count"], seed=SWITCH["seed"],
                        zipf_a=SWITCH["zipf_a"], record_fd_updates=True)
+    hold_k5_forms("switch grid", g, dev, log_fn)
     batches = inc.batches_from_grid(g, cfg["batch"], cfg["upd_cap"], cfg["e_cap"])
     burst = max_fd_burst(batches, cfg["e_cap"])
     batches_d = [inc.device_put(b, dev) for b in batches]
@@ -1950,11 +2016,17 @@ def fl_width_phase(dev, log_fn):
     sm, n, e = g.super_majority, g.n, g.e
     log_fn(f"{n}-validator grid: {e} events, {g.num_levels} levels, hottest chain "
            f"{int(g.index.max()) + 1} events; {time.perf_counter() - t_phase:.1f} s to generate")
-    for name, pk in (("decide_fame", True), ("decide_window", False)):
-        forms = _ext.staging(name, n, packed=pk)
-        if set(forms.values()) != {"device"}:
-            raise AssertionError(f"{name} at {n} validators: staging {forms}, not the device "
-                                 f"form in every launch")
+    forms = _ext.staging("decide_fame", n, packed=True)
+    if set(forms.values()) != {"device"}:
+        raise AssertionError(f"decide_fame at {n} validators: staging {forms}, not the device "
+                             f"form in every launch")
+    # K12's launches and K5's grid walk take the same shared memory at every
+    # width: no staging form
+    if (_ext.divide_rounds_form(n, n) != "grid"
+            or _ext.block_smem("decide_window", n) != _ext.block_smem("decide_window", 256)):
+        raise AssertionError(f"at {n} validators: divide_rounds takes the "
+                             f"{_ext.divide_rounds_form(n, n)} walk, decide_window's blocks "
+                             f"{_ext.block_smem('decide_window', n)}")
     summary, work, launches = {}, {}, {}
 
     def held(what, kern, plain):
@@ -2011,11 +2083,11 @@ def fl_width_phase(dev, log_fn):
         got_st = inc.clone_state(cst)
         r = cst.wtable.shape[0]
         _, dk_ms, dp_ms = held(
-            f"decide_window{'/packed' if pk else ''}/dev on coin case {FL_WIDTH_COIN}",
+            f"decide_window{'/packed' if pk else ''} on coin case {FL_WIDTH_COIN}",
             lambda: tuple(inc._decide_body(got_st, case["super_majority"], n, r_win=r,
                                            e_win=r * n, packed=pk)),
             lambda: decide_plain(ref_st, case["super_majority"], n, r, r * n, pk))
-        log_fn(f"  decide_window{'/packed' if pk else ''}/dev == plain on the coin case's "
+        log_fn(f"  decide_window{'/packed' if pk else ''} == plain on the coin case's "
                f"state: {int(got_st.fame_decided.sum())} witnesses decided, "
                f"{int((got_st.received >= 0).sum())} received; {dk_ms:.3f} ms, plain "
                f"{dp_ms:.1f} ms")
@@ -2025,22 +2097,22 @@ def fl_width_phase(dev, log_fn):
     log_fn(f"decide_fame/packed/dev == plain on coin case {FL_WIDTH_COIN} ({decided} witnesses "
            f"decided): {k_ms:.3f} ms, plain {p_ms:.1f} ms")
 
-    # K5's device form on the level scan
+    # K5's grid walk on the level scan
     gp, _, scan_r_max = engine.scan_layout(g, True)
     ins = engine.stage_scan(gp, dev)
     dr_args = ins[:13] + (gp.super_majority, scan_r_max)
     n_lvl = ins[0].shape[1]
-    dr, k_ms, p_ms = held(f"divide_rounds/dev at {n} validators",
+    dr, k_ms, p_ms = held(f"divide_rounds/grid at {n} validators",
                           lambda: tuple(kernels.divide_rounds(*dr_args)),
                           lambda: tuple(kernels._divide_rounds_plain(*dr_args)))
     res_s, s_launches = run_path("run_passes (1,024)", lambda: engine.run_passes(
         g, bucketed=True, device=dev, packed=False))
     require_same_results(f"run_passes (wide) == run_frontier_passes (packed) at {n} "
                          f"validators", res_s, res)
-    launches["divide_rounds/dev"] = s_launches["divide_rounds/dev"]
-    summary["divide_rounds/dev"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
-    work["divide_rounds/dev"], pairs, _ = scan_work(gp, ins, dr, scan_r_max)
-    log_fn(f"divide_rounds/dev == plain at {n} validators ({g.num_levels} levels of width "
+    launches["divide_rounds/grid"] = s_launches["divide_rounds/grid"]
+    summary["divide_rounds/grid"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+    work["divide_rounds/grid"], pairs, _ = scan_work(gp, ins, dr, scan_r_max)
+    log_fn(f"divide_rounds/grid == plain at {n} validators ({g.num_levels} levels of width "
            f"{n_lvl}): {k_ms:.3f} ms, plain {p_ms:.1f} ms; {pairs} (event, witness) pairs")
     del ins, dr
 
@@ -2057,11 +2129,13 @@ def fl_width_phase(dev, log_fn):
     batches_d = [inc.device_put(b, dev) for b in batches]
     srun = drive_paired(f"{n}-validator step state", g, cfg, e, batches_d, dev, 1,
                         FL_WIDTH_CHECK_EVERY, log_fn)
-    for name in ("step_levels/packed", "decide_window/packed", "decide_window"):
+    for name, key in (("step_levels/packed", "step_levels/packed/dev"),
+                      ("decide_window/packed", "decide_window/packed (1,024)"),
+                      ("decide_window", "decide_window (1,024)")):
         calls, k_ms, p_ms = srun.times(name)
         nbytes, alu, tc = srun.work[name]
-        summary[name + "/dev"] = {"max_abs_err": 0, "ms": k_ms / calls, "plain_ms": p_ms / calls}
-        work[name + "/dev"] = (nbytes / calls, (alu / ALU_OPS_S + tc / INT8_TC_OPS_S) / calls)
+        summary[key] = {"max_abs_err": 0, "ms": k_ms / calls, "plain_ms": p_ms / calls}
+        work[key] = (nbytes / calls, (alu / ALU_OPS_S + tc / INT8_TC_OPS_S) / calls)
     del srun
 
     def inc_path(label, drive):
@@ -2084,11 +2158,11 @@ def fl_width_phase(dev, log_fn):
         groups.append(inc.Batch(*[torch.stack(f) for f in zip(*group)]))
     got = inc_path("step (1,024), packed", lambda st: [
         inc.step(st, b, sm, n, r_win=r_cap, e_win=e, packed=True) for b in batches_d])
-    for name in ("step_levels/packed/dev", "decide_window/packed/dev"):
-        launches[name] = got[name]
+    launches["step_levels/packed/dev"] = got["step_levels/packed/dev"]
+    launches["decide_window/packed (1,024)"] = got["decide_window/packed"]
     got = inc_path("multi_step (1,024)", lambda st: [
         inc.multi_step(st, gr, sm, n, r_win=r_cap, e_win=e, packed=False) for gr in groups])
-    launches["decide_window/dev"] = got["decide_window/dev"]
+    launches["decide_window (1,024)"] = got["decide_window"]
     log_fn(f"step (packed) over the {n}-validator grid's {len(batches_d)} batches and "
            f"multi_step (wide) over groups of {MULTI_STEP_K} == run_frontier_passes on rows "
            f"[:e], no latch")
@@ -2902,9 +2976,13 @@ def main() -> int:
         gp, _, scan_r_max = engine.scan_layout(g, True)
         ins = engine.stage_scan(gp, dev)
         dr_args = ins[:13] + (gp.super_majority, scan_r_max)
-        dr = compare("divide_rounds", label,
+        dr_key = "divide_rounds" + (
+            "/grid" if _ext.divide_rounds_form(g.n, ins[0].shape[1]) == "grid" else "")
+        dr = compare(dr_key, label,
                      lambda: tuple(kernels.divide_rounds(*dr_args)),
                      lambda: tuple(kernels._divide_rounds_plain(*dr_args)), timed)
+        if label == "bench grid":
+            hold_k5_forms(label, g, dev, log)
         lam_args = doubling.lamport_inputs(g, dev)
         compare("lamport_scan", label,
                 lambda: doubling._lamport_levels_scan(*lam_args),
@@ -3021,7 +3099,7 @@ def main() -> int:
     sstats = {}
     dbl_s, launches_d = run_path("run_doubling_passes, seeded", lambda: doubling.run_doubling_passes(
         sec, stats=sstats, device=dev))
-    scan_s, launches_s = run_path("run_passes", lambda: engine.run_passes(
+    scan_s, launches_s = run_path("run_passes, catch-up section", lambda: engine.run_passes(
         sec, bucketed=True, adaptive_r=True, device=dev))
     require_same_results("catch-up run_doubling_passes == CPU", dbl_s, cpu_d)
     require_same_results("catch-up run_passes == CPU", scan_s, cpu_s)
@@ -3289,7 +3367,8 @@ def main() -> int:
     wide_launches, wide_ref = wide_engine_phase(wide, dev, log, upd_cap, wide_batches)
     del wide_batches
     launches["decide_fame/packed"] = wide_launches["run_frontier_passes"]["decide_fame/packed"]
-    launches["divide_rounds/packed"] = wide_launches["run_passes"]["divide_rounds/packed"]
+    launches["divide_rounds/packed/grid"] = (
+        wide_launches["run_passes"]["divide_rounds/packed/grid"])
     # K10p and K12p at run (c)'s shape: the kernels line's times and bounds
     s_summary, s_work = switch_kernel_phase(dev, log)
     summary.update(s_summary)

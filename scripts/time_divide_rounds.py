@@ -1,0 +1,190 @@
+#!/usr/bin/env python3
+"""Time the divide_rounds kernel (K5, the level scan) of one checkout of
+the PyTorch/CUDA port on one CUDA card.
+
+    python3 scripts/time_divide_rounds.py [--root DIR] [--reps N] [--device cuda|cpu]
+                                          [--shapes LABEL,...] [--cache DIR]
+
+Imports `babble_tpu_torch` from DIR (default: the checkout that holds this
+script), builds its kernels, and times `divide_rounds` on the level-scan
+inputs of eight grids, as `run_passes` stages them (bucketed): the
+catch-up section of bench_catchup.py (8 validators, 10,180 levels), the
+bench grid's generator at 16, 24 and 32 validators (around the crossover
+of the two walks), the bench grid (64), the switch grid (128), BASELINE.json config #4's grid (256,
+packed) and config #5's width grid (1,024, cut to 16,384 events). Each timed launch
+runs between two CUDA events behind a spin (the card busy while the host
+enqueues), and its outputs are held to the plain version's (torch.equal)
+after every launch. Where the checkout's `_ext.divide_rounds` takes a
+`form=` ("block", "grid"), every form that can run the shape is timed, so
+the crossover between the one-block walk and the grid walk can be read.
+Prints one JSON line per shape and form: the median kernel ms, the plain
+version's ms, the bound (chip_smoke.scan_work: each input read once, the
+compares at the ALU rate), the launch key and the card's name and power
+limit. The staged inputs are kept in --cache (default build/timing_cache)
+so that later runs skip the host grid builder.
+
+To compare two versions, run it against both checkouts in one call, in
+the order A, B, B, A (README.md shows the command). `--device
+cpu` rehearses it on the plain versions (wall-clock times).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from types import SimpleNamespace
+
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPIN_CYCLES = 1_000_000
+
+
+def load_chip_smoke():
+    """chip_smoke.py of this script's checkout, for its cell constants and
+    work counts (its own imports of the port happen inside its functions,
+    so they resolve to --root)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def card_name() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def shapes(cs):
+    """(label, grid spec, packed) of the timed shapes."""
+    return (
+        ("catch-up section", ("deep", cs.CATCHUP), False),
+        ("16-validator grid", ("grid", dict(cs.BENCH, n=16)), False),
+        ("24-validator grid", ("grid", dict(cs.BENCH, n=24)), False),
+        ("32-validator grid", ("grid", dict(cs.BENCH, n=32)), False),
+        ("bench grid", ("grid", cs.BENCH), False),
+        ("switch grid", ("grid", cs.SWITCH), False),
+        ("config #4 grid", ("grid", cs.WIDE), True),
+        ("width grid", ("grid", cs.FL_WIDTH), False),
+    )
+
+
+def staged_inputs(spec, dev, cache_path):
+    """The level scan's inputs of one grid as run_passes stages them
+    (bucketed), as CPU tensors: (args, n, e, levels); cached on disk."""
+    if os.path.exists(cache_path):
+        return torch.load(cache_path)
+    from babble_tpu_torch.tpu import engine
+    from babble_tpu_torch.tpu.grid import section_grid, synthetic_deep_grid, synthetic_grid
+
+    kind, p = spec
+    if kind == "deep":
+        deep = synthetic_deep_grid(p["n"], p["depth"], seed=p["seed"], zipf_a=p["zipf_a"])
+        g = section_grid(deep, engine.run_frontier_passes(deep, device=dev),
+                         deep.num_levels // 2)
+    else:
+        g = synthetic_grid(p["n"], p["e_count"], seed=p["seed"], zipf_a=p["zipf_a"],
+                           byzantine_frac=p.get("byzantine_frac", 0.0))
+    gp, _, scan_r_max = engine.scan_layout(g, True)
+    ins = engine.stage_scan(gp, "cpu")
+    out = dict(args=tuple(t.contiguous() for t in ins[:13]) + (gp.super_majority, scan_r_max),
+               n=g.n, e=g.e, levels=g.num_levels)
+    os.makedirs(os.path.dirname(cache_path), exist_ok=True)
+    torch.save(out, cache_path)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--shapes", default="", help="comma-separated labels (default: all)")
+    ap.add_argument("--cache", default=os.path.join(HERE, "build", "timing_cache"))
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    cs = load_chip_smoke()
+    from babble_tpu_torch.tpu import _ext, kernels
+
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    card = "cpu"
+    if cuda:
+        if not torch.cuda.is_available():
+            print("time_divide_rounds: no CUDA device", file=sys.stderr)
+            return 1
+        card = card_name()
+        _ext.build_all()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        """(result, ms) of one call: CUDA events behind a spin, or the host
+        clock on the CPU."""
+        if not cuda:
+            t0 = time.perf_counter()
+            out = fn()
+            return out, (time.perf_counter() - t0) * 1e3
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        ev[1].synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
+    wanted = {s for s in args.shapes.split(",") if s}
+    forms = getattr(_ext, "DIVIDE_ROUNDS_FORMS", None)
+    for label, spec, packed in shapes(cs):
+        if wanted and label not in wanted:
+            continue
+        key = label.replace(" ", "_").replace("#", "")
+        st = staged_inputs(spec, dev, os.path.join(args.cache, f"divide_rounds_{key}.pt"))
+        a = tuple(t.to(dev) if isinstance(t, torch.Tensor) else t for t in st["args"])
+        want, plain_ms = timed(lambda: tuple(kernels._divide_rounds_plain(*a, packed=packed)))
+        sync()
+        nbytes, ops_s = cs.scan_work(SimpleNamespace(n=st["n"], e=st["e"]), a, want, a[14])[0]
+        bound_ms = max(nbytes / cs.HBM_BYTES_S, ops_s) * 1e3
+        runs = [(None, lambda: tuple(kernels.divide_rounds(*a, packed=packed)))]
+        if cuda and forms:
+            runs = [(f, (lambda f=f: tuple(_ext.divide_rounds(*a, packed=packed, form=f))))
+                    for f in forms if _ext.divide_rounds_form_fits(f, st["n"], a[0].shape[1])]
+        for form, fn in runs:
+            times = []
+            launched = {}
+            for k in range(args.reps + 2):
+                before = dict(_ext.LAUNCHES)
+                got, ms = timed(fn)
+                for name, v in _ext.LAUNCHES.items():
+                    if v != before[name]:
+                        launched[name] = launched.get(name, 0) + v - before[name]
+                for g_t, w_t in zip(got, want):
+                    if not torch.equal(g_t, w_t):
+                        raise AssertionError(f"divide_rounds ({form or 'default'}) on the "
+                                             f"{label}: differs from the plain version")
+                if k >= 2:
+                    times.append(ms)
+            print(json.dumps({
+                "kernel": "divide_rounds", "shape": label, "validators": st["n"],
+                "events": st["e"], "levels": st["levels"], "level_width": int(a[0].shape[1]),
+                "packed": packed, "form": form, "launches": launched,
+                "ms": statistics.median(times), "min_ms": min(times), "reps": args.reps,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes" if nbytes / cs.HBM_BYTES_S >= ops_s else "operations",
+                "root": args.root, "card": card}), flush=True)
+        del a, want
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

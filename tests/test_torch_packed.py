@@ -9,8 +9,9 @@ the append paths (step, multi_step, train_step, multi_train) with
 packed=True; the knob's switch at 128 validators on both node rungs; the
 plain versions of the two kernels repaired for 256 validators (K7
 walk_chunk, K12 decide_window) at that width; the plain versions' round
-chunks against one chunk; and the shared-memory formulas behind the
-wrappers' choice of staging form. Exact equality, no tolerance."""
+chunks against one chunk; the shared-memory formulas behind the
+wrappers' choice of staging form, and of divide_rounds' walk; and the plain
+fame window at a ragged width. Exact equality, no tolerance."""
 
 import functools
 
@@ -666,25 +667,36 @@ def test_plain_round_chunks_equal_one_chunk(monkeypatch, packed):
 # the shared form's widest width of each kernel with a device staging
 # form (at the shapes named), and K7's limit, which it still enforces
 SHARED_TOPS = {
-    ("decide_window", False, ()): 384,
     ("decide_fame", True, ()): 736,
-    ("divide_rounds", False, (("n_lvl", 32),)): 906,
     ("step_levels", False, (("w", 64), ("l_lv", 16), ("b", 64), ("r_cap", 64))): 702,
     ("train_levels", False, (("kb", 8192), ("w", 64), ("r_cap", 64))): 488,
 }
+# the widest shared form K12 and K5 had before their launches were tiled
+# (K5 at level width 32): their shared memory no longer grows with N, and
+# neither has a staging form
+OLD_TOPS = {
+    ("decide_window", False, ()): 384,
+    ("divide_rounds", False, (("n_lvl", 32),)): 906,
+}
 
 
-@pytest.mark.parametrize("name,packed,shape", [("decide_window", False, ()),
-                                               ("walk_chunk", False, ()),
-                                               ("decide_fame", True, ())]
-                         + [k for k in SHARED_TOPS if k[0] not in
-                            ("decide_window", "decide_fame")])
+@pytest.mark.parametrize("name,packed,shape", [
+    ("decide_window", False, ()),
+    ("walk_chunk", False, ()),
+    ("decide_fame", True, ()),
+    ("divide_rounds", False, (("n_lvl", 32),)),
+    ("step_levels", False, (("w", 64), ("l_lv", 16), ("b", 64), ("r_cap", 64))),
+    ("train_levels", False, (("kb", 8192), ("w", 64), ("r_cap", 64))),
+])
 def test_shared_memory_formula_holds_256_and_refuses_past_its_maximum(name, packed, shape):
     """Each kernel's blocks fit one block's shared memory at 256 validators
     and up to its old maximum, where the shared form still runs; past it a
     kernel with a device staging form takes that form and nothing raises
     up to 1,024 validators, while K7 (no staging form, 29,056 validators)
-    still refuses past its maximum with the check its wrapper runs first."""
+    still refuses past its maximum with the check its wrapper runs first.
+    K12 and K5 (from DIVIDE_ROUNDS_GRID_FROM validators: the grid walk)
+    take the same shared memory at 256, at their old maximum, past it and
+    at 1,024, and have no staging form."""
     kw = dict(shape)
     if name == "walk_chunk":
         top = 29056
@@ -694,6 +706,15 @@ def test_shared_memory_formula_holds_256_and_refuses_past_its_maximum(name, pack
         _ext.check_smem(name, 256)
         with pytest.raises(ValueError, match=f"{top + 1} validators"):
             _ext.check_smem(name, top + 1)
+        return
+    if (name, packed, shape) in OLD_TOPS:
+        top = OLD_TOPS[(name, packed, shape)]
+        sizes = {_ext.smem_bytes(name, m, packed=packed, **kw) for m in (256, top, top + 1, 1024)}
+        assert len(sizes) == 1 and sizes.pop() <= _ext.MAX_SMEM_BYTES
+        if name == "divide_rounds":
+            assert _ext.block_smem(name, 256, **kw) == {"grid": _ext.DR_GRID_SMEM}
+        with pytest.raises(KeyError):
+            _ext.staging(name, 256, packed=packed, **kw)
         return
     top = SHARED_TOPS[(name, packed, shape)]
     if not shape:
@@ -710,42 +731,128 @@ def test_shared_memory_formula_holds_256_and_refuses_past_its_maximum(name, pack
 @pytest.mark.parametrize("n,want", [
     (256, ("shared", "shared", "shared", "shared")),
     (384, ("shared", "shared", "shared", "shared")),
-    (385, ("shared", "device", "shared", "shared")),
-    (736, ("shared", "device", "shared", "shared")),
-    (737, ("shared", "device", "shared", "device")),
-    (1024, ("device", "device", "device", "device")),
+    (385, ("shared", "shared", "shared", "shared")),
+    (736, ("shared", "shared", "shared", "shared")),
+    (737, ("shared", "shared", "shared", "device")),
+    (1024, ("shared", "shared", "device", "device")),
 ])
 def test_staging_choice_around_the_old_limits(n, want):
-    """The staging form of each launch of K12 (both layouts: one kernel)
-    and K3p at the widths around their old limits (384 and 736): the vote
-    launch of each leaves shared memory first, the setup past 852 and 860.
-    The scratch the wrappers hand the launches follows that choice and
-    nothing else: a slice per block for each "device" launch, one
-    allocation shared by the call's launches, None for a "shared" one."""
-    forms = (_ext.staging("decide_window", n), _ext.staging("decide_fame", n, packed=True))
-    assert (forms[0]["setup"], forms[0]["vote"], forms[1]["setup"], forms[1]["vote"]) == want
-    assert _ext.staging("decide_window", n, packed=True) == forms[0]
-    for (name, packed), form in zip((("decide_window", False), ("decide_fame", True)), forms):
-        blocks = {"setup": 3, "vote": 2}
-        stage = _ext._stage_scratch(name, n, torch.device("cpu"), blocks, packed=packed)
-        assert {k: "shared" if t is None else "device" for k, t in stage.items()} == form
-        per_block = _ext.block_smem(name, n, packed=packed)
-        need = [_ext.stage_words(per_block[k]) * blocks[k] for k in form if form[k] == "device"]
-        staged = {id(t): t for t in stage.values() if t is not None}
-        assert len(staged) == (1 if need else 0)
-        for t in staged.values():
-            assert t.numel() == max(need)
+    """The form of each launch of K12 (both layouts: one kernel) and K3p at
+    the widths around their old limits (384 and 736): K12's setup and vote
+    stay in shared memory at every width (no staging form), K3p's vote
+    leaves shared memory first, its setup past 860. The scratch the K3p
+    wrapper hands the launches follows that choice and nothing else: a
+    slice per block for each "device" launch, one allocation shared by the
+    call's launches, None for a "shared" one."""
+    k12 = {k: "shared" if b <= _ext.MAX_SMEM_BYTES else "device"
+           for k, b in _ext.block_smem("decide_window", n).items()}
+    k3p = _ext.staging("decide_fame", n, packed=True)
+    assert (k12["setup"], k12["vote"], k3p["setup"], k3p["vote"]) == want
+    for packed in (False, True):
+        with pytest.raises(KeyError):
+            _ext.staging("decide_window", n, packed=packed)
+    blocks = {"setup": 3, "vote": 2}
+    stage = _ext._stage_scratch("decide_fame", n, torch.device("cpu"), blocks, packed=True)
+    assert {k: "shared" if x is None else "device" for k, x in stage.items()} == k3p
+    per_block = _ext.block_smem("decide_fame", n, packed=True)
+    need = [_ext.stage_words(per_block[k]) * blocks[k] for k in k3p if k3p[k] == "device"]
+    staged = {id(x): x for x in stage.values() if x is not None}
+    assert len(staged) == (1 if need else 0)
+    for x in staged.values():
+        assert x.numel() == max(need)
     with pytest.raises(KeyError):
         _ext.staging("walk_chunk", n)
 
 
+@pytest.mark.parametrize("n", [256, 1024, 4096])
+def test_tiled_launches_take_the_same_shared_memory_at_every_width(n):
+    """K5's grid walk (at level widths from 1 to N) and K12's setup and
+    vote ask one block for the same shared memory at 256, 1,024 and 4,096
+    validators, under the card's maximum: no width is refused for want of
+    it."""
+    assert _ext.divide_rounds_form(n, n) == "grid"
+    for n_lvl in (1, 97, n):
+        assert _ext.block_smem("divide_rounds", n, n_lvl=n_lvl) == {"grid": _ext.DR_GRID_SMEM}
+    assert _ext.block_smem("decide_window", n) == {"setup": _ext.DW_SETUP_SMEM,
+                                                   "vote": _ext.DW_VOTE_SMEM}
+    for b in (_ext.DR_GRID_SMEM, _ext.DW_SETUP_SMEM, _ext.DW_VOTE_SMEM):
+        assert 0 < b <= _ext.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_divide_rounds_form_around_the_crossover(packed):
+    """K5's wrapper launches the one-block walk below
+    DIVIDE_ROUNDS_GRID_FROM validators and the grid walk from there (the
+    launch is stubbed: CPU tensors here), handing the grid walk alone its
+    scratch (per-lane c_seen, parent round, self-parent round, lamport, and
+    the barrier count) and counting it under "<key>/grid"; a forced form
+    overrides the rule, and a one-block walk whose rows cannot fit one
+    block's shared memory raises before anything is launched."""
+    top = _ext.DIVIDE_ROUNDS_GRID_FROM
+    i32 = torch.int32
+    seen = []
+    real = _ext._launch
+    _ext._launch = lambda name, dev, args, packed=False, staged=False, grid=False: seen.append(
+        (name, args, packed, staged, grid))
+
+    def call(n, n_lvl=4, form=None):
+        e, r_max = 8, 2
+        z = lambda *s: torch.zeros(s, dtype=i32)  # noqa: E731
+        _ext.divide_rounds(z(3, n_lvl), *[z(e) for _ in range(4)], z(e, n), z(e, n),
+                           *[z(e) for _ in range(6)], 2 * n // 3 + 1, r_max, packed=packed,
+                           form=form)
+        return seen[-1]
+
+    try:
+        for n, form in ((top - 1, "block"), (top, "grid"), (top + 1, "grid"), (1024, "grid")):
+            assert _ext.divide_rounds_form(n, 4) == form
+            name, args, pk, staged, grid = call(n)
+            assert (name, pk, staged, grid) == ("divide_rounds", packed, False, form == "grid")
+            scratch = args[17]
+            assert (scratch is None) == (form == "block")
+            if form == "grid":
+                assert scratch.dtype == i32 and scratch.numel() == 4 * 4 + 1
+        assert call(8, form="grid")[4] and not call(top, form="block")[4]
+        n_wide = 1000
+        assert not _ext.divide_rounds_form_fits("block", n_wide, 64)
+        count = len(seen)
+        with pytest.raises(ValueError, match="one-block walk"):
+            call(n_wide, n_lvl=64, form="block")
+        assert len(seen) == count
+    finally:
+        _ext._launch = real
+
+
+@pytest.mark.parametrize("n_participants", [40, 4])
+def test_fame_window_plain_at_a_ragged_width_matches_reference(n_participants):
+    """K12's fame window at 40 validators (not a multiple of 32, nor of the
+    vote's 32-column blocks or the setup's 64-row tiles, so every tile of
+    the kernel is ragged) on random coin tables, without and with coin
+    steps in the unroll (d = 4, 8): the port's plain window, the kernel's
+    reference on the card, equals the reference's, and decides
+    witnesses."""
+    n, r, seed = 40, 8, 5
+    c = coin_window(n, r, seed)
+    sm = 2 * n // 3 + 1
+    for packed in (False, True):
+        want = ref_inc._fame_window(
+            jnp.asarray(c["w_valid"]), jnp.asarray(c["la_w"]), jnp.asarray(c["fd_w"]),
+            jnp.asarray(c["idx_w"]), jnp.asarray(c["coin_w"]), jnp.int32(r - 1), sm,
+            n_participants, packed=packed)
+        got = inc._fame_window(t(c["w_valid"]), t(c["la_w"]), t(c["fd_w"]), t(c["idx_w"]),
+                               t(c["coin_w"]), r - 1, sm, n_participants, packed=packed)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert bool(got[0].any())
+
+
 def test_wrappers_run_the_width_check_before_anything_else():
-    """Past its old limit of 384 validators the K12 wrapper no longer
-    raises: it sizes the device staging scratch of the launch that passes
-    one block's shared memory (the vote) and hands it to that launch alone,
-    NULL to the setup, counted as the device form (the launch is stubbed:
-    CPU tensors here). K7 still runs its width check before anything
-    else."""
+    """Past its old limit of 384 validators the K12 wrapper neither raises
+    nor stages: its launches take the same shared memory at every width,
+    so it hands the C entry point its vote scratch (the second vote-word
+    buffer and the per-round counts) and no staging scratch, counted as
+    the packed launch (the launch is stubbed: CPU tensors here). K7 still
+    runs its width check before anything else."""
     n = 385
     r_cap, e_cap, r_win = 1, 4, 1
     i32 = torch.int32
@@ -753,8 +860,8 @@ def test_wrappers_run_the_width_check_before_anything_else():
     b = lambda *s: torch.zeros(s, dtype=torch.bool)  # noqa: E731
     seen = []
     real = _ext._launch
-    _ext._launch = lambda name, dev, args, packed=False, staged=False: seen.append(
-        (name, args, packed, staged))
+    _ext._launch = lambda name, dev, args, packed=False, staged=False, grid=False: seen.append(
+        (name, args, packed, staged, grid))
     try:
         _ext.decide_window(z(r_cap, n), z(r_cap, n, n), z(r_cap, n, n), z(r_cap, n),
                            b(r_cap, n), b(r_cap, n), b(r_cap, n), b(r_cap), z(), z(),
@@ -762,13 +869,13 @@ def test_wrappers_run_the_width_check_before_anything_else():
                            3, n, r_win, 1, inc.D_UNROLL, packed=True)
     finally:
         _ext._launch = real
-    (name, args, packed, staged), = seen
-    assert (name, packed, staged) == ("decide_window", True, True)
-    stage_setup, stage_vote = args[22:24]
-    vote = _ext.block_smem("decide_window", n)["vote"]
-    assert vote > _ext.MAX_SMEM_BYTES >= _ext.block_smem("decide_window", n)["setup"]
-    assert stage_setup is None
-    assert stage_vote.numel() == _ext.stage_words(vote) * r_win
+    (name, args, packed, staged, grid), = seen
+    assert (name, packed, staged, grid) == ("decide_window", True, False, False)
+    vt0, vt1, rcnt = args[18:21]
+    assert vt1.shape == vt0.shape == (r_win, n, (n + 31) // 32)
+    assert rcnt.shape == (3 * r_win,)
+    assert all(x is not None for x in args[:24])
+    assert max(_ext.block_smem("decide_window", n).values()) <= _ext.MAX_SMEM_BYTES
     # walk_chunk reads the width off rows_by and checks it first, so the
     # (N, N, L) table need not be built at this width
     n, l = 29057, 1
