@@ -42,11 +42,11 @@ static inline unsigned babble_stride_blocks(long long work, int threads) {
         if (babble_err_ != cudaSuccess) return (int)babble_err_; \
     } while (0)
 
-// The staging area of a block: its rows, carries and bit words. A launch
-// whose blocks fit one block's shared memory keeps them in dynamic shared
-// memory (DEV false); a wider one runs the same kernel code with them in
-// the block's own slice of a device scratch the wrapper allocates (DEV
-// true; tpu/_ext.py staging chooses, and the launcher follows its pointer),
+// The staging area of a block of decide_fame.cu: its rows and bit words.
+// A launch whose blocks fit one block's shared memory keeps them in dynamic
+// shared memory (DEV false); a wider one runs the same kernel code with
+// them in the block's own slice of a device scratch the wrapper allocates
+// (DEV true; tpu/_ext.py staging chooses, and the launcher follows its pointer),
 // `words` int32 words per block in block order, read and written through
 // L1/L2. __syncthreads and __syncwarp order global memory within the block
 // as they order shared memory, so the barriers stay as they are.
@@ -311,4 +311,144 @@ __device__ __forceinline__ void babble_count_ge_tile(int32_t* smem, int n,
     }
     babble_cp_async_wait<0>();
     __syncthreads();
+}
+
+// The cooperative level walks (divide_rounds.cu dr_grid, step_levels.cu
+// sl_grid, train_levels.cu tl_grid) share one work item: BABBLE_LT lanes
+// of a level x BABBLE_WT witnesses, a BABBLE_TM x BABBLE_TN register tile
+// per thread, the coordinate ring BABBLE_STAGES deep.
+#define BABBLE_LT 8
+#define BABBLE_WT 32
+#define BABBLE_TM 2
+#define BABBLE_TN 1
+#define BABBLE_STAGES 4
+#define BABBLE_LEVEL_THREADS ((BABBLE_LT / BABBLE_TM) * (BABBLE_WT / BABBLE_TN))
+
+// Bytes of the work item's shared ring.
+static inline size_t babble_level_item_smem() {
+    return babble_count_tile_words<BABBLE_LT, BABBLE_WT, BABBLE_STAGES>() * sizeof(int32_t);
+}
+
+// The count phase of one work item of a cooperative level walk: the
+// item's BABBLE_LT lanes against witness tile wt. On entry thread t <
+// BABBLE_LT has set a_lane[t] (the lane's la row), s_pr[t] (its parent
+// round) and s_todo[t] (whether it still counts) in shared memory, and the
+// block has synced. For each distinct parent round p among the lanes still
+// to count, one pass counts their la rows against the rows wrow(p, w) of
+// the tile's witnesses (null: no witness) through the compare-count tile,
+// and adds each lane's verdicts (count >= super_majority) into
+// c_seen[t]. Every thread of the block calls this; the tile and the
+// shared arrays are free again when it returns.
+template <typename WRow>
+__device__ __forceinline__ void babble_level_item(int32_t* tile, int n, int wt, bool aligned16,
+                                                  int super_majority,
+                                                  const int32_t* const* a_lane,
+                                                  const int* s_pr, int* s_todo,
+                                                  int32_t* c_seen, WRow wrow) {
+    __shared__ const int32_t* a_pass[BABBLE_LT];  // this pass's lanes' la rows, else null
+    __shared__ const int32_t* b_rows[BABBLE_WT];  // the pass's witnesses' rows
+    __shared__ int s_add[BABBLE_LT];
+    __shared__ int s_p;
+    constexpr int TX = BABBLE_WT / BABBLE_TN, TY = BABBLE_LT / BABBLE_TM;
+    static_assert(TX == 32, "a warp owns whole lane rows of the tile");
+    const int lane = threadIdx.x & 31, ty = threadIdx.x / TX;
+    while (true) {
+        if (threadIdx.x == 0) {
+            int p = -1;
+            for (int t = 0; t < BABBLE_LT; ++t) {
+                if (s_todo[t]) {
+                    p = s_pr[t];
+                    break;
+                }
+            }
+            s_p = p;
+        }
+        __syncthreads();
+        const int p = s_p;
+        if (p < 0) break;  // block-uniform
+        if (threadIdx.x < BABBLE_LT) {
+            const bool mine = s_todo[threadIdx.x] && s_pr[threadIdx.x] == p;
+            a_pass[threadIdx.x] = mine ? a_lane[threadIdx.x] : nullptr;
+            s_add[threadIdx.x] = 0;
+        }
+        const int32_t* b = nullptr;
+        if (threadIdx.x < BABBLE_WT) {
+            const int w = wt * BABBLE_WT + threadIdx.x;
+            b = w < n ? wrow(p, w) : nullptr;
+            b_rows[threadIdx.x] = b;
+        }
+        const int any_b = __syncthreads_or(b != nullptr);
+        if (threadIdx.x < BABBLE_LT && s_todo[threadIdx.x] && s_pr[threadIdx.x] == p) {
+            s_todo[threadIdx.x] = 0;  // read again only after the next barrier
+        }
+        if (any_b) {
+            int cnt[BABBLE_TM][BABBLE_TN];
+            babble_count_ge_tile<BABBLE_LT, BABBLE_WT, BABBLE_TM, BABBLE_TN, BABBLE_STAGES>(
+                tile, n, a_pass, b_rows, aligned16, cnt);
+#pragma unroll
+            for (int m = 0; m < BABBLE_TM; ++m) {
+                const int r = ty + m * TY;
+                const unsigned v = __ballot_sync(
+                    BABBLE_FULL_MASK, a_pass[r] != nullptr && b_rows[lane] != nullptr
+                                          && cnt[m][0] >= super_majority);
+                if (lane == 0) s_add[r] = __popc(v);
+            }
+            __syncthreads();
+            if (threadIdx.x < BABBLE_LT && s_add[threadIdx.x] > 0) {
+                atomicAdd(c_seen + threadIdx.x, s_add[threadIdx.x]);
+            }
+        }
+        __syncthreads();  // the pass's rows are rewritten next
+    }
+}
+
+// The block count of a cooperative launch of `kernel`: as many blocks as
+// the card holds at once (a grid barrier needs every block running), at
+// most `items`. cudaErrorCooperativeLaunchTooLarge where not one block fits.
+template <typename Kernel>
+static inline cudaError_t babble_coop_blocks(Kernel kernel, int threads, size_t smem,
+                                             int device, long long items, int* blocks) {
+    int per_sm = 0, sms = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                                    smem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    long long g = (long long)per_sm * sms;
+    if (g > items) g = items;
+    if (g < 1) return cudaErrorCooperativeLaunchTooLarge;
+    *blocks = (int)g;
+    return cudaSuccess;
+}
+
+// Whether every row a compare-count tile stages from `base` (rows of n
+// int32 words) starts on 16 bytes, so that cp.async may copy 16 at a time.
+__host__ __device__ __forceinline__ bool babble_rows_aligned16(const void* base, int n) {
+    return (n & 3) == 0 && (reinterpret_cast<uintptr_t>(base) & 15) == 0;
+}
+
+// The max of int32 values kept in an unsigned word that starts at 0 (a
+// zeroed scratch): atomicMax on v ^ 2^31 orders as the signed values, and
+// 0 stands for MIN_INT32.
+__device__ __forceinline__ unsigned babble_max_key(int v) {
+    return static_cast<unsigned>(v) ^ 0x80000000u;
+}
+__device__ __forceinline__ int babble_max_of_key(unsigned k) {
+    return static_cast<int>(k ^ 0x80000000u);
+}
+
+// The end of a cooperative walk whose every block has added its share
+// into global accumulators (each thread that added fenced first): true in
+// the one block that arrives last at `ticket` (a word that starts at 0),
+// after which that block reads every block's share.
+__device__ __forceinline__ bool babble_last_block(unsigned int* ticket) {
+    __shared__ int s_last;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        __threadfence();
+        s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (s_last) __threadfence();
+    return s_last;
 }

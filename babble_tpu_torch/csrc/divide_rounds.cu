@@ -71,14 +71,6 @@
 #include "common.cuh"
 
 #define DR_MAX_WARPS 32
-// dr_grid's work item: DR_LT lanes x DR_WT witnesses, a TM x TN register
-// tile per thread, the coordinate ring DR_STAGES deep
-#define DR_LT 8
-#define DR_WT 32
-#define DR_TM 2
-#define DR_TN 1
-#define DR_STAGES 4
-#define DR_GRID_THREADS ((DR_LT / DR_TM) * (DR_WT / DR_TN))
 
 // outputs to their initial values; *last_level = -1; the grid form's
 // per-lane c_seen and barrier count (scratch, 4 n_lvl + 1 words) to 0
@@ -200,7 +192,7 @@ __global__ void dr_walk(const int32_t* __restrict__ levels,
     }
 }
 
-__global__ void __launch_bounds__(DR_GRID_THREADS)
+__global__ void __launch_bounds__(BABBLE_LEVEL_THREADS)
 dr_grid(const int32_t* __restrict__ levels,
         const int32_t* __restrict__ creator,
         const int32_t* __restrict__ self_parent,
@@ -216,16 +208,11 @@ dr_grid(const int32_t* __restrict__ levels,
         const int32_t* __restrict__ last_level,
         int32_t* rounds, uint8_t* witness, int32_t* lamport,
         int32_t* wtable, int32_t* scratch, int n_lvl, int e, int n,
-        int super_majority, int r_max) {
+        int super_majority, int r_max, int aligned16) {
     extern __shared__ int4 dr_smem4[];
     int32_t* tile = reinterpret_cast<int32_t*>(dr_smem4);
-    __shared__ const int32_t* a_lane[DR_LT];  // the item's lanes' la rows
-    __shared__ const int32_t* a_pass[DR_LT];  // ... of this pass's lanes, else null
-    __shared__ const int32_t* b_rows[DR_WT];  // the pass's witnesses' fd rows
-    __shared__ int s_pr[DR_LT], s_todo[DR_LT], s_add[DR_LT];
-    __shared__ int s_p;
-    constexpr int TX = DR_WT / DR_TN, TY = DR_LT / DR_TM;
-    static_assert(TX == 32, "a warp owns whole lane rows of the tile");
+    __shared__ const int32_t* a_lane[BABBLE_LT];  // the item's lanes' la rows
+    __shared__ int s_pr[BABBLE_LT], s_todo[BABBLE_LT];
     // per lane of the level: c_seen, parent round, self-parent round, new
     // lamport; then the barrier's count
     int32_t* c_seen = scratch;
@@ -235,18 +222,16 @@ dr_grid(const int32_t* __restrict__ levels,
     unsigned int* bar = reinterpret_cast<unsigned int*>(l_lt + n_lvl);
     unsigned int bar_target = 0;
     const int last = *last_level;
-    const int n_wt = (n + DR_WT - 1) / DR_WT;
-    const int items = (n_lvl + DR_LT - 1) / DR_LT * n_wt;
-    const bool aligned16 = (n & 3) == 0;
-    const int lane = threadIdx.x & 31, ty = threadIdx.x / TX;
+    const int n_wt = (n + BABBLE_WT - 1) / BABBLE_WT;
+    const int items = (n_lvl + BABBLE_LT - 1) / BABBLE_LT * n_wt;
 
     for (int lv = 0; lv <= last; ++lv) {
         const int32_t* lrow = levels + (long long)lv * n_lvl;
         // (A) strongly-see counts, item by item
         for (int it = blockIdx.x; it < items; it += gridDim.x) {
             const int lt = it / n_wt, wt = it % n_wt;
-            if (threadIdx.x < DR_LT) {
-                const int i = lt * DR_LT + threadIdx.x;
+            if (threadIdx.x < BABBLE_LT) {
+                const int i = lt * BABBLE_LT + threadIdx.x;
                 const int row = i < n_lvl ? lrow[i] : -1;
                 int pr = -1, todo = 0;
                 a_lane[threadIdx.x] = nullptr;
@@ -277,54 +262,12 @@ dr_grid(const int32_t* __restrict__ levels,
             }
             __syncthreads();
             // one pass per distinct parent round among the item's lanes
-            while (true) {
-                if (threadIdx.x == 0) {
-                    int p = -1;
-                    for (int t = 0; t < DR_LT; ++t) {
-                        if (s_todo[t]) {
-                            p = s_pr[t];
-                            break;
-                        }
-                    }
-                    s_p = p;
-                }
-                __syncthreads();
-                const int p = s_p;
-                if (p < 0) break;  // block-uniform
-                if (threadIdx.x < DR_LT) {
-                    const bool mine = s_todo[threadIdx.x] && s_pr[threadIdx.x] == p;
-                    a_pass[threadIdx.x] = mine ? a_lane[threadIdx.x] : nullptr;
-                    s_add[threadIdx.x] = 0;
-                }
-                int wr = -1;
-                if (threadIdx.x < DR_WT) {
-                    const int w = wt * DR_WT + threadIdx.x;
-                    wr = w < n ? __ldcg(wtable + (long long)min(p, r_max - 1) * n + w) : -1;
-                    b_rows[threadIdx.x] = wr >= 0 ? fd + (long long)min(wr, e - 1) * n : nullptr;
-                }
-                const int any_b = __syncthreads_or(wr >= 0);
-                if (threadIdx.x < DR_LT && s_todo[threadIdx.x] && s_pr[threadIdx.x] == p) {
-                    s_todo[threadIdx.x] = 0;  // read again only after the next barrier
-                }
-                if (any_b) {
-                    int cnt[DR_TM][DR_TN];
-                    babble_count_ge_tile<DR_LT, DR_WT, DR_TM, DR_TN, DR_STAGES>(
-                        tile, n, a_pass, b_rows, aligned16, cnt);
-#pragma unroll
-                    for (int m = 0; m < DR_TM; ++m) {
-                        const int r = ty + m * TY;
-                        const unsigned v = __ballot_sync(
-                            BABBLE_FULL_MASK, a_pass[r] != nullptr && b_rows[lane] != nullptr
-                                                  && cnt[m][0] >= super_majority);
-                        if (lane == 0) s_add[r] = __popc(v);
-                    }
-                    __syncthreads();
-                    if (threadIdx.x < DR_LT && s_add[threadIdx.x] > 0) {
-                        atomicAdd(c_seen + lt * DR_LT + threadIdx.x, s_add[threadIdx.x]);
-                    }
-                }
-                __syncthreads();  // the pass's rows are rewritten next
-            }
+            babble_level_item(tile, n, wt, aligned16 != 0, super_majority, a_lane, s_pr, s_todo,
+                              c_seen + lt * BABBLE_LT, [&](int p, int w) -> const int32_t* {
+                                  const int wr =
+                                      __ldcg(wtable + (long long)min(p, r_max - 1) * n + w);
+                                  return wr >= 0 ? fd + (long long)min(wr, e - 1) * n : nullptr;
+                              });
         }
         babble_grid_sync(bar, bar_target);
         // (B) every lane's results from the counts and the carry as read
@@ -387,31 +330,24 @@ extern "C" int babble_divide_rounds(
         BABBLE_CHECK_LAUNCH();
         return 0;
     }
-    const size_t smem = babble_count_tile_words<DR_LT, DR_WT, DR_STAGES>() * sizeof(int32_t);
+    const size_t smem = babble_level_item_smem();
     BABBLE_CHECK(babble_allow_smem(dr_grid, smem));
-    // as many blocks as can be resident at once (the grid barrier needs
-    // every block running), at most one per work item
-    int per_sm = 0, sms = 0;
-    BABBLE_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dr_grid,
-                                                               DR_GRID_THREADS, smem));
-    BABBLE_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
     const long long items =
-        (long long)(n_lvl + DR_LT - 1) / DR_LT * ((n + DR_WT - 1) / DR_WT);
+        (long long)(n_lvl + BABBLE_LT - 1) / BABBLE_LT * ((n + BABBLE_WT - 1) / BABBLE_WT);
     if (items == 0) return 0;  // no lane: nothing to walk
-    long long grid = (long long)per_sm * sms;
-    if (grid > items) grid = items;
-    if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    int g = (int)grid;
+    int g = 0;
+    BABBLE_CHECK(babble_coop_blocks(dr_grid, BABBLE_LEVEL_THREADS, smem, device, items, &g));
+    const int aligned16 = babble_rows_aligned16(la, n) && babble_rows_aligned16(fd, n);
     void* args[] = {
         (void*)&levels, (void*)&creator, (void*)&self_parent, (void*)&other_parent,
         (void*)&la, (void*)&fd, (void*)&ext_sp_round, (void*)&ext_op_round,
         (void*)&fixed_round, (void*)&ext_sp_lamport, (void*)&ext_op_lamport,
         (void*)&fixed_lamport, (void*)&last_level, (void*)&rounds, (void*)&witness,
         (void*)&lamport, (void*)&wtable, (void*)&scratch, (void*)&n_lvl, (void*)&e,
-        (void*)&n, (void*)&super_majority, (void*)&r_max,
+        (void*)&n, (void*)&super_majority, (void*)&r_max, (void*)&aligned16,
     };
     BABBLE_CHECK(cudaLaunchCooperativeKernel((const void*)dr_grid, dim3(g),
-                                             dim3(DR_GRID_THREADS), args, smem, s));
+                                             dim3(BABBLE_LEVEL_THREADS), args, smem, s));
     BABBLE_CHECK_LAUNCH();
     return 0;
 }

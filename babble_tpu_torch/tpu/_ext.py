@@ -16,20 +16,23 @@ launch in the packed layout under "<name>/packed" and a wide one under
 "<name>", so a run can show which form ran: the two layouts give equal
 integers by design.
 
-The kernels whose blocks stage rows, carries or bit words
-(`STAGED_KERNELS`) keep them in shared memory wherever one block's share
-holds them (`staging` says "shared" for that launch); past that the same
-kernel code stages them in the block's slice of a device scratch the
-wrapper allocates ("device"), and the call counts under "<key>/dev".
-`staging` alone makes the choice: the wrapper passes a scratch pointer to
-exactly the launches it names "device" and NULL to the others, and the C
-launcher takes the device form where its pointer is not NULL. Both forms
-give equal integers by design; only a failed scratch allocation raises.
+decide_fame, whose blocks stage rows and bit words (`STAGED_KERNELS`),
+keeps them in shared memory wherever one block's share holds them
+(`staging` says "shared" for that launch); past that the same kernel code
+stages them in the block's slice of a device scratch the wrapper allocates
+("device"), and the call counts under "<key>/dev". `staging` alone makes
+the choice: the wrapper passes a scratch pointer to exactly the launches it
+names "device" and NULL to the others, and the C launcher takes the device
+form where its pointer is not NULL. Both forms give equal integers by
+design; only a failed scratch allocation raises.
 
-divide_rounds walks narrow levels in one block and wider ones in a
-cooperative launch across the card (`divide_rounds_form` chooses by
-width; the grid form counts under "<key>/grid"); decide_window's launches
-use the same shared memory at every width. Neither has a staging form.
+The three level walks (divide_rounds, step_levels, train_levels) walk
+narrow levels in one block and wider ones in a cooperative launch across
+the card whose blocks take the same shared memory at every width
+(`divide_rounds_form`, `step_levels_form`, `train_levels_form` choose by
+width; the grid walk counts under "<key>/grid" and raises where the card
+cannot hold its blocks at once); decide_window's launches use the same
+shared memory at every width. None of them has a staging form.
 """
 
 from __future__ import annotations
@@ -117,39 +120,48 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
 PACKED_KERNELS = ("decide_fame", "divide_rounds", "step_levels", "train_levels",
                   "decide_window", "shard_fame/tally", "shard_fame/decide", "fame_setup")
 
-# the kernels with a device-memory staging form, and the layouts in which
-# they have it (the wide decide_fame stages nothing past 9,685 validators)
-STAGED_KERNELS = ("decide_fame", "step_levels", "train_levels")
-STAGED_FORMS = ("decide_fame/packed", "step_levels", "step_levels/packed", "train_levels",
-                "train_levels/packed", "fame_setup/packed")
-# divide_rounds' cooperative grid walk, in both layouts
-GRID_FORMS = ("divide_rounds", "divide_rounds/packed")
+# the kernel with a device-memory staging form, and the layouts in which
+# it has it (the wide decide_fame stages nothing past 9,685 validators)
+STAGED_KERNELS = ("decide_fame",)
+STAGED_FORMS = ("decide_fame/packed", "fame_setup/packed")
+# the level walks' cooperative grid form, in both layouts
+GRID_FORMS = ("divide_rounds", "divide_rounds/packed", "step_levels", "step_levels/packed",
+              "train_levels", "train_levels/packed")
 
 # largest dynamic shared memory one block may use on an H100
 MAX_SMEM_BYTES = 232448
 
 # launches of each kernel's C entry point since the last reset: the packed
 # layout's under "<name>/packed", the device staging form's under
-# "<key>/dev", divide_rounds' grid walk under "<key>/grid"
+# "<key>/dev", a level walk's grid form under "<key>/grid"
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     list(KERNELS) + [f"{k}/packed" for k in PACKED_KERNELS]
     + [f"{k}/dev" for k in STAGED_FORMS] + [f"{k}/grid" for k in GRID_FORMS], 0)
 
-# divide_rounds' two walks: one block up to DIVIDE_ROUNDS_GRID_FROM - 1
+# the two walks of each level scan: one block below its *_GRID_FROM
 # validators (where its rows fit one block's shared memory), a cooperative
-# launch across the card from there (divide_rounds_form). The crossover is
-# measured (scripts/time_divide_rounds.py on an H100, bench-generator grids
-# of 32,768 events): the block walk takes 1.3-2.4 us a level up to 24
-# validators and 7.0 at 32, the grid walk about 6 at every width
-DIVIDE_ROUNDS_FORMS = ("block", "grid")
+# launch across the card from there (divide_rounds_form, step_levels_form,
+# train_levels_form). Each crossover is measured on an H100 on the bench
+# generator's grids of 32,768 events (PERF.md): K5 with
+# scripts/time_divide_rounds.py (the block walk takes 1.3-2.4 us a level
+# up to 24 validators and 7.0 at 32, the grid walk about 6 at every
+# width); K10 with scripts/time_step_levels.py (batches of 64: the block
+# walk 0.0575 ms a batch at 48 validators and 0.0610 at 64, the grid walk
+# 0.0622 and 0.0544); K11 with scripts/time_train_levels.py (trains of
+# 8,192: the block walk 2.96 ms a train at 32, 3.63 at 48, the grid walk
+# 4.78 and 3.57)
+WALK_FORMS = ("block", "grid")
 DIVIDE_ROUNDS_GRID_FROM = 32
+STEP_LEVELS_GRID_FROM = 64
+TRAIN_LEVELS_GRID_FROM = 48
 
 # the per-block shared memory of the launches whose blocks tile their
 # work, the same at every width: rings of stages of rows of 36 int32 words
-# (common.cuh babble_count_tile_words): dr_grid's 8 lanes + 32 witnesses,
-# 4 stages; dw_setup's 64 rows + 64 witnesses, 3 stages; dw_vote's 64 rows
-# + 32 columns, 2 stages
-DR_GRID_SMEM = 4 * (8 + 32) * 36 * 4
+# (common.cuh babble_count_tile_words): the level walks' grid form (8
+# lanes + 32 witnesses, 4 stages: common.cuh babble_level_item_smem);
+# dw_setup's 64 rows + 64 witnesses, 3 stages; dw_vote's 64 rows + 32
+# columns, 2 stages
+LEVEL_GRID_SMEM = 4 * (8 + 32) * 36 * 4
 DW_SETUP_SMEM = 3 * (64 + 64) * 36 * 4
 DW_VOTE_SMEM = 2 * (64 + 32) * 36 * 4
 
@@ -281,42 +293,84 @@ def block_smem(name: str, n: int, packed: bool = False, **shape) -> Dict[str, in
         table = n * ld4 + ld4
         return {"walk": (own + table) * 4 if (own + table) * 4 <= MAX_SMEM_BYTES
                 else own * 4}
-    if name == "divide_rounds":
-        n_lvl = shape["n_lvl"]
-        if divide_rounds_form(n, n_lvl) == "grid":
-            return {"grid": DR_GRID_SMEM}
-        return {"walk": _dr_walk_smem(n, n_lvl)}
-    if name == "step_levels":
-        w, l_lv, b, r_cap = shape["w"], shape["l_lv"], shape["b"], shape["r_cap"]
-        return {"walk": (7 * w + l_lv * w + 7 * b + w * n) * 4 + r_cap * n}
-    if name == "train_levels":
-        kb, w, r_cap = shape["kb"], shape["w"], shape["r_cap"]
-        return {"walk": (2 * kb + 9 * w + w * n) * 4 + kb + r_cap * n}
+    if name in WALK_SMEM:
+        if walk_form(name, n, **shape) == "grid":
+            return {"grid": LEVEL_GRID_SMEM}
+        return {"walk": WALK_SMEM[name](n, **shape)}
     raise KeyError(name)
 
 
-def _dr_walk_smem(n: int, n_lvl: int) -> int:
-    """dr_walk's block: (3 n_lvl + warps x 2 n) words."""
-    return (3 * n_lvl + min(max(n_lvl, 1), 32) * 2 * n) * 4
+# the one-block walk's shared memory of each level scan, in bytes, as its
+# C entry point sizes it
+WALK_SMEM = {
+    # dr_walk: (3 n_lvl + warps x 2 n) words
+    "divide_rounds": lambda n, n_lvl: (3 * n_lvl + min(max(n_lvl, 1), 32) * 2 * n) * 4,
+    # sl_walk: seven per-lane words, the level table, seven per-row words,
+    # the lanes' la rows, and the witness-valid bytes
+    "step_levels": lambda n, w, l_lv, b, r_cap: (7 * w + l_lv * w + 7 * b + w * n) * 4
+    + r_cap * n,
+    # tl_walk: two carries, nine per-lane words, the lanes' la rows, the
+    # witness carry and the witness-valid bytes
+    "train_levels": lambda n, kb, w, r_cap: (2 * kb + 9 * w + w * n) * 4 + kb + r_cap * n,
+}
+
+
+def walk_form_fits(name: str, form: str, n: int, **shape) -> bool:
+    """Whether level scan `name`'s walk `form` can run n validators at the
+    other sizes `shape` (divide_rounds: n_lvl; step_levels: w, l_lv, b,
+    r_cap; train_levels: kb, w, r_cap): the grid walk always (its blocks'
+    shared memory is fixed), the one-block walk where its rows fit one
+    block's shared memory."""
+    if form not in WALK_FORMS:
+        raise ValueError(f"{name}: no form {form!r}")
+    return form == "grid" or WALK_SMEM[name](n, **shape) <= MAX_SMEM_BYTES
+
+
+def walk_form(name: str, n: int, **shape) -> str:
+    """The walk level scan `name` launches for n validators (the one place
+    it is chosen): the one-block walk below its *_GRID_FROM validators,
+    where a barrier across the card would cost more than a level's work,
+    and where it fits; the grid walk otherwise."""
+    grid_from = {"divide_rounds": DIVIDE_ROUNDS_GRID_FROM, "step_levels": STEP_LEVELS_GRID_FROM,
+                 "train_levels": TRAIN_LEVELS_GRID_FROM}[name]
+    if n < grid_from and walk_form_fits(name, "block", n, **shape):
+        return "block"
+    return "grid"
 
 
 def divide_rounds_form_fits(form: str, n: int, n_lvl: int) -> bool:
-    """Whether divide_rounds' `form` can run n validators at level width
-    n_lvl: the grid walk always (its blocks' shared memory is fixed), the
-    one-block walk where its rows fit one block's shared memory."""
-    if form not in DIVIDE_ROUNDS_FORMS:
-        raise ValueError(f"divide_rounds: no form {form!r}")
-    return form == "grid" or _dr_walk_smem(n, n_lvl) <= MAX_SMEM_BYTES
+    return walk_form_fits("divide_rounds", form, n, n_lvl=n_lvl)
 
 
 def divide_rounds_form(n: int, n_lvl: int) -> str:
-    """The walk divide_rounds launches for n validators at level width
-    n_lvl (the one place it is chosen): the one-block walk below
-    DIVIDE_ROUNDS_GRID_FROM validators, where a barrier across the card
-    would cost more than a level's work, the grid walk from there."""
-    if n < DIVIDE_ROUNDS_GRID_FROM and divide_rounds_form_fits("block", n, n_lvl):
-        return "block"
-    return "grid"
+    return walk_form("divide_rounds", n, n_lvl=n_lvl)
+
+
+def step_levels_form_fits(form: str, n: int, w: int, l_lv: int, b: int, r_cap: int) -> bool:
+    return walk_form_fits("step_levels", form, n, w=w, l_lv=l_lv, b=b, r_cap=r_cap)
+
+
+def step_levels_form(n: int, w: int, l_lv: int, b: int, r_cap: int) -> str:
+    return walk_form("step_levels", n, w=w, l_lv=l_lv, b=b, r_cap=r_cap)
+
+
+def train_levels_form_fits(form: str, n: int, kb: int, w: int, r_cap: int) -> bool:
+    return walk_form_fits("train_levels", form, n, kb=kb, w=w, r_cap=r_cap)
+
+
+def train_levels_form(n: int, kb: int, w: int, r_cap: int) -> str:
+    return walk_form("train_levels", n, kb=kb, w=w, r_cap=r_cap)
+
+
+def _check_walk_form(name: str, form: Optional[str], n: int, **shape) -> str:
+    """The walk a call of `name` takes (`form`, or walk_form's); ValueError
+    before anything is launched where that walk cannot hold the call."""
+    if form is None:
+        form = walk_form(name, n, **shape)
+    if not walk_form_fits(name, form, n, **shape):
+        raise ValueError(f"{name}: the one-block walk cannot hold {n} validators at "
+                         f"{shape} in one block's shared memory")
+    return form
 
 
 def smem_bytes(name: str, n: int, packed: bool = False, **shape) -> int:
@@ -567,11 +621,7 @@ def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
         check_tensor(what, t, torch.int32, (e,), dev)
     if e < 1 or r_max < 1:
         raise ValueError("divide_rounds: needs events and r_max >= 1")
-    if form is None:
-        form = divide_rounds_form(n, n_lvl)
-    if not divide_rounds_form_fits(form, n, n_lvl):
-        raise ValueError(f"divide_rounds: the one-block walk cannot hold {n} validators at "
-                         f"level width {n_lvl} in one block's shared memory")
+    form = _check_walk_form("divide_rounds", form, n, n_lvl=n_lvl)
     # the grid walk's per-lane c_seen, parent round, self-parent round and
     # lamport, and its barrier count
     scratch = (torch.empty((4 * n_lvl + 1,), dtype=torch.int32, device=dev)
@@ -729,11 +779,15 @@ def step_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
                 idx_w, coin_w, rounds_decided, last_round, count, stale,
                 rows, creator, index, sp_row, op_row, la_rows, coin,
                 fixed_round, levels, super_majority: int,
-                packed: bool = False) -> None:
-    """K10, in place: the batch's (L, W) level table walked in order by one
-    block, witness registration, then last_round, count and the latches.
-    The packed layout's verdicts are the same, so `packed` launches the
-    same kernel and counts it as step_levels/packed."""
+                packed: bool = False, form: Optional[str] = None) -> None:
+    """K10, in place: the batch's (L, W) level table walked in order,
+    witness registration, then last_round, count and the latches. The
+    packed layout's verdicts are the same, so `packed` launches the same
+    kernel and counts it as step_levels/packed. The walk is
+    step_levels_form's unless `form` names one ("block" or "grid";
+    scripts/time_step_levels.py times both); the grid walk counts under
+    "<key>/grid", and raises where the card cannot hold its blocks at
+    once."""
     dev = fd.device
     e_cap, n, r_cap = _check_level_state(
         dev, fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
@@ -749,28 +803,43 @@ def step_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
     check_tensor("levels", levels, torch.int32, (l_lv, w), dev)
     if b < 1 or w < 1:
         raise ValueError("step_levels: needs a non-empty batch and level width")
-    stage = _stage_scratch("step_levels", n, dev, {"walk": 1}, w=w, l_lv=l_lv, b=b,
-                           r_cap=r_cap)["walk"]
+    form = _check_walk_form("step_levels", form, n, w=w, l_lv=l_lv, b=b, r_cap=r_cap)
+    # the grid walk's per-lane c_seen, parent round, self-parent round and
+    # lamport, then its barrier count, last-block ticket and round max
+    scratch = (torch.empty((4 * w + 3,), dtype=torch.int32, device=dev)
+               if form == "grid" else None)
     _launch("step_levels", dev, (
         fd, rounds, lamport, witness.view(torch.uint8), wtable, w_of_row,
         la_w, fd_w, idx_w, coin_w.view(torch.uint8),
         rounds_decided.view(torch.uint8), last_round, count,
         stale.view(torch.uint8), rows, creator, index, sp_row, op_row,
-        la_rows, coin.view(torch.uint8), fixed_round, levels, stage,
+        la_rows, coin.view(torch.uint8), fixed_round, levels, scratch,
         e_cap, n, r_cap, b, l_lv, w, super_majority,
-    ), packed=packed, staged=stage is not None)
+    ), packed=packed, grid=form == "grid")
+
+
+def train_levels_scratch_words(kb: int, w: int, r_cap: int, n: int) -> int:
+    """Int32 words of train_levels' grid-walk scratch (train_levels.cu
+    tl_grid): per lane c_seen, parent round, self-parent round and lamport,
+    eight counter words, the rounds and lamport carries (kb each), then the
+    witness carry (kb bytes) and the witness-valid copy (r_cap x n bytes)."""
+    return 4 * w + 8 + 2 * kb + (kb + r_cap * n + 3) // 4
 
 
 def train_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
                  idx_w, coin_w, rounds_decided, last_round, count, stale,
                  rows, creator, index, sp_row, op_row, sp_pos, op_pos,
                  la_rows, coin, fixed_round, levels, super_majority: int,
-                 packed: bool = False) -> None:
-    """K11, in place: a train's (T, W) level scan on train-local carries
-    (shared memory, or device staging past it) and a clamped compare copy
-    of fd_w (scratch), then the bulk registration, the write-back and the
-    latches. The packed layout's counts are the same integers, so `packed`
-    launches the same kernel and counts it as train_levels/packed."""
+                 packed: bool = False, form: Optional[str] = None) -> None:
+    """K11, in place: a train's (T, W) level scan on train-local carries and
+    a clamped compare copy of fd_w (scratch), then the bulk registration,
+    the write-back and the latches. The packed layout's counts are the same
+    integers, so `packed` launches the same kernel and counts it as
+    train_levels/packed. The walk is train_levels_form's unless `form`
+    names one ("block": the carries in one block's shared memory, or
+    "grid": in a scratch; scripts/time_train_levels.py times both); the
+    grid walk counts under "<key>/grid", and raises where the card cannot
+    hold its blocks at once."""
     dev = fd.device
     e_cap, n, r_cap = _check_level_state(
         dev, fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
@@ -788,8 +857,9 @@ def train_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
         raise ValueError("train_levels: needs a non-empty train and level width")
     if e_cap >= 1 << 24:
         raise ValueError("train_levels: event capacity exceeds the 2^24 compare range")
-    stage = _stage_scratch("train_levels", n, dev, {"walk": 1}, kb=kb, w=w,
-                           r_cap=r_cap)["walk"]
+    form = _check_walk_form("train_levels", form, n, kb=kb, w=w, r_cap=r_cap)
+    scratch = (torch.empty((train_levels_scratch_words(kb, w, r_cap, n),), dtype=torch.int32,
+                           device=dev) if form == "grid" else None)
     fd_cmp = torch.empty((r_cap, n, n), dtype=torch.int32, device=dev)
     _launch("train_levels", dev, (
         fd, rounds, lamport, witness.view(torch.uint8), wtable, w_of_row,
@@ -797,8 +867,8 @@ def train_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
         rounds_decided.view(torch.uint8), last_round, count,
         stale.view(torch.uint8), rows, creator, index, sp_row, op_row, sp_pos,
         op_pos, la_rows, coin.view(torch.uint8), fixed_round, levels, fd_cmp,
-        stage, e_cap, n, r_cap, kb, t_lv, w, super_majority,
-    ), packed=packed, staged=stage is not None)
+        scratch, e_cap, n, r_cap, kb, t_lv, w, super_majority,
+    ), packed=packed, grid=form == "grid")
 
 
 def decide_window(wtable, la_w, fd_w, idx_w, coin_w, fame_decided, famous,

@@ -27,7 +27,10 @@ Four kernels carry the card path (babble_tpu_torch/csrc/):
 - K10 step_levels.cu   `_step_levels`: the L_MAX within-batch levels,
   witness registration, the latches;
 - K11 train_levels.cu  `_train_levels`: a train's level scan on
-  train-local carries, bulk registration, one write-back, the latches;
+  train-local carries, bulk registration, one write-back, the latches
+  (each walks its levels in one block below its crossover width and
+  across the card from there: `_ext.step_levels_form`,
+  `_ext.train_levels_form`);
 - K12 decide_window.cu `_decide_body`: windowed fame with D_UNROLL fixed
   voting offsets and the freeze mask, round received over the trailing
   row window, the stale detector.

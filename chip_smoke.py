@@ -54,7 +54,11 @@ Phases, in order; any failure raises and exits non-zero:
    train 256; the unrolled offset d = 8 is a coin step), there also with
    r_win 8 < r_cap 16 (the window slides and freezes) and with two no-op
    batches (the live engine's padding) after its own, with each kernel's
-   launches and CUDA-event times at the bench shapes;
+   launches and CUDA-event times at the bench shapes. K10 and K11 walk
+   their levels in one block on the fixture (also in the packed layout,
+   with step and train_step over it run on their own for the one-block
+   walks' launches) and across the card on the bench grid (64 validators:
+   their grid walks, "step_levels/grid" and "train_levels/grid");
 10. both append paths end to end on the bench grid, inputs on the card
    before timing: step over the 512 batches, multi_step in groups of 16
    (padded with no-op batches as the live engine pads them), train_step
@@ -106,7 +110,7 @@ Phases, in order; any failure raises and exits non-zero:
    events, fetch, integrate, host passes 4-5), and the phase's seconds.
 
 13. the packed voting layout's kernels (K3p decide_fame/packed, K5p
-   divide_rounds/packed, K10p step_levels/packed, K12p
+   divide_rounds/packed, K10p step_levels/packed/grid, K12p
    decide_window/packed; K5p, K10p and K12p launch the wide kernels, whose
    counts are the packed layout's integers) and the two kernels repaired
    for 256 validators (walk_chunk, decide_window) against their plain
@@ -163,14 +167,14 @@ Phases, in order; any failure raises and exits non-zero:
    to the wide train_step; (c) bootstrap_frontier_state of the bench grid
    equal to run_frontier_passes; (d) config #5's width, synthetic_grid(1024,
    16384, seed=0, zipf_a=1.1, record_fd_updates=True) (depth cut: it stays
-   in round 0), where K3p, K10 and K11p take their device staging forms
-   and K5 its grid walk, while K12 (both layouts) keeps the shared memory
+   in round 0), where K3p takes its device staging form and K5, K10 and
+   K11p their grid walks, while K12 (both layouts) keeps the shared memory
    it takes at every width, each held to its plain version (the votes also
    on coin_round_case tables at 1,024 validators, where witnesses are
    decided), and frontier_train_step (packed), K14 and K15 held to their
    plain versions after every train, equal to run_frontier_passes
-   (packed); launches of the device forms under "<key>/dev" and of the
-   grid walk under "divide_rounds/grid", counted on runs of the entry
+   (packed); launches of the device form under "<key>/dev" and of the
+   grid walks under "<key>/grid", counted on runs of the entry
    points a user calls (run_passes, step, multi_step, train_step,
    frontier_train_step) with nothing else in the window.
 17. the device mesh (tpu/mesh.py, tpu/sharded.py, tpu/dispatch.py), every
@@ -409,8 +413,14 @@ REPLACES = {
     "walk_chunk": ("babble_tpu_torch/csrc/walk_chunk.cu", "babble_tpu/tpu/doubling.py:296"),
     "lamport_scan": ("babble_tpu_torch/csrc/lamport_scan.cu", "babble_tpu/tpu/doubling.py:443"),
     "apply_deltas": ("babble_tpu_torch/csrc/apply_deltas.cu", "babble_tpu/tpu/incremental.py:213"),
+    # K10 and K11: the one-block walk below each one's crossover (the
+    # 8-validator fixture, phase 9), the grid walk from there
     "step_levels": ("babble_tpu_torch/csrc/step_levels.cu", "babble_tpu/tpu/incremental.py:243"),
     "train_levels": ("babble_tpu_torch/csrc/train_levels.cu", "babble_tpu/tpu/incremental.py:570"),
+    "step_levels/grid": ("babble_tpu_torch/csrc/step_levels.cu",
+                         "babble_tpu/tpu/incremental.py:243"),
+    "train_levels/grid": ("babble_tpu_torch/csrc/train_levels.cu",
+                          "babble_tpu/tpu/incremental.py:570"),
     "decide_window": ("babble_tpu_torch/csrc/decide_window.cu", "babble_tpu/tpu/incremental.py:361"),
     "pack_results": ("babble_tpu_torch/csrc/pack_results.cu", "babble_tpu/tpu/live.py:757"),
     # the packed layout's launches of the four kernels that take it
@@ -420,25 +430,29 @@ REPLACES = {
                                   "babble_tpu/tpu/kernels.py:118"),
     "step_levels/packed": ("babble_tpu_torch/csrc/step_levels.cu",
                            "babble_tpu/tpu/incremental.py:243"),
+    "step_levels/packed/grid": ("babble_tpu_torch/csrc/step_levels.cu",
+                                "babble_tpu/tpu/incremental.py:243"),
     "decide_window/packed": ("babble_tpu_torch/csrc/decide_window.cu",
                              "babble_tpu/tpu/incremental.py:361"),
     "train_levels/packed": ("babble_tpu_torch/csrc/train_levels.cu",
                             "babble_tpu/tpu/incremental.py:570"),
+    "train_levels/packed/grid": ("babble_tpu_torch/csrc/train_levels.cu",
+                                 "babble_tpu/tpu/incremental.py:570"),
     # the frontier-live engine (phase 16)
     "frontier_append": ("babble_tpu_torch/csrc/frontier_append.cu",
                         "babble_tpu/tpu/frontier_live.py:113"),
     "frontier_window": ("babble_tpu_torch/csrc/frontier_walk.cu",
                         "babble_tpu/tpu/frontier_live.py:184"),
-    # the device staging forms past one block's shared memory, at 1,024
-    # validators (phase 16(d))
+    # the device staging form past one block's shared memory and the level
+    # walks' grid forms at 1,024 validators (phase 16(d))
     "decide_fame/packed/dev": ("babble_tpu_torch/csrc/decide_fame.cu",
                                "babble_tpu/tpu/kernels.py:335"),
     "divide_rounds/grid": ("babble_tpu_torch/csrc/divide_rounds.cu",
                            "babble_tpu/tpu/kernels.py:118"),
-    "step_levels/packed/dev": ("babble_tpu_torch/csrc/step_levels.cu",
-                               "babble_tpu/tpu/incremental.py:243"),
-    "train_levels/packed/dev": ("babble_tpu_torch/csrc/train_levels.cu",
-                                "babble_tpu/tpu/incremental.py:570"),
+    "step_levels/packed/grid (1,024)": ("babble_tpu_torch/csrc/step_levels.cu",
+                                        "babble_tpu/tpu/incremental.py:243"),
+    "train_levels/packed/grid (1,024)": ("babble_tpu_torch/csrc/train_levels.cu",
+                                         "babble_tpu/tpu/incremental.py:570"),
     "decide_window/packed (1,024)": ("babble_tpu_torch/csrc/decide_window.cu",
                                      "babble_tpu/tpu/incremental.py:361"),
     "decide_window (1,024)": ("babble_tpu_torch/csrc/decide_window.cu",
@@ -480,13 +494,22 @@ PATH_KERNELS = {
                             "round_received"),
     "run_doubling_passes, seeded": ("closure_la", "build_inv", "walk_chunk", "lamport_scan",
                                     "decide_fame", "round_received"),
-    "step": ("apply_deltas", "step_levels", "decide_window"),
-    "multi_step": ("apply_deltas", "step_levels", "decide_window"),
-    "train_step": ("apply_deltas", "train_levels", "decide_window"),
-    "multi_train": ("apply_deltas", "train_levels", "decide_window"),
-    "run_consensus_live": ("apply_deltas", "step_levels", "decide_window", "pack_results"),
+    # the level walks of K10 (K11) take the grid from 64 (48) validators
+    # (_ext.STEP_LEVELS_GRID_FROM, TRAIN_LEVELS_GRID_FROM): the bench grid
+    # and up; one block on the 8-validator fixture
+    "step": ("apply_deltas", "step_levels/grid", "decide_window"),
+    "multi_step": ("apply_deltas", "step_levels/grid", "decide_window"),
+    "train_step": ("apply_deltas", "train_levels/grid", "decide_window"),
+    "multi_train": ("apply_deltas", "train_levels/grid", "decide_window"),
+    "step, 8-validator fixture": ("apply_deltas", "step_levels", "decide_window"),
+    "train_step, 8-validator fixture": ("apply_deltas", "train_levels", "decide_window"),
+    "step, 8-validator fixture, packed": ("apply_deltas", "step_levels/packed",
+                                          "decide_window/packed"),
+    "train_step, 8-validator fixture, packed": ("apply_deltas", "train_levels/packed",
+                                                "decide_window/packed"),
+    "run_consensus_live": ("apply_deltas", "step_levels/grid", "decide_window", "pack_results"),
     "late attach": ("closure_la", "build_inv", "walk_chunk", "decide_fame",
-                    "round_received", "apply_deltas", "step_levels", "decide_window",
+                    "round_received", "apply_deltas", "step_levels/grid", "decide_window",
                     "pack_results"),
     # the packed layout: a path whose label ends in ", packed" must launch
     # these and no wide form of the four kernels that take the layout
@@ -496,12 +519,13 @@ PATH_KERNELS = {
                            "round_received"),
     "run_doubling_passes, packed": ("closure_la", "build_inv", "walk_chunk",
                                     "decide_fame/packed", "round_received"),
-    "step, packed": ("apply_deltas", "step_levels/packed", "decide_window/packed"),
-    "multi_step, packed": ("apply_deltas", "step_levels/packed", "decide_window/packed"),
-    "run_consensus_live, packed": ("apply_deltas", "step_levels/packed",
+    "step, packed": ("apply_deltas", "step_levels/packed/grid", "decide_window/packed"),
+    "multi_step, packed": ("apply_deltas", "step_levels/packed/grid", "decide_window/packed"),
+    "run_consensus_live, packed": ("apply_deltas", "step_levels/packed/grid",
                                    "decide_window/packed", "pack_results"),
-    "train_step, packed": ("apply_deltas", "train_levels/packed", "decide_window/packed"),
-    "multi_train, packed": ("apply_deltas", "train_levels/packed", "decide_window/packed"),
+    "train_step, packed": ("apply_deltas", "train_levels/packed/grid", "decide_window/packed"),
+    "multi_train, packed": ("apply_deltas", "train_levels/packed/grid",
+                            "decide_window/packed"),
     # the frontier-live engine
     "frontier_train_step": ("frontier_append", "frontier_window", "decide_fame",
                             "round_received"),
@@ -511,16 +535,17 @@ PATH_KERNELS = {
                                     "decide_fame/packed", "round_received"),
     "bootstrap_frontier_state": ("build_inv", "walk_chunk", "frontier_window",
                                  "decide_fame", "round_received"),
-    # at 1,024 validators the packed vote stages in device memory
+    # at 1,024 validators the packed vote stages in device memory, and the
+    # level walks take their grid forms
     "run_frontier_passes (1,024), packed": ("build_inv", "frontier_rounds",
                                             "decide_fame/packed/dev", "round_received"),
     "frontier_train_step (1,024), packed": ("frontier_append", "frontier_window",
                                             "decide_fame/packed/dev", "round_received"),
     "run_passes (1,024)": ("divide_rounds/grid", "decide_fame", "round_received"),
-    "step (1,024), packed": ("apply_deltas", "step_levels/packed/dev",
+    "step (1,024), packed": ("apply_deltas", "step_levels/packed/grid",
                              "decide_window/packed"),
-    "multi_step (1,024)": ("apply_deltas", "step_levels/dev", "decide_window"),
-    "train_step (1,024), packed": ("apply_deltas", "train_levels/packed/dev",
+    "multi_step (1,024)": ("apply_deltas", "step_levels/grid", "decide_window"),
+    "train_step (1,024), packed": ("apply_deltas", "train_levels/packed/grid",
                                    "decide_window/packed"),
     # the device mesh: passes 2+3 of every sharded engine
     "sharded_frontier_passes": ("build_inv", "shard_walk/rows", "shard_walk/m0",
@@ -555,7 +580,7 @@ PATH_KERNELS = {
 }
 # the wide forms of the layout kernels, which a packed path must not launch
 WIDE_FORMS = ("decide_fame", "divide_rounds", "step_levels", "train_levels",
-              "decide_window", "divide_rounds/grid", "step_levels/dev", "train_levels/dev",
+              "decide_window", "divide_rounds/grid", "step_levels/grid", "train_levels/grid",
               "shard_fame/tally", "shard_fame/decide", "fame_setup")
 # run_consensus_device's rung on phase 12's DAG (its 1,140 levels pass the
 # 1,024-level crossover) and that rung's kernels
@@ -797,7 +822,8 @@ class PairedRun:
     through the plain versions, call by call: every IncState field is held
     torch.equal after each checked call, and each checked call's kernel and
     plain times (CUDA events) and the work its data needs are kept by
-    kernel name. An unchecked call runs the kernel on both states."""
+    kernel name. A checked call named after a launch key must launch that
+    key on the card. An unchecked call runs the kernel on both states."""
 
     def __init__(self, label, state):
         from babble_tpu_torch.tpu import incremental as inc
@@ -809,6 +835,8 @@ class PairedRun:
         self.work = {}
 
     def call(self, name, kern, plain, work=None, check=True):
+        from babble_tpu_torch.tpu import _ext
+
         if not check:
             kern(self.k)
             kern(self.p)
@@ -817,14 +845,18 @@ class PairedRun:
         # the card spins while the host runs the wrapper and enqueues the
         # launch, so the events time the kernel and not the enqueue
         torch.cuda._sleep(SPIN_CYCLES)
+        before = _ext.LAUNCHES.get(name)
         ev[0].record()
         kern(self.k)
         ev[1].record()
         ev[2].record()
         plain(self.p)
         ev[3].record()
-        bad = state_diff(self.k, self.p)
         calls = self.events.setdefault(name, [])
+        if self.k.la.is_cuda and before is not None and _ext.LAUNCHES[name] == before:
+            raise AssertionError(f"{name} on the {self.label}, call {len(calls)}: the kernel "
+                                 f"call launched no {name}")
+        bad = state_diff(self.k, self.p)
         if bad:
             raise AssertionError(f"{name} on the {self.label}, call {len(calls)}: "
                                  f"{bad} differ from the plain version")
@@ -1462,7 +1494,7 @@ def hold_k5_forms(label, g, dev, log_fn):
     want = tuple(kernels._divide_rounds_plain(*dr_args))
     n_lvl = ins[0].shape[1]
     line = []
-    for form in _ext.DIVIDE_ROUNDS_FORMS:
+    for form in _ext.WALK_FORMS:
         if not _ext.divide_rounds_form_fits(form, g.n, n_lvl):
             continue
         run = lambda: tuple(_ext.divide_rounds(*dr_args, form=form))  # noqa: E731
@@ -1482,11 +1514,12 @@ def max_fd_burst(batches, e_cap):
 
 def drive_paired(label, g, cfg, e_win, batches_d, dev, every_step, every_decide, log_fn):
     """A PairedRun from a fresh state of shape cfg through batches_d:
-    apply_deltas after every call, step_levels/packed after every
-    every_step-th and the decide after every every_decide-th held to their
-    plain versions (the decide packed and wide in turn when every_decide >
-    1, packed only when it is 1); the kernels advance both states in
-    between. Logs the final state, the launches and the per-call times;
+    apply_deltas after every call, step_levels/packed/grid (K10p's grid
+    walk: 128 validators and up) after every every_step-th and the decide
+    after every every_decide-th held to their plain versions (the decide
+    packed and wide in turn when every_decide > 1, packed only when it is
+    1); the kernels advance both states in between. Logs the final state,
+    the launches and the per-call times;
     returns the run."""
     from babble_tpu_torch.tpu import _ext
     from babble_tpu_torch.tpu import incremental as inc
@@ -1498,7 +1531,7 @@ def drive_paired(label, g, cfg, e_win, batches_d, dev, every_step, every_decide,
     for k, b in enumerate(batches_d):
         run.call("apply_deltas", lambda st: inc._apply_deltas_and_stage(st, b),
                  lambda st: inc._apply_deltas_and_stage_plain(st, b))
-        run.call("step_levels/packed",
+        run.call("step_levels/packed/grid",
                  lambda st: inc._step_levels(st, b, sm, packed=True),
                  lambda st: inc._step_levels_plain(st, b, sm, packed=True),
                  lambda st: inc_work_levels(st, b, True), check=k % every_step == every_step - 1)
@@ -1511,12 +1544,12 @@ def drive_paired(label, g, cfg, e_win, batches_d, dev, every_step, every_decide,
     launches = {k: v for k, v in _ext.LAUNCHES.items() if v}
     fin = run.k
     layouts = "packed" if every_decide == 1 else "packed and wide in turn"
-    log_fn(f"apply_deltas, step_levels/packed (every {every_step}) and decide_window, "
+    log_fn(f"apply_deltas, step_levels/packed/grid (every {every_step}) and decide_window, "
            f"{layouts} (every {every_decide}) == plain on the {label} ({len(batches_d)} "
            f"batches, r_win {r_win}): last_round {int(fin.last_round)}, "
            f"{int((fin.received >= 0).sum())} received, stale {bool(fin.stale)}, fame_lag "
            f"{bool(fin.fame_lag)}; launches on both states {launches}")
-    for name in ("step_levels/packed", "decide_window/packed", "decide_window"):
+    for name in ("step_levels/packed/grid", "decide_window/packed", "decide_window"):
         if name not in run.events:
             continue
         calls, k_ms, p_ms = run.times(name)
@@ -1561,7 +1594,7 @@ def switch_kernel_phase(dev, log_fn):
     if bool(fin.stale) or bool(fin.fame_lag) or int((fin.received >= 0).sum()) == 0:
         raise AssertionError(f"{g.n}-validator live shape: stale {bool(fin.stale)}, fame_lag "
                              f"{bool(fin.fame_lag)}, {int((fin.received >= 0).sum())} received")
-    summary = run_summary(run, ("step_levels/packed", "decide_window/packed"))
+    summary = run_summary(run, ("step_levels/packed/grid", "decide_window/packed"))
     # the kernels alone through step at the live default's windows
     for e_win in SWITCH_SHORT_E_WINS:
         st = inc.init_state(g.n, cfg["e_cap"], cfg["r_cap"], device=dev)
@@ -1951,7 +1984,7 @@ def fl_wide_phase(g, ref, dev, log_fn):
     for t in trains_d:
         prun.call("apply_deltas", lambda st: inc._apply_deltas_and_stage(st, t), None,
                   check=False)
-        prun.call("train_levels/packed",
+        prun.call("train_levels/packed/grid",
                   lambda st: inc._train_levels(st, t, sm, packed=True),
                   lambda st: inc._train_levels_plain(st, t, sm, packed=True),
                   lambda st: inc_work_levels(st, t, False))
@@ -1984,27 +2017,27 @@ def fl_wide_phase(g, ref, dev, log_fn):
         raise AssertionError(f"train_step at {n} validators: {res}")
     log_fn(f"train_step and multi_train (packed) over the same trains == train_step (wide) == "
            f"the one-shot engines on rows [:e], K11p == plain after every train: {res}")
-    calls, k_ms, p_ms = prun.times("train_levels/packed")
-    nbytes, alu, tc = prun.work["train_levels/packed"]
-    summary = {"train_levels/packed": {"max_abs_err": 0, "ms": k_ms / calls,
+    calls, k_ms, p_ms = prun.times("train_levels/packed/grid")
+    nbytes, alu, tc = prun.work["train_levels/packed/grid"]
+    summary = {"train_levels/packed/grid": {"max_abs_err": 0, "ms": k_ms / calls,
                                        "plain_ms": p_ms / calls}}
-    work = {"train_levels/packed": (nbytes / calls, alu / ALU_OPS_S / calls)}
+    work = {"train_levels/packed/grid": (nbytes / calls, alu / ALU_OPS_S / calls)}
     log_fn(f"  train_levels/packed at {n} validators: {calls} checked calls, kernel "
            f"{k_ms / calls:.3f} ms per train, plain {p_ms / calls:.1f} ms per train")
     log_fn(f"phase 16 (b): {time.perf_counter() - t_phase:.1f} s")
-    return summary, work, {"train_levels/packed": p_launches["train_levels/packed"]}
+    return summary, work, {"train_levels/packed/grid": p_launches["train_levels/packed/grid"]}
 
 
 def fl_width_phase(dev, log_fn):
-    """Phase 16 (d): config #5's width, 1,024 validators, where every
-    kernel with a device staging form takes it: each held torch.equal to
-    its plain version (K3p on the frontier walk's witness table, K5 on the
-    level scan, K10 and the decide on the append state, K11p on the
-    trains, K14 and K15 after every train of frontier-live), and every
-    entry point whose path holds a device form run on its own (run_path)
-    against run_frontier_passes (packed): its launches are the counts of
-    the kernels line. Returns (summary, work, launches) of the device
-    forms."""
+    """Phase 16 (d): config #5's width, 1,024 validators, where K3p takes
+    its device staging form and the level walks (K5, K10, K11) their grid
+    walks: each held torch.equal to its plain version (K3p on the frontier
+    walk's witness table, K5 on the level scan, K10 and the decide on the
+    append state, K11p on the trains, K14 and K15 after every train of
+    frontier-live), and every entry point whose path holds one of those
+    forms run on its own (run_path) against run_frontier_passes (packed):
+    its launches are the counts of the kernels line. Returns (summary,
+    work, launches) of those forms."""
     from babble_tpu_torch.tpu import _ext, engine, frontier, kernels
     from babble_tpu_torch.tpu import frontier_live as fl
     from babble_tpu_torch.tpu import incremental as inc
@@ -2020,12 +2053,15 @@ def fl_width_phase(dev, log_fn):
     if set(forms.values()) != {"device"}:
         raise AssertionError(f"decide_fame at {n} validators: staging {forms}, not the device "
                              f"form in every launch")
-    # K12's launches and K5's grid walk take the same shared memory at every
-    # width: no staging form
-    if (_ext.divide_rounds_form(n, n) != "grid"
+    # K12's launches and the level walks' grid forms take the same shared
+    # memory at every width: no staging form
+    walks = {"divide_rounds": _ext.divide_rounds_form(n, n),
+             "step_levels": _ext.step_levels_form(n, FL_WIDTH_BATCH, inc.L_MAX,
+                                                  FL_WIDTH_BATCH, 32),
+             "train_levels": _ext.train_levels_form(n, FL_WIDTH_TRAIN, 64, 32)}
+    if (set(walks.values()) != {"grid"}
             or _ext.block_smem("decide_window", n) != _ext.block_smem("decide_window", 256)):
-        raise AssertionError(f"at {n} validators: divide_rounds takes the "
-                             f"{_ext.divide_rounds_form(n, n)} walk, decide_window's blocks "
+        raise AssertionError(f"at {n} validators: walks {walks}, decide_window's blocks "
                              f"{_ext.block_smem('decide_window', n)}")
     summary, work, launches = {}, {}, {}
 
@@ -2129,7 +2165,7 @@ def fl_width_phase(dev, log_fn):
     batches_d = [inc.device_put(b, dev) for b in batches]
     srun = drive_paired(f"{n}-validator step state", g, cfg, e, batches_d, dev, 1,
                         FL_WIDTH_CHECK_EVERY, log_fn)
-    for name, key in (("step_levels/packed", "step_levels/packed/dev"),
+    for name, key in (("step_levels/packed/grid", "step_levels/packed/grid (1,024)"),
                       ("decide_window/packed", "decide_window/packed (1,024)"),
                       ("decide_window", "decide_window (1,024)")):
         calls, k_ms, p_ms = srun.times(name)
@@ -2158,7 +2194,7 @@ def fl_width_phase(dev, log_fn):
         groups.append(inc.Batch(*[torch.stack(f) for f in zip(*group)]))
     got = inc_path("step (1,024), packed", lambda st: [
         inc.step(st, b, sm, n, r_win=r_cap, e_win=e, packed=True) for b in batches_d])
-    launches["step_levels/packed/dev"] = got["step_levels/packed/dev"]
+    launches["step_levels/packed/grid (1,024)"] = got["step_levels/packed/grid"]
     launches["decide_window/packed (1,024)"] = got["decide_window/packed"]
     got = inc_path("multi_step (1,024)", lambda st: [
         inc.multi_step(st, gr, sm, n, r_win=r_cap, e_win=e, packed=False) for gr in groups])
@@ -2168,14 +2204,14 @@ def fl_width_phase(dev, log_fn):
            f"[:e], no latch")
     del batches_d, groups
 
-    # K11p's device form on the trains
+    # K11p's grid walk on the trains
     trains = inc.trains_from_grid(g, FL_WIDTH_TRAIN, 1 << 24, e, t_cap=832)
     trains_d = [inc.device_put(t, dev) for t in trains]
     trun = PairedRun(f"{n}-validator train state", inc.init_state(n, e, r_cap, device=dev))
     for t in trains_d:
         trun.call("apply_deltas", lambda st: inc._apply_deltas_and_stage(st, t), None,
                   check=False)
-        trun.call("train_levels/packed/dev",
+        trun.call("train_levels/packed/grid",
                   lambda st: inc._train_levels(st, t, sm, packed=True),
                   lambda st: inc._train_levels_plain(st, t, sm, packed=True),
                   lambda st: inc_work_levels(st, t, False))
@@ -2184,13 +2220,13 @@ def fl_width_phase(dev, log_fn):
                   None, check=False)
     got = inc_path("train_step (1,024), packed", lambda st: [
         inc.train_step(st, t, sm, n, r_win=r_cap, e_win=e, packed=True) for t in trains_d])
-    launches["train_levels/packed/dev"] = got["train_levels/packed/dev"]
-    calls, k_ms, p_ms = trun.times("train_levels/packed/dev")
-    nbytes, alu, tc = trun.work["train_levels/packed/dev"]
-    summary["train_levels/packed/dev"] = {"max_abs_err": 0, "ms": k_ms / calls,
-                                          "plain_ms": p_ms / calls}
-    work["train_levels/packed/dev"] = (nbytes / calls, alu / ALU_OPS_S / calls)
-    log_fn(f"apply_deltas, train_levels/packed/dev (== plain after every train) and the packed "
+    launches["train_levels/packed/grid (1,024)"] = got["train_levels/packed/grid"]
+    calls, k_ms, p_ms = trun.times("train_levels/packed/grid")
+    nbytes, alu, tc = trun.work["train_levels/packed/grid"]
+    summary["train_levels/packed/grid (1,024)"] = {"max_abs_err": 0, "ms": k_ms / calls,
+                                                  "plain_ms": p_ms / calls}
+    work["train_levels/packed/grid (1,024)"] = (nbytes / calls, alu / ALU_OPS_S / calls)
+    log_fn(f"apply_deltas, train_levels/packed/grid (== plain after every train) and the packed "
            f"decide over the {n}-validator grid's {len(trains)} trains: kernel "
            f"{k_ms / calls:.3f} ms per train, plain {p_ms / calls:.1f} ms per train; last_round "
            f"{int(trun.k.last_round)}, stale {bool(trun.k.stale)}")
@@ -3150,28 +3186,34 @@ def main() -> int:
         f"{[t.levels.shape[0] for t in trains]}, largest burst {max_train_burst} of "
         f"{INC_TRAIN['upd_cap']}); {time.perf_counter() - t0:.1f} s to build and copy")
 
-    def step_calls(run, x, r_win, e_win, work):
+    # K10's (K11's) launch key at each shape: the one-block walk on the
+    # 8-validator fixture, the grid walk on the bench grid (64 validators:
+    # _ext.STEP_LEVELS_GRID_FROM, TRAIN_LEVELS_GRID_FROM); PairedRun checks
+    # that each checked call launched the key it is timed under
+    def step_calls(run, x, r_win, e_win, work, key, packed=False):
         run.call("apply_deltas", lambda st: inc._apply_deltas_and_stage(st, x),
                  lambda st: inc._apply_deltas_and_stage_plain(st, x),
                  (lambda st: inc_work_deltas(st, x)) if work else None)
-        run.call("step_levels", lambda st: inc._step_levels(st, x, sm_of[0]),
-                 lambda st: inc._step_levels_plain(st, x, sm_of[0]),
+        run.call(key, lambda st: inc._step_levels(st, x, sm_of[0], packed=packed),
+                 lambda st: inc._step_levels_plain(st, x, sm_of[0], packed=packed),
                  (lambda st: inc_work_levels(st, x, True)) if work else None)
-        decide_calls(run, r_win, e_win, work)
+        decide_calls(run, r_win, e_win, work, packed)
 
-    def train_calls(run, x, r_win, e_win, work):
+    def train_calls(run, x, r_win, e_win, work, key, packed=False):
         run.call("apply_deltas", lambda st: inc._apply_deltas_and_stage(st, x),
                  lambda st: inc._apply_deltas_and_stage_plain(st, x),
                  (lambda st: inc_work_deltas(st, x)) if work else None)
-        run.call("train_levels", lambda st: inc._train_levels(st, x, sm_of[0]),
-                 lambda st: inc._train_levels_plain(st, x, sm_of[0]),
+        run.call(key, lambda st: inc._train_levels(st, x, sm_of[0], packed=packed),
+                 lambda st: inc._train_levels_plain(st, x, sm_of[0], packed=packed),
                  (lambda st: inc_work_levels(st, x, False)) if work else None)
-        decide_calls(run, r_win, e_win, work)
+        decide_calls(run, r_win, e_win, work, packed)
 
-    def decide_calls(run, r_win, e_win, work):
-        run.call("decide_window",
-                 lambda st: inc._decide_body(st, sm_of[0], n_of[0], r_win=r_win, e_win=e_win),
-                 lambda st: inc._decide_body_plain(st, sm_of[0], n_of[0], r_win, e_win),
+    def decide_calls(run, r_win, e_win, work, packed=False):
+        run.call("decide_window/packed" if packed else "decide_window",
+                 lambda st: inc._decide_body(st, sm_of[0], n_of[0], r_win=r_win, e_win=e_win,
+                                             packed=packed),
+                 lambda st: inc._decide_body_plain(st, sm_of[0], n_of[0], r_win, e_win,
+                                                   packed=packed),
                  (lambda st: inc_work_decide(st, r_win, e_win)) if work else None)
 
     # the 8-validator fixture: the coin step lies in the unroll; with r_win 8
@@ -3185,43 +3227,90 @@ def main() -> int:
     fb += [inc.device_put(inc.empty_batch(fgrid.n, fx["batch"], 8192, fx["e"]), dev)] * 2
     ft = [inc.device_put(t, dev) for t in inc.trains_from_grid(
         fgrid, fx["train"], 8192, fx["e"], w_cap=fx["w_cap"], t_cap=fx["t_cap"])]
-    for r_cap, r_win in ((fx["r_cap"], 32), (16, 8)):
-        run = PairedRun(f"8-validator grid, r_cap {r_cap}, r_win {r_win}",
+    # (in both layouts at r_cap 64: the kernels line's one-block rows of K10
+    # and K11, with the launches of step and train_step over the fixture;
+    # the r_cap 16 run goes first, so that no timed call holds a kernel's
+    # first launch in the process, which loads its module)
+    fixture_runs, fixture_launches = {}, {}
+    for r_cap, r_win, packed in ((16, 8, False), (fx["r_cap"], 32, False),
+                                 (fx["r_cap"], 32, True)):
+        sfx = "/packed" if packed else ""
+        timed = r_cap == fx["r_cap"]
+        run = PairedRun(f"8-validator grid, r_cap {r_cap}, r_win {r_win}"
+                        + (", packed" if packed else ""),
                         inc.init_state(fgrid.n, fx["e"], r_cap, device=dev))
         for b in fb:
-            step_calls(run, b, r_win, fx["e_win"], False)
-        if r_cap == fx["r_cap"]:
-            fixture_state = run.k
-        trun = PairedRun(run.label + ", trains", inc.init_state(fgrid.n, fx["e"], r_cap, device=dev))
+            step_calls(run, b, r_win, fx["e_win"], timed, "step_levels" + sfx, packed)
+        trun = PairedRun(run.label + ", trains",
+                         inc.init_state(fgrid.n, fx["e"], r_cap, device=dev))
         for t in ft:
-            train_calls(trun, t, r_win, fx["e_win"], False)
-        log(f"apply_deltas, step_levels, train_levels, decide_window == plain after every "
-            f"call on the {run.label}: {len(fb)} batches, {len(ft)} trains, last_round "
-            f"{int(run.k.last_round)}, stale {bool(run.k.stale)}")
+            train_calls(trun, t, r_win, fx["e_win"], timed, "train_levels" + sfx, packed)
+        log(f"apply_deltas, step_levels{sfx}, train_levels{sfx}, decide_window{sfx} == plain "
+            f"after every call on the {run.label}: {len(fb)} batches, {len(ft)} trains, "
+            f"last_round {int(run.k.last_round)}, stale {bool(run.k.stale)}")
+        if not timed:
+            continue
+        fixture_runs[packed] = (run, trun)
+        # the entry points over the same inputs, each run on its own: equal to
+        # the paired runs' kernel states
+        path_sfx = ", packed" if packed else ""
+        for path, xs, fn, want in (
+                (f"step, 8-validator fixture{path_sfx}", fb, inc.step, run.k),
+                (f"train_step, 8-validator fixture{path_sfx}", ft, inc.train_step, trun.k)):
+            st = inc.init_state(fgrid.n, fx["e"], r_cap, device=dev)
+            _, got = run_path(path, lambda: [fn(st, x, sm_of[0], n_of[0], r_win=r_win,
+                                                e_win=fx["e_win"], packed=packed) for x in xs])
+            bad = state_diff(st, want)
+            if bad:
+                raise AssertionError(f"{path}: {bad} differ from the paired run's kernel state")
+            fixture_launches[path] = got
+    fixture_state = fixture_runs[False][0].k
+    for name, run in (("step_levels", fixture_runs[False][0]),
+                      ("train_levels", fixture_runs[False][1]),
+                      ("step_levels/packed", fixture_runs[True][0]),
+                      ("train_levels/packed", fixture_runs[True][1])):
+        calls, k_ms, p_ms = run.times(name)
+        nbytes, alu, tc = run.work[name]
+        summary[name] = {"max_abs_err": 0, "ms": k_ms / calls, "plain_ms": p_ms / calls}
+        work[name] = (nbytes / calls, alu / ALU_OPS_S / calls)
+        log(f"  {name} (one block) on the 8-validator fixture: {calls} calls, kernel "
+            f"{k_ms / calls:.4f} ms per call, plain {p_ms / calls:.2f} ms per call")
+    launches["step_levels"] = fixture_launches["step, 8-validator fixture"]["step_levels"]
+    launches["train_levels"] = fixture_launches["train_step, 8-validator fixture"]["train_levels"]
+    launches["step_levels/packed"] = (
+        fixture_launches["step, 8-validator fixture, packed"]["step_levels/packed"])
+    launches["train_levels/packed"] = (
+        fixture_launches["train_step, 8-validator fixture, packed"]["train_levels/packed"])
 
     sm_of, n_of = [sm], [n]
     t0 = time.perf_counter()
+    # the grid walks' first launches (module loads) before the timed runs
+    inc.step(inc.init_state(n, INC_STEP["e_cap"], INC_STEP["r_cap"], device=dev), batches_d[0],
+             sm, n, r_win=INC_STEP["r_win"], e_win=INC_STEP["e_win"])
+    inc.train_step(inc.init_state(n, INC_TRAIN["e_cap"], INC_TRAIN["r_cap"], device=dev),
+                   trains_d[0], sm, n, r_win=INC_TRAIN["r_win"], e_win=INC_TRAIN["e_win"])
     srun = PairedRun("live step shape", inc.init_state(
         n, INC_STEP["e_cap"], INC_STEP["r_cap"], device=dev))
     for b in batches_d:
-        step_calls(srun, b, INC_STEP["r_win"], INC_STEP["e_win"], True)
+        step_calls(srun, b, INC_STEP["r_win"], INC_STEP["e_win"], True, "step_levels/grid")
     trun = PairedRun("train shape", inc.init_state(
         n, INC_TRAIN["e_cap"], INC_TRAIN["r_cap"], device=dev))
     for t in trains_d:
-        train_calls(trun, t, INC_TRAIN["r_win"], INC_TRAIN["e_win"], True)
-    log(f"apply_deltas, step_levels, train_levels, decide_window == plain after every call "
-        f"at the live step shape ({len(batches_d)} batches) and the train shape "
+        train_calls(trun, t, INC_TRAIN["r_win"], INC_TRAIN["e_win"], True, "train_levels/grid")
+    log(f"apply_deltas, step_levels/grid, train_levels/grid, decide_window == plain after every "
+        f"call at the live step shape ({len(batches_d)} batches) and the train shape "
         f"({len(trains_d)} trains): {time.perf_counter() - t0:.1f} s")
     inc_summary = {}
-    for label, run, names in (("live step shape", srun, ("apply_deltas", "step_levels", "decide_window")),
-                              ("train shape", trun, ("apply_deltas", "train_levels", "decide_window"))):
+    for label, run, names in (
+            ("live step shape", srun, ("apply_deltas", "step_levels/grid", "decide_window")),
+            ("train shape", trun, ("apply_deltas", "train_levels/grid", "decide_window"))):
         for name in names:
             calls, k_ms, p_ms = run.times(name)
             nbytes, alu, tc = run.work[name]
             log(f"  {name} at the {label}: {calls} calls, kernel {k_ms:.3f} ms in all "
                 f"({k_ms / calls:.4f} ms per call), plain {p_ms:.1f} ms in all; work "
                 f"{nbytes} bytes, {alu} ALU and {tc} tensor-core operations in all")
-            if label == "live step shape" or name == "train_levels":
+            if label == "live step shape" or name == "train_levels/grid":
                 inc_summary[name] = (calls, k_ms, p_ms, nbytes, alu, tc)
 
     phase_clock.next("10")
@@ -3299,9 +3388,9 @@ def main() -> int:
     log(f"multi_train at e_win {tr_cfg['e_win']} (undersized for a decide per "
         f"{MULTI_TRAIN_K} trains): {got}, as the reference")
     launches["apply_deltas"] = inc_launches["step"]["apply_deltas"]
-    launches["step_levels"] = inc_launches["step"]["step_levels"]
+    launches["step_levels/grid"] = inc_launches["step"]["step_levels/grid"]
     launches["decide_window"] = inc_launches["step"]["decide_window"]
-    launches["train_levels"] = inc_launches["train_step"]["train_levels"]
+    launches["train_levels/grid"] = inc_launches["train_step"]["train_levels/grid"]
     for name, (calls, k_ms, p_ms, nbytes, alu, tc) in inc_summary.items():
         summary[name] = {"max_abs_err": 0, "ms": k_ms / calls, "plain_ms": p_ms / calls}
         work[name] = (nbytes / calls, (alu / ALU_OPS_S + tc / INT8_TC_OPS_S) / calls)
@@ -3376,7 +3465,7 @@ def main() -> int:
     switch_stats, switch_launches = hashgraph_phase(
         DEVICE, log, spec=SWITCH, oneshot=SWITCH_ONESHOT_RUNG, full=False, expect=SWITCH_EXPECT,
         title="phase 15", live_settings=SWITCH_LIVE, depth=SWITCH_DEPTH, keep=True)
-    launches["step_levels/packed"] = switch_launches["step_levels/packed"]
+    launches["step_levels/packed/grid"] = switch_launches["step_levels/packed/grid"]
     launches["decide_window/packed"] = switch_launches["decide_window/packed"]
 
     phase_clock.next("16")

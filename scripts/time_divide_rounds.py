@@ -144,7 +144,7 @@ def main() -> int:
         return out, ev[0].elapsed_time(ev[1])
 
     wanted = {s for s in args.shapes.split(",") if s}
-    forms = getattr(_ext, "DIVIDE_ROUNDS_FORMS", None)
+    forms = getattr(_ext, "WALK_FORMS", None)
     for label, spec, packed in shapes(cs):
         if wanted and label not in wanted:
             continue

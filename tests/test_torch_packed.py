@@ -664,19 +664,19 @@ def test_plain_round_chunks_equal_one_chunk(monkeypatch, packed):
     assert bool(whole[0].decided.any())
 
 
-# the shared form's widest width of each kernel with a device staging
-# form (at the shapes named), and K7's limit, which it still enforces
+# the shared form's widest width of the kernel with a device staging form
+# (at the shapes named), and K7's limit, which it still enforces
 SHARED_TOPS = {
     ("decide_fame", True, ()): 736,
-    ("step_levels", False, (("w", 64), ("l_lv", 16), ("b", 64), ("r_cap", 64))): 702,
-    ("train_levels", False, (("kb", 8192), ("w", 64), ("r_cap", 64))): 488,
 }
-# the widest shared form K12 and K5 had before their launches were tiled
-# (K5 at level width 32): their shared memory no longer grows with N, and
-# neither has a staging form
+# the widest shared form K12, K5 (at level width 32), K10 and K11 (at the
+# shapes named) had before their launches were tiled: their shared memory
+# no longer grows with N, and none has a staging form
 OLD_TOPS = {
     ("decide_window", False, ()): 384,
     ("divide_rounds", False, (("n_lvl", 32),)): 906,
+    ("step_levels", False, (("w", 64), ("l_lv", 16), ("b", 64), ("r_cap", 64))): 702,
+    ("train_levels", False, (("kb", 8192), ("w", 64), ("r_cap", 64))): 488,
 }
 
 
@@ -691,12 +691,13 @@ OLD_TOPS = {
 def test_shared_memory_formula_holds_256_and_refuses_past_its_maximum(name, packed, shape):
     """Each kernel's blocks fit one block's shared memory at 256 validators
     and up to its old maximum, where the shared form still runs; past it a
-    kernel with a device staging form takes that form and nothing raises
-    up to 1,024 validators, while K7 (no staging form, 29,056 validators)
-    still refuses past its maximum with the check its wrapper runs first.
-    K12 and K5 (from DIVIDE_ROUNDS_GRID_FROM validators: the grid walk)
-    take the same shared memory at 256, at their old maximum, past it and
-    at 1,024, and have no staging form."""
+    kernel with a device staging form (K3p) takes that form and nothing
+    raises up to 1,024 validators, while K7 (no staging form, 29,056
+    validators) still refuses past its maximum with the check its wrapper
+    runs first. K12 and the level walks K5, K10 and K11 (from their
+    *_GRID_FROM validators: the grid walk) take the same shared memory at
+    256, at their old maximum, past it and at 1,024, and have no staging
+    form."""
     kw = dict(shape)
     if name == "walk_chunk":
         top = 29056
@@ -711,8 +712,8 @@ def test_shared_memory_formula_holds_256_and_refuses_past_its_maximum(name, pack
         top = OLD_TOPS[(name, packed, shape)]
         sizes = {_ext.smem_bytes(name, m, packed=packed, **kw) for m in (256, top, top + 1, 1024)}
         assert len(sizes) == 1 and sizes.pop() <= _ext.MAX_SMEM_BYTES
-        if name == "divide_rounds":
-            assert _ext.block_smem(name, 256, **kw) == {"grid": _ext.DR_GRID_SMEM}
+        if name in _ext.WALK_SMEM:
+            assert _ext.block_smem(name, 256, **kw) == {"grid": _ext.LEVEL_GRID_SMEM}
         with pytest.raises(KeyError):
             _ext.staging(name, 256, packed=packed, **kw)
         return
@@ -766,16 +767,25 @@ def test_staging_choice_around_the_old_limits(n, want):
 
 @pytest.mark.parametrize("n", [256, 1024, 4096])
 def test_tiled_launches_take_the_same_shared_memory_at_every_width(n):
-    """K5's grid walk (at level widths from 1 to N) and K12's setup and
-    vote ask one block for the same shared memory at 256, 1,024 and 4,096
-    validators, under the card's maximum: no width is refused for want of
-    it."""
+    """The grid walks of K5 (at level widths from 1 to N), K10 (at level
+    widths 1 to 64, batches of 64) and K11 (at level widths 1 to 64, trains
+    of 1 and 8,192 rows), and K12's setup and vote, ask one block for the
+    same shared memory at 256, 1,024 and 4,096 validators, under the card's
+    maximum: no width is refused for want of it."""
     assert _ext.divide_rounds_form(n, n) == "grid"
     for n_lvl in (1, 97, n):
-        assert _ext.block_smem("divide_rounds", n, n_lvl=n_lvl) == {"grid": _ext.DR_GRID_SMEM}
+        assert _ext.block_smem("divide_rounds", n, n_lvl=n_lvl) == {"grid": _ext.LEVEL_GRID_SMEM}
+    for w in (1, 37, 64):
+        shape = dict(w=w, l_lv=16, b=64, r_cap=64)
+        assert _ext.step_levels_form(n, **shape) == "grid"
+        assert _ext.block_smem("step_levels", n, **shape) == {"grid": _ext.LEVEL_GRID_SMEM}
+        for kb in (1, 8192):
+            shape = dict(kb=kb, w=w, r_cap=64)
+            assert _ext.train_levels_form(n, **shape) == "grid"
+            assert _ext.block_smem("train_levels", n, **shape) == {"grid": _ext.LEVEL_GRID_SMEM}
     assert _ext.block_smem("decide_window", n) == {"setup": _ext.DW_SETUP_SMEM,
                                                    "vote": _ext.DW_VOTE_SMEM}
-    for b in (_ext.DR_GRID_SMEM, _ext.DW_SETUP_SMEM, _ext.DW_VOTE_SMEM):
+    for b in (_ext.LEVEL_GRID_SMEM, _ext.DW_SETUP_SMEM, _ext.DW_VOTE_SMEM):
         assert 0 < b <= _ext.MAX_SMEM_BYTES
 
 
@@ -821,6 +831,188 @@ def test_divide_rounds_form_around_the_crossover(packed):
         assert len(seen) == count
     finally:
         _ext._launch = real
+
+
+def stub_launches():
+    """Replace _ext._launch by a recorder (CPU tensors here); returns the
+    list it appends (name, args, packed, staged, grid) to and the real one."""
+    seen = []
+    real = _ext._launch
+    _ext._launch = lambda name, dev, args, packed=False, staged=False, grid=False: seen.append(
+        (name, args, packed, staged, grid))
+    return seen, real
+
+
+def level_state(n, e_cap=8, r_cap=2):
+    """A zero incremental state on the CPU (the level kernels' wrappers
+    check its shapes)."""
+    return inc.init_state(n, e_cap, r_cap, device="cpu")
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_step_levels_form_around_the_crossover(packed):
+    """K10's wrapper launches the one-block walk below
+    STEP_LEVELS_GRID_FROM validators and the grid walk from there (the
+    launch is stubbed: CPU tensors here), handing the grid walk alone its
+    scratch (per-lane c_seen, parent round, self-parent round, lamport, and
+    the barrier, ticket and round-max words: 4 w + 3) and counting it under
+    "<key>/grid"; a forced form overrides the rule, and a one-block walk
+    whose rows cannot fit one block's shared memory raises before anything
+    is launched."""
+    top = _ext.STEP_LEVELS_GRID_FROM
+    i32 = torch.int32
+    seen, real = stub_launches()
+
+    def call(n, form=None, b=8, l_lv=4, w=5):
+        st = level_state(n)
+        z = lambda *s: torch.zeros(s, dtype=i32)  # noqa: E731
+        batch = inc.Batch(rows=z(b), creator=z(b), index=z(b), sp_row=z(b), op_row=z(b),
+                          la_rows=z(b, n), coin=torch.zeros(b, dtype=torch.bool),
+                          fixed_round=z(b), upd_row=z(1), upd_col=z(1), upd_val=z(1),
+                          levels=z(l_lv, w))
+        _ext.step_levels(st.fd, st.rounds, st.lamport, st.witness, st.wtable, st.w_of_row,
+                         st.la_w, st.fd_w, st.idx_w, st.coin_w, st.rounds_decided,
+                         st.last_round, st.count, st.stale, batch.rows, batch.creator,
+                         batch.index, batch.sp_row, batch.op_row, batch.la_rows, batch.coin,
+                         batch.fixed_round, batch.levels, 2 * n // 3 + 1, packed=packed,
+                         form=form)
+        return seen[-1]
+
+    try:
+        for n, form in ((top - 1, "block"), (top, "grid"), (top + 1, "grid"), (1024, "grid")):
+            assert _ext.step_levels_form(n, 5, 4, 8, 2) == form
+            name, args, pk, staged, grid = call(n)
+            assert (name, pk, staged, grid) == ("step_levels", packed, False, form == "grid")
+            scratch = args[23]
+            assert (scratch is None) == (form == "block")
+            if form == "grid":
+                assert scratch.dtype == i32 and scratch.numel() == 4 * 5 + 3
+        assert call(8, form="grid")[4] and not call(top, form="block")[4]
+        # a batch of 64 in 16 levels of 64 lanes: the lanes' la rows alone
+        # pass one block's shared memory at 1,000 validators
+        n_wide = 1000
+        assert not _ext.step_levels_form_fits("block", n_wide, 64, 16, 64, 2)
+        count = len(seen)
+        with pytest.raises(ValueError, match="one-block walk"):
+            call(n_wide, form="block", b=64, l_lv=16, w=64)
+        assert len(seen) == count
+    finally:
+        _ext._launch = real
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_train_levels_form_around_the_crossover(packed):
+    """K11's wrapper launches the one-block walk below
+    TRAIN_LEVELS_GRID_FROM validators and the grid walk from there (the
+    launch is stubbed), handing the grid walk alone its scratch (the
+    per-lane words, eight counters, the rounds and lamport carries, then
+    the witness carry and the witness-valid copy as bytes:
+    train_levels_scratch_words) beside the compare copy both walks take,
+    and counting it under "<key>/grid"; a forced form overrides the rule,
+    and a one-block walk whose carries cannot fit one block's shared memory
+    raises before anything is launched."""
+    top = _ext.TRAIN_LEVELS_GRID_FROM
+    i32 = torch.int32
+    kb, t_lv, w, r_cap = 6, 3, 5, 2
+    seen, real = stub_launches()
+
+    def call(n, form=None, kb=kb, w=w):
+        st = level_state(n, r_cap=r_cap)
+        z = lambda *s: torch.zeros(s, dtype=i32)  # noqa: E731
+        _ext.train_levels(st.fd, st.rounds, st.lamport, st.witness, st.wtable, st.w_of_row,
+                          st.la_w, st.fd_w, st.idx_w, st.coin_w, st.rounds_decided,
+                          st.last_round, st.count, st.stale, *[z(kb) for _ in range(7)],
+                          z(kb, n), torch.zeros(kb, dtype=torch.bool), z(kb), z(t_lv, w),
+                          2 * n // 3 + 1, packed=packed, form=form)
+        return seen[-1]
+
+    try:
+        for n, form in ((top - 1, "block"), (top, "grid"), (top + 1, "grid"), (1024, "grid")):
+            assert _ext.train_levels_form(n, kb, w, r_cap) == form
+            name, args, pk, staged, grid = call(n)
+            assert (name, pk, staged, grid) == ("train_levels", packed, False, form == "grid")
+            fd_cmp, scratch = args[25], args[26]
+            assert fd_cmp.shape == (r_cap, n, n)
+            assert (scratch is None) == (form == "block")
+            if form == "grid":
+                words = 4 * w + 8 + 2 * kb + (kb + r_cap * n + 3) // 4
+                assert _ext.train_levels_scratch_words(kb, w, r_cap, n) == words
+                assert scratch.dtype == i32 and scratch.numel() == words
+        assert call(8, form="grid")[4] and not call(top, form="block")[4]
+        # trains of 8,192 rows at r_cap 64 pass one block's shared memory
+        # past 488 validators; one of 16,384 rows at 489 does at r_cap 2
+        assert _ext.train_levels_form_fits("block", 488, 8192, 64, 64)
+        assert not _ext.train_levels_form_fits("block", 489, 8192, 64, 64)
+        assert not _ext.train_levels_form_fits("block", 489, 16384, 64, r_cap)
+        count = len(seen)
+        with pytest.raises(ValueError, match="one-block walk"):
+            call(489, form="block", kb=16384, w=64)
+        assert len(seen) == count
+    finally:
+        _ext._launch = real
+
+
+# a seeded grid at a ragged width: 40 validators (neither a multiple of 32
+# nor of the level walks' 8-lane tile) and 4; (n, events, seed, zipf)
+RAGGED_LEVEL_GRIDS = {40: (40, 1600, 1, 1.1), 4: (4, 240, 2, 1.1)}
+
+
+def mixed_parent_tiles(st, x, e_cap):
+    """How many 8-lane tiles of x's levels hold lanes of two different
+    parent rounds (>= 0) on state st, before the call."""
+    def rounds_of(r):
+        return torch.where((r >= 0) & (r < e_cap), st.rounds[r.clamp(0, e_cap - 1).long()], -1)
+
+    pr = torch.maximum(rounds_of(x.sp_row), rounds_of(x.op_row))
+    mixed = 0
+    for row in x.levels:
+        for t0 in range(0, row.shape[0], 8):
+            pos = row[t0 : t0 + 8]
+            got = pr[pos[pos >= 0].long()]
+            mixed += int(got[got >= 0].unique().numel() >= 2)
+    return mixed
+
+
+@pytest.mark.parametrize("n", sorted(RAGGED_LEVEL_GRIDS))
+def test_level_plains_at_a_ragged_width_match_reference(n):
+    """K10's and K11's plain versions (the kernels' references on the card,
+    both walks) after K9 equal the reference's _step_body and _train_body
+    at a ragged width, in both layouts, on every field after every call:
+    batches of 32 and trains of 400 rows in levels of at most 20 lanes (a
+    ragged last tile), with levels whose 8-lane tiles mix two parent
+    rounds."""
+    from babble_tpu_torch.tpu.grid import synthetic_grid as port_synthetic_grid
+
+    n_, e, seed, zipf = RAGGED_LEVEL_GRIDS[n]
+    kw = dict(seed=seed, zipf_a=zipf, record_fd_updates=True)
+    g, pg = synthetic_grid(n_, e, **kw), port_synthetic_grid(n_, e, **kw)
+    sm, r_cap = g.super_majority, 32
+    for packed in (False, True):
+        mixed = 0
+        body = jax.jit(functools.partial(ref_inc._step_body, super_majority=sm,
+                                         n_participants=n, packed=packed))
+        js, ps = ref_inc.init_state(n, e, r_cap), inc.init_state(n, e, r_cap, device="cpu")
+        for k, (a, b) in enumerate(zip(ref_inc.batches_from_grid(g, 32, 8192, e),
+                                       inc.batches_from_grid(pg, 32, 8192, e))):
+            js = body(js, a)
+            b = inc.device_put(b, "cpu")
+            inc._apply_deltas_and_stage(ps, b)
+            mixed += mixed_parent_tiles(ps, b, e)
+            inc._step_levels_plain(ps, b, sm, packed=packed)
+            assert_state_equal(ps, js, f"step body {k} (packed {packed})")
+        assert mixed and int(ps.last_round) >= 2
+        body = jax.jit(functools.partial(ref_inc._train_body, super_majority=sm,
+                                         n_participants=n, packed=packed))
+        js, ps = ref_inc.init_state(n, e, r_cap), inc.init_state(n, e, r_cap, device="cpu")
+        trains = zip(ref_inc.trains_from_grid(g, 400, 8192, e, w_cap=20, t_cap=128),
+                     inc.trains_from_grid(pg, 400, 8192, e, w_cap=20, t_cap=128))
+        for k, (a, b) in enumerate(trains):
+            js = body(js, a)
+            b = inc.device_put(b, "cpu")
+            inc._apply_deltas_and_stage(ps, b)
+            inc._train_levels_plain(ps, b, sm, packed=packed)
+            assert_state_equal(ps, js, f"train body {k} (packed {packed})")
+        assert int(ps.last_round) >= 2
 
 
 @pytest.mark.parametrize("n_participants", [40, 4])
