@@ -65,6 +65,36 @@
 // witness table and the events' rounds from the gathered history
 // (sharded.py:691). Bound: bytes; each step reads the frontier rows' fd
 // (N_w x N_p int32) and one INV value per (chain, coordinate) probed.
+//
+// babble_shard_walk runs the same walk for a mesh whose positions all lie
+// on one device as ONE cooperative launch over every chain of every
+// position (sw_grid): the three kernels above, 3 (r_cap - 1) launches per
+// position, become phases of a step separated by grid barriers, and the
+// all-gathers become reads of a scratch in L2. A step X(r) -> X(r+1):
+//   A  t[c, j] for every chain c and every live frontier row (X(r)[w] <
+//      L), a warp each: the super_majority-th smallest over p of
+//      INV_c[p, fd[e, p]], e the row's event (the live list holds the
+//      events, listed at the end of the step before; their fd rows are
+//      read coalesced, as a staged table would be); rows with X(r)[w] = L
+//      have t = L, and a selection's probes stay below L, so they never
+//      count and are left out;
+//   -- barrier; m0[c], a warp per chain: the super_majority-th smallest of
+//      t[c, :] (L where fewer rows are live);
+//   -- barrier; B  the closure of each chain over m0[0:N_p], X(r+1) into
+//      its position's history, a count of the chains that moved, and the
+//      chain's next frontier event on the live list;
+//   -- barrier. When no chain moved, X(r+1) = X(r): F depends on X alone,
+//      so every later row repeats it; the blocks fill rows r+2 .. r_cap-1
+//      and return. The history equals the full-length walk row for row.
+// Each selection keeps its values in registers (32 R of them a warp, R =
+// 8 up to 256 chains and coordinates, 32 above; any past those are
+// produced again at each probe), and searches [min, max] of the values,
+// not [0, L]: the same integers as warp_select. Shared memory: none, at
+// every width. Bound: bytes, the frontier rows and the INV values the
+// working steps probe. In practice phase A is bound by L1's rate in cache
+// lines: a warp's gather of INV_c[p, f] over 32 coordinates touches 32
+// lines (n_w x live rows x N_p of them a step), and the frontier rows'
+// values on one coordinate lie too far apart to share lines.
 
 #include "common.cuh"
 
@@ -466,6 +496,209 @@ extern "C" int babble_shard_walk_close(
     shard_close<<<b_rows, 32, 0, s>>>(inv, m0_all, x_cur, x_next, n_p, l, c_off);
     BABBLE_CHECK_LAUNCH();
     return 0;
+}
+
+// The one-launch walk's positions: each one's INV slice (B, N_p, L), chain
+// table (B, L), X(0) (B,) and history (r_cap, B), in the order of the
+// gathers (axis index), passed by value in the launch's parameters
+// (__grid_constant__: indexed in place, never copied per thread).
+#define SW_MAX_POS 64
+#define SW_THREADS 256
+struct SwTable {
+    const int32_t* inv[SW_MAX_POS];
+    const int32_t* rows_by[SW_MAX_POS];
+    const int32_t* x0[SW_MAX_POS];
+    int32_t* hist[SW_MAX_POS];
+};
+
+// k-th smallest (1-based) of the n values val(0 .. n-1), all in [0, hi];
+// every lane of the calling warp returns it: warp_select's count-based
+// search, the smallest v with |{val <= v}| >= k (hi if none). The first
+// 32 R values are produced once, into registers; any past those are
+// produced again at each probe. The search runs over [min, max] of the
+// values (max only where k <= n), where its answer lies.
+template <int R, typename Val>
+__device__ __forceinline__ int sw_select(int n, int k, int hi, Val val) {
+    const int lane = threadIdx.x & 31;
+    int v[R];
+    int mn = BABBLE_MAX_INT32, mx = 0;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        const int i = j * 32 + lane;
+        v[j] = i < n ? val(i) : BABBLE_MAX_INT32;
+        if (i < n) {
+            mn = min(mn, v[j]);
+            mx = max(mx, v[j]);
+        }
+    }
+    for (int i = 32 * R + lane; i < n; i += 32) {
+        const int x = val(i);
+        mn = min(mn, x);
+        mx = max(mx, x);
+    }
+    int lo = min(__reduce_min_sync(BABBLE_FULL_MASK, mn), hi);
+    if (k <= n) hi = min(hi, __reduce_max_sync(BABBLE_FULL_MASK, mx));
+    while (lo < hi) {
+        const int mid = lo + ((hi - lo) >> 1);
+        int cnt = 0;
+#pragma unroll
+        for (int j = 0; j < R; ++j) cnt += v[j] <= mid;
+        for (int i = 32 * R + lane; i < n; i += 32) cnt += val(i) <= mid;
+        cnt = __reduce_add_sync(BABBLE_FULL_MASK, cnt);
+        if (cnt >= k) hi = mid; else lo = mid + 1;
+    }
+    return lo;
+}
+
+// Chain c's frontier row for X[c] = x: where the chain has one (x < L),
+// its event row (its fd row, read-only) appended to the step's live list.
+__device__ __forceinline__ void sw_live(const int32_t* __restrict__ rows_by_c,
+                                        int32_t* live, unsigned int* n_live, int x, int l,
+                                        int e_fd) {
+    if (x >= l || (threadIdx.x & 31) != 0) return;
+    live[atomicAdd(n_live, 1u)] = babble_clamp(
+        max(__ldg(rows_by_c + babble_clamp(x, 0, l - 1)), 0), 0, e_fd - 1);
+}
+
+// The whole walk, one cooperative launch. Scratch (int32 words): the
+// barrier count, moved[r_cap], n_live[r_cap] (zeroed by the launcher),
+// then t (N_w, N_w), m0 (N_w) and the live list (N_w). Everything written
+// during the launch is read through L2 (__ldcg); INV and fd, read-only,
+// through L1 (__ldg). Consecutive warps take consecutive items (c, j) of
+// one chain, so that the whole card probes a few chains' INV rows at a
+// time, in L2.
+template <int R>
+__global__ void __launch_bounds__(SW_THREADS, R == 8 ? 4 : 2) sw_grid(
+    const __grid_constant__ SwTable tab, const int32_t* __restrict__ fd, int32_t* scratch,
+    int n_pos, int b, int n_p, int l, int e_fd, int r_cap, int super_majority) {
+    const int lane = threadIdx.x & 31;
+    const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+    const long long n_w = (long long)n_pos * b;
+    unsigned int* bar = reinterpret_cast<unsigned int*>(scratch);
+    unsigned int* moved = bar + 1;
+    unsigned int* n_live = moved + r_cap;
+    int32_t* t = scratch + 1 + 2 * (long long)r_cap;
+    int32_t* m0 = t + n_w * n_w;
+    int32_t* live = m0 + n_w;
+    unsigned int bar_target = 0;
+
+    // X(0) into row 0 of every history, and its frontier rows
+    for (long long c = warp; c < n_w; c += warps) {
+        const int pos = (int)(c / b), cb = (int)(c % b);
+        const int x = __ldg(tab.x0[pos] + cb);
+        if (lane == 0) tab.hist[pos][cb] = x;
+        sw_live(tab.rows_by[pos] + (long long)cb * l, live, n_live, x, l, e_fd);
+    }
+    babble_grid_sync(bar, bar_target);
+
+    for (int r = 0; r + 1 < r_cap; ++r) {
+        // A: t[c, j] against the live frontier rows
+        const long long nl = *(volatile unsigned int*)(n_live + r);
+        for (long long it = warp; it < n_w * nl; it += warps) {
+            const long long c = it / nl, j = it % nl;
+            const int32_t* inv_c = tab.inv[c / b] + (c % b) * n_p * l;
+            const int32_t* row = fd + (long long)__ldcg(live + j) * n_p;
+            const int tw = sw_select<R>(n_p, super_majority, l, [&](int p) {
+                const int f = __ldg(row + p);
+                return f < BABBLE_MAX_INT32
+                           ? __ldg(inv_c + (long long)p * l + babble_clamp(f, 0, l - 1))
+                           : l;
+            });
+            if (lane == 0) t[c * n_w + j] = tw;
+        }
+        babble_grid_sync(bar, bar_target);
+        // m0 of every chain
+        for (long long c = warp; c < n_w; c += warps) {
+            const int32_t* tc = t + c * n_w;
+            const int m = sw_select<R>((int)nl, super_majority, l,
+                                       [&](int j) { return __ldcg(tc + j); });
+            if (lane == 0) m0[c] = m;
+        }
+        babble_grid_sync(bar, bar_target);
+        // B: the closure over the coordinates' m0, X(r+1), the next rows
+        for (long long c = warp; c < n_w; c += warps) {
+            const int pos = (int)(c / b), cb = (int)(c % b);
+            const int32_t* inv_c = tab.inv[pos] + (long long)cb * n_p * l;
+            int reach = l;
+            for (int c2 = lane; c2 < n_p; c2 += 32) {
+                const int mc = __ldcg(m0 + c2);
+                if (mc < l) reach = min(reach, __ldg(inv_c + (long long)c2 * l + mc));
+            }
+            reach = __reduce_min_sync(BABBLE_FULL_MASK, reach);
+            int32_t* h = tab.hist[pos];
+            const int xc = __ldcg(h + (long long)r * b + cb);
+            const int xn = min(max(min(__ldcg(m0 + c), reach), xc), l);
+            if (lane == 0) {
+                h[(long long)(r + 1) * b + cb] = xn;
+                if (xn != xc) atomicAdd(moved + r, 1u);
+            }
+            sw_live(tab.rows_by[pos] + (long long)cb * l, live, n_live + r + 1, xn, l, e_fd);
+        }
+        babble_grid_sync(bar, bar_target);
+        if (*(volatile unsigned int*)(moved + r) == 0) {
+            // the fixed point: rows r + 2 .. r_cap - 1 repeat X(r + 1)
+            const long long total = (long long)(r_cap - r - 2) * n_w;
+            for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < total;
+                 k += (long long)gridDim.x * blockDim.x) {
+                const long long c = k % n_w;
+                const int row = r + 2 + (int)(k / n_w);
+                const int pos = (int)(c / b), cb = (int)(c % b);
+                int32_t* h = tab.hist[pos];
+                h[(long long)row * b + cb] = __ldcg(h + (long long)(r + 1) * b + cb);
+            }
+            return;
+        }
+    }
+}
+
+template <int R>
+static int sw_launch(const SwTable& tab, const int32_t* fd, int32_t* scratch, int n_pos,
+                     int b, int n_p, int l, int e_fd, int r_cap, int super_majority,
+                     int device, cudaStream_t s) {
+    const long long n_w = (long long)n_pos * b;
+    // phase A's items, a warp each, bound the useful block count
+    const long long items = (n_w * n_w + SW_THREADS / 32 - 1) / (SW_THREADS / 32);
+    int g = 0;
+    BABBLE_CHECK(babble_coop_blocks(sw_grid<R>, SW_THREADS, 0, device, items, &g));
+    void* args[] = {
+        (void*)&tab, (void*)&fd, (void*)&scratch, (void*)&n_pos, (void*)&b, (void*)&n_p,
+        (void*)&l, (void*)&e_fd, (void*)&r_cap, (void*)&super_majority,
+    };
+    BABBLE_CHECK(cudaLaunchCooperativeKernel((const void*)sw_grid<R>, dim3(g),
+                                             dim3(SW_THREADS), args, 0, s));
+    BABBLE_CHECK_LAUNCH();
+    return 0;
+}
+
+// ptrs: a host table of int64 device addresses, (4, n_pos): each
+// position's INV, chain table, X(0) and history, in gather order.
+extern "C" int babble_shard_walk(
+    const int64_t* ptrs, const int32_t* fd, int32_t* scratch, int n_pos, int b, int n_p,
+    int l, int e_fd, int r_cap, int super_majority, int device, void* stream) {
+    BABBLE_CHECK(cudaSetDevice(device));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (n_pos < 1 || n_pos > SW_MAX_POS) return (int)cudaErrorInvalidValue;
+    SwTable tab;
+    for (int k = 0; k < n_pos; ++k) {
+        tab.inv[k] = reinterpret_cast<const int32_t*>(ptrs[k]);
+        tab.rows_by[k] = reinterpret_cast<const int32_t*>(ptrs[n_pos + k]);
+        tab.x0[k] = reinterpret_cast<const int32_t*>(ptrs[2 * n_pos + k]);
+        tab.hist[k] = reinterpret_cast<int32_t*>(ptrs[3 * n_pos + k]);
+    }
+    for (int k = n_pos; k < SW_MAX_POS; ++k) {
+        tab.inv[k] = tab.rows_by[k] = tab.x0[k] = nullptr;
+        tab.hist[k] = nullptr;
+    }
+    // the barrier count, moved[] and n_live[] start at 0
+    BABBLE_CHECK(cudaMemsetAsync(scratch, 0, (1 + 2 * (size_t)r_cap) * sizeof(int32_t), s));
+    // 8 values a lane in registers up to 256 chains and coordinates, 32 above
+    if ((long long)n_pos * b <= 256 && n_p <= 256) {
+        return sw_launch<8>(tab, fd, scratch, n_pos, b, n_p, l, e_fd, r_cap, super_majority,
+                            device, s);
+    }
+    return sw_launch<32>(tab, fd, scratch, n_pos, b, n_p, l, e_fd, r_cap, super_majority,
+                         device, s);
 }
 
 extern "C" int babble_frontier_post(

@@ -33,6 +33,12 @@ the card whose blocks take the same shared memory at every width
 width; the grid walk counts under "<key>/grid" and raises where the card
 cannot hold its blocks at once); decide_window's launches use the same
 shared memory at every width. None of them has a staging form.
+
+The mesh's frontier walk (B24) has two forms, chosen by layout alone in
+`shard_walk_form`: the whole walk in one cooperative launch where every
+position of the mesh lies on one device ("shard_walk/grid", `shard_walk`),
+and three launches per step and position where positions lie on distinct
+cards ("shard_walk/rows", "/m0", "/close").
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -101,7 +107,8 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
         "frontier_walk.cu", "babble_frontier_window", "pppppppppppppppppppppp" "iiiiii",
     ),
     # the device mesh (tpu/sharded.py): B21's three launches, B22, B23,
-    # B24's three, and two launches of K3 / K2 on their own
+    # B24's three per-step launches and its one-launch walk, and two
+    # launches of K3 / K2 on their own
     "shard_fame/tally": ("shard_fame.cu", "babble_shard_fame_tally", "pppppp" "iiiiii"),
     "shard_fame/decide": (
         "shard_fame.cu", "babble_shard_fame_decide", "pppppppppp" "iiiiiiiii",
@@ -112,6 +119,8 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
     "shard_walk/rows": ("frontier_walk.cu", "babble_shard_walk_rows", "ppppp" "iiii"),
     "shard_walk/m0": ("frontier_walk.cu", "babble_shard_walk_m0", "pppp" "iiiii"),
     "shard_walk/close": ("frontier_walk.cu", "babble_shard_walk_close", "pppp" "iiii"),
+    # B24 in one cooperative launch where every position lies on one device
+    "shard_walk/grid": ("frontier_walk.cu", "babble_shard_walk", "ppp" "iiiiiii"),
     "fame_setup": ("decide_fame.cu", "babble_fame_setup", "ppppppp" "iiiii"),
     "frontier_post": ("frontier_walk.cu", "babble_frontier_post", "ppppppppp" "iiii"),
 }
@@ -1238,6 +1247,70 @@ def shard_walk_close(inv, m0_all, x_cur, x_next, c_off: int) -> None:
     if n_all < n_p or c_off + b > n_all:
         raise ValueError("shard_walk/close: the gathered m0 does not cover the chains")
     _launch("shard_walk/close", dev, (inv, m0_all, x_cur, x_next, b, n_p, l, c_off))
+
+
+# B24's two forms on a mesh (sharded.local_walk): the whole walk in one
+# cooperative launch ("grid", shard_walk) where every position lies on one
+# device, the three per-step kernels ("step") where positions lie on
+# distinct cards; the launch's table of positions holds at most
+# SHARD_WALK_MAX_POSITIONS
+SHARD_WALK_FORMS = ("step", "grid")
+SHARD_WALK_MAX_POSITIONS = 64
+
+
+def shard_walk_form(devices: Sequence) -> str:
+    """The form of B24 for a mesh whose positions lie on `devices` (the one
+    place it is chosen, by layout alone): "grid" where they all lie on one
+    device, "step" where they lie on distinct cards."""
+    def card(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    return "grid" if len({card(d) for d in devices}) == 1 else "step"
+
+
+def shard_walk_scratch_words(n_w: int, r_cap: int) -> int:
+    """Int32 words of the one-launch walk's scratch (frontier_walk.cu
+    sw_grid): the barrier count, moved and n_live (r_cap each), t (n_w,
+    n_w), m0 and the live list (n_w each)."""
+    return 1 + 2 * r_cap + n_w * n_w + 2 * n_w
+
+
+def shard_walk(inv_parts, rb_parts, fd, x0_parts, super_majority: int,
+               r_cap: int) -> List[torch.Tensor]:
+    """B24 in one launch: x_hist (r_cap, B) int32 of every position, whose
+    INV slices (B, N_p, L), chain tables (B, L) and X(0) (B,) are given in
+    gather order, all on one device with the replicated fd (E, N_p). The
+    walk stops at its fixed point and repeats it to row r_cap - 1."""
+    n_pos = len(inv_parts)
+    if not 1 <= n_pos <= SHARD_WALK_MAX_POSITIONS:
+        raise ValueError(f"shard_walk/grid: {n_pos} positions, the launch takes 1 to "
+                         f"{SHARD_WALK_MAX_POSITIONS}")
+    if not len(rb_parts) == len(x0_parts) == n_pos:
+        raise ValueError("shard_walk/grid: one INV slice, chain table and X(0) per position")
+    dev = fd.device
+    b, n_p, l = inv_parts[0].shape
+    e_fd = fd.shape[0]
+    check_tensor("fd", fd, torch.int32, (e_fd, n_p), dev)
+    for k in range(n_pos):
+        check_tensor(f"inv[{k}]", inv_parts[k], torch.int32, (b, n_p, l), dev)
+        check_tensor(f"rows_by[{k}]", rb_parts[k], torch.int32, (b, l), dev)
+        check_tensor(f"x0[{k}]", x0_parts[k], torch.int32, (b,), dev)
+    n_w = n_pos * b
+    if e_fd < 1 or l < 1 or b < 1 or r_cap < 1 or n_p > n_w:
+        raise ValueError("shard_walk/grid: needs fd rows, an index axis, chains for every "
+                         "coordinate and a history")
+    hist = [torch.empty((r_cap, b), dtype=torch.int32, device=dev) for _ in range(n_pos)]
+    # the positions' addresses, read on the host by the launcher
+    ptrs = torch.tensor([t.data_ptr() for parts in (inv_parts, rb_parts, x0_parts, hist)
+                         for t in parts], dtype=torch.int64)
+    scratch = torch.empty((shard_walk_scratch_words(n_w, r_cap),), dtype=torch.int32,
+                          device=dev)
+    _launch("shard_walk/grid", dev, (ptrs, fd, scratch, n_pos, b, n_p, l, e_fd, r_cap,
+                                     super_majority))
+    return hist
 
 
 def frontier_post(x_hist, rows_by, creator, index, sp_index):

@@ -16,15 +16,19 @@ Layout, as in the reference:
 - **DecideRoundReceived** shards over the *events* axis against the
   replicated (R, N) fame tables.
 - The frontier walk shards over *chains*: each position builds and keeps
-  its chains' INV (K1 on its slice of the chain table), and the frontier
-  rows and m0 cross the mesh by two tiled all-gathers per step.
+  its chains' INV (K1 on its slice of the chain table). Where every
+  position lies on one device the whole walk is one launch over every
+  position's chains, stopping at its fixed point; where positions lie on
+  distinct cards the frontier rows and m0 cross the mesh by two tiled
+  all-gathers per step (`_ext.shard_walk_form` chooses, by layout alone).
 
 Each kernel of a position's shard is a wrapper: on a CPU tensor it runs
 the plain PyTorch version below, on a CUDA tensor the hand-written kernel
 (babble_tpu_torch/csrc/shard_fame.cu for B21 `local_fame`;
 round_received.cu's `babble_received_search` and `babble_fame_tables` for
 B22 `local_received` and B23 `_fame_tables`; frontier_walk.cu's
-`babble_shard_walk_*` for B24 `local_walk`), or raises. The replicated
+`babble_shard_walk` for B24 `local_walk` in one launch, and its
+`babble_shard_walk_rows`, `_m0`, `_close` step by step), or raises. The replicated
 fame setup and the walk's post pass run K3's and K2's kernels on their own
 (`babble_fame_setup`, `babble_frontier_post`). Padding, rolls, slices and
 the collectives are glue. The reference donates its carried buffers; here
@@ -48,7 +52,8 @@ from .frontier import (
 from .grid import MAX_INT32, DagGrid, GridUnsupported
 from .kernels import _fame_setup, _received_tables, received_search, vote_tallies
 from .mesh import (
-    DeviceMesh, all_gather, axis_index, ppermute_shift_left, psum, replicate, shard, unshard,
+    DeviceMesh, all_gather, axis_index, axis_size, ppermute_shift_left, psum, replicate, shard,
+    unshard,
 )
 from .packed import LANE, pack_bits, pack_votes_t, popcount_sum, resolve_packed
 
@@ -515,12 +520,15 @@ def walk_close(inv, m0_all, c_off: int, x_cur, x_next) -> None:
         _ext.shard_walk_close(inv, m0_all, x_cur, x_next, c_off)
 
 
-def local_walk(mesh: DeviceMesh, axis, super_majority: int, r_cap: int, l: int,
-               inv_parts, rb_parts, fd_parts, la_parts, x0_parts) -> List[torch.Tensor]:
-    """The chains-sharded frontier walk: x_hist (r_cap, B) per position, row
-    r the frontier X(r) of its chains. Each step: the local frontier rows,
-    a tiled gather of them (and their validity), the local m0, a tiled
-    gather of m0, the local closure."""
+def _step_walk(mesh: DeviceMesh, axis, super_majority: int, r_cap: int, l: int,
+               inv_parts, rb_parts, fd_parts, la_parts, x0_parts,
+               plain: bool) -> List[torch.Tensor]:
+    """The walk step by step: each step the local frontier rows, a tiled
+    gather of them (and their validity), the local m0, a tiled gather of
+    m0, the local closure. plain=False: through the three per-step
+    wrappers, all r_cap - 1 steps (the "step" form); plain=True: the plain
+    pieces, stopping at the first step that moves no chain and repeating
+    its X to the last row (_local_walk_plain)."""
     b = rb_parts[0].shape[0]
     n_p = fd_parts[0].shape[1]
     use_binsearch = b * mesh.size >= M0_BINSEARCH_MIN_N
@@ -530,16 +538,128 @@ def local_walk(mesh: DeviceMesh, axis, super_majority: int, r_cap: int, l: int,
         h = torch.empty((r_cap, b), dtype=torch.int32, device=x0_parts[p].device)
         h[0] = x0_parts[p]
         hist.append(h)
+    rows_fn, m0_fn = (_walk_rows_plain, _walk_m0_plain) if plain else (walk_rows, walk_m0)
     for r in range(r_cap - 1):
-        rows = [walk_rows(rb_parts[p], fd_parts[p], hist[p][r]) for p in range(mesh.size)]
+        rows = [rows_fn(rb_parts[p], fd_parts[p], hist[p][r]) for p in range(mesh.size)]
         fd_w = all_gather([x[0] for x in rows], mesh, axis)
         w_ok = all_gather([x[1] for x in rows], mesh, axis)
-        m0_local = [walk_m0(inv_parts[p], fd_w[p], w_ok[p], rb_parts[p], la_parts[p],
-                            super_majority, l, use_binsearch) for p in range(mesh.size)]
+        m0_local = [m0_fn(inv_parts[p], fd_w[p], w_ok[p], rb_parts[p], la_parts[p],
+                          super_majority, l, use_binsearch) for p in range(mesh.size)]
         m0 = all_gather(m0_local, mesh, axis)
         for p in range(mesh.size):
-            walk_close(inv_parts[p], m0[p], c_offs[p], hist[p][r], hist[p][r + 1])
+            if plain:
+                hist[p][r + 1] = _walk_close_plain(inv_parts[p], m0[p],
+                                                   m0[p][c_offs[p]: c_offs[p] + b],
+                                                   hist[p][r], n_p, l)
+            else:
+                walk_close(inv_parts[p], m0[p], c_offs[p], hist[p][r], hist[p][r + 1])
+        if plain and all(torch.equal(h[r + 1], h[r]) for h in hist):
+            # F depends on X alone: every later row repeats the fixed point
+            for h in hist:
+                h[r + 2:] = h[r + 1]
+            break
     return hist
+
+
+def _local_walk_plain(mesh: DeviceMesh, axis, super_majority: int, r_cap: int, l: int,
+                      inv_parts, rb_parts, fd_parts, la_parts, x0_parts) -> List[torch.Tensor]:
+    """The plain version of the whole walk: the plain pieces step by step,
+    the gathers as torch.cat, up to the fixed point (the first step that
+    moves no chain), whose X fills the remaining rows. Equal row for row to
+    the reference's full-length scan."""
+    return _step_walk(mesh, axis, super_majority, r_cap, l, inv_parts, rb_parts, fd_parts,
+                      la_parts, x0_parts, plain=True)
+
+
+def walk_grid(mesh: DeviceMesh, axis, super_majority: int, r_cap: int, l: int,
+              inv_parts, rb_parts, fd_parts, la_parts, x0_parts) -> List[torch.Tensor]:
+    """B24 in one launch, every position on one device: CPU the plain whole
+    walk; CUDA the cooperative kernel (positions passed in gather order)."""
+    if mesh.device.type == "cpu":
+        return _local_walk_plain(mesh, axis, super_majority, r_cap, l, inv_parts, rb_parts,
+                                 fd_parts, la_parts, x0_parts)
+    if axis_size(mesh, axis) != mesh.size:
+        raise ValueError(f"local_walk: the one-launch walk shards chains over every position; "
+                         f"{axis!r} spans {axis_size(mesh, axis)} of {mesh.size}")
+    order = sorted(range(mesh.size), key=lambda p: axis_index(p, mesh, axis))
+    hist = _ext.shard_walk([inv_parts[p] for p in order], [rb_parts[p] for p in order],
+                           fd_parts[0], [x0_parts[p] for p in order], super_majority, r_cap)
+    out: List[Optional[torch.Tensor]] = [None] * mesh.size
+    for k, p in enumerate(order):
+        out[p] = hist[k]
+    return out
+
+
+def local_walk(mesh: DeviceMesh, axis, super_majority: int, r_cap: int, l: int,
+               inv_parts, rb_parts, fd_parts, la_parts, x0_parts,
+               form: Optional[str] = None) -> List[torch.Tensor]:
+    """The chains-sharded frontier walk: x_hist (r_cap, B) per position, row
+    r the frontier X(r) of its chains. `form` is _ext.shard_walk_form's
+    unless named: "grid", the whole walk in one launch (every position on
+    one device; on the CPU the plain whole walk), or "step", three
+    launches per step per position with two tiled gathers between them
+    (positions on distinct cards). Both give the same history."""
+    if form is None:
+        form = _ext.shard_walk_form(mesh.devices)
+    if form == "grid":
+        if _ext.shard_walk_form(mesh.devices) != "grid":
+            raise ValueError("local_walk: the one-launch walk needs every position on one "
+                             "device")
+        return walk_grid(mesh, axis, super_majority, r_cap, l, inv_parts, rb_parts, fd_parts,
+                         la_parts, x0_parts)
+    if form != "step":
+        raise ValueError(f"local_walk: no form {form!r}; {_ext.SHARD_WALK_FORMS}")
+    return _step_walk(mesh, axis, super_majority, r_cap, l, inv_parts, rb_parts, fd_parts,
+                      la_parts, x0_parts, plain=False)
+
+
+class WalkStage(NamedTuple):
+    """The frontier walk's inputs on a mesh, as sharded_frontier_passes
+    stages them: the chain table padded to n_pad chains of l_b indices
+    (host), each position's INV slice (K1 on its chains), chain table and
+    X(0), fd and la replicated; r_cap is the provable cap l_b + 2."""
+    axis: object
+    super_majority: int
+    r_cap: int
+    l: int
+    rb_pad: np.ndarray
+    inv_parts: List[torch.Tensor]
+    rb_parts: List[torch.Tensor]
+    fd_parts: List[torch.Tensor]
+    la_parts: List[torch.Tensor]
+    x0_parts: List[torch.Tensor]
+
+    def walk(self, mesh: DeviceMesh, form: Optional[str] = None) -> List[torch.Tensor]:
+        return local_walk(mesh, self.axis, self.super_majority, self.r_cap, self.l,
+                          self.inv_parts, self.rb_parts, self.fd_parts, self.la_parts,
+                          self.x0_parts, form=form)
+
+
+def stage_walk(mesh: DeviceMesh, grid: DagGrid, grid_p: Optional[DagGrid] = None) -> WalkStage:
+    """Pass 1a of sharded_frontier_passes: the walk's inputs on the mesh
+    (`grid_p`: the grid padded by engine.pad_grid, made here if not given)."""
+    from .engine import _bucket, pad_grid
+    from .frontier import chain_table
+
+    r_axis, v_axis = _mesh_axes(mesh)
+    axis = (v_axis, r_axis) if v_axis is not None else r_axis
+    if grid_p is None:
+        grid_p = pad_grid(grid)
+    rows_by = chain_table(grid)
+    l_b = _bucket(rows_by.shape[1], 64, factor=2)
+    n_pad = ((grid.n + mesh.size - 1) // mesh.size) * mesh.size
+    rb_pad = np.full((n_pad, l_b), -1, dtype=np.int32)
+    rb_pad[: grid.n, : rows_by.shape[1]] = rows_by
+    la = to_device(grid_p.last_ancestors, mesh.device)
+    fd = to_device(grid_p.first_descendants, mesh.device)
+    rb_parts = shard(rb_pad, mesh, (axis, None))
+    la_parts, fd_parts = replicate(la, mesh), replicate(fd, mesh)
+    inv_parts = sharded_build_inv(mesh, rb_parts, la_parts)
+    x0_parts = shard(np.where(rb_pad[:, 0] >= 0, 0, l_b).astype(np.int32), mesh, (axis,))
+    # l_b + 2 is the provable cap: a round advance moves every chain's
+    # frontier index by >= 1, so last_round < L <= l_b
+    return WalkStage(axis, grid.super_majority, l_b + 2, l_b, rb_pad, inv_parts, rb_parts,
+                     fd_parts, la_parts, x0_parts)
 
 
 def post(x_hist, rows_by, creator, index, sp_index):
@@ -557,16 +677,11 @@ def sharded_frontier_passes(mesh: DeviceMesh, grid: DagGrid, chunk: int = 8,
     table sharded over chains, fame rounds-sharded, received
     events-sharded. Results identical to engine.run_frontier_passes.
     Requires a frontier-safe (base-state) grid."""
-    from .engine import _bucket, pad_grid
-    from .frontier import chain_table, level_lamport, sp_index_of
+    from .engine import pad_grid
+    from .frontier import level_lamport, sp_index_of
 
-    r_axis, v_axis = _mesh_axes(mesh)
-    axis = (v_axis, r_axis) if v_axis is not None else r_axis
-    ndev = mesh.size
     dev = mesh.device
-
     e_real = grid.e
-    rows_by = chain_table(grid)
     sp_index = sp_index_of(grid)
     lamport = level_lamport(grid)
     grid_p = pad_grid(grid)
@@ -576,34 +691,23 @@ def sharded_frontier_passes(mesh: DeviceMesh, grid: DagGrid, chunk: int = 8,
     sp_index = np.concatenate([sp_index, np.full(pad_e, -1, np.int32)])
     lamport = np.concatenate([lamport, np.full(pad_e, -1, np.int32)])
 
-    l_b = _bucket(rows_by.shape[1], 64, factor=2)
-    n_pad = ((grid.n + ndev - 1) // ndev) * ndev
-    rb_pad = np.full((n_pad, l_b), -1, dtype=np.int32)
-    rb_pad[: grid.n, : rows_by.shape[1]] = rows_by
-    # l_b + 2 is the provable cap: a round advance moves every chain's
-    # frontier index by >= 1, so last_round < L <= l_b
-    r_hard = l_b + 2
+    # pass 1a: INV, chains-sharded
+    stage = stage_walk(mesh, grid, grid_p)
+    r_hard = stage.r_cap
     if r_cap is None:
         r_cap = r_hard
-
-    la = to_device(grid_p.last_ancestors, dev)
-    fd = to_device(grid_p.first_descendants, dev)
+    la, fd = stage.la_parts[0], stage.fd_parts[0]
     index = to_device(index_np, dev)
-    rb_dev = to_device(rb_pad, dev)
-    rb_parts = shard(rb_pad, mesh, (axis, None))
-    la_parts, fd_parts = replicate(la, mesh), replicate(fd, mesh)
-
-    # pass 1a: INV, chains-sharded
-    inv_parts = sharded_build_inv(mesh, rb_parts, la_parts)
-    # pass 1b: the walk, chains-sharded
-    x0_parts = shard(np.where(rb_pad[:, 0] >= 0, 0, l_b).astype(np.int32), mesh, (axis,))
+    rb_dev = to_device(stage.rb_pad, dev)
     creator = to_device(grid_p.creator, dev)
     sp_d = to_device(sp_index, dev)
+    # pass 1b: the walk, chains-sharded
     while True:
-        hist = ledger_call("local_walk", local_walk, mesh, axis, grid.super_majority, r_cap,
-                           l_b, inv_parts, rb_parts, fd_parts, la_parts, x0_parts)
+        hist = ledger_call("local_walk", local_walk, mesh, stage.axis, stage.super_majority,
+                           r_cap, stage.l, stage.inv_parts, stage.rb_parts, stage.fd_parts,
+                           stage.la_parts, stage.x0_parts)
         # pass 1c: witness table + per-event rounds on the gathered history
-        x_hist = unshard(hist, mesh, (None, axis))
+        x_hist = unshard(hist, mesh, (None, stage.axis))
         rounds, witness, wtable, last_round = post(x_hist, rb_dev, creator, index, sp_d)
         # an undersized r_cap truncates the walk: re-run at the provable cap
         if int(last_round) + 2 <= r_cap or r_cap >= r_hard:

@@ -181,19 +181,26 @@ Phases, in order; any failure raises and exits non-zero:
    position of every mesh on the one card (torch.cuda.device_count() is
    printed; no number measures an interconnect): (a) each mesh kernel
    (B21 shard_fame/tally, /decide, /active; B22 received_search; B23
-   fame_tables; B24 shard_walk/rows, /m0, /close; K3's setup fame_setup
-   and K2's post frontier_post launched on their own) held torch.equal to
-   its plain version after every launch, with CUDA-event times behind a
-   spin: sharded_frontier_passes on config #4 on the 1-D mesh of 8
-   (packed; every step of its walk), sharded_run_passes on the 1-D mesh
-   (wide) and on the 2-D (2, 4) mesh (both layouts), the voting tables of
-   coin_round_case(8, 20, 52) (coin steps at d = 8 and 16) and
-   coin_round_case(1024, 6, 3) on the 2-D mesh, equal to decide_fame's
-   verdicts, and sharded_frontier_passes on synthetic_grid(1024, 16384,
-   seed=0, zipf_a=1.1) (128 chains per position: the plain walk's binary
-   search), equal to run_frontier_passes; (b) the three sharded engines
-   on config #4 on both meshes and both layouts, each launching its
-   path's kernels (run_path) and equal to phase 14's engines (7, 32,341,
+   fame_tables; B24 as one launch, shard_walk/grid, held to the plain
+   whole walk on every position's history, and its per-step form
+   shard_walk/rows, /m0, /close; K3's setup fame_setup and K2's post
+   frontier_post launched on their own) held torch.equal to its plain
+   version after every launch, with CUDA-event times behind a spin:
+   sharded_frontier_passes on config #4 on the 1-D mesh of 8 and the 2-D
+   (2, 4) mesh (packed), local_walk with the per-step form named on
+   config #4's 1-D walk (every step; its history equal to the one-launch
+   walk's), sharded_run_passes on the 1-D mesh (wide) and on the 2-D mesh
+   (both layouts), the bench cell through sharded_frontier_passes on the
+   1-D mesh, the voting tables of coin_round_case(8, 20, 52) (coin steps
+   at d = 8 and 16) and coin_round_case(1024, 6, 3) on the 2-D mesh,
+   equal to decide_fame's verdicts, and sharded_frontier_passes on
+   synthetic_grid(1024, 16384, seed=0, zipf_a=1.1) (128 chains per
+   position: the plain walk's binary search), equal to
+   run_frontier_passes; (b) the three sharded engines on config #4 on
+   both meshes and both layouts, each launching its path's kernels
+   (run_path; the frontier walk as exactly one launch of shard_walk/grid
+   and none of the per-step kernels, whose launches come from local_walk
+   with that form named) and equal to phase 14's engines (7, 32,341,
    1,853 witnesses; fame on the overlap), the median wall of 3 warm runs
    per engine and mesh (packed), and the bench cell through
    sharded_frontier_passes on the 1-D mesh (26, 28,065); (c) phase 15's
@@ -397,6 +404,7 @@ MESH_TIMED_CELL = {
     "shard_walk/rows": "config #4 frontier, 1-D 8, packed",
     "shard_walk/m0": "config #4 frontier, 1-D 8, packed",
     "shard_walk/close": "config #4 frontier, 1-D 8, packed",
+    "shard_walk/grid": "config #4 frontier, 1-D 8, packed",
     "frontier_post": "config #4 frontier, 1-D 8, packed",
     "shard_fame/tally": "config #4 level scan, 1-D 8, wide",
     "shard_fame/decide": "config #4 level scan, 1-D 8, wide",
@@ -473,6 +481,9 @@ REPLACES = {
     "shard_walk/m0": ("babble_tpu_torch/csrc/frontier_walk.cu", "babble_tpu/tpu/sharded.py:549"),
     "shard_walk/close": ("babble_tpu_torch/csrc/frontier_walk.cu",
                          "babble_tpu/tpu/sharded.py:549"),
+    # the same walk in one cooperative launch (every position on one card)
+    "shard_walk/grid": ("babble_tpu_torch/csrc/frontier_walk.cu",
+                        "babble_tpu/tpu/sharded.py:549"),
     # K3's setup and K2's post pass launched on their own by the mesh path
     "fame_setup": ("babble_tpu_torch/csrc/decide_fame.cu", "babble_tpu/tpu/kernels.py:335"),
     "fame_setup/packed": ("babble_tpu_torch/csrc/decide_fame.cu",
@@ -547,16 +558,17 @@ PATH_KERNELS = {
     "multi_step (1,024)": ("apply_deltas", "step_levels/grid", "decide_window"),
     "train_step (1,024), packed": ("apply_deltas", "train_levels/packed/grid",
                                    "decide_window/packed"),
-    # the device mesh: passes 2+3 of every sharded engine
-    "sharded_frontier_passes": ("build_inv", "shard_walk/rows", "shard_walk/m0",
-                                "shard_walk/close", "frontier_post", "fame_setup",
+    # the device mesh: passes 2+3 of every sharded engine; on the one card
+    # the frontier walk is one launch (_ext.shard_walk_form), and its
+    # per-step kernels run when a caller names that form
+    "sharded_frontier_passes": ("build_inv", "shard_walk/grid", "frontier_post", "fame_setup",
                                 "shard_fame/tally", "shard_fame/decide", "shard_fame/active",
                                 "fame_tables", "received_search"),
-    "sharded_frontier_passes, packed": ("build_inv", "shard_walk/rows", "shard_walk/m0",
-                                        "shard_walk/close", "frontier_post",
+    "sharded_frontier_passes, packed": ("build_inv", "shard_walk/grid", "frontier_post",
                                         "fame_setup/packed", "shard_fame/tally/packed",
                                         "shard_fame/decide/packed", "shard_fame/active",
                                         "fame_tables", "received_search"),
+    "local_walk, per-step form": ("shard_walk/rows", "shard_walk/m0", "shard_walk/close"),
     "sharded_run_passes": ("divide_rounds/grid", "fame_setup", "shard_fame/tally",
                            "shard_fame/decide", "shard_fame/active", "fame_tables",
                            "received_search"),
@@ -570,8 +582,7 @@ PATH_KERNELS = {
                                         "fame_setup/packed", "shard_fame/tally/packed",
                                         "shard_fame/decide/packed", "shard_fame/active",
                                         "fame_tables", "received_search"),
-    "sharded_frontier_passes (1,024), packed": ("build_inv", "shard_walk/rows",
-                                                "shard_walk/m0", "shard_walk/close",
+    "sharded_frontier_passes (1,024), packed": ("build_inv", "shard_walk/grid",
                                                 "frontier_post", "fame_setup/packed/dev",
                                                 "shard_fame/tally/packed",
                                                 "shard_fame/decide/packed",
@@ -2259,6 +2270,92 @@ def fl_width_phase(dev, log_fn):
     return summary, work, launches
 
 
+def walk_rows_work(b, n_p, ok):
+    """(bytes, seconds at the ALU rate) of one position's shard_walk/rows
+    step: X and the chain-table entries, the ok frontier rows' fd rows in,
+    the (B, N_p) rows and w_ok out."""
+    return b * 8 + ok * n_p * 4 + b * n_p * 4 + b, 0.0
+
+
+def walk_m0_work(inv, n_w, ok):
+    """One position's shard_walk/m0 step over n_w gathered frontier rows, ok
+    of them live: the rows and w_ok in, one INV value per (chain, live row,
+    coordinate) probed (at most the slice), m0 out."""
+    b, n_p, _ = inv.shape
+    probes = b * ok * n_p
+    return (n_w * n_p * 4 + n_w + min(inv.numel() * 4, probes * 4) + b * 4,
+            2 * probes / ALU_OPS_S)
+
+
+def walk_close_work(b, n_p, live):
+    """One position's shard_walk/close step: one INV value per (chain,
+    coordinate whose m0 is live), the coordinates' m0, X in and out."""
+    return b * live * 4 + n_p * 4 + b * 12, b * n_p * 2 / ALU_OPS_S
+
+
+def walk_steps(hist):
+    """Steps the one-launch walk computes on a history (a list of (r_cap,
+    B) tensors): up to and including the first step that moves no chain,
+    else r_cap - 1."""
+    r_cap = hist[0].shape[0]
+    for r in range(r_cap - 1):
+        if all(torch.equal(h[r + 1], h[r]) for h in hist):
+            return r + 1
+    return r_cap - 1
+
+
+def walk_work(mesh, axis, super_majority, l, inv_parts, rb_parts, fd_parts, la_parts, hist):
+    """(bytes, seconds at the ALU rate) of the one-launch walk over its
+    working steps (walk_steps), each input read once and each output
+    written once: X(0) in and every history row out; each chain-table entry
+    a working step's frontier takes; the fd row of every event that is ever
+    a live frontier row; for every chain, the INV values at each
+    (coordinate, index) any step probes (the live rows' fd values in phase
+    A, the coordinates' live m0 in the closure). Operations: phase A's
+    selection (two per probe) and the closure. m0 from the plain pieces on
+    the history's X(r)."""
+    from babble_tpu_torch.tpu import sharded as sh
+    from babble_tpu_torch.tpu.frontier import M0_BINSEARCH_MIN_N
+    from babble_tpu_torch.tpu.grid import MAX_INT32
+    from babble_tpu_torch.tpu.mesh import all_gather
+
+    b, n_p, _ = inv_parts[0].shape
+    n_w = b * mesh.size
+    r_cap = hist[0].shape[0]
+    use_binsearch = n_w >= M0_BINSEARCH_MIN_N
+    fd = fd_parts[0]
+    probed = torch.zeros((n_p, l), dtype=torch.bool, device=fd.device)
+    events = torch.zeros(fd.shape[0], dtype=torch.bool, device=fd.device)
+    coords = torch.arange(n_p, device=fd.device)
+    entries, probes = 0, 0
+    steps = walk_steps(hist)
+    for r in range(steps):
+        rows = [sh._walk_rows_plain(rb_parts[p], fd_parts[p], hist[p][r])
+                for p in range(mesh.size)]
+        fd_w = all_gather([x[0] for x in rows], mesh, axis)
+        w_ok = all_gather([x[1] for x in rows], mesh, axis)
+        m0 = all_gather([sh._walk_m0_plain(inv_parts[p], fd_w[p], w_ok[p], rb_parts[p],
+                                           la_parts[p], super_majority, l, use_binsearch)
+                         for p in range(mesh.size)], mesh, axis)[0]
+        for p in range(mesh.size):
+            x = hist[p][r]
+            live = x < l
+            if r:
+                live &= x != hist[p][r - 1]
+            c = live.nonzero().squeeze(1)
+            entries += c.numel()
+            events[rb_parts[p][c, x[c].long()].clamp(min=0).long()] = True
+        vals = fd_w[0][w_ok[0]]
+        ok = vals < MAX_INT32
+        probed[coords.expand_as(vals)[ok], vals[ok].clamp(0, l - 1).long()] = True
+        cm = m0[:n_p] < l
+        probed[coords[cm], m0[:n_p][cm].long()] = True
+        probes += n_w * vals.shape[0] * n_p
+    nbytes = (n_w * 4 + r_cap * n_w * 4 + entries * 4 + int(events.sum()) * n_p * 4
+              + n_w * int(probed.sum()) * 4)
+    return nbytes, (2 * probes + steps * n_w * n_p * 2) / ALU_OPS_S
+
+
 class MeshCheck:
     """Every mesh kernel wrapper of tpu/sharded.py patched, while the
     context is open, to launch its kernel and run its plain version on the
@@ -2268,12 +2365,12 @@ class MeshCheck:
     launches under "<name>/packed", the device staging form's "/dev")."""
 
     NAMES = ("shard_tally", "shard_decide", "shard_active", "fame_tables", "local_received",
-             "walk_rows", "walk_m0", "walk_close", "post", "fame_setup")
+             "walk_rows", "walk_m0", "walk_close", "walk_grid", "post", "fame_setup")
 
     def __init__(self, log_fn):
         self.log = log_fn
         self.cell = None
-        self.events, self.work, self.calls = {}, {}, {}
+        self.events, self.work, self.calls, self.steps = {}, {}, {}, {}
 
     def __enter__(self):
         from babble_tpu_torch.tpu import sharded as sh
@@ -2412,22 +2509,15 @@ class MeshCheck:
         n_p = fd.shape[1]
 
         def work(got):
-            ok = int(got[1].sum().item())
-            return b * 8 + ok * n_p * 4 + b * n_p * 4 + b, 0.0
+            return walk_rows_work(b, n_p, int(got[1].sum().item()))
 
         return self._timed(
             "shard_walk/rows", lambda: tuple(self.real["walk_rows"](rows_by, fd, x_cur)),
             lambda: tuple(self.sh._walk_rows_plain(rows_by, fd, x_cur)), work)
 
     def _walk_m0(self, inv, fd_w, w_ok, rows_by, la, super_majority, l, use_binsearch):
-        b, n_p, _ = inv.shape
-        n_w = fd_w.shape[0]
-
         def work(_):
-            ok = int(w_ok.sum().item())
-            probes = b * ok * n_p  # one INV value per (chain, frontier row, coordinate)
-            return (n_w * n_p * 4 + n_w + min(inv.numel() * 4, probes * 4) + b * 4,
-                    2 * probes / ALU_OPS_S)
+            return walk_m0_work(inv, fd_w.shape[0], int(w_ok.sum().item()))
 
         return self._timed(
             "shard_walk/m0",
@@ -2450,10 +2540,24 @@ class MeshCheck:
             return want
 
         def work(_):
-            live = int((m0_all[:n_p] < l).sum().item())
-            return b * live * 4 + n_p * 4 + b * 12, b * n_p * 2 / ALU_OPS_S
+            return walk_close_work(b, n_p, int((m0_all[:n_p] < l).sum().item()))
 
         return self._timed("shard_walk/close", kern, plain, work)
+
+    def _walk_grid(self, mesh, axis, super_majority, r_cap, l, inv_parts, rb_parts, fd_parts,
+                   la_parts, x0_parts):
+        args = (mesh, axis, super_majority, r_cap, l, inv_parts, rb_parts, fd_parts, la_parts,
+                x0_parts)
+
+        def work(got):
+            return walk_work(mesh, axis, super_majority, l, inv_parts, rb_parts, fd_parts,
+                             la_parts, list(got))
+
+        got = self._timed("shard_walk/grid", lambda: tuple(self.real["walk_grid"](*args)),
+                          lambda: tuple(self.sh._local_walk_plain(*args)), work)
+        self.steps.setdefault((self.cell, "shard_walk/grid"), []).append(
+            (walk_steps(list(got)), r_cap))
+        return list(got)
 
     def _post(self, x_hist, rows_by, creator, index, sp_index):
         from babble_tpu_torch.tpu.frontier import frontier_post
@@ -2494,6 +2598,29 @@ class MeshCheck:
             name, lambda: tuple(self.real["fame_setup"](wtable, la, fd, index, coin_bit,
                                                         super_majority, packed)),
             plain, work)
+
+
+# B24's per-step launch keys (the form for positions on distinct cards)
+STEP_WALK_KEYS = ("shard_walk/rows", "shard_walk/m0", "shard_walk/close")
+
+
+def require_one_walk_launch(what, launches):
+    """Fail unless a sharded_frontier_passes call on the one card walked in
+    exactly one launch of the one-launch walk and none of the per-step
+    kernels."""
+    step = {k: launches[k] for k in STEP_WALK_KEYS if launches[k]}
+    if launches["shard_walk/grid"] != 1 or step:
+        raise AssertionError(f"{what}: shard_walk/grid x{launches['shard_walk/grid']}, "
+                             f"per-step {step}; expected one launch of the one-launch walk")
+
+
+def walk_note(checks, cell):
+    """The steps each checked one-launch walk of a cell computed, beside
+    r_cap, for its log line."""
+    steps = checks.steps.get((cell, "shard_walk/grid"))
+    if not steps:
+        return ""
+    return "; one-launch walk " + ", ".join(f"{s} of r_cap {r} steps" for s, r in steps)
 
 
 def same_as(label, got, want, tables="overlap"):
@@ -2558,6 +2685,8 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
         for cell, fn in (
             ("config #4 frontier, 1-D 8, packed",
              lambda: sh.sharded_frontier_passes(m1, wide, packed=True)),
+            ("config #4 frontier, 2-D (2, 4), packed",
+             lambda: sh.sharded_frontier_passes(m2, wide, packed=True)),
             ("config #4 level scan, 1-D 8, wide",
              lambda: sh.sharded_run_passes(m1, wide, packed=False)),
             ("config #4 level scan, 2-D (2, 4), packed",
@@ -2569,7 +2698,24 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
             res = fn()
             same_as(cell, res, wide_ref)
             log_fn(f"  {cell}: every mesh kernel == plain after each launch, results == "
-                   f"phase 14's; checked {checks.names(cell)}")
+                   f"phase 14's; checked {checks.names(cell)}{walk_note(checks, cell)}")
+        # the per-step kernels, named explicitly, on config #4's 1-D walk:
+        # each launch against its plain version, the history against the
+        # one-launch walk's
+        checks.cell = "config #4 frontier, 1-D 8, packed"
+        walk_stage = sh.stage_walk(m1, wide)
+        step_hist = walk_stage.walk(m1, form="step")
+        grid_hist = walk_stage.walk(m1)
+        require_equal("the per-step walk against the one-launch walk, config #4, 1-D 8",
+                      tuple(step_hist), tuple(grid_hist))
+        log_fn(f"  {checks.cell}, local_walk(form='step'): "
+               f"{len(checks.events[(checks.cell, 'shard_walk/m0')])} m0 launches, each == "
+               f"plain; its history == the one-launch walk's")
+        b_ref = engine.run_frontier_passes(bench, device=dev)
+        checks.cell = "bench cell frontier, 1-D 8, wide"
+        same_as(checks.cell, sh.sharded_frontier_passes(m1, bench), b_ref)
+        log_fn(f"  {checks.cell}: every mesh kernel == plain after each launch, results == "
+               f"run_frontier_passes{walk_note(checks, checks.cell)}")
         for n, r, seed in MESH_COIN_CASES:
             case = coin_round_case(n, r, seed)
             g = SimpleNamespace(n=n, super_majority=case["super_majority"],
@@ -2596,11 +2742,18 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
                             zipf_a=MESH_WIDTH["zipf_a"])
         checks.cell = "width cell frontier, 1-D 8, packed"
         w_res = sh.sharded_frontier_passes(m1, wg, packed=True)
+        # the per-step kernels at this width too (128 chains a position,
+        # m0's widest shared-memory layout), the history against the one
+        # launch's
+        w_stage = sh.stage_walk(m1, wg)
+        require_equal("the per-step walk against the one-launch walk, width cell, 1-D 8",
+                      tuple(w_stage.walk(m1, form="step")), tuple(w_stage.walk(m1)))
     w_ref = engine.run_frontier_passes(wg, device=dev, packed=True)
     same_as(checks.cell, w_res, w_ref)
     log_fn(f"  {checks.cell}: {wg.n} validators, {wg.e} events, 128 chains per position "
            f"(the plain walk in the binary-search form): == run_frontier_passes, "
-           f"last_round {w_res.last_round}; checked {checks.names(checks.cell)}")
+           f"last_round {w_res.last_round}; checked {checks.names(checks.cell)}"
+           f"{walk_note(checks, checks.cell)}")
     log_fn(f"phase 17 (a): {time.perf_counter() - t0:.1f} s")
 
     # (b) end to end: config #4, both meshes, both layouts, the three engines
@@ -2612,6 +2765,8 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
                 label = ename + (", packed" if pk else "")
                 res, got = run_path(label, lambda: fn(m, wide, packed=pk))
                 same_as(f"{label} on {mname}", res, wide_ref)
+                if ename == "sharded_frontier_passes":
+                    require_one_walk_launch(f"{label} on {mname}", got)
                 counts = dict(last_round=res.last_round,
                               received=int((res.received >= 0).sum()),
                               witnesses=int(res.witness.sum()))
@@ -2627,18 +2782,26 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
     log_fn(f"config #4 through the three sharded engines on both meshes in both layouts == "
            f"phase 14's engines: {WIDE_EXPECT}")
     for name in ("shard_fame/tally/packed", "shard_fame/decide/packed", "shard_fame/active",
-                 "fame_tables", "received_search", "fame_setup/packed", "shard_walk/rows",
-                 "shard_walk/m0", "shard_walk/close", "frontier_post"):
+                 "fame_tables", "received_search", "fame_setup/packed", "shard_walk/grid",
+                 "frontier_post"):
         launches[name] = paths[("1-D 8", "sharded_frontier_passes, packed")][name]
+    # the per-step kernels' path: local_walk with that form named (the
+    # layout of positions on distinct cards), config #4 on the 1-D mesh
+    _, step_launches = run_path("local_walk, per-step form",
+                                lambda: walk_stage.walk(m1, form="step"))
+    for name in STEP_WALK_KEYS:
+        launches[name] = step_launches[name]
     for name in ("shard_fame/tally", "shard_fame/decide", "fame_setup"):
         launches[name] = paths[("1-D 8", "sharded_run_passes")][name]
     w_run, w_launches = run_path("sharded_frontier_passes (1,024), packed",
                                  lambda: sh.sharded_frontier_passes(m1, wg, packed=True))
     same_as("sharded_frontier_passes (1,024)", w_run, w_ref)
+    require_one_walk_launch("sharded_frontier_passes (1,024)", w_launches)
     launches["fame_setup/packed/dev"] = w_launches["fame_setup/packed/dev"]
-    b_ref = engine.run_frontier_passes(bench, device=dev)
-    b_res, _ = run_path("sharded_frontier_passes", lambda: sh.sharded_frontier_passes(m1, bench))
+    b_res, b_launches = run_path("sharded_frontier_passes",
+                                 lambda: sh.sharded_frontier_passes(m1, bench))
     same_as("the bench cell on the 1-D mesh", b_res, b_ref)
+    require_one_walk_launch("the bench cell on the 1-D mesh", b_launches)
     n_recv = int((b_res.received >= 0).sum())
     if (b_res.last_round, n_recv) != (BENCH_LAST_ROUND, BENCH_RECEIVED):
         raise AssertionError(f"bench cell on the mesh: {b_res.last_round}, {n_recv}")

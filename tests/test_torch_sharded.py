@@ -403,17 +403,34 @@ def test_fame_loop_matches_reference(kind, shape, packed):
 
 
 WALK_CASES = [
-    # (n, events, seed, mesh shape): 8 x 2 = 16 and 4 x 64 = 256 chains
-    # in the sort form, 8 x 64 = 512 chains in the binary search
-    (12, 300, 7, (8,)), (64, 512, 3, (2, 2)), (512, 1024, 5, (8,)),
+    # (n, events, seed, mesh shape, r_cap, form): 8 x 2 = 16 and 4 x 64 =
+    # 256 chains in the sort form, 8 x 64 = 512 chains in the binary
+    # search. r_cap "engine" is sharded_frontier_passes' own cap l_b + 2,
+    # where the walk reaches its fixed point mid-history; r_cap 3 stops it
+    # while it still moves. form None is local_walk's default (one device:
+    # the one-launch form, on the CPU the plain whole walk), "step" the
+    # per-step form.
+    pytest.param(12, 300, 7, (8,), 12, None, id="12-300-7-shape0"),
+    pytest.param(64, 512, 3, (2, 2), 12, None, id="64-512-3-shape1"),
+    pytest.param(512, 1024, 5, (8,), 12, None, id="512-1024-5-shape2"),
+    pytest.param(12, 300, 7, (8,), "engine", None, id="12-300-7-1d-engine-cap"),
+    pytest.param(12, 300, 7, (8,), "engine", "step", id="12-300-7-1d-engine-cap-step"),
+    pytest.param(64, 512, 3, (2, 2), "engine", None, id="64-512-3-2d-engine-cap"),
+    pytest.param(64, 512, 3, (2, 2), "engine", "step", id="64-512-3-2d-engine-cap-step"),
+    pytest.param(512, 1024, 5, (8,), "engine", None, id="512-1024-5-1d-engine-cap"),
+    pytest.param(64, 512, 3, (2, 2), 12, "step", id="64-512-3-2d-step"),
+    pytest.param(12, 300, 7, (8,), 3, None, id="12-300-7-1d-still-moving"),
 ]
 
 
-@pytest.mark.parametrize("n,e,seed,shape", WALK_CASES)
-def test_frontier_walk_matches_reference(n, e, seed, shape):
+@pytest.mark.parametrize("n,e,seed,shape,r_cap,form", WALK_CASES)
+def test_frontier_walk_matches_reference(n, e, seed, shape, r_cap, form):
     """The chains-sharded INV (as integers) and local_walk against
     _sharded_build_inv_fn and _frontier_walk_fn on the same staged inputs;
-    the m0 form switches on the padded chain count as the reference's."""
+    the m0 form switches on the padded chain count as the reference's. At
+    the engine's cap the reference's full-length scan reaches its fixed
+    point mid-history, and the port's history equals it row for row; at
+    r_cap 3 it still moves at the last row."""
     from babble_tpu.tpu.engine import _bucket, pad_grid
     from babble_tpu.tpu.frontier import M0_BINSEARCH_MIN_N, chain_table
 
@@ -430,7 +447,8 @@ def test_frontier_walk_matches_reference(n, e, seed, shape):
     rb_pad[:n, : rows_by.shape[1]] = rows_by
     gp = pad_grid(grid)
     x0 = np.where(rb_pad[:, 0] >= 0, 0, l_b).astype(np.int32)
-    r_cap = 12
+    if r_cap == "engine":
+        r_cap = l_b + 2
     assert (n_pad >= M0_BINSEARCH_MIN_N) == (n >= 512)
 
     def put(a, spec):
@@ -453,7 +471,24 @@ def test_frontier_walk_matches_reference(n, e, seed, shape):
         inv[:n].numpy(), np.asarray(ref_build_inv(rb_pad[:n], gp.last_ancestors)).astype(
             np.int32))
     hist = port.local_walk(pm, axis, grid.super_majority, r_cap, l_b, inv_parts, rb_parts,
-                           fd_parts, la_parts, port_mesh_mod.shard(x0, pm, (axis,)))
+                           fd_parts, la_parts, port_mesh_mod.shard(x0, pm, (axis,)), form=form)
     got = port_mesh_mod.unshard(hist, pm, (None, axis))
     np.testing.assert_array_equal(got.numpy(), want)
+    still = [bool((want[r + 1] != want[r]).any()) for r in range(r_cap - 1)]
+    if r_cap == l_b + 2:
+        fixed = still.index(False)
+        assert fixed + 2 < r_cap and not any(still[fixed:]), "no fixed point mid-history"
+    if r_cap == 3:
+        assert still[-1], "the walk stopped moving before r_cap"
     assert (want[-1] > 0).any(), "the walk never advanced"
+
+
+def test_shard_walk_form_follows_the_layout():
+    """B24's form is chosen by layout alone: one device, the one-launch
+    walk; distinct cards, the per-step form; an unknown form raises."""
+    assert port._ext.shard_walk_form(["cpu"] * 8) == "grid"
+    assert port._ext.shard_walk_form([torch.device("cuda", 0)] * 4) == "grid"
+    assert port._ext.shard_walk_form(["cuda:0", "cuda:1", "cuda:0"]) == "step"
+    pm = DeviceMesh.on("cpu", (2,), ("rounds",))
+    with pytest.raises(ValueError):
+        port.local_walk(pm, "rounds", 1, 2, 64, [], [], [], [], [], form="bogus")
