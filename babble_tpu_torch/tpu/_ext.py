@@ -34,11 +34,14 @@ width; the grid walk counts under "<key>/grid" and raises where the card
 cannot hold its blocks at once); decide_window's launches use the same
 shared memory at every width. None of them has a staging form.
 
-The mesh's frontier walk (B24) has two forms, chosen by layout alone in
-`shard_walk_form`: the whole walk in one cooperative launch where every
-position of the mesh lies on one device ("shard_walk/grid", `shard_walk`),
-and three launches per step and position where positions lie on distinct
-cards ("shard_walk/rows", "/m0", "/close").
+Every frontier walk on one card is one cooperative launch of the same
+kernel template (csrc/frontier_walk.cu walk_grid), which stops at the
+walk's fixed point: K2 `frontier_rounds` and K15 `frontier_window` at one
+position, and the mesh's walk (B24) where every position of the mesh lies
+on one device ("shard_walk/grid", `shard_walk`, any number of positions).
+Where positions lie on distinct cards B24 takes three launches per step
+and position ("shard_walk/rows", "/m0", "/close"); `shard_walk_form`
+chooses by layout alone.
 """
 
 from __future__ import annotations
@@ -104,7 +107,7 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
         "frontier_append.cu", "babble_frontier_append", "ppppppppppppppppppp" "iiii",
     ),
     "frontier_window": (
-        "frontier_walk.cu", "babble_frontier_window", "pppppppppppppppppppppp" "iiiiii",
+        "frontier_walk.cu", "babble_frontier_window", "ppppppppppppppppppppp" "iiiiii",
     ),
     # the device mesh (tpu/sharded.py): B21's three launches, B22, B23,
     # B24's three per-step launches and its one-launch walk, and two
@@ -499,11 +502,20 @@ def build_inv(rows_by: torch.Tensor, la: torch.Tensor) -> torch.Tensor:
     return inv
 
 
+def walk_scratch_words(n_w: int, n_p: int, n_steps: int, last_row: bool = False) -> int:
+    """Int32 words of the one-launch frontier walk's scratch
+    (csrc/frontier_walk.cu walk_grid): the barrier count, moved (n_steps),
+    n_live (n_steps + 1) and a key word, t (n_w, n_w), m0 (n_w), the
+    staged frontier rows (n_w, n_p) and, for K15, the walk's last row
+    (n_w)."""
+    return 3 + 2 * n_steps + n_w * n_w + n_w + n_w * n_p + (n_w if last_row else 0)
+
+
 def frontier_rounds(inv, rows_by, creator, index, sp_index, fd,
                     super_majority: int, r_cap: int):
-    """K2: the r_cap-step frontier walk and its post pass. Returns
-    (rounds (E,) int32, witness (E,) bool, wtable (r_cap, N) int32,
-    last_round () int32)."""
+    """K2: the r_cap-step frontier walk, one cooperative launch that stops
+    at its fixed point, and its post pass. Returns (rounds (E,) int32,
+    witness (E,) bool, wtable (r_cap, N) int32, last_round () int32)."""
     dev = inv.device
     n, l = rows_by.shape
     e = creator.shape[0]
@@ -516,13 +528,14 @@ def frontier_rounds(inv, rows_by, creator, index, sp_index, fd,
     if r_cap < 1 or e_fd < 1:
         raise ValueError("frontier_rounds: needs r_cap >= 1 and a non-empty fd")
     x_hist = torch.empty((r_cap, n), dtype=torch.int32, device=dev)
-    m0 = torch.empty((n,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((walk_scratch_words(n, n, r_cap - 1),), dtype=torch.int32,
+                          device=dev)
     rounds = torch.empty((e,), dtype=torch.int32, device=dev)
     witness = torch.empty((e,), dtype=torch.uint8, device=dev)
     wtable = torch.empty((r_cap, n), dtype=torch.int32, device=dev)
     last_round = torch.empty((), dtype=torch.int32, device=dev)
     _launch("frontier_rounds", dev, (
-        inv, rows_by, creator, index, sp_index, fd, x_hist, m0, rounds,
+        inv, rows_by, creator, index, sp_index, fd, x_hist, scratch, rounds,
         witness, wtable, last_round, n, l, e, e_fd, super_majority, r_cap,
     ))
     return rounds, witness.view(torch.bool), wtable, last_round
@@ -998,10 +1011,11 @@ def frontier_append(la, creator, index, lamport, coin, rows_by, inv, dirty, coun
 
 def frontier_window(inv, rows_by, x_hist, dirty, creator, index, coin, la, r_over,
                     super_majority: int, r_win: int):
-    """K15: the frontier-live decide's windowed walk, post pass and witness
-    tables. Returns (x_hist, r_over, rounds, witness, wtable, last_round,
-    la_w, idx_w, coin_w, fd_w, wtable_c), fresh tensors: x_hist with the
-    window's rows rewritten, r_over the input's latched by the window."""
+    """K15: the frontier-live decide's windowed walk (one cooperative
+    launch that stops at its fixed point), post pass and witness tables.
+    Returns (x_hist, r_over, rounds, witness, wtable, last_round, la_w,
+    idx_w, coin_w, fd_w, wtable_c), fresh tensors: x_hist with the window's
+    rows rewritten, r_over the input's latched by the window."""
     dev = inv.device
     n, l = rows_by.shape
     r_cap = x_hist.shape[0]
@@ -1019,10 +1033,8 @@ def frontier_window(inv, rows_by, x_hist, dirty, creator, index, coin, la, r_ove
         raise ValueError("frontier_window: needs 1 <= r_win <= r_cap, rows and an index axis")
     i32 = dict(dtype=torch.int32, device=dev)
     x_out = torch.empty((r_cap, n), **i32)
-    xs = torch.empty((r_win + 1, n), **i32)
-    m0 = torch.empty((n,), **i32)
-    scal = torch.empty((1,), **i32)
-    r_over_out = r_over.clone()
+    scratch = torch.empty((walk_scratch_words(n, n, r_win, last_row=True),), **i32)
+    r_over_out = torch.empty_like(r_over)
     rounds = torch.empty((e_cap,), **i32)
     witness = torch.empty((e_cap,), dtype=torch.uint8, device=dev)
     wtable = torch.empty((r_cap, n), **i32)
@@ -1034,9 +1046,9 @@ def frontier_window(inv, rows_by, x_hist, dirty, creator, index, coin, la, r_ove
     wtable_c = torch.empty((r_cap, n), **i32)
     _launch("frontier_window", dev, (
         inv, rows_by, x_hist, dirty.view(torch.uint8), creator, index,
-        coin.view(torch.uint8), la, x_out, xs, m0, scal, r_over_out.view(torch.uint8),
-        rounds, witness, wtable, last_round, la_w, idx_w, coin_w, fd_w, wtable_c,
-        n, l, e_cap, r_cap, r_win, super_majority,
+        coin.view(torch.uint8), la, r_over.view(torch.uint8), x_out, scratch,
+        r_over_out.view(torch.uint8), rounds, witness, wtable, last_round, la_w, idx_w,
+        coin_w, fd_w, wtable_c, n, l, e_cap, r_cap, r_win, super_majority,
     ))
     return (x_out, r_over_out, rounds, witness.view(torch.bool), wtable, last_round,
             la_w, idx_w, coin_w.view(torch.bool), fd_w, wtable_c)
@@ -1251,11 +1263,9 @@ def shard_walk_close(inv, m0_all, x_cur, x_next, c_off: int) -> None:
 
 # B24's two forms on a mesh (sharded.local_walk): the whole walk in one
 # cooperative launch ("grid", shard_walk) where every position lies on one
-# device, the three per-step kernels ("step") where positions lie on
-# distinct cards; the launch's table of positions holds at most
-# SHARD_WALK_MAX_POSITIONS
+# device, whatever their number, the three per-step kernels ("step") where
+# positions lie on distinct cards
 SHARD_WALK_FORMS = ("step", "grid")
-SHARD_WALK_MAX_POSITIONS = 64
 
 
 def shard_walk_form(devices: Sequence) -> str:
@@ -1271,24 +1281,16 @@ def shard_walk_form(devices: Sequence) -> str:
     return "grid" if len({card(d) for d in devices}) == 1 else "step"
 
 
-def shard_walk_scratch_words(n_w: int, r_cap: int) -> int:
-    """Int32 words of the one-launch walk's scratch (frontier_walk.cu
-    sw_grid): the barrier count, moved and n_live (r_cap each), t (n_w,
-    n_w), m0 and the live list (n_w each)."""
-    return 1 + 2 * r_cap + n_w * n_w + 2 * n_w
-
-
 def shard_walk(inv_parts, rb_parts, fd, x0_parts, super_majority: int,
                r_cap: int) -> List[torch.Tensor]:
     """B24 in one launch: x_hist (r_cap, B) int32 of every position, whose
     INV slices (B, N_p, L), chain tables (B, L) and X(0) (B,) are given in
     gather order, all on one device with the replicated fd (E, N_p). The
-    walk stops at its fixed point and repeats it to row r_cap - 1."""
+    walk stops at its fixed point and repeats it to row r_cap - 1. The
+    positions' addresses reach the launch as a (4, n_pos) table copied to
+    the device, one copy a call."""
     n_pos = len(inv_parts)
-    if not 1 <= n_pos <= SHARD_WALK_MAX_POSITIONS:
-        raise ValueError(f"shard_walk/grid: {n_pos} positions, the launch takes 1 to "
-                         f"{SHARD_WALK_MAX_POSITIONS}")
-    if not len(rb_parts) == len(x0_parts) == n_pos:
+    if n_pos < 1 or not len(rb_parts) == len(x0_parts) == n_pos:
         raise ValueError("shard_walk/grid: one INV slice, chain table and X(0) per position")
     dev = fd.device
     b, n_p, l = inv_parts[0].shape
@@ -1303,10 +1305,10 @@ def shard_walk(inv_parts, rb_parts, fd, x0_parts, super_majority: int,
         raise ValueError("shard_walk/grid: needs fd rows, an index axis, chains for every "
                          "coordinate and a history")
     hist = [torch.empty((r_cap, b), dtype=torch.int32, device=dev) for _ in range(n_pos)]
-    # the positions' addresses, read on the host by the launcher
-    ptrs = torch.tensor([t.data_ptr() for parts in (inv_parts, rb_parts, x0_parts, hist)
-                         for t in parts], dtype=torch.int64)
-    scratch = torch.empty((shard_walk_scratch_words(n_w, r_cap),), dtype=torch.int32,
+    addrs = torch.tensor([t.data_ptr() for parts in (inv_parts, rb_parts, x0_parts, hist)
+                          for t in parts], dtype=torch.int64)
+    ptrs = addrs.pin_memory().to(dev, non_blocking=True)
+    scratch = torch.empty((walk_scratch_words(n_w, n_p, r_cap - 1),), dtype=torch.int32,
                           device=dev)
     _launch("shard_walk/grid", dev, (ptrs, fd, scratch, n_pos, b, n_p, l, e_fd, r_cap,
                                      super_majority))

@@ -237,22 +237,33 @@ def frontier_post(x_hist, rows_by, creator, index, sp_index) -> FrontierResult:
     return FrontierResult(rounds, witness, wtable, rounds.max())
 
 
-def _frontier_rounds_plain(inv, rows_by, creator, index, sp_index, fd,
-                           super_majority: int, r_cap: int, la=None,
-                           m0_mode: str = "auto") -> FrontierResult:
+def _frontier_history_plain(inv, rows_by, fd, super_majority: int, r_cap: int, la=None,
+                            m0_mode: str = "auto") -> torch.Tensor:
+    """The frontier history X(0 .. r_cap - 1) (r_cap, N) of the plain walk,
+    every step taken (the reference's scan)."""
     step = make_walk_step(inv, rows_by, fd, la, super_majority, m0_mode)
     x = frontier_x0(rows_by)
     hist = []
     for _ in range(r_cap):
         hist.append(x)
         x = step(x)
-    return frontier_post(torch.stack(hist), rows_by, creator, index, sp_index)
+    return torch.stack(hist)
+
+
+def _frontier_rounds_plain(inv, rows_by, creator, index, sp_index, fd,
+                           super_majority: int, r_cap: int, la=None,
+                           m0_mode: str = "auto") -> FrontierResult:
+    hist = _frontier_history_plain(inv, rows_by, fd, super_majority, r_cap, la=la,
+                                   m0_mode=m0_mode)
+    return frontier_post(hist, rows_by, creator, index, sp_index)
 
 
 def frontier_rounds(inv, rows_by, creator, index, sp_index, fd,
                     super_majority: int, r_cap: int, la=None) -> FrontierResult:
     """The r_cap-step frontier walk, then the witness table and per-event
-    rounds. CPU: the plain version; CUDA: the kernel (which needs no la)."""
+    rounds. CPU: the plain version; CUDA: the kernel (which needs no la),
+    one cooperative launch that stops at the walk's fixed point (F depends
+    on X alone, so the rows past it repeat X) and the post pass."""
     if rows_by.device.type == "cpu":
         return _frontier_rounds_plain(
             inv, rows_by, creator, index, sp_index, fd, super_majority, r_cap, la=la,

@@ -24,8 +24,10 @@ Two kernels carry the card path (babble_tpu_torch/csrc/):
 - K14 frontier_append.cu  `_append_train`: the train's rows, the INV
   scatter-min and the dirty planes' re-closure, rows_by and the flags;
 - K15 frontier_walk.cu    `_decide`'s walk half (babble_frontier_window):
-  the warm-start windowed walk with fd rows from INV, the post pass and
-  the voting's witness tables;
+  the warm-start windowed walk with fd rows from INV, one cooperative
+  launch that stops at the walk's fixed point (the window's rows past it
+  repeat X, and r_over reads that row), the post pass and the voting's
+  witness tables;
 
 then the ported K3 / K3p `decide_fame` and K4 `round_received` vote and
 receive over those tables through a compact witness table (witness slot

@@ -116,7 +116,8 @@ Phases, in order; any failure raises and exits non-zero:
    for 256 validators (walk_chunk, decide_window) against their plain
    versions on the card, torch.equal, on BASELINE.json config #4's grid at
    full width (synthetic_grid(256, 65536, seed=11, zipf_a=1.05,
-   byzantine_frac=1/3), 677 levels): K3p on its witness table, on
+   byzantine_frac=1/3), 677 levels): K2 frontier_rounds at the engine's
+   r_cap 64, held to its plain version and timed; K3p on its witness table, on
    test_packed.py's 7- and 33-validator fixtures and on the coin cases;
    K5p on the grid and a pinned section of it; walk_chunk on every chunk
    of its walk; on a state driven through its 1,024 batches of 64 (the
@@ -169,13 +170,14 @@ Phases, in order; any failure raises and exits non-zero:
    16384, seed=0, zipf_a=1.1, record_fd_updates=True) (depth cut: it stays
    in round 0), where K3p takes its device staging form and K5, K10 and
    K11p their grid walks, while K12 (both layouts) keeps the shared memory
-   it takes at every width, each held to its plain version (the votes also
+   it takes at every width, each held to its plain version (K2 too, with
+   its time; the votes also
    on coin_round_case tables at 1,024 validators, where witnesses are
    decided), and frontier_train_step (packed), K14 and K15 held to their
-   plain versions after every train, equal to run_frontier_passes
-   (packed); launches of the device form under "<key>/dev" and of the
-   grid walks under "<key>/grid", counted on runs of the entry
-   points a user calls (run_passes, step, multi_step, train_step,
+   plain versions after every train (K15's bound printed), equal to
+   run_frontier_passes (packed); launches of the device form under
+   "<key>/dev" and of the grid walks under "<key>/grid", counted on runs
+   of the entry points a user calls (run_passes, step, multi_step, train_step,
    frontier_train_step) with nothing else in the window.
 17. the device mesh (tpu/mesh.py, tpu/sharded.py, tpu/dispatch.py), every
    position of every mesh on the one card (torch.cuda.device_count() is
@@ -196,7 +198,11 @@ Phases, in order; any failure raises and exits non-zero:
    equal to decide_fame's verdicts, and sharded_frontier_passes on
    synthetic_grid(1024, 16384, seed=0, zipf_a=1.1) (128 chains per
    position: the plain walk's binary search), equal to
-   run_frontier_passes; (b) the three sharded engines on config #4 on
+   run_frontier_passes, and that walk on a one-card 1-D mesh of 128
+   positions (8 chains each; the walk's address table lies in device
+   memory, any number of positions): one launch, each history equal to
+   the plain walk's and all of them to the 1-D 8 walk's row for row; (b)
+   the three sharded engines on config #4 on
    both meshes and both layouts, each launching its path's kernels
    (run_path; the frontier walk as exactly one launch of shard_walk/grid
    and none of the per-step kernels, whose launches come from local_walk
@@ -382,6 +388,9 @@ FL_WIDTH_COIN = (1024, 6, 3)
 
 # the device mesh (phase 17): every position of every mesh on the one card
 MESH_1D = ((8,), ("rounds",))
+# phase 17(a): the width cell's walk on a one-card mesh of 128 positions
+# (8 chains each) in one launch
+MESH_WIDE_1D = ((128,), ("rounds",))
 MESH_2D = ((2, 4), ("validators", "rounds"))
 MESH_RUNS = 3
 # voting tables that reach coin steps on a mesh (8 validators, 20 rounds:
@@ -451,6 +460,13 @@ REPLACES = {
                         "babble_tpu/tpu/frontier_live.py:113"),
     "frontier_window": ("babble_tpu_torch/csrc/frontier_walk.cu",
                         "babble_tpu/tpu/frontier_live.py:184"),
+    # K2 at config #4 (phase 13) and K2, K15 at 1,024 validators (phase 16(d))
+    "frontier_rounds (config #4)": ("babble_tpu_torch/csrc/frontier_walk.cu",
+                                    "babble_tpu/tpu/frontier.py:299"),
+    "frontier_rounds (1,024)": ("babble_tpu_torch/csrc/frontier_walk.cu",
+                                "babble_tpu/tpu/frontier.py:299"),
+    "frontier_window (1,024)": ("babble_tpu_torch/csrc/frontier_walk.cu",
+                                "babble_tpu/tpu/frontier_live.py:184"),
     # the device staging form past one block's shared memory and the level
     # walks' grid forms at 1,024 validators (phase 16(d))
     "decide_fame/packed/dev": ("babble_tpu_torch/csrc/decide_fame.cu",
@@ -1372,12 +1388,25 @@ def packed_kernel_phase(g, dev, log_fn):
     log_fn(f"decide_fame/packed == plain on fixtures {PACKED_FIXTURES} (and == the wide "
            f"kernel) and on the coin cases {COIN_CASES}, both coin settings")
 
-    # K3p on the grid's witness table (the frontier walk's)
+    # K2 at the engine's round axis, then K3p on the grid's witness table
+    # (the frontier walk's at WIDE_R_CAP)
     st = engine.stage_frontier(g, dev)
     inv = frontier.build_inv(st.rows_by, st.la)
+    k2_args = (inv, st.rows_by, st.creator, st.index, st.sp_index, st.fd, sm, R_CAP)
+    k2, k2_plain = (lambda: tuple(frontier.frontier_rounds(*k2_args)),
+                    lambda: tuple(frontier._frontier_rounds_plain(*k2_args, la=st.la)))
+    held(f"frontier_rounds on the {n}-validator grid", k2, k2_plain)
+    k2_hist = frontier._frontier_history_plain(inv, st.rows_by, st.fd, sm, R_CAP, la=st.la)
+    summary["frontier_rounds (config #4)"] = {"max_abs_err": 0, "ms": spun_ms(k2, 10),
+                                              "plain_ms": spun_ms(k2_plain, 3, warmup=1)}
+    work["frontier_rounds (config #4)"] = frontier_rounds_work(inv, st, sm, k2_hist)
+    log_fn(f"frontier_rounds == plain on the {n}-validator grid (r_cap {R_CAP}, "
+           f"{walk_steps([k2_hist])} working steps): "
+           f"{summary['frontier_rounds (config #4)']['ms']:.4f} ms, plain "
+           f"{summary['frontier_rounds (config #4)']['plain_ms']:.2f} ms")
     fr = frontier.frontier_rounds(inv, st.rows_by, st.creator, st.index, st.sp_index, st.fd,
                                   sm, WIDE_R_CAP)
-    del inv
+    del inv, k2_args
     if int(fr.last_round) + 2 > WIDE_R_CAP:
         raise AssertionError(f"256 grid: last_round {int(fr.last_round)} overflows r_cap "
                              f"{WIDE_R_CAP}")
@@ -1726,26 +1755,66 @@ def fl_work_append(st, t):
             kb * n + dirty * n * l, 0)
 
 
-def fl_work_window(st, win):
-    """(bytes, ALU ops, 0) K15 needs: the INV entries of the frontier
-    rows' fd gathers (N for each distinct (chain, index) pair the window's
-    history holds, each read once), the history read and written, the
-    rows' metadata in and rounds / witness out, the witness rows of la in
-    and the tables out; the steps' N^3 + N^2 lookups and compares and the
-    post pass's per-row round counts."""
+def window_start(st, r_win):
+    """The first history row K15's window rewrites on state st, as the
+    plain version finds it."""
+    l = st.rows_by.shape[1]
+    r_cap = st.x_hist.shape[0]
+    first_sent = (st.x_hist < l).sum(dim=0)
+    floor = int(torch.where(st.dirty, first_sent, torch.full_like(first_sent, r_cap)).min())
+    return max(min(max(floor, 0), r_cap - r_win) - 1, 0)
+
+
+def fl_work_window(st, win, super_majority):
+    """(bytes, ALU ops, 0) K15 needs, from the plain version's window win on
+    state st, over the walk's working steps (walk_steps on the window's
+    rows): the INV row of every frontier row a step reads (N values for
+    each distinct (chain, index)), for every chain the INV values at each
+    (coordinate, index) a step probes (the frontier rows' values, the
+    coordinates' live m0), the history read and written, the rows'
+    metadata in and rounds / witness out, the witness rows of la in and the
+    tables out; two operations a probe, the closure's compares and the post
+    pass's per-row round counts."""
     from babble_tpu_torch.tpu import frontier_live as fl
+    from babble_tpu_torch.tpu.frontier import (M0_BINSEARCH_MIN_N, _m0_binsearch,
+                                               _m0_einsum_sort)
+    from babble_tpu_torch.tpu.grid import MAX_INT32
 
     e_cap, n = st.la.shape
     l = st.rows_by.shape[1]
     r_cap = st.x_hist.shape[0]
-    steps = min(fl.R_WIN, r_cap)
+    r_win = min(fl.R_WIN, r_cap)
+    start = window_start(st, r_win)
+    rows = win.x_hist[start:start + r_win]
+    steps = walk_steps([rows], r_win)
+    cc = torch.arange(n, device=rows.device)
+    staged = torch.zeros((n, l), dtype=torch.bool, device=rows.device)
+    probed = torch.zeros_like(staged)
+    chain_len = (st.rows_by >= 0).sum(dim=1, dtype=torch.int32)
+    rb = st.rows_by.clamp(0, e_cap - 1)
+    probes = 0
+    for r in range(steps):
+        x = rows[r]
+        w_ok = x < l
+        xc = x.clamp(0, l - 1).long()
+        fdw = st.inv[cc[None, :], cc[:, None], xc[:, None]]  # (w, p)
+        fd_w = torch.where(w_ok[:, None] & (fdw < l), fdw, torch.full_like(fdw, MAX_INT32))
+        staged[cc[w_ok], xc[w_ok]] = True
+        if n >= M0_BINSEARCH_MIN_N:
+            m0 = _m0_binsearch(fd_w, w_ok, rb, chain_len, st.la, super_majority, l)
+        else:
+            m0 = _m0_einsum_sort(fd_w, w_ok, st.inv, super_majority, l)
+        vals = fd_w[w_ok]
+        ok = vals < MAX_INT32
+        probed[cc.expand_as(vals)[ok], vals[ok].long()] = True
+        cm = m0 < l
+        probed[cc[cm], m0[cm].long()] = True
+        probes += n * vals.shape[0] * n
     n_wit = int((win.wtable >= 0).sum())
-    xh = win.x_hist
-    chain = torch.arange(n, device=xh.device).expand_as(xh)
-    pairs = int(torch.unique((chain * l + xh)[xh < l]).numel())
-    return (pairs * n * 4 + 2 * r_cap * n * 4 + e_cap * 9 + e_cap * 5
-            + n_wit * n * 4 + r_cap * n * (4 * 3 + 1) + 2 * r_cap * n * n * 4,
-            steps * (n ** 3 + n * n) + e_cap * r_cap, 0)
+    return (int(staged.sum()) * n * 4 + n * int(probed.sum()) * 4 + 2 * r_cap * n * 4 + n
+            + e_cap * 9 + e_cap * 5 + n_wit * n * 4 + r_cap * n * (4 * 3 + 1)
+            + 2 * r_cap * n * n * 4,
+            2 * probes + steps * n * n * 2 + e_cap * r_cap, 0)
 
 
 class FlPaired:
@@ -1773,7 +1842,7 @@ class FlPaired:
         self.events.setdefault(name, []).append(ev)
         if work is not None:
             acc = self.work.setdefault(name, [0, 0, 0])
-            for i, w in enumerate(work(got)):
+            for i, w in enumerate(work(want)):
                 acc[i] += w
         return got, want
 
@@ -1790,7 +1859,7 @@ class FlPaired:
             raise AssertionError(f"frontier_append on the {label}: {bad} differ from the plain version")
         win, want = self._timed("frontier_window", lambda: fl._decide_window(st, sm),
                                 lambda: fl._decide_window_plain(st, sm),
-                                lambda w: fl_work_window(st, w))
+                                lambda w: fl_work_window(st, w, sm))
         bad = [f for f in win._fields if not torch.equal(getattr(win, f), getattr(want, f))]
         if bad:
             raise AssertionError(f"frontier_window on the {label}: {bad} differ from the plain version")
@@ -2097,9 +2166,18 @@ def fl_width_phase(dev, log_fn):
     r_fame = res.witness_table.shape[0]
     st = engine.stage_frontier(g, dev)
     inv = frontier.build_inv(st.rows_by, st.la)
-    fr = frontier.frontier_rounds(inv, st.rows_by, st.creator, st.index, st.sp_index, st.fd,
-                                  sm, r_fame)
-    del inv
+    k2_args = (inv, st.rows_by, st.creator, st.index, st.sp_index, st.fd, sm, r_fame)
+    fr, k_ms, p_ms = held(f"frontier_rounds at {n} validators",
+                          lambda: tuple(frontier.frontier_rounds(*k2_args)),
+                          lambda: tuple(frontier._frontier_rounds_plain(*k2_args, la=st.la)))
+    fr = frontier.FrontierResult(*fr)
+    k2_hist = frontier._frontier_history_plain(inv, st.rows_by, st.fd, sm, r_fame, la=st.la)
+    summary["frontier_rounds (1,024)"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+    work["frontier_rounds (1,024)"] = frontier_rounds_work(inv, st, sm, k2_hist)
+    launches["frontier_rounds (1,024)"] = l_launches["frontier_rounds"]
+    log_fn(f"frontier_rounds == plain at {n} validators (r_cap {r_fame}, "
+           f"{walk_steps([k2_hist])} working steps): {k_ms:.4f} ms, plain {p_ms:.1f} ms")
+    del inv, k2_args
     fame_args = (fr.witness_table, st.la, st.fd, st.index, st.coin_bit, fr.last_round, sm, n,
                  r_fame + 2)
     _, k_ms, p_ms = held(f"decide_fame/packed/dev at {n} validators",
@@ -2250,7 +2328,7 @@ def fl_width_phase(dev, log_fn):
         paired.train(t, f"{n}-validator grid's train {k}")
     fst = fl.init_frontier_state(n, e, l_cap, f_r_cap, device=dev)
     t0 = time.perf_counter()
-    run_path("frontier_train_step (1,024), packed", lambda: [
+    _, f_launches = run_path("frontier_train_step (1,024), packed", lambda: [
         fl.frontier_train_step(fst, t, sm, n, packed=True) for t in trains_d])
     secs = time.perf_counter() - t0
     bad = fr_diff(fst, paired.st)
@@ -2261,6 +2339,14 @@ def fl_width_phase(dev, log_fn):
     if any(latches(fst).values()):
         raise AssertionError(f"frontier-live at {n} validators: latched {latches(fst)}")
     times = {k: paired.summary(k)[1:3] for k in ("frontier_append", "frontier_window")}
+    calls, k_ms, p_ms, (nbytes, ops_s) = paired.summary("frontier_window")
+    summary["frontier_window (1,024)"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+    work["frontier_window (1,024)"] = (nbytes, ops_s)
+    launches["frontier_window (1,024)"] = f_launches["frontier_window"]
+    log_fn(f"  frontier_window at {n} validators: {calls} checked calls, kernel {k_ms:.4f} ms "
+           f"per call, plain {p_ms:.1f} ms, bound "
+           f"{max(nbytes / HBM_BYTES_S, ops_s) * 1e3:.6f} ms "
+           f"({'bytes' if nbytes / HBM_BYTES_S >= ops_s else 'operations'})")
     log_fn(f"frontier_train_step (packed) over the {n}-validator grid's {len(trains)} trains "
            f"(l_cap {l_cap}) == run_frontier_passes (packed) on rows [:e], no latch, K14, K15 "
            f"and the decide == plain after every train (kernel, plain ms per train: "
@@ -2293,15 +2379,15 @@ def walk_close_work(b, n_p, live):
     return b * live * 4 + n_p * 4 + b * 12, b * n_p * 2 / ALU_OPS_S
 
 
-def walk_steps(hist):
-    """Steps the one-launch walk computes on a history (a list of (r_cap,
-    B) tensors): up to and including the first step that moves no chain,
-    else r_cap - 1."""
-    r_cap = hist[0].shape[0]
-    for r in range(r_cap - 1):
+def walk_steps(hist, n_steps=None):
+    """Steps the one-launch walk computes on a history (a list of (rows, B)
+    tensors, row r the frontier X(r)): up to and including the first step
+    that moves no chain, else n_steps (default rows - 1, the last row's)."""
+    rows = hist[0].shape[0]
+    for r in range(rows - 1):
         if all(torch.equal(h[r + 1], h[r]) for h in hist):
             return r + 1
-    return r_cap - 1
+    return rows - 1 if n_steps is None else n_steps
 
 
 def walk_work(mesh, axis, super_majority, l, inv_parts, rb_parts, fd_parts, la_parts, hist):
@@ -2354,6 +2440,25 @@ def walk_work(mesh, axis, super_majority, l, inv_parts, rb_parts, fd_parts, la_p
     nbytes = (n_w * 4 + r_cap * n_w * 4 + entries * 4 + int(events.sum()) * n_p * 4
               + n_w * int(probed.sum()) * 4)
     return nbytes, (2 * probes + steps * n_w * n_p * 2) / ALU_OPS_S
+
+
+def frontier_rounds_work(inv, st, super_majority, hist):
+    """(bytes, seconds at the ALU rate) K2 needs on staged inputs st (its
+    INV inv) from the plain walk's history hist (r_cap, N): the walk's
+    working steps as walk_work counts them at one position, then the post
+    pass: each event's creator, index and sp_index in, its round and
+    witness flag out (a compare per history row up to the fixed point),
+    the witness table and last_round out."""
+    from babble_tpu_torch.tpu.mesh import DeviceMesh
+
+    r_cap, n = hist.shape
+    l = st.rows_by.shape[1]
+    e = st.creator.shape[0]
+    one = DeviceMesh.on(inv.device, (1,), ("rounds",))
+    nbytes, ops_s = walk_work(one, "rounds", super_majority, l, [inv], [st.rows_by], [st.fd],
+                              [st.la], [hist])
+    return (nbytes + e * 12 + e * 5 + r_cap * n * 4 + 4,
+            ops_s + 2 * e * (walk_steps([hist]) + 1) / ALU_OPS_S)
 
 
 class MeshCheck:
@@ -2746,8 +2851,24 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
         # m0's widest shared-memory layout), the history against the one
         # launch's
         w_stage = sh.stage_walk(m1, wg)
+        w_hist = w_stage.walk(m1)
         require_equal("the per-step walk against the one-launch walk, width cell, 1-D 8",
-                      tuple(w_stage.walk(m1, form="step")), tuple(w_stage.walk(m1)))
+                      tuple(w_stage.walk(m1, form="step")), tuple(w_hist))
+        # the same walk on a one-card mesh of 128 positions (8 chains each):
+        # one launch, each position's history == the plain walk's, and the
+        # histories == the 1-D 8 walk's row for row
+        m_wide = DeviceMesh.on(dev, *MESH_WIDE_1D)
+        checks.cell = f"width cell walk, 1-D {m_wide.size}"
+        s_wide = sh.stage_walk(m_wide, wg)
+        _ext.reset_launches()
+        h_wide = s_wide.walk(m_wide)
+        require_one_walk_launch(checks.cell, dict(_ext.LAUNCHES))
+        require_equal(f"the {checks.cell} walk against the 1-D 8 walk, row for row",
+                      torch.cat(h_wide, dim=1), torch.cat(w_hist, dim=1))
+        log_fn(f"  {checks.cell}: {len(h_wide)} positions of {h_wide[0].shape[1]} chains, one "
+               f"shard_walk/grid launch == plain; == the 1-D 8 walk row for row"
+               f"{walk_note(checks, checks.cell)}")
+        checks.cell = "width cell frontier, 1-D 8, packed"
     w_ref = engine.run_frontier_passes(wg, device=dev, packed=True)
     same_as(checks.cell, w_res, w_ref)
     log_fn(f"  {checks.cell}: {wg.n} validators, {wg.e} events, 128 chains per position "
@@ -3051,14 +3172,13 @@ def main() -> int:
     stop = torch.where(recv >= 0, recv, horizon[start].clamp(max=r_max) - 1)
     scan_ops = int((stop - fr.rounds).clamp(min=0).sum().item())
     inv_bytes = inv.numel() * 4
+    # K2's working steps, from the plain walk's history
+    k2_hist = frontier._frontier_history_plain(inv, st.rows_by, st.fd, bench.super_majority,
+                                               R_CAP, la=st.la)
     work = {
         "build_inv": (st.rows_by.numel() * 4 + real_rows * n * 4 + inv_bytes,
                       (real_rows * n + n * n * l) / ALU_OPS_S),
-        "frontier_rounds": (
-            min(inv_bytes, valid_rounds * (n ** 3 + n * n) * 4)
-            + valid_rounds * n * n * 4 + st.rows_by.numel() * 4 + 3 * e_b * 4
-            + e_b * 5 + R_CAP * n * 4 + 4,
-            (valid_rounds * (n ** 3 + n * n) + e_b * valid_rounds) / ALU_OPS_S),
+        "frontier_rounds": frontier_rounds_work(inv, st, bench.super_majority, k2_hist),
         "decide_fame": fame_work(fr.witness_table, n),
         "round_received": (
             r_max * n * 4 + n_famous * n * 4 + r_max * n * 2 + r_max + 4
@@ -3066,7 +3186,8 @@ def main() -> int:
             (n_famous * n + scan_ops) / ALU_OPS_S),
     }
     log(f"bound inputs: {real_rows} chain rows, {valid_rounds} rounds with witnesses, "
-        f"{n_wit} witnesses, {n_famous} famous")
+        f"{n_wit} witnesses, {n_famous} famous; K2's walk {walk_steps([k2_hist])} working "
+        f"steps of {R_CAP - 1}")
 
     phase_clock.next("4")
     # 4. end to end
@@ -3619,6 +3740,8 @@ def main() -> int:
     wide_launches, wide_ref = wide_engine_phase(wide, dev, log, upd_cap, wide_batches)
     del wide_batches
     launches["decide_fame/packed"] = wide_launches["run_frontier_passes"]["decide_fame/packed"]
+    launches["frontier_rounds (config #4)"] = (
+        wide_launches["run_frontier_passes"]["frontier_rounds"])
     launches["divide_rounds/packed/grid"] = (
         wide_launches["run_passes"]["divide_rounds/packed/grid"])
     # K10p and K12p at run (c)'s shape: the kernels line's times and bounds

@@ -63,8 +63,9 @@ import torch
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPIN_CYCLES = 1_000_000
 # the walk's kernels by the names torch.profiler records: the per-step
-# form's three and the one-launch form's
-WALK_KERNELS = ("shard_rows", "shard_m0", "shard_close", "sw_grid")
+# form's three and the one-launch form's (sw_grid before the walk became
+# one template for K2, K15 and B24, walk_grid since)
+WALK_KERNELS = ("shard_rows", "shard_m0", "shard_close", "sw_grid", "walk_grid")
 
 
 def load_chip_smoke():

@@ -88,21 +88,48 @@ def test_frontier_pipeline_matches_reference(n, e, seed, zipf, byz):
     assert int(got.last_round) >= 1
 
 
-@pytest.mark.parametrize("n,e,seed,zipf,byz", FRONTIER_FIXTURES[:4])
-def test_frontier_rounds_matches_reference(n, e, seed, zipf, byz):
+ROUNDS_CASES = [
+    pytest.param(*fx, R_CAP, None, id="-".join(map(str, fx))) for fx in FRONTIER_FIXTURES[:4]
+] + [
+    # the engine's round axis (its floor min(n, 64)): the walk reaches its
+    # fixed point mid-history, and the rows past it repeat X
+    pytest.param(16, 1024, 4, 1.1, 0.0, 16, "fixed point", id="16-1024-4-engine-cap"),
+    pytest.param(32, 768, 9, 1.1, 0.0, 32, "fixed point", id="32-768-9-engine-cap"),
+    pytest.param(64, 2048, 13, 1.05, 1.0 / 3.0, 64, "fixed point", id="64-2048-13-engine-cap"),
+    # caps short of the fixed point: the walk still moves at the last row
+    pytest.param(8, 512, 3, 1.1, 0.0, 4, "moving", id="8-512-3-still-moving"),
+    pytest.param(16, 1024, 4, 1.1, 0.0, 8, "moving", id="16-1024-4-still-moving"),
+]
+
+
+@pytest.mark.parametrize("n,e,seed,zipf,byz,r_cap,walk", ROUNDS_CASES)
+def test_frontier_rounds_matches_reference(n, e, seed, zipf, byz, r_cap, walk):
+    """K2's plain version against the reference at r_cap; where `walk` is
+    named, the plain walk's history shows it: a fixed point mid-history
+    (the CUDA walk stops there and repeats X), or a last row that still
+    moves."""
     grid = synthetic_grid(n, e, seed=seed, zipf_a=zipf, byzantine_frac=byz)
     s = staged(grid)
     want = ref.frontier_rounds(
         ref.build_inv(s["rows_by"], s["la"]), s["rows_by"], s["creator"],
         s["index"], s["sp_index"], s["fd"], super_majority=grid.super_majority,
-        r_cap=R_CAP,
+        r_cap=r_cap,
     )
     ts = {k: t(v) for k, v in s.items()}
+    inv = port.build_inv(ts["rows_by"], ts["la"])
     got = port.frontier_rounds(
-        port.build_inv(ts["rows_by"], ts["la"]), ts["rows_by"], ts["creator"],
-        ts["index"], ts["sp_index"], ts["fd"], grid.super_majority, R_CAP,
+        inv, ts["rows_by"], ts["creator"], ts["index"], ts["sp_index"], ts["fd"],
+        grid.super_majority, r_cap,
     )
     assert_fields_equal(got, want)
+    hist = port._frontier_history_plain(inv, ts["rows_by"], ts["fd"], grid.super_majority,
+                                        r_cap, la=ts["la"])
+    moved = [not torch.equal(hist[r + 1], hist[r]) for r in range(r_cap - 1)]
+    if walk == "fixed point":
+        fixed = moved.index(False)
+        assert fixed + 2 < r_cap and not any(moved[fixed:]), "no fixed point mid-history"
+    if walk == "moving":
+        assert moved[-1], "the walk stopped moving before r_cap"
 
 
 def test_suffix_min_matches_reference():

@@ -182,6 +182,41 @@ def test_decide_alone_leaves_its_input_intact():
         assert torch.equal(getattr(ps, f), getattr(before, f)), f
 
 
+@pytest.mark.parametrize("k,moving", [(0, False), (1, True)],
+                         ids=["stops-before-r_win", "moving-at-its-end"])
+def test_decide_window_walk_ends(k, moving):
+    """_decide on a mid-stream state (train k appended, not yet walked)
+    equals the reference's, with the window's walk either reaching its
+    fixed point before r_win steps (the CUDA walk stops there and the
+    window's later rows repeat X; r_over stays clear) or still moving at
+    its last step, where r_over latches (r_cap 8: the window is the whole
+    axis)."""
+    fixture = (8, 1024, 9, 1.1)
+    g, pg = grids(*fixture)
+    e_cap, l_cap, r_cap = 2048, 256, 8
+    trains = inc.trains_from_grid(pg, 256, 16384, e_cap)
+    js = ref.init_frontier_state(g.n, e_cap, l_cap, r_cap)
+    for t in trains[:k]:
+        js = ref.frontier_train_step(js, ref_train(t), g.super_majority, g.n)
+    js = ref._append_train(js, ref_train(trains[k]))
+    ps = fl.frontier_state_from_numpy(js, device=CPU)
+    assert not bool(ps.r_over)
+    win = fl._decide_window_plain(ps, g.super_majority)
+    l = ps.rows_by.shape[1]
+    r_win = min(fl.R_WIN, r_cap)
+    first_sent = (ps.x_hist < l).sum(dim=0)
+    floor = int(torch.where(ps.dirty, first_sent, torch.full_like(first_sent, r_cap)).min())
+    start = max(min(floor, r_cap - r_win) - 1, 0)
+    rows = win.x_hist[start:start + r_win]
+    fixed = [torch.equal(rows[r + 1], rows[r]) for r in range(r_win - 1)]
+    assert any(fixed) != moving and bool(win.r_over) == moving
+    if not moving:
+        first = fixed.index(True)
+        assert all(fixed[first:]) and first + 2 < r_win, "no fixed point mid-window"
+    got = fl._decide(ps, g.super_majority, g.n)
+    assert_fr_equal(got, ref._decide(js, g.super_majority, g.n), "_decide")
+
+
 def test_rows_by_overwrites_its_last_cell_past_the_index_axis():
     """Events past the index axis write rows_by's clipped last cell, the
     last one in train order winning, and latch l_over; INV, the staging
