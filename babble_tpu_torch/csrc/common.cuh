@@ -452,3 +452,298 @@ __device__ __forceinline__ bool babble_last_block(unsigned int* ticket) {
     if (s_last) __threadfence();
     return s_last;
 }
+
+// ---------------------------------------------------------------------------
+// The staged level walk of the narrow level scans (divide_rounds.cu
+// dr_staged, lamport_scan.cu lam_staged): one block walks every level of a
+// level table whose cells (level, lane) a parallel prep launch has packed
+// into records: everything the walk reads that does not depend on its
+// carry, level after level, `level_words` int32 words a level (a multiple
+// of 4). Warp 0 is the producer: its first lane copies the records of
+// `chunk` levels at a time into a ring of `stages` slots in shared memory with a
+// bulk copy (cp.async.bulk, its bytes counted on the slot's `full`
+// mbarrier), up to `stages` chunks ahead, and waits on the slot's `empty`
+// mbarrier (one arrival per consumer warp) before it refills it. Warps 1
+// .. `warps` consume the levels in order out of the ring, so they never
+// wait on device memory for a record; each level is a read phase (every
+// lane's new values from the carry as it stood), a sync, a write phase and
+// a sync, among the consumer warps only: __syncwarp where one warp holds
+// the level, else a named barrier (barrier.sync 1) that the producer and the
+// block's spare warps stay out of. A consumer may overwrite a field of its
+// lane's record in the slot to carry a value from the read phase to the
+// write phase; it fences those generic writes against the next bulk copy
+// into the slot (fence.proxy.async) before its warp releases the slot.
+// Where `slots` is null (a level too wide for the ring) the consumers read
+// and write the records in place in the device table and nothing is
+// copied.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned babble_smem_u32(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void babble_mbar_init(uint64_t* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(babble_smem_u32(bar)),
+                 "r"(count)
+                 : "memory");
+}
+__device__ __forceinline__ void babble_mbar_init_fence() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void babble_mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(babble_smem_u32(bar))
+                 : "memory");
+}
+__device__ __forceinline__ void babble_mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                     babble_smem_u32(bar)),
+                 "r"(bytes)
+                 : "memory");
+}
+// Wait until the phase of parity `parity` of the mbarrier has completed.
+__device__ __forceinline__ void babble_mbar_wait(uint64_t* bar, unsigned parity) {
+    const unsigned a = babble_smem_u32(bar);
+    unsigned done = 0;
+    while (!done) {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n"
+            "}\n"
+            : "=r"(done)
+            : "r"(a), "r"(parity)
+            : "memory");
+    }
+}
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device to shared memory, completing on `bar`.
+__device__ __forceinline__ void babble_bulk_load(void* smem, const void* gmem, unsigned bytes,
+                                                 uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(babble_smem_u32(smem)),
+        "l"(gmem), "r"(bytes), "r"(babble_smem_u32(bar))
+        : "memory");
+}
+__device__ __forceinline__ void babble_fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// The consumer warps' sync between the phases of a level.
+__device__ __forceinline__ void babble_consumer_sync(int warps) {
+    if (warps == 1) {
+        __syncwarp();
+        return;
+    }
+    asm volatile("barrier.sync 1, %0;\n" ::"r"(warps * 32) : "memory");
+}
+
+// A carry whose first `chip` entries lie in shared memory (`s`) and the
+// rest in device memory (`g`, the output itself, read and written by this
+// block alone). Each access selects between a shared-memory and a device
+// load (not between pointers), so that the compiler keeps the shared one
+// a shared-memory instruction.
+struct BabbleSplit {
+    int32_t* s;
+    int32_t* g;
+    int chip;
+    __device__ __forceinline__ int ld(int i) const { return i < chip ? s[i] : g[i]; }
+    __device__ __forceinline__ void st(int i, int v) const {
+        if (i < chip) s[i] = v;
+        else g[i] = v;
+    }
+    // carry[i] for an in-grid parent (i >= 0), else `ext`
+    __device__ __forceinline__ int parent(int i, int ext) const {
+        const int v = ld(max(i, 0));
+        return i >= 0 ? v : ext;
+    }
+    // the same through one generic load (K8's level has nothing else to
+    // overlap with its two carry reads)
+    __device__ __forceinline__ int parent_generic(int i, int ext) const {
+        const int k = max(i, 0);
+        const int v = *(k < chip ? s + k : g + k);
+        return i >= 0 ? v : ext;
+    }
+};
+
+struct BabbleRing {
+    int32_t* slots;   // stages x chunk levels of records in shared memory; null: in place
+    uint64_t* full;   // per slot: its bytes have landed
+    uint64_t* empty;  // per slot: every consumer warp is done with it
+    int32_t* table;   // the packed level table in device memory
+    int stages, chunk, level_words, levels;  // levels: the last level holding an event + 1
+};
+
+// Dynamic shared memory bytes of the ring and its mbarriers.
+__host__ __device__ __forceinline__ long long babble_ring_bytes(int stages, int chunk,
+                                                                int level_words, int staged) {
+    return 16LL * stages + (staged ? 4LL * stages * chunk * level_words : 0);
+}
+
+// Carve the ring out of the front of `smem`; returns the next free word.
+__device__ __forceinline__ int32_t* babble_ring_carve(BabbleRing& r, unsigned char* smem,
+                                                      int staged) {
+    r.full = reinterpret_cast<uint64_t*>(smem);
+    r.empty = r.full + r.stages;
+    int32_t* p = reinterpret_cast<int32_t*>(r.empty + r.stages);
+    r.slots = staged ? p : nullptr;
+    return staged ? p + (long long)r.stages * r.chunk * r.level_words : p;
+}
+
+// Thread 0 initialises the mbarriers; the caller syncs the block after.
+__device__ __forceinline__ void babble_ring_init(const BabbleRing& r, int warps) {
+    if (threadIdx.x != 0 || r.slots == nullptr) return;
+    for (int s = 0; s < r.stages; ++s) {
+        babble_mbar_init(r.full + s, 1);
+        babble_mbar_init(r.empty + s, warps);
+    }
+    babble_mbar_init_fence();
+}
+
+// The producer: the whole of warp 0, lane 0 issuing (the warp stays
+// converged, so that it meets the block's closing __syncthreads whole).
+__device__ __forceinline__ void babble_ring_produce(const BabbleRing& r) {
+    if (r.slots == nullptr) return;
+    const int chunks = (r.levels + r.chunk - 1) / r.chunk;
+    const long long slot_words = (long long)r.chunk * r.level_words;
+    for (int k = 0; k < chunks; ++k) {
+        const int s = k % r.stages;
+        if (k >= r.stages) babble_mbar_wait(r.empty + s, ((k / r.stages) - 1) & 1);
+        if ((threadIdx.x & 31) == 0) {
+            const int nl = min(r.chunk, r.levels - k * r.chunk);
+            const unsigned bytes = (unsigned)nl * (unsigned)r.level_words * 4u;
+            babble_mbar_expect_tx(r.full + s, bytes);
+            babble_bulk_load(r.slots + s * slot_words, r.table + k * slot_words, bytes,
+                             r.full + s);
+        }
+        __syncwarp();
+    }
+}
+
+// The consumers: every thread of warps 1 .. warps calls chunk(records,
+// first level, levels) for each chunk of levels in order, with the same
+// control flow (the chunk function syncs the consumers after each level).
+// STAGED: the records stream through the ring (r.slots), so that the
+// compiler sees them in shared memory; else they are read in place.
+template <bool STAGED, typename Chunk>
+__device__ __forceinline__ void babble_ring_consume(const BabbleRing& r, Chunk chunk) {
+    const int chunks = (r.levels + r.chunk - 1) / r.chunk;
+    const long long slot_words = (long long)r.chunk * r.level_words;
+    for (int k = 0; k < chunks; ++k) {
+        const int s = k % r.stages;
+        int32_t* base;
+        if (STAGED) {
+            babble_mbar_wait(r.full + s, (k / r.stages) & 1);
+            base = r.slots + s * slot_words;
+        } else {
+            base = r.table + k * slot_words;
+        }
+        chunk(base, k * r.chunk, min(r.chunk, r.levels - k * r.chunk));
+        if (STAGED) {
+            babble_fence_proxy_async();
+            __syncwarp();
+            if ((threadIdx.x & 31) == 0) babble_mbar_arrive(r.empty + s);
+        }
+    }
+}
+
+// The lamport recurrence's record of a cell whose row is `row` (-1:
+// padding): {row, s, o, x}, the new lamport number being
+//   max(s >= 0 ? carry[s] : MIN, o >= 0 ? carry[o] : MIN, x) + 1
+// with int32 wrap-around. s, o: the in-grid parents clamped to e - 1, else
+// -1, x the largest external parent lamport (MIN where both parents lie in
+// the grid); a pin p != MIN gives s = o = -1 and x = p - 1, so that the
+// value is p. These are the reference's values exactly: max(sp_lt, op_lt)
+// + 1, or the pin.
+__device__ __forceinline__ int4 babble_lamport_record(int row, const int32_t* sp,
+                                                      const int32_t* op, const int32_t* esp,
+                                                      const int32_t* eop, const int32_t* pin,
+                                                      int e) {
+    if (row < 0) return make_int4(-1, -1, -1, 0);
+    const int r = min(row, e - 1);
+    const int pn = pin[r];
+    if (pn != BABBLE_MIN_INT32) return make_int4(row, -1, -1, pn - 1);
+    const int s = sp[r], o = op[r];
+    int x = BABBLE_MIN_INT32;
+    if (s < 0) x = max(x, esp[r]);
+    if (o < 0) x = max(x, eop[r]);
+    return make_int4(row, s >= 0 ? min(s, e - 1) : -1, o >= 0 ? min(o, e - 1) : -1, x);
+}
+
+// The lamport walk (K8, and the lamport half of K5's walk): `warps`
+// consumer warps, a thread per lane of the level, the carry (E int32, from
+// `init`) in shared memory for its first `chip` rows. ONE: every lane has
+// its own thread (n_lvl <= 32 warps), and a level is straight-line code,
+// the next level's record loaded while this one waits on its carry; else
+// a wider level takes several passes, a pass's values held in the lanes'
+// records.
+struct BabbleLamWalk {
+    const int32_t* last_level;
+    int32_t* table;  // (levels, n_lvl) records of babble_lamport_record
+    int32_t* lam;    // (E,) the output, the carry's rows from `chip` on
+    int n_lvl, init, warps, chunk, stages, staged, chip;
+};
+
+__host__ __device__ __forceinline__ long long babble_lamport_walk_bytes(const BabbleLamWalk& a) {
+    return babble_ring_bytes(a.stages, a.chunk, 4 * a.n_lvl, a.staged) + 4LL * a.chip;
+}
+
+template <bool ONE>
+__device__ __forceinline__ void babble_lamport_walk(const BabbleLamWalk& a, unsigned char* smem) {
+    BabbleRing ring{nullptr, nullptr, nullptr, a.table, a.stages, a.chunk, 4 * a.n_lvl,
+                    *a.last_level + 1};
+    int32_t* s_lam = babble_ring_carve(ring, smem, a.staged);
+    const BabbleSplit lam{s_lam, a.lam, a.chip};
+    for (int k = threadIdx.x; k < a.chip; k += blockDim.x) s_lam[k] = a.init;
+    babble_ring_init(ring, a.warps);
+    __syncthreads();
+    const int warp = threadIdx.x >> 5;
+    if (warp == 0) {
+        babble_ring_produce(ring);
+    } else if (warp <= a.warps) {
+        const int t = threadIdx.x - 32, nt = a.warps * 32, n_lvl = a.n_lvl;
+        auto levels = [&](int32_t* base, int, int nl) {
+            if (ONE) {
+                const int4* rec = reinterpret_cast<const int4*>(base) + t;
+                const bool act = t < n_lvl;
+                int4 next = act ? rec[0] : make_int4(-1, -1, -1, 0);
+                for (int j = 0; j < nl; ++j) {
+                    const int4 r = next;
+                    if (act && j + 1 < nl) next = rec[(j + 1) * n_lvl];
+                    // read phase: the value from the carry as it stood
+                    const int v =
+                        (int)((unsigned)max(max(lam.parent_generic(r.y, BABBLE_MIN_INT32),
+                                                lam.parent_generic(r.z, BABBLE_MIN_INT32)),
+                                            r.w) + 1u);
+                    babble_consumer_sync(a.warps);
+                    if (r.x >= 0) lam.st(r.x, v);  // padding lanes write nothing
+                    babble_consumer_sync(a.warps);
+                }
+                return;
+            }
+            const int passes = (n_lvl + nt - 1) / nt;
+            for (int j = 0; j < nl; ++j) {
+                int32_t* rec = base + (long long)j * 4 * n_lvl;
+                for (int p = 0; p < passes; ++p) {
+                    const int i = t + p * nt;
+                    if (i >= n_lvl) break;
+                    const int4 r = reinterpret_cast<const int4*>(rec)[i];
+                    if (r.x < 0) continue;
+                    rec[4 * i + 3] = (int)((unsigned)max(max(lam.parent(r.y, BABBLE_MIN_INT32),
+                                                             lam.parent(r.z, BABBLE_MIN_INT32)),
+                                                         r.w) + 1u);
+                }
+                babble_consumer_sync(a.warps);
+                for (int p = 0; p < passes; ++p) {
+                    const int i = t + p * nt;
+                    if (i >= n_lvl) break;
+                    if (rec[4 * i] >= 0) lam.st(rec[4 * i], rec[4 * i + 3]);
+                }
+                babble_consumer_sync(a.warps);
+            }
+        };
+        if (a.staged) babble_ring_consume<true>(ring, levels);
+        else babble_ring_consume<false>(ring, levels);
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < a.chip; k += blockDim.x) a.lam[k] = s_lam[k];
+}

@@ -8,82 +8,88 @@
 //                fixed_lamport(e) != MIN forces it.
 // The carry starts at 0, not -1 as in the full level scan.
 //
+// Exactly as the reference: each level reads the carry as it stood before
+// any write of that level, so a parent in the same level or a later one
+// reads the initial 0; parent indices clamp to E - 1 and a parent outside
+// the grid (index < 0) takes its external value; max + 1 wraps around as an
+// int32 add; a pin wins; padding lanes write nothing; the walk stops after
+// the last level that holds an event.
+//
 // Bound: the chain of dependent levels. The function reads each event's
 // parents and seeds once and writes (E,) int32 (well under a microsecond of
-// bytes at 3.35 TB/s), but every level reads what the previous one wrote.
-// Design: one thread block walks every level, one thread per lane; a
-// barrier between the read phase and the write phase of each level (the
-// reference reads the whole carry before it scatters) and one after the
-// writes. Padding lanes write nothing; the walk stops after the last level
-// that holds an event.
+// bytes at 3.35 TB/s), but every level reads what the previous one wrote,
+// so a level costs its chain of dependent reads. Design: common.cuh's
+// staged level walk (babble_lamport_walk). A prep launch packs every cell
+// of the level table into one 16-byte record {row, s, o, x}
+// (babble_lamport_record: the parents clamped to E - 1 or -1, the external
+// values and the pin folded into x), sets the carry's device rows to 0 and
+// finds the last level that holds an event. One block walks the levels: a
+// producer warp bulk-copies the records into a ring in shared memory ahead
+// of the consumer warps (a thread per lane), whose carry lies in shared
+// memory for its first `chip` rows (tpu/_ext.py level_walk_plan: as many as
+// fit beside the ring) and in device memory past them; a level is then a
+// record read, two carry reads, a max and two syncs (__syncwarp up to 32
+// lanes, a named barrier over the consumer warps above). A level too wide
+// for the ring is read in place in device memory.
 //
-// Launches per call: three (init, last level, walk).
+// Launches per call: two (prep, walk; a memset sets the last level to -1
+// before them).
 
 #include "common.cuh"
 
-__global__ void lam_init(int32_t* lam, int32_t* last_level, int e) {
-    long long stride = (long long)gridDim.x * blockDim.x;
-    long long k0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (k0 == 0) *last_level = -1;
+// The records of every cell, the carry's initial 0 in every row, and
+// *last_level (-1 on entry) to the last level that holds an event.
+__global__ void lam_prep(const int32_t* __restrict__ levels, const int32_t* __restrict__ sp,
+                         const int32_t* __restrict__ op, const int32_t* __restrict__ esp,
+                         const int32_t* __restrict__ eop, const int32_t* __restrict__ fpin,
+                         int32_t* lam, int32_t* last_level, int4* table, long long cells,
+                         int n_lvl, int e) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long k0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     for (long long k = k0; k < e; k += stride) lam[k] = 0;
+    int best = -1;
+    for (long long k = k0; k < cells; k += stride) {
+        const int row = levels[k];
+        table[k] = babble_lamport_record(row, sp, op, esp, eop, fpin, e);
+        if (row >= 0) best = max(best, (int)(k / n_lvl));
+    }
+    best = __reduce_max_sync(BABBLE_FULL_MASK, best);
+    if ((threadIdx.x & 31) == 0 && best >= 0) atomicMax(last_level, best);
 }
 
-__global__ void lam_walk(const int32_t* __restrict__ levels,
-                         const int32_t* __restrict__ sp,
-                         const int32_t* __restrict__ op,
-                         const int32_t* __restrict__ esp,
-                         const int32_t* __restrict__ eop,
-                         const int32_t* __restrict__ fpin,
-                         const int32_t* __restrict__ last_level,
-                         int32_t* lam, int n_lvl, int e) {
-    extern __shared__ int32_t vals[];  // (n_lvl,) new lamport per lane
-    const int last = *last_level;
-    for (int lv = 0; lv <= last; ++lv) {
-        const int32_t* lrow = levels + (long long)lv * n_lvl;
-        for (int i = threadIdx.x; i < n_lvl; i += blockDim.x) {
-            const int row = lrow[i];
-            if (row < 0) continue;
-            const int s = sp[row], o = op[row];
-            const int sl = s >= 0 ? lam[min(s, e - 1)] : esp[row];
-            const int ol = o >= 0 ? lam[min(o, e - 1)] : eop[row];
-            int v = (int)((unsigned)max(sl, ol) + 1u);
-            const int pin = fpin[row];
-            if (pin != BABBLE_MIN_INT32) v = pin;
-            vals[i] = v;
-        }
-        __syncthreads();
-        for (int i = threadIdx.x; i < n_lvl; i += blockDim.x) {
-            const int row = lrow[i];
-            if (row >= 0) lam[row] = vals[i];
-        }
-        __syncthreads();
-    }
+template <bool ONE>
+__global__ void __launch_bounds__(1024) lam_staged(BabbleLamWalk a) {
+    extern __shared__ int4 lam_staged_smem[];
+    babble_lamport_walk<ONE>(a, reinterpret_cast<unsigned char*>(lam_staged_smem));
 }
 
 extern "C" int babble_lamport_scan(
     const int32_t* levels, const int32_t* sp, const int32_t* op,
     const int32_t* esp, const int32_t* eop, const int32_t* fpin,
-    int32_t* lam, int32_t* last_level, int l_lv, int n_lvl, int e,
+    int32_t* lam, int32_t* last_level, int32_t* table, int l_lv, int n_lvl, int e,
+    int warps, int chunk, int stages, int staged, int chip, int threads,
     int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    lam_init<<<babble_stride_blocks(e > 0 ? e : 1, 256), 256, 0, s>>>(lam, last_level, e);
+    BABBLE_CHECK(cudaMemsetAsync(last_level, 0xff, sizeof(int32_t), s));
+    const long long cells = (long long)l_lv * n_lvl;
+    const long long work = cells > e ? cells : e;
+    lam_prep<<<babble_stride_blocks(work > 0 ? work : 1, 256), 256, 0, s>>>(
+        levels, sp, op, esp, eop, fpin, lam, last_level, reinterpret_cast<int4*>(table), cells,
+        n_lvl, e);
     BABBLE_CHECK_LAUNCH();
-    long long lv_total = (long long)l_lv * n_lvl;
-    if (lv_total > 0) {
-        babble_last_level<<<babble_stride_blocks(lv_total, 256), 256, 0, s>>>(
-            levels, last_level, lv_total, n_lvl);
-        BABBLE_CHECK_LAUNCH();
+    const BabbleLamWalk a{last_level, table, lam, n_lvl, 0, warps, chunk, stages, staged, chip};
+    const long long smem = babble_lamport_walk_bytes(a);
+    if (smem > 232448 || threads > 1024 || threads < 32 * (1 + warps)) {
+        return (int)cudaErrorInvalidValue;
     }
-    int threads = n_lvl < 1024 ? ((n_lvl + 31) / 32) * 32 : 1024;
-    if (threads < 32) threads = 32;
-    size_t smem = (size_t)(n_lvl > 0 ? n_lvl : 1) * sizeof(int32_t);
-    if (smem > 48 * 1024) {
-        BABBLE_CHECK(cudaFuncSetAttribute(
-            lam_walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+    if (n_lvl <= 32 * warps) {
+        BABBLE_CHECK(babble_allow_smem(lam_staged<true>, (size_t)smem));
+        lam_staged<true><<<1, threads, (size_t)smem, s>>>(a);
+    } else {
+        BABBLE_CHECK(babble_allow_smem(lam_staged<false>, (size_t)smem));
+        lam_staged<false><<<1, threads, (size_t)smem, s>>>(a);
     }
-    lam_walk<<<1, threads, smem, s>>>(
-        levels, sp, op, esp, eop, fpin, last_level, lam, n_lvl, e);
     BABBLE_CHECK_LAUNCH();
     return 0;
 }

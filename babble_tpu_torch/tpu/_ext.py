@@ -34,6 +34,15 @@ width; the grid walk counts under "<key>/grid" and raises where the card
 cannot hold its blocks at once); decide_window's launches use the same
 shared memory at every width. None of them has a staging form.
 
+divide_rounds' one-block walk and lamport_scan are the staged level walk
+of csrc/common.cuh: a prep launch packs the level table into records, a
+producer warp bulk-copies them into a ring in shared memory ahead of the
+consumer warps, and the walk's carry lies in shared memory for as many of
+its first rows as fit beside the ring (and K5's witness-table window) and
+in device memory past them. `level_walk_plan` is the one place that sizes
+it (the carry form "shared", or "device" where a caller names it: every
+row in device memory); both forms give equal integers by design.
+
 Every frontier walk on one card is one cooperative launch of the same
 kernel template (csrc/frontier_walk.cu walk_grid), which stops at the
 walk's fixed point: K2 `frontier_rounds` and K15 `frontier_window` at one
@@ -75,7 +84,8 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
         "round_received.cu", "babble_round_received", "pppppppppppppp" "iiii",
     ),
     "divide_rounds": (
-        "divide_rounds.cu", "babble_divide_rounds", "pppppppppppppppppp" "iiiiii",
+        "divide_rounds.cu", "babble_divide_rounds", "pppppppppppppppppppp" "iiiiii"
+        "iiiiiiiiiii",
     ),
     "closure_la": (
         "closure_la.cu", "babble_closure_la_pass", "pppppppppp" "iiii",
@@ -84,7 +94,7 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
         "walk_chunk.cu", "babble_walk_chunk", "ppppppppppp" "iiiiiiii",
     ),
     "lamport_scan": (
-        "lamport_scan.cu", "babble_lamport_scan", "pppppppp" "iii",
+        "lamport_scan.cu", "babble_lamport_scan", "ppppppppp" "iii" "iiiiii",
     ),
     "apply_deltas": (
         "apply_deltas.cu", "babble_apply_deltas", "ppppppppppppp" "iiiii",
@@ -150,18 +160,33 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
     list(KERNELS) + [f"{k}/packed" for k in PACKED_KERNELS]
     + [f"{k}/dev" for k in STAGED_FORMS] + [f"{k}/grid" for k in GRID_FORMS], 0)
 
+# the staged level walk of divide_rounds' one-block form and lamport_scan
+# (csrc/common.cuh, level_walk_plan): the ring's slots, the bytes of
+# records one slot holds (at least one level, at most WALK_CHUNK_MAX), the
+# rounds of K5's witness-table window (a power of two), the least threads
+# of a walking block (its spare warps set up and write back the carry) and
+# the most consumer warps; the carry forms a caller may name
+WALK_STAGES = 4
+WALK_STAGE_BYTES = 4096
+WALK_CHUNK_MAX = 16
+WALK_WINDOW = 4
+WALK_MIN_THREADS = 256
+WALK_MAX_WARPS = 31
+WALK_CARRIES = ("shared", "device")
+
 # the two walks of each level scan: one block below its *_GRID_FROM
 # validators (where its rows fit one block's shared memory), a cooperative
 # launch across the card from there (divide_rounds_form, step_levels_form,
 # train_levels_form). Each crossover is measured on an H100 on the bench
 # generator's grids of 32,768 events (PERF.md): K5 with
-# scripts/time_divide_rounds.py (the block walk takes 1.3-2.4 us a level
-# up to 24 validators and 7.0 at 32, the grid walk about 6 at every
-# width); K10 with scripts/time_step_levels.py (batches of 64: the block
-# walk 0.0575 ms a batch at 48 validators and 0.0610 at 64, the grid walk
-# 0.0622 and 0.0544); K11 with scripts/time_train_levels.py (trains of
-# 8,192: the block walk 2.96 ms a train at 32, 3.63 at 48, the grid walk
-# 4.78 and 3.57)
+# scripts/time_divide_rounds.py (the staged block walk takes 1.34 us a
+# level at 16 validators and 1.66 at 24, the grid walk 5.9-6.4 at every
+# width; at 32 lanes the block walk has no form, and a general one took
+# 10.4 us a level); K10 with scripts/time_step_levels.py (batches of 64:
+# the block walk 0.0575 ms a batch at 48 validators and 0.0610 at 64, the
+# grid walk 0.0622 and 0.0544); K11 with scripts/time_train_levels.py
+# (trains of 8,192: the block walk 2.96 ms a train at 32, 3.63 at 48, the
+# grid walk 4.78 and 3.57)
 WALK_FORMS = ("block", "grid")
 DIVIDE_ROUNDS_GRID_FROM = 32
 STEP_LEVELS_GRID_FROM = 64
@@ -315,8 +340,9 @@ def block_smem(name: str, n: int, packed: bool = False, **shape) -> Dict[str, in
 # the one-block walk's shared memory of each level scan, in bytes, as its
 # C entry point sizes it
 WALK_SMEM = {
-    # dr_walk: (3 n_lvl + warps x 2 n) words
-    "divide_rounds": lambda n, n_lvl: (3 * n_lvl + min(max(n_lvl, 1), 32) * 2 * n) * 4,
+    # dr_staged: the least its rounds walk takes (the ring of records and the
+    # witness word; the window and the carry's rows take what is left)
+    "divide_rounds": lambda n, n_lvl: _round_walk_base(n, n_lvl),
     # sl_walk: seven per-lane words, the level table, seven per-row words,
     # the lanes' la rows, and the witness-valid bytes
     "step_levels": lambda n, w, l_lv, b, r_cap: (7 * w + l_lv * w + 7 * b + w * n) * 4
@@ -372,6 +398,111 @@ def train_levels_form_fits(form: str, n: int, kb: int, w: int, r_cap: int) -> bo
 
 def train_levels_form(n: int, kb: int, w: int, r_cap: int) -> str:
     return walk_form("train_levels", n, kb=kb, w=w, r_cap=r_cap)
+
+
+def _pow2(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+def dr_record_words(n: int) -> int:
+    """csrc/divide_rounds.cu dr_record_words: the int32 words of a record
+    of K5's rounds walk (two header quads, the la row and the fd row, each
+    row padded to a multiple of 4)."""
+    return 8 + 2 * ((n + 3) // 4 * 4)
+
+
+def _walk_chunk(level_bytes: int) -> int:
+    """Levels a ring slot holds: WALK_STAGE_BYTES of records, at least one
+    level, at most WALK_CHUNK_MAX."""
+    return max(1, min(WALK_CHUNK_MAX, WALK_STAGE_BYTES // max(level_bytes, 1)))
+
+
+def _ring_bytes(chunk: int, level_words: int, staged: bool = True) -> int:
+    """common.cuh babble_ring_bytes: the mbarriers and the ring's slots."""
+    return 16 * WALK_STAGES + (4 * WALK_STAGES * chunk * level_words if staged else 0)
+
+
+def _round_walk_groups(n: int, n_lvl: int) -> Optional[Tuple[int, int]]:
+    """(threads per level lane, consumer warps) of K5's rounds walk, in
+    one of its two forms (csrc/divide_rounds.cu dr_round_walk): one warp
+    holds the whole level where n <= 8 and its lanes' groups fit in it
+    with at most four witnesses a thread; else a warp per lane (a thread
+    per witness) up to 32 validators and WALK_MAX_WARPS lanes. None: the
+    one-block walk does not take the shape (the grid walk does)."""
+    lanes = _pow2(max(n_lvl, 1))
+    if n <= 8 and lanes <= 32 and 4 * (32 // lanes) >= n:
+        return 32 // lanes, 1
+    if n <= 32 and n_lvl <= WALK_MAX_WARPS:
+        return 32, max(n_lvl, 1)
+    return None
+
+
+def _round_walk_base(n: int, n_lvl: int) -> int:
+    """Bytes K5's rounds walk needs before its window and carry: the ring
+    of records (always in shared memory) and the witness lanes' word;
+    past MAX_SMEM_BYTES where the one-block walk does not take the
+    shape."""
+    if _round_walk_groups(n, n_lvl) is None:
+        return MAX_SMEM_BYTES + 1
+    level_words = n_lvl * dr_record_words(n)
+    return _ring_bytes(_walk_chunk(4 * level_words), level_words) + 4
+
+
+def level_walk_plan(name: str, e: int, n: int, n_lvl: int, r_max: int = 1,
+                    carry: Optional[str] = None) -> Dict:
+    """The one rule that lays out the staged level walk of `name`
+    ("divide_rounds", its one-block form, or "lamport_scan") over E events,
+    n validators, levels of n_lvl lanes and (K5) r_max witness-table rows,
+    as the C entry points take it. Each walk's records stream through a
+    ring of WALK_STAGES slots in shared memory (K8's lamport walk reads
+    them in place in device memory where one slot cannot hold a level; K5's
+    rounds walk needs its ring, and walk_form_fits says where it fits). In
+    the "shared" carry form (the default) K5's rounds walk keeps a window of
+    the WALK_WINDOW latest witness-table rounds where it fits, and each walk
+    keeps the first `chip` = min(E, what is left of MAX_SMEM_BYTES // 4)
+    rows of its carry in shared memory, the rows past them in device
+    memory; "device" keeps every row in device memory and no window. Both
+    give equal integers. Returns {"carry", "lamport": {...}, "rounds":
+    {...} (K5), "smem", "threads"}."""
+    carry = carry or "shared"
+    if carry not in WALK_CARRIES:
+        raise ValueError(f"{name}: no carry form {carry!r}; {WALK_CARRIES}")
+    on_chip = carry == "shared"
+    lam_words = 4 * n_lvl
+    lam_chunk = _walk_chunk(4 * lam_words)
+    lam_staged = _ring_bytes(lam_chunk, lam_words) <= MAX_SMEM_BYTES
+    lam_base = _ring_bytes(lam_chunk, lam_words, lam_staged)
+    lam_chip = min(e, (MAX_SMEM_BYTES - lam_base) // 4) if on_chip else 0
+    lam = dict(warps=min(WALK_MAX_WARPS, max(1, -(-n_lvl // 32))), chunk=lam_chunk,
+               staged=lam_staged, chip=lam_chip, bytes=lam_base + 4 * lam_chip)
+    plan = dict(carry=carry, lamport=lam)
+    warps = lam["warps"]
+    smem = lam["bytes"]
+    if name == "divide_rounds":
+        groups = _round_walk_groups(n, n_lvl)
+        if groups is None:
+            raise ValueError(f"divide_rounds: the one-block walk takes no {n} validators "
+                             f"at level width {n_lvl}")
+        group, r_warps = groups
+        lda = (n + 3) // 4 * 4
+        base = _round_walk_base(n, n_lvl)
+        window = 4 * (WALK_WINDOW * (n * lda + 1 + (n + 31) // 32) + (r_max + 31) // 32)
+        win = WALK_WINDOW if on_chip and base + window <= MAX_SMEM_BYTES else 0
+        used = base + (window if win else 0)
+        chip = min(e, max(0, MAX_SMEM_BYTES - used) // 4) if on_chip else 0
+        plan["rounds"] = dict(group=group, warps=r_warps,
+                              chunk=_walk_chunk(4 * n_lvl * dr_record_words(n)), win=win,
+                              chip=chip, bytes=used + 4 * chip)
+        warps = max(warps, r_warps)
+        smem = max(smem, plan["rounds"]["bytes"])
+    elif name != "lamport_scan":
+        raise KeyError(name)
+    plan["smem"] = smem
+    plan["threads"] = max(WALK_MIN_THREADS, 32 * (1 + warps))
+    return plan
 
 
 def _check_walk_form(name: str, form: Optional[str], n: int, **shape) -> str:
@@ -619,15 +750,18 @@ def round_received(wtable, la, index, creator, rounds, decided, famous,
 def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
                   ext_sp_round, ext_op_round, fixed_round, ext_sp_lamport,
                   ext_op_lamport, fixed_lamport, super_majority: int,
-                  r_max: int, packed: bool = False, form: Optional[str] = None):
+                  r_max: int, packed: bool = False, form: Optional[str] = None,
+                  carry: Optional[str] = None):
     """K5: the level scan. Returns (rounds (E,) int32, witness (E,) bool,
     lamport (E,) int32, wtable (r_max, N) int32). `index` is not read (the
     reference's signature carries it). The packed layout's counts are the
     same integers, so `packed` launches the same kernel and counts it as
     divide_rounds/packed. The walk is divide_rounds_form's unless `form`
-    names one ("block" or "grid"; scripts/time_divide_rounds.py times
-    both); the grid walk counts under "<key>/grid", and raises where the
-    card cannot hold its blocks at once."""
+    names one ("block" or "grid"); the one-block walk's carry is
+    level_walk_plan's unless `carry` names a form ("shared" or "device";
+    scripts/time_divide_rounds.py times each). The grid walk counts under
+    "<key>/grid", keeps its carry in device memory (a `carry` for it is
+    refused), and raises where the card cannot hold its blocks at once."""
     dev = la.device
     l_lv, n_lvl = levels.shape
     e, n = la.shape
@@ -644,10 +778,24 @@ def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
     if e < 1 or r_max < 1:
         raise ValueError("divide_rounds: needs events and r_max >= 1")
     form = _check_walk_form("divide_rounds", form, n, n_lvl=n_lvl)
-    # the grid walk's per-lane c_seen, parent round, self-parent round and
-    # lamport, and its barrier count
-    scratch = (torch.empty((4 * n_lvl + 1,), dtype=torch.int32, device=dev)
-               if form == "grid" else None)
+    if form == "grid" and carry is not None:
+        raise ValueError("divide_rounds: the grid walk keeps its carry in device memory")
+    scratch = rtable = ltable = None
+    plan_ints = (0,) * 11
+    if form == "grid":
+        # the grid walk's per-lane c_seen, parent round, self-parent round
+        # and lamport, and its barrier count
+        scratch = torch.empty((4 * n_lvl + 1,), dtype=torch.int32, device=dev)
+    else:
+        plan = level_walk_plan("divide_rounds", e, n, n_lvl, r_max, carry)
+        rp, lp = plan["rounds"], plan["lamport"]
+        # the two walks' packed level tables
+        rtable = torch.empty((l_lv * n_lvl * dr_record_words(n),), dtype=torch.int32,
+                             device=dev)
+        ltable = torch.empty((l_lv * n_lvl * 4,), dtype=torch.int32, device=dev)
+        plan_ints = (rp["group"], rp["warps"], lp["warps"], rp["chunk"], lp["chunk"],
+                     WALK_STAGES, int(lp["staged"]), rp["win"], rp["chip"], lp["chip"],
+                     plan["threads"])
     rounds = torch.empty((e,), dtype=torch.int32, device=dev)
     witness = torch.empty((e,), dtype=torch.uint8, device=dev)
     lamport = torch.empty((e,), dtype=torch.int32, device=dev)
@@ -657,7 +805,7 @@ def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
         levels, creator, self_parent, other_parent, la, fd, ext_sp_round,
         ext_op_round, fixed_round, ext_sp_lamport, ext_op_lamport,
         fixed_lamport, rounds, witness, lamport, wtable, last_level, scratch,
-        l_lv, n_lvl, e, n, super_majority, r_max,
+        rtable, ltable, l_lv, n_lvl, e, n, super_majority, r_max, *plan_ints,
     ), packed=packed, grid=form == "grid")
     return rounds, witness.view(torch.bool), lamport, wtable
 
@@ -725,8 +873,10 @@ def walk_chunk(inv, rows_by, fd, la, x0, seeds, r_abs, first_nw,
     return x_last, xs
 
 
-def lamport_scan(levels, sp, op, esp, eop, fpin):
-    """K8: (E,) int32 lamports by the seeded level recurrence."""
+def lamport_scan(levels, sp, op, esp, eop, fpin, carry: Optional[str] = None):
+    """K8: (E,) int32 lamports by the seeded level recurrence; the carry
+    is level_walk_plan's unless `carry` names a form ("shared" or
+    "device")."""
     dev = sp.device
     l_lv, n_lvl = levels.shape
     e = sp.shape[0]
@@ -736,12 +886,15 @@ def lamport_scan(levels, sp, op, esp, eop, fpin):
         check_tensor(what, t, torch.int32, (e,), dev)
     if e < 1:
         raise ValueError("lamport_scan: needs events")
-    if n_lvl * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"lamport_scan: level width {n_lvl} exceeds shared memory")
+    plan = level_walk_plan("lamport_scan", e, 1, n_lvl, carry=carry)
+    lp = plan["lamport"]
     lam = torch.empty((e,), dtype=torch.int32, device=dev)
     last_level = torch.empty((), dtype=torch.int32, device=dev)
+    table = torch.empty((l_lv * n_lvl * 4,), dtype=torch.int32, device=dev)
     _launch("lamport_scan", dev, (
-        levels, sp, op, esp, eop, fpin, lam, last_level, l_lv, n_lvl, e,
+        levels, sp, op, esp, eop, fpin, lam, last_level, table, l_lv, n_lvl, e,
+        lp["warps"], lp["chunk"], WALK_STAGES, int(lp["staged"]), lp["chip"],
+        plan["threads"],
     ))
     return lam
 

@@ -30,10 +30,16 @@ Phases, in order; any failure raises and exits non-zero:
    the bench grid and the catch-up section, walk_chunk on every chunk of
    the bench grid's walk (unseeded) and both sections' (seeded; the
    first_nw mask must fire on the unpinned section), with launches and
-   CUDA-event times; divide_rounds takes the one-block walk on the
-   sections (8 validators) and the grid walk on the bench grid, where both
-   walks are held to the plain version and timed (the crossover's two
-   sides; again at 128 in phase 15);
+   CUDA-event times (walk_chunk: the largest chunk's, and all six chunks'
+   on the catch-up section); divide_rounds takes the one-block walk on
+   the sections (8 validators) and the grid walk on the bench grid, where
+   both walks are held to the plain version and timed (the crossover's
+   two sides; again at 128 in phase 15); the one-block walk and
+   lamport_scan in every carry form ("shared": the first rows that fit on
+   chip, the rest in device memory; "device": every row there) on the
+   catch-up section, the whole catch-up grid (65,536 events, more than
+   fit on chip) and the trap tables of level_traps(), with each form's
+   rows on chip and, on the section and the grid, its times;
 7. the bench grid through run_doubling_passes and run_passes(bucketed,
    adaptive_r) on the card: equal to run_frontier_passes field for field,
    closure passes 5 and walk chunks 2, each path's kernels launched, and
@@ -215,7 +221,7 @@ Phases, in order; any failure raises and exits non-zero:
    then flush, both byte-identical to the host engine, every call on the
    queued rung and the stager's delta path taken.
 
-The phases take about twelve minutes on an H100; each phase's seconds
+The phases take about thirteen minutes on an H100; each phase's seconds
 are printed. The next-to-last line is the per-kernel JSON summary; the
 last line is {"ok": true, "device": {...}}. The script imports nothing of
 JAX and nothing of the babble_tpu package.
@@ -686,6 +692,70 @@ def spun_ms(fn, reps, warmup=2):
     return statistics.median(times)
 
 
+def level_traps():
+    """The level scans' trap tables: name -> (the thirteen arrays of the
+    level scan (levels, creator, index, self_parent, other_parent, la, fd,
+    ext_sp_round, ext_op_round, fixed_round, ext_sp_lamport,
+    ext_op_lamport, fixed_lamport) as int32 numpy arrays, super_majority,
+    the r_max values to run). K8 takes (levels, self_parent, other_parent,
+    ext_sp_lamport, ext_op_lamport, fixed_lamport) of the same tables.
+    tests/test_torch_levelscan.py and test_torch_doubling.py hold the
+    port's plain versions to the JAX package on them; phase 6 holds K5 and
+    K8 to the plain versions on them in every carry form.
+      clamps_and_overrides: a padding lane beside row 0 must not overwrite
+        row 0; a round past r_max clamps into the last witness-table row;
+        a negative parent round reads no witness row; external parents
+        take ext_*; the fixed overrides win;
+      same_level_parent: a parent in the same level, or in a later one,
+        reads the initial carry (-1), not the value written this level;
+      parent_past_e: parent indices at or past E clamp to E - 1;
+      lamport_wraps: max + 1 at 2^31 - 1 wraps to -2^31 (an external
+        parent and a pin at 2^31 - 1);
+      padding_before_real_lane: padding lanes ahead of real ones, a level
+        of padding alone between two levels and one after the last."""
+    mn, mx = -(2 ** 31), 2 ** 31 - 1
+
+    def case(levels, creator, sp, op, la, fd, esr, eor, fr, esl, eol, fl, sm, r_maxes):
+        e = len(creator)
+        index = np.zeros(e, dtype=np.int64)
+        seen = {}
+        for i, c in enumerate(creator):  # each creator's events in row order
+            index[i] = seen.get(c, 0)
+            seen[c] = index[i] + 1
+        arrays = [levels, creator, index, sp, op, la, fd, esr, eor, fr, esl, eol, fl]
+        return [np.asarray(a, dtype=np.int32) for a in arrays], sm, r_maxes
+
+    return {
+        "clamps_and_overrides": case(
+            [[0, -1], [1, -1], [2, -1]], [0, 1, 0], [-1, -1, 0], [-1, 0, 1],
+            [[0, -1], [0, 0], [1, 1]], [[0, 2], [1, 1], [2, 2]],
+            [-1, 5, -1], [-1, -1, -1], [0, -1, -1], [-1, 40, -1], [mn] * 3,
+            [mn, mn, 7], 2, (2, 8)),
+        "same_level_parent": case(
+            [[0, 1], [2, 3]], [0, 1, 0, 1], [-1, 0, 0, 2], [-1, 3, 1, 1],
+            [[0, -1], [-1, 0], [1, 0], [0, 1]], [[0, 5], [5, 0], [1, 5], [5, 1]],
+            [-1, -1, -1, -1], [2, -1, -1, -1], [-1] * 4, [10, -1, -1, -1], [3, mn, mn, mn],
+            [mn] * 4, 2, (4,)),
+        "parent_past_e": case(
+            [[3, -1], [0, 1], [2, -1]], [0, 1, 0, 1], [9, -1, 0, -1], [100, 4, mx, -1],
+            [[1, 0], [0, 1], [2, 1], [0, 0]], [[0, 3], [3, 0], [1, 3], [0, 0]],
+            [-1, 0, -1, 1], [-1, -1, -1, -1], [-1] * 4, [-1, 20, -1, 5], [mn] * 4,
+            [mn] * 4, 2, (2, 4)),
+        "lamport_wraps": case(
+            [[0, -1], [1, 2], [3, -1]], [0, 1, 0, 1], [-1, 0, 0, 2], [-1, -1, -1, 1],
+            [[0, -1], [0, 0], [1, 0], [1, 1]], [[0, 9], [0, 0], [1, 9], [9, 1]],
+            [0, -1, -1, -1], [-1, 0, 0, -1], [-1] * 4, [mx, -1, -1, -1], [mn, 5, mn, mn],
+            [mn, mn, mx, mn], 2, (4,)),
+        "padding_before_real_lane": case(
+            [[-1, 0, -1], [-1, -1, -1], [2, -1, 1], [-1, 3, -1], [-1, -1, -1]],
+            [0, 0, 1, 0], [-1, 0, -1, 1], [-1, 2, -1, 2],
+            [[0, -1, -1], [1, 0, -1], [-1, 0, -1], [2, 0, -1]],
+            [[0, 3, 3], [1, 3, 3], [3, 0, 3], [2, 3, 3]],
+            [-1, -1, -1, -1], [0, -1, 0, -1], [-1] * 4, [4, -1, 6, -1], [mn] * 4,
+            [mn] * 4, 3, (4,)),
+    }
+
+
 def coin_round_case(n, r, seed):
     """decide_fame inputs over n validators and r rounds of witnesses, random
     from a numpy seed: witness (round, creator) on event row round * n +
@@ -936,6 +1006,18 @@ def scan_work(g, ins, dr, scan_r_max):
     return ((used_level_bytes + g.e * (9 * 4 + n_s * 4) + n_wit * n_s * 4
              + e_b * 9 + scan_r_max * n_s * 4,
              (pairs * n_s + g.e * 4) / ALU_OPS_S), pairs, n_wit)
+
+
+def lamport_work(e, lam_args):
+    """(bytes, seconds at the ALU rate) of one seeded lamport scan of e
+    events (lam_args: doubling.lamport_inputs): the used level rows, each
+    event's parents, seeds and pin once, the (E,) output; two operations
+    an event."""
+    from babble_tpu_torch.tpu.kernels import last_level
+
+    levels = lam_args[0].cpu()
+    return ((last_level(levels) + 1) * levels.shape[1] * 4 + e * 5 * 4
+            + lam_args[1].shape[0] * 4, 2 * e / ALU_OPS_S)
 
 
 def inc_work_deltas(st, x):
@@ -1523,9 +1605,10 @@ def packed_kernel_phase(g, dev, log_fn):
 
 
 def hold_k5_forms(label, g, dev, log_fn):
-    """K5's two walks (the one block, the grid) held torch.equal to the
-    plain version on grid g's level scan as run_passes stages it, with
-    their CUDA-event times: the crossover's two sides at g's width."""
+    """K5's walks that take grid g (the one block where its forms fit, the
+    grid) held torch.equal to the plain version on g's level scan as
+    run_passes stages it, with their CUDA-event times: the crossover's
+    sides at g's width."""
     from babble_tpu_torch.tpu import _ext, engine, kernels
 
     gp, _, scan_r_max = engine.scan_layout(g, True)
@@ -1542,9 +1625,47 @@ def hold_k5_forms(label, g, dev, log_fn):
         torch.cuda.synchronize()
         require_equal(f"divide_rounds ({form} walk) on the {label}", got, want)
         line.append(f"{form} walk {spun_ms(run, 5):.3f} ms")
-    log_fn(f"divide_rounds, both walks == plain on the {label} ({g.n} validators, "
+    log_fn(f"divide_rounds, every walk that fits == plain on the {label} ({g.n} validators, "
            f"{g.num_levels} levels; the wrapper takes the "
            f"{_ext.divide_rounds_form(g.n, n_lvl)} walk): {', '.join(line)}")
+
+
+def hold_walk_carries(label, dr_args, lam_args, levels, log_fn, want=None, want_lam=None):
+    """K5's one-block walk and K8 held torch.equal to their plain versions
+    in every carry form (_ext.WALK_CARRIES: "shared", the first rows that
+    fit on chip and the rest in device memory, as level_walk_plan places
+    them; "device", every row in device memory) on one level table
+    (dr_args: K5's fifteen arguments, lam_args: K8's six); with `levels`
+    (the table's levels holding an event), each form's CUDA-event time and
+    microseconds a level."""
+    from babble_tpu_torch.tpu import _ext, doubling, kernels
+
+    if want is None:
+        want = tuple(kernels._divide_rounds_plain(*dr_args))
+    if want_lam is None:
+        want_lam = doubling._lamport_levels_scan_plain(*lam_args)
+    e, n = dr_args[5].shape
+    n_lvl = dr_args[0].shape[1]
+    line = []
+    for carry in _ext.WALK_CARRIES:
+        k5 = lambda: tuple(_ext.divide_rounds(*dr_args, form="block", carry=carry))  # noqa: E731
+        k8 = lambda: _ext.lamport_scan(*lam_args, carry=carry)  # noqa: E731
+        got5, got8 = k5(), k8()
+        torch.cuda.synchronize()
+        require_equal(f"divide_rounds (one-block walk, {carry} carry) on the {label}", got5, want)
+        require_equal(f"lamport_scan ({carry} carry) on the {label}", got8, want_lam)
+        rp = _ext.level_walk_plan("divide_rounds", e, n, n_lvl, dr_args[14], carry)["rounds"]
+        lp = _ext.level_walk_plan("lamport_scan", lam_args[1].shape[0], 1,
+                                  lam_args[0].shape[1], carry=carry)["lamport"]
+        item = (f"{carry}: K5 {rp['chip']} of {e} rounds rows on chip, window {rp['win']}, "
+                f"K8 {lp['chip']} rows on chip")
+        if levels:
+            k5_ms, k8_ms = cuda_ms(k5, 5), cuda_ms(k8, 5)
+            item += (f", K5 {k5_ms:.4f} ms ({k5_ms * 1e3 / levels:.3f} us a level), "
+                     f"K8 {k8_ms:.4f} ms ({k8_ms * 1e3 / levels:.3f} us a level)")
+        line.append(item)
+    log_fn(f"divide_rounds (one-block walk) and lamport_scan == plain on the {label} in "
+           f"every carry form: {'; '.join(line)}")
 
 
 def max_fd_burst(batches, e_cap):
@@ -3304,9 +3425,14 @@ def main() -> int:
         if label == "bench grid":
             hold_k5_forms(label, g, dev, log)
         lam_args = doubling.lamport_inputs(g, dev)
-        compare("lamport_scan", label,
-                lambda: doubling._lamport_levels_scan(*lam_args),
-                lambda: doubling._lamport_levels_scan_plain(*lam_args), timed)
+        lam = compare("lamport_scan", label,
+                      lambda: doubling._lamport_levels_scan(*lam_args),
+                      lambda: doubling._lamport_levels_scan_plain(*lam_args), timed)
+        if label == "catch-up section":
+            # both carry forms of the one-block walk and K8 (the rule's
+            # and the device memory's) on the section
+            hold_walk_carries(label, dr_args, lam_args, g.num_levels, log, want=dr,
+                              want_lam=lam)
         cs = doubling.stage_doubling(g, dev)
         cl_args = (cs.creator_d, cs.idx_d, cs.sp_d, cs.op_d, cs.rows_by_d, cs.l_b,
                    cs.block, cs.pass_cap)
@@ -3342,8 +3468,12 @@ def main() -> int:
         if timed:
             k_ms = cuda_ms(lambda: doubling._walk_chunk(*big), 10)
             p_ms = cuda_ms(lambda: doubling._walk_chunk_plain(*big), SLOW_PLAIN_REPS, warmup=1)
+            # the kernels line's ms is the largest chunk's; the walk
+            # launches every chunk once
+            all_ms = sum(cuda_ms(lambda a=a: doubling._walk_chunk(*a), 10) for a in chunks)
             log(f"  walk_chunk on the {label}: {big[10]} steps x {big[11]} probes, "
-                f"{k_ms:.4f} ms, plain {p_ms:.3f} ms")
+                f"{k_ms:.4f} ms, plain {p_ms:.3f} ms; all {len(chunks)} chunks "
+                f"({sum(a[10] for a in chunks)} steps) {all_ms:.4f} ms")
         log(f"walk_chunk == plain on every chunk of the {label} "
             f"({', '.join(str(a[10]) for a in chunks)} steps, seeded {cs.seeded}); "
             f"first_nw mask fired on {fired} of {g.n} chains")
@@ -3357,10 +3487,7 @@ def main() -> int:
 
         n_s = g.n
         work["divide_rounds"], pairs, n_wit = scan_work(g, ins, dr, scan_r_max)
-        work["lamport_scan"] = (
-            (kernels.last_level(cpu(lam_args[0])) + 1) * lam_args[0].shape[1] * 4
-            + g.e * 5 * 4 + lam_args[1].shape[0] * 4,
-            2 * g.e / ALU_OPS_S)
+        work["lamport_scan"] = lamport_work(g.e, lam_args)
         la_fin, passes = cl
         l_c = cs.l_b
         la0 = doubling._closure_init(cs.creator_d, cs.idx_d, cs.sp_d, cs.op_d, n_s)
@@ -3384,6 +3511,20 @@ def main() -> int:
         log(f"  bound inputs (catch-up section): {pairs} scan (event, witness) pairs, "
             f"{n_wit} witnesses, closure {int(passes)} passes with {nonneg_0} -> "
             f"{nonneg_fin} set coordinates, {working} working walk steps of {big[10]}")
+
+    # the whole catch-up grid (65,536 events: K5's and K8's carries keep
+    # the rows past what fits on chip in device memory) and the level
+    # scans' trap tables, K5's one-block walk and K8 in every carry form
+    gp, _, scan_r_max = engine.scan_layout(deep, True)
+    ins = engine.stage_scan(gp, dev)
+    hold_walk_carries("catch-up grid", ins[:13] + (gp.super_majority, scan_r_max),
+                      doubling.lamport_inputs(deep, dev), deep.num_levels, log)
+    for name, (arrays, super_majority, r_maxes) in level_traps().items():
+        t_args = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        lam_t = tuple(t_args[i] for i in (0, 3, 4, 10, 11, 12))
+        for r_max in r_maxes:
+            hold_walk_carries(f"trap table {name} (r_max {r_max})",
+                              t_args + (super_majority, r_max), lam_t, 0, log)
 
     phase_clock.next("7")
     # 7. the bench grid through the level scan and the cold path

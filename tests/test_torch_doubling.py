@@ -17,7 +17,7 @@ from babble_tpu_torch.tpu import engine as port_engine
 from babble_tpu_torch.tpu.grid import section_grid, synthetic_deep_grid
 
 from test_doubling import assert_matches
-from test_torch_levelscan import CASE_IDS, CASES, fixture_grid
+from test_torch_levelscan import CASE_IDS, CASES, TRAPS, fixture_grid
 
 
 def staged(case):
@@ -173,6 +173,24 @@ def test_lamport_scan_and_seeded_lamport_match_reference(case):
     np.testing.assert_array_equal(
         port.seeded_lamport(pg, device="cpu"), ref.seeded_lamport(grid),
     )
+
+
+@pytest.mark.parametrize("name", sorted(TRAPS))
+def test_lamport_scan_traps(name):
+    """K8 on the level scan's trap tables (chip_smoke.level_traps: its
+    levels, parents, external lamports and pins), the carry from 0: a
+    parent in the same or a later level reads 0, a parent index at or
+    past E clamps to E - 1, max + 1 wraps at 2^31 - 1, a pin wins,
+    padding lanes and levels of padding write nothing."""
+    arrays = TRAPS[name][0]
+    args = [arrays[i] for i in (0, 3, 4, 10, 11, 12)]
+    want = np.asarray(ref._lamport_levels_scan(*args))
+    got = port._lamport_levels_scan(*[torch.from_numpy(a) for a in args])
+    np.testing.assert_array_equal(got.numpy(), want)
+    if name == "same_level_parent":
+        assert got.tolist() == [11, 1, 12, 2]
+    elif name == "lamport_wraps":
+        assert got.tolist() == [-(2 ** 31), 6, 2 ** 31 - 1, -(2 ** 31)]
 
 
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)

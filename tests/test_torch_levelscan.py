@@ -20,9 +20,11 @@ from babble_tpu.hashgraph import Frame, Hashgraph, InmemStore
 from babble_tpu.tpu import grid_from_hashgraph, synthetic_grid
 from babble_tpu.tpu.grid import section_grid, synthetic_deep_grid
 from babble_tpu_torch.tpu import GridUnsupported, grid_from_arrays
+from babble_tpu_torch.tpu import _ext
 from babble_tpu_torch.tpu import engine as port_engine
 from babble_tpu_torch.tpu import kernels as port_kernels
 
+from chip_smoke import level_traps
 from dsl import CACHE_SIZE, init_funky_hashgraph, init_sparse_hashgraph
 from test_doubling import assert_matches
 from test_reset_frame import _wire_diff
@@ -39,6 +41,8 @@ SCAN_FIXTURES = [
 # (cut fraction, pin_cut) of test_doubling.py's non-slow section cuts
 SECTION_CUTS = [(1.0 / 3.0, True), (1.0 / 2.0, False)]
 RESET_CASES = [("funky", 0), ("funky", 1), ("sparse", 0), ("sparse", 1)]
+# the hand-built trap tables the kernels are held to on the card too
+TRAPS = level_traps()
 
 
 @functools.lru_cache(maxsize=None)
@@ -203,44 +207,82 @@ def test_last_level_skips_trailing_padding_only():
     assert port_kernels.last_level(torch.full((3, 2), -1, dtype=torch.int32)) == -1
 
 
-def test_divide_rounds_traps():
-    """Index clamps and dropped scatters on a hand-built level table: a
-    padding lane beside row 0 must not overwrite row 0; a round past r_max
-    clamps into the last witness-table row; a negative parent round reads
-    no witness row; an external parent's round and lamport come from the
-    ext_* metadata; the fixed overrides win."""
-    # rows: 0 root-pinned, 1 with an external self-parent at round 5,
-    # 2 on top of 0 and 1
-    levels = np.array([[0, -1], [1, -1], [2, -1]], dtype=np.int32)
-    n, e = 2, 3
-    la = np.array([[0, -1], [0, 0], [1, 1]], dtype=np.int32)
-    fd = np.array([[0, 2], [1, 1], [2, 2]], dtype=np.int32)
-    arrays = dict(
-        levels=levels,
-        creator=np.array([0, 1, 0], dtype=np.int32),
-        index=np.array([0, 0, 1], dtype=np.int32),
-        self_parent=np.array([-1, -1, 0], dtype=np.int32),
-        other_parent=np.array([-1, 0, 1], dtype=np.int32),
-        la=la, fd=fd,
-        ext_sp_round=np.array([-1, 5, -1], dtype=np.int32),
-        ext_op_round=np.array([-1, -1, -1], dtype=np.int32),
-        fixed_round=np.array([0, -1, -1], dtype=np.int32),
-        ext_sp_lamport=np.array([-1, 40, -1], dtype=np.int32),
-        ext_op_lamport=np.full(e, -(2**31), dtype=np.int32),
-        fixed_lamport=np.array([-(2**31), -(2**31), 7], dtype=np.int32),
-    )
-    for r_max in (2, 8):
+@pytest.mark.parametrize("name", sorted(TRAPS))
+def test_divide_rounds_traps(name):
+    """Index clamps, dropped scatters and the order of a level's reads and
+    writes on hand-built level tables (chip_smoke.level_traps, which phase
+    6 runs through the kernel in every carry form): a padding lane beside
+    row 0 must not overwrite row 0; a round past r_max clamps into the
+    last witness-table row; a negative parent round reads no witness row;
+    an external parent's round and lamport come from the ext_* metadata;
+    the fixed overrides win; a parent in the same or a later level reads
+    the initial carry; a parent index at or past E clamps to E - 1;
+    lamport wraps around at 2^31 - 1; padding lanes ahead of real ones and
+    levels of padding alone change nothing."""
+    arrays, super_majority, r_maxes = TRAPS[name]
+    e, n = arrays[5].shape
+    for r_max in r_maxes:
         want = ref_kernels.divide_rounds(
-            *arrays.values(), super_majority=2, r_max=r_max,
+            *arrays, super_majority=super_majority, r_max=r_max,
         )
         got = port_kernels.divide_rounds(
-            *[t(a) for a in arrays.values()], 2, r_max,
+            *[t(a) for a in arrays], super_majority, r_max,
         )
-        for name in want._fields:
+        for field in want._fields:
             np.testing.assert_array_equal(
-                getattr(got, name).numpy(), np.asarray(getattr(want, name)),
-                err_msg=f"r_max={r_max} {name}",
+                getattr(got, field).numpy(), np.asarray(getattr(want, field)),
+                err_msg=f"{name} r_max={r_max} {field}",
             )
-    assert got.lamport.tolist() == [0, 41, 7]
-    assert got.rounds[1].item() == 5 and got.witness[1].item() is False
-    assert np.asarray(want.witness_table).shape == (8, n)
+        assert np.asarray(want.witness_table).shape == (r_max, n)
+    lamport, rounds = got.lamport.tolist(), got.rounds.tolist()
+    if name == "clamps_and_overrides":
+        assert lamport == [0, 41, 7]
+        assert rounds[1] == 5 and got.witness[1].item() is False
+    elif name == "same_level_parent":
+        # rows 1 and 3 read their same-level parents' initial -1
+        assert rounds[1] == rounds[3] == -1 and lamport[1] == 0 and lamport[3] == 1
+        assert rounds[0] == 2 and lamport[0] == 11
+    elif name == "parent_past_e":
+        # row 0's parents clamp to row 3, written at the level before
+        assert lamport[0] == lamport[3] + 1 and rounds[0] == rounds[3]
+    elif name == "lamport_wraps":
+        assert lamport == [-(2 ** 31), 6, 2 ** 31 - 1, -(2 ** 31)]
+    else:
+        assert got.witness.tolist() == [True, False, True, False]
+        assert lamport == [5, 6, 7, 8]
+
+
+def test_level_walk_plan_places_the_carry():
+    """The one rule that lays out the staged level walks (K5's one-block
+    walk, K8): each carry's first rows in shared memory as far as the card
+    allows beside the ring (and K5's window), the rest in device memory;
+    "device" keeps every row there. At the catch-up section's shapes (8
+    validators, 65,536 bucketed events, 16,384 witness-table rows) every
+    row of the section (32,760 events) is on chip; the whole catch-up grid
+    (65,536 events) keeps the rows past what fits in device memory; a
+    witness table too large for the window's written-round bits goes
+    without the window; K8's levels too wide for the ring are read in
+    place; no size is refused, and every launch fits the card."""
+    sec = _ext.level_walk_plan("divide_rounds", 65536, 8, 8, 16384)
+    assert sec["carry"] == "shared" and sec["rounds"]["win"] == _ext.WALK_WINDOW
+    assert sec["rounds"]["chip"] >= 32760 and sec["lamport"]["chip"] >= 32760
+    assert sec["rounds"]["group"] * 8 <= 32 and sec["rounds"]["warps"] == 1
+    grid = _ext.level_walk_plan("divide_rounds", 65536, 8, 8, 32768)
+    assert 0 < grid["rounds"]["chip"] < 65536 and 0 < grid["lamport"]["chip"] < 65536
+    dev = _ext.level_walk_plan("divide_rounds", 65536, 8, 8, 16384, carry="device")
+    assert dev["rounds"]["chip"] == dev["lamport"]["chip"] == dev["rounds"]["win"] == 0
+    assert dev["smem"] < sec["smem"] == _ext.MAX_SMEM_BYTES
+    small = _ext.level_walk_plan("divide_rounds", 256, 4, 4, 64)
+    assert small["rounds"]["chip"] == small["lamport"]["chip"] == 256
+    assert _ext.level_walk_plan("divide_rounds", 4096, 31, 31, 1 << 26)["rounds"]["win"] == 0
+    wide = _ext.level_walk_plan("divide_rounds", 32768, 24, 24, 4096)
+    assert (wide["rounds"]["group"], wide["rounds"]["warps"]) == (32, 24)
+    assert _ext.level_walk_plan("lamport_scan", 65536, 1, 8)["lamport"]["staged"]
+    far = _ext.level_walk_plan("lamport_scan", 100, 1, 60000)
+    assert not far["lamport"]["staged"] and far["lamport"]["chip"] == 100
+    for plan in (sec, grid, dev, small, wide, far):
+        assert plan["smem"] <= _ext.MAX_SMEM_BYTES and plan["threads"] <= 1024
+    assert _ext.walk_form_fits("divide_rounds", "block", 31, n_lvl=31)
+    assert not _ext.walk_form_fits("divide_rounds", "block", 1000, n_lvl=64)
+    with pytest.raises(ValueError, match="carry form"):
+        _ext.level_walk_plan("lamport_scan", 8, 1, 8, carry="l2")
