@@ -43,6 +43,13 @@ in device memory past them. `level_walk_plan` is the one place that sizes
 it (the carry form "shared", or "device" where a caller names it: every
 row in device memory); both forms give equal integers by design.
 
+The cold path's closure (closure_la) runs every pass in one cooperative
+launch to its fixed point (`closure_la_plan` shapes it), and its walk
+(walk_chunk) takes, up to WC_BLOCK_MAX validators, one block that runs
+each chain's binary search as a speculative tree (`walk_chunk_depth`
+picks the depth by width), after a prep launch; above, a cooperative
+launch with a block per chain.
+
 Every frontier walk on one card is one cooperative launch of the same
 kernel template (csrc/frontier_walk.cu walk_grid), which stops at the
 walk's fixed point: K2 `frontier_rounds` and K15 `frontier_window` at one
@@ -88,10 +95,10 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
         "iiiiiiiiiii",
     ),
     "closure_la": (
-        "closure_la.cu", "babble_closure_la_pass", "pppppppppp" "iiii",
+        "closure_la.cu", "babble_closure_la", "ppppppppp" "iiii" "iiiiiii",
     ),
     "walk_chunk": (
-        "walk_chunk.cu", "babble_walk_chunk", "ppppppppppp" "iiiiiiii",
+        "walk_chunk.cu", "babble_walk_chunk", "ppppppppppp" "iiiiiiiii",
     ),
     "lamport_scan": (
         "lamport_scan.cu", "babble_lamport_scan", "ppppppppp" "iii" "iiiiii",
@@ -316,13 +323,18 @@ def block_smem(name: str, n: int, packed: bool = False, **shape) -> Dict[str, in
                 "vote": (2 * n * words + n * (words | 1) + 8 * n) * 4}
     if name == "decide_window":
         return {"setup": DW_SETUP_SMEM, "vote": DW_VOTE_SMEM}
+    if name == "closure_la":
+        # closure_la.cu: the squaring's tile of target codes (n rows of
+        # tile + 1 words) beside the prefix's two reductions
+        return {"pass": closure_la_plan(n, 64)["smem"]}
     if name == "walk_chunk":
-        # walk_chunk.cu: up to 32 validators one block holds the frontier
-        # state, a probe row per warp and the (n, n | 1) table; above, a
-        # block per chain holds its probe row and slice counts, and the
-        # frontier rows' fd table where it fits (wc_grid_shape)
-        if n <= 32:
-            return {"walk": (4 * n + n * n + n * (n | 1)) * 4}
+        # walk_chunk.cu: up to 32 validators one block holds a round's
+        # probed rows and verdicts (wc_tree_smem, at walk_chunk_depth);
+        # above, a block per chain holds its probe row and slice counts,
+        # and the frontier rows' fd table where it fits (wc_grid_shape)
+        if n <= WC_BLOCK_MAX:
+            depth = shape.get("depth") or walk_chunk_depth(n)
+            return {"walk": walk_chunk_tree_smem(n, depth)}
         ld4 = (n + 3) // 4 * 4
         threads = 32 * min((n + 15) // 16, 16)
         slices = threads // (ld4 // 4) if threads >= ld4 // 4 else 1
@@ -812,8 +824,9 @@ def divide_rounds(levels, creator, index, self_parent, other_parent, la, fd,
 
 def closure_la(creator, index, sp, op, rows_by, l: int, pass_cap: int):
     """K6: lastAncestors (E, N) int32 by pointer doubling, and the pass
-    count. One launch per pass; the host reads the changed flag after each
-    (one device-to-host copy per pass, at most pass_cap)."""
+    count. One cooperative launch runs every pass to the fixed point or
+    pass_cap (`closure_la_plan` shapes it); the host reads the pass count
+    once, after it."""
     dev = rows_by.device
     e = creator.shape[0]
     n = rows_by.shape[0]
@@ -822,31 +835,109 @@ def closure_la(creator, index, sp, op, rows_by, l: int, pass_cap: int):
         check_tensor(what, t, torch.int32, (e,), dev)
     if e < 1 or l < 1 or pass_cap < 1:
         raise ValueError("closure_la: needs events, l >= 1 and pass_cap >= 1")
-    la = torch.empty((e, n), dtype=torch.int32, device=dev)
-    la_next = torch.empty_like(la)
-    pre = torch.empty_like(la)
-    lat = torch.empty((n, n, l), dtype=torch.int32, device=dev)
-    flag = torch.empty((), dtype=torch.int32, device=dev)
-    passes, changed = 0, True
-    while changed and passes < pass_cap:
-        _launch("closure_la", dev, (
-            creator, index, sp, op, rows_by, la, lat, pre, la_next, flag,
-            e, n, l, int(passes == 0),
-        ))
-        passes += 1
-        changed = bool(flag.item())
-        la, la_next = la_next, la
-    return la, passes
+    if n * l + 2 * e >= 1 << 31:
+        raise ValueError(f"closure_la: {n} chains of {l} slots and {e} rows pass int32 codes")
+    check_smem("closure_la", n)
+    plan = closure_la_plan(n, l)
+    ld = plan["ld"]
+    # the vectors (rows of ld words, padding -1): the chain prefix P's n * l
+    # slots, then the two iterates; the segments' maxima, the constant
+    # tables (TS, the slots' rows, the loose rows' sources, ident) and the
+    # counters, zeroed by the launch (the grid barrier, the pass count, a
+    # changed flag a pass, each chain's top slot)
+    store = torch.empty((n * l + 2 * e, ld), dtype=torch.int32, device=dev)
+    tot = torch.empty((n * plan["groups"] * ld,), dtype=torch.int32, device=dev)
+    tables = torch.empty((2 * n * l + e + n,), dtype=torch.int32, device=dev)
+    counters = torch.empty((2 + pass_cap + n,), dtype=torch.int32, device=dev)
+    _launch("closure_la", dev, (
+        creator, index, sp, op, rows_by, store, tot, tables, counters,
+        e, n, l, pass_cap, *(plan[k] for k in CLOSURE_PLAN_KEYS),
+    ))
+    passes = int(counters[1].item())
+    row0 = n * l + (passes & 1) * e
+    la = store[row0:row0 + e]
+    return (la if ld == n else la[:, :n].contiguous()), passes
+
+
+# closure_la.cu: threads of a block, rows a squaring thread takes, and the
+# most slots a prefix thread takes; the plan's keys in the order the C
+# entry point takes them
+CL_THREADS = 256
+CL_ROWS = 4
+CL_K_MAX = 16
+CLOSURE_PLAN_KEYS = ("ld", "ql", "k", "groups", "ql4", "tile", "smem")
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+def closure_la_plan(n: int, l: int) -> Dict[str, int]:
+    """K6's launch shape at n validators and l chain slots
+    (csrc/closure_la.cu ClPlan): rows of ld = n rounded up to 4 words; the
+    prefix's blocks take ql coordinate lanes by CL_THREADS / ql slot lanes,
+    k slots a thread (a segment of (CL_THREADS / ql) * k slots, about 16
+    segments a chain: `groups`); the squaring's blocks take ql4 lanes of 4
+    coordinates by CL_THREADS / ql4 row groups of CL_ROWS rows (a tile);
+    smem is a block's shared memory in bytes."""
+    ld = (n + 3) // 4 * 4
+    ql = min(CL_THREADS, _pow2_ceil(ld))
+    sl = CL_THREADS // ql
+    k = max(1, min(CL_K_MAX, l // (sl * 16)))
+    groups = -(-l // (sl * k))
+    ql4 = min(64, _pow2_ceil(ld // 4))
+    tile = CL_THREADS // ql4 * CL_ROWS
+    smem = (2 * CL_THREADS + n + 2 * tile + n * (tile + 1)) * 4
+    return dict(ld=ld, ql=ql, k=k, groups=groups, ql4=ql4, tile=tile, smem=smem)
+
+
+# walk_chunk.cu: the one-block walk (walk_chunk_tree, a warp per chain) up
+# to WC_BLOCK_MAX validators and its speculative tree's depth: the depth
+# walk_chunk_depth takes up to each width, and the largest the kernel takes
+# (a round's verdicts fit a 64-bit mask)
+WC_BLOCK_MAX = 32
+WC_TREE_DEPTHS = ((8, 4), (16, 3), (32, 1))
+WC_TREE_DEPTH_MAX = 6
+
+
+def walk_chunk_depth(n: int) -> int:
+    """The speculative tree's depth at n validators (n <= WC_BLOCK_MAX):
+    WC_TREE_DEPTHS' entry for the least width at or above n."""
+    for width, depth in WC_TREE_DEPTHS:
+        if n <= width:
+            return depth
+    raise ValueError(f"walk_chunk: the one-block walk takes at most {WC_BLOCK_MAX} validators")
+
+
+def _walk_np(n: int) -> int:
+    """walk_chunk_tree's NP: the power of two at or above n, at least 4 (its
+    tables' and staged rows' width in words)."""
+    return max(4, _pow2_ceil(n))
+
+
+def walk_chunk_tree_smem(n: int, depth: int) -> int:
+    """walk_chunk.cu wc_tree_smem: each chain's probed rows of a round and
+    its closure terms by leaf, in bytes."""
+    nodes = (1 << depth) - 1
+    return n * (nodes * _walk_np(n) + ((nodes + 1) * n + 3) // 4 * 4) * 4
 
 
 def walk_chunk(inv, rows_by, fd, la, x0, seeds, r_abs, first_nw,
                super_majority: int, l: int, length: int, steps: int,
-               use_seeds: bool):
-    """K7: `length` frontier steps from x0 in one launch. Returns
+               use_seeds: bool, depth: Optional[int] = None):
+    """K7: `length` frontier steps from x0 in one launch (up to
+    WC_BLOCK_MAX validators a prep launch first lays out the chain-order
+    tables, and `depth` overrides walk_chunk_depth's tree depth). Returns
     (x_last (N,) int32, xs (length, N) int32)."""
     dev = rows_by.device
     n = rows_by.shape[0]
-    check_smem("walk_chunk", n)
+    if n <= WC_BLOCK_MAX:
+        depth = depth if depth is not None else walk_chunk_depth(n)
+        if not 1 <= depth <= WC_TREE_DEPTH_MAX:
+            raise ValueError(f"walk_chunk: tree depth {depth} outside 1..{WC_TREE_DEPTH_MAX}")
+    else:
+        depth = 0
+    check_smem("walk_chunk", n, depth=depth)
     e_fd, e_la = fd.shape[0], la.shape[0]
     check_tensor("inv", inv, torch.int32, (n, n, l), dev)
     check_tensor("rows_by", rows_by, torch.int32, (n, l), dev)
@@ -860,15 +951,21 @@ def walk_chunk(inv, rows_by, fd, la, x0, seeds, r_abs, first_nw,
         raise ValueError("walk_chunk: needs length >= 1, l >= 1 and events")
     x_last = torch.empty((n,), dtype=torch.int32, device=dev)
     xs = torch.empty((length, n), dtype=torch.int32, device=dev)
-    # the frontier rows' fd table (N, N padded to a multiple of 4), the
-    # frontier, m0, the countable rows, the chain lengths and the grid
-    # barrier's count
-    scratch = torch.empty((n * ((n + 3) // 4 * 4) + 4 * n + 1,), dtype=torch.int32,
-                          device=dev)
+    ld = (n + 3) // 4 * 4
+    if n <= WC_BLOCK_MAX:
+        # the chain-order tables la_by and fd_by, (N, l, NP) each, and the
+        # chain lengths
+        words = 2 * n * l * _walk_np(n) + n
+    else:
+        # the frontier rows' fd table (N, N padded to a multiple of 4), the
+        # frontier, m0, the countable rows, the chain lengths and the grid
+        # barrier's count
+        words = n * ld + 4 * n + 1
+    scratch = torch.empty((words,), dtype=torch.int32, device=dev)
     _launch("walk_chunk", dev, (
         inv, rows_by, fd, la, x0, seeds, r_abs, first_nw, x_last, xs,
         scratch, n, l, e_fd, e_la, super_majority, length, steps,
-        int(use_seeds),
+        int(use_seeds), depth,
     ))
     return x_last, xs
 

@@ -26,10 +26,14 @@ Phases, in order; any failure raises and exits non-zero:
    rounds stall (synthetic_deep_grid(8, 2048), pin_cut=False);
 6. kernels of the level scan and the cold path against their plain
    versions on the card, torch.equal: divide_rounds and lamport_scan on
-   the bench grid and both sections, closure_la (with its pass count) on
-   the bench grid and the catch-up section, walk_chunk on every chunk of
+   the bench grid and both sections, closure_la (with its pass count; one
+   launch a call to the fixed point) on the bench grid, there also at
+   pass caps 1 and 2 (stopped before the fixed point), and the catch-up
+   section, walk_chunk on every chunk of
    the bench grid's walk (unseeded) and both sections' (seeded; the
-   first_nw mask must fire on the unpinned section), with launches and
+   first_nw mask must fire on the unpinned section), and on the catch-up
+   section's largest chunk with `steps` forced to 1, 4 and 5 and with one
+   chain's la rows reversed (walk_chunk_traps), with launches and
    CUDA-event times (walk_chunk: the largest chunk's, and all six chunks'
    on the catch-up section); divide_rounds takes the one-block walk on
    the sections (8 validators) and the grid walk on the bench grid, where
@@ -48,7 +52,10 @@ Phases, in order; any failure raises and exits non-zero:
    the port's CPU run, last_round 1,022, round_offset 511, 32,536
    received, closure passes 4, walk chunks 6, 11 passes, each path's
    kernels launched, and events ordered per second replaying the section
-   from cold (32,760 / the median wall time);
+   from cold (32,760 / the median wall time), and that wall taken apart by
+   stage of the cold path and by kernel (cold_path_split: each stage
+   behind a synchronize, the kernels' device time from torch.profiler,
+   or from CUDA events around each launch where it records none);
 9. the incremental engine's kernels (apply_deltas, step_levels,
    train_levels, decide_window) against their plain versions on the card:
    one state driven through the kernels and a clone through the plain
@@ -123,7 +130,9 @@ Phases, in order; any failure raises and exits non-zero:
    versions on the card, torch.equal, on BASELINE.json config #4's grid at
    full width (synthetic_grid(256, 65536, seed=11, zipf_a=1.05,
    byzantine_frac=1/3), 677 levels): K2 frontier_rounds at the engine's
-   r_cap 64, held to its plain version and timed; K3p on its witness table, on
+   r_cap 64, held to its plain version and timed; K6 closure_la (one
+   launch to its fixed point) with its pass count, held to its plain
+   version and timed; K3p on its witness table, on
    test_packed.py's 7- and 33-validator fixtures and on the coin cases;
    K5p on the grid and a pinned section of it; walk_chunk on every chunk
    of its walk; on a state driven through its 1,024 batches of 64 (the
@@ -140,7 +149,8 @@ Phases, in order; any failure raises and exits non-zero:
    packed=False: each pair equal field for field, the engines equal to
    each other, last_round 7, 32,341 received and 1,853 witnesses (the JAX
    reference's result), packed launches above zero and no wide form of a
-   layout kernel on a packed path; events/s per engine; step and
+   layout kernel on a packed path; events/s per engine, and
+   run_doubling_passes' wall taken apart as in phase 8; step and
    multi_step (packed) over the same batches equal to run_passes on rows
    [:e] (e_win 65,536: the undecided tail outgrows smaller windows);
 15. the hashgraph path at the layout's switch: synthetic_grid(128, 32768,
@@ -277,7 +287,16 @@ BENCH_DOUBLING = dict(closure_passes=5, walk_chunks=2)
 UNPINNED = dict(n=8, depth=2048, seed=0, zipf_a=1.2)
 UNPINNED_LAST_ROUND = 127
 CATCHUP_RUNS = 5
-SLOW_PLAIN_REPS = 3
+# timed runs of a slow plain version (seconds a call on the catch-up
+# section), after the run that checked the kernel against it
+SLOW_PLAIN_REPS = 1
+# the cold path's stages in tpu/doubling.py, whose walls cold_path_split
+# takes apart (each behind a synchronize)
+COLD_STAGES = ("stage_doubling", "_closure_la", "build_inv", "walk_seeds", "_doubling_walk",
+               "seeded_lamport", "level_lamport", "_fame_received")
+# K6's pass caps below the bench grid's fixed point (5 passes), held to the
+# plain version with their pass counts
+CLOSURE_TRAP_CAPS = (1, 2)
 
 # the incremental engine: the live engine's defaults (babble_tpu/tpu/live.py
 # ENGINE_DEFAULTS) for the step path, bench_incremental.py's constants for
@@ -469,6 +488,9 @@ REPLACES = {
     # K2 at config #4 (phase 13) and K2, K15 at 1,024 validators (phase 16(d))
     "frontier_rounds (config #4)": ("babble_tpu_torch/csrc/frontier_walk.cu",
                                     "babble_tpu/tpu/frontier.py:299"),
+    # K6 at config #4 (phase 13)
+    "closure_la (config #4)": ("babble_tpu_torch/csrc/closure_la.cu",
+                               "babble_tpu/tpu/doubling.py:172"),
     "frontier_rounds (1,024)": ("babble_tpu_torch/csrc/frontier_walk.cu",
                                 "babble_tpu/tpu/frontier.py:299"),
     "frontier_window (1,024)": ("babble_tpu_torch/csrc/frontier_walk.cu",
@@ -690,6 +712,161 @@ def spun_ms(fn, reps, warmup=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def closure_la_work(cs, la_fin, passes):
+    """closure_la's (bytes, seconds of operations) on staged inputs cs (a
+    DoublingInputs) from this run's result: the parent tables and the chain
+    table read and la written once; the last pass's squaring over the
+    closed iterate's set coordinates, each earlier one over la0's, and the
+    chain prefix every pass."""
+    from babble_tpu_torch.tpu import doubling
+
+    n, l = cs.rows_by_d.shape
+    la0 = doubling._closure_init(cs.creator_d, cs.idx_d, cs.sp_d, cs.op_d, n)
+    nonneg_fin = int((la_fin >= 0).sum().item())
+    nonneg_0 = int((la0 >= 0).sum().item())
+    prefix_ops = n * l * n
+    return (4 * cs.idx_d.shape[0] * 4 + n * l * 4 + la_fin.numel() * 4,
+            (nonneg_fin * n + prefix_ops
+             + (int(passes) - 1) * (nonneg_0 * n + prefix_ops)) / ALU_OPS_S)
+
+
+def walk_chunk_traps(args):
+    """walk_chunk's trap calls made from one chunk's _walk_chunk arguments:
+    the chunk with `steps` forced to 1, 4 and 5 (searches that end before
+    they converge), and with the la rows of the longest chain from its
+    frontier row on in reverse order (a predicate that is not monotone
+    along that chain). name -> arguments."""
+    traps = {f"steps {k}": args[:11] + (k,) + args[12:] for k in (1, 4, 5)}
+    rows_by, la, x0 = args[1], args[3], args[4]
+    lens = (rows_by >= 0).sum(dim=1)
+    c = int(torch.argmax(lens))
+    rows = rows_by[c, : int(lens[c])].long()
+    rows = rows[min(max(int(x0[c]), 0), max(rows.numel() - 1, 0)):]
+    la2 = la.clone()
+    la2[rows] = la[rows.flip(0)]
+    traps["non-monotone la"] = args[:3] + (la2,) + args[4:]
+    return traps
+
+
+def profile_device(fn, before=None):
+    """Device ms of one fn() call by kernel (and copy) name, from
+    torch.profiler (before(), if given, runs first, outside it); None
+    where it records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if before is not None:
+        before()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = getattr(evt, "cuda_time_total", 0.0)
+        name = evt.key.split("(")[0].replace("void ", "").strip()
+        out[name] = out.get(name, 0.0) + us / 1e3
+    return out or None
+
+
+def launch_ms(fn, before=None):
+    """Device ms of one fn() call by kernel launch key, from a pair of CUDA
+    events around each launch of `_ext._launch` (before(), if given, runs
+    first, off the clock): the fallback where torch.profiler records no
+    device time (it drops events over long windows)."""
+    from babble_tpu_torch.tpu import _ext
+
+    pairs = []
+    launch = _ext._launch
+
+    def timed(name, device, args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        launch(name, device, args, **kw)
+        ev[1].record()
+        pairs.append((name, ev))
+
+    if before is not None:
+        before()
+    _ext._launch = timed
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        _ext._launch = launch
+    out = {}
+    for name, ev in pairs:
+        out[name] = out.get(name, 0.0) + ev[0].elapsed_time(ev[1])
+    return out or None
+
+
+def cold_path_split(run, runs, before=None):
+    """The cold path's host-clock wall taken apart: run() (a
+    run_doubling_passes call) runs + 1 times (the first a warm-up) with
+    each of COLD_STAGES wrapped in a synchronize and the host clock, then
+    once under torch.profiler (or, where it records nothing, with each
+    launch timed by CUDA events: launch_ms); before(), if given, runs ahead
+    of each call, off the clock. Returns (median wall ms, {stage: median
+    ms, "rest": the wall past the stages}, {kernel, copy or launch key:
+    device ms} or None)."""
+    from babble_tpu_torch.tpu import doubling
+
+    saved = {name: getattr(doubling, name) for name in COLD_STAGES}
+    spent = {}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    walls, stages = [], {k: [] for k in COLD_STAGES + ("rest",)}
+    try:
+        for name, fn in saved.items():
+            setattr(doubling, name, timed(name, fn))
+        for k in range(runs + 1):
+            if before is not None:
+                before()
+            spent.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            if k:
+                walls.append(wall)
+                for name in COLD_STAGES:
+                    stages[name].append(spent.get(name, 0.0))
+                stages["rest"].append(wall - sum(spent.values()))
+    finally:
+        for name, fn in saved.items():
+            setattr(doubling, name, fn)
+    device = profile_device(run, before)
+    if device is None and torch.cuda.is_available():
+        device = launch_ms(run, before)
+    return (statistics.median(walls), {k: statistics.median(v) for k, v in stages.items()},
+            device)
+
+
+def split_line(label, wall, stages, device):
+    """One log line for cold_path_split's result."""
+    parts = ", ".join(f"{k} {v:.2f}" for k, v in stages.items() if v)
+    line = f"{label}: wall {wall:.2f} ms (stages synchronized): {parts}"
+    if device is None:
+        return line + "; device time not recorded"
+    total = sum(device.values())
+    top = ", ".join(f"{k} {v:.3f}" for k, v in sorted(device.items(), key=lambda kv: -kv[1])[:8])
+    return (line + f"; device {total:.2f} ms in all ({top}); device idle {wall - total:.2f} ms "
+            f"({(wall - total) / wall * 100:.1f} % of the wall)")
 
 
 def level_traps():
@@ -1531,9 +1708,30 @@ def packed_kernel_phase(g, dev, log_fn):
             line += f", {k_ms:.3f} ms, plain {p_ms:.1f} ms; {pairs} (event, witness) pairs"
         log_fn(line)
 
+    # K6 (one launch to the fixed point) on the grid, held to the plain
+    # version with its pass count
+    cs = doubling.stage_doubling(g, dev)
+    cl_args = (cs.creator_d, cs.idx_d, cs.sp_d, cs.op_d, cs.rows_by_d, cs.l_b, cs.block,
+               cs.pass_cap)
+
+    def as_pair(out):
+        return out[0], torch.tensor(out[1], device=dev)
+
+    kern = lambda: as_pair(doubling._closure_la(*cl_args))  # noqa: E731
+    plain = lambda: as_pair(doubling._closure_la_plain(*cl_args))  # noqa: E731
+    _ext.reset_launches()
+    la_fin, passes = held(f"closure_la on the {n}-validator grid", kern, plain)
+    launched = _ext.LAUNCHES["closure_la"]
+    k_ms, p_ms = spun_ms(kern, 5), spun_ms(plain, 1, warmup=0)
+    summary["closure_la (config #4)"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+    work["closure_la (config #4)"] = closure_la_work(cs, la_fin, passes)
+    log_fn(f"closure_la == plain on the {n}-validator grid (l {cs.l_b}, {int(passes)} passes, "
+           f"{launched} launch, {_ext.smem_bytes('closure_la', n)} bytes of shared memory a "
+           f"block): {k_ms:.4f} ms, plain {p_ms:.2f} ms")
+    del la_fin
+
     # the repaired K7 (a block per chain, its table in device memory) on
     # every chunk of the grid's walk
-    cs = doubling.stage_doubling(g, dev)
     inv_c = frontier.build_inv(cs.rows_by_d, cs.la_d)
     s_np, first_nw, x0 = doubling.walk_seeds(g, cs)
     chunks = []
@@ -1714,8 +1912,11 @@ def drive_paired(label, g, cfg, e_win, batches_d, dev, every_step, every_decide,
         if name not in run.events:
             continue
         calls, k_ms, p_ms = run.times(name)
+        _, work = run_summary(run, (name,))
+        nbytes, ops_s = work[name]
+        bound = max(nbytes / HBM_BYTES_S, ops_s) * 1e3
         log_fn(f"  {name}: {calls} checked calls, kernel {k_ms / calls:.4f} ms per call, "
-               f"plain {p_ms / calls:.2f} ms per call")
+               f"plain {p_ms / calls:.2f} ms per call, bound {bound:.6f} ms")
     return run
 
 
@@ -1802,6 +2003,8 @@ def wide_engine_phase(g, dev, log_fn, upd_cap, batches_d):
         ms = wall_ms(fn, WIDE_RUNS)
         log_fn(f"e2e {name} (packed) on the {n}-validator grid: median {ms:.3f} ms over {WIDE_RUNS} "
                f"warm runs, {g.e / ms * 1e3:.0f} events/s")
+    log_fn(split_line(f"  run_doubling_passes (packed) on the {n}-validator grid, split",
+                      *cold_path_split(engines["run_doubling_passes"], WIDE_RUNS)))
 
     cfg = WIDE_STEP
     sm, n, e = g.super_majority, g.n, g.e
@@ -3400,7 +3603,7 @@ def main() -> int:
         line = f"{name} == plain on the {label}: {n_launch} launches"
         if timed:
             k_ms = cuda_ms(kern, 10)
-            p_ms = cuda_ms(plain, SLOW_PLAIN_REPS, warmup=1)
+            p_ms = cuda_ms(plain, SLOW_PLAIN_REPS, warmup=0)
             line += f", {k_ms:.4f} ms, plain {p_ms:.3f} ms"
             if label == "catch-up section":
                 summary[name] = {"max_abs_err": max_abs_err(got, want), "ms": k_ms,
@@ -3423,6 +3626,9 @@ def main() -> int:
                      lambda: tuple(kernels.divide_rounds(*dr_args)),
                      lambda: tuple(kernels._divide_rounds_plain(*dr_args)), timed)
         if label == "bench grid":
+            (nbytes, ops_s), pairs, _ = scan_work(g, ins, dr, scan_r_max)
+            log(f"  {dr_key} bound on the {label}: "
+                f"{max(nbytes / HBM_BYTES_S, ops_s) * 1e3:.6f} ms ({pairs} scan pairs)")
             hold_k5_forms(label, g, dev, log)
         lam_args = doubling.lamport_inputs(g, dev)
         lam = compare("lamport_scan", label,
@@ -3440,6 +3646,17 @@ def main() -> int:
             cl = compare("closure_la", label,
                          lambda: as_tensors(doubling._closure_la(*cl_args)),
                          lambda: as_tensors(doubling._closure_la_plain(*cl_args)), timed)
+        if label == "bench grid":
+            # pass caps that stop the closure before its fixed point
+            for cap in CLOSURE_TRAP_CAPS:
+                t_args = cl_args[:-1] + (cap,)
+                got = as_tensors(doubling._closure_la(*t_args))
+                require_equal(f"closure_la (pass_cap {cap}) on the {label}", got,
+                              as_tensors(doubling._closure_la_plain(*t_args)))
+                if int(got[1]) != cap:
+                    raise AssertionError(f"closure_la (pass_cap {cap}): {int(got[1])} passes")
+            log(f"closure_la == plain on the {label} at pass_cap {CLOSURE_TRAP_CAPS} "
+                f"(of {int(cl[1])} passes to the fixed point)")
         # every chunk of the walk, kernel against plain; the largest is timed
         inv_c = frontier.build_inv(cs.rows_by_d, cs.la_d)
         s_np, first_nw, x0 = doubling.walk_seeds(g, cs)
@@ -3467,18 +3684,31 @@ def main() -> int:
                 False)
         if timed:
             k_ms = cuda_ms(lambda: doubling._walk_chunk(*big), 10)
-            p_ms = cuda_ms(lambda: doubling._walk_chunk_plain(*big), SLOW_PLAIN_REPS, warmup=1)
+            p_ms = cuda_ms(lambda: doubling._walk_chunk_plain(*big), SLOW_PLAIN_REPS, warmup=0)
             # the kernels line's ms is the largest chunk's; the walk
             # launches every chunk once
             all_ms = sum(cuda_ms(lambda a=a: doubling._walk_chunk(*a), 10) for a in chunks)
             log(f"  walk_chunk on the {label}: {big[10]} steps x {big[11]} probes, "
                 f"{k_ms:.4f} ms, plain {p_ms:.3f} ms; all {len(chunks)} chunks "
                 f"({sum(a[10] for a in chunks)} steps) {all_ms:.4f} ms")
+        form = (f"tree depth {_ext.walk_chunk_depth(g.n)}" if g.n <= _ext.WC_BLOCK_MAX
+                else "grid form")
         log(f"walk_chunk == plain on every chunk of the {label} "
-            f"({', '.join(str(a[10]) for a in chunks)} steps, seeded {cs.seeded}); "
+            f"({', '.join(str(a[10]) for a in chunks)} steps, seeded {cs.seeded}, {form}); "
             f"first_nw mask fired on {fired} of {g.n} chains")
         if label != "catch-up section":
             continue
+        # the largest chunk's traps: searches cut short, a non-monotone la
+        base_xs = doubling._walk_chunk(*big)[1]
+        changed = {}
+        for name, t_args in walk_chunk_traps(big).items():
+            got = doubling._walk_chunk(*t_args)
+            want = doubling._walk_chunk_plain(*t_args)
+            torch.cuda.synchronize()
+            require_equal(f"walk_chunk ({name}) on the {label}'s largest chunk", got, want)
+            changed[name] = not torch.equal(got[1], base_xs)
+        log(f"walk_chunk == plain on the {label}'s largest chunk with each trap (the trap "
+            f"changes the chunk's history: {changed})")
         summary["walk_chunk"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
 
         # work bounds at the catch-up section's shapes, from this run's data
@@ -3490,14 +3720,7 @@ def main() -> int:
         work["lamport_scan"] = lamport_work(g.e, lam_args)
         la_fin, passes = cl
         l_c = cs.l_b
-        la0 = doubling._closure_init(cs.creator_d, cs.idx_d, cs.sp_d, cs.op_d, n_s)
-        nonneg_fin = int((la_fin >= 0).sum().item())
-        nonneg_0 = int((la0 >= 0).sum().item())
-        prefix_ops = n_s * l_c * n_s
-        work["closure_la"] = (
-            4 * cs.idx_d.shape[0] * 4 + n_s * l_c * 4 + la_fin.numel() * 4,
-            (nonneg_fin * n_s + prefix_ops
-             + (int(passes) - 1) * (nonneg_0 * n_s + prefix_ops)) / ALU_OPS_S)
+        work["closure_la"] = closure_la_work(cs, la_fin, passes)
         # walk: the timed chunk's working steps (frontier holding a row)
         x_before = torch.cat([big[4][None, :], doubling._walk_chunk_plain(*big)[1][:-1]])
         working = int((x_before < l_c).any(dim=1).sum().item())
@@ -3509,8 +3732,8 @@ def main() -> int:
             + big[5].numel() * 4 + big[6].numel() * 4 + big[10] * n_s * 4 + 3 * n_s * 4,
             working * (n_s * steps * n_s * n_s + n_s * n_s) / ALU_OPS_S)
         log(f"  bound inputs (catch-up section): {pairs} scan (event, witness) pairs, "
-            f"{n_wit} witnesses, closure {int(passes)} passes with {nonneg_0} -> "
-            f"{nonneg_fin} set coordinates, {working} working walk steps of {big[10]}")
+            f"{n_wit} witnesses, closure {int(passes)} passes, {working} working walk steps "
+            f"of {big[10]}")
 
     # the whole catch-up grid (65,536 events: K5's and K8's carries keep
     # the rows past what fits on chip in device memory) and the level
@@ -3583,6 +3806,9 @@ def main() -> int:
         log(f"e2e catch-up {label}: median {ms:.3f} ms over {CATCHUP_RUNS} warm runs, "
             f"{sec.e / ms * 1e3:.0f} events ordered/s replaying the section from cold, "
             f"card: {smi}")
+    log(split_line("  catch-up run_doubling_passes, split",
+                   *cold_path_split(lambda: doubling.run_doubling_passes(sec, device=dev),
+                                    CATCHUP_RUNS)))
     launches["divide_rounds"] = launches_s["divide_rounds"]
     for k in ("closure_la", "walk_chunk", "lamport_scan"):
         launches[k] = launches_d[k]
@@ -3883,6 +4109,7 @@ def main() -> int:
     launches["decide_fame/packed"] = wide_launches["run_frontier_passes"]["decide_fame/packed"]
     launches["frontier_rounds (config #4)"] = (
         wide_launches["run_frontier_passes"]["frontier_rounds"])
+    launches["closure_la (config #4)"] = wide_launches["run_doubling_passes"]["closure_la"]
     launches["divide_rounds/packed/grid"] = (
         wide_launches["run_passes"]["divide_rounds/packed/grid"])
     # K10p and K12p at run (c)'s shape: the kernels line's times and bounds

@@ -3,25 +3,37 @@
 checkout of the PyTorch/CUDA port on one CUDA card.
 
     python3 scripts/time_walk_chunk.py [--root DIR] [--reps N] [--device cuda|cpu]
+                                       [--shapes LABEL;...] [--depths] [--cache DIR]
 
 Imports `babble_tpu_torch` from DIR (default: the checkout that holds this
-script), builds its kernels, and for three grids walks the cold path's
-frontier with every chunk held to the plain version (torch.equal), then
-times the largest chunk by CUDA events behind a spin (the card busy while
-the host enqueues): the catch-up section of bench_catchup.py (8
-validators), the bench grid (64) and BASELINE.json config #4's grid (256).
-Prints one JSON line per grid: validators, chunk steps and probes, the
-median kernel ms over N runs, the card's name and power limit. To compare
-two versions of the kernel, run it against both checkouts in one call, in
-the order A, B, B, A. `--device cpu` rehearses it on the plain versions
-(wall-clock times).
+script), builds its kernels, and for each grid walks the cold path's
+frontier with every chunk held to the plain version (torch.equal), and
+the largest chunk's traps too (`chip_smoke.walk_chunk_traps`: `steps`
+forced to 1, 4 and 5, one chain's la rows reversed), then times the
+largest chunk and every chunk of the walk by CUDA events behind a spin
+(the card busy while the host enqueues): the catch-up section of
+bench_catchup.py (8 validators), the bench grid's generator at 16 and 32
+validators (the one-block walk's upper end), the bench grid (64) and
+BASELINE.json config #4's grid (256). Prints one JSON line per grid:
+validators, chunk steps and probes, the tree depth where the checkout's
+one-block walk has one (`_ext.walk_chunk_depth`), the median kernel ms of
+the largest chunk and the sum of every chunk's medians over N runs, the
+kernel launches per call of the largest chunk (torch.profiler), the
+plain version's ms of the largest chunk (one call) and the card's name
+and power limit. `--depths` also times the one-block walk at every tree
+depth that fits (one line each). The grids are kept in --cache (default
+build/timing_cache). To compare two versions of the kernel, run it
+against both checkouts in one call, in the order A, B, B, A. `--device
+cpu` rehearses it on the plain versions (wall-clock times).
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -30,24 +42,97 @@ import time
 import numpy as np
 import torch
 
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPIN_CYCLES = 1_000_000
-GRIDS = (
-    ("catch-up section", "deep", dict(n=8, depth=16384, seed=0, zipf_a=1.2)),
-    ("bench grid", "grid", dict(n=64, e_count=32768, seed=0, zipf_a=1.1)),
-    ("config #4 grid", "grid", dict(n=256, e_count=65536, seed=11, zipf_a=1.05,
-                                    byzantine_frac=1.0 / 3.0)),
-)
+
+
+def load_chip_smoke():
+    """chip_smoke.py of this script's checkout, for its cell constants and
+    traps (its own imports of the port happen inside its functions, so
+    they resolve to --root)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def shapes(cs):
+    """(label, grid kind, grid spec)."""
+    return (
+        ("catch-up section", "section", cs.CATCHUP),
+        ("16-validator grid", "grid", dict(cs.BENCH, n=16)),
+        ("32-validator grid", "grid", dict(cs.BENCH, n=32)),
+        ("bench grid", "grid", cs.BENCH),
+        ("config #4 grid", "grid", cs.WIDE),
+    )
+
+
+def cached(cache, key, make):
+    """make(), kept on disk under --cache by key."""
+    path = os.path.join(cache, f"cold_{key}.pkl".replace("/", "_").replace(" ", "_"))
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    out = make()
+    os.makedirs(cache, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+    return out
+
+
+def grid_of(kind, spec, dev, cache):
+    """The shape's grid: synthetic_grid(spec), or the catch-up section of
+    synthetic_deep_grid(spec) cut at half its levels."""
+    from babble_tpu_torch.tpu import engine
+    from babble_tpu_torch.tpu.grid import section_grid, synthetic_deep_grid, synthetic_grid
+
+    key = kind + "_" + "_".join(str(spec[k]) for k in sorted(spec))
+    if kind == "section":
+        def make():
+            deep = synthetic_deep_grid(spec["n"], spec["depth"], seed=spec["seed"],
+                                       zipf_a=spec["zipf_a"])
+            return section_grid(deep, engine.run_frontier_passes(deep, device=dev),
+                                deep.num_levels // 2)
+        return cached(cache, key, make)
+    return cached(cache, key, lambda: synthetic_grid(
+        spec["n"], spec["e_count"], seed=spec["seed"], zipf_a=spec["zipf_a"],
+        byzantine_frac=spec.get("byzantine_frac", 0.0)))
+
+
+def launches_per_call(fn, calls):
+    """Kernel launches per call of fn by kernel name (torch.profiler); None
+    where it records no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue
+        if evt.key.startswith(("Memset", "Memcpy")):
+            continue
+        name = evt.key.split("(")[0].replace("void ", "").strip()
+        kernels[name] = kernels.get(name, 0) + evt.count / calls
+    return kernels or None
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--shapes", default="", help="labels separated by ';' (default: all)")
+    ap.add_argument("--depths", action="store_true",
+                    help="also time the one-block walk at every tree depth")
+    ap.add_argument("--cache", default=os.path.join(HERE, "build", "timing_cache"))
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
-    from babble_tpu_torch.tpu import _ext, doubling, engine, frontier
-    from babble_tpu_torch.tpu.grid import section_grid, synthetic_deep_grid, synthetic_grid
+    cs = load_chip_smoke()
+    from babble_tpu_torch.tpu import _ext, doubling, frontier
 
     dev = torch.device(args.device)
     cuda = dev.type == "cuda"
@@ -58,16 +143,18 @@ def main() -> int:
             return 1
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True,
-                              text=True).stdout.strip()
+                              text=True, timeout=60).stdout.strip().splitlines()[0]
         _ext.build_all()
+    wanted = [s.strip() for s in args.shapes.split(";") if s.strip()]
+    tree = hasattr(_ext, "walk_chunk_depth")  # the checkout's one-block walk is a tree
 
     def sync():
         if cuda:
             torch.cuda.synchronize()
 
-    def time_ms(fn):
+    def time_ms(fn, reps):
         times = []
-        for k in range(args.reps + 2):
+        for k in range(reps + 2):
             if cuda:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 torch.cuda._sleep(SPIN_CYCLES)
@@ -84,42 +171,72 @@ def main() -> int:
                 times.append(ms)
         return statistics.median(times)
 
-    for label, kind, spec in GRIDS:
-        if kind == "deep":
-            deep = synthetic_deep_grid(spec["n"], spec["depth"], seed=spec["seed"],
-                                       zipf_a=spec["zipf_a"])
-            g = section_grid(deep, engine.run_frontier_passes(deep, device=dev),
-                             deep.num_levels // 2)
-        else:
-            g = synthetic_grid(spec["n"], spec["e_count"], seed=spec["seed"],
-                               zipf_a=spec["zipf_a"],
-                               byzantine_frac=spec.get("byzantine_frac", 0.0))
+    plain_of = {}  # id(arguments) -> the plain version's result, computed once
+
+    def held(what, a, kern):
+        got = kern(*a)
+        if id(a) not in plain_of:
+            plain_of[id(a)] = (a, doubling._walk_chunk_plain(*a))
+        want = plain_of[id(a)][1]
+        sync()
+        for x, y in zip(got, want):
+            if not torch.equal(x, y):
+                raise AssertionError(f"walk_chunk ({what}): differs from the plain version")
+        return got
+
+    for label, kind, spec in shapes(cs):
+        if wanted and label not in wanted:
+            continue
+        g = grid_of(kind, spec, dev, args.cache)
         st = doubling.stage_doubling(g, dev)
         inv = frontier.build_inv(st.rows_by_d, st.la_d)
         s_np, first_nw, x0 = doubling.walk_seeds(g, st)
         chunks = []
 
         def walk(*a):
-            got = doubling._walk_chunk(*a)
-            want = doubling._walk_chunk_plain(*a)
-            sync()
-            for x, y in zip(got, want):
-                if not torch.equal(x, y):
-                    raise AssertionError(f"walk_chunk (length {a[10]}) on the {label}: "
-                                         f"differs from the plain version")
             chunks.append(a)
-            return got
+            return held(f"length {a[10]} on the {label}", a, doubling._walk_chunk)
 
         doubling._doubling_walk(
             lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev), inv, st.rows_by_d,
             st.fd_d, st.la_d, x0, s_np, first_nw, g.super_majority, st.l_b, st.seeded, {},
             walk=walk)
         big = max(chunks, key=lambda a: a[10])
-        ms = time_ms(lambda: doubling._walk_chunk(*big))
-        print(json.dumps({"grid": label, "validators": g.n, "steps": big[10],
-                          "probes": big[11], "chunks": [a[10] for a in chunks],
-                          "ms": ms, "reps": args.reps, "root": args.root, "card": card}),
-              flush=True)
+        traps = cs.walk_chunk_traps(big)
+        for name, a in traps.items():
+            held(f"{name} on the {label}'s largest chunk", a, doubling._walk_chunk)
+        depths = [None]
+        if tree and g.n <= _ext.WC_BLOCK_MAX:
+            depths = [_ext.walk_chunk_depth(g.n)]
+            if args.depths:
+                depths += [d for d in range(1, _ext.WC_TREE_DEPTH_MAX + 1)
+                           if d != depths[0] and _ext.walk_chunk_tree_smem(g.n, d)
+                           <= _ext.MAX_SMEM_BYTES]
+        plain_ms = None
+        for depth in depths:
+            def kern(*a, depth=depth):
+                if depth is None or not cuda:
+                    return doubling._walk_chunk(*a)
+                return _ext.walk_chunk(*a, depth=depth)
+
+            if depth is not None and depth != depths[0]:
+                for a in chunks:
+                    held(f"length {a[10]}, tree depth {depth}, on the {label}", a, kern)
+                for name, a in traps.items():
+                    held(f"{name}, tree depth {depth}, on the {label}", a, kern)
+            ms = time_ms(lambda: kern(*big), args.reps)
+            all_ms = sum(time_ms(lambda a=a: kern(*a), args.reps) for a in chunks)
+            if plain_ms is None:
+                plain_ms = time_ms(lambda: doubling._walk_chunk_plain(*big), 1)
+            print(json.dumps({
+                "grid": label, "validators": g.n, "steps": big[10], "probes": big[11],
+                "chunks": [a[10] for a in chunks], "tree_depth": depth,
+                "depth_rule": depth == depths[0] if depth is not None else None,
+                "traps_held": list(traps), "ms": ms, "all_chunks_ms": all_ms,
+                "launches": launches_per_call(lambda: kern(*big), 3) if cuda else None,
+                "plain_ms": plain_ms, "reps": args.reps, "root": args.root, "card": card}),
+                flush=True)
+        plain_of.clear()
         del st, inv
     return 0
 

@@ -16,6 +16,8 @@ from babble_tpu_torch.tpu import doubling as port
 from babble_tpu_torch.tpu import engine as port_engine
 from babble_tpu_torch.tpu.grid import section_grid, synthetic_deep_grid
 
+from babble_tpu_torch.tpu import _ext
+from chip_smoke import CLOSURE_TRAP_CAPS, walk_chunk_traps
 from test_doubling import assert_matches
 from test_torch_levelscan import CASE_IDS, CASES, TRAPS, fixture_grid
 
@@ -160,6 +162,119 @@ def test_walk_grids_cover_seeded_unseeded_and_first_nw():
     fired = [c for c in range(pg.n)
              if 0 <= first_nw[c] < hist.shape[0] and hist[first_nw[c], c] == 0]
     assert fired
+
+
+# a section whose closure takes more passes than the caps, and a base grid
+CAP_CASES = [("section", 1.0 / 3.0, True), ("synthetic", 16, 1024, 4, 1.1, 0.0)]
+
+
+@pytest.mark.parametrize("cap", CLOSURE_TRAP_CAPS)
+@pytest.mark.parametrize("case", CAP_CASES, ids=["section-0.333-True", "synthetic-16-1024"])
+def test_closure_la_pass_caps_below_the_fixed_point(case, cap):
+    """The pass caps the card's closure is held to on the bench grid
+    (chip_smoke.CLOSURE_TRAP_CAPS): both packages stop after `cap` passes,
+    before the fixed point, with the same intermediate iterate."""
+    grid = fixture_grid(case)
+    st = port.stage_doubling(grid_from_arrays(vars(grid)), torch.device("cpu"))
+    args = (st.creator_d, st.idx_d, st.sp_d, st.op_d, st.rows_by_d)
+    _, full = port._closure_la(*args, st.l_b, st.block, st.pass_cap)
+    assert full > cap
+    want_la, want_passes = ref._closure_la(
+        *[a.numpy() for a in args], l=st.l_b, block=st.block, pass_cap=cap,
+    )
+    got_la, got_passes = port._closure_la(*args, st.l_b, st.block, cap)
+    assert got_passes == int(want_passes) == cap
+    np.testing.assert_array_equal(got_la.numpy(), np.asarray(want_la))
+
+
+def largest_chunk(case):
+    """The _walk_chunk arguments of the largest chunk of a case's walk."""
+    grid, pg, st = staged(case)
+    inv = port.build_inv(st.rows_by_d, st.la_d)
+    s_np, first_nw, x0 = port.walk_seeds(pg, st)
+    chunks = []
+
+    def walk(*a):
+        chunks.append(a)
+        return port._walk_chunk(*a)
+
+    port._doubling_walk(
+        lambda a: torch.from_numpy(np.ascontiguousarray(a)), inv, st.rows_by_d, st.fd_d,
+        st.la_d, x0, s_np, first_nw, pg.super_majority, st.l_b, st.seeded, {}, walk=walk,
+    )
+    return max(chunks, key=lambda a: a[10])
+
+
+# a seeded walk and an unseeded one whose largest chunk every trap changes
+TRAP_WALK_CASES = [("section", 1.0 / 3.0, True), ("synthetic", 16, 1024, 4, 1.1, 0.0)]
+
+
+@pytest.mark.parametrize("trap", ["steps 1", "steps 4", "steps 5", "non-monotone la"])
+@pytest.mark.parametrize("case", TRAP_WALK_CASES, ids=["section-0.333-True", "synthetic-16-1024"])
+def test_walk_chunk_traps_match_reference(case, trap):
+    """The traps the card's walk is held to (chip_smoke.walk_chunk_traps):
+    searches cut to 1, 4 and 5 probes, which end before they converge, and
+    la rows reversed along the longest chain from its frontier row, so the
+    predicate is not monotone along it; the port's plain chunk against the
+    reference's _walk_chunk on the same inputs."""
+    a = walk_chunk_traps(largest_chunk(case))[trap]
+    got = port._walk_chunk(*a)
+    statics = dict(zip(("super_majority", "l", "length", "steps", "use_seeds"), a[8:]))
+    want = ref._walk_chunk(*[np_(x) for x in a[:8]], **statics)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("case", TRAP_WALK_CASES, ids=["section-0.333-True", "synthetic-16-1024"])
+def test_walk_chunk_traps_change_the_walk(case):
+    """Each trap changes the largest chunk's frontier history on these
+    cases, so that holding a walk to the plain version on them tests the
+    search's exact iteration and not only its converged answer."""
+    big = largest_chunk(case)
+    base = port._walk_chunk(*big)[1]
+    for name, a in walk_chunk_traps(big).items():
+        assert not torch.equal(port._walk_chunk(*a)[1], base), name
+
+
+@pytest.mark.parametrize("n", [1, 4, 5, 8, 9, 16, 17, 24, 32])
+def test_walk_chunk_tree_plan(n):
+    """The one-block walk's rule: the tree depth by width from
+    WC_TREE_DEPTHS (one at every width up to WC_BLOCK_MAX, not increasing
+    with it), and block_smem's entry, which is the kernel's shared memory
+    at that depth and fits one block; past WC_BLOCK_MAX the grid form."""
+    depth = _ext.walk_chunk_depth(n)
+    assert 1 <= depth <= _ext.WC_TREE_DEPTH_MAX
+    assert all(_ext.walk_chunk_depth(m) >= depth for m in range(1, n + 1))
+    smem = _ext.block_smem("walk_chunk", n)["walk"]
+    assert smem == _ext.walk_chunk_tree_smem(n, depth) <= _ext.MAX_SMEM_BYTES
+    # each chain's probed rows (2^d - 1 rows of the power of two at or
+    # above n, at least 4) and its closure terms by leaf (2^d x n words)
+    np_ = max(4, 1 << (n - 1).bit_length())
+    nodes = (1 << depth) - 1
+    assert smem == n * (nodes * np_ + ((nodes + 1) * n + 3) // 4 * 4) * 4
+    with pytest.raises(ValueError):
+        _ext.walk_chunk_depth(_ext.WC_BLOCK_MAX + 1)
+
+
+@pytest.mark.parametrize("n,l", [(4, 64), (5, 64), (8, 8192), (12, 128), (33, 64), (64, 1024),
+                                 (256, 512), (1024, 64)])
+def test_closure_la_plan(n, l):
+    """K6's launch shape: rows of n rounded up to 4 words; the prefix's
+    lanes fill a block and its segments (at most CL_K_MAX slots a thread)
+    cover the chain; the squaring's tile is CL_ROWS rows a row group; the
+    shared memory is block_smem's and fits one block up to 1,024
+    validators."""
+    plan = _ext.closure_la_plan(n, l)
+    assert plan["ld"] % 4 == 0 and n <= plan["ld"] < n + 4
+    sl = _ext.CL_THREADS // plan["ql"]
+    assert plan["ql"] * sl == _ext.CL_THREADS
+    assert 1 <= plan["k"] <= _ext.CL_K_MAX
+    assert (plan["groups"] - 1) * sl * plan["k"] < l <= plan["groups"] * sl * plan["k"]
+    assert _ext.CL_THREADS % plan["ql4"] == 0 and plan["ql4"] * 4 >= min(plan["ld"], 256)
+    assert plan["tile"] == _ext.CL_THREADS // plan["ql4"] * _ext.CL_ROWS
+    assert plan["smem"] == _ext.block_smem("closure_la", n)["pass"] <= _ext.MAX_SMEM_BYTES
+    assert [plan[k] for k in _ext.CLOSURE_PLAN_KEYS][-1] == plan["smem"]
+    _ext.check_smem("closure_la", n)
 
 
 @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
