@@ -42,28 +42,6 @@ static inline unsigned babble_stride_blocks(long long work, int threads) {
         if (babble_err_ != cudaSuccess) return (int)babble_err_; \
     } while (0)
 
-// The staging area of a block of decide_fame.cu: its rows and bit words.
-// A launch whose blocks fit one block's shared memory keeps them in dynamic
-// shared memory (DEV false); a wider one runs the same kernel code with
-// them in the block's own slice of a device scratch the wrapper allocates
-// (DEV true; tpu/_ext.py staging chooses, and the launcher follows its pointer),
-// `words` int32 words per block in block order, read and written through
-// L1/L2. __syncthreads and __syncwarp order global memory within the block
-// as they order shared memory, so the barriers stay as they are.
-template <bool DEV>
-__device__ __forceinline__ int32_t* babble_staging(int32_t* stage, long long words) {
-    extern __shared__ int32_t babble_dyn_smem[];
-    if (DEV) return stage + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * words;
-    return babble_dyn_smem;
-}
-
-// Int32 words of one block's slice of the device staging scratch: the
-// launch's shared-memory bytes in words, rounded up to 16 bytes so that
-// every slice keeps the int4 alignment of the staged tiles.
-static inline long long babble_stage_words(size_t smem_bytes) {
-    return (long long)((smem_bytes / 4 + 3) / 4 * 4);
-}
-
 // Allow a shared-memory launch above the default 48 KB.
 template <typename Kernel>
 static inline cudaError_t babble_allow_smem(Kernel kernel, size_t smem) {
@@ -134,41 +112,6 @@ __device__ __forceinline__ bool babble_warp_sees_majority(const int32_t* la_e,
         for (int u = 0; u < BABBLE_WG; ++u) seen += ok[u] && cnt[u] >= super_majority;
     }
     return seen >= super_majority;
-}
-
-// Row stride, in int32 words, of a staged (rows, n) tile that is read 16
-// bytes at a time: a multiple of 4 whose count of 16-byte units is odd,
-// so that the lanes of a quarter warp reading one unit of eight different
-// rows hit eight different bank groups.
-__host__ __device__ __forceinline__ int babble_tile_ld(int n) {
-    return 4 * (((n + 3) / 4) | 1);
-}
-
-// |{q < ld : a[q] >= b[q]}| over two staged rows of stride
-// babble_tile_ld(n), 16 bytes per load; the padding past n holds MIN_INT32
-// in a and MAX_INT32 in b, which never compares true.
-__device__ __forceinline__ int babble_tile_count_ge(const int32_t* a, const int32_t* b, int ld) {
-    const int4* a4 = reinterpret_cast<const int4*>(a);
-    const int4* b4 = reinterpret_cast<const int4*>(b);
-    int cnt = 0;
-    for (int k = 0; k < ld / 4; ++k) {
-        const int4 x = a4[k], y = b4[k];
-        cnt += (x.x >= y.x) + (x.y >= y.y) + (x.z >= y.z) + (x.w >= y.w);
-    }
-    return cnt;
-}
-
-// Stage up to 32 event rows (n int32 each) into a tile of stride ld:
-// tile row r gets src_row(r) (null: the whole row is `fill`), the columns
-// past n get `fill`. All threads of the block take part; the caller syncs.
-template <typename SrcRow>
-__device__ __forceinline__ void babble_stage_tile(int32_t* tile, int ld, int n,
-                                                  int32_t fill, SrcRow src_row) {
-    for (int k = threadIdx.x; k < 32 * ld; k += blockDim.x) {
-        const int r = k / ld, q = k % ld;
-        const int32_t* row = src_row(r);
-        tile[k] = (row != nullptr && q < n) ? row[q] : fill;
-    }
 }
 
 // Every block of a co-resident grid (a cooperative launch) waits here

@@ -2,475 +2,307 @@
 //
 // Replaces babble_tpu/tpu/kernels.py:335 _decide_fame (_fame_setup_tables
 // and the while_loop of _decide_fame_tables), in both voting-table
-// layouts: the wide one first, the packed one below.
+// layouts, with one pair of launches: the two layouts give equal integers,
+// and both tables are this call's own scratch, so the wide call votes on
+// bit words too.
 //
-// Setup, one thread per (j, y, w):
-//   ss[j, y, w]     = witness y of round j strongly sees witness w of round
-//                     j-1: |{p : la[y][p] >= fd[w][p]}| >= super_majority
-//                     (no round -1: the reference's roll wrap is masked)
-//   votes0[i, y, x] = witness y of round i+1 has witness x of round i as an
-//                     ancestor: la[y][x] >= index[x] (no round R: masked)
-// Voting, one block per round i, the offset d looping inside the block:
-//   yays[y, x] = sum_w ss[i+d, y, w] * votes[w, x]  (an integer loop; no
-//   float product, so no TF32), nays = total - yays, first decision wins,
-//   coin rounds (d % n == 0) take the voter's coin bit when not strong.
-// Each round's votes evolve on their own, so a round stops as soon as it
-// has no undecided witness with voters left. After that stop it could no
-// longer decide anything, which makes the per-round exit give the same
-// bits as the reference's global any(active) exit, with no host sync.
+// Setup, a block per (round j, tile of 64 voters y, tile of 64 witnesses
+// w): the compare-count tile (common.cuh babble_count_ge_tile, as
+// decide_window's setup takes it: the coordinates through shared memory by
+// cp.async, a 4 x 4 register tile of (y, w) pairs per thread) counts la >=
+// fd, the same shared memory at every width:
+//   ss[j, y, w]  = y (round j) strongly sees w (round j - 1): the count
+//                  reaches super_majority (no round -1: masked), packed by
+//                  __ballot_sync into word w / 32 of row y;
+//   aux[j, y]    = the row's popcount * 4 + y's coin bit * 2 + y present
+//                  (total[y] counted once per plane; each witness tile adds
+//                  its words' popcounts into the zeroed row);
+//   vt0[i, x, :] = the d = 1 votes of round i = j - 1 whose voters are the
+//                  tile's rows, columns x the witness tile: la[y][x] >=
+//                  index[x] (transposed, as pack_votes_t lays them out).
+// Vote, grid (tile of FV_COLS columns x, round i), fame_vote.cuh's
+// fame_task: a warp per column, its votes in registers (in shared memory
+// past 1,024 validators), steps to the
+// column's own exit, the strongly-see planes of rounds i + 2, i + 3, ...
+// fetched ahead into a shared-memory ring. The last block of round i to
+// finish (a ticket per round, zeroed by the setup) writes rounds_decided[i]
+// from the flags every tile of the round has or-ed in.
 //
-// Bound: bytes (the witness rows of la and fd, R * N * N int32 each, and
-// the (R, N) outputs); the tally is N^3 small integer operations per round
-// per offset, far below the card's rate. Votes live in a (R, 2, N, N)
-// uint8 scratch the wrapper allocates (read back from L1/L2); per-round
-// flags live in shared memory.
-//
-// The packed layout (babble_tpu/tpu/kernels.py:209 and :256-317 with
-// packed=True, tpu/packed.py) holds the voted-witness axis in uint32
-// words, bit k of word w for witness 32 w + k:
-//   ss    (R, N_y, W) words: the setup runs one block per (round j, tile
-//         of 32 rows y), the la rows of its tile staged in shared memory
-//         and the fd rows of round j-1 passed through a second tile 32
-//         rows at a time; one warp per row y and one lane per witness w
-//         count la >= fd with 16-byte loads, and the warp packs its 32
-//         verdicts with __ballot_sync (lane 0 stores the word);
-//   votes (R, N_x, W) words, transposed as pack_votes_t lays them out:
-//         the same block packs the d = 1 votes of round j-1 whose voters
-//         are its 32 rows y, one word per witness x;
-// then one block per round i votes with the whole round in shared memory
-// (the votes and the next step's, the voting round's ss words, W / N x 4
-// = 1/8 of the wide scratch's bytes at N = 256):
-//   yays[y, x] = sum_w popc(ss[j, y, w] & vT[x, w]), total[y] = the ss
-//   row's popcount; the step's verdicts are packed by ballot over 32
-//   voters y into the next vote words, a coin step taking the voter's
-//   wide coin bit where not strong.
-// The early per-round exit is the wide kernel's. Zero padding bits add
-// nothing to any popcount, so every integer equals the wide layout's.
-// Past 736 validators the vote's words (and past 860 the setup's two
-// tiles) no longer fit one block's shared memory: that launch then stages
-// them in its block's slice of a device scratch (common.cuh
-// babble_staging), the same code reading them through L1/L2.
+// Bound: bytes at small widths (the witness rows of la and fd, R * N * N
+// int32 each, and the (R, N) outputs), the setup's N^3 compares a round
+// from a few hundred validators; the tally is N^2 words popcounts per round
+// and step. The setup takes the same shared memory at every width; the
+// vote the same up to 1,024 validators, then a ring of fewer slots beside
+// the columns' words (fame_vote.cuh fv_stages), up to 19,296 validators
+// (603 words). No staging form.
 //
 // babble_fame_setup launches the setup alone, in either layout, for the
 // device mesh (babble_tpu/tpu/sharded.py:384, kernels._fame_setup run
-// replicated before the rounds-sharded vote): wide ss (R, N, N) and votes0
-// (R, N, N) uint8, or packed ss (R, N, W) and votes0 (R, N_x, W) words.
+// replicated before the rounds-sharded vote): packed ss (R, N, W) and
+// votes0 (R, N_x, W) words, or the wide (R, N, N) uint8 tables, which the
+// same tiles write a byte a verdict.
 
-#include "common.cuh"
+#include "fame_vote.cuh"
 
-#define DF_THREADS 1024
-#define DF_WARPS (DF_THREADS / 32)
+// The setup: a block per (round j, tile of FS_T voters y, tile of FS_T
+// witnesses w), FS_THREADS threads, each a FS_TM x FS_TN register tile of
+// (y, w) pairs of the compare-count tile (common.cuh babble_count_ge_tile:
+// la rows y of round j against fd rows w of round j - 1, the coordinates
+// through shared memory by cp.async), the same shared memory at every
+// width.
+#define FS_T 64
+#define FS_THREADS 256
+#define FS_STAGES 3
+#define FS_TM 4
+#define FS_TN 4
 
-__global__ void fame_setup(const int32_t* __restrict__ wtable,
-                           const int32_t* __restrict__ la,
-                           const int32_t* __restrict__ fd,
-                           const int32_t* __restrict__ index,
-                           uint8_t* ss, uint8_t* votes, long long votes_stride,
-                           int r_max, int n, int e, int super_majority) {
-    long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    long long nn = (long long)n * n;
-    if (k >= (long long)r_max * nn) return;
-    int j = (int)(k / nn);
-    int y = (int)((k / n) % n);
-    int w = (int)(k % n);
+// WIDE writes the mesh's byte tables: ss (R, N, N), votes (R, N_y, N_x).
+// Packed: ss (R, ss_rows, ss_ld) words (rows past n zero), votes (R, N_x,
+// W) words. Where aux is not null (K3) the block adds its words' popcounts
+// * 4 into aux (R, ss_rows), which the launcher zeroes, and the blocks of
+// the first witness tile the voter's coin bit * 2 + present; flags (R, 2)
+// is zeroed, and rounds past *last_round are left unwritten: K3's vote reads
+// no plane past last_round, nor the d = 1 votes of a round with no step.
+template <bool WIDE>
+__global__ void __launch_bounds__(FS_THREADS)
+fame_setup_pairs(const int32_t* __restrict__ wtable, const int32_t* __restrict__ la,
+                 const int32_t* __restrict__ fd, const int32_t* __restrict__ index,
+                 const uint8_t* __restrict__ coin_bit, const int32_t* __restrict__ last_round,
+                 void* ss, void* votes, int32_t* aux, uint32_t* flags, int ss_rows, int ss_ld,
+                 int r_max, int n, int e, int words, int super_majority) {
+    extern __shared__ int4 fs_smem4[];
+    int32_t* smem = reinterpret_cast<int32_t*>(fs_smem4);
+    __shared__ const int32_t* a_rows[FS_T];  // la rows y of round j (present, j > 0)
+    __shared__ const int32_t* b_rows[FS_T];  // fd rows w of round j - 1 (present)
+    __shared__ int idx_x[FS_T];              // index of round j - 1's witness x
+    constexpr int TX = FS_T / FS_TN, TY = FS_T / FS_TM;
+    constexpr int FLD = FS_T + 1;  // the verdict tiles' row stride
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    constexpr int N_WARPS = FS_THREADS / 32;
+    const int n_t = (n + FS_T - 1) / FS_T;
+    const int j = blockIdx.y;
+    const int y0 = (blockIdx.x / n_t) * FS_T, w0 = (blockIdx.x % n_t) * FS_T;
 
-    int wy = wtable[(long long)j * n + y];
-    uint8_t s = 0;
-    if (j > 0 && wy >= 0) {
-        int ww = wtable[(long long)(j - 1) * n + w];
-        if (ww >= 0) {
-            const int32_t* la_y = la + (long long)babble_clamp(wy, 0, e - 1) * n;
-            const int32_t* fd_w = fd + (long long)babble_clamp(ww, 0, e - 1) * n;
-            int cnt = 0;
-            for (int p = 0; p < n; ++p) cnt += la_y[p] >= fd_w[p];
-            s = cnt >= super_majority;
-        }
+    if (flags != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+        flags[2 * j] = 0;
+        flags[2 * j + 1] = 0;
     }
-    ss[k] = s;
-
-    // votes0[j, y, x = w]: round j's first (N, N) plane, votes_stride
-    // elements apart (buffer 0 of the vote's ping-pong pair)
-    uint8_t v = 0;
-    if (j + 1 < r_max) {
-        int wn = wtable[(long long)(j + 1) * n + y];
-        if (wn >= 0) {
-            int rx = babble_clamp(wtable[(long long)j * n + w], 0, e - 1);
-            v = la[(long long)babble_clamp(wn, 0, e - 1) * n + w] >= index[rx];
-        }
-    }
-    votes[(long long)j * votes_stride + (long long)y * n + w] = v;
-}
-
-__global__ void fame_vote(const int32_t* __restrict__ wtable,
-                          const uint8_t* __restrict__ coin_bit,
-                          const int32_t* __restrict__ last_round,
-                          const uint8_t* __restrict__ ss, uint8_t* votes,
-                          uint8_t* decided, uint8_t* famous, uint8_t* rounds_decided,
-                          int r_max, int n, int e, int super_majority,
-                          int n_participants, int d_cap) {
-    extern __shared__ int32_t smem[];
-    int32_t* wv = smem;            // wvalid[i, x]
-    int32_t* dec = wv + n;         // decided[i, x]
-    int32_t* fam = dec + n;        // famous[i, x]
-    int32_t* any_dec = fam + n;    // this step's decisions
-    int32_t* any_fam = any_dec + n;
-    int32_t* tot = any_fam + n;    // total[y] = sum_w ss[j, y, w]
-
-    const int i = blockIdx.x;
-    const long long nn = (long long)n * n;
-    const int lr = *last_round;
-    for (int x = threadIdx.x; x < n; x += blockDim.x) {
-        wv[x] = wtable[(long long)i * n + x] >= 0;
-        dec[x] = fam[x] = any_dec[x] = any_fam[x] = 0;
-    }
-    __syncthreads();
-
-    int cur = 0;
-    for (int d = 2;; ++d) {
-        int act = 0;
-        if (i + d <= lr) {
-            for (int x = threadIdx.x; x < n; x += blockDim.x) act |= wv[x] && !dec[x];
-        }
-        if (!__syncthreads_or(act) || d > d_cap) break;
-
-        const int j = i + d;
-        const bool j_ok = j <= lr;
-        const int jc = babble_clamp(j, 0, r_max - 1);
-        const uint8_t* ssj = ss + (long long)jc * nn;
-        const uint8_t* vc = votes + ((long long)i * 2 + cur) * nn;
-        uint8_t* vn = votes + ((long long)i * 2 + (cur ^ 1)) * nn;
-        const int32_t* wt_j = wtable + (long long)jc * n;
-
-        for (int y = threadIdx.x; y < n; y += blockDim.x) {
-            int s = 0;
-            if (j_ok) for (int w = 0; w < n; ++w) s += ssj[(long long)y * n + w];
-            tot[y] = s;
-        }
-        __syncthreads();
-
-        const bool is_coin = (d % n_participants) == 0;
-        for (long long k = threadIdx.x; k < nn; k += blockDim.x) {
-            int y = (int)(k / n), x = (int)(k % n);
-            int yays = 0;
-            if (j_ok) {
-                const uint8_t* row = ssj + (long long)y * n;
-                for (int w = 0; w < n; ++w) yays += row[w] & vc[(long long)w * n + x];
-            }
-            int nays = tot[y] - yays;
-            bool v = yays >= nays;
-            int t = v ? yays : nays;
-            bool strong = t >= super_majority;
-            int wy = wt_j[y];
-            if (is_coin) {
-                vn[k] = strong ? (uint8_t)v : coin_bit[babble_clamp(wy, 0, e - 1)];
-            } else {
-                vn[k] = v;
-                if (strong && j_ok && wy >= 0 && wv[x] && !dec[x]) {
-                    any_dec[x] = 1;  // benign race: every writer stores 1
-                    if (v) any_fam[x] = 1;
-                }
-            }
-        }
-        __syncthreads();
-        for (int x = threadIdx.x; x < n; x += blockDim.x) {
-            if (any_dec[x]) {
-                fam[x] = any_fam[x];
-                dec[x] = 1;
-                any_dec[x] = any_fam[x] = 0;
-            }
-        }
-        cur ^= 1;
-        __syncthreads();
-    }
-
-    int all_done = 1, any_valid = 0;
-    for (int x = threadIdx.x; x < n; x += blockDim.x) {
-        decided[(long long)i * n + x] = dec[x];
-        famous[(long long)i * n + x] = fam[x];
-        all_done &= dec[x] || !wv[x];
-        any_valid |= wv[x];
-    }
-    all_done = __syncthreads_and(all_done);
-    any_valid = __syncthreads_or(any_valid);
-    if (threadIdx.x == 0) rounds_decided[i] = all_done && any_valid;
-}
-
-
-// the packed setup: grid (r_max, words), one block per (round j, y tile)
-template <bool DEV>
-__global__ void __launch_bounds__(DF_THREADS)
-fame_setup_packed(const int32_t* __restrict__ wtable,
-                  const int32_t* __restrict__ la,
-                  const int32_t* __restrict__ fd,
-                  const int32_t* __restrict__ index,
-                  uint32_t* ss, uint32_t* vt0,
-                  int r_max, int n, int e, int words, int super_majority,
-                  int32_t* stage, long long stage_words) {
-    int32_t* smem = babble_staging<DEV>(stage, stage_words);
-    const int ld = babble_tile_ld(n);
-    int32_t* tile_a = smem;              // (32, ld) la rows of round j, this y tile
-    int32_t* tile_b = tile_a + 32 * ld;  // (32, ld) fd rows of round j - 1, a w tile
-    int32_t* wv_j = tile_b + 32 * ld;    // (n,) witness present in round j
-    int32_t* wv_p = wv_j + n;            // ... in round j - 1
-    int32_t* idx_p = wv_p + n;           // (n,) index of round j - 1's witness rows
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int j = blockIdx.x;
-    const int yt = blockIdx.y;
-    const int y = yt * 32 + warp;
-    const int32_t* wt_j = wtable + (long long)j * n;
-    const int32_t* wt_p = wtable + (long long)(j - 1) * n;
-
-    for (int x = threadIdx.x; x < n; x += blockDim.x) {
-        wv_j[x] = wt_j[x] >= 0;
-        wv_p[x] = j > 0 && wt_p[x] >= 0;
+    if (last_round != nullptr && j > *last_round) return;
+    int has_a = 0, has_b = 0;
+    if (threadIdx.x < FS_T) {
+        const int t = threadIdx.x, y = y0 + t, w = w0 + t;
+        const int ry = y < n ? wtable[(long long)j * n + y] : -1;
+        const int rw = j > 0 && w < n ? wtable[(long long)(j - 1) * n + w] : -1;
         // an absent witness reads row 0, as the reference's gather clamps
-        idx_p[x] = j > 0 ? index[babble_clamp(wt_p[x], 0, e - 1)] : 0;
+        const long long cy = babble_clamp(ry, 0, e - 1), cw = babble_clamp(rw, 0, e - 1);
+        a_rows[t] = j > 0 && ry >= 0 ? la + cy * n : nullptr;
+        b_rows[t] = rw >= 0 ? fd + cw * n : nullptr;
+        idx_x[t] = j > 0 ? index[cw] : 0;
+        has_a = a_rows[t] != nullptr;
+        has_b = rw >= 0;
+        if (!WIDE && aux != nullptr && w0 == 0 && y < n) {
+            atomicAdd(aux + (long long)j * ss_rows + y, (coin_bit[cy] ? 2 : 0) + (ry >= 0 ? 1 : 0));
+        }
     }
-    babble_stage_tile(tile_a, ld, n, BABBLE_MIN_INT32, [&](int r) {
-        const int yy = yt * 32 + r;
-        return yy < n ? la + (long long)babble_clamp(wt_j[yy], 0, e - 1) * n : nullptr;
-    });
-    __syncthreads();
-    const int any_y = __syncthreads_or(j > 0 && y < n && wv_j[y]);
-
-    // ss words: word wt of row y holds witnesses w = 32 wt + lane
-    for (int wt = 0; wt < words; ++wt) {
-        const int w = wt * 32 + lane;
-        const int go = any_y && __syncthreads_or(w < n && wv_p[w]);
-        int s = 0;
-        if (go) {
-            babble_stage_tile(tile_b, ld, n, BABBLE_MAX_INT32, [&](int r) {
-                const int ww = wt * 32 + r;
-                return ww < n ? fd + (long long)babble_clamp(wt_p[ww], 0, e - 1) * n : nullptr;
-            });
-            __syncthreads();
-            if (y < n && w < n && wv_j[y] && wv_p[w]) {
-                s = babble_tile_count_ge(tile_a + warp * ld, tile_b + lane * ld, ld)
-                    >= super_majority;
+    // count only where the tile holds a present pair
+    const int any_a = __syncthreads_or(has_a);
+    const int any_b = __syncthreads_or(has_b);
+    const bool go = any_a && any_b;
+    int* flg = smem;  // (FS_T, FLD) verdicts; the tile's ring before
+    if (go) {
+        int cnt[FS_TM][FS_TN];
+        babble_count_ge_tile<FS_T, FS_T, FS_TM, FS_TN, FS_STAGES>(
+            smem, n, a_rows, b_rows,
+            babble_rows_aligned16(la, n) && babble_rows_aligned16(fd, n), cnt);
+        const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+#pragma unroll
+        for (int i = 0; i < FS_TM; ++i)
+#pragma unroll
+            for (int q = 0; q < FS_TN; ++q) {
+                const int m = ty + i * TY, w = tx + q * TX;
+                flg[m * FLD + w] = a_rows[m] != nullptr && b_rows[w] != nullptr
+                                   && cnt[i][q] >= super_majority;
+            }
+        __syncthreads();
+    }
+    if (WIDE) {
+        // ss bytes, a row of the tile per warp and step, lanes over w
+        for (int m = warp; m < FS_T; m += N_WARPS) {
+            const int y = y0 + m;
+            if (y >= n) continue;
+            uint8_t* out = (uint8_t*)ss + ((long long)j * n + y) * n;
+            for (int wl = lane; wl < FS_T; wl += 32) {
+                if (w0 + wl < n) out[w0 + wl] = go ? (uint8_t)flg[m * FLD + wl] : (uint8_t)0;
             }
         }
-        const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, s);
-        if (lane == 0 && y < n) ss[((long long)j * n + y) * words + wt] = bits;
-        __syncthreads();  // tile_b is restaged next
+    } else {
+        // ss row bits: word (w0 / 32 + h) of row y holds witnesses w0 + 32 h + lane
+        for (int k = warp; k < FS_T * (FS_T / 32); k += N_WARPS) {
+            const int m = k / (FS_T / 32), h = k % (FS_T / 32);
+            const int y = y0 + m, wd = w0 / 32 + h;
+            const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, go && flg[m * FLD + 32 * h + lane]);
+            if (lane == 0 && y < ss_rows && wd < words) {
+                ((uint32_t*)ss)[((long long)j * ss_rows + y) * ss_ld + wd] = bits;
+                if (aux != nullptr && bits) atomicAdd(aux + (long long)j * ss_rows + y, 4 * __popc(bits));
+            }
+        }
     }
-
-    // the d = 1 votes of round i = j - 1, voters y of round j: word yt of
-    // witness x's column. Round R - 1 has no voters above it: block j = 0
-    // zeroes its words.
-    const int yv = yt * 32 + lane;
+    __syncthreads();  // flg is rewritten next
+    // the d = 1 votes of round i = j - 1, voters y of round j, columns x of
+    // the witness tile: la[y][x] >= index[x]. Round R - 1 has no voters
+    // above it: the blocks of j = 0 zero its entries.
     const int i = j > 0 ? j - 1 : r_max - 1;
-    for (int x = warp; x < n; x += DF_WARPS) {
-        int v = 0;
-        if (j > 0 && yv < n && wv_j[yv]) v = tile_a[lane * ld + x] >= idx_p[x];
-        const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, v);
-        if (lane == 0) vt0[((long long)i * n + x) * words + yt] = bits;
+    constexpr int PER = FS_T * FS_T / FS_THREADS;  // every load in flight at once
+    int v[PER];
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+        const int k = threadIdx.x + u * FS_THREADS;
+        const int m = k / FS_T, xl = k % FS_T;
+        v[u] = 0;
+        if (a_rows[m] != nullptr && w0 + xl < n) v[u] = a_rows[m][w0 + xl] >= idx_x[xl];
     }
-}
-
-// the packed vote: one block per round i, the round's words in shared memory
-template <bool DEV>
-__global__ void __launch_bounds__(DF_THREADS)
-fame_vote_packed(const int32_t* __restrict__ wtable,
-                 const uint8_t* __restrict__ coin_bit,
-                 const int32_t* __restrict__ last_round,
-                 const uint32_t* __restrict__ ss, const uint32_t* __restrict__ vt0,
-                 uint8_t* decided, uint8_t* famous, uint8_t* rounds_decided,
-                 int r_max, int n, int e, int words, int super_majority,
-                 int n_participants, int d_cap, int32_t* stage, long long stage_words) {
-    int32_t* smem = babble_staging<DEV>(stage, stage_words);
-    const int nw = n * words;
-    const int ldw = words | 1;  // odd row stride: lanes over rows y hit distinct banks
-    uint32_t* vt = (uint32_t*)smem;    // (n, words) vote words of round i
-    uint32_t* vt_next = vt + nw;
-    uint32_t* ss_s = vt_next + nw;     // (n, ldw) ss words of the voting round
-    int32_t* tot = (int32_t*)(ss_s + n * ldw);  // (n,) popcount of each ss row
-    int32_t* vy = tot + n;             // (n,) voter y present and j <= last_round
-    int32_t* coin = vy + n;            // (n,) voter y's coin bit
-    int32_t* wv = coin + n;            // wvalid[i, x]
-    int32_t* dec = wv + n;             // decided[i, x]
-    int32_t* fam = dec + n;            // famous[i, x]
-    int32_t* any_dec = fam + n;        // this step's decisions
-    int32_t* any_fam = any_dec + n;
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int i = blockIdx.x;
-    const int lr = *last_round;
-    for (int k = threadIdx.x; k < nw; k += blockDim.x) vt[k] = vt0[(long long)i * nw + k];
-    for (int x = threadIdx.x; x < n; x += blockDim.x) {
-        wv[x] = wtable[(long long)i * n + x] >= 0;
-        dec[x] = fam[x] = any_dec[x] = any_fam[x] = 0;
+    if (WIDE) {
+#pragma unroll
+        for (int u = 0; u < PER; ++u) {
+            const int k = threadIdx.x + u * FS_THREADS;
+            const int y = y0 + k / FS_T, x = w0 + k % FS_T;
+            if (y < n && x < n) ((uint8_t*)votes)[((long long)i * n + y) * n + x] = (uint8_t)v[u];
+        }
+        return;
+    }
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+        const int k = threadIdx.x + u * FS_THREADS;
+        flg[(k / FS_T) * FLD + k % FS_T] = v[u];
     }
     __syncthreads();
-
-    for (int d = 2;; ++d) {
-        int act = 0;
-        if (i + d <= lr) {
-            for (int x = threadIdx.x; x < n; x += blockDim.x) act |= wv[x] && !dec[x];
+    // word (y0 / 32 + h) of column x holds voters y0 + 32 h + lane
+    for (int k = warp; k < FS_T * (FS_T / 32); k += N_WARPS) {
+        const int xl = k / (FS_T / 32), h = k % (FS_T / 32);
+        const int wd = y0 / 32 + h;
+        const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, flg[(32 * h + lane) * FLD + xl]);
+        if (lane == 0 && w0 + xl < n && wd < words) {
+            ((uint32_t*)votes)[((long long)i * n + w0 + xl) * words + wd] = bits;
         }
-        if (!__syncthreads_or(act) || d > d_cap) break;
-
-        const int j = i + d;
-        const bool j_ok = j <= lr;
-        const int jc = babble_clamp(j, 0, r_max - 1);
-        for (int k = threadIdx.x; k < nw; k += blockDim.x) {
-            ss_s[(k / words) * ldw + k % words] = j_ok ? ss[(long long)jc * nw + k] : 0u;
-        }
-        for (int yy = threadIdx.x; yy < n; yy += blockDim.x) {
-            const int wy = wtable[(long long)jc * n + yy];
-            vy[yy] = j_ok && wy >= 0;
-            coin[yy] = coin_bit[babble_clamp(wy, 0, e - 1)];
-        }
-        __syncthreads();
-        for (int yy = threadIdx.x; yy < n; yy += blockDim.x) {
-            int t = 0;
-            for (int k = 0; k < words; ++k) t += __popc(ss_s[yy * ldw + k]);
-            tot[yy] = t;
-        }
-        __syncthreads();
-
-        const bool is_coin = (d % n_participants) == 0;
-        for (int task = warp; task < nw; task += DF_WARPS) {
-            const int x = task / words, wd = task % words;
-            const int y = wd * 32 + lane;
-            int nv = 0, dn = 0, dv = 0;
-            if (y < n) {
-                int yays = 0;
-                for (int k = 0; k < words; ++k) yays += __popc(ss_s[y * ldw + k] & vt[x * words + k]);
-                const int nays = tot[y] - yays;
-                const int v = yays >= nays;
-                const bool strong = (v ? yays : nays) >= super_majority;
-                if (is_coin) {
-                    nv = strong ? v : coin[y];
-                } else {
-                    nv = v;
-                    dn = strong && vy[y] && wv[x] && !dec[x];
-                    dv = dn && v;
-                }
-            }
-            const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, nv);
-            const unsigned b_dn = __ballot_sync(BABBLE_FULL_MASK, dn);
-            const unsigned b_dv = __ballot_sync(BABBLE_FULL_MASK, dv);
-            if (lane == 0) {
-                vt_next[task] = bits;
-                // benign races: every writer stores 1
-                if (b_dn) any_dec[x] = 1;
-                if (b_dv) any_fam[x] = 1;
-            }
-        }
-        __syncthreads();
-        for (int x = threadIdx.x; x < n; x += blockDim.x) {
-            if (any_dec[x]) {
-                fam[x] = any_fam[x];
-                dec[x] = 1;
-                any_dec[x] = any_fam[x] = 0;
-            }
-        }
-        for (int k = threadIdx.x; k < nw; k += blockDim.x) vt[k] = vt_next[k];
-        __syncthreads();
     }
-
-    int all_done = 1, any_valid = 0;
-    for (int x = threadIdx.x; x < n; x += blockDim.x) {
-        decided[(long long)i * n + x] = dec[x];
-        famous[(long long)i * n + x] = fam[x];
-        all_done &= dec[x] || !wv[x];
-        any_valid |= wv[x];
-    }
-    all_done = __syncthreads_and(all_done);
-    any_valid = __syncthreads_or(any_valid);
-    if (threadIdx.x == 0) rounds_decided[i] = all_done && any_valid;
 }
 
-extern "C" int babble_decide_fame(
-    const int32_t* wtable, const int32_t* la, const int32_t* fd,
-    const int32_t* index, const uint8_t* coin_bit, const int32_t* last_round,
-    void* ss, void* votes, uint8_t* decided, uint8_t* famous,
-    uint8_t* rounds_decided, int32_t* stage_setup, int32_t* stage_vote, int r_max, int n,
-    int e, int super_majority,
-    int n_participants, int d_cap, int packed, int device, void* stream) {
-    BABBLE_CHECK(cudaSetDevice(device));
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (packed) {
-        // ss (r_max, n, words) and votes (r_max, n, words) uint32 words;
-        // a launch handed a scratch stages in it (tpu/_ext.py staging
-        // chooses the form per launch), else in shared memory
-        const int words = (n + 31) / 32;
-        const size_t smem_setup =
-            ((size_t)64 * babble_tile_ld(n) + (size_t)3 * n) * sizeof(int32_t);
-        const dim3 grid_setup(r_max, words);
-        if (stage_setup != nullptr) {
-            fame_setup_packed<true><<<grid_setup, DF_THREADS, 0, s>>>(
-                wtable, la, fd, index, (uint32_t*)ss, (uint32_t*)votes, r_max, n, e,
-                words, super_majority, stage_setup, babble_stage_words(smem_setup));
-        } else {
-            BABBLE_CHECK(babble_allow_smem(fame_setup_packed<false>, smem_setup));
-            fame_setup_packed<false><<<grid_setup, DF_THREADS, smem_setup, s>>>(
-                wtable, la, fd, index, (uint32_t*)ss, (uint32_t*)votes, r_max, n, e,
-                words, super_majority, nullptr, 0);
-        }
-        BABBLE_CHECK_LAUNCH();
-        const size_t smem_vote =
-            ((size_t)2 * n * words + (size_t)n * (words | 1) + (size_t)8 * n) * sizeof(int32_t);
-        if (stage_vote != nullptr) {
-            fame_vote_packed<true><<<r_max, DF_THREADS, 0, s>>>(
-                wtable, coin_bit, last_round, (const uint32_t*)ss, (const uint32_t*)votes,
-                decided, famous, rounds_decided, r_max, n, e, words, super_majority,
-                n_participants, d_cap, stage_vote, babble_stage_words(smem_vote));
-        } else {
-            BABBLE_CHECK(babble_allow_smem(fame_vote_packed<false>, smem_vote));
-            fame_vote_packed<false><<<r_max, DF_THREADS, smem_vote, s>>>(
-                wtable, coin_bit, last_round, (const uint32_t*)ss, (const uint32_t*)votes,
-                decided, famous, rounds_decided, r_max, n, e, words, super_majority,
-                n_participants, d_cap, nullptr, 0);
-        }
-        BABBLE_CHECK_LAUNCH();
-        return 0;
+// K3's voting tables and outputs, as fame_task reads and writes them
+struct K3Src {
+    const int32_t* wtable;  // (R, N)
+    const uint32_t* vt0;    // (R, N_x, W)
+    uint8_t* decided;
+    uint8_t* famous;
+    int n_cols, r_max, words;
+    __device__ __forceinline__ bool valid(int i, int x) const {
+        return wtable[(long long)i * n_cols + x] >= 0;
     }
-    uint8_t* ss8 = (uint8_t*)ss;
-    uint8_t* votes8 = (uint8_t*)votes;
-    long long cells = (long long)r_max * n * n;
-    fame_setup<<<babble_blocks(cells, 256), 256, 0, s>>>(
-        wtable, la, fd, index, ss8, votes8, 2 * (long long)n * n, r_max, n, e,
-        super_majority);
-    BABBLE_CHECK_LAUNCH();
-    size_t smem = (size_t)6 * n * sizeof(int32_t);
-    BABBLE_CHECK(babble_allow_smem(fame_vote, smem));
-    fame_vote<<<r_max, 256, smem, s>>>(
-        wtable, coin_bit, last_round, ss8, votes8, decided, famous, rounds_decided,
-        r_max, n, e, super_majority, n_participants, d_cap);
+    // the voters of step d lie in round i + d, clamped as the reference's
+    // gather clamps (a round past r_max - 1 is never reached by a caller
+    // whose last_round fits the table)
+    __device__ __forceinline__ int plane(int i, int d) const { return min(i + d, r_max - 1); }
+    __device__ __forceinline__ uint32_t col0(int i, int x, int k) const {
+        return vt0[((long long)i * n_cols + x) * words + k];
+    }
+    __device__ __forceinline__ void done(int i, int x, bool dec, bool fam) const {
+        decided[(long long)i * n_cols + x] = dec;
+        famous[(long long)i * n_cols + x] = fam;
+    }
+};
+
+// The vote: grid (tiles of FV_COLS columns, r_max)
+template <int WMAX>
+__global__ void __launch_bounds__(FV_THREADS)
+fame_vote(const K3Src src, const FameTables t, const int32_t* __restrict__ last_round,
+          uint32_t* flags, uint8_t* rounds_decided, int d_cap, int n_participants,
+          int super_majority) {
+    extern __shared__ __align__(16) unsigned char fv_smem[];
+    const int i = blockIdx.y;
+    const int d_end = min(*last_round - i, d_cap);
+    const FvColumn c = fame_task<WMAX>(src, t, i, blockIdx.x * FV_COLS, d_end, n_participants,
+                                       super_majority, fv_smem);
+    const bool lead = (threadIdx.x & 31) == 0;
+    const int open = __syncthreads_or(lead && c.valid && !c.decided);
+    const int present = __syncthreads_or(lead && c.valid);
+    if (threadIdx.x == 0) {
+        const unsigned f = (open ? 1u : 0u) | (present ? 2u : 0u);
+        if (f) atomicOr(flags + 2 * i, f);
+        __threadfence();
+        if (atomicAdd(flags + 2 * i + 1, 1u) == gridDim.x - 1) {
+            __threadfence();
+            const unsigned all = atomicOr(flags + 2 * i, 0u);
+            rounds_decided[i] = !(all & 1u) && (all & 2u);
+        }
+    }
+}
+
+static inline size_t df_setup_smem() {
+    return (size_t)babble_count_tile_words<FS_T, FS_T, FS_STAGES>() * sizeof(int32_t);
+}
+
+template <bool WIDE>
+static int df_setup(const int32_t* wtable, const int32_t* la, const int32_t* fd,
+                    const int32_t* index, const uint8_t* coin_bit,
+                    const int32_t* last_round, void* ss, void* votes, int32_t* aux,
+                    uint32_t* flags, int ss_rows, int ss_ld, int r_max, int n, int e,
+                    int super_majority, cudaStream_t s) {
+    const int words = (n + 31) / 32;
+    const int n_t = (n + FS_T - 1) / FS_T;
+    const size_t smem = df_setup_smem();
+    if (aux != nullptr) {
+        BABBLE_CHECK(cudaMemsetAsync(aux, 0, (size_t)r_max * ss_rows * sizeof(int32_t), s));
+    }
+    BABBLE_CHECK(babble_allow_smem(fame_setup_pairs<WIDE>, smem));
+    fame_setup_pairs<WIDE><<<dim3(n_t * n_t, r_max), FS_THREADS, smem, s>>>(
+        wtable, la, fd, index, coin_bit, last_round, ss, votes, aux, flags, ss_rows, ss_ld,
+        r_max, n, e, words, super_majority);
     BABBLE_CHECK_LAUNCH();
     return 0;
+}
+
+// Scratch (tpu/_ext.py decide_fame allocates it): ss (R, 32 W, W | 1) and
+// aux (R, 32 W) int32, vt0 (R, N, W) words, flags (R, 2); W = ceil(N /
+// 32), at most 603 (fv_stages). Both layouts take this launch pair (and
+// aux's memset).
+extern "C" int babble_decide_fame(
+    const int32_t* wtable, const int32_t* la, const int32_t* fd, const int32_t* index,
+    const uint8_t* coin_bit, const int32_t* last_round, uint32_t* ss, int32_t* aux,
+    uint32_t* vt0, uint32_t* flags, uint8_t* decided, uint8_t* famous,
+    uint8_t* rounds_decided, int r_max, int n, int e, int super_majority,
+    int n_participants, int d_cap, int device, void* stream) {
+    BABBLE_CHECK(cudaSetDevice(device));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int words = (n + 31) / 32;
+    if (fv_stages(words) < 2 || r_max < 1 || r_max > 65535) return (int)cudaErrorInvalidValue;
+    const FameTables t = fv_tables(ss, aux, words);
+    const int err = df_setup<false>(wtable, la, fd, index, coin_bit, last_round, ss, vt0, aux,
+                                    flags, t.n_pad, t.ldw, r_max, n, e, super_majority, s);
+    if (err) return err;
+    const K3Src src{wtable, vt0, decided, famous, n, r_max, words};
+    const size_t smem = (size_t)fv_smem_bytes(words);
+    const dim3 grid((n + FV_COLS - 1) / FV_COLS, r_max);
+    return fv_dispatch(words, [&](auto w) {
+        constexpr int WMAX = decltype(w)::value;
+        BABBLE_CHECK(babble_allow_smem(fame_vote<WMAX>, smem));
+        fame_vote<WMAX><<<grid, FV_THREADS, smem, s>>>(src, t, last_round, flags,
+                                                        rounds_decided, d_cap, n_participants,
+                                                        super_majority);
+        BABBLE_CHECK_LAUNCH();
+        return 0;
+    });
 }
 
 extern "C" int babble_fame_setup(
     const int32_t* wtable, const int32_t* la, const int32_t* fd, const int32_t* index,
-    void* ss, void* votes, int32_t* stage_setup, int r_max, int n, int e,
-    int super_majority, int packed, int device, void* stream) {
+    void* ss, void* votes, int r_max, int n, int e, int super_majority, int packed,
+    int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int words = (n + 31) / 32;
     if (packed) {
-        const int words = (n + 31) / 32;
-        const size_t smem_setup =
-            ((size_t)64 * babble_tile_ld(n) + (size_t)3 * n) * sizeof(int32_t);
-        const dim3 grid_setup(r_max, words);
-        if (stage_setup != nullptr) {
-            fame_setup_packed<true><<<grid_setup, DF_THREADS, 0, s>>>(
-                wtable, la, fd, index, (uint32_t*)ss, (uint32_t*)votes, r_max, n, e,
-                words, super_majority, stage_setup, babble_stage_words(smem_setup));
-        } else {
-            BABBLE_CHECK(babble_allow_smem(fame_setup_packed<false>, smem_setup));
-            fame_setup_packed<false><<<grid_setup, DF_THREADS, smem_setup, s>>>(
-                wtable, la, fd, index, (uint32_t*)ss, (uint32_t*)votes, r_max, n, e,
-                words, super_majority, nullptr, 0);
-        }
-        BABBLE_CHECK_LAUNCH();
-        return 0;
+        return df_setup<false>(wtable, la, fd, index, nullptr, nullptr, ss, votes, nullptr,
+                               nullptr, n, words, r_max, n, e, super_majority, s);
     }
-    const long long cells = (long long)r_max * n * n;
-    fame_setup<<<babble_blocks(cells, 256), 256, 0, s>>>(
-        wtable, la, fd, index, (uint8_t*)ss, (uint8_t*)votes, (long long)n * n, r_max, n,
-        e, super_majority);
-    BABBLE_CHECK_LAUNCH();
-    return 0;
+    return df_setup<true>(wtable, la, fd, index, nullptr, nullptr, ss, votes, nullptr, nullptr,
+                          n, n, r_max, n, e, super_majority, s);
 }

@@ -1,4 +1,6 @@
-// shard_fame: one voting step of the mesh's fame loop on one position's shard.
+// shard_fame: the mesh's fame loop, in one launch where every position
+// lies on one card (shard_fame/grid, below), else one voting step of one
+// position's shard at a time.
 //
 // Replaces babble_tpu/tpu/sharded.py:149 local_fame (the body of
 // _fame_loop_fn's step and chunk_body), in both voting-table layouts. A
@@ -28,14 +30,15 @@
 //               a voting round: i_rows[b] + d0 <= last_round; one int the
 //               host reads once per chunk.
 // The ring shift of ss_s, wv_s and coin_s between steps is a copy on the
-// mesh (tpu/mesh.py).
+// mesh (tpu/mesh.py). These three launches are the form for positions on
+// distinct cards (tpu/_ext.py shard_walk_form chooses by layout alone).
 //
 // Bound: bytes at the mesh's shapes (the votes, the ss rows of the rounds
 // still voting and the (B, N_y, N_x) tallies, each read or written once);
 // the tally's operations are N^3 per voting round, far below the card's
 // integer rate once rounds past last_round are skipped.
 
-#include "common.cuh"
+#include "fame_vote.cuh"
 
 #define SF_THREADS 256
 #define SF_WARPS (SF_THREADS / 32)
@@ -203,4 +206,210 @@ extern "C" int babble_shard_fame_active(
     sf_active<<<1, 1024, 0, s>>>(wvalid, decided, i_rows, last_round, flag, b_rows, nx, d0);
     BABBLE_CHECK_LAUNCH();
     return 0;
+}
+
+// ---------------------------------------------------------------------------
+// shard_fame/grid: the whole fame loop of every position in one cooperative
+// launch, where every position lies on one card.
+//
+// Positions are read through an address table in device memory: (7,
+// n_pos) int64, the fields ss_s, votes, wv_s, coin_s, wvalid, decided,
+// famous, positions in (rounds index a, validator index v) order; position
+// (a, v) holds global rows g = a B .. a B + B - 1 (round i = g). Two phases
+// with one grid barrier between them:
+//   (1) every position's shards into the vote's tables (fame_vote.cuh
+//       FameTables), in the unshifted order of their rows: plane g' holds
+//       staged row g' of ss_s, whose words are the validator shards' words
+//       (packed) or their bytes packed by __ballot_sync as they are read
+//       (wide); aux[g', y] = the popcount of the whole row (the mesh's psum
+//       of the totals over the validator axis) * 4 + coin_s * 2 + wv_s; the
+//       d = 1 votes of round g into vt (r_pad, N_x, W) words. Only rows g <
+//       last_round - 1 vote, and they read planes g' <= last_round - 2, so
+//       only those are gathered; the other rows' decided and famous are
+//       written 0 here;
+//   (2) persistent blocks over the tasks (round g, tile of FV_COLS columns),
+//       fame_task as in K3. The ring shift becomes an address offset: at
+//       step k = d - 2 row g reads plane (g + k) mod r_pad, the row the
+//       per-step form's shifts would have brought to g. The yay tally over
+//       every word of the row is the psum over the validator axis. Each
+//       column stops at its own exit, i + d > last_round: the per-step
+//       loop's own stop (whole chunks, d0 <= r_pad + 2) never comes earlier,
+//       since last_round < r_pad, and its steps past a column's exit change
+//       nothing (no voter round left: no decision). decided and famous go to
+//       every validator position of the row's rounds index; the votes and the
+//       shifted state are not written back (sharded_fame returns decided and
+//       famous only).
+// Bound: bytes, each shard read once (the planes' rows a warp each) and the
+// (R, N) outputs written n_v times; the vote's tally as in K3.
+// ---------------------------------------------------------------------------
+
+struct ShardSrc {
+    const long long* ptrs;  // (7, n_pos)
+    const uint32_t* vt;     // (r_pad, N_x, W)
+    int n_pos, n_v, b_rows, n_cols, words, r_pad;
+    __device__ __forceinline__ const uint8_t* u8(int field, int pos) const {
+        return reinterpret_cast<const uint8_t*>(ptrs[(long long)field * n_pos + pos]);
+    }
+    __device__ __forceinline__ const uint32_t* u32(int field, int pos) const {
+        return reinterpret_cast<const uint32_t*>(ptrs[(long long)field * n_pos + pos]);
+    }
+    __device__ __forceinline__ bool valid(int g, int x) const {
+        return u8(4, (g / b_rows) * n_v)[(long long)(g % b_rows) * n_cols + x] != 0;
+    }
+    __device__ __forceinline__ int plane(int g, int d) const { return (g + d - 2) % r_pad; }
+    __device__ __forceinline__ uint32_t col0(int g, int x, int k) const {
+        return __ldcg(vt + ((long long)g * n_cols + x) * words + k);
+    }
+    __device__ __forceinline__ void done(int g, int x, bool dec, bool fam) const {
+        const int a = g / b_rows;
+        const long long off = (long long)(g % b_rows) * n_cols + x;
+        for (int v = 0; v < n_v; ++v) {
+            const int p = a * n_v + v;
+            reinterpret_cast<uint8_t*>(ptrs[5LL * n_pos + p])[off] = dec;
+            reinterpret_cast<uint8_t*>(ptrs[6LL * n_pos + p])[off] = fam;
+        }
+    }
+};
+
+template <int WMAX, bool PACKED>
+__global__ void __launch_bounds__(FV_THREADS)
+sf_grid(const ShardSrc src, const FameTables t, uint32_t* ss_k, int32_t* aux_k, uint32_t* vt,
+        unsigned int* bar, const int32_t* __restrict__ last_round, int ny, int nw_l,
+        int n_participants, int super_majority) {
+    extern __shared__ __align__(16) unsigned char fv_smem[];
+    const int lane = threadIdx.x & 31;
+    const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+    const int b = src.b_rows, n_v = src.n_v, words = t.words, n_x = src.n_cols;
+    const long long cols = (long long)n_v * nw_l;  // witness columns (wide) or words (packed)
+    // rows g < g_end vote (g + 2 <= last_round) and read planes g' < g_end
+    // only (g' = g + d - 2 <= last_round - 2); the rest decide nothing
+    const int lr = *last_round;
+    const int g_end = min(src.r_pad, max(lr - 1, 0));
+
+    // (1a) the planes and their aux words, a warp per staged row (g', y)
+    for (long long it = warp; it < (long long)g_end * t.n_pad; it += warps) {
+        const int g = (int)(it / t.n_pad), y = (int)(it % t.n_pad);
+        const int a = g / b;
+        const long long row = (long long)(g % b) * ny + y;
+        uint32_t* out = ss_k + it * t.ldw;
+        int tot = 0;
+        if (PACKED) {
+            for (int k0 = 0; k0 < words; k0 += 32) {
+                const int k = k0 + lane;
+                uint32_t wd = 0;
+                if (y < ny && k < words) {
+                    wd = src.u32(0, a * n_v + k / nw_l)[row * nw_l + k % nw_l];
+                }
+                if (k < words) out[k] = wd;
+                tot += __reduce_add_sync(BABBLE_FULL_MASK, __popc(wd));
+            }
+        } else {
+#pragma unroll 4
+            for (int k = 0; k < words; ++k) {
+                const long long w = 32LL * k + lane;
+                int s = 0;
+                if (y < ny && w < cols) {
+                    s = src.u8(0, a * n_v + (int)(w / nw_l))[row * nw_l + w % nw_l] != 0;
+                }
+                const unsigned bits = __ballot_sync(BABBLE_FULL_MASK, s);
+                if (lane == 0) out[k] = bits;
+                tot += __popc(bits);
+            }
+        }
+        if (lane == 0) {
+            int ax = 0;
+            if (y < ny) {
+                ax = tot * 4 + (src.u8(3, a * n_v)[row] ? 2 : 0) + (src.u8(2, a * n_v)[row] ? 1 : 0);
+            }
+            aux_k[it] = ax;
+        }
+    }
+    // (1b) the d = 1 votes of round g: word k of column x, a lane per column
+    const int xb_n = (n_x + 31) / 32;
+    for (long long it = warp; it < (long long)g_end * words * xb_n; it += warps) {
+        const int g = (int)(it / ((long long)words * xb_n));
+        const int rem = (int)(it % ((long long)words * xb_n));
+        const int k = rem / xb_n;
+        const int x = (rem % xb_n) * 32 + lane;
+        if (x >= n_x) continue;
+        const int a = g / b, bb = g % b;
+        uint32_t wd = 0;
+        if (PACKED) {
+            wd = src.u32(1, a * n_v + k / nw_l)[((long long)bb * n_x + x) * nw_l + k % nw_l];
+        } else {
+            for (int q = 0; q < 32; ++q) {
+                const long long w = 32LL * k + q;
+                if (w >= cols) break;
+                const uint8_t* vs = src.u8(1, a * n_v + (int)(w / nw_l));
+                wd |= (uint32_t)(vs[((long long)bb * nw_l + w % nw_l) * n_x + x] != 0) << q;
+            }
+        }
+        vt[((long long)g * n_x + x) * words + k] = wd;
+    }
+    // (1c) the rows that do not vote: nothing decided
+    const long long rest = (long long)(src.r_pad - g_end) * n_x;
+    for (long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x; it < rest;
+         it += (long long)gridDim.x * blockDim.x) {
+        src.done(g_end + (int)(it / n_x), (int)(it % n_x), false, false);
+    }
+    fv_fence_proxy_async_global();
+    unsigned int target = 0;
+    babble_grid_sync(bar, target);
+    fv_fence_proxy_async_global();
+
+    // (2) the vote, persistent blocks over (round g < g_end, column tile)
+    const int tiles = (n_x + FV_COLS - 1) / FV_COLS;
+    for (int task = blockIdx.x; task < g_end * tiles; task += gridDim.x) {
+        const int g = task / tiles;
+        fame_task<WMAX>(src, t, g, (task % tiles) * FV_COLS, lr - g, n_participants,
+                        super_majority, fv_smem);
+    }
+}
+
+// ptrs: (7, n_pos) int64 device addresses in device memory (see above).
+// Scratch: ss_k (r_pad, 32 W, W | 1) and aux_k (r_pad, 32 W) int32, vt
+// (r_pad, N_x, W) words, bar one word (zeroed here). W: the row's words,
+// n_v nw_l packed, ceil(n_v nw_l / 32) wide, at most 603 (fv_stages).
+extern "C" int babble_shard_fame_grid(
+    const int64_t* ptrs, uint32_t* ss_k, int32_t* aux_k, uint32_t* vt, int32_t* bar,
+    const int32_t* last_round, int n_pos, int n_v, int b_rows, int ny, int nw_l, int n_x,
+    int packed, int n_participants, int super_majority, int device, void* stream) {
+    BABBLE_CHECK(cudaSetDevice(device));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (n_pos < 1 || n_v < 1 || n_pos % n_v || b_rows < 1 || n_x < 1 || nw_l < 1) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const int words = packed ? n_v * nw_l : (n_v * nw_l + 31) / 32;
+    if (fv_stages(words) < 2) return (int)cudaErrorInvalidValue;
+    const int r_pad = (n_pos / n_v) * b_rows;
+    const FameTables t = fv_tables(ss_k, aux_k, words);
+    const ShardSrc src{reinterpret_cast<const long long*>(ptrs), vt, n_pos, n_v, b_rows, n_x,
+                       words, r_pad};
+    const size_t smem = (size_t)fv_smem_bytes(words);
+    const long long tasks = (long long)r_pad * ((n_x + FV_COLS - 1) / FV_COLS);
+    const long long rows = ((long long)r_pad * t.n_pad + FV_COLS) / (FV_COLS + 1);
+    BABBLE_CHECK(cudaMemsetAsync(bar, 0, sizeof(int32_t), s));
+    unsigned int* bar_u = reinterpret_cast<unsigned int*>(bar);
+    return fv_dispatch(words, [&](auto w) {
+        constexpr int WMAX = decltype(w)::value;
+        auto kernel = packed ? &sf_grid<WMAX, true> : &sf_grid<WMAX, false>;
+        BABBLE_CHECK(babble_allow_smem(kernel, smem));
+        int g = 0;
+        BABBLE_CHECK(babble_coop_blocks(kernel, FV_THREADS, smem, device,
+                                        tasks > rows ? tasks : rows, &g));
+        int ny_ = ny, nw_l_ = nw_l, np_ = n_participants, sm_ = super_majority;
+        uint32_t* ss_k_ = ss_k;
+        int32_t* aux_k_ = aux_k;
+        uint32_t* vt_ = vt;
+        const int32_t* lr_ = last_round;
+        void* args[] = {
+            (void*)&src, (void*)&t, (void*)&ss_k_, (void*)&aux_k_, (void*)&vt_, (void*)&bar_u,
+            (void*)&lr_, (void*)&ny_, (void*)&nw_l_, (void*)&np_, (void*)&sm_,
+        };
+        BABBLE_CHECK(cudaLaunchCooperativeKernel((const void*)kernel, dim3(g), dim3(FV_THREADS),
+                                                 args, smem, s));
+        BABBLE_CHECK_LAUNCH();
+        return 0;
+    });
 }

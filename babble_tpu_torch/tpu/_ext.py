@@ -16,15 +16,14 @@ launch in the packed layout under "<name>/packed" and a wide one under
 "<name>", so a run can show which form ran: the two layouts give equal
 integers by design.
 
-decide_fame, whose blocks stage rows and bit words (`STAGED_KERNELS`),
-keeps them in shared memory wherever one block's share holds them
-(`staging` says "shared" for that launch); past that the same kernel code
-stages them in the block's slice of a device scratch the wrapper allocates
-("device"), and the call counts under "<key>/dev". `staging` alone makes
-the choice: the wrapper passes a scratch pointer to exactly the launches it
-names "device" and NULL to the others, and the C launcher takes the device
-form where its pointer is not NULL. Both forms give equal integers by
-design; only a failed scratch allocation raises.
+decide_fame (K3, both layouts) is a setup launch, whose blocks tile the
+(voter, witness) pairs with the compare-count tile decide_window's setup
+takes (`FS_SETUP_SMEM`), and a vote launch (csrc/fame_vote.cuh: a warp
+per witness column, the strongly-see planes fetched ahead into a ring,
+`fame_vote_plan`): the same shared memory at every width up to 1,024
+validators, where the column's words leave registers for shared memory and
+the ring takes fewer slots beside them, down to two at FV_MAX_WORDS words
+(19,296 validators), past which it raises (no staging form).
 
 The three level walks (divide_rounds, step_levels, train_levels) walk
 narrow levels in one block and wider ones in a cooperative launch across
@@ -32,7 +31,7 @@ the card whose blocks take the same shared memory at every width
 (`divide_rounds_form`, `step_levels_form`, `train_levels_form` choose by
 width; the grid walk counts under "<key>/grid" and raises where the card
 cannot hold its blocks at once); decide_window's launches use the same
-shared memory at every width. None of them has a staging form.
+shared memory at every width.
 
 divide_rounds' one-block walk and lamport_scan are the staged level walk
 of csrc/common.cuh: a prep launch packs the level table into records, a
@@ -57,7 +56,11 @@ position, and the mesh's walk (B24) where every position of the mesh lies
 on one device ("shard_walk/grid", `shard_walk`, any number of positions).
 Where positions lie on distinct cards B24 takes three launches per step
 and position ("shard_walk/rows", "/m0", "/close"); `shard_walk_form`
-chooses by layout alone.
+chooses by layout alone. B21's fame loop follows the same rule: one
+cooperative launch for every position ("shard_fame/grid", K3's vote on
+tables gathered from the shards), or three launches per step and position
+("shard_fame/tally", "/decide", "/active"); `shard_fame_form` also takes
+the per-step form past the vote's 32 * FV_MAX_WORDS voters.
 """
 
 from __future__ import annotations
@@ -86,7 +89,7 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
     "frontier_rounds": (
         "frontier_walk.cu", "babble_frontier_rounds", "pppppppppppp" "iiiiii",
     ),
-    "decide_fame": ("decide_fame.cu", "babble_decide_fame", "ppppppppppppp" "iiiiiii"),
+    "decide_fame": ("decide_fame.cu", "babble_decide_fame", "ppppppppppppp" "iiiiii"),
     "round_received": (
         "round_received.cu", "babble_round_received", "pppppppppppppp" "iiii",
     ),
@@ -134,6 +137,9 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
         "shard_fame.cu", "babble_shard_fame_decide", "pppppppppp" "iiiiiiiii",
     ),
     "shard_fame/active": ("shard_fame.cu", "babble_shard_fame_active", "ppppp" "iii"),
+    # B21's whole fame loop in one cooperative launch (every position on one
+    # device)
+    "shard_fame/grid": ("shard_fame.cu", "babble_shard_fame_grid", "pppppp" "iiiiiiiii"),
     "received_search": ("round_received.cu", "babble_received_search", "pppppppp" "iii"),
     "fame_tables": ("round_received.cu", "babble_fame_tables", "pppppppppp" "iii"),
     "shard_walk/rows": ("frontier_walk.cu", "babble_shard_walk_rows", "ppppp" "iiii"),
@@ -141,18 +147,15 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
     "shard_walk/close": ("frontier_walk.cu", "babble_shard_walk_close", "pppp" "iiii"),
     # B24 in one cooperative launch where every position lies on one device
     "shard_walk/grid": ("frontier_walk.cu", "babble_shard_walk", "ppp" "iiiiiii"),
-    "fame_setup": ("decide_fame.cu", "babble_fame_setup", "ppppppp" "iiiii"),
+    "fame_setup": ("decide_fame.cu", "babble_fame_setup", "pppppp" "iiiii"),
     "frontier_post": ("frontier_walk.cu", "babble_frontier_post", "ppppppppp" "iiii"),
 }
 
 # the kernels that take the voting-table layout (tpu/packed.py)
 PACKED_KERNELS = ("decide_fame", "divide_rounds", "step_levels", "train_levels",
-                  "decide_window", "shard_fame/tally", "shard_fame/decide", "fame_setup")
+                  "decide_window", "shard_fame/tally", "shard_fame/decide", "fame_setup",
+                  "shard_fame/grid")
 
-# the kernel with a device-memory staging form, and the layouts in which
-# it has it (the wide decide_fame stages nothing past 9,685 validators)
-STAGED_KERNELS = ("decide_fame",)
-STAGED_FORMS = ("decide_fame/packed", "fame_setup/packed")
 # the level walks' cooperative grid form, in both layouts
 GRID_FORMS = ("divide_rounds", "divide_rounds/packed", "step_levels", "step_levels/packed",
               "train_levels", "train_levels/packed")
@@ -161,11 +164,11 @@ GRID_FORMS = ("divide_rounds", "divide_rounds/packed", "step_levels", "step_leve
 MAX_SMEM_BYTES = 232448
 
 # launches of each kernel's C entry point since the last reset: the packed
-# layout's under "<name>/packed", the device staging form's under
-# "<key>/dev", a level walk's grid form under "<key>/grid"
+# layout's under "<name>/packed", a level walk's grid form under
+# "<key>/grid"
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     list(KERNELS) + [f"{k}/packed" for k in PACKED_KERNELS]
-    + [f"{k}/dev" for k in STAGED_FORMS] + [f"{k}/grid" for k in GRID_FORMS], 0)
+    + [f"{k}/grid" for k in GRID_FORMS], 0)
 
 # the staged level walk of divide_rounds' one-block form and lamport_scan
 # (csrc/common.cuh, level_walk_plan): the ring's slots, the bytes of
@@ -203,11 +206,23 @@ TRAIN_LEVELS_GRID_FROM = 48
 # work, the same at every width: rings of stages of rows of 36 int32 words
 # (common.cuh babble_count_tile_words): the level walks' grid form (8
 # lanes + 32 witnesses, 4 stages: common.cuh babble_level_item_smem);
-# dw_setup's 64 rows + 64 witnesses, 3 stages; dw_vote's 64 rows + 32
-# columns, 2 stages
+# dw_setup's and K3's setup's 64 rows + 64 witnesses, 3 stages; dw_vote's
+# 64 rows + 32 columns, 2 stages
 LEVEL_GRID_SMEM = 4 * (8 + 32) * 36 * 4
 DW_SETUP_SMEM = 3 * (64 + 64) * 36 * 4
 DW_VOTE_SMEM = 2 * (64 + 32) * 36 * 4
+# K3's setup (decide_fame.cu fame_setup_pairs): dw_setup's tile
+FS_SETUP_SMEM = DW_SETUP_SMEM
+
+# the virtual vote's blocks (csrc/fame_vote.cuh): FV_COLS witness columns,
+# a warp each, beside one producer warp; a ring of up to FV_STAGES items;
+# the column's words in registers up to FV_REG_WORDS (1,024 validators),
+# past it two buffers of them in shared memory and a ring of what fits
+# beside them in MAX_SMEM_BYTES, at least two items: FV_MAX_WORDS (603
+# words, 19,296 validators) is the widest vote
+FV_COLS = 16
+FV_STAGES = 8
+FV_REG_WORDS = 32
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -233,7 +248,7 @@ def _nvcc() -> str:
 
 def _lib_path(source: str) -> Path:
     h = hashlib.sha256()
-    for f in (CSRC / "common.cuh", CSRC / source):
+    for f in (*sorted(CSRC.glob("*.cuh")), CSRC / source):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
@@ -305,9 +320,37 @@ def check_tensor(what: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{what}: not contiguous")
 
 
-def _tile_ld(n: int) -> int:
-    """common.cuh babble_tile_ld: the int32 row stride of a staged tile."""
-    return 4 * (((n + 3) // 4) | 1)
+def _fv_stages(words: int) -> int:
+    """The vote's ring slots (csrc/fame_vote.cuh fv_stages), 0 where fewer
+    than two fit."""
+    if words <= FV_REG_WORDS:
+        return FV_STAGES
+    ldw = words | 1
+    fixed = 16 * FV_STAGES + 16 + 8 * FV_COLS * words
+    slots = (MAX_SMEM_BYTES - fixed) // (4 * 32 * (ldw + 1))
+    return 0 if slots < 2 else min(slots, FV_STAGES)
+
+
+FV_MAX_WORDS = max(w for w in range(FV_REG_WORDS, 1024) if _fv_stages(w) >= 2)
+
+
+def fame_vote_plan(words: int) -> Dict[str, int]:
+    """The vote's tables and ring for voters in `words` bit words
+    (csrc/fame_vote.cuh fv_tables, fv_smem_bytes): the row stride ldw
+    (odd), n_pad voter rows, the voter rows of one ring item and the items
+    of one step, the ring's slots, where the column's words live
+    ("registers" or "shared"), and one block's shared memory in bytes."""
+    if not 1 <= words <= FV_MAX_WORDS:
+        raise ValueError(f"the vote holds 1 to {FV_MAX_WORDS} words of voters, not {words}")
+    ldw = words | 1
+    group = min(max(1, 32 // ldw), words)
+    rows = 32 * group
+    stages = _fv_stages(words)
+    cols = 8 * FV_COLS * words if words > FV_REG_WORDS else 0
+    return {"words": words, "ldw": ldw, "n_pad": 32 * words, "rows_item": rows,
+            "items": -(-words // group), "stages": stages,
+            "columns": "registers" if words <= FV_REG_WORDS else "shared",
+            "smem": 16 * FV_STAGES + 16 + cols + 4 * stages * rows * (ldw + 1)}
 
 
 def block_smem(name: str, n: int, packed: bool = False, **shape) -> Dict[str, int]:
@@ -317,10 +360,8 @@ def block_smem(name: str, n: int, packed: bool = False, **shape) -> Dict[str, in
     step_levels: w, l_lv, b, r_cap; train_levels: kb, w, r_cap)."""
     words = (n + 31) // 32
     if name == "decide_fame":
-        if not packed:
-            return {"vote": 6 * n * 4}
-        return {"setup": (64 * _tile_ld(n) + 3 * n) * 4,
-                "vote": (2 * n * words + n * (words | 1) + 8 * n) * 4}
+        # both layouts: the setup's pair tile, the vote's ring
+        return {"setup": FS_SETUP_SMEM, "vote": fame_vote_plan(words)["smem"]}
     if name == "decide_window":
         return {"setup": DW_SETUP_SMEM, "vote": DW_VOTE_SMEM}
     if name == "closure_la":
@@ -536,8 +577,7 @@ def smem_bytes(name: str, n: int, packed: bool = False, **shape) -> int:
 
 def max_width(name: str, packed: bool = False) -> int:
     """The largest validator count whose blocks of `name` fit one block's
-    shared memory (decide_fame, walk_chunk), up to 65,536: the widest
-    shared form of a kernel that has a device staging form."""
+    shared memory (walk_chunk), up to 65,536."""
     n = 1
     while smem_bytes(name, n + 1, packed=packed) <= MAX_SMEM_BYTES:
         n += 1
@@ -547,9 +587,8 @@ def max_width(name: str, packed: bool = False) -> int:
 
 
 def check_smem(name: str, n: int, packed: bool = False, **shape) -> None:
-    """ValueError unless `name`'s blocks fit one block's shared memory (the
-    kernels without a device staging form: walk_chunk, the wide
-    decide_fame)."""
+    """ValueError unless `name`'s blocks fit one block's shared memory
+    (walk_chunk)."""
     need = smem_bytes(name, n, packed=packed, **shape)
     if need > MAX_SMEM_BYTES:
         layout = "packed" if packed else "wide"
@@ -561,60 +600,11 @@ def check_smem(name: str, n: int, packed: bool = False, **shape) -> None:
         )
 
 
-def staging(name: str, n: int, packed: bool = False, **shape) -> Dict[str, str]:
-    """Where each launch of a STAGED_KERNELS call with n validators stages
-    its blocks' rows, by launch (block_smem's keys): "shared" where the
-    launch's block fits one block's shared memory, else "device". The one
-    place the form is chosen: _stage_scratch hands a scratch to the
-    "device" launches only, and each C launcher takes the device form
-    exactly where it is handed one."""
-    if name not in STAGED_KERNELS:
-        raise KeyError(name)
-    return {k: "shared" if b <= MAX_SMEM_BYTES else "device"
-            for k, b in block_smem(name, n, packed=packed, **shape).items()}
-
-
-def stage_words(block_bytes: int) -> int:
-    """Int32 words of one block's slice of the staging scratch
-    (common.cuh babble_stage_words: rounded up to 16 bytes)."""
-    return (block_bytes // 4 + 3) // 4 * 4
-
-
-def _stage_scratch(name: str, n: int, dev: torch.device, blocks: Dict[str, int],
-                   packed: bool = False,
-                   **shape) -> Dict[str, Optional[torch.Tensor]]:
-    """The device staging scratch of each launch of a call, by launch: None
-    where staging() says "shared", else a slice per block (`blocks`: the
-    launch's block count). The call's launches run in turn on one stream,
-    so they share one allocation of the largest. Raises ValueError where
-    the allocation fails."""
-    forms = staging(name, n, packed=packed, **shape)
-    per_block = block_smem(name, n, packed=packed, **shape)
-    words = max((stage_words(per_block[k]) * blocks[k] for k, f in forms.items()
-                 if f == "device"), default=0)
-    if not words:
-        return dict.fromkeys(forms)
-    try:
-        scratch = torch.empty((words,), dtype=torch.int32, device=dev)
-    except RuntimeError as err:  # torch.OutOfMemoryError among them
-        raise ValueError(
-            f"{name}: {n} validators need {words * 4} bytes of device staging "
-            f"scratch past one block's shared memory, and its allocation "
-            f"failed ({err})"
-        ) from err
-    return {k: scratch if f == "device" else None for k, f in forms.items()}
-
-
-def _staged(stage: Dict[str, Optional[torch.Tensor]]) -> bool:
-    """Whether any launch of a call takes the device staging form."""
-    return any(t is not None for t in stage.values())
-
-
 def _launch(name: str, device: torch.device, args: Sequence,
-            packed: bool = False, staged: bool = False, grid: bool = False) -> None:
+            packed: bool = False, grid: bool = False) -> None:
     """Launch `name`'s C entry point on args (a None pointer passes NULL)
-    and count it under its key: "/packed" for the packed layout, "/dev"
-    for the device staging form, "/grid" for the grid walk."""
+    and count it under its key: "/packed" for the packed layout, "/grid"
+    for the grid walk."""
     lib = _lib(name)
     _, fn, kinds = KERNELS[name]
     if len(args) != len(kinds):
@@ -629,8 +619,7 @@ def _launch(name: str, device: torch.device, args: Sequence,
     if rc != 0:
         msg = lib.babble_cuda_error_string(rc).decode()
         raise RuntimeError(f"{fn}: CUDA error {rc} ({msg})")
-    LAUNCHES[name + ("/packed" if packed else "") + ("/dev" if staged else "")
-             + ("/grid" if grid else "")] += 1
+    LAUNCHES[name + ("/packed" if packed else "") + ("/grid" if grid else "")] += 1
 
 
 def build_inv(rows_by: torch.Tensor, la: torch.Tensor) -> torch.Tensor:
@@ -687,9 +676,12 @@ def frontier_rounds(inv, rows_by, creator, index, sp_index, fd,
 def decide_fame(wtable, la, fd, index, coin_bit, last_round,
                 super_majority: int, n_participants: int, d_cap: int,
                 packed: bool = False):
-    """K3 (K3p with `packed`): virtual voting. Returns (decided (R, N)
-    bool, famous (R, N) bool, rounds_decided (R,) bool). The packed
-    launches stage in device memory past 736 validators."""
+    """K3 (K3p with `packed`): virtual voting, one launch pair in both
+    layouts (equal integers; `packed` names the count's key). Returns
+    (decided (R, N) bool, famous (R, N) bool, rounds_decided (R,) bool).
+    The setup takes the same shared memory at every width, the vote the
+    same up to 1,024 validators and then less than MAX_SMEM_BYTES up to
+    32 * FV_MAX_WORDS validators (ValueError above)."""
     dev = wtable.device
     r_max, n = wtable.shape
     e = la.shape[0]
@@ -699,32 +691,27 @@ def decide_fame(wtable, la, fd, index, coin_bit, last_round,
     check_tensor("index", index, torch.int32, (e,), dev)
     check_tensor("coin_bit", coin_bit, torch.bool, (e,), dev)
     check_tensor("last_round", last_round, torch.int32, (), dev)
-    if e < 1 or n_participants < 1:
-        raise ValueError("decide_fame: needs events and n_participants >= 1")
-    if packed:
-        stage = _stage_scratch("decide_fame", n, dev,
-                               {"setup": r_max * ((n + 31) // 32), "vote": r_max},
-                               packed=True)
-    else:
-        check_smem("decide_fame", n)
-        stage = {"setup": None, "vote": None}
-    if packed:
-        # (R, N, W) ss words, and the d = 1 votes as (R, N_x, W) words; the
-        # vote loop keeps each round's words in shared memory
-        words = (n + 31) // 32
-        ss = torch.empty((r_max, n, words), dtype=torch.int32, device=dev)
-        votes = torch.empty((r_max, n, words), dtype=torch.int32, device=dev)
-    else:
-        ss = torch.empty((r_max, n, n), dtype=torch.uint8, device=dev)
-        votes = torch.empty((r_max, 2, n, n), dtype=torch.uint8, device=dev)
+    if e < 1 or n_participants < 1 or not 1 <= r_max <= 65535:
+        raise ValueError("decide_fame: needs events, n_participants >= 1 and 1 to 65,535 "
+                         "rounds")
+    words = (n + 31) // 32
+    if words > FV_MAX_WORDS:
+        raise ValueError(f"decide_fame: {n} validators; the vote holds at most "
+                         f"{32 * FV_MAX_WORDS}")
+    plan = fame_vote_plan(words)
+    # the vote's tables: ss words at row stride ldw, the rows' aux words, the
+    # d = 1 votes as (R, N_x, W) words, and each round's flags and ticket
+    ss = torch.empty((r_max, plan["n_pad"], plan["ldw"]), dtype=torch.int32, device=dev)
+    aux = torch.empty((r_max, plan["n_pad"]), dtype=torch.int32, device=dev)
+    vt0 = torch.empty((r_max, n, words), dtype=torch.int32, device=dev)
+    flags = torch.empty((r_max, 2), dtype=torch.int32, device=dev)
     decided = torch.empty((r_max, n), dtype=torch.uint8, device=dev)
     famous = torch.empty((r_max, n), dtype=torch.uint8, device=dev)
     rounds_decided = torch.empty((r_max,), dtype=torch.uint8, device=dev)
     _launch("decide_fame", dev, (
-        wtable, la, fd, index, coin_bit.view(torch.uint8), last_round, ss,
-        votes, decided, famous, rounds_decided, stage["setup"], stage["vote"],
-        r_max, n, e, super_majority, n_participants, d_cap, int(packed),
-    ), packed=packed, staged=_staged(stage))
+        wtable, la, fd, index, coin_bit.view(torch.uint8), last_round, ss, aux, vt0, flags,
+        decided, famous, rounds_decided, r_max, n, e, super_majority, n_participants, d_cap,
+    ), packed=packed)
     return (decided.view(torch.bool), famous.view(torch.bool),
             rounds_decided.view(torch.bool))
 
@@ -1312,8 +1299,7 @@ def frontier_window(inv, rows_by, x_hist, dirty, creator, index, coin, la, r_ove
 def fame_setup(wtable, la, fd, index, super_majority: int, packed: bool = False):
     """K3's setup alone (babble_fame_setup): (ss, votes0). Wide: two (R, N,
     N) bool tensors; packed: ss (R, N, W) and votes0 (R, N_x, W) int32
-    words. The packed launch stages in device memory past 860 validators,
-    as K3p's setup does."""
+    words."""
     dev = wtable.device
     r_max, n = wtable.shape
     e = la.shape[0]
@@ -1323,19 +1309,16 @@ def fame_setup(wtable, la, fd, index, super_majority: int, packed: bool = False)
     check_tensor("index", index, torch.int32, (e,), dev)
     if e < 1 or r_max < 1:
         raise ValueError("fame_setup: needs events and rounds")
+    words = (n + 31) // 32
     if packed:
-        words = (n + 31) // 32
-        stage = _stage_scratch("decide_fame", n, dev, {"setup": r_max * words, "vote": 1},
-                               packed=True)["setup"]
         ss = torch.empty((r_max, n, words), dtype=torch.int32, device=dev)
         votes = torch.empty((r_max, n, words), dtype=torch.int32, device=dev)
     else:
-        stage = None
         ss = torch.empty((r_max, n, n), dtype=torch.uint8, device=dev)
         votes = torch.empty((r_max, n, n), dtype=torch.uint8, device=dev)
     _launch("fame_setup", dev, (
-        wtable, la, fd, index, ss, votes, stage, r_max, n, e, super_majority, int(packed),
-    ), packed=packed, staged=stage is not None)
+        wtable, la, fd, index, ss, votes, r_max, n, e, super_majority, int(packed),
+    ), packed=packed)
     if packed:
         return ss, votes
     return ss.view(torch.bool), votes.view(torch.bool)
@@ -1414,6 +1397,61 @@ def shard_fame_active(wvalid, decided, i_rows, last_round, d0: int) -> torch.Ten
         b, nx, d0,
     ))
     return flag
+
+
+def shard_fame_grid(ss_parts, votes_parts, wv_parts, coin_parts, wvalid_parts,
+                    decided_parts, famous_parts, n_v: int, last_round, n_participants: int,
+                    super_majority: int, packed: bool) -> None:
+    """B21's whole fame loop in one launch (shard_fame/grid), every position
+    on one device, in place on decided_parts and famous_parts. The lists
+    hold each position's shards in (rounds index, validator index) order,
+    n_v validator positions to a rounds index: ss_s (B, N_y, W_l) words or
+    (B, N_y, N_w) bool; votes (B, N_x, W_l) words or (B, N_w, N_x) bool;
+    wv_s, coin_s (B, N_y) bool; wvalid, decided, famous (B, N_x) bool. The
+    addresses reach the launch as a (7, n_pos) table copied to the device,
+    one copy a call. ValueError past 32 * FV_MAX_WORDS voters
+    (shard_fame_form then names the per-step form)."""
+    parts = (ss_parts, votes_parts, wv_parts, coin_parts, wvalid_parts, decided_parts,
+             famous_parts)
+    n_pos = len(ss_parts)
+    if n_pos < 1 or n_v < 1 or n_pos % n_v or any(len(p) != n_pos for p in parts):
+        raise ValueError("shard_fame/grid: one shard of each table per position, n_v "
+                         "validator positions to a rounds index")
+    dev = ss_parts[0].device
+    b, ny, nw_l = ss_parts[0].shape
+    n_x = wvalid_parts[0].shape[1]
+    dtype = torch.int32 if packed else torch.bool
+    if ny != (32 if packed else 1) * n_v * nw_l:
+        raise ValueError(f"shard_fame/grid: {ny} voter rows against {n_v} shards of {nw_l} "
+                         f"witness {'words' if packed else 'columns'}")
+    words = n_v * nw_l if packed else -(-(n_v * nw_l) // 32)
+    if not 1 <= words <= FV_MAX_WORDS:
+        raise ValueError(f"shard_fame/grid: {ny} voters; the vote holds at most "
+                         f"{32 * FV_MAX_WORDS}")
+    for k in range(n_pos):
+        check_tensor(f"ss_s[{k}]", ss_parts[k], dtype, (b, ny, nw_l), dev)
+        check_tensor(f"votes[{k}]", votes_parts[k], dtype,
+                     (b, n_x, nw_l) if packed else (b, nw_l, n_x), dev)
+        for what, t in (("wv_s", wv_parts[k]), ("coin_s", coin_parts[k])):
+            check_tensor(f"{what}[{k}]", t, torch.bool, (b, ny), dev)
+        for what, t in (("wvalid", wvalid_parts[k]), ("decided", decided_parts[k]),
+                        ("famous", famous_parts[k])):
+            check_tensor(f"{what}[{k}]", t, torch.bool, (b, n_x), dev)
+    check_tensor("last_round", last_round, torch.int32, (), dev)
+    if n_participants < 1:
+        raise ValueError("shard_fame/grid: needs n_participants >= 1")
+    plan = fame_vote_plan(words)
+    r_pad = (n_pos // n_v) * b
+    ss_k = torch.empty((r_pad, plan["n_pad"], plan["ldw"]), dtype=torch.int32, device=dev)
+    aux_k = torch.empty((r_pad, plan["n_pad"]), dtype=torch.int32, device=dev)
+    vt = torch.empty((r_pad, n_x, words), dtype=torch.int32, device=dev)
+    bar = torch.empty((1,), dtype=torch.int32, device=dev)
+    addrs = torch.tensor([t.data_ptr() for group in parts for t in group], dtype=torch.int64)
+    ptrs = addrs.pin_memory().to(dev, non_blocking=True)
+    _launch("shard_fame/grid", dev, (
+        ptrs, ss_k, aux_k, vt, bar, last_round, n_pos, n_v, b, ny, nw_l, n_x, int(packed),
+        n_participants, super_majority,
+    ), packed=packed)
 
 
 def fame_tables(wtable, la, decided, famous, last_round):
@@ -1529,6 +1567,15 @@ def shard_walk_form(devices: Sequence) -> str:
         return d
 
     return "grid" if len({card(d) for d in devices}) == 1 else "step"
+
+
+def shard_fame_form(devices: Sequence, n_voters: int) -> str:
+    """The form of B21 for a mesh whose positions lie on `devices`, voting
+    with n_voters voters: shard_walk_form's, except that the one launch
+    ("grid") takes at most 32 * FV_MAX_WORDS voters and the per-step form
+    ("step") any number."""
+    form = shard_walk_form(devices)
+    return "step" if form == "grid" and -(-n_voters // 32) > FV_MAX_WORDS else form
 
 
 def shard_walk(inv_parts, rb_parts, fd, x0_parts, super_majority: int,

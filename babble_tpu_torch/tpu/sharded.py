@@ -13,6 +13,11 @@ Layout, as in the reference:
   position tallies its witness columns, and one `mesh.psum` of the tallies
   over the validator axis closes every step. The early exit is
   host-chunked: `chunk` steps, then one int per position read on the host.
+  Where every position lies on one device the whole loop is one launch
+  (B21's one-card form: K3's vote on tables gathered from the shards, the
+  ring shift an address offset, each witness column stopping at its own
+  exit); `_ext.shard_fame_form` chooses, by layout, and takes the step
+  form past the one launch's 19,296 voters.
 - **DecideRoundReceived** shards over the *events* axis against the
   replicated (R, N) fame tables.
 - The frontier walk shards over *chains*: each position builds and keeps
@@ -24,7 +29,8 @@ Layout, as in the reference:
 
 Each kernel of a position's shard is a wrapper: on a CPU tensor it runs
 the plain PyTorch version below, on a CUDA tensor the hand-written kernel
-(babble_tpu_torch/csrc/shard_fame.cu for B21 `local_fame`;
+(babble_tpu_torch/csrc/shard_fame.cu for B21 `local_fame`, in one launch
+`babble_shard_fame_grid` or step by step;
 round_received.cu's `babble_received_search` and `babble_fame_tables` for
 B22 `local_received` and B23 `_fame_tables`; frontier_walk.cu's
 `babble_shard_walk` for B24 `local_walk` in one launch, and its
@@ -177,22 +183,29 @@ def shard_active(wvalid, decided, i_rows, last_round, d0: int) -> torch.Tensor:
     return _ext.shard_fame_active(wvalid, decided, i_rows, last_round, d0)
 
 
-def _fame_loop(mesh: DeviceMesh, axis: str, v_axis: Optional[str], chunk: int,
+def _step_fame(mesh: DeviceMesh, axis: str, v_axis: Optional[str], chunk: int,
                n_participants: int, super_majority: int, d_bound: int, packed: bool,
-               last_round, i_rows, wvalid, votes, decided, famous, ss_s, wv_s,
-               coin_s) -> None:
-    """The whole voting pass over the mesh (the reference's shard_mapped
-    while_loop), in place on the per-position lists: one chunk always
-    runs; after it, chunks of `chunk` steps while some position still has
-    an active witness (read on the host once per chunk) and d0 <= d_bound."""
+               last_round, i_rows, wvalid, votes, decided, famous, ss_s, wv_s, coin_s,
+               plain: bool) -> None:
+    """The voting pass step by step (the reference's shard_mapped
+    while_loop), in place on the per-position lists: one chunk always runs;
+    after it, chunks of `chunk` steps while some position still has an
+    active witness (read on the host once per chunk) and d0 <= d_bound. Each
+    step: a tally per position, on a 2-D mesh a psum of the tallies over
+    the validator axis, a decide per position, then the ring shift of ss_s,
+    wv_s and coin_s. plain=False: the three per-step wrappers (the "step"
+    form); plain=True: their plain versions (the plain version of the
+    one-launch form)."""
     positions = range(mesh.size)
     if packed:
         v_offs = [axis_index(p, mesh, v_axis) * votes[p].shape[2] for p in positions]
     else:
         v_offs = [axis_index(p, mesh, v_axis) * votes[p].shape[1] for p in positions]
+    tally, decide, active = ((_shard_tally_plain, _shard_decide_plain, _shard_active_plain)
+                             if plain else (shard_tally, shard_decide, shard_active))
 
     def step(d):
-        tallies = [shard_tally(ss_s[p], votes[p], i_rows[p], last_round[p], d, packed)
+        tallies = [tally(ss_s[p], votes[p], i_rows[p], last_round[p], d, packed)
                    for p in positions]
         yays = [t[0] for t in tallies]
         total = [t[1] for t in tallies]
@@ -201,9 +214,9 @@ def _fame_loop(mesh: DeviceMesh, axis: str, v_axis: Optional[str], chunk: int,
             yays = psum(yays, mesh, v_axis)
             total = psum(total, mesh, v_axis)
         for p in positions:
-            shard_decide(yays[p], total[p], i_rows[p], last_round[p], wvalid[p],
-                         decided[p], famous[p], wv_s[p], coin_s[p], votes[p], v_offs[p],
-                         d, n_participants, super_majority, packed)
+            decide(yays[p], total[p], i_rows[p], last_round[p], wvalid[p], decided[p],
+                   famous[p], wv_s[p], coin_s[p], votes[p], v_offs[p], d, n_participants,
+                   super_majority, packed)
         for parts in (ss_s, wv_s, coin_s):
             ppermute_shift_left(parts, mesh, axis)
 
@@ -211,15 +224,73 @@ def _fame_loop(mesh: DeviceMesh, axis: str, v_axis: Optional[str], chunk: int,
         for k in range(chunk):
             step(d0 + k)
         d0 += chunk
-        flags = [shard_active(wvalid[p], decided[p], i_rows[p], last_round[p], d0)
+        flags = [active(wvalid[p], decided[p], i_rows[p], last_round[p], d0)
                  for p in positions]
         dev = flags[0].device
-        active = int(torch.cat([f.to(dev) for f in flags]).sum().item()) > 0
-        return d0, active
+        active_any = int(torch.cat([f.to(dev) for f in flags]).sum().item()) > 0
+        return d0, active_any
 
-    d0, active = chunk_body(2)  # voting always runs at least one chunk
-    while active and d0 <= d_bound:
-        d0, active = chunk_body(d0)
+    d0, active_any = chunk_body(2)  # voting always runs at least one chunk
+    while active_any and d0 <= d_bound:
+        d0, active_any = chunk_body(d0)
+
+
+def fame_grid(mesh: DeviceMesh, axis: str, v_axis: Optional[str], chunk: int,
+              n_participants: int, super_majority: int, d_bound: int, packed: bool,
+              last_round, i_rows, wvalid, votes, decided, famous, ss_s, wv_s,
+              coin_s) -> None:
+    """B21's whole loop in one launch, every position on one device, in
+    place on decided and famous (the votes and the shifted state are left as
+    they were): CPU the plain version, the step-by-step loop of the plain
+    steps (which also leaves the final votes and shifted state); CUDA the
+    cooperative kernel, positions passed in (rounds index, validator index)
+    order. Each column of the kernel stops at its own exit (decided, or i +
+    d > last_round), which the step-by-step loop never passes before it
+    stops (last_round < r_pad < d_bound: a column still active at a chunk's
+    end keeps the loop going)."""
+    if mesh.device.type == "cpu":
+        _step_fame(mesh, axis, v_axis, chunk, n_participants, super_majority, d_bound, packed,
+                   last_round, i_rows, wvalid, votes, decided, famous, ss_s, wv_s, coin_s,
+                   plain=True)
+        return
+    _ext.shard_fame_grid(*grid_operands(mesh, axis, v_axis, ss_s, votes, wv_s, coin_s, wvalid,
+                                        decided, famous), last_round[0], n_participants,
+                         super_majority, packed)
+
+
+def grid_operands(mesh: DeviceMesh, axis: str, v_axis: Optional[str], *tables):
+    """The one-launch loop's operands: each per-position list of `tables`
+    in (rounds index, validator index) order, then the number of validator
+    positions to a rounds index."""
+    n_v = axis_size(mesh, v_axis) if v_axis is not None else 1
+    order = sorted(range(mesh.size), key=lambda p: (
+        axis_index(p, mesh, axis), axis_index(p, mesh, v_axis) if v_axis is not None else 0))
+    return (*([parts[p] for p in order] for parts in tables), n_v)
+
+
+def _fame_loop(mesh: DeviceMesh, axis: str, v_axis: Optional[str], chunk: int,
+               n_participants: int, super_majority: int, d_bound: int, packed: bool,
+               last_round, i_rows, wvalid, votes, decided, famous, ss_s, wv_s,
+               coin_s, form: Optional[str] = None) -> None:
+    """The whole voting pass over the mesh, in place on decided and famous.
+    `form` is _ext.shard_fame_form's unless named: "grid", one launch for
+    every position (every position on one device, up to 32 *
+    _ext.FV_MAX_WORDS voters; on the CPU the plain step-by-step loop), or
+    "step", three launches per step and position (positions on distinct
+    cards, or more voters). Both give the same decided and famous."""
+    if form is None:
+        form = _ext.shard_fame_form(mesh.devices, ss_s[0].shape[1])
+    args = (mesh, axis, v_axis, chunk, n_participants, super_majority, d_bound, packed,
+            last_round, i_rows, wvalid, votes, decided, famous, ss_s, wv_s, coin_s)
+    if form == "grid":
+        if _ext.shard_walk_form(mesh.devices) != "grid":
+            raise ValueError("local_fame: the one-launch loop needs every position on one "
+                             "device")
+        fame_grid(*args)
+    elif form == "step":
+        _step_fame(*args, plain=False)
+    else:
+        raise ValueError(f"local_fame: no form {form!r}; {_ext.SHARD_WALK_FORMS}")
 
 
 # ---------------------------------------------------------------------------
@@ -349,10 +420,11 @@ def stage_fame(mesh: DeviceMesh, grid: DagGrid, wtable_np, la, fd, index,
 
 
 def sharded_fame(mesh: DeviceMesh, stage: FameStage, last_round, chunk: int,
-                 n_participants: int, super_majority: int, packed: bool):
+                 n_participants: int, super_majority: int, packed: bool,
+                 form: Optional[str] = None):
     """The rounds-sharded fame loop on a staged input: shards it, runs the
-    loop in place, returns (decided, famous) (r_pad, N) on the mesh's
-    device."""
+    loop in place (`form` as _fame_loop takes it), returns (decided,
+    famous) (r_pad, N) on the mesh's device."""
     axis, v_axis = _mesh_axes(mesh)
     dev = mesh.device
     r_pad, n = stage.wvalid.shape
@@ -369,7 +441,8 @@ def sharded_fame(mesh: DeviceMesh, stage: FameStage, last_round, chunk: int,
     lr_parts = replicate(_as_scalar(last_round, dev), mesh)
     ledger_call("local_fame", _fame_loop, mesh, axis, v_axis, chunk, n_participants,
                 super_majority, r_pad + 2, packed, lr_parts, i_rows, wvalid_parts,
-                votes_parts, decided_parts, famous_parts, ss_parts, wv_parts, coin_parts)
+                votes_parts, decided_parts, famous_parts, ss_parts, wv_parts, coin_parts,
+                form=form)
     return (unshard(decided_parts, mesh, (axis, None)),
             unshard(famous_parts, mesh, (axis, None)))
 

@@ -13,8 +13,9 @@ Phases, in order; any failure raises and exits non-zero:
    exact integer equality (torch.equal, tolerance 0), on the bench grid
    (64 validators, 32,768 Zipf-skewed events) and the small fixtures of
    the JAX suite's frontier tests, with CUDA-event times at the bench shapes;
-   decide_fame also on random voting tables that reach a coin round (shown
-   on the CPU first: flipping the coin bits changes the verdicts);
+   decide_fame in both layouts, also on random voting tables that reach a
+   coin round (shown on the CPU first: flipping the coin bits changes the
+   verdicts);
 4. end to end: run_frontier_passes on the card at the bench size, every
    field equal to the port's CPU run, last_round 26 and 28,065 received
    events (the JAX reference's result on this grid), every kernel's launch
@@ -132,8 +133,9 @@ Phases, in order; any failure raises and exits non-zero:
    byzantine_frac=1/3), 677 levels): K2 frontier_rounds at the engine's
    r_cap 64, held to its plain version and timed; K6 closure_la (one
    launch to its fixed point) with its pass count, held to its plain
-   version and timed; K3p on its witness table, on
-   test_packed.py's 7- and 33-validator fixtures and on the coin cases;
+   version and timed; K3 in both layouts on its witness table (both
+   timed), on test_packed.py's 7- and 33-validator fixtures and on the
+   coin cases;
    K5p on the grid and a pinned section of it; walk_chunk on every chunk
    of its walk; on a state driven through its 1,024 batches of 64 (the
    live engine's defaults but e_win 65,536, phase 14's window; upd_cap the
@@ -149,7 +151,9 @@ Phases, in order; any failure raises and exits non-zero:
    packed=False: each pair equal field for field, the engines equal to
    each other, last_round 7, 32,341 received and 1,853 witnesses (the JAX
    reference's result), packed launches above zero and no wide form of a
-   layout kernel on a packed path; events/s per engine, and
+   layout kernel on a packed path; K3 in both layouts on
+   run_frontier_passes' own witness table held to its plain version;
+   events/s per engine, and
    run_doubling_passes' wall taken apart as in phase 8; step and
    multi_step (packed) over the same batches equal to run_passes on rows
    [:e] (e_win 65,536: the undecided tail outgrows smaller windows);
@@ -177,41 +181,52 @@ Phases, in order; any failure raises and exits non-zero:
    frontier_multi_train over pairs of trains, with events appended per
    second (32,768 / the median of 5 warm runs from a fresh state); (b)
    config #4 in trains of 8,192 (l_cap 512, r_cap 32) in both layouts,
-   the packed run held to the plain versions after every train and the
-   wide one to the packed, both equal to phase 14's engines (7, 32,341,
+   each run held to the plain versions after every train and the wide
+   one to the packed, both equal to phase 14's engines (7, 32,341,
    1,853 witnesses, no latch), then train_step (K11p held to its plain
    version after every train) and multi_train in the packed layout equal
    to the wide train_step; (c) bootstrap_frontier_state of the bench grid
    equal to run_frontier_passes; (d) config #5's width, synthetic_grid(1024,
    16384, seed=0, zipf_a=1.1, record_fd_updates=True) (depth cut: it stays
-   in round 0), where K3p takes its device staging form and K5, K10 and
-   K11p their grid walks, while K12 (both layouts) keeps the shared memory
-   it takes at every width, each held to its plain version (K2 too, with
-   its time; the votes also
+   in round 0), where K5, K10 and K11p take their grid walks, while K3
+   and K12 (both layouts) keep the shared memory they take at every width,
+   each held to its plain version (K2 too, with its time; the votes also
    on coin_round_case tables at 1,024 validators, where witnesses are
-   decided), and frontier_train_step (packed), K14 and K15 held to their
+   decided, and K3 on coin_round_case(1056, 5, 7) in both layouts, past
+   1,024, where its vote keeps each column's words in shared memory), and
+   frontier_train_step (packed), K14 and K15 held to their
    plain versions after every train (K15's bound printed), equal to
-   run_frontier_passes (packed); launches of the device form under
-   "<key>/dev" and of the grid walks under "<key>/grid", counted on runs
+   run_frontier_passes (packed); launches of the grid walks under
+   "<key>/grid", counted on runs
    of the entry points a user calls (run_passes, step, multi_step, train_step,
    frontier_train_step) with nothing else in the window.
 17. the device mesh (tpu/mesh.py, tpu/sharded.py, tpu/dispatch.py), every
    position of every mesh on the one card (torch.cuda.device_count() is
    printed; no number measures an interconnect): (a) each mesh kernel
-   (B21 shard_fame/tally, /decide, /active; B22 received_search; B23
+   (B21 as one launch, shard_fame/grid, held to the plain step-by-step
+   loop on every position's decided and famous, and its per-step form
+   shard_fame/tally, /decide, /active; B22 received_search; B23
    fame_tables; B24 as one launch, shard_walk/grid, held to the plain
    whole walk on every position's history, and its per-step form
    shard_walk/rows, /m0, /close; K3's setup fame_setup and K2's post
    frontier_post launched on their own) held torch.equal to its plain
    version after every launch, with CUDA-event times behind a spin:
    sharded_frontier_passes on config #4 on the 1-D mesh of 8 and the 2-D
-   (2, 4) mesh (packed), local_walk with the per-step form named on
-   config #4's 1-D walk (every step; its history equal to the one-launch
-   walk's), sharded_run_passes on the 1-D mesh (wide) and on the 2-D mesh
-   (both layouts), the bench cell through sharded_frontier_passes on the
-   1-D mesh, the voting tables of coin_round_case(8, 20, 52) (coin steps
-   at d = 8 and 16) and coin_round_case(1024, 6, 3) on the 2-D mesh,
-   equal to decide_fame's verdicts, and sharded_frontier_passes on
+   (2, 4) mesh (packed), sharded_fame with the per-step form named on
+   config #4's fame input on both meshes in both layouts, on each coin
+   case below and on the width cell's fame input (its decided and famous
+   equal to the one-launch loop's), local_walk with the per-step
+   form named on config #4's 1-D walk (every step; its history equal to
+   the one-launch walk's), sharded_run_passes on the 1-D mesh (wide) and
+   on the 2-D mesh (both layouts), the bench cell through
+   sharded_frontier_passes on the 1-D mesh, the voting tables of
+   coin_round_case(8, 20, 52) (coin steps at d = 8 and 16; both layouts),
+   coin_round_case(1024, 6, 3) (packed) and coin_round_case(1056, 5, 7)
+   (both layouts; 33 and 34 words, the vote's words in shared memory) on
+   the 2-D mesh, equal to decide_fame's verdicts (past the plain versions'
+   reach, coin_round_case(6400, 3, 5): K3 packed, one shard_fame/grid
+   launch and the per-step kernels on the 1-D mesh equal to one another),
+   and sharded_frontier_passes on
    synthetic_grid(1024, 16384, seed=0, zipf_a=1.1) (128 chains per
    position: the plain walk's binary search), equal to
    run_frontier_passes, and that walk on a one-card 1-D mesh of 128
@@ -220,14 +235,15 @@ Phases, in order; any failure raises and exits non-zero:
    the plain walk's and all of them to the 1-D 8 walk's row for row; (b)
    the three sharded engines on config #4 on
    both meshes and both layouts, each launching its path's kernels
-   (run_path; the frontier walk as exactly one launch of shard_walk/grid
-   and none of the per-step kernels, whose launches come from local_walk
-   with that form named) and equal to phase 14's engines (7, 32,341,
+   (run_path; the frontier walk and the fame loop as exactly one launch
+   each of shard_walk/grid and shard_fame/grid and none of their per-step
+   kernels, whose launches come from local_walk and sharded_fame with that
+   form named) and equal to phase 14's engines (7, 32,341,
    1,853 witnesses; fame on the overlap), the median wall of 3 warm runs
    per engine and mesh (packed), and the bench cell through
    sharded_frontier_passes on the 1-D mesh (26, 28,065); (c) phase 15's
    20,480 signed events: run_consensus_device with the 2-D mesh, and
-   run_consensus_mesh_queued (queue depth 4) after each sync of 1,024,
+   run_consensus_mesh_queued (queue depth 4) after each sync of 4,096,
    then flush, both byte-identical to the host engine, every call on the
    queued rung and the stager's delta path taken.
 
@@ -320,6 +336,8 @@ MULTI_TRAIN_UNDERSIZED = dict(stale=True, fame_lag=False, received=23380)
 INC_RUNS = 5
 # about half a millisecond of spinning at the H100's clock
 SPIN_CYCLES = 1_000_000
+# about five, for launchers whose host work passes half a millisecond
+GRID_SPIN_CYCLES = 10_000_000
 # test_incremental.py's 8-validator grid, its batch and train sizes
 INC_FIXTURE = dict(n=8, e=768, seed=3, zipf_a=1.1, batch=32, train=256, w_cap=16,
                    t_cap=96, r_cap=64, e_win=512)
@@ -396,20 +414,28 @@ FL_WIDE = dict(train=8192, upd_cap=1 << 22, t_cap=832, l_margin=64, r_cap=32)
 FL_WIDE_INC = dict(e_cap=65536, r_cap=64, r_win=64, e_win=65536)
 # (d) BASELINE.json config #5's width (1,024 validators) at a cut depth:
 # 16,384 events, a few rounds and nothing received (config #5's depth waits
-# for a host grid generator that scales: ROADMAP). Every kernel with a
-# device staging form runs it here, held to its plain version: K10 after
-# every batch, the decide after every FL_WIDTH_CHECK_EVERY-th (packed and
-# wide in turn); the launch counts come from the entry points' own runs
-# (run_passes, step, multi_step, train_step, frontier_train_step)
+# for a host grid generator that scales: ROADMAP). The widest launches of
+# every kernel run here, held to their plain versions: K3 in both layouts,
+# K10 after every batch, the decide after every FL_WIDTH_CHECK_EVERY-th
+# (packed and wide in turn); the launch counts come from the entry points'
+# own runs (run_passes, step, multi_step, train_step, frontier_train_step)
 FL_WIDTH = dict(n=1024, e_count=16384, seed=0, zipf_a=1.1)
 FL_WIDTH_BATCH = 64
 FL_WIDTH_TRAIN = 8192
 FL_WIDTH_CHECK_EVERY = 64
-# the grid stays in round 0 at that depth, so the device forms of the votes
-# (K3p, K12) are also held on coin_round_case tables at 1,024 validators:
+# the grid stays in round 0 at that depth, so the votes (K3 in both layouts,
+# K12) are also held on coin_round_case tables at 1,024 validators:
 # (n, rounds, seed), strongly-seeing common and the votes split, so that
 # witnesses are decided
 FL_WIDTH_COIN = (1024, 6, 3)
+# the same past 1,024 validators, where the vote keeps each column's words
+# in shared memory instead of registers (33 words; 34 on the 2-D mesh's
+# packed layout, lane-aligned per validator shard)
+WIDE_VOTE_CASE = (1056, 5, 7)
+# and past the plain versions' reach (their setup's (N, N, N) count needs
+# 64 GiB from 2,048 validators): 200 words, where the vote's ring takes 7
+# slots beside the columns' words; held in phase 17(a) kernel to kernel
+FAR_VOTE_CASE = (6400, 3, 5)
 
 # the device mesh (phase 17): every position of every mesh on the one card
 MESH_1D = ((8,), ("rounds",))
@@ -419,19 +445,29 @@ MESH_WIDE_1D = ((128,), ("rounds",))
 MESH_2D = ((2, 4), ("validators", "rounds"))
 MESH_RUNS = 3
 # voting tables that reach coin steps on a mesh (8 validators, 20 rounds:
-# d = 8 and 16), and the 1,024-validator tables of phase 16(d), where
-# witnesses are decided (a coin step there needs d = 1,024)
-MESH_COIN_CASES = ((8, 20, 52), FL_WIDTH_COIN)
+# d = 8 and 16), the 1,024-validator tables of phase 16(d), where
+# witnesses are decided (a coin step there needs d = 1,024), and phase
+# 16(d)'s tables past 1,024 (the vote's words in shared memory), each with
+# the layouts held on the 2-D mesh
+MESH_COIN_CASES = (((8, 20, 52), (True, False)), (FL_WIDTH_COIN, (True,)),
+                   (WIDE_VOTE_CASE, (True, False)))
 MESH_WIDTH = dict(n=1024, e_count=16384, seed=0, zipf_a=1.1)
-# run (c): phase 15's signed events in syncs of MESH_SYNC, the queue depth
-MESH_SYNC = 1024
+# run (c): phase 15's signed events in syncs of MESH_SYNC (five calls, one
+# more than the queue's depth: a full stage, then deltas), the queue depth
+MESH_SYNC = 4096
 MESH_QUEUE_DEPTH = 4
 # the cell whose checked calls give each mesh kernel's times and bound in
-# the kernels line (the others' are printed)
+# the kernels line (the others' are printed): the kernels line's name ->
+# (cell, checked name); B21's per-step kernels from the loops run with that
+# form named, its one launch from the engines' own loops
+MESH_STEP_CELL = "config #4, 1-D 8, packed, per-step form"
+MESH_STEP_CELL_WIDE = "config #4, 1-D 8, wide, per-step form"
 MESH_TIMED_CELL = {
-    "shard_fame/tally/packed": "config #4 frontier, 1-D 8, packed",
-    "shard_fame/decide/packed": "config #4 frontier, 1-D 8, packed",
-    "shard_fame/active": "config #4 frontier, 1-D 8, packed",
+    "shard_fame/grid/packed": "config #4 frontier, 1-D 8, packed",
+    "shard_fame/grid": "config #4 level scan, 1-D 8, wide",
+    "shard_fame/tally/packed": MESH_STEP_CELL,
+    "shard_fame/decide/packed": MESH_STEP_CELL,
+    "shard_fame/active": MESH_STEP_CELL,
     "fame_tables": "config #4 frontier, 1-D 8, packed",
     "received_search": "config #4 frontier, 1-D 8, packed",
     "fame_setup/packed": "config #4 frontier, 1-D 8, packed",
@@ -440,10 +476,10 @@ MESH_TIMED_CELL = {
     "shard_walk/close": "config #4 frontier, 1-D 8, packed",
     "shard_walk/grid": "config #4 frontier, 1-D 8, packed",
     "frontier_post": "config #4 frontier, 1-D 8, packed",
-    "shard_fame/tally": "config #4 level scan, 1-D 8, wide",
-    "shard_fame/decide": "config #4 level scan, 1-D 8, wide",
+    "shard_fame/tally": MESH_STEP_CELL_WIDE,
+    "shard_fame/decide": MESH_STEP_CELL_WIDE,
     "fame_setup": "config #4 level scan, 1-D 8, wide",
-    "fame_setup/packed/dev": "width cell frontier, 1-D 8, packed",
+    "fame_setup/packed (1,024)": ("width cell frontier, 1-D 8, packed", "fame_setup/packed"),
 }
 REPLACES = {
     "build_inv": ("babble_tpu_torch/csrc/build_inv.cu", "babble_tpu/tpu/frontier.py:116"),
@@ -495,10 +531,14 @@ REPLACES = {
                                 "babble_tpu/tpu/frontier.py:299"),
     "frontier_window (1,024)": ("babble_tpu_torch/csrc/frontier_walk.cu",
                                 "babble_tpu/tpu/frontier_live.py:184"),
-    # the device staging form past one block's shared memory and the level
+    # K3 wide at config #4 (phase 13), K3 in both layouts and the level
     # walks' grid forms at 1,024 validators (phase 16(d))
-    "decide_fame/packed/dev": ("babble_tpu_torch/csrc/decide_fame.cu",
-                               "babble_tpu/tpu/kernels.py:335"),
+    "decide_fame (config #4)": ("babble_tpu_torch/csrc/decide_fame.cu",
+                                "babble_tpu/tpu/kernels.py:335"),
+    "decide_fame/packed (1,024)": ("babble_tpu_torch/csrc/decide_fame.cu",
+                                   "babble_tpu/tpu/kernels.py:335"),
+    "decide_fame (1,024)": ("babble_tpu_torch/csrc/decide_fame.cu",
+                            "babble_tpu/tpu/kernels.py:335"),
     "divide_rounds/grid": ("babble_tpu_torch/csrc/divide_rounds.cu",
                            "babble_tpu/tpu/kernels.py:118"),
     "step_levels/packed/grid (1,024)": ("babble_tpu_torch/csrc/step_levels.cu",
@@ -517,6 +557,10 @@ REPLACES = {
     "shard_fame/decide/packed": ("babble_tpu_torch/csrc/shard_fame.cu",
                                  "babble_tpu/tpu/sharded.py:149"),
     "shard_fame/active": ("babble_tpu_torch/csrc/shard_fame.cu", "babble_tpu/tpu/sharded.py:149"),
+    # B21's whole loop in one cooperative launch (every position on one card)
+    "shard_fame/grid": ("babble_tpu_torch/csrc/shard_fame.cu", "babble_tpu/tpu/sharded.py:149"),
+    "shard_fame/grid/packed": ("babble_tpu_torch/csrc/shard_fame.cu",
+                               "babble_tpu/tpu/sharded.py:149"),
     "received_search": ("babble_tpu_torch/csrc/round_received.cu",
                         "babble_tpu/tpu/sharded.py:302"),
     "fame_tables": ("babble_tpu_torch/csrc/round_received.cu", "babble_tpu/tpu/sharded.py:329"),
@@ -532,8 +576,8 @@ REPLACES = {
     "fame_setup": ("babble_tpu_torch/csrc/decide_fame.cu", "babble_tpu/tpu/kernels.py:335"),
     "fame_setup/packed": ("babble_tpu_torch/csrc/decide_fame.cu",
                           "babble_tpu/tpu/kernels.py:335"),
-    "fame_setup/packed/dev": ("babble_tpu_torch/csrc/decide_fame.cu",
-                              "babble_tpu/tpu/kernels.py:335"),
+    "fame_setup/packed (1,024)": ("babble_tpu_torch/csrc/decide_fame.cu",
+                                  "babble_tpu/tpu/kernels.py:335"),
     "frontier_post": ("babble_tpu_torch/csrc/frontier_walk.cu",
                       "babble_tpu/tpu/frontier.py:299"),
 }
@@ -590,12 +634,11 @@ PATH_KERNELS = {
                                     "decide_fame/packed", "round_received"),
     "bootstrap_frontier_state": ("build_inv", "walk_chunk", "frontier_window",
                                  "decide_fame", "round_received"),
-    # at 1,024 validators the packed vote stages in device memory, and the
-    # level walks take their grid forms
+    # at 1,024 validators the level walks take their grid forms
     "run_frontier_passes (1,024), packed": ("build_inv", "frontier_rounds",
-                                            "decide_fame/packed/dev", "round_received"),
+                                            "decide_fame/packed", "round_received"),
     "frontier_train_step (1,024), packed": ("frontier_append", "frontier_window",
-                                            "decide_fame/packed/dev", "round_received"),
+                                            "decide_fame/packed", "round_received"),
     "run_passes (1,024)": ("divide_rounds/grid", "decide_fame", "round_received"),
     "step (1,024), packed": ("apply_deltas", "step_levels/packed/grid",
                              "decide_window/packed"),
@@ -603,40 +646,37 @@ PATH_KERNELS = {
     "train_step (1,024), packed": ("apply_deltas", "train_levels/packed/grid",
                                    "decide_window/packed"),
     # the device mesh: passes 2+3 of every sharded engine; on the one card
-    # the frontier walk is one launch (_ext.shard_walk_form), and its
-    # per-step kernels run when a caller names that form
+    # the frontier walk and the fame loop are one launch each
+    # (_ext.shard_walk_form), and their per-step kernels run when a caller
+    # names that form
     "sharded_frontier_passes": ("build_inv", "shard_walk/grid", "frontier_post", "fame_setup",
-                                "shard_fame/tally", "shard_fame/decide", "shard_fame/active",
-                                "fame_tables", "received_search"),
+                                "shard_fame/grid", "fame_tables", "received_search"),
     "sharded_frontier_passes, packed": ("build_inv", "shard_walk/grid", "frontier_post",
-                                        "fame_setup/packed", "shard_fame/tally/packed",
-                                        "shard_fame/decide/packed", "shard_fame/active",
+                                        "fame_setup/packed", "shard_fame/grid/packed",
                                         "fame_tables", "received_search"),
     "local_walk, per-step form": ("shard_walk/rows", "shard_walk/m0", "shard_walk/close"),
-    "sharded_run_passes": ("divide_rounds/grid", "fame_setup", "shard_fame/tally",
-                           "shard_fame/decide", "shard_fame/active", "fame_tables",
-                           "received_search"),
+    "sharded_fame, per-step form": ("shard_fame/tally", "shard_fame/decide",
+                                    "shard_fame/active"),
+    "sharded_fame, per-step form, packed": ("shard_fame/tally/packed",
+                                            "shard_fame/decide/packed", "shard_fame/active"),
+    "sharded_run_passes": ("divide_rounds/grid", "fame_setup", "shard_fame/grid",
+                           "fame_tables", "received_search"),
     "sharded_run_passes, packed": ("divide_rounds/packed/grid", "fame_setup/packed",
-                                   "shard_fame/tally/packed", "shard_fame/decide/packed",
-                                   "shard_fame/active", "fame_tables", "received_search"),
+                                   "shard_fame/grid/packed", "fame_tables", "received_search"),
     "sharded_doubling_passes": ("closure_la", "build_inv", "walk_chunk", "fame_setup",
-                                "shard_fame/tally", "shard_fame/decide", "shard_fame/active",
-                                "fame_tables", "received_search"),
+                                "shard_fame/grid", "fame_tables", "received_search"),
     "sharded_doubling_passes, packed": ("closure_la", "build_inv", "walk_chunk",
-                                        "fame_setup/packed", "shard_fame/tally/packed",
-                                        "shard_fame/decide/packed", "shard_fame/active",
+                                        "fame_setup/packed", "shard_fame/grid/packed",
                                         "fame_tables", "received_search"),
     "sharded_frontier_passes (1,024), packed": ("build_inv", "shard_walk/grid",
-                                                "frontier_post", "fame_setup/packed/dev",
-                                                "shard_fame/tally/packed",
-                                                "shard_fame/decide/packed",
-                                                "shard_fame/active", "fame_tables",
+                                                "frontier_post", "fame_setup/packed",
+                                                "shard_fame/grid/packed", "fame_tables",
                                                 "received_search"),
 }
 # the wide forms of the layout kernels, which a packed path must not launch
 WIDE_FORMS = ("decide_fame", "divide_rounds", "step_levels", "train_levels",
               "decide_window", "divide_rounds/grid", "step_levels/grid", "train_levels/grid",
-              "shard_fame/tally", "shard_fame/decide", "fame_setup")
+              "shard_fame/tally", "shard_fame/decide", "fame_setup", "shard_fame/grid")
 # run_consensus_device's rung on phase 12's DAG (its 1,140 levels pass the
 # 1,024-level crossover) and that rung's kernels
 HG_ONESHOT_RUNG = ("doubling", "run_doubling_passes")
@@ -730,6 +770,24 @@ def closure_la_work(cs, la_fin, passes):
     return (4 * cs.idx_d.shape[0] * 4 + n * l * 4 + la_fin.numel() * 4,
             (nonneg_fin * n + prefix_ops
              + (int(passes) - 1) * (nonneg_0 * n + prefix_ops)) / ALU_OPS_S)
+
+
+def walk_chunk_work(big, l_c, n_s):
+    """((bytes, seconds at the peak rates), working steps) of one walk_chunk
+    call (`big`: its arguments) over n_s validators with chain length l_c:
+    the steps whose frontier still holds a row, each reading the frontier
+    rows and the probed rows (at most every input once), the count-based
+    selection's compares at the ALU rate."""
+    from babble_tpu_torch.tpu import doubling
+
+    x_before = torch.cat([big[4][None, :], doubling._walk_chunk_plain(*big)[1][:-1]])
+    working = int((x_before < l_c).any(dim=1).sum().item())
+    steps = big[11]
+    step_bytes = n_s * n_s * 4 * 2 + n_s * steps * n_s * 4 + n_s * (steps + 1) * 4
+    return ((min(working * step_bytes, big[0].numel() * 4 + big[2].numel() * 4
+                 + big[3].numel() * 4 + big[1].numel() * 4)
+             + big[5].numel() * 4 + big[6].numel() * 4 + big[10] * n_s * 4 + 3 * n_s * 4,
+             working * (n_s * steps * n_s * n_s + n_s * n_s) / ALU_OPS_S), working)
 
 
 def walk_chunk_traps(args):
@@ -1163,6 +1221,29 @@ def fame_work(wtable, n):
     n_pairs = int((wvalid[1:].sum(dim=1) * wvalid[:-1].sum(dim=1)).sum().item())
     return (r_max * n * 4 + n_wit * n * 4 * 2 + n_wit * 5 + 4 + r_max * n * 2 + r_max,
             n_pairs * (n + 1) / ALU_OPS_S + valid_rounds * 2 * n ** 3 / INT8_TC_OPS_S)
+
+
+def fame_stage_row_bytes(stage):
+    """Bytes of one global row of a staged fame input (sharded.FameStage):
+    its ss_s, votes, wv_s, coin_s and wvalid rows."""
+    return sum(t[0].numel() * t.element_size() for t in (
+        stage.ss_s, stage.votes, stage.wv_s, stage.coin_s, stage.wvalid))
+
+
+def shard_fame_work(row_bytes, r_pad, n, n_y, last_round, n_v):
+    """(bytes, seconds at the peak rates) of B21's whole fame loop over r_pad
+    global rows of row_bytes staged bytes each (n witness columns, n_y
+    voters): the rows the vote reads, rows g <= last_round - 2 (no later
+    row votes, and the planes of rows g read rows g + d - 2 <= last_round -
+    2), and decided and famous written at every row and each of n_v
+    validator positions; the tally as the K3 vote's, a popcount a word for
+    every (voting row, voter, column, step) of the steps the rows may take
+    (i + d <= last_round), at the integer rate."""
+    rows = max(min(r_pad, int(last_round) - 1), 0)
+    words = -(-n_y // 32)
+    steps = sum(max(int(last_round) - g - 1, 0) for g in range(rows))
+    return (rows * row_bytes + 2 * r_pad * n * n_v,
+            steps * n_y * n * words * 3 / ALU_OPS_S)
 
 
 def scan_work(g, ins, dr, scan_r_max):
@@ -1623,11 +1704,12 @@ def packed_kernel_phase(g, dev, log_fn):
         require_equal(what, got, want)
         return got
 
-    def fame_pair(args):
-        return (lambda: tuple(kernels.decide_fame(*args, packed=True)),
-                lambda: tuple(kernels._decide_fame_plain(*args, packed=True)))
+    def fame_pair(args, packed=True):
+        return (lambda: tuple(kernels.decide_fame(*args, packed=packed)),
+                lambda: tuple(kernels._decide_fame_plain(*args, packed=packed)))
 
-    # K3p: a non-lane-aligned and a word-crossing fixture, the coin cases
+    # K3 in both layouts: a non-lane-aligned and a word-crossing fixture,
+    # the coin cases
     for fx in PACKED_FIXTURES:
         fg = synthetic_grid(fx[0], fx[1], seed=fx[2])
         fst = engine.stage_frontier(fg, dev)
@@ -1638,14 +1720,15 @@ def packed_kernel_phase(g, dev, log_fn):
                 fg.super_majority, fg.n, R_CAP + 2)
         got = held(f"decide_fame/packed on fixture {fx}", *fame_pair(args))
         require_equal(f"decide_fame packed == wide on fixture {fx}", got,
-                      tuple(kernels.decide_fame(*args)))
+                      held(f"decide_fame on fixture {fx}", *fame_pair(args, False)))
     for n_c, r, seed in COIN_CASES:
         case = coin_round_case(n_c, r, seed)
         for c in (case["coin_bit"], ~case["coin_bit"]):
-            held(f"decide_fame/packed on coin case n={n_c} rounds={r} seed={seed}",
-                 *fame_pair(coin_fame_args(case, c, dev)))
-    log_fn(f"decide_fame/packed == plain on fixtures {PACKED_FIXTURES} (and == the wide "
-           f"kernel) and on the coin cases {COIN_CASES}, both coin settings")
+            for pk in (True, False):
+                held(f"decide_fame (packed={pk}) on coin case n={n_c} rounds={r} seed={seed}",
+                     *fame_pair(coin_fame_args(case, c, dev), pk))
+    log_fn(f"decide_fame == plain in both layouts on fixtures {PACKED_FIXTURES} (packed == "
+           f"wide) and on the coin cases {COIN_CASES}, both coin settings")
 
     # K2 at the engine's round axis, then K3p on the grid's witness table
     # (the frontier walk's at WIDE_R_CAP)
@@ -1675,15 +1758,18 @@ def packed_kernel_phase(g, dev, log_fn):
     _ext.reset_launches()
     got = held(f"decide_fame/packed on the {n}-validator grid", kern, plain)
     launched = _ext.LAUNCHES["decide_fame/packed"]
-    wide_kern = lambda: tuple(kernels.decide_fame(*fame_args))  # noqa: E731
-    require_equal(f"decide_fame packed == wide on the {n}-validator grid", got, wide_kern())
-    k_ms, p_ms, w_ms = spun_ms(kern, 20), spun_ms(plain, 3, warmup=1), spun_ms(wide_kern, 10)
+    wide_kern, wide_plain = fame_pair(fame_args, False)
+    require_equal(f"decide_fame packed == wide on the {n}-validator grid", got,
+                  held(f"decide_fame on the {n}-validator grid", wide_kern, wide_plain))
+    k_ms, p_ms = spun_ms(kern, 20), spun_ms(plain, 3, warmup=1)
+    w_ms, wp_ms = spun_ms(wide_kern, 20), spun_ms(wide_plain, 3, warmup=1)
     summary["decide_fame/packed"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
-    work["decide_fame/packed"] = fame_work(fr.witness_table, n)
-    log_fn(f"decide_fame/packed == plain == wide on the {n}-validator grid's witness table "
-           f"(r_cap {WIDE_R_CAP}, last_round {int(fr.last_round)}, "
-           f"{int((fr.witness_table >= 0).sum())} witnesses): {launched} launch, "
-           f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, wide kernel {w_ms:.4f} ms")
+    summary["decide_fame (config #4)"] = {"max_abs_err": 0, "ms": w_ms, "plain_ms": wp_ms}
+    work["decide_fame/packed"] = work["decide_fame (config #4)"] = fame_work(fr.witness_table, n)
+    log_fn(f"decide_fame == plain in both layouts, packed == wide, on the {n}-validator "
+           f"grid's witness table (r_cap {WIDE_R_CAP}, last_round {int(fr.last_round)}, "
+           f"{int((fr.witness_table >= 0).sum())} witnesses): {launched} launch, packed "
+           f"{k_ms:.4f} ms (plain {p_ms:.3f}), wide {w_ms:.4f} ms (plain {wp_ms:.3f})")
 
     # K5p on the grid and on a pinned section of it
     res = engine.run_frontier_passes(g, device=dev)
@@ -1988,7 +2074,7 @@ def wide_engine_phase(g, dev, log_fn, upd_cap, batches_d):
     results, launches = {}, {}
     for name, fn in engines.items():
         packed, launches[name] = run_path(f"{name}, packed", fn)
-        wide, _ = run_path(name, lambda: fn(packed=False))
+        wide, launches[f"{name}, wide"] = run_path(name, lambda: fn(packed=False))
         require_same_results(f"{name}: packed == wide", packed, wide)
         results[name] = packed
     ref = results["run_frontier_passes"]
@@ -1999,6 +2085,23 @@ def wide_engine_phase(g, dev, log_fn, upd_cap, batches_d):
     if got != WIDE_EXPECT:
         raise AssertionError(f"256 grid: {got}, the reference gives {WIDE_EXPECT}")
     log_fn(f"config #4 grid: the three engines agree in both layouts field for field: {got}")
+    # K3 in both layouts on the frontier engine's own witness table
+    from babble_tpu_torch.tpu import kernels
+
+    fst = engine.stage_frontier(g, dev)
+    wt = torch.from_numpy(np.ascontiguousarray(ref.witness_table, dtype=np.int32)).to(dev)
+    fame_args = (wt, fst.la, fst.fd, fst.index, fst.coin_bit,
+                 torch.tensor(ref.last_round, dtype=torch.int32, device=dev), g.super_majority,
+                 n, wt.shape[0] + 2)
+    for pk in (True, False):
+        got_f = tuple(kernels.decide_fame(*fame_args, packed=pk))
+        want_f = tuple(kernels._decide_fame_plain(*fame_args, packed=pk))
+        torch.cuda.synchronize()
+        require_equal(f"decide_fame (packed={pk}) on run_frontier_passes' witness table", got_f,
+                      want_f)
+    log_fn(f"decide_fame == plain in both layouts on run_frontier_passes' witness table "
+           f"({wt.shape[0]} rounds)")
+    del fst
     for name, fn in engines.items():
         ms = wall_ms(fn, WIDE_RUNS)
         log_fn(f"e2e {name} (packed) on the {n}-validator grid: median {ms:.3f} ms over {WIDE_RUNS} "
@@ -2324,8 +2427,8 @@ def fl_bench_phase(bench, trains, res, dev, log_fn):
 
 def fl_wide_phase(g, ref, dev, log_fn):
     """Phase 16 (b): config #4 in trains of 8,192 through frontier_train_step
-    in both layouts (packed: K14, K15 and the decide held to their plain
-    versions after every train; wide: equal to packed after every train),
+    in both layouts (K14, K15 and the decide held to their plain versions
+    after every train in each; wide equal to packed after every train),
     equal to phase 14's one-shot result; then train_step (K11p held to its
     plain version after every train) and multi_train in the packed layout,
     equal to the wide train_step. Returns (summary, work, launches) of
@@ -2359,10 +2462,12 @@ def fl_wide_phase(g, ref, dev, log_fn):
     launches = dict(_ext.LAUNCHES)
     require_path_launches(f"frontier_train_step, packed, {n} validators",
                           "frontier_train_step, packed", launches)
-    wide = fl.init_frontier_state(n, e_cap, l_cap, r_cap, device=dev)
+    # the wide layout, its K14, K15 and decide (K3 wide) held to their plain
+    # versions after every train too
+    wide = FlPaired(fl.init_frontier_state(n, e_cap, l_cap, r_cap, device=dev), sm, n, False)
     for k, t in enumerate(trains_d):
-        fl.frontier_train_step(wide, t, sm, n, packed=False)
-        bad = fr_diff(wide, snaps[k])
+        wide.train(t, f"{n}-validator grid, wide, train {k}")
+        bad = fr_diff(wide.st, snaps[k])
         if bad:
             raise AssertionError(f"frontier_train_step at {n} validators, train {k}: the wide "
                                  f"layout's {bad} differ from the packed")
@@ -2373,7 +2478,7 @@ def fl_wide_phase(g, ref, dev, log_fn):
     if got != dict(WIDE_EXPECT, l_over=False, r_over=False, frozen_violation=False):
         raise AssertionError(f"frontier-live at {n} validators: {got}")
     log_fn(f"frontier_train_step over config #4's {len(trains_d)} trains (l_cap {l_cap}, r_cap "
-           f"{r_cap}): packed == plain after every train, wide == packed, both == the one-shot "
+           f"{r_cap}): both layouts == plain after every train, wide == packed, both == the one-shot "
            f"engines: {got}; launches {({k: v for k, v in launches.items() if v})}")
     for name in ("frontier_append", "frontier_window"):
         calls, k_ms, p_ms, _ = run.summary(name)
@@ -2433,10 +2538,10 @@ def fl_wide_phase(g, ref, dev, log_fn):
 
 
 def fl_width_phase(dev, log_fn):
-    """Phase 16 (d): config #5's width, 1,024 validators, where K3p takes
-    its device staging form and the level walks (K5, K10, K11) their grid
-    walks: each held torch.equal to its plain version (K3p on the frontier
-    walk's witness table, K5 on the level scan, K10 and the decide on the
+    """Phase 16 (d): config #5's width, 1,024 validators, where the level
+    walks (K5, K10, K11) take their grid walks: each held torch.equal to
+    its plain version (K3 in both layouts on the frontier walk's witness
+    table, on coin case tables at 1,024 and past it, K5 on the level scan, K10 and the decide on the
     append state, K11p on the trains, K14 and K15 after every train of
     frontier-live), and every entry point whose path holds one of those
     forms run on its own (run_path) against run_frontier_passes (packed):
@@ -2453,20 +2558,20 @@ def fl_width_phase(dev, log_fn):
     sm, n, e = g.super_majority, g.n, g.e
     log_fn(f"{n}-validator grid: {e} events, {g.num_levels} levels, hottest chain "
            f"{int(g.index.max()) + 1} events; {time.perf_counter() - t_phase:.1f} s to generate")
-    forms = _ext.staging("decide_fame", n, packed=True)
-    if set(forms.values()) != {"device"}:
-        raise AssertionError(f"decide_fame at {n} validators: staging {forms}, not the device "
-                             f"form in every launch")
-    # K12's launches and the level walks' grid forms take the same shared
-    # memory at every width: no staging form
+    # K3's setup and K12's launches, and the level walks' grid forms, take
+    # the same shared memory at every width; K3's vote its ring (no staging
+    # form)
     walks = {"divide_rounds": _ext.divide_rounds_form(n, n),
              "step_levels": _ext.step_levels_form(n, FL_WIDTH_BATCH, inc.L_MAX,
                                                   FL_WIDTH_BATCH, 32),
              "train_levels": _ext.train_levels_form(n, FL_WIDTH_TRAIN, 64, 32)}
+    k3 = _ext.block_smem("decide_fame", n, packed=True)
     if (set(walks.values()) != {"grid"}
-            or _ext.block_smem("decide_window", n) != _ext.block_smem("decide_window", 256)):
+            or _ext.block_smem("decide_window", n) != _ext.block_smem("decide_window", 256)
+            or k3["setup"] != _ext.block_smem("decide_fame", 256)["setup"]
+            or max(k3.values()) > _ext.MAX_SMEM_BYTES):
         raise AssertionError(f"at {n} validators: walks {walks}, decide_window's blocks "
-                             f"{_ext.block_smem('decide_window', n)}")
+                             f"{_ext.block_smem('decide_window', n)}, decide_fame's {k3}")
     summary, work, launches = {}, {}, {}
 
     def held(what, kern, plain):
@@ -2484,7 +2589,7 @@ def fl_width_phase(dev, log_fn):
         require_equal(what, got, want)
         return got, ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])
 
-    # the one-shot frontier engine, packed: K3p's device form
+    # the one-shot frontier engine, packed
     res, l_launches = run_path("run_frontier_passes (1,024), packed",
                                lambda: engine.run_frontier_passes(g, device=dev, packed=True))
     r_fame = res.witness_table.shape[0]
@@ -2504,21 +2609,26 @@ def fl_width_phase(dev, log_fn):
     del inv, k2_args
     fame_args = (fr.witness_table, st.la, st.fd, st.index, st.coin_bit, fr.last_round, sm, n,
                  r_fame + 2)
-    _, k_ms, p_ms = held(f"decide_fame/packed/dev at {n} validators",
-                         lambda: tuple(kernels.decide_fame(*fame_args, packed=True)),
-                         lambda: tuple(kernels._decide_fame_plain(*fame_args, packed=True)))
-    summary["decide_fame/packed/dev"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
-    work["decide_fame/packed/dev"] = fame_work(fr.witness_table, n)
-    launches["decide_fame/packed/dev"] = l_launches["decide_fame/packed/dev"]
+    for pk, key in ((True, "decide_fame/packed (1,024)"), (False, "decide_fame (1,024)")):
+        _, k_ms, p_ms = held(f"decide_fame (packed={pk}) at {n} validators",
+                             lambda: tuple(kernels.decide_fame(*fame_args, packed=pk)),
+                             lambda: tuple(kernels._decide_fame_plain(*fame_args, packed=pk)))
+        summary[key] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+        work[key] = fame_work(fr.witness_table, n)
+        log_fn(f"  {key} == plain on the {n}-validator grid's witness table (r {r_fame}): "
+               f"{k_ms:.3f} ms, plain {p_ms:.1f} ms")
+    launches["decide_fame/packed (1,024)"] = l_launches["decide_fame/packed"]
     log_fn(f"run_frontier_passes (packed) at {n} validators: last_round {res.last_round}, "
-           f"{int((res.received >= 0).sum())} received; decide_fame/packed/dev == plain on its "
-           f"witness table (r {r_fame}): {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+           f"{int((res.received >= 0).sum())} received")
     del st, fr
 
-    # the votes' device forms where witnesses get decided: random tables
+    # the votes where witnesses get decided: random tables, both layouts
     case = coin_round_case(*FL_WIDTH_COIN)
     c_args = coin_fame_args(case, case["coin_bit"], dev)
-    fame, k_ms, p_ms = held(f"decide_fame/packed/dev on coin case {FL_WIDTH_COIN}",
+    _, kw_ms, pw_ms = held(f"decide_fame on coin case {FL_WIDTH_COIN}",
+                           lambda: tuple(kernels.decide_fame(*c_args)),
+                           lambda: tuple(kernels._decide_fame_plain(*c_args)))
+    fame, k_ms, p_ms = held(f"decide_fame/packed on coin case {FL_WIDTH_COIN}",
                             lambda: tuple(kernels.decide_fame(*c_args, packed=True)),
                             lambda: tuple(kernels._decide_fame_plain(*c_args, packed=True)))
     cst = coin_case_state(case, dev)
@@ -2543,8 +2653,28 @@ def fl_width_phase(dev, log_fn):
     decided = int(fame[0].sum())
     if not decided or not int(got_st.fame_decided.sum()):
         raise AssertionError(f"coin case {FL_WIDTH_COIN}: no witness decided")
-    log_fn(f"decide_fame/packed/dev == plain on coin case {FL_WIDTH_COIN} ({decided} witnesses "
+    log_fn(f"decide_fame == plain in both layouts on coin case {FL_WIDTH_COIN} (wide "
+           f"{kw_ms:.3f} ms, plain {pw_ms:.1f} ms; {decided} witnesses "
            f"decided): {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+    # past 1,024 validators the vote keeps each column's words in shared
+    # memory, and its ring takes the slots that fit beside them
+    del cst, ref_st, got_st
+    w_case = coin_round_case(*WIDE_VOTE_CASE)
+    w_args = coin_fame_args(w_case, w_case["coin_bit"], dev)
+    plan = _ext.fame_vote_plan(-(-WIDE_VOTE_CASE[0] // 32))
+    for pk in (False, True):
+        w_fame, k_ms, p_ms = held(f"decide_fame (packed={pk}) on coin case {WIDE_VOTE_CASE}",
+                                  lambda: tuple(kernels.decide_fame(*w_args, packed=pk)),
+                                  lambda: tuple(kernels._decide_fame_plain(*w_args,
+                                                                           packed=pk)))
+        log_fn(f"  decide_fame{'/packed' if pk else ''} == plain on coin case "
+               f"{WIDE_VOTE_CASE} ({plan['words']} words in {plan['columns']} memory, a ring "
+               f"of {plan['stages']} slots, {plan['smem']} bytes a block): {k_ms:.3f} ms, "
+               f"plain {p_ms:.1f} ms; {int(w_fame[0].sum())} witnesses decided")
+    if not int(w_fame[0].sum()) or plan["columns"] != "shared":
+        raise AssertionError(f"coin case {WIDE_VOTE_CASE}: no witness decided, or the vote's "
+                             f"words in {plan['columns']} memory")
+    del w_case, w_args
 
     # K5's grid walk on the level scan
     gp, _, scan_r_max = engine.scan_layout(g, True)
@@ -2559,6 +2689,7 @@ def fl_width_phase(dev, log_fn):
     require_same_results(f"run_passes (wide) == run_frontier_passes (packed) at {n} "
                          f"validators", res_s, res)
     launches["divide_rounds/grid"] = s_launches["divide_rounds/grid"]
+    launches["decide_fame (1,024)"] = s_launches["decide_fame"]
     summary["divide_rounds/grid"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
     work["divide_rounds/grid"], pairs, _ = scan_work(gp, ins, dr, scan_r_max)
     log_fn(f"divide_rounds/grid == plain at {n} validators ({g.num_levels} levels of width "
@@ -2791,10 +2922,11 @@ class MeshCheck:
     same inputs (in-place kernels against clones), torch.equal after every
     launch, with CUDA-event times behind a spin and the work each call's
     data needs, by cell (`self.cell`) and kernel name (the packed layout's
-    launches under "<name>/packed", the device staging form's "/dev")."""
+    launches under "<name>/packed")."""
 
-    NAMES = ("shard_tally", "shard_decide", "shard_active", "fame_tables", "local_received",
-             "walk_rows", "walk_m0", "walk_close", "walk_grid", "post", "fame_setup")
+    NAMES = ("shard_tally", "shard_decide", "shard_active", "fame_grid", "fame_tables",
+             "local_received", "walk_rows", "walk_m0", "walk_close", "walk_grid", "post",
+             "fame_setup")
 
     def __init__(self, log_fn):
         self.log = log_fn
@@ -2814,9 +2946,9 @@ class MeshCheck:
         for k, fn in self.real.items():
             setattr(self.sh, k, fn)
 
-    def _timed(self, name, kern, plain, work):
+    def _timed(self, name, kern, plain, work, spin=SPIN_CYCLES):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         ev[0].record()
         got = kern()
         ev[1].record()
@@ -2889,6 +3021,43 @@ class MeshCheck:
             "shard_fame/decide" + ("/packed" if packed else ""), kern, plain,
             lambda _: (b * ny * (nx + 1) * 4 + b * nx * 5 + b * ny * 2 + v_bytes + b * 4 + 4,
                        b * ny * nx * 6 / ALU_OPS_S))
+
+    def _fame_grid(self, mesh, axis, v_axis, chunk, n_participants, super_majority, d_bound,
+                   packed, last_round, i_rows, wvalid, votes, decided, famous, ss_s, wv_s,
+                   coin_s):
+        """B21 in one launch against the plain step-by-step loop on clones of
+        every table the loop writes: decided and famous of every position."""
+        sh = self.sh
+        mut = [[t.clone() for t in parts] for parts in (votes, decided, famous, ss_s, wv_s,
+                                                         coin_s)]
+
+        def kern():
+            self.real["fame_grid"](mesh, axis, v_axis, chunk, n_participants, super_majority,
+                                   d_bound, packed, last_round, i_rows, wvalid, votes, decided,
+                                   famous, ss_s, wv_s, coin_s)
+            return tuple(decided) + tuple(famous)
+
+        def plain():
+            v, dc, fc, ss, wv, cn = mut
+            sh._step_fame(mesh, axis, v_axis, chunk, n_participants, super_majority, d_bound,
+                          packed, last_round, i_rows, wvalid, v, dc, fc, ss, wv, cn, plain=True)
+            return tuple(dc) + tuple(fc)
+
+        def work(_):
+            ops = sh.grid_operands(mesh, axis, v_axis, ss_s, votes, wv_s, coin_s, wvalid)
+            ss_o, votes_o, wv_o, coin_o, wvalid_o, n_v = ops
+            row = (sum(t[0].numel() * t.element_size() for t in ss_o[:n_v] + votes_o[:n_v])
+                   + sum(t[0].numel() * t.element_size() for t in (wv_o[0], coin_o[0],
+                                                                    wvalid_o[0])))
+            r_pad = len(ss_o) // n_v * ss_o[0].shape[0]
+            return shard_fame_work(row, r_pad, wvalid_o[0].shape[1], ss_o[0].shape[1],
+                                   int(last_round[0]), n_v)
+
+        # the launcher's host work (the address table's pinned copy, the
+        # shards' checks, the scratch) takes longer than SPIN_CYCLES: spin
+        # long enough that the events time the device work alone
+        self._timed("shard_fame/grid" + ("/packed" if packed else ""), kern, plain, work,
+                    spin=GRID_SPIN_CYCLES)
 
     def _shard_active(self, wvalid, decided, i_rows, last_round, d0):
         b, nx = wvalid.shape
@@ -3003,11 +3172,7 @@ class MeshCheck:
         from babble_tpu_torch.tpu import _ext
 
         r, n = wtable.shape
-        name = "fame_setup"
-        if packed:
-            name += "/packed"
-            if _ext.staging("decide_fame", n, packed=True)["setup"] == "device":
-                name += "/dev"
+        name = "fame_setup" + ("/packed" if packed else "")
 
         def plain():
             ss, votes0 = self.sh._fame_setup_plain(wtable, la, fd, index, super_majority,
@@ -3041,6 +3206,49 @@ def require_one_walk_launch(what, launches):
     if launches["shard_walk/grid"] != 1 or step:
         raise AssertionError(f"{what}: shard_walk/grid x{launches['shard_walk/grid']}, "
                              f"per-step {step}; expected one launch of the one-launch walk")
+
+
+# B21's per-step launch keys (the form for positions on distinct cards)
+STEP_FAME_KEYS = ("shard_fame/tally", "shard_fame/decide", "shard_fame/active",
+                  "shard_fame/tally/packed", "shard_fame/decide/packed")
+
+
+def require_one_fame_launch(what, launches):
+    """Fail unless a sharded engine's call on the one card ran its fame loop
+    in exactly one launch of shard_fame/grid (either layout) and launched
+    none of B21's per-step kernels."""
+    step = {k: launches[k] for k in STEP_FAME_KEYS if launches[k]}
+    one = launches["shard_fame/grid"] + launches["shard_fame/grid/packed"]
+    if one != 1 or step:
+        raise AssertionError(f"{what}: shard_fame/grid x{one}, per-step {step}; expected one "
+                             f"launch of the one-launch fame loop")
+
+
+def fame_input(g, ref, dev):
+    """(wtable (numpy), la, fd, index, last_round) of grid g as the mesh's
+    fame input takes them: the witness table of the one-shot engine's
+    results `ref`, the grid's tables on the card."""
+    from babble_tpu_torch.tpu.device import to_device
+
+    return (np.asarray(ref.witness_table, dtype=np.int32),
+            to_device(g.last_ancestors, dev), to_device(g.first_descendants, dev),
+            to_device(g.index, dev),
+            torch.tensor(ref.last_round, dtype=torch.int32, device=dev))
+
+
+def hold_step_fame(checks, mesh, stage, last_round, n, super_majority, packed, want, log_fn):
+    """B21's per-step kernels, named explicitly, on a staged fame input:
+    each launch against its plain version (checks is open), decided and
+    famous against the one-launch loop's `want`."""
+    from babble_tpu_torch.tpu import sharded as sh
+
+    step = sh.sharded_fame(mesh, stage, last_round, 8, n, super_majority, packed, form="step")
+    require_equal(f"{checks.cell}: the per-step loop against the one-launch loop", step,
+                  tuple(want))
+    log_fn(f"  {checks.cell}, sharded_fame(form='step'): "
+           f"{len(checks.events[(checks.cell, 'shard_fame/active')])} active reads, each B21 "
+           f"launch == plain; decided and famous == the one-launch loop's "
+           f"({int(want[0].sum())} decided)")
 
 
 def walk_note(checks, cell):
@@ -3078,7 +3286,8 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
     engines, with their launches and walls, and the bench cell's walk on
     the 1-D mesh; (c) the hashgraph seam on phase 15's signed events:
     run_consensus_device with a 2-D mesh, and run_consensus_mesh_queued in
-    syncs, blocks byte-identical to the host engine. Returns (summary,
+    syncs, blocks byte-identical to the host engine. B21 and B24 run as one
+    launch each, and their per-step forms where named. Returns (summary,
     work, launches) of the mesh kernels."""
     from types import SimpleNamespace
 
@@ -3128,6 +3337,17 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
             same_as(cell, res, wide_ref)
             log_fn(f"  {cell}: every mesh kernel == plain after each launch, results == "
                    f"phase 14's; checked {checks.names(cell)}{walk_note(checks, cell)}")
+        # B21's per-step kernels, named explicitly, on config #4's fame input
+        # on both meshes and in both layouts: each launch against its plain
+        # version, decided and famous against the one-launch loop's
+        fame_in = fame_input(wide, wide_ref, dev)
+        for mname, m in meshes.items():
+            for pk in (True, False):
+                checks.cell = f"config #4, {mname}, {'packed' if pk else 'wide'}, per-step form"
+                stage = sh.stage_fame(m, wide, *fame_in[:4], pk)
+                one = sh.sharded_fame(m, stage, fame_in[4], 8, wide.n, wide.super_majority, pk)
+                hold_step_fame(checks, m, stage, fame_in[4], wide.n, wide.super_majority, pk,
+                               one, log_fn)
         # the per-step kernels, named explicitly, on config #4's 1-D walk:
         # each launch against its plain version, the history against the
         # one-launch walk's
@@ -3145,13 +3365,13 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
         same_as(checks.cell, sh.sharded_frontier_passes(m1, bench), b_ref)
         log_fn(f"  {checks.cell}: every mesh kernel == plain after each launch, results == "
                f"run_frontier_passes{walk_note(checks, checks.cell)}")
-        for n, r, seed in MESH_COIN_CASES:
+        for (n, r, seed), layouts in MESH_COIN_CASES:
             case = coin_round_case(n, r, seed)
             g = SimpleNamespace(n=n, super_majority=case["super_majority"],
                                 coin_bit=case["coin_bit"])
             la, fd, index = (to_device(case[k], dev) for k in ("la", "fd", "index"))
             lr = torch.tensor(case["last_round"], dtype=torch.int32, device=dev)
-            for pk in ((True, False) if n <= 64 else (True,)):
+            for pk in layouts:
                 checks.cell = f"coin case {(n, r, seed)}, 2-D (2, 4), " + (
                     "packed" if pk else "wide")
                 stage = sh.stage_fame(m2, g, case["wtable"], la, fd, index, pk)
@@ -3164,13 +3384,25 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
                         and torch.equal(famous[:r_rows] & decided[:r_rows], want[1] & want[0])):
                     raise AssertionError(f"{checks.cell}: the mesh's fame differs from "
                                          f"decide_fame's")
-                steps = len(checks.events[(checks.cell, "shard_fame/active")]) * 8
-                log_fn(f"  {checks.cell}: {int(decided.sum())} witnesses decided in {steps} "
-                       f"voting steps (coin steps at d % {n} == 0); == decide_fame's verdicts")
+                log_fn(f"  {checks.cell}: {int(decided.sum())} witnesses decided in one "
+                       f"shard_fame/grid launch, == plain (voting to d = {r - 1}, coin steps "
+                       f"at d % {n} == 0); == decide_fame's verdicts")
+                hold_step_fame(checks, m2, stage, lr, n, case["super_majority"], pk,
+                               (decided, famous), log_fn)
         wg = synthetic_grid(MESH_WIDTH["n"], MESH_WIDTH["e_count"], seed=MESH_WIDTH["seed"],
                             zipf_a=MESH_WIDTH["zipf_a"])
+        w_ref = engine.run_frontier_passes(wg, device=dev, packed=True)
         checks.cell = "width cell frontier, 1-D 8, packed"
         w_res = sh.sharded_frontier_passes(m1, wg, packed=True)
+        # B21's per-step kernels at this width (32 words) on its fame input
+        checks.cell = "width cell, 1-D 8, packed, per-step form"
+        w_in = fame_input(wg, w_ref, dev)
+        w_fame = sh.stage_fame(m1, wg, *w_in[:4], True)
+        hold_step_fame(checks, m1, w_fame, w_in[4], wg.n, wg.super_majority, True,
+                       sh.sharded_fame(m1, w_fame, w_in[4], 8, wg.n, wg.super_majority, True),
+                       log_fn)
+        del w_fame
+        checks.cell = "width cell frontier, 1-D 8, packed"
         # the per-step kernels at this width too (128 chains a position,
         # m0's widest shared-memory layout), the history against the one
         # launch's
@@ -3193,12 +3425,38 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
                f"shard_walk/grid launch == plain; == the 1-D 8 walk row for row"
                f"{walk_note(checks, checks.cell)}")
         checks.cell = "width cell frontier, 1-D 8, packed"
-    w_ref = engine.run_frontier_passes(wg, device=dev, packed=True)
     same_as(checks.cell, w_res, w_ref)
     log_fn(f"  {checks.cell}: {wg.n} validators, {wg.e} events, 128 chains per position "
            f"(the plain walk in the binary-search form): == run_frontier_passes, "
            f"last_round {w_res.last_round}; checked {checks.names(checks.cell)}"
            f"{walk_note(checks, checks.cell)}")
+    # past the plain versions' reach: K3 (packed), shard_fame/grid and
+    # B21's per-step kernels on the 1-D mesh, held to one another
+    n_f = FAR_VOTE_CASE[0]
+    f_case = coin_round_case(*FAR_VOTE_CASE)
+    f_sm = f_case["super_majority"]
+    f_k3 = kernels_decide(f_case, dev, True)
+    g = SimpleNamespace(n=n_f, super_majority=f_sm, coin_bit=f_case["coin_bit"])
+    la, fd, index = (to_device(f_case[k], dev) for k in ("la", "fd", "index"))
+    lr = torch.tensor(f_case["last_round"], dtype=torch.int32, device=dev)
+    stage = sh.stage_fame(m1, g, f_case["wtable"], la, fd, index, True)
+    _ext.reset_launches()
+    one = sh.sharded_fame(m1, stage, lr, 8, n_f, f_sm, True)
+    one_launches = _ext.LAUNCHES["shard_fame/grid/packed"]
+    require_equal(f"coin case {FAR_VOTE_CASE}, 1-D 8: the per-step loop against the one "
+                  f"launch", sh.sharded_fame(m1, stage, lr, 8, n_f, f_sm, True, form="step"),
+                  one)
+    r_rows = f_case["wtable"].shape[0]
+    if (one_launches != 1 or not int(f_k3[0].sum())
+            or not torch.equal(one[0][:r_rows], f_k3[0])
+            or not torch.equal(one[1][:r_rows] & one[0][:r_rows], f_k3[1] & f_k3[0])):
+        raise AssertionError(f"coin case {FAR_VOTE_CASE}: shard_fame/grid x{one_launches}, "
+                             f"or its fame differs from decide_fame's, or nothing is decided")
+    plan = _ext.fame_vote_plan(-(-n_f // 32))
+    log_fn(f"  coin case {FAR_VOTE_CASE}, 1-D 8, packed ({plan['words']} words, a ring of "
+           f"{plan['stages']} slots): decide_fame == one shard_fame/grid launch == the "
+           f"per-step kernels, {int(f_k3[0].sum())} witnesses decided")
+    del f_case, f_k3, la, fd, index, stage, one
     log_fn(f"phase 17 (a): {time.perf_counter() - t0:.1f} s")
 
     # (b) end to end: config #4, both meshes, both layouts, the three engines
@@ -3210,6 +3468,7 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
                 label = ename + (", packed" if pk else "")
                 res, got = run_path(label, lambda: fn(m, wide, packed=pk))
                 same_as(f"{label} on {mname}", res, wide_ref)
+                require_one_fame_launch(f"{label} on {mname}", got)
                 if ename == "sharded_frontier_passes":
                     require_one_walk_launch(f"{label} on {mname}", got)
                 counts = dict(last_round=res.last_round,
@@ -3226,27 +3485,40 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
                    f"{torch.cuda.get_device_name(0)}")
     log_fn(f"config #4 through the three sharded engines on both meshes in both layouts == "
            f"phase 14's engines: {WIDE_EXPECT}")
-    for name in ("shard_fame/tally/packed", "shard_fame/decide/packed", "shard_fame/active",
-                 "fame_tables", "received_search", "fame_setup/packed", "shard_walk/grid",
-                 "frontier_post"):
+    for name in ("shard_fame/grid/packed", "fame_tables", "received_search",
+                 "fame_setup/packed", "shard_walk/grid", "frontier_post"):
         launches[name] = paths[("1-D 8", "sharded_frontier_passes, packed")][name]
+    # B21's per-step kernels' path: sharded_fame with that form named (the
+    # layout of positions on distinct cards), config #4 on the 1-D mesh
+    for pk, suffix in ((True, "/packed"), (False, "")):
+        stage = sh.stage_fame(m1, wide, *fame_in[:4], pk)
+        _, step_launches = run_path(
+            "sharded_fame, per-step form" + (", packed" if pk else ""),
+            lambda: sh.sharded_fame(m1, stage, fame_in[4], 8, wide.n, wide.super_majority, pk,
+                                    form="step"))
+        for name in ("shard_fame/tally", "shard_fame/decide"):
+            launches[name + suffix] = step_launches[name + suffix]
+        if pk:
+            launches["shard_fame/active"] = step_launches["shard_fame/active"]
     # the per-step kernels' path: local_walk with that form named (the
     # layout of positions on distinct cards), config #4 on the 1-D mesh
     _, step_launches = run_path("local_walk, per-step form",
                                 lambda: walk_stage.walk(m1, form="step"))
     for name in STEP_WALK_KEYS:
         launches[name] = step_launches[name]
-    for name in ("shard_fame/tally", "shard_fame/decide", "fame_setup"):
+    for name in ("shard_fame/grid", "fame_setup"):
         launches[name] = paths[("1-D 8", "sharded_run_passes")][name]
     w_run, w_launches = run_path("sharded_frontier_passes (1,024), packed",
                                  lambda: sh.sharded_frontier_passes(m1, wg, packed=True))
     same_as("sharded_frontier_passes (1,024)", w_run, w_ref)
     require_one_walk_launch("sharded_frontier_passes (1,024)", w_launches)
-    launches["fame_setup/packed/dev"] = w_launches["fame_setup/packed/dev"]
+    require_one_fame_launch("sharded_frontier_passes (1,024)", w_launches)
+    launches["fame_setup/packed (1,024)"] = w_launches["fame_setup/packed"]
     b_res, b_launches = run_path("sharded_frontier_passes",
                                  lambda: sh.sharded_frontier_passes(m1, bench))
     same_as("the bench cell on the 1-D mesh", b_res, b_ref)
     require_one_walk_launch("the bench cell on the 1-D mesh", b_launches)
+    require_one_fame_launch("the bench cell on the 1-D mesh", b_launches)
     n_recv = int((b_res.received >= 0).sum())
     if (b_res.last_round, n_recv) != (BENCH_LAST_ROUND, BENCH_RECEIVED):
         raise AssertionError(f"bench cell on the mesh: {b_res.last_round}, {n_recv}")
@@ -3313,8 +3585,9 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
     log_fn(f"phase 17 (c): {time.perf_counter() - t0:.1f} s")
 
     summary, work = {}, {}
-    for name, cell in MESH_TIMED_CELL.items():
-        calls_n, k_ms, p_ms, (nbytes, secs_ops) = checks.summary(cell, name)
+    for name, where in MESH_TIMED_CELL.items():
+        cell, checked = where if isinstance(where, tuple) else (where, name)
+        calls_n, k_ms, p_ms, (nbytes, secs_ops) = checks.summary(cell, checked)
         summary[name] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
         work[name] = (nbytes, secs_ops)
     for cell in sorted({c for c, _ in checks.events}):
@@ -3413,6 +3686,9 @@ def main() -> int:
             ("decide_fame",
              lambda: tuple(kernels.decide_fame(*fame_args)),
              lambda: tuple(kernels._decide_fame_plain(*fame_args))),
+            ("decide_fame/packed",
+             lambda: tuple(kernels.decide_fame(*fame_args, packed=True)),
+             lambda: tuple(kernels._decide_fame_plain(*fame_args, packed=True))),
             ("round_received",
              lambda: kernels.decide_round_received(*recv_args),
              lambda: kernels._decide_round_received_plain(*recv_args)),
@@ -3443,11 +3719,15 @@ def main() -> int:
                                  "decide nothing, so no coin round is reached")
         for c in (coin, ~coin):
             args = coin_fame_args(case, c, dev)
-            got, want = tuple(kernels.decide_fame(*args)), tuple(kernels._decide_fame_plain(*args))
-            torch.cuda.synchronize()
-            require_equal(f"decide_fame on coin case n={n} rounds={r} seed={seed}", got, want)
-        log(f"decide_fame == plain on coin case n={n} rounds={r} seed={seed}, both coin "
-            f"settings: coin round reached (flipping the coin bits changes the verdicts)")
+            for pk in (False, True):
+                got = tuple(kernels.decide_fame(*args, packed=pk))
+                want = tuple(kernels._decide_fame_plain(*args, packed=pk))
+                torch.cuda.synchronize()
+                require_equal(f"decide_fame (packed={pk}) on coin case n={n} rounds={r} "
+                              f"seed={seed}", got, want)
+        log(f"decide_fame == plain in both layouts on coin case n={n} rounds={r} seed={seed}, "
+            f"both coin settings: coin round reached (flipping the coin bits changes the "
+            f"verdicts)")
 
     t0 = time.perf_counter()
     bench = synthetic_grid(BENCH["n"], BENCH["e_count"], seed=BENCH["seed"],
@@ -3462,9 +3742,15 @@ def main() -> int:
         torch.cuda.synchronize()
         require_equal(f"{name} on the bench grid", got, want)
         summary[name] = {"max_abs_err": max_abs_err(got, want)}
-        summary[name]["ms"] = cuda_ms(kern, 20)
+        # device time behind a spin that covers the wrapper's host work; the
+        # wall (events around the whole call, no spin) beside it in the log
+        summary[name]["ms"] = spun_ms(kern, 20)
         summary[name]["plain_ms"] = cuda_ms(plain, 5)
-    log("kernels == plain on the bench grid")
+        log(f"  {name} on the bench grid: {summary[name]['ms']:.4f} ms of device time, "
+            f"{cuda_ms(kern, 20):.4f} ms of wall")
+    log(f"kernels == plain on the bench grid (decide_fame in both layouts: the wide "
+        f"{summary['decide_fame']['ms']:.4f} ms, the packed "
+        f"{summary.pop('decide_fame/packed')['ms']:.4f})")
 
     # the K3 tally as one batched 0/1 product, a yardstick the port never calls
     r_max, n = fr.witness_table.shape
@@ -3721,16 +4007,7 @@ def main() -> int:
         la_fin, passes = cl
         l_c = cs.l_b
         work["closure_la"] = closure_la_work(cs, la_fin, passes)
-        # walk: the timed chunk's working steps (frontier holding a row)
-        x_before = torch.cat([big[4][None, :], doubling._walk_chunk_plain(*big)[1][:-1]])
-        working = int((x_before < l_c).any(dim=1).sum().item())
-        steps = big[11]
-        step_bytes = n_s * n_s * 4 * 2 + n_s * steps * n_s * 4 + n_s * (steps + 1) * 4
-        work["walk_chunk"] = (
-            min(working * step_bytes, big[0].numel() * 4 + big[2].numel() * 4
-                + big[3].numel() * 4 + big[1].numel() * 4)
-            + big[5].numel() * 4 + big[6].numel() * 4 + big[10] * n_s * 4 + 3 * n_s * 4,
-            working * (n_s * steps * n_s * n_s + n_s * n_s) / ALU_OPS_S)
+        work["walk_chunk"], working = walk_chunk_work(big, l_c, n_s)
         log(f"  bound inputs (catch-up section): {pairs} scan (event, witness) pairs, "
             f"{n_wit} witnesses, closure {int(passes)} passes, {working} working walk steps "
             f"of {big[10]}")
@@ -4107,6 +4384,8 @@ def main() -> int:
     wide_launches, wide_ref = wide_engine_phase(wide, dev, log, upd_cap, wide_batches)
     del wide_batches
     launches["decide_fame/packed"] = wide_launches["run_frontier_passes"]["decide_fame/packed"]
+    launches["decide_fame (config #4)"] = (
+        wide_launches["run_frontier_passes, wide"]["decide_fame"])
     launches["frontier_rounds (config #4)"] = (
         wide_launches["run_frontier_passes"]["frontier_rounds"])
     launches["closure_la (config #4)"] = wide_launches["run_doubling_passes"]["closure_la"]

@@ -19,8 +19,9 @@ validators, chunk steps and probes, the tree depth where the checkout's
 one-block walk has one (`_ext.walk_chunk_depth`), the median kernel ms of
 the largest chunk and the sum of every chunk's medians over N runs, the
 kernel launches per call of the largest chunk (torch.profiler), the
-plain version's ms of the largest chunk (one call) and the card's name
-and power limit. `--depths` also times the one-block walk at every tree
+plain version's ms of the largest chunk (one call), its bound
+(`chip_smoke.walk_chunk_work`: its working steps, from the data) and the
+card's name and power limit. `--depths` also times the one-block walk at every tree
 depth that fits (one line each). The grids are kept in --cache (default
 build/timing_cache). To compare two versions of the kernel, run it
 against both checkouts in one call, in the order A, B, B, A. `--device
@@ -228,13 +229,18 @@ def main() -> int:
             all_ms = sum(time_ms(lambda a=a: kern(*a), args.reps) for a in chunks)
             if plain_ms is None:
                 plain_ms = time_ms(lambda: doubling._walk_chunk_plain(*big), 1)
+                (nbytes, ops_s), working = cs.walk_chunk_work(big, st.l_b, g.n)
+                bytes_s = nbytes / cs.HBM_BYTES_S
             print(json.dumps({
                 "grid": label, "validators": g.n, "steps": big[10], "probes": big[11],
                 "chunks": [a[10] for a in chunks], "tree_depth": depth,
                 "depth_rule": depth == depths[0] if depth is not None else None,
                 "traps_held": list(traps), "ms": ms, "all_chunks_ms": all_ms,
                 "launches": launches_per_call(lambda: kern(*big), 3) if cuda else None,
-                "plain_ms": plain_ms, "reps": args.reps, "root": args.root, "card": card}),
+                "plain_ms": plain_ms, "working_steps": working,
+                "bound_ms": max(bytes_s, ops_s) * 1e3,
+                "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+                "reps": args.reps, "root": args.root, "card": card}),
                 flush=True)
         plain_of.clear()
         del st, inv

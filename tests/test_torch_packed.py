@@ -9,8 +9,8 @@ the append paths (step, multi_step, train_step, multi_train) with
 packed=True; the knob's switch at 128 validators on both node rungs; the
 plain versions of the two kernels repaired for 256 validators (K7
 walk_chunk, K12 decide_window) at that width; the plain versions' round
-chunks against one chunk; the shared-memory formulas behind the
-wrappers' choice of staging form, and of divide_rounds' walk; and the plain
+chunks against one chunk; the shared-memory formulas of the tiled
+launches (no staging form is left), and divide_rounds' walk; and the plain
 fame window at a ragged width. Exact equality, no tolerance."""
 
 import functools
@@ -664,15 +664,11 @@ def test_plain_round_chunks_equal_one_chunk(monkeypatch, packed):
     assert bool(whole[0].decided.any())
 
 
-# the shared form's widest width of the kernel with a device staging form
-# (at the shapes named), and K7's limit, which it still enforces
-SHARED_TOPS = {
-    ("decide_fame", True, ()): 736,
-}
-# the widest shared form K12, K5 (at level width 32), K10 and K11 (at the
-# shapes named) had before their launches were tiled: their shared memory
-# no longer grows with N, and none has a staging form
+# the widest shared form K12, K5 (at level width 32), K10, K11 (at the
+# shapes named) and K3p had before their launches were tiled: their shared
+# memory no longer grows with N, and none has a staging form
 OLD_TOPS = {
+    ("decide_fame", True, ()): 736,
     ("decide_window", False, ()): 384,
     ("divide_rounds", False, (("n_lvl", 32),)): 906,
     ("step_levels", False, (("w", 64), ("l_lv", 16), ("b", 64), ("r_cap", 64))): 702,
@@ -690,14 +686,12 @@ OLD_TOPS = {
 ])
 def test_shared_memory_formula_holds_256_and_refuses_past_its_maximum(name, packed, shape):
     """Each kernel's blocks fit one block's shared memory at 256 validators
-    and up to its old maximum, where the shared form still runs; past it a
-    kernel with a device staging form (K3p) takes that form and nothing
-    raises up to 1,024 validators, while K7 (no staging form, 29,056
-    validators) still refuses past its maximum with the check its wrapper
-    runs first. K12 and the level walks K5, K10 and K11 (from their
-    *_GRID_FROM validators: the grid walk) take the same shared memory at
-    256, at their old maximum, past it and at 1,024, and have no staging
-    form."""
+    and up to its old maximum; K7 (29,056 validators) still refuses past its
+    maximum with the check its wrapper runs first. K3p (its setup's pair
+    tile, its vote's ring), K12 and the level walks K5, K10 and K11 (from
+    their *_GRID_FROM validators: the grid walk) take the same shared
+    memory at 256, at their old maximum, past it and at 1,024, and the
+    port has no staging form left."""
     kw = dict(shape)
     if name == "walk_chunk":
         top = 29056
@@ -714,19 +708,7 @@ def test_shared_memory_formula_holds_256_and_refuses_past_its_maximum(name, pack
         assert len(sizes) == 1 and sizes.pop() <= _ext.MAX_SMEM_BYTES
         if name in _ext.WALK_SMEM:
             assert _ext.block_smem(name, 256, **kw) == {"grid": _ext.LEVEL_GRID_SMEM}
-        with pytest.raises(KeyError):
-            _ext.staging(name, 256, packed=packed, **kw)
-        return
-    top = SHARED_TOPS[(name, packed, shape)]
-    if not shape:
-        assert _ext.max_width(name, packed=packed) == top
-    assert _ext.smem_bytes(name, 256, packed=packed, **kw) <= _ext.MAX_SMEM_BYTES
-    assert _ext.smem_bytes(name, top, packed=packed, **kw) <= _ext.MAX_SMEM_BYTES
-    assert _ext.smem_bytes(name, top + 1, packed=packed, **kw) > _ext.MAX_SMEM_BYTES
-    assert set(_ext.staging(name, 256, packed=packed, **kw).values()) == {"shared"}
-    assert set(_ext.staging(name, top, packed=packed, **kw).values()) == {"shared"}
-    assert "device" in _ext.staging(name, top + 1, packed=packed, **kw).values()
-    assert set(_ext.staging(name, 1024, packed=packed, **kw).values()) == {"device"}
+        assert not hasattr(_ext, "staging")
 
 
 @pytest.mark.parametrize("n,want", [
@@ -734,35 +716,28 @@ def test_shared_memory_formula_holds_256_and_refuses_past_its_maximum(name, pack
     (384, ("shared", "shared", "shared", "shared")),
     (385, ("shared", "shared", "shared", "shared")),
     (736, ("shared", "shared", "shared", "shared")),
-    (737, ("shared", "shared", "shared", "device")),
-    (1024, ("shared", "shared", "device", "device")),
+    (737, ("shared", "shared", "shared", "shared")),
+    (1024, ("shared", "shared", "shared", "shared")),
 ])
 def test_staging_choice_around_the_old_limits(n, want):
     """The form of each launch of K12 (both layouts: one kernel) and K3p at
-    the widths around their old limits (384 and 736): K12's setup and vote
-    stay in shared memory at every width (no staging form), K3p's vote
-    leaves shared memory first, its setup past 860. The scratch the K3p
-    wrapper hands the launches follows that choice and nothing else: a
-    slice per block for each "device" launch, one allocation shared by the
-    call's launches, None for a "shared" one."""
+    the widths around their old limits (384 and 736): every launch of both
+    stays in shared memory at every width (the pair tile of both setups,
+    the same at every width; K12's vote tile; K3p's vote ring, at most the
+    ring of 32 words), and neither wrapper has a device staging form to
+    choose."""
     k12 = {k: "shared" if b <= _ext.MAX_SMEM_BYTES else "device"
            for k, b in _ext.block_smem("decide_window", n).items()}
-    k3p = _ext.staging("decide_fame", n, packed=True)
-    assert (k12["setup"], k12["vote"], k3p["setup"], k3p["vote"]) == want
     for packed in (False, True):
-        with pytest.raises(KeyError):
-            _ext.staging("decide_window", n, packed=packed)
-    blocks = {"setup": 3, "vote": 2}
-    stage = _ext._stage_scratch("decide_fame", n, torch.device("cpu"), blocks, packed=True)
-    assert {k: "shared" if x is None else "device" for k, x in stage.items()} == k3p
-    per_block = _ext.block_smem("decide_fame", n, packed=True)
-    need = [_ext.stage_words(per_block[k]) * blocks[k] for k in k3p if k3p[k] == "device"]
-    staged = {id(x): x for x in stage.values() if x is not None}
-    assert len(staged) == (1 if need else 0)
-    for x in staged.values():
-        assert x.numel() == max(need)
-    with pytest.raises(KeyError):
-        _ext.staging("walk_chunk", n)
+        per_block = _ext.block_smem("decide_fame", n, packed=packed)
+        k3p = {k: "shared" if b <= _ext.MAX_SMEM_BYTES else "device"
+               for k, b in per_block.items()}
+        assert (k12["setup"], k12["vote"], k3p["setup"], k3p["vote"]) == want
+        assert per_block["setup"] == _ext.block_smem("decide_window", n)["setup"]
+        assert per_block["vote"] <= max(_ext.fame_vote_plan(w)["smem"]
+                                        for w in range(1, _ext.FV_MAX_WORDS + 1))
+    assert not any(hasattr(_ext, k) for k in ("staging", "_stage_scratch", "STAGED_KERNELS"))
+    assert not any(k.endswith("/dev") for k in _ext.LAUNCHES)
 
 
 @pytest.mark.parametrize("n", [256, 1024, 4096])
