@@ -1,8 +1,15 @@
 // step_levels: the within-batch level scan of one append batch.
 //
-// Replaces the level half of babble_tpu/tpu/incremental.py:243 _step_body
-// (after _apply_deltas_and_stage, which is apply_deltas.cu). In place, for
-// each of the batch's L levels in order and each lane of the level (a
+// Replaces babble_tpu/tpu/incremental.py:243 _step_body: its front half
+// _apply_deltas_and_stage (:213) as phase 0 of the launch
+// (apply_deltas.cuh: the fd delta min-scatter, its mirror into fd_w
+// through the pre-batch w_of_row, the new rows' staging), over the whole
+// grid, before any level, in both walks, and its level half after it.
+// Phase 0 ends at a barrier (the grid's, or the block's), so that its
+// mirror has read w_of_row before any level registers a witness (which
+// writes w_of_row and fd_w), and the levels read fd and fd_w, which its
+// atomics wrote in L2, through L2 (__ldcg, cp.async.cg). Then, in place,
+// for each of the batch's L levels in order and each lane of the level (a
 // position p into the batch, -1 = padding):
 //   parent_round = max(rounds[sp_row[p]], rounds[op_row[p]])  (-1 = none)
 //   c_seen       = |{w : wtable[pr, w] >= 0 and
@@ -60,7 +67,7 @@
 // After the last level that holds an event every block takes the max of
 // its share of the rows' rounds, and the last block to finish adds the
 // count and sets the latches. Everything the walk writes and reads back
-// (rounds, lamport, wtable, fd_w, the per-lane carries) goes through L2
+// (rounds, lamport, wtable, fd, fd_w, the per-lane carries) goes through L2
 // (__ldcg / __stcg, cp.async.cg). Shared memory per block is the tile's
 // ring, the same at every width.
 //
@@ -71,13 +78,13 @@
 // the strongly-seen words: the same verdicts, so the wrapper launches this
 // kernel for both layouts (counted apart).
 
-#include "common.cuh"
+#include "apply_deltas.cuh"
 
 #define SL_THREADS 1024
 #define SL_WARPS (SL_THREADS / 32)
 
 __global__ void __launch_bounds__(SL_THREADS)
-sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
+sl_walk(int32_t* fd, int32_t* rounds, int32_t* lamport,
         uint8_t* witness, int32_t* wtable, int32_t* w_of_row, int32_t* la_w,
         int32_t* fd_w, int32_t* idx_w, uint8_t* coin_w,
         const uint8_t* __restrict__ rounds_decided, int32_t* last_round,
@@ -86,8 +93,10 @@ sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
         const int32_t* __restrict__ index, const int32_t* __restrict__ sp_row,
         const int32_t* __restrict__ op_row, const int32_t* __restrict__ la_rows,
         const uint8_t* __restrict__ coin, const int32_t* __restrict__ fixed_round,
-        const int32_t* __restrict__ levels,
-        int e_cap, int n, int r_cap, int b, int l_lv, int w, int super_majority) {
+        const int32_t* __restrict__ levels, int32_t* la, int32_t* s_creator,
+        int32_t* s_index, const int32_t* __restrict__ upd_row,
+        const int32_t* __restrict__ upd_col, const int32_t* __restrict__ upd_val,
+        int e_cap, int n, int r_cap, int b, int l_lv, int w, int super_majority, int u) {
     extern __shared__ int32_t smem[];
     int32_t* s_p = smem;           // (w,) per lane: batch position, -1 = padding
     int32_t* s_pr = s_p + w;       //   parent round
@@ -110,6 +119,11 @@ sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
     const int warp = threadIdx.x >> 5;
     __shared__ int red_max, red_cnt, last_lv;
 
+    // phase 0 (K9): its writes are the block's, visible after the
+    // staging's barriers
+    babble_apply_deltas_range(fd, fd_w, la, s_creator, s_index, w_of_row, rows, creator, index,
+                              la_rows, upd_row, upd_col, upd_val, e_cap, n, r_cap, b, u,
+                              threadIdx.x, blockDim.x);
     // the level table, the batch's metadata and the witness-valid mask,
     // fetched once
     if (threadIdx.x == 0) last_lv = -1;
@@ -208,7 +222,7 @@ sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
             const int p = s_p[i];
             const int row = babble_clamp(b_rows[p], 0, e_cap - 1);
             la_w[(long long)slot * n + q] = la_rows[(long long)p * n + q];
-            fd_w[(long long)slot * n + q] = fd[(long long)row * n + q];
+            fd_w[(long long)slot * n + q] = __ldcg(fd + (long long)row * n + q);
         }
         __syncthreads();
     }
@@ -248,7 +262,7 @@ sl_walk(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
 }
 
 __global__ void __launch_bounds__(BABBLE_LEVEL_THREADS)
-sl_grid(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
+sl_grid(int32_t* fd, int32_t* rounds, int32_t* lamport,
         uint8_t* witness, int32_t* wtable, int32_t* w_of_row, int32_t* la_w,
         int32_t* fd_w, int32_t* idx_w, uint8_t* coin_w,
         const uint8_t* __restrict__ rounds_decided, int32_t* last_round,
@@ -257,8 +271,10 @@ sl_grid(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
         const int32_t* __restrict__ index, const int32_t* __restrict__ sp_row,
         const int32_t* __restrict__ op_row, const int32_t* __restrict__ la_rows,
         const uint8_t* __restrict__ coin, const int32_t* __restrict__ fixed_round,
-        const int32_t* __restrict__ levels, int32_t* scratch,
-        int e_cap, int n, int r_cap, int b, int l_lv, int w, int super_majority,
+        const int32_t* __restrict__ levels, int32_t* scratch, int32_t* la,
+        int32_t* s_creator, int32_t* s_index, const int32_t* __restrict__ upd_row,
+        const int32_t* __restrict__ upd_col, const int32_t* __restrict__ upd_val,
+        int e_cap, int n, int r_cap, int b, int l_lv, int w, int super_majority, int u,
         int aligned16) {
     extern __shared__ int4 sl_smem4[];
     int32_t* tile = reinterpret_cast<int32_t*>(sl_smem4);
@@ -278,6 +294,11 @@ sl_grid(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
     unsigned int bar_target = 0;
     const int lane = threadIdx.x & 31;
 
+    // phase 0 (K9), over the whole grid
+    babble_apply_deltas_range(fd, fd_w, la, s_creator, s_index, w_of_row, rows, creator, index,
+                              la_rows, upd_row, upd_col, upd_val, e_cap, n, r_cap, b, u,
+                              (long long)blockIdx.x * blockDim.x + threadIdx.x,
+                              (long long)gridDim.x * blockDim.x);
     // the last level that holds an event (levels past it are no-ops)
     if (threadIdx.x == 0) {
         s_last = -1;
@@ -296,6 +317,9 @@ sl_grid(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
     const int items = (w + BABBLE_LT - 1) / BABBLE_LT * n_wt;
     const int warp_g = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     const int warps_g = (gridDim.x * blockDim.x) >> 5;
+    // phase 0's mirror has read the pre-batch w_of_row, and its fd and fd_w
+    // atomics are done, before any level reads or registers
+    babble_grid_sync(bar, bar_target);
 
     for (int lv = 0; lv <= last; ++lv) {
         const int32_t* lrow = levels + (long long)lv * w;
@@ -372,11 +396,12 @@ sl_grid(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
             // the witness's own fd row as it stands: this batch's deltas included
             const int32_t* la_src = la_rows + (long long)p * n;
             const int32_t* fd_src = fd + (long long)babble_clamp(row, 0, e_cap - 1) * n;
+            // phase 0's atomics and other blocks' rows: through L2
             int32_t* la_dst = la_w + (long long)slot * n;
             int32_t* fd_dst = fd_w + (long long)slot * n;
             for (int q = lane; q < n; q += 32) {
                 la_dst[q] = la_src[q];
-                __stcg(fd_dst + q, fd_src[q]);
+                __stcg(fd_dst + q, __ldcg(fd_src + q));
             }
         }
         babble_grid_sync(bar, bar_target);
@@ -420,19 +445,21 @@ sl_grid(const int32_t* __restrict__ fd, int32_t* rounds, int32_t* lamport,
 }
 
 extern "C" int babble_step_levels(
-    const int32_t* fd, int32_t* rounds, int32_t* lamport, uint8_t* witness,
+    int32_t* fd, int32_t* rounds, int32_t* lamport, uint8_t* witness,
     int32_t* wtable, int32_t* w_of_row, int32_t* la_w, int32_t* fd_w,
     int32_t* idx_w, uint8_t* coin_w, const uint8_t* rounds_decided,
     int32_t* last_round, int32_t* count, uint8_t* stale, const int32_t* rows,
     const int32_t* creator, const int32_t* index, const int32_t* sp_row,
     const int32_t* op_row, const int32_t* la_rows, const uint8_t* coin,
-    const int32_t* fixed_round, const int32_t* levels, int32_t* scratch,
-    int e_cap, int n, int r_cap, int b, int l_lv, int w, int super_majority,
-    int device, void* stream) {
+    const int32_t* fixed_round, const int32_t* levels, int32_t* scratch, int32_t* la,
+    int32_t* s_creator, int32_t* s_index, const int32_t* upd_row, const int32_t* upd_col,
+    const int32_t* upd_val, int e_cap, int n, int r_cap, int b, int l_lv, int w,
+    int super_majority, int u, int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     // the grid walk where the wrapper hands a scratch (tpu/_ext.py
-    // step_levels_form chooses), else the one-block walk
+    // step_levels_form chooses), else the one-block walk; both run K9 as
+    // phase 0
     if (scratch == nullptr) {
         const size_t smem =
             ((size_t)7 * w + (size_t)l_lv * w + (size_t)7 * b + (size_t)w * n) * sizeof(int32_t)
@@ -441,12 +468,13 @@ extern "C" int babble_step_levels(
         sl_walk<<<1, SL_THREADS, smem, s>>>(
             fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w, idx_w,
             coin_w, rounds_decided, last_round, count, stale, rows, creator, index,
-            sp_row, op_row, la_rows, coin, fixed_round, levels, e_cap, n, r_cap, b,
-            l_lv, w, super_majority);
+            sp_row, op_row, la_rows, coin, fixed_round, levels, la, s_creator, s_index,
+            upd_row, upd_col, upd_val, e_cap, n, r_cap, b, l_lv, w, super_majority, u);
         BABBLE_CHECK_LAUNCH();
         return 0;
     }
-    // the per-lane carries and the three counters start at 0
+    // the per-lane carries and the three counters start at 0 (the barrier's
+    // count must be 0 at launch)
     BABBLE_CHECK(cudaMemsetAsync(scratch, 0, ((size_t)4 * w + 3) * sizeof(int32_t), s));
     const size_t smem = babble_level_item_smem();
     BABBLE_CHECK(babble_allow_smem(sl_grid, smem));
@@ -461,8 +489,9 @@ extern "C" int babble_step_levels(
         (void*)&rounds_decided, (void*)&last_round, (void*)&count, (void*)&stale,
         (void*)&rows, (void*)&creator, (void*)&index, (void*)&sp_row, (void*)&op_row,
         (void*)&la_rows, (void*)&coin, (void*)&fixed_round, (void*)&levels,
-        (void*)&scratch, (void*)&e_cap, (void*)&n, (void*)&r_cap, (void*)&b,
-        (void*)&l_lv, (void*)&w, (void*)&super_majority, (void*)&aligned16,
+        (void*)&scratch, (void*)&la, (void*)&s_creator, (void*)&s_index, (void*)&upd_row,
+        (void*)&upd_col, (void*)&upd_val, (void*)&e_cap, (void*)&n, (void*)&r_cap, (void*)&b,
+        (void*)&l_lv, (void*)&w, (void*)&super_majority, (void*)&u, (void*)&aligned16,
     };
     BABBLE_CHECK(cudaLaunchCooperativeKernel((const void*)sl_grid, dim3(g),
                                              dim3(BABBLE_LEVEL_THREADS), args, smem, s));

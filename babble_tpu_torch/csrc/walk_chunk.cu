@@ -21,7 +21,10 @@
 // microseconds of bytes for a whole chunk, but step r+1 starts from X(r+1).
 // At 8 validators a step is a few thousand compares and a barrier across
 // SMs would cost more than the step; at 256 it is 12 probes x 256 chains
-// x 65,536 compares, more than one SM does in microseconds. Two kernels:
+// x 65,536 compares, more than one SM does in microseconds. Three forms,
+// chosen by width (and chain length) by tpu/_ext.py walk_chunk_plan, which
+// hands the launcher its form, cluster size, column slice, chains a block,
+// probe rows, threads and shared memory:
 //
 // walk_chunk_tree, up to 32 validators: one block, a warp per chain,
 // after a prep launch that lays la and fd out in chain order (la_by[c, i]
@@ -37,77 +40,191 @@
 // The last round also loads the closure's INV value for every leaf, so
 // the closure reads shared memory.
 //
-// walk_chunk_grid, above: a cooperative launch, a block per chain (as
-// many as the card holds at once; a block takes chains c, c + grid, ...)
-// and a barrier across the grid between the two halves of a step:
-//   search:  block c runs chain c's binary search; per probe it stages the
-//            probed la row in shared memory and counts, thread by (four
-//            witnesses, a slice of the coordinates), la_mid[p] >=
-//            fdT[p, w] over the table, here with rows padded to a
-//            multiple of four (16-byte loads of four witnesses; padding
-//            columns hold MAX), then sums the slices per witness and the
-//            verdicts over the block; it writes m0[c];
+// walk_chunk_cluster, from 33 validators while a cluster holds the step's
+// frontier table: a launch of thread-block clusters of k blocks (k <= 8,
+// a portable cluster), every block resident (a software barrier across
+// the grid), two barriers across the grid a step:
+//   search:  the table fdT[p, w] (N coordinates x the witness columns
+//            padded to k * cw) lies in the cluster's shared memory, split
+//            by witness columns: block r of a cluster holds columns
+//            [r * cw, (r + 1) * cw), one bulk copy (cp.async.bulk) a step
+//            from a device copy laid out slice by slice. A cluster takes
+//            `chains` chains at a time (chains c0 .. c0 + chains - 1, the
+//            next group `clusters` groups on), their rows_by rows staged in
+//            shared memory, and runs their searches together as
+//            speculative trees of depth d (walk_chunk_depth): a round
+//            stages the la rows of every node of every chain's tree
+//            (2^d - 1 each), each block counts them against its columns
+//            (a thread a quad of columns and a range of coordinates, four
+//            probes at a time in registers, the ranges summed in shared
+//            memory), sums each node's verdicts over its columns, and the
+//            cluster adds the k blocks' sums through distributed shared
+//            memory behind one cluster barrier (two buffers in rotation,
+//            so one barrier a round; a block's own sums where k = 1).
+//            Every block then takes the same d decisions, reading each
+//            node's sums as it goes: four barriers a round in all. Block 0
+//            of the cluster writes m0[c];
 //   advance: one warp per chain over the whole grid takes the closure,
-//            writes X(r+1)[c] and loads the next step's frontier row c
-//            into column c of the table (lanes over p).
-// The frontier, m0, the chain lengths and the table live in a device
-// scratch the wrapper allocates, read and written through L2 (__ldcg /
-// __stcg); the grid barrier's fences order them. Each block copies the
-// table into its shared memory after the barrier where it fits (up to
-// about 230 validators); past that the probes read it from L2.
+//            writes X(r+1)[c] and the next step's frontier row c into
+//            column c of the device table (lanes over p).
+// Per step the table crosses L2 once per block (not once per probe), and
+// a probe's event row is a shared-memory read.
+//
+// walk_chunk_grid, past a cluster's reach (about 640 validators at the
+// chain lengths of the cells): a block per chain (as many as the card
+// holds at once; a block takes chains c, c + grid, ...), its search
+// probing one la row at a time against the table in device memory
+// (through L2), with the same two barriers a step.
+//
+// The frontier, m0, the chain lengths and the device table live in a
+// device scratch the wrapper allocates, read and written through L2
+// (__ldcg / __stcg); the grid barrier's fences order them, and a proxy
+// fence orders the table's generic writes before the bulk copies read it.
 //
 // Launches per call (one chunk): one (walk_chunk_tree: two, the prep
 // launch and the walk).
+//
+// walk_chunk_cluster's launch: cudaLaunchKernelEx with the cluster
+// dimension attribute and the cooperative attribute, which the runtime
+// takes together on the H100 (checked on the card); the grid is at most
+// cudaOccupancyMaxActiveClusters clusters, so that every block is resident.
+// A refused launch returns its error (the wrapper raises).
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 // largest dynamic shared memory one block may use on an H100
 #define WC_MAX_SMEM 232448
 // walk_chunk_tree up to this many validators
 #define WC_BLOCK_MAX 32
-// walk_chunk_tree's largest tree depth (a round's verdicts fit a 64-bit mask)
+// the largest tree depth (walk_chunk_tree: a round's verdicts fit a 64-bit
+// mask)
 #define WC_TREE_DEPTH_MAX 6
-
-// walk_chunk_tree's dynamic shared memory at n validators and tree depth d:
-// each chain's probed rows of a round (2^d - 1 rows of NP words) and its
-// closure terms by leaf (2^d x n words, rounded up to 4; tpu/_ext.py
-// block_smem follows it)
-static inline size_t wc_tree_smem(int n, int depth) {
-    const size_t nodes = ((size_t)1 << depth) - 1;
-    const size_t np = n <= 4 ? 4 : n <= 8 ? 8 : n <= 16 ? 16 : 32;
-    return (size_t)n * (nodes * np + ((nodes + 1) * n + 3) / 4 * 4) * sizeof(int32_t);
-}
+// walk_chunk_cluster: the most threads a block (tpu/_ext.py walk_chunk_plan
+// takes 256, and 512 in clusters of 4 or 8), the widest (portable)
+// cluster, and the probe rows a thread counts at once
+#define WC_GRID_THREADS_WIDE 512
+#define WC_CLUSTER_MAX 8
+#define WC_SLOT_CHUNK 4
+// the plan's forms (tpu/_ext.py WC_FORMS)
+#define WC_FORM_TREE 0
+#define WC_FORM_CLUSTER 1
+#define WC_FORM_L2 2
 
 // Coordinate slices per quad of witnesses in walk_chunk_grid: the
-// block's threads over the quads, each slice at least 8 coordinates long.
-__host__ __device__ __forceinline__ int wc_slices(int n, int threads) {
+// block's threads over the quads, each slice at least 8 coordinates long
+// (tpu/_ext.py _wc_slices sizes its shared memory by it).
+__device__ __forceinline__ int wc_slices(int n, int threads) {
     const int nq = (n + 3) / 4;
     int s = threads >= nq ? threads / nq : 1;
     const int cap = n / 8 > 1 ? n / 8 : 1;
     return s < cap ? s : cap;
 }
 
-// Column w of walk_chunk_grid's table and wok[w] for frontier row w at
-// index x, round r_cur; one whole warp.
+// The device table's word of coordinate p, witness w, in slices of cw
+// columns (walk_chunk_grid: one slice of ld4 columns, row-major (n, ld4)).
+__device__ __forceinline__ long long wc_tab_at(int p, int w, int n, int cw) {
+    const int r = w / cw;
+    return ((long long)r * n + p) * cw + (w - r * cw);
+}
+
+// Column w of the device table and wok[w] for frontier row w at index x,
+// round r_cur; one whole warp. The table's generic writes are fenced
+// against the next step's bulk copies (the async proxy).
 __device__ __forceinline__ void wc_frontier_row(
     int w, int x, int r_cur, const int32_t* __restrict__ rows_by,
     const int32_t* __restrict__ fd, const int32_t* __restrict__ first_nw, int32_t* tab,
-    int32_t* wok, int n, int ld4, int l, int e_fd, int use_seeds) {
+    int32_t* wok, int n, int cw, int l, int e_fd, int use_seeds) {
     const int lane = threadIdx.x & 31;
     bool ok = x < l;
     if (use_seeds) ok = ok && !(x == 0 && r_cur == first_nw[w]);
     const int row = ok ? babble_clamp(
         rows_by[(long long)w * l + babble_clamp(x, 0, l - 1)], 0, e_fd - 1) : 0;
+#pragma unroll 8
     for (int p = lane; p < n; p += 32) {
-        __stcg(tab + (long long)p * ld4 + w, ok ? fd[(long long)row * n + p] : BABBLE_MAX_INT32);
+        __stcg(tab + wc_tab_at(p, w, n, cw), ok ? fd[(long long)row * n + p] : BABBLE_MAX_INT32);
     }
     if (lane == 0) __stcg(wok + w, (int32_t)ok);
+    asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// The prologue of both grid forms: the table's padding columns (n ..
+// n_cols - 1) MAX and their flags 0, each chain's length, X(0) and the
+// first step's frontier row.
+__device__ __forceinline__ void wc_prologue(
+    const int32_t* __restrict__ rows_by, const int32_t* __restrict__ fd,
+    const int32_t* __restrict__ x0, const int32_t* __restrict__ r_abs,
+    const int32_t* __restrict__ first_nw, int32_t* g_tab, int32_t* g_wok, int32_t* xc,
+    int32_t* clen, int n, int cw, int n_cols, int l, int e_fd, int use_seeds) {
+    const int lane = threadIdx.x & 31;
+    const int pad = n_cols - n;
+    for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < (long long)n * pad;
+         k += (long long)gridDim.x * blockDim.x) {
+        const int p = (int)(k / pad), w = n + (int)(k % pad);
+        __stcg(g_tab + wc_tab_at(p, w, n, cw), BABBLE_MAX_INT32);
+        if (p == 0) __stcg(g_wok + w, 0);
+    }
+    const int n_warps = blockDim.x >> 5;
+    const int all_warps = gridDim.x * n_warps;
+    for (int c = blockIdx.x * n_warps + (threadIdx.x >> 5); c < n; c += all_warps) {
+        int cnt = 0;
+        for (int i = lane; i < l; i += 32) cnt += rows_by[(long long)c * l + i] >= 0;
+        cnt = __reduce_add_sync(BABBLE_FULL_MASK, cnt);
+        const int x = x0[c];
+        if (lane == 0) {
+            __stcg(clen + c, cnt);
+            __stcg(xc + c, x);
+        }
+        wc_frontier_row(c, x, r_abs[0], rows_by, fd, first_nw, g_tab, g_wok, n, cw, l, e_fd,
+                        use_seeds);
+    }
+}
+
+// The advance of both grid forms: one warp per chain over the whole grid
+// takes the cross-chain closure, the seed row and the clamp, writes
+// X(r+1), then the next step's frontier row; chain c's warp alone reads and
+// writes xc[c].
+__device__ __forceinline__ void wc_advance(
+    int k, const int32_t* __restrict__ inv, const int32_t* __restrict__ rows_by,
+    const int32_t* __restrict__ fd, const int32_t* __restrict__ seeds,
+    const int32_t* __restrict__ r_abs, const int32_t* __restrict__ first_nw, int32_t* x_last,
+    int32_t* xs, int32_t* g_tab, int32_t* g_wok, int32_t* xc, const int32_t* m0, int n,
+    int cw, int l, int e_fd, int length, int use_seeds) {
+    const int lane = threadIdx.x & 31;
+    const int n_warps = blockDim.x >> 5;
+    const int all_warps = gridDim.x * n_warps;
+    for (int c = blockIdx.x * n_warps + (threadIdx.x >> 5); c < n; c += all_warps) {
+        int r = l;
+        const int32_t* inv_c = inv + (long long)c * n * l;
+#pragma unroll 8
+        for (int x = lane; x < n; x += 32) {
+            const int mx = __ldcg(m0 + x);
+            if (mx < l) r = min(r, inv_c[(long long)x * l + babble_clamp(mx, 0, l - 1)]);
+        }
+        r = __reduce_min_sync(BABBLE_FULL_MASK, r);
+        int xn = min(__ldcg(m0 + c), r);
+        if (use_seeds) xn = min(xn, seeds[(long long)k * n + c]);
+        xn = min(max(xn, __ldcg(xc + c)), l);
+        __syncwarp();
+        if (lane == 0) {
+            xs[(long long)k * n + c] = xn;
+            __stcg(xc + c, xn);
+            if (k == length - 1) x_last[c] = xn;
+        }
+        if (k + 1 < length) {
+            wc_frontier_row(c, xn, r_abs[k + 1], rows_by, fd, first_nw, g_tab, g_wok, n, cw, l,
+                            e_fd, use_seeds);
+        }
+    }
 }
 
 // The block's counts of la_mid[p] >= fdT[p, 4q .. 4q+3] over its
-// slices: thread j takes quad q = j % nq and coordinates p = j / nq, +
-// n_slices, ...; part[s * ld4 + w] is slice s's count for witness w.
-template <bool SMEM_TAB>
+// slices (walk_chunk_grid): thread j takes quad q = j % nq and coordinates
+// p = j / nq, + n_slices, ...; part[s * ld4 + w] is slice s's count for
+// witness w.
 __device__ __forceinline__ void wc_count(const int32_t* tab, const int32_t* la_mid,
                                          int32_t* part, int n, int nq, int n_slices) {
     const int4* tab4 = reinterpret_cast<const int4*>(tab);
@@ -117,7 +234,7 @@ __device__ __forceinline__ void wc_count(const int32_t* tab, const int32_t* la_m
         int c0 = 0, c1 = 0, c2 = 0, c3 = 0;
 #pragma unroll 4
         for (int p = j / nq; p < n; p += n_slices) {
-            const int4 v = SMEM_TAB ? tab4[p * nq + q] : __ldcg(tab4 + (long long)p * nq + q);
+            const int4 v = __ldcg(tab4 + (long long)p * nq + q);
             const int lm = la_mid[p];
             c0 += lm >= v.x;
             c1 += lm >= v.y;
@@ -341,6 +458,227 @@ __global__ void __launch_bounds__(NP * 32) walk_chunk_tree(
     if (lane == 0) x_last[c] = s_x[length & 1][c];
 }
 
+// walk_chunk_cluster (the header above): clusters of k blocks, `chains`
+// chains a cluster at a time, trees of `depth`.
+__global__ void __launch_bounds__(WC_GRID_THREADS_WIDE) walk_chunk_cluster(
+    const int32_t* __restrict__ inv, const int32_t* __restrict__ rows_by,
+    const int32_t* __restrict__ fd, const int32_t* __restrict__ la,
+    const int32_t* __restrict__ x0, const int32_t* __restrict__ seeds,
+    const int32_t* __restrict__ r_abs, const int32_t* __restrict__ first_nw, int32_t* x_last,
+    int32_t* xs, int32_t* scratch, int n, int l, int e_fd, int e_la, int super_majority,
+    int length, int steps, int use_seeds, int depth, int cw, int chains, int slots) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int k_cl = (int)cluster.num_blocks();
+    const int rank = (int)cluster.block_rank();
+    const int cid = blockIdx.x / k_cl, n_cl = gridDim.x / k_cl;
+    const int ld4 = (n + 3) & ~3;
+    const int nq = cw >> 2;
+    const int nodes = (1 << depth) - 1;
+    const int lane = threadIdx.x & 31;
+
+    // device scratch: the table (k slices of (n, cw)), the countable flags
+    // (k * cw), the frontier, m0, the chain lengths, the barrier's count
+    int32_t* g_tab = scratch;
+    int32_t* g_wok = g_tab + (long long)n * cw * k_cl;
+    int32_t* xc = g_wok + cw * k_cl;
+    int32_t* m0 = xc + n;
+    int32_t* clen = m0 + n;
+    unsigned int* bar = reinterpret_cast<unsigned int*>(clen + n);
+    unsigned int bar_target = 0;
+    // shared memory (tpu/_ext.py _wc_cluster_smem sizes it)
+    extern __shared__ int4 wcc_smem4[];
+    uint64_t* tbar = reinterpret_cast<uint64_t*>(wcc_smem4);
+    int32_t* tab = reinterpret_cast<int32_t*>(wcc_smem4 + 1);
+    int32_t* wok = tab + (long long)n * cw;
+    int32_t* rows_s = wok + cw;
+    int32_t* la_s = rows_s + ((long long)chains * l + 3) / 4 * 4;
+    int32_t* cnt = la_s + (long long)slots * ld4;
+    int32_t* part = cnt + slots * cw;
+    int32_t* s_lo = part + 2 * slots;
+    int32_t* s_hi = s_lo + chains;
+    int32_t* s_len = s_hi + chains;
+
+    if (threadIdx.x == 0) {
+        babble_mbar_init(tbar, 1);
+        babble_mbar_init_fence();
+    }
+    for (int i = threadIdx.x; i < 2 * slots; i += blockDim.x) part[i] = 0;
+    for (int i = threadIdx.x; i < slots * cw; i += blockDim.x) cnt[i] = 0;
+    wc_prologue(rows_by, fd, x0, r_abs, first_nw, g_tab, g_wok, xc, clen, n, cw, cw * k_cl, l,
+                e_fd, use_seeds);
+    // every block of the cluster runs (and its mbarrier is initialised)
+    // before any block reads another's shared memory
+    cluster.sync();
+
+    // a thread's count item: (4 probe rows, a quad of columns) x a range of
+    // coordinates, `ranges` ranges of `span` coordinates
+    const int units = (slots / WC_SLOT_CHUNK) * nq;
+    int ranges = blockDim.x / units;
+    ranges = max(1, min(ranges, n / 8));
+    const int span = (n + ranges - 1) / ranges;
+    const int4* tab4 = reinterpret_cast<const int4*>(tab);
+    const bool la16 = babble_rows_aligned16(la, n);
+    const int nla = la16 ? n / 4 : n;  // copies a probed row
+    int rnd = 0;  // block-uniform: the verdict sums' buffer is rnd & 1
+
+    for (int k = 0; k < length; ++k) {
+        babble_grid_sync(bar, bar_target);
+        // this step's table slice (one bulk copy) and countable flags
+        if (threadIdx.x == 0) {
+            asm volatile("fence.proxy.async;\n" ::: "memory");
+            const unsigned bytes = (unsigned)n * (unsigned)cw * 4u;
+            babble_mbar_expect_tx(tbar, bytes);
+            babble_bulk_load(tab, g_tab + (long long)rank * n * cw, bytes, tbar);
+        }
+        for (int w = threadIdx.x; w < cw; w += blockDim.x) wok[w] = __ldcg(g_wok + rank * cw + w);
+        bool waited = false;
+        for (int c0 = cid * chains; c0 < n; c0 += n_cl * chains) {
+            // the group's rows_by rows, frontier and lengths
+            for (int i = threadIdx.x; i < chains * l; i += blockDim.x) {
+                const int c = c0 + i / l;
+                rows_s[i] = c < n ? rows_by[(long long)c * l + i % l] : -1;
+            }
+            for (int i = threadIdx.x; i < chains; i += blockDim.x) {
+                const int c = c0 + i;
+                s_lo[i] = c < n ? babble_clamp(__ldcg(xc + c), 0, l) : 0;
+                s_hi[i] = l;
+                s_len[i] = c < n ? __ldcg(clen + c) : 0;
+            }
+            __syncthreads();
+            if (!waited) {
+                babble_mbar_wait(tbar, k & 1);
+                waited = true;
+            }
+            for (int done = 0; done < steps; ++rnd) {  // block-uniform
+                const int d = min(depth, steps - done);
+                const int nodes_r = (1 << d) - 1;
+                int32_t* my_part = part + (rnd & 1) * slots;
+                // the probed rows, asynchronously (16 bytes a copy where the
+                // rows allow it), so that a thread's copies overlap: slot
+                // i * nodes + j - 1 holds node j of chain i's tree (heap
+                // order), MIN where there is none
+                for (int t = threadIdx.x; t < slots * nla; t += blockDim.x) {
+                    const int sl = t / nla, p = (t - sl * nla) * (la16 ? 4 : 1);
+                    const int i = sl / nodes, node = sl - i * nodes;
+                    int32_t* dst = la_s + sl * ld4 + p;
+                    if (i >= chains || node >= nodes_r || c0 + i >= n) {
+                        for (int j = 0; j < (la16 ? 4 : 1); ++j) dst[j] = BABBLE_MIN_INT32;
+                        continue;
+                    }
+                    const int j = node + 1;
+                    int a = s_lo[i], b = s_hi[i];
+                    for (int bit = 30 - __clz(j); bit >= 0; --bit) {  // node j's interval
+                        const int mid = min((a + b) / 2, l - 1);
+                        if ((j >> bit) & 1) a = mid + 1;
+                        else b = min(mid, b);
+                    }
+                    const int probe = min(min((a + b) / 2, l - 1), max(s_len[i] - 1, 0));
+                    const int32_t* src =
+                        la + (long long)babble_clamp(rows_s[i * l + probe], 0, e_la - 1) * n + p;
+                    if (la16) babble_cp_async16(dst, src);
+                    else babble_cp_async4(dst, src);
+                }
+                babble_cp_async_commit();
+                babble_cp_async_wait<0>();
+                __syncthreads();
+                // the counts against this block's columns (zeroed after the
+                // previous round's verdicts)
+                for (int it = threadIdx.x; it < units * ranges; it += blockDim.x) {
+                    const int rg = it / units, u = it - rg * units;
+                    const int q = u % nq, sc = u / nq;
+                    const int p1 = min(n, (rg + 1) * span);
+                    const int32_t* a = la_s + (long long)sc * WC_SLOT_CHUNK * ld4;
+                    int c[WC_SLOT_CHUNK][4];
+#pragma unroll
+                    for (int j = 0; j < WC_SLOT_CHUNK; ++j) {
+                        c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0;
+                    }
+                    for (int p = rg * span; p < p1; ++p) {
+                        const int4 t4 = tab4[p * nq + q];
+#pragma unroll
+                        for (int j = 0; j < WC_SLOT_CHUNK; ++j) {
+                            const int v = a[j * ld4 + p];
+                            c[j][0] += v >= t4.x;
+                            c[j][1] += v >= t4.y;
+                            c[j][2] += v >= t4.z;
+                            c[j][3] += v >= t4.w;
+                        }
+                    }
+#pragma unroll
+                    for (int j = 0; j < WC_SLOT_CHUNK; ++j) {
+                        int32_t* dst = cnt + (sc * WC_SLOT_CHUNK + j) * cw + 4 * q;
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            if (c[j][e]) atomicAdd(dst + e, c[j][e]);
+                        }
+                    }
+                }
+                __syncthreads();
+                // each probe's strongly-seen witnesses among this block's
+                // columns, summed a warp at a time
+                for (int t = threadIdx.x; t < slots * cw; t += blockDim.x) {
+                    const int sl = t / cw;
+                    const bool v = cnt[t] >= super_majority && wok[t - sl * cw] != 0;
+                    const unsigned act = __activemask();
+                    const unsigned peers = __match_any_sync(act, sl);
+                    const unsigned hits = __ballot_sync(act, v) & peers;
+                    if (lane == __ffs(peers) - 1 && hits) atomicAdd(my_part + sl, __popc(hits));
+                }
+                // every block's sums, after the cluster's barrier (one block:
+                // the block's)
+                if (k_cl > 1) cluster.sync();
+                else __syncthreads();
+                // the round's decisions, the same in every block, each node's
+                // total the sum of the cluster's partial sums
+                for (int i = threadIdx.x; i < chains; i += blockDim.x) {
+                    int lo = s_lo[i], hi = s_hi[i], j = 1;
+                    const bool live = s_len[i] > 0;
+                    for (int st = 0; st < d; ++st) {
+                        const int mid = min((lo + hi) / 2, l - 1);
+                        int32_t* at = my_part + i * nodes + j - 1;
+                        int total = *at;
+                        if (k_cl > 1) {
+                            total = 0;
+                            for (int r = 0; r < k_cl; ++r) total += *cluster.map_shared_rank(at, r);
+                        }
+                        if (live && total >= super_majority) {
+                            hi = min(mid, hi);
+                            j = 2 * j;
+                        } else {
+                            lo = mid + 1;
+                            j = 2 * j + 1;
+                        }
+                    }
+                    s_lo[i] = lo;
+                    s_hi[i] = hi;
+                }
+                // the next round's buffers: the other sums (every block read
+                // them before this round's barrier) and the counts
+                for (int t = threadIdx.x; t < slots; t += blockDim.x) {
+                    part[((rnd + 1) & 1) * slots + t] = 0;
+                }
+                for (int t = threadIdx.x; t < slots * cw; t += blockDim.x) cnt[t] = 0;
+                __syncthreads();
+                done += d;
+            }
+            if (rank == 0) {
+                for (int i = threadIdx.x; i < chains && c0 + i < n; i += blockDim.x) {
+                    __stcg(m0 + c0 + i, s_hi[i] < s_len[i] ? s_hi[i] : l);
+                }
+            }
+            __syncthreads();  // the group's arrays are rewritten by the next
+        }
+        if (!waited) babble_mbar_wait(tbar, k & 1);
+        babble_grid_sync(bar, bar_target);
+        wc_advance(k, inv, rows_by, fd, seeds, r_abs, first_nw, x_last, xs, g_tab, g_wok, xc, m0,
+                   n, cw, l, e_fd, length, use_seeds);
+    }
+    // no block leaves while another of its cluster may read its shared memory
+    cluster.sync();
+}
+
+// walk_chunk_grid (the header above): a block per chain, the table in
+// device memory, (n, ld4) row-major.
 __global__ void walk_chunk_grid(const int32_t* __restrict__ inv,
                                 const int32_t* __restrict__ rows_by,
                                 const int32_t* __restrict__ fd,
@@ -352,69 +690,34 @@ __global__ void walk_chunk_grid(const int32_t* __restrict__ inv,
                                 int32_t* x_last, int32_t* xs, int32_t* scratch,
                                 int n, int l, int e_fd, int e_la,
                                 int super_majority, int length, int steps,
-                                int use_seeds, int tab_in_smem) {
+                                int use_seeds) {
     extern __shared__ int4 smem4[];
     __shared__ int s_seen[3];  // the block's verdict sums, three probes in rotation
     const int ld4 = (n + 3) & ~3;
     const int nq = ld4 >> 2;
     const int lane = threadIdx.x & 31;
-    const int n_warps = blockDim.x >> 5;
     const int n_slices = wc_slices(n, blockDim.x);
 
-    // device scratch: the table (n, ld4), the frontier, m0, the countable
-    // rows, the chain lengths, the barrier's count
+    // device scratch: the table (n, ld4), the countable flags (ld4), the
+    // frontier, m0, the chain lengths, the barrier's count
     int32_t* g_tab = scratch;
-    int32_t* xc = g_tab + (long long)n * ld4;
+    int32_t* g_wok = g_tab + (long long)n * ld4;
+    int32_t* xc = g_wok + ld4;
     int32_t* m0 = xc + n;
-    int32_t* g_wok = m0 + n;
-    int32_t* clen = g_wok + n;
+    int32_t* clen = m0 + n;
     unsigned int* bar = reinterpret_cast<unsigned int*>(clen + n);
     unsigned int bar_target = 0;
-    // shared memory: [the table (n, ld4), wok (ld4)] where they fit, then
-    // the probe row (ld4) and the slice counts (n_slices, ld4)
-    int32_t* s = reinterpret_cast<int32_t*>(smem4);
-    int32_t* tab = g_tab;
-    int32_t* wok = g_wok;
-    if (tab_in_smem) {
-        tab = s;
-        wok = s + n * ld4;
-        s += n * ld4 + ld4;
-    }
-    int32_t* la_mid = s;
-    int32_t* part = s + ld4;
+    // shared memory: the probe row (ld4) and the slice counts (n_slices, ld4)
+    int32_t* la_mid = reinterpret_cast<int32_t*>(smem4);
+    int32_t* part = la_mid + ld4;
 
-    const int gw = blockIdx.x * n_warps + (threadIdx.x >> 5);
-    const int all_warps = gridDim.x * n_warps;
     if (threadIdx.x < 3) s_seen[threadIdx.x] = 0;
-    // the padding columns of the table hold MAX
-    for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         k < (long long)n * (ld4 - n); k += (long long)gridDim.x * blockDim.x) {
-        __stcg(g_tab + (k / (ld4 - n)) * ld4 + n + k % (ld4 - n), BABBLE_MAX_INT32);
-    }
-    // chain lengths, X(0), the first step's frontier rows
-    for (int c = gw; c < n; c += all_warps) {
-        int cnt = 0;
-        for (int i = lane; i < l; i += 32) cnt += rows_by[(long long)c * l + i] >= 0;
-        cnt = __reduce_add_sync(BABBLE_FULL_MASK, cnt);
-        const int x = x0[c];
-        if (lane == 0) {
-            __stcg(clen + c, cnt);
-            __stcg(xc + c, x);
-        }
-        wc_frontier_row(c, x, r_abs[0], rows_by, fd, first_nw, g_tab, g_wok, n, ld4, l, e_fd,
-                        use_seeds);
-    }
+    wc_prologue(rows_by, fd, x0, r_abs, first_nw, g_tab, g_wok, xc, clen, n, ld4, ld4, l, e_fd,
+                use_seeds);
 
     int probe_no = 0;  // block-uniform
     for (int k = 0; k < length; ++k) {
         babble_grid_sync(bar, bar_target);
-        if (tab_in_smem) {  // this step's table and countable rows
-            const int4* src = reinterpret_cast<const int4*>(g_tab);
-            int4* dst = reinterpret_cast<int4*>(tab);
-            for (int i = threadIdx.x; i < n * nq; i += blockDim.x) dst[i] = __ldcg(src + i);
-            for (int i = threadIdx.x; i < n; i += blockDim.x) wok[i] = __ldcg(g_wok + i);
-            __syncthreads();
-        }
         // search: m0[c], one block per chain
         for (int c = blockIdx.x; c < n; c += gridDim.x) {
             const int len = __ldcg(clen + c);
@@ -430,18 +733,13 @@ __global__ void walk_chunk_grid(const int32_t* __restrict__ inv,
                 // every thread has read the sum this slot held three probes ago
                 if (threadIdx.x == 0) s_seen[(probe_no + 1) % 3] = 0;
                 __syncthreads();
-                if (tab_in_smem) {
-                    wc_count<true>(tab, la_mid, part, n, nq, n_slices);
-                } else {
-                    wc_count<false>(tab, la_mid, part, n, nq, n_slices);
-                }
+                wc_count(g_tab, la_mid, part, n, nq, n_slices);
                 __syncthreads();
                 int seen = 0;
                 for (int w = threadIdx.x; w < n; w += blockDim.x) {
                     int cnt = 0;
                     for (int t = 0; t < n_slices; ++t) cnt += part[t * ld4 + w];
-                    const int ok = tab_in_smem ? wok[w] : __ldcg(g_wok + w);
-                    seen += ok != 0 && cnt >= super_majority;
+                    seen += __ldcg(g_wok + w) != 0 && cnt >= super_majority;
                 }
                 seen = __reduce_add_sync(BABBLE_FULL_MASK, seen);
                 if (lane == 0 && seen) atomicAdd(&s_seen[probe_no % 3], seen);
@@ -452,45 +750,11 @@ __global__ void walk_chunk_grid(const int32_t* __restrict__ inv,
             if (threadIdx.x == 0) __stcg(m0 + c, hi < len ? hi : l);
         }
         babble_grid_sync(bar, bar_target);
-        // advance: cross-chain closure, seed row, clamp, then the next
-        // step's frontier row; chain c's warp alone reads and writes xc[c]
-        for (int c = gw; c < n; c += all_warps) {
-            int r = l;
-            const int32_t* inv_c = inv + (long long)c * n * l;
-            for (int x = lane; x < n; x += 32) {
-                const int mx = __ldcg(m0 + x);
-                if (mx < l) r = min(r, inv_c[(long long)x * l + babble_clamp(mx, 0, l - 1)]);
-            }
-            r = __reduce_min_sync(BABBLE_FULL_MASK, r);
-            int xn = min(__ldcg(m0 + c), r);
-            if (use_seeds) xn = min(xn, seeds[(long long)k * n + c]);
-            xn = min(max(xn, __ldcg(xc + c)), l);
-            __syncwarp();
-            if (lane == 0) {
-                xs[(long long)k * n + c] = xn;
-                __stcg(xc + c, xn);
-                if (k == length - 1) x_last[c] = xn;
-            }
-            if (k + 1 < length) {
-                wc_frontier_row(c, xn, r_abs[k + 1], rows_by, fd, first_nw, g_tab, g_wok, n,
-                                ld4, l, e_fd, use_seeds);
-            }
-        }
+        wc_advance(k, inv, rows_by, fd, seeds, r_abs, first_nw, x_last, xs, g_tab, g_wok, xc, m0,
+                   n, ld4, l, e_fd, length, use_seeds);
     }
 }
 
-// walk_chunk_grid's launch shape for n validators: threads per block,
-// whether the table is kept in shared memory, and the block's dynamic
-// shared memory (tpu/_ext.py smem_bytes follows it).
-static void wc_grid_shape(int n, int* threads, int* tab_in_smem, size_t* smem) {
-    const int ld4 = (n + 3) & ~3;
-    int warps = (n + 15) / 16;
-    *threads = 32 * (warps > 16 ? 16 : warps);
-    const size_t own = (size_t)ld4 + (size_t)wc_slices(n, *threads) * ld4;
-    const size_t table = (size_t)n * ld4 + ld4;
-    *tab_in_smem = (own + table) * sizeof(int32_t) <= WC_MAX_SMEM;
-    *smem = (own + (*tab_in_smem ? table : 0)) * sizeof(int32_t);
-}
 
 // walk_chunk_tree<NP>'s launch: the chain-order tables (rows of NP words)
 // and the chain lengths, then the walk.
@@ -500,7 +764,7 @@ static int wc_tree_launch(const int32_t* inv, const int32_t* rows_by, const int3
                           const int32_t* r_abs, const int32_t* first_nw, int32_t* x_last,
                           int32_t* xs, int32_t* scratch, int n, int l, int e_fd, int e_la,
                           int super_majority, int length, int steps, int use_seeds, int depth,
-                          cudaStream_t s) {
+                          size_t smem, cudaStream_t s) {
     int32_t* la_by = scratch;
     int32_t* fd_by = scratch + (long long)n * l * NP;
     int32_t* len = fd_by + (long long)n * l * NP;
@@ -508,7 +772,6 @@ static int wc_tree_launch(const int32_t* inv, const int32_t* rows_by, const int3
     wc_tables<<<babble_stride_blocks((long long)n * l * NP, 256), 256, 0, s>>>(
         rows_by, la, fd, la_by, fd_by, len, n, l, e_la, e_fd, NP);
     BABBLE_CHECK_LAUNCH();
-    const size_t smem = wc_tree_smem(n, depth);
     BABBLE_CHECK(babble_allow_smem(walk_chunk_tree<NP>, smem));
     walk_chunk_tree<NP><<<1, 32 * n, smem, s>>>(
         inv, len, fd_by, la_by, x0, seeds, r_abs, first_nw, x_last, xs, n, l,
@@ -517,67 +780,104 @@ static int wc_tree_launch(const int32_t* inv, const int32_t* rows_by, const int3
     return 0;
 }
 
+// The launch in the form of tpu/_ext.py walk_chunk_plan, whose fields the
+// wrapper hands over as they are: `form` (WC_FORM_*), k blocks a cluster,
+// cw witness columns a block, `chains` chains a block searches at once,
+// `slots` probe rows a block stages, threads a block and dynamic shared
+// memory bytes a block.
 extern "C" int babble_walk_chunk(
     const int32_t* inv, const int32_t* rows_by, const int32_t* fd,
     const int32_t* la, const int32_t* x0, const int32_t* seeds,
     const int32_t* r_abs, const int32_t* first_nw, int32_t* x_last,
     int32_t* xs, int32_t* scratch, int n, int l, int e_fd, int e_la,
-    int super_majority, int length, int steps, int use_seeds, int depth, int device,
-    void* stream) {
+    int super_majority, int length, int steps, int use_seeds, int depth, int form, int k,
+    int cw, int chains, int slots, int threads, int smem_bytes, int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (n <= WC_BLOCK_MAX) {
-        if (depth < 1 || depth > WC_TREE_DEPTH_MAX || wc_tree_smem(n, depth) > WC_MAX_SMEM) {
-            return (int)cudaErrorInvalidValue;
-        }
+    if (depth < 1 || depth > WC_TREE_DEPTH_MAX || smem_bytes < 0 || smem_bytes > WC_MAX_SMEM) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const size_t smem = (size_t)smem_bytes;
+    if (form == WC_FORM_TREE) {
+        if (n > WC_BLOCK_MAX) return (int)cudaErrorInvalidValue;
         if (n <= 4) {
             return wc_tree_launch<4>(inv, rows_by, fd, la, x0, seeds, r_abs, first_nw, x_last,
                                      xs, scratch, n, l, e_fd, e_la, super_majority, length,
-                                     steps, use_seeds, depth, s);
+                                     steps, use_seeds, depth, smem, s);
         }
         if (n <= 8) {
             return wc_tree_launch<8>(inv, rows_by, fd, la, x0, seeds, r_abs, first_nw, x_last,
                                      xs, scratch, n, l, e_fd, e_la, super_majority, length,
-                                     steps, use_seeds, depth, s);
+                                     steps, use_seeds, depth, smem, s);
         }
         if (n <= 16) {
             return wc_tree_launch<16>(inv, rows_by, fd, la, x0, seeds, r_abs, first_nw,
                                       x_last, xs, scratch, n, l, e_fd, e_la, super_majority,
-                                      length, steps, use_seeds, depth, s);
+                                      length, steps, use_seeds, depth, smem, s);
         }
         return wc_tree_launch<32>(inv, rows_by, fd, la, x0, seeds, r_abs, first_nw, x_last,
                                   xs, scratch, n, l, e_fd, e_la, super_majority, length,
-                                  steps, use_seeds, depth, s);
+                                  steps, use_seeds, depth, smem, s);
     }
-    int threads = 0, tab_in_smem = 0;
-    size_t smem = 0;
-    wc_grid_shape(n, &threads, &tab_in_smem, &smem);
-    if (smem > WC_MAX_SMEM) return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-        BABBLE_CHECK(cudaFuncSetAttribute(
-            walk_chunk_grid, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+    if ((form != WC_FORM_CLUSTER && form != WC_FORM_L2) || k < 1 || k > WC_CLUSTER_MAX ||
+        (k & (k - 1)) != 0 || cw < 4 || cw % 4 != 0 || chains < 1 || slots < 0 ||
+        threads < 32 || threads > WC_GRID_THREADS_WIDE || threads % 32 != 0) {
+        return (int)cudaErrorInvalidValue;
     }
-    // a block per chain, as many as can be resident at once (the grid
-    // barrier needs every block running)
-    int per_sm = 0, sms = 0;
-    BABBLE_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, walk_chunk_grid, threads, smem));
-    BABBLE_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
-    int grid = per_sm * sms;
-    if (grid > n) grid = n;
-    if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    const int ld4 = (n + 3) & ~3;
-    unsigned int* bar = reinterpret_cast<unsigned int*>(scratch + (long long)n * ld4 + 4LL * n);
+    // scratch (the wrapper sizes it from the same plan): the device table
+    // and flags (k * cw columns), the frontier, m0, the chain lengths, then
+    // the grid barrier's count, 0 at launch
+    const long long cols = (long long)k * cw;
+    unsigned int* bar = reinterpret_cast<unsigned int*>(scratch + (long long)n * cols + cols +
+                                                        3LL * n);
     BABBLE_CHECK(cudaMemsetAsync(bar, 0, sizeof(unsigned int), s));
-    void* args[] = {
-        (void*)&inv, (void*)&rows_by, (void*)&fd, (void*)&la, (void*)&x0,
-        (void*)&seeds, (void*)&r_abs, (void*)&first_nw, (void*)&x_last,
-        (void*)&xs, (void*)&scratch, (void*)&n, (void*)&l, (void*)&e_fd,
-        (void*)&e_la, (void*)&super_majority, (void*)&length, (void*)&steps,
-        (void*)&use_seeds, (void*)&tab_in_smem,
-    };
-    BABBLE_CHECK(cudaLaunchCooperativeKernel((const void*)walk_chunk_grid, dim3(grid),
-                                             dim3(threads), args, smem, s));
+    if (form == WC_FORM_L2) {
+        // walk_chunk_grid: a block per chain, as many as can be resident
+        // at once (the grid barrier needs every block running)
+        BABBLE_CHECK(babble_allow_smem(walk_chunk_grid, smem));
+        int grid = 0;
+        BABBLE_CHECK(babble_coop_blocks(walk_chunk_grid, threads, smem, device, n, &grid));
+        void* args[] = {
+            (void*)&inv, (void*)&rows_by, (void*)&fd, (void*)&la, (void*)&x0,
+            (void*)&seeds, (void*)&r_abs, (void*)&first_nw, (void*)&x_last,
+            (void*)&xs, (void*)&scratch, (void*)&n, (void*)&l, (void*)&e_fd,
+            (void*)&e_la, (void*)&super_majority, (void*)&length, (void*)&steps,
+            (void*)&use_seeds,
+        };
+        BABBLE_CHECK(cudaLaunchCooperativeKernel((const void*)walk_chunk_grid, dim3(grid),
+                                                 dim3(threads), args, smem, s));
+        BABBLE_CHECK_LAUNCH();
+        return 0;
+    }
+    // walk_chunk_cluster: clusters of k blocks, at most one a group of
+    // chains and at most as many as the card holds at once
+    BABBLE_CHECK(cudaFuncSetAttribute(walk_chunk_cluster,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+    cudaLaunchAttribute attrs[2];
+    attrs[0].id = cudaLaunchAttributeClusterDimension;
+    attrs[0].val.clusterDim.x = (unsigned)k;
+    attrs[0].val.clusterDim.y = 1;
+    attrs[0].val.clusterDim.z = 1;
+    attrs[1].id = cudaLaunchAttributeCooperative;
+    attrs[1].val.cooperative = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)k);
+    cfg.blockDim = dim3((unsigned)threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cfg.attrs = attrs;
+    cfg.numAttrs = 1;
+    int resident = 0;
+    BABBLE_CHECK(cudaOccupancyMaxActiveClusters(&resident, walk_chunk_cluster, &cfg));
+    const int groups = (n + chains - 1) / chains;
+    const int clusters = resident < groups ? resident : groups;
+    if (clusters < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    cfg.gridDim = dim3((unsigned)(clusters * k));
+    cfg.numAttrs = 2;
+    BABBLE_CHECK(cudaLaunchKernelEx(&cfg, walk_chunk_cluster, inv, rows_by, fd, la, x0, seeds,
+                                    r_abs, first_nw, x_last, xs, scratch, n, l, e_fd, e_la,
+                                    super_majority, length, steps, use_seeds, depth, cw, chains,
+                                    slots));
     BABBLE_CHECK_LAUNCH();
     return 0;
 }

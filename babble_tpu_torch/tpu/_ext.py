@@ -101,7 +101,7 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
         "closure_la.cu", "babble_closure_la", "ppppppppp" "iiii" "iiiiiii",
     ),
     "walk_chunk": (
-        "walk_chunk.cu", "babble_walk_chunk", "ppppppppppp" "iiiiiiiii",
+        "walk_chunk.cu", "babble_walk_chunk", "ppppppppppp" "iiiiiiiii" "iiiiiii",
     ),
     "lamport_scan": (
         "lamport_scan.cu", "babble_lamport_scan", "ppppppppp" "iii" "iiiiii",
@@ -110,7 +110,8 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
         "apply_deltas.cu", "babble_apply_deltas", "ppppppppppppp" "iiiii",
     ),
     "step_levels": (
-        "step_levels.cu", "babble_step_levels", "pppppppppppppppppppppppp" "iiiiiii",
+        "step_levels.cu", "babble_step_levels", "pppppppppppppppppppppppp" "pppppp"
+        "iiiiiiii",
     ),
     "train_levels": (
         "train_levels.cu", "babble_train_levels",
@@ -369,20 +370,11 @@ def block_smem(name: str, n: int, packed: bool = False, **shape) -> Dict[str, in
         # tile + 1 words) beside the prefix's two reductions
         return {"pass": closure_la_plan(n, 64)["smem"]}
     if name == "walk_chunk":
-        # walk_chunk.cu: up to 32 validators one block holds a round's
-        # probed rows and verdicts (wc_tree_smem, at walk_chunk_depth);
-        # above, a block per chain holds its probe row and slice counts,
-        # and the frontier rows' fd table where it fits (wc_grid_shape)
-        if n <= WC_BLOCK_MAX:
-            depth = shape.get("depth") or walk_chunk_depth(n)
-            return {"walk": walk_chunk_tree_smem(n, depth)}
-        ld4 = (n + 3) // 4 * 4
-        threads = 32 * min((n + 15) // 16, 16)
-        slices = threads // (ld4 // 4) if threads >= ld4 // 4 else 1
-        own = ld4 + min(slices, max(n // 8, 1)) * ld4
-        table = n * ld4 + ld4
-        return {"walk": (own + table) * 4 if (own + table) * 4 <= MAX_SMEM_BYTES
-                else own * 4}
+        # walk_chunk.cu, by walk_chunk_plan (shape: l, the chain length,
+        # default 1, and depth): the tree form's probed rows and verdicts,
+        # the cluster form's table slice, rows_by rows and probe rows, the
+        # L2 form's probe row and slice counts
+        return {"walk": walk_chunk_plan(n, shape.get("l", 1), shape.get("depth"))["smem"]}
     if name in WALK_SMEM:
         if walk_form(name, n, **shape) == "grid":
             return {"grid": LEVEL_GRID_SMEM}
@@ -878,22 +870,42 @@ def closure_la_plan(n: int, l: int) -> Dict[str, int]:
     return dict(ld=ld, ql=ql, k=k, groups=groups, ql4=ql4, tile=tile, smem=smem)
 
 
-# walk_chunk.cu: the one-block walk (walk_chunk_tree, a warp per chain) up
-# to WC_BLOCK_MAX validators and its speculative tree's depth: the depth
-# walk_chunk_depth takes up to each width, and the largest the kernel takes
-# (a round's verdicts fit a 64-bit mask)
+# walk_chunk.cu's three forms (walk_chunk_plan chooses): the one-block
+# walk (walk_chunk_tree, a warp per chain) up to WC_BLOCK_MAX validators;
+# from there, while a cluster holds the step's frontier table, the cluster
+# form (walk_chunk_cluster: clusters of up to WC_CLUSTER_MAX blocks that
+# split the table by witness columns; WC_GRID_THREADS threads a block,
+# WC_GRID_THREADS_WIDE in clusters of 4 or 8, whose blocks count more probe
+# rows a column: 10.2 -> 7.0 ms a chunk at 512 validators on the H100,
+# while at 96 the larger block lost 0.44 -> 0.47; chains per block sized for the
+# blocks the card holds at once in such clusters, _wc_resident_blocks;
+# WC_SLOT_CHUNK probe rows a thread counts at once); past it the L2 form
+# (walk_chunk_grid: a block per chain, the table in device memory) up to
+# WC_MAX_WIDTH validators. The speculative tree's depth: the depth
+# walk_chunk_depth takes up to each width, from time_walk_chunk.py --depths
+# on the H100 (the L2 form searches a probe at a time), and the largest
+# the kernels take (a round's verdicts fit a 64-bit mask)
 WC_BLOCK_MAX = 32
-WC_TREE_DEPTHS = ((8, 4), (16, 3), (32, 1))
+WC_MAX_WIDTH = 29056
+WC_TREE_DEPTHS = ((8, 4), (16, 3), (32, 1), (48, 4), (64, 3), (128, 2), (256, 1),
+                  (WC_MAX_WIDTH, 2))
 WC_TREE_DEPTH_MAX = 6
+WC_GRID_THREADS = 256
+WC_GRID_THREADS_WIDE = 512
+WC_CLUSTER_MAX = 8
+WC_SLOT_CHUNK = 4
+# walk_chunk_plan's forms, by their code in csrc/walk_chunk.cu (WC_FORM_*)
+WC_FORMS = ("tree", "cluster", "l2")
 
 
 def walk_chunk_depth(n: int) -> int:
-    """The speculative tree's depth at n validators (n <= WC_BLOCK_MAX):
-    WC_TREE_DEPTHS' entry for the least width at or above n."""
+    """The speculative tree's depth at n validators: WC_TREE_DEPTHS' entry
+    for the least width at or above n (the L2 form's searches take one
+    probe a round whatever it says)."""
     for width, depth in WC_TREE_DEPTHS:
         if n <= width:
             return depth
-    raise ValueError(f"walk_chunk: the one-block walk takes at most {WC_BLOCK_MAX} validators")
+    raise ValueError(f"walk_chunk: the walk takes at most {WC_MAX_WIDTH} validators")
 
 
 def _walk_np(n: int) -> int:
@@ -903,28 +915,92 @@ def _walk_np(n: int) -> int:
 
 
 def walk_chunk_tree_smem(n: int, depth: int) -> int:
-    """walk_chunk.cu wc_tree_smem: each chain's probed rows of a round and
-    its closure terms by leaf, in bytes."""
+    """walk_chunk.cu walk_chunk_tree's shared memory, in bytes: each
+    chain's probed rows of a round (2^d - 1 rows of NP words) and its
+    closure terms by leaf (2^d x n words, rounded up to 4)."""
     nodes = (1 << depth) - 1
     return n * (nodes * _walk_np(n) + ((nodes + 1) * n + 3) // 4 * 4) * 4
+
+
+def _wc_slices(n: int, threads: int) -> int:
+    """walk_chunk.cu wc_slices: the L2 form's coordinate slices per quad of
+    witnesses (its shared memory holds that many partial counts of the
+    probe row)."""
+    nq = (n + 3) // 4
+    s = threads // nq if threads >= nq else 1
+    return min(s, max(n // 8, 1))
+
+
+def _wc_resident_blocks(k: int) -> int:
+    """The blocks of over 114 KB of shared memory an H100 holds at once in
+    clusters of k, which the cluster form's chains a block are sized for
+    (132 for k <= 2, 120 for 4 and 8: 30 and 15 clusters,
+    cudaOccupancyMaxActiveClusters on the card; the launcher's grid is
+    what the card reports)."""
+    return 132 if k <= 2 else 120
+
+
+def _wc_cluster_smem(n: int, l: int, cw: int, chains: int, slots: int) -> int:
+    """walk_chunk.cu walk_chunk_cluster's shared memory, in bytes: the
+    table slice's mbarrier (16 bytes), then int32 words: the slice (n x
+    cw), its countable flags (cw), the chains' rows_by rows (chains x l,
+    rounded up to 4, so that the probe rows start on 16 bytes), the probe
+    rows (slots x ld4), their counts (slots x cw), the verdict sums (2 x
+    slots, two rounds in rotation), and each chain's lo, hi and length
+    (3 x chains)."""
+    ld4 = (n + 3) // 4 * 4
+    return 16 + 4 * (n * cw + cw + (chains * l + 3) // 4 * 4 + slots * (ld4 + cw + 2)
+                     + 3 * chains)
+
+
+def walk_chunk_plan(n: int, l: int = 1, depth: Optional[int] = None) -> Dict:
+    """K7's form at n validators and chain length l, which walk_chunk hands
+    the launcher as it is: "tree" up to WC_BLOCK_MAX; else the
+    least cluster of k blocks (1, 2, 4, 8) whose blocks hold the frontier
+    table's slice of cw witness columns (a multiple of 4), with `chains`
+    chains a block at once (n * k / _wc_resident_blocks(k), fewer where
+    shared memory runs short), `nodes` = 2^depth - 1 probes a chain a round,
+    `slots` probe rows (rounded up to WC_SLOT_CHUNK) and `threads` a block;
+    past a cluster's reach "l2". smem: one block's dynamic shared memory in
+    bytes (above MAX_SMEM_BYTES past WC_MAX_WIDTH)."""
+    if depth is None:
+        depth = walk_chunk_depth(min(n, WC_MAX_WIDTH))
+    if not 1 <= depth <= WC_TREE_DEPTH_MAX:
+        raise ValueError(f"walk_chunk: tree depth {depth} outside 1..{WC_TREE_DEPTH_MAX}")
+    nodes = (1 << depth) - 1
+    if n <= WC_BLOCK_MAX:
+        return dict(form="tree", k=1, cw=0, chains=n, nodes=nodes, slots=0, threads=32 * n,
+                    smem=walk_chunk_tree_smem(n, depth), depth=depth)
+    ld4 = (n + 3) // 4 * 4
+    k = 1
+    while k <= WC_CLUSTER_MAX:
+        cw = ((ld4 + k - 1) // k + 3) // 4 * 4
+        if _wc_cluster_smem(n, l, cw, 1, -(-nodes // WC_SLOT_CHUNK) * WC_SLOT_CHUNK) \
+                <= MAX_SMEM_BYTES:
+            for g in range(-(-n * k // _wc_resident_blocks(k)), 0, -1):
+                slots = -(-g * nodes // WC_SLOT_CHUNK) * WC_SLOT_CHUNK
+                smem = _wc_cluster_smem(n, l, cw, g, slots)
+                if smem <= MAX_SMEM_BYTES:
+                    return dict(form="cluster", k=k, cw=cw, chains=g, nodes=nodes, slots=slots,
+                                threads=WC_GRID_THREADS if k <= 2 else WC_GRID_THREADS_WIDE,
+                                smem=smem, depth=depth)
+        k *= 2
+    threads = 32 * min((n + 15) // 16, 16)
+    return dict(form="l2", k=1, cw=ld4, chains=1, nodes=1, slots=0, threads=threads,
+                smem=(ld4 + _wc_slices(n, threads) * ld4) * 4, depth=depth)
 
 
 def walk_chunk(inv, rows_by, fd, la, x0, seeds, r_abs, first_nw,
                super_majority: int, l: int, length: int, steps: int,
                use_seeds: bool, depth: Optional[int] = None):
-    """K7: `length` frontier steps from x0 in one launch (up to
-    WC_BLOCK_MAX validators a prep launch first lays out the chain-order
-    tables, and `depth` overrides walk_chunk_depth's tree depth). Returns
-    (x_last (N,) int32, xs (length, N) int32)."""
+    """K7: `length` frontier steps from x0 in one launch, in
+    walk_chunk_plan's form (the tree form after a prep launch that lays
+    out the chain-order tables); `depth` overrides walk_chunk_depth's tree
+    depth. Returns (x_last (N,) int32, xs (length, N) int32)."""
     dev = rows_by.device
     n = rows_by.shape[0]
-    if n <= WC_BLOCK_MAX:
-        depth = depth if depth is not None else walk_chunk_depth(n)
-        if not 1 <= depth <= WC_TREE_DEPTH_MAX:
-            raise ValueError(f"walk_chunk: tree depth {depth} outside 1..{WC_TREE_DEPTH_MAX}")
-    else:
-        depth = 0
-    check_smem("walk_chunk", n, depth=depth)
+    plan = walk_chunk_plan(n, l, depth)
+    check_smem("walk_chunk", n, l=l, depth=plan["depth"])
     e_fd, e_la = fd.shape[0], la.shape[0]
     check_tensor("inv", inv, torch.int32, (n, n, l), dev)
     check_tensor("rows_by", rows_by, torch.int32, (n, l), dev)
@@ -938,21 +1014,21 @@ def walk_chunk(inv, rows_by, fd, la, x0, seeds, r_abs, first_nw,
         raise ValueError("walk_chunk: needs length >= 1, l >= 1 and events")
     x_last = torch.empty((n,), dtype=torch.int32, device=dev)
     xs = torch.empty((length, n), dtype=torch.int32, device=dev)
-    ld = (n + 3) // 4 * 4
-    if n <= WC_BLOCK_MAX:
+    if plan["form"] == "tree":
         # the chain-order tables la_by and fd_by, (N, l, NP) each, and the
         # chain lengths
         words = 2 * n * l * _walk_np(n) + n
     else:
-        # the frontier rows' fd table (N, N padded to a multiple of 4), the
-        # frontier, m0, the countable rows, the chain lengths and the grid
-        # barrier's count
-        words = n * ld + 4 * n + 1
+        # the frontier rows' fd table and their flags (k * cw columns), the
+        # frontier, m0, the chain lengths and the grid barrier's count
+        cols = plan["k"] * plan["cw"]
+        words = n * cols + cols + 3 * n + 1
     scratch = torch.empty((words,), dtype=torch.int32, device=dev)
     _launch("walk_chunk", dev, (
         inv, rows_by, fd, la, x0, seeds, r_abs, first_nw, x_last, xs,
         scratch, n, l, e_fd, e_la, super_majority, length, steps,
-        int(use_seeds), depth,
+        int(use_seeds), plan["depth"], WC_FORMS.index(plan["form"]), plan["k"], plan["cw"],
+        plan["chains"], plan["slots"], plan["threads"], plan["smem"],
     ))
     return x_last, xs
 
@@ -988,26 +1064,35 @@ def _check_state_scalars(dev, **scalars) -> None:
         check_tensor(what, t, dtype, (), dev)
 
 
+def _check_deltas(dev, e_cap, n, la, s_creator, s_index, upd_row, upd_col, upd_val) -> int:
+    """K9's own arrays (the state's la, creator and index, the batch's fd
+    deltas), beside the state and batch arrays K10 shares with it: U."""
+    u = upd_row.shape[0]
+    check_tensor("la", la, torch.int32, (e_cap, n), dev)
+    check_tensor("s_creator", s_creator, torch.int32, (e_cap,), dev)
+    check_tensor("s_index", s_index, torch.int32, (e_cap,), dev)
+    for what, t in (("upd_row", upd_row), ("upd_col", upd_col), ("upd_val", upd_val)):
+        check_tensor(what, t, torch.int32, (u,), dev)
+    return u
+
+
 def apply_deltas(fd, fd_w, la, creator, index, w_of_row, rows, b_creator,
                  b_index, la_rows, upd_row, upd_col, upd_val) -> None:
-    """K9, in place: min-scatter the (U,) fd deltas into fd (E_cap, N) and,
-    through the pre-batch w_of_row, into fd_w (R_cap, N, N); stage the (B,)
-    new rows' la, creator, index and own fd cell."""
+    """K9 in a launch of its own, in place: min-scatter the (U,) fd deltas
+    into fd (E_cap, N) and, through the pre-batch w_of_row, into fd_w
+    (R_cap, N, N); stage the (B,) new rows' la, creator, index and own fd
+    cell. The step paths run it as step_levels' phase 0 instead."""
     dev = fd.device
     e_cap, n = fd.shape
     r_cap = fd_w.shape[0]
     b = rows.shape[0]
-    u = upd_row.shape[0]
     check_tensor("fd", fd, torch.int32, (e_cap, n), dev)
     check_tensor("fd_w", fd_w, torch.int32, (r_cap, n, n), dev)
-    check_tensor("la", la, torch.int32, (e_cap, n), dev)
-    for what, t in (("creator", creator), ("index", index), ("w_of_row", w_of_row)):
-        check_tensor(what, t, torch.int32, (e_cap,), dev)
+    check_tensor("w_of_row", w_of_row, torch.int32, (e_cap,), dev)
     for what, t in (("rows", rows), ("b_creator", b_creator), ("b_index", b_index)):
         check_tensor(what, t, torch.int32, (b,), dev)
     check_tensor("la_rows", la_rows, torch.int32, (b, n), dev)
-    for what, t in (("upd_row", upd_row), ("upd_col", upd_col), ("upd_val", upd_val)):
-        check_tensor(what, t, torch.int32, (u,), dev)
+    u = _check_deltas(dev, e_cap, n, la, creator, index, upd_row, upd_col, upd_val)
     _launch("apply_deltas", dev, (
         fd, fd_w, la, creator, index, w_of_row, rows, b_creator, b_index,
         la_rows, upd_row, upd_col, upd_val, e_cap, n, r_cap, b, u,
@@ -1037,16 +1122,22 @@ def _check_level_state(dev, fd, rounds, lamport, witness, wtable, w_of_row,
 def step_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
                 idx_w, coin_w, rounds_decided, last_round, count, stale,
                 rows, creator, index, sp_row, op_row, la_rows, coin,
-                fixed_round, levels, super_majority: int,
-                packed: bool = False, form: Optional[str] = None) -> None:
-    """K10, in place: the batch's (L, W) level table walked in order,
-    witness registration, then last_round, count and the latches. The
-    packed layout's verdicts are the same, so `packed` launches the same
-    kernel and counts it as step_levels/packed. The walk is
-    step_levels_form's unless `form` names one ("block" or "grid";
+                fixed_round, levels, la, s_creator, s_index, upd_row, upd_col,
+                upd_val, super_majority: int, packed: bool = False,
+                form: Optional[str] = None) -> None:
+    """K9 then K10 in one launch, in place. Phase 0 is K9: the batch's
+    (upd_row, upd_col, upd_val) fd deltas min-scattered into fd and
+    mirrored into fd_w, the new rows staged into the state's (la,
+    s_creator, s_index). Then K10: the batch's (L, W) level table walked
+    in order, witness registration, then last_round, count and the
+    latches. The packed layout's verdicts are the same, so `packed`
+    launches the same kernel and counts it as step_levels/packed. The walk
+    is step_levels_form's unless `form` names one ("block" or "grid";
     scripts/time_step_levels.py times both); the grid walk counts under
     "<key>/grid", and raises where the card cannot hold its blocks at
-    once."""
+    once. Both walks take K9 as phase 0 (scripts/time_step_levels.py found
+    the one launch no slower than K9's own launch before K10 at 32 and 48
+    validators, the one-block walk's side of the crossover)."""
     dev = fd.device
     e_cap, n, r_cap = _check_level_state(
         dev, fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
@@ -1060,6 +1151,7 @@ def step_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
     check_tensor("la_rows", la_rows, torch.int32, (b, n), dev)
     check_tensor("coin", coin, torch.bool, (b,), dev)
     check_tensor("levels", levels, torch.int32, (l_lv, w), dev)
+    u = _check_deltas(dev, e_cap, n, la, s_creator, s_index, upd_row, upd_col, upd_val)
     if b < 1 or w < 1:
         raise ValueError("step_levels: needs a non-empty batch and level width")
     form = _check_walk_form("step_levels", form, n, w=w, l_lv=l_lv, b=b, r_cap=r_cap)
@@ -1072,8 +1164,8 @@ def step_levels(fd, rounds, lamport, witness, wtable, w_of_row, la_w, fd_w,
         la_w, fd_w, idx_w, coin_w.view(torch.uint8),
         rounds_decided.view(torch.uint8), last_round, count,
         stale.view(torch.uint8), rows, creator, index, sp_row, op_row,
-        la_rows, coin.view(torch.uint8), fixed_round, levels, scratch,
-        e_cap, n, r_cap, b, l_lv, w, super_majority,
+        la_rows, coin.view(torch.uint8), fixed_round, levels, scratch, la, s_creator,
+        s_index, upd_row, upd_col, upd_val, e_cap, n, r_cap, b, l_lv, w, super_majority, u,
     ), packed=packed, grid=form == "grid")
 
 

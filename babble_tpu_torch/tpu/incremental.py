@@ -37,6 +37,8 @@ Four kernels carry the card path (babble_tpu_torch/csrc/):
 
 `step` = K9 -> K10 -> K12, `multi_step` = K x (K9 -> K10) then K12,
 `train_step` = K9 -> K11 -> K12, `multi_train` = K x (K9 -> K11) then K12.
+On the card K9 runs as phase 0 of K10's launch, and in a launch of its
+own before K11, whose first launch reads its fd_w mirror.
 Every entry point takes either voting-table layout (`packed`, as in the
 reference: K10, K11 and K12 count by popcount over uint32 lanes, with the
 same integers).
@@ -385,10 +387,12 @@ def _step_levels_plain(state: IncState, batch: Batch, super_majority: int,
 
 def _step_levels(state: IncState, batch: Batch, super_majority: int,
                  packed: bool = False) -> None:
-    """K10 (the level half of babble_tpu/tpu/incremental.py:243
-    _step_body). CPU: the plain version; CUDA: csrc/step_levels.cu, in
-    the layout `packed` names."""
+    """K9 then K10 (babble_tpu/tpu/incremental.py:243 _step_body, with
+    :213 _apply_deltas_and_stage). CPU: the plain versions; CUDA:
+    csrc/step_levels.cu, in the layout `packed` names, with K9 as the
+    launch's phase 0."""
     if state.la.device.type == "cpu":
+        _apply_deltas_and_stage_plain(state, batch)
         _step_levels_plain(state, batch, super_majority, packed)
         return
     _ext.step_levels(
@@ -397,15 +401,16 @@ def _step_levels(state: IncState, batch: Batch, super_majority: int,
         state.rounds_decided, state.last_round, state.count, state.stale,
         batch.rows, batch.creator, batch.index, batch.sp_row, batch.op_row,
         batch.la_rows, batch.coin, batch.fixed_round, batch.levels,
+        state.la, state.creator, state.index, batch.upd_row, batch.upd_col, batch.upd_val,
         super_majority, packed=packed,
     )
 
 
 def _step_body(state: IncState, batch: Batch, super_majority: int,
                n_participants: int, packed: bool = False) -> IncState:
-    """Append one batch: K9 then K10. Fame and received are _decide_body's."""
+    """Append one batch: K9 then K10, in one launch on the card.
+    Fame and received are _decide_body's."""
     batch = device_put(batch, state.la.device)
-    _apply_deltas_and_stage(state, batch)
     _step_levels(state, batch, super_majority, packed)
     return state
 

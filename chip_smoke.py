@@ -193,13 +193,22 @@ Phases, in order; any failure raises and exits non-zero:
    each held to its plain version (K2 too, with its time; the votes also
    on coin_round_case tables at 1,024 validators, where witnesses are
    decided, and K3 on coin_round_case(1056, 5, 7) in both layouts, past
-   1,024, where its vote keeps each column's words in shared memory), and
+   1,024, where its vote keeps each column's words in shared memory; K7 on
+   every chunk of the cold path's walk, past a cluster's reach: its L2
+   form, timed beside its plain version, with run_doubling_passes (packed)
+   equal to run_frontier_passes), and
    frontier_train_step (packed), K14 and K15 held to their
    plain versions after every train (K15's bound printed), equal to
    run_frontier_passes (packed); launches of the grid walks under
    "<key>/grid", counted on runs
-   of the entry points a user calls (run_passes, step, multi_step, train_step,
-   frontier_train_step) with nothing else in the window.
+   of the entry points a user calls (run_passes, run_doubling_passes, step,
+   multi_step, train_step, frontier_train_step) with nothing else in the
+   window; (e) K7's cluster form at 8 blocks a cluster (512 threads a
+   block, the partial counts summed through distributed shared memory) on
+   the bench grid's generator at 512 validators: every chunk of the cold
+   path's walk and each trap of its largest chunk held torch.equal to the
+   plain version, that chunk timed beside its plain version (once) and
+   its bound.
 17. the device mesh (tpu/mesh.py, tpu/sharded.py, tpu/dispatch.py), every
    position of every mesh on the one card (torch.cuda.device_count() is
    printed; no number measures an interconnect): (a) each mesh kernel
@@ -240,8 +249,9 @@ Phases, in order; any failure raises and exits non-zero:
    kernels, whose launches come from local_walk and sharded_fame with that
    form named) and equal to phase 14's engines (7, 32,341,
    1,853 witnesses; fame on the overlap), the median wall of 3 warm runs
-   per engine and mesh (packed), and the bench cell through
-   sharded_frontier_passes on the 1-D mesh (26, 28,065); (c) phase 15's
+   per engine and mesh (packed) (the bench cell's end-to-end run on the
+   1-D mesh was cut to pay for phase 16(d)'s K7 chunk past a cluster's
+   reach; 17(a) still holds it); (c) phase 15's
    20,480 signed events: run_consensus_device with the 2-D mesh, and
    run_consensus_mesh_queued (queue depth 4) after each sync of 4,096,
    then flush, both byte-identical to the host engine, every call on the
@@ -420,6 +430,10 @@ FL_WIDE_INC = dict(e_cap=65536, r_cap=64, r_win=64, e_win=65536)
 # (packed and wide in turn); the launch counts come from the entry points'
 # own runs (run_passes, step, multi_step, train_step, frontier_train_step)
 FL_WIDTH = dict(n=1024, e_count=16384, seed=0, zipf_a=1.1)
+# (e) K7's cluster form at its widest clusters: the bench grid's generator
+# at 512 validators (the grid scripts/time_walk_chunk.py times), where the
+# plan takes clusters of 8 blocks of 512 threads
+CLUSTER_WIDE = dict(BENCH, n=512)
 FL_WIDTH_BATCH = 64
 FL_WIDTH_TRAIN = 8192
 FL_WIDTH_CHECK_EVERY = 64
@@ -490,6 +504,8 @@ REPLACES = {
     "closure_la": ("babble_tpu_torch/csrc/closure_la.cu", "babble_tpu/tpu/doubling.py:172"),
     "walk_chunk": ("babble_tpu_torch/csrc/walk_chunk.cu", "babble_tpu/tpu/doubling.py:296"),
     "lamport_scan": ("babble_tpu_torch/csrc/lamport_scan.cu", "babble_tpu/tpu/doubling.py:443"),
+    # K9's own launch, on the train paths (phase 9's train shape); the step
+    # paths run it inside step_levels, whose rows count its work
     "apply_deltas": ("babble_tpu_torch/csrc/apply_deltas.cu", "babble_tpu/tpu/incremental.py:213"),
     # K10 and K11: the one-block walk below each one's crossover (the
     # 8-validator fixture, phase 9), the grid walk from there
@@ -527,6 +543,15 @@ REPLACES = {
     # K6 at config #4 (phase 13)
     "closure_la (config #4)": ("babble_tpu_torch/csrc/closure_la.cu",
                                "babble_tpu/tpu/doubling.py:172"),
+    # K7's grid forms: the cluster form on the bench grid (phase 6, one
+    # block a cluster) and config #4 (phase 13, two), the L2 form past a
+    # cluster's reach (phase 16(d), 1,024 validators)
+    "walk_chunk (bench grid)": ("babble_tpu_torch/csrc/walk_chunk.cu",
+                                "babble_tpu/tpu/doubling.py:296"),
+    "walk_chunk (config #4)": ("babble_tpu_torch/csrc/walk_chunk.cu",
+                               "babble_tpu/tpu/doubling.py:296"),
+    "walk_chunk (1,024)": ("babble_tpu_torch/csrc/walk_chunk.cu",
+                           "babble_tpu/tpu/doubling.py:296"),
     "frontier_rounds (1,024)": ("babble_tpu_torch/csrc/frontier_walk.cu",
                                 "babble_tpu/tpu/frontier.py:299"),
     "frontier_window (1,024)": ("babble_tpu_torch/csrc/frontier_walk.cu",
@@ -595,21 +620,21 @@ PATH_KERNELS = {
                                     "decide_fame", "round_received"),
     # the level walks of K10 (K11) take the grid from 64 (48) validators
     # (_ext.STEP_LEVELS_GRID_FROM, TRAIN_LEVELS_GRID_FROM): the bench grid
-    # and up; one block on the 8-validator fixture
-    "step": ("apply_deltas", "step_levels/grid", "decide_window"),
-    "multi_step": ("apply_deltas", "step_levels/grid", "decide_window"),
+    # and up; one block on the 8-validator fixture. The step paths run K9
+    # as phase 0 of K10's launch (PATH_NO_OWN_K9), the train paths launch
+    # it on its own
+    "step": ("step_levels/grid", "decide_window"),
+    "multi_step": ("step_levels/grid", "decide_window"),
     "train_step": ("apply_deltas", "train_levels/grid", "decide_window"),
     "multi_train": ("apply_deltas", "train_levels/grid", "decide_window"),
-    "step, 8-validator fixture": ("apply_deltas", "step_levels", "decide_window"),
+    "step, 8-validator fixture": ("step_levels", "decide_window"),
     "train_step, 8-validator fixture": ("apply_deltas", "train_levels", "decide_window"),
-    "step, 8-validator fixture, packed": ("apply_deltas", "step_levels/packed",
-                                          "decide_window/packed"),
+    "step, 8-validator fixture, packed": ("step_levels/packed", "decide_window/packed"),
     "train_step, 8-validator fixture, packed": ("apply_deltas", "train_levels/packed",
                                                 "decide_window/packed"),
-    "run_consensus_live": ("apply_deltas", "step_levels/grid", "decide_window", "pack_results"),
+    "run_consensus_live": ("step_levels/grid", "decide_window", "pack_results"),
     "late attach": ("closure_la", "build_inv", "walk_chunk", "decide_fame",
-                    "round_received", "apply_deltas", "step_levels/grid", "decide_window",
-                    "pack_results"),
+                    "round_received", "step_levels/grid", "decide_window", "pack_results"),
     # the packed layout: a path whose label ends in ", packed" must launch
     # these and no wide form of the four kernels that take the layout
     "run_frontier_passes, packed": ("build_inv", "frontier_rounds", "decide_fame/packed",
@@ -618,10 +643,10 @@ PATH_KERNELS = {
                            "round_received"),
     "run_doubling_passes, packed": ("closure_la", "build_inv", "walk_chunk",
                                     "decide_fame/packed", "round_received"),
-    "step, packed": ("apply_deltas", "step_levels/packed/grid", "decide_window/packed"),
-    "multi_step, packed": ("apply_deltas", "step_levels/packed/grid", "decide_window/packed"),
-    "run_consensus_live, packed": ("apply_deltas", "step_levels/packed/grid",
-                                   "decide_window/packed", "pack_results"),
+    "step, packed": ("step_levels/packed/grid", "decide_window/packed"),
+    "multi_step, packed": ("step_levels/packed/grid", "decide_window/packed"),
+    "run_consensus_live, packed": ("step_levels/packed/grid", "decide_window/packed",
+                                   "pack_results"),
     "train_step, packed": ("apply_deltas", "train_levels/packed/grid", "decide_window/packed"),
     "multi_train, packed": ("apply_deltas", "train_levels/packed/grid",
                             "decide_window/packed"),
@@ -640,9 +665,11 @@ PATH_KERNELS = {
     "frontier_train_step (1,024), packed": ("frontier_append", "frontier_window",
                                             "decide_fame/packed", "round_received"),
     "run_passes (1,024)": ("divide_rounds/grid", "decide_fame", "round_received"),
-    "step (1,024), packed": ("apply_deltas", "step_levels/packed/grid",
-                             "decide_window/packed"),
-    "multi_step (1,024)": ("apply_deltas", "step_levels/grid", "decide_window"),
+    "step (1,024), packed": ("step_levels/packed/grid", "decide_window/packed"),
+    "multi_step (1,024)": ("step_levels/grid", "decide_window"),
+    # K7's L2 form (past a cluster's reach) on the cold path
+    "run_doubling_passes (1,024), packed": ("closure_la", "build_inv", "walk_chunk",
+                                            "decide_fame/packed", "round_received"),
     "train_step (1,024), packed": ("apply_deltas", "train_levels/packed/grid",
                                    "decide_window/packed"),
     # the device mesh: passes 2+3 of every sharded engine; on the one card
@@ -673,6 +700,12 @@ PATH_KERNELS = {
                                                 "shard_fame/grid/packed", "fame_tables",
                                                 "received_search"),
 }
+# the step paths, which run K9 as phase 0 of step_levels' launch (both
+# walks) and launch no apply_deltas of their own
+PATH_NO_OWN_K9 = ("step", "multi_step", "step, 8-validator fixture",
+                  "step, 8-validator fixture, packed", "run_consensus_live", "late attach",
+                  "step, packed", "multi_step, packed", "run_consensus_live, packed",
+                  "step (1,024), packed", "multi_step (1,024)")
 # the wide forms of the layout kernels, which a packed path must not launch
 WIDE_FORMS = ("decide_fame", "divide_rounds", "step_levels", "train_levels",
               "decide_window", "divide_rounds/grid", "step_levels/grid", "train_levels/grid",
@@ -806,6 +839,63 @@ def walk_chunk_traps(args):
     la2[rows] = la[rows.flip(0)]
     traps["non-monotone la"] = args[:3] + (la2,) + args[4:]
     return traps
+
+
+def held_walk(label, g, cs, dev):
+    """The cold path's walk of grid g (cs: its stage_doubling), every chunk
+    held torch.equal to the plain version: (the chunks' _walk_chunk
+    arguments, the walk's history, first_nw)."""
+    from babble_tpu_torch.tpu import doubling, frontier
+
+    inv_c = frontier.build_inv(cs.rows_by_d, cs.la_d)
+    s_np, first_nw, x0 = doubling.walk_seeds(g, cs)
+    chunks = []
+
+    def walk(*a):
+        got = doubling._walk_chunk(*a)
+        want = doubling._walk_chunk_plain(*a)
+        torch.cuda.synchronize()
+        require_equal(f"walk_chunk (length {a[10]}) on the {label}", got, want)
+        chunks.append(a)
+        return got
+
+    hist = doubling._doubling_walk(
+        lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev), inv_c, cs.rows_by_d,
+        cs.fd_d, cs.la_d, x0, s_np, first_nw, g.super_majority, cs.l_b, cs.seeded, {},
+        walk=walk)
+    return chunks, hist, first_nw
+
+
+def hold_walk_chunk_traps(label, big, log_fn):
+    """walk_chunk held torch.equal to its plain version on each trap of a
+    walk's largest chunk (walk_chunk_traps); logs whether each trap
+    changes the chunk's history."""
+    from babble_tpu_torch.tpu import doubling
+
+    base_xs = doubling._walk_chunk(*big)[1]
+    changed = {}
+    for name, t_args in walk_chunk_traps(big).items():
+        got = doubling._walk_chunk(*t_args)
+        want = doubling._walk_chunk_plain(*t_args)
+        torch.cuda.synchronize()
+        require_equal(f"walk_chunk ({name}) on the {label}'s largest chunk", got, want)
+        changed[name] = not torch.equal(got[1], base_xs)
+    log_fn(f"walk_chunk == plain on the {label}'s largest chunk with each trap (the trap "
+           f"changes the chunk's history: {changed})")
+
+
+def walk_chunk_form(n, l):
+    """K7's form at n validators and chain length l, as the wrapper's plan
+    takes it (_ext.walk_chunk_plan), for the log."""
+    from babble_tpu_torch.tpu import _ext
+
+    p = _ext.walk_chunk_plan(n, l)
+    if p["form"] == "tree":
+        return f"tree form, depth {p['depth']}"
+    if p["form"] == "cluster":
+        return (f"cluster form: {p['k']} blocks a cluster, {p['chains']} chains a block, tree "
+                f"depth {p['depth']}, {p['smem']} bytes a block")
+    return f"L2 form (past a cluster's reach), {p['smem']} bytes a block"
 
 
 def profile_device(fn, before=None):
@@ -1115,11 +1205,15 @@ def run_path(label, fn):
 
 
 def require_path_launches(what, path, launches):
-    """Fail unless each kernel of PATH_KERNELS[path] launched, and, on a
-    packed path, unless no wide form of a layout kernel did."""
+    """Fail unless each kernel of PATH_KERNELS[path] launched, on a step
+    path (PATH_NO_OWN_K9) unless no apply_deltas did, and, on a packed
+    path, unless no wide form of a layout kernel did."""
     missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     if missing:
         raise AssertionError(f"{what}: never launched {missing}")
+    if path in PATH_NO_OWN_K9 and launches["apply_deltas"]:
+        raise AssertionError(f"{what}: launched apply_deltas {launches['apply_deltas']} times "
+                             f"of its own (the step paths run it inside step_levels)")
     if path.endswith(", packed"):
         wide = [k for k in WIDE_FORMS if launches[k]]
         if wide:
@@ -1166,18 +1260,23 @@ class PairedRun:
         self.events = {}
         self.work = {}
 
-    def call(self, name, kern, plain, work=None, check=True):
+    def call(self, name, kern, plain, work=None, check=True, absent=(), pre_work=None):
+        """One call; `absent`: launch keys the kernel call must not launch;
+        `pre_work`: work counted on the state before the call (added to
+        `work`'s)."""
         from babble_tpu_torch.tpu import _ext
 
         if not check:
             kern(self.k)
             kern(self.p)
             return
+        pre = pre_work(self.k) if pre_work is not None else (0, 0, 0)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         # the card spins while the host runs the wrapper and enqueues the
         # launch, so the events time the kernel and not the enqueue
         torch.cuda._sleep(SPIN_CYCLES)
         before = _ext.LAUNCHES.get(name)
+        before_absent = [_ext.LAUNCHES[a] for a in absent]
         ev[0].record()
         kern(self.k)
         ev[1].record()
@@ -1188,13 +1287,17 @@ class PairedRun:
         if self.k.la.is_cuda and before is not None and _ext.LAUNCHES[name] == before:
             raise AssertionError(f"{name} on the {self.label}, call {len(calls)}: the kernel "
                                  f"call launched no {name}")
+        launched = [a for a, b in zip(absent, before_absent) if _ext.LAUNCHES[a] != b]
+        if launched:
+            raise AssertionError(f"{name} on the {self.label}, call {len(calls)}: the kernel "
+                                 f"call launched {launched} of its own")
         bad = state_diff(self.k, self.p)
         if bad:
             raise AssertionError(f"{name} on the {self.label}, call {len(calls)}: "
                                  f"{bad} differ from the plain version")
         calls.append(ev)
         if work is not None:
-            nbytes, alu, tc = work(self.k)
+            nbytes, alu, tc = (a + b for a, b in zip(work(self.k), pre))
             acc = self.work.setdefault(name, [0, 0, 0])
             acc[0] += nbytes
             acc[1] += alu
@@ -1206,6 +1309,25 @@ class PairedRun:
         evs = self.events[name]
         return (len(evs), sum(e[0].elapsed_time(e[1]) for e in evs),
                 sum(e[2].elapsed_time(e[3]) for e in evs))
+
+
+def step_call(run, key, x, super_majority, packed=False, work=True, check=True):
+    """K9 + K10 on a PairedRun as the step paths run them (incremental
+    _step_levels: on the card one launch of step_levels, the
+    walk `key` names, whose phase 0 is K9), held to the plain K9 then the
+    plain K10 on the same state; timed and bounded under `key` (K9's work
+    counted on the state before the call). The call must launch no
+    apply_deltas of its own."""
+    from babble_tpu_torch.tpu import incremental as inc
+
+    def plain(st):
+        inc._apply_deltas_and_stage_plain(st, x)
+        inc._step_levels_plain(st, x, super_majority, packed=packed)
+
+    run.call(key, lambda st: inc._step_levels(st, x, super_majority, packed=packed),
+             plain, (lambda st: inc_work_levels(st, x, True)) if work else None, check=check,
+             absent=("apply_deltas",),
+             pre_work=(lambda st: inc_work_deltas(st, x)) if work else None)
 
 
 def fame_work(wtable, n):
@@ -1816,31 +1938,22 @@ def packed_kernel_phase(g, dev, log_fn):
            f"block): {k_ms:.4f} ms, plain {p_ms:.2f} ms")
     del la_fin
 
-    # the repaired K7 (a block per chain, its table in device memory) on
-    # every chunk of the grid's walk
-    inv_c = frontier.build_inv(cs.rows_by_d, cs.la_d)
-    s_np, first_nw, x0 = doubling.walk_seeds(g, cs)
-    chunks = []
-
-    def walk(*a):
-        got = doubling._walk_chunk(*a)
-        want = doubling._walk_chunk_plain(*a)
-        torch.cuda.synchronize()
-        require_equal(f"walk_chunk (length {a[10]}) on the {n}-validator grid", got, want)
-        chunks.append(a)
-        return got
-
-    doubling._doubling_walk(
-        lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev), inv_c, cs.rows_by_d,
-        cs.fd_d, cs.la_d, x0, s_np, first_nw, sm, cs.l_b, cs.seeded, {}, walk=walk)
+    # K7's cluster form (two blocks a cluster at 256 validators) on every
+    # chunk of the grid's walk
+    chunks, _, _ = held_walk(f"{n}-validator grid", g, cs, dev)
     big = max(chunks, key=lambda a: a[10])
+    hold_walk_chunk_traps(f"{n}-validator grid", big, log_fn)
     k_ms = spun_ms(lambda: doubling._walk_chunk(*big), 5)
-    p_ms = spun_ms(lambda: doubling._walk_chunk_plain(*big), 1, warmup=0)
+    p_ms = spun_ms(lambda: doubling._walk_chunk_plain(*big), SLOW_PLAIN_REPS, warmup=0)
+    summary["walk_chunk (config #4)"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+    (nbytes, ops_s), working = walk_chunk_work(big, cs.l_b, n)
+    work["walk_chunk (config #4)"] = (nbytes, ops_s)
     log_fn(f"walk_chunk == plain on every chunk of the {n}-validator grid's walk "
            f"({', '.join(str(a[10]) for a in chunks)} steps, "
-           f"{_ext.smem_bytes('walk_chunk', n)} bytes of shared memory a block); largest chunk "
-           f"{big[10]} steps x {big[11]} probes {k_ms:.4f} ms, plain {p_ms:.2f} ms")
-    del inv_c, cs
+           f"{walk_chunk_form(n, cs.l_b)}); largest chunk {big[10]} steps x {big[11]} probes "
+           f"{k_ms:.4f} ms, plain {p_ms:.2f} ms, bound "
+           f"{max(nbytes / HBM_BYTES_S, ops_s) * 1e3:.6f} ms ({working} working steps)")
+    del cs, chunks
 
     # K10p and K12p (and the repaired wide K12) on the append state, at
     # phase 14's window and at the live default's, where the latch fires
@@ -1959,13 +2072,13 @@ def max_fd_burst(batches, e_cap):
 
 def drive_paired(label, g, cfg, e_win, batches_d, dev, every_step, every_decide, log_fn):
     """A PairedRun from a fresh state of shape cfg through batches_d:
-    apply_deltas after every call, step_levels/packed/grid (K10p's grid
-    walk: 128 validators and up) after every every_step-th and the decide
-    after every every_decide-th held to their plain versions (the decide
-    packed and wide in turn when every_decide > 1, packed only when it is
-    1); the kernels advance both states in between. Logs the final state,
-    the launches and the per-call times;
-    returns the run."""
+    step_levels/packed/grid (K10p's grid walk: 128 validators and up, with
+    K9 as its phase 0, held to the plain K9 then the plain K10: step_call)
+    after every every_step-th call and the decide after every
+    every_decide-th held to their plain versions (the decide packed and
+    wide in turn when every_decide > 1, packed only when it is 1); the
+    kernels advance both states in between. Logs the final state, the
+    launches and the per-call times; returns the run."""
     from babble_tpu_torch.tpu import _ext
     from babble_tpu_torch.tpu import incremental as inc
 
@@ -1974,12 +2087,8 @@ def drive_paired(label, g, cfg, e_win, batches_d, dev, every_step, every_decide,
     run = PairedRun(label, inc.init_state(n, cfg["e_cap"], cfg["r_cap"], device=dev))
     _ext.reset_launches()
     for k, b in enumerate(batches_d):
-        run.call("apply_deltas", lambda st: inc._apply_deltas_and_stage(st, b),
-                 lambda st: inc._apply_deltas_and_stage_plain(st, b))
-        run.call("step_levels/packed/grid",
-                 lambda st: inc._step_levels(st, b, sm, packed=True),
-                 lambda st: inc._step_levels_plain(st, b, sm, packed=True),
-                 lambda st: inc_work_levels(st, b, True), check=k % every_step == every_step - 1)
+        step_call(run, "step_levels/packed/grid", b, sm, packed=True,
+                  check=k % every_step == every_step - 1)
         packed = every_decide == 1 or (k // every_decide) % 2 == 0
         run.call("decide_window/packed" if packed else "decide_window",
                  lambda st: inc._decide_body(st, sm, n, r_win=r_win, e_win=e_win, packed=packed),
@@ -1989,7 +2098,8 @@ def drive_paired(label, g, cfg, e_win, batches_d, dev, every_step, every_decide,
     launches = {k: v for k, v in _ext.LAUNCHES.items() if v}
     fin = run.k
     layouts = "packed" if every_decide == 1 else "packed and wide in turn"
-    log_fn(f"apply_deltas, step_levels/packed/grid (every {every_step}) and decide_window, "
+    log_fn(f"apply_deltas + step_levels/packed/grid in one launch (every {every_step}) and "
+           f"decide_window, "
            f"{layouts} (every {every_decide}) == plain on the {label} ({len(batches_d)} "
            f"batches, r_win {r_win}): last_round {int(fin.last_round)}, "
            f"{int((fin.received >= 0).sum())} received, stale {bool(fin.stale)}, fame_lag "
@@ -2537,6 +2647,37 @@ def fl_wide_phase(g, ref, dev, log_fn):
     return summary, work, {"train_levels/packed/grid": p_launches["train_levels/packed/grid"]}
 
 
+def cluster_walk_phase(dev, log_fn):
+    """Phase 16 (e): K7's cluster form where a cluster takes 4 or 8 blocks
+    (CLUSTER_WIDE): every chunk of the cold path's walk held torch.equal
+    to the plain version, the largest chunk with each trap too, and timed
+    beside its plain version (once) and its bound."""
+    from babble_tpu_torch.tpu import _ext, doubling
+    from babble_tpu_torch.tpu.grid import synthetic_grid
+
+    t_phase = time.perf_counter()
+    g = synthetic_grid(CLUSTER_WIDE["n"], CLUSTER_WIDE["e_count"], seed=CLUSTER_WIDE["seed"],
+                       zipf_a=CLUSTER_WIDE["zipf_a"])
+    n = g.n
+    cs = doubling.stage_doubling(g, dev)
+    plan = _ext.walk_chunk_plan(n, cs.l_b)
+    form = walk_chunk_form(n, cs.l_b)
+    if plan["form"] != "cluster" or plan["k"] < 4:
+        raise AssertionError(f"walk_chunk at {n} validators: {form}, not a cluster of 4 or 8")
+    label = f"{n}-validator grid"
+    chunks, _, _ = held_walk(label, g, cs, dev)
+    big = max(chunks, key=lambda a: a[10])
+    hold_walk_chunk_traps(label, big, log_fn)
+    k_ms = spun_ms(lambda: doubling._walk_chunk(*big), 5)
+    p_ms = spun_ms(lambda: doubling._walk_chunk_plain(*big), SLOW_PLAIN_REPS, warmup=0)
+    (nbytes, ops_s), working = walk_chunk_work(big, cs.l_b, n)
+    log_fn(f"walk_chunk == plain on every chunk of the {label}'s walk ({len(chunks)} chunks; "
+           f"{form}); largest chunk {big[10]} steps x {big[11]} probes {k_ms:.4f} ms, plain "
+           f"{p_ms:.1f} ms, bound {max(nbytes / HBM_BYTES_S, ops_s) * 1e3:.6f} ms ({working} "
+           f"working steps)")
+    log_fn(f"phase 16 (e): {time.perf_counter() - t_phase:.1f} s")
+
+
 def fl_width_phase(dev, log_fn):
     """Phase 16 (d): config #5's width, 1,024 validators, where the level
     walks (K5, K10, K11) take their grid walks: each held torch.equal to
@@ -2547,7 +2688,7 @@ def fl_width_phase(dev, log_fn):
     forms run on its own (run_path) against run_frontier_passes (packed):
     its launches are the counts of the kernels line. Returns (summary,
     work, launches) of those forms."""
-    from babble_tpu_torch.tpu import _ext, engine, frontier, kernels
+    from babble_tpu_torch.tpu import _ext, doubling, engine, frontier, kernels
     from babble_tpu_torch.tpu import frontier_live as fl
     from babble_tpu_torch.tpu import incremental as inc
     from babble_tpu_torch.tpu.grid import synthetic_grid
@@ -2695,6 +2836,32 @@ def fl_width_phase(dev, log_fn):
     log_fn(f"divide_rounds/grid == plain at {n} validators ({g.num_levels} levels of width "
            f"{n_lvl}): {k_ms:.3f} ms, plain {p_ms:.1f} ms; {pairs} (event, witness) pairs")
     del ins, dr
+
+    # K7 past a cluster's reach (its L2 form) on the cold path: every chunk
+    # of the walk held to the plain version, the largest timed (its plain
+    # version once), and run_doubling_passes run on its own
+    cs = doubling.stage_doubling(g, dev)
+    form = walk_chunk_form(n, cs.l_b)
+    if _ext.walk_chunk_plan(n, cs.l_b)["form"] != "l2":
+        raise AssertionError(f"walk_chunk at {n} validators: {form}, not past a cluster's reach")
+    chunks, _, _ = held_walk(f"{n}-validator grid", g, cs, dev)
+    big = max(chunks, key=lambda a: a[10])
+    k_ms = spun_ms(lambda: doubling._walk_chunk(*big), 5)
+    p_ms = spun_ms(lambda: doubling._walk_chunk_plain(*big), SLOW_PLAIN_REPS, warmup=0)
+    summary["walk_chunk (1,024)"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+    (nbytes, ops_s), working = walk_chunk_work(big, cs.l_b, n)
+    work["walk_chunk (1,024)"] = (nbytes, ops_s)
+    del cs, chunks
+    res_d, d_launches = run_path("run_doubling_passes (1,024), packed",
+                                 lambda: doubling.run_doubling_passes(g, device=dev, packed=True))
+    require_same_results(f"run_doubling_passes == run_frontier_passes at {n} validators",
+                         res_d, res)
+    launches["walk_chunk (1,024)"] = d_launches["walk_chunk"]
+    log_fn(f"walk_chunk == plain on every chunk of the {n}-validator grid's walk ({form}); "
+           f"largest chunk {big[10]} steps x {big[11]} probes {k_ms:.4f} ms, plain "
+           f"{p_ms:.1f} ms, bound {max(nbytes / HBM_BYTES_S, ops_s) * 1e3:.6f} ms ({working} "
+           f"working steps); run_doubling_passes (packed) == run_frontier_passes")
+    del big, res_d
 
     # K10 and the decide (K12, both layouts) on the append state
     r_cap = max(32, least_pow2(res.last_round + 3))
@@ -3283,8 +3450,8 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
     (1-D 8 and 2-D (2, 4), both layouts), the coin tables, and the width
     cell's walk in the binary-search form; (b) the three sharded engines on
     config #4 on both meshes and layouts, equal to phase 14's one-shot
-    engines, with their launches and walls, and the bench cell's walk on
-    the 1-D mesh; (c) the hashgraph seam on phase 15's signed events:
+    engines, with their launches and walls; (c) the hashgraph seam on
+    phase 15's signed events:
     run_consensus_device with a 2-D mesh, and run_consensus_mesh_queued in
     syncs, blocks byte-identical to the host engine. B21 and B24 run as one
     launch each, and their per-step forms where named. Returns (summary,
@@ -3514,18 +3681,6 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
     require_one_walk_launch("sharded_frontier_passes (1,024)", w_launches)
     require_one_fame_launch("sharded_frontier_passes (1,024)", w_launches)
     launches["fame_setup/packed (1,024)"] = w_launches["fame_setup/packed"]
-    b_res, b_launches = run_path("sharded_frontier_passes",
-                                 lambda: sh.sharded_frontier_passes(m1, bench))
-    same_as("the bench cell on the 1-D mesh", b_res, b_ref)
-    require_one_walk_launch("the bench cell on the 1-D mesh", b_launches)
-    require_one_fame_launch("the bench cell on the 1-D mesh", b_launches)
-    n_recv = int((b_res.received >= 0).sum())
-    if (b_res.last_round, n_recv) != (BENCH_LAST_ROUND, BENCH_RECEIVED):
-        raise AssertionError(f"bench cell on the mesh: {b_res.last_round}, {n_recv}")
-    ms = wall_ms(lambda: sh.sharded_frontier_passes(m1, bench), MESH_RUNS)
-    log_fn(f"e2e sharded_frontier_passes on the 1-D 8 mesh, bench cell: last_round "
-           f"{b_res.last_round}, {n_recv} received (== run_frontier_passes); median {ms:.1f} "
-           f"ms over {MESH_RUNS} warm runs, {bench.e / ms * 1e3:.0f} events/s")
     log_fn(f"phase 17 (b): {time.perf_counter() - t0:.1f} s")
 
     # (c) the hashgraph seam on phase 15's signed events
@@ -3944,22 +4099,7 @@ def main() -> int:
             log(f"closure_la == plain on the {label} at pass_cap {CLOSURE_TRAP_CAPS} "
                 f"(of {int(cl[1])} passes to the fixed point)")
         # every chunk of the walk, kernel against plain; the largest is timed
-        inv_c = frontier.build_inv(cs.rows_by_d, cs.la_d)
-        s_np, first_nw, x0 = doubling.walk_seeds(g, cs)
-        chunks = []
-
-        def walk(*a):
-            got = doubling._walk_chunk(*a)
-            want = doubling._walk_chunk_plain(*a)
-            torch.cuda.synchronize()
-            require_equal(f"walk_chunk (length {a[10]}) on the {label}", got, want)
-            chunks.append(a)
-            return got
-
-        hist = doubling._doubling_walk(
-            lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev), inv_c,
-            cs.rows_by_d, cs.fd_d, cs.la_d, x0, s_np, first_nw, g.super_majority,
-            cs.l_b, cs.seeded, {}, walk=walk)
+        chunks, hist, first_nw = held_walk(label, g, cs, dev)
         fired = sum(1 for c in range(g.n)
                     if 0 <= first_nw[c] < hist.shape[0] and hist[first_nw[c], c] == 0)
         if label == "unpinned section" and fired == 0:
@@ -3977,24 +4117,26 @@ def main() -> int:
             log(f"  walk_chunk on the {label}: {big[10]} steps x {big[11]} probes, "
                 f"{k_ms:.4f} ms, plain {p_ms:.3f} ms; all {len(chunks)} chunks "
                 f"({sum(a[10] for a in chunks)} steps) {all_ms:.4f} ms")
-        form = (f"tree depth {_ext.walk_chunk_depth(g.n)}" if g.n <= _ext.WC_BLOCK_MAX
-                else "grid form")
         log(f"walk_chunk == plain on every chunk of the {label} "
-            f"({', '.join(str(a[10]) for a in chunks)} steps, seeded {cs.seeded}, {form}); "
-            f"first_nw mask fired on {fired} of {g.n} chains")
-        if label != "catch-up section":
+            f"({', '.join(str(a[10]) for a in chunks)} steps, seeded {cs.seeded}, "
+            f"{walk_chunk_form(g.n, cs.l_b)}); first_nw mask fired on {fired} of {g.n} chains")
+        if label == "unpinned section":
             continue
         # the largest chunk's traps: searches cut short, a non-monotone la
-        base_xs = doubling._walk_chunk(*big)[1]
-        changed = {}
-        for name, t_args in walk_chunk_traps(big).items():
-            got = doubling._walk_chunk(*t_args)
-            want = doubling._walk_chunk_plain(*t_args)
-            torch.cuda.synchronize()
-            require_equal(f"walk_chunk ({name}) on the {label}'s largest chunk", got, want)
-            changed[name] = not torch.equal(got[1], base_xs)
-        log(f"walk_chunk == plain on the {label}'s largest chunk with each trap (the trap "
-            f"changes the chunk's history: {changed})")
+        hold_walk_chunk_traps(label, big, log)
+        if label == "bench grid":
+            # K7's cluster form (one block a cluster at 64 validators), device
+            # work behind a spin
+            summary["walk_chunk (bench grid)"] = {
+                "max_abs_err": 0, "ms": spun_ms(lambda: doubling._walk_chunk(*big), 10),
+                "plain_ms": p_ms}
+            (nbytes, ops_s), working = walk_chunk_work(big, cs.l_b, g.n)
+            work["walk_chunk (bench grid)"] = (nbytes, ops_s)
+            log(f"  walk_chunk on the {label}, largest chunk behind a spin: "
+                f"{summary['walk_chunk (bench grid)']['ms']:.4f} ms; bound "
+                f"{max(nbytes / HBM_BYTES_S, ops_s) * 1e3:.6f} ms ({working} working steps "
+                f"of {big[10]})")
+            continue
         summary["walk_chunk"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
 
         # work bounds at the catch-up section's shapes, from this run's data
@@ -4029,9 +4171,10 @@ def main() -> int:
     phase_clock.next("7")
     # 7. the bench grid through the level scan and the cold path
     bstats = {}
-    dbl_b, _ = run_path("run_doubling_passes", lambda: doubling.run_doubling_passes(
+    dbl_b, dbl_b_launches = run_path("run_doubling_passes", lambda: doubling.run_doubling_passes(
         bench, stats=bstats, device=dev))
     require_same_results("run_doubling_passes on the bench grid", dbl_b, res)
+    launches["walk_chunk (bench grid)"] = dbl_b_launches["walk_chunk"]
     scan_b, _ = run_path("run_passes", lambda: engine.run_passes(
         bench, bucketed=True, adaptive_r=True, device=dev))
     require_same_results("run_passes on the bench grid", scan_b, res)
@@ -4119,12 +4262,7 @@ def main() -> int:
     # _ext.STEP_LEVELS_GRID_FROM, TRAIN_LEVELS_GRID_FROM); PairedRun checks
     # that each checked call launched the key it is timed under
     def step_calls(run, x, r_win, e_win, work, key, packed=False):
-        run.call("apply_deltas", lambda st: inc._apply_deltas_and_stage(st, x),
-                 lambda st: inc._apply_deltas_and_stage_plain(st, x),
-                 (lambda st: inc_work_deltas(st, x)) if work else None)
-        run.call(key, lambda st: inc._step_levels(st, x, sm_of[0], packed=packed),
-                 lambda st: inc._step_levels_plain(st, x, sm_of[0], packed=packed),
-                 (lambda st: inc_work_levels(st, x, True)) if work else None)
+        step_call(run, key, x, sm_of[0], packed=packed, work=work)
         decide_calls(run, r_win, e_win, work, packed)
 
     def train_calls(run, x, r_win, e_win, work, key, packed=False):
@@ -4173,8 +4311,9 @@ def main() -> int:
                          inc.init_state(fgrid.n, fx["e"], r_cap, device=dev))
         for t in ft:
             train_calls(trun, t, r_win, fx["e_win"], timed, "train_levels" + sfx, packed)
-        log(f"apply_deltas, step_levels{sfx}, train_levels{sfx}, decide_window{sfx} == plain "
-            f"after every call on the {run.label}: {len(fb)} batches, {len(ft)} trains, "
+        log(f"apply_deltas + step_levels{sfx} (one launch), apply_deltas, train_levels{sfx}, "
+            f"decide_window{sfx} == plain after every call on the {run.label}: {len(fb)} "
+            f"batches, {len(ft)} trains, "
             f"last_round {int(run.k.last_round)}, stale {bool(run.k.stale)}")
         if not timed:
             continue
@@ -4225,12 +4364,16 @@ def main() -> int:
         n, INC_TRAIN["e_cap"], INC_TRAIN["r_cap"], device=dev))
     for t in trains_d:
         train_calls(trun, t, INC_TRAIN["r_win"], INC_TRAIN["e_win"], True, "train_levels/grid")
-    log(f"apply_deltas, step_levels/grid, train_levels/grid, decide_window == plain after every "
-        f"call at the live step shape ({len(batches_d)} batches) and the train shape "
+    log(f"apply_deltas + step_levels/grid (one launch), apply_deltas, train_levels/grid, "
+        f"decide_window == plain after every call at the live step shape ({len(batches_d)} "
+        f"batches) and the train shape "
         f"({len(trains_d)} trains): {time.perf_counter() - t0:.1f} s")
     inc_summary = {}
+    # K9 has its own launch on the train paths only (the step paths run
+    # it as step_levels' phase 0): its row of the kernels line is the
+    # train shape's
     for label, run, names in (
-            ("live step shape", srun, ("apply_deltas", "step_levels/grid", "decide_window")),
+            ("live step shape", srun, ("step_levels/grid", "decide_window")),
             ("train shape", trun, ("apply_deltas", "train_levels/grid", "decide_window"))):
         for name in names:
             calls, k_ms, p_ms = run.times(name)
@@ -4238,7 +4381,7 @@ def main() -> int:
             log(f"  {name} at the {label}: {calls} calls, kernel {k_ms:.3f} ms in all "
                 f"({k_ms / calls:.4f} ms per call), plain {p_ms:.1f} ms in all; work "
                 f"{nbytes} bytes, {alu} ALU and {tc} tensor-core operations in all")
-            if label == "live step shape" or name == "train_levels/grid":
+            if label == "live step shape" or name != "decide_window":
                 inc_summary[name] = (calls, k_ms, p_ms, nbytes, alu, tc)
 
     phase_clock.next("10")
@@ -4315,7 +4458,7 @@ def main() -> int:
                              f"gives {MULTI_TRAIN_UNDERSIZED}")
     log(f"multi_train at e_win {tr_cfg['e_win']} (undersized for a decide per "
         f"{MULTI_TRAIN_K} trains): {got}, as the reference")
-    launches["apply_deltas"] = inc_launches["step"]["apply_deltas"]
+    launches["apply_deltas"] = inc_launches["train_step"]["apply_deltas"]
     launches["step_levels/grid"] = inc_launches["step"]["step_levels/grid"]
     launches["decide_window"] = inc_launches["step"]["decide_window"]
     launches["train_levels/grid"] = inc_launches["train_step"]["train_levels/grid"]
@@ -4389,6 +4532,7 @@ def main() -> int:
     launches["frontier_rounds (config #4)"] = (
         wide_launches["run_frontier_passes"]["frontier_rounds"])
     launches["closure_la (config #4)"] = wide_launches["run_doubling_passes"]["closure_la"]
+    launches["walk_chunk (config #4)"] = wide_launches["run_doubling_passes"]["walk_chunk"]
     launches["divide_rounds/packed/grid"] = (
         wide_launches["run_passes"]["divide_rounds/packed/grid"])
     # K10p and K12p at run (c)'s shape: the kernels line's times and bounds
@@ -4403,13 +4547,16 @@ def main() -> int:
 
     phase_clock.next("16")
     # 16. the frontier-live engine: (a), (c) the bench cell and the
-    # bootstrap, (b) config #4 in trains, (d) config #5's width
+    # bootstrap, (b) config #4 in trains, (d) config #5's width; (e) K7's
+    # widest clusters
     for part, args in ((fl_bench_phase, (bench, trains, scan_ref)),
                        (fl_wide_phase, (wide, wide_ref)), (fl_width_phase, ())):
         f_summary, f_work, f_launches = part(*args, dev, log)
         summary.update(f_summary)
         work.update(f_work)
         launches.update(f_launches)
+    # (e) K7's cluster form at 8 blocks a cluster
+    cluster_walk_phase(dev, log)
 
     phase_clock.next("17")
     # 17. the device mesh, every position on the one card

@@ -213,8 +213,7 @@ def main() -> int:
             picks = {n_calls * (k + 1) // samples - 1 for k in range(samples)}
             for k, b in enumerate(batches):
                 b = inc.device_put(b, dev)
-                inc._apply_deltas_and_stage(st, b)
-                inc._step_levels(st, b, sm, packed=packed)
+                inc._step_body(st, b, sm, n, packed=packed)
                 if k in picks:
                     rows.append((packed, time_state(f"{label}, batch {k}", inc.clone_state(st),
                                                     sm, n, r_win, e_win, packed)))

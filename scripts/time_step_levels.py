@@ -1,32 +1,44 @@
 #!/usr/bin/env python3
-"""Time the step_levels kernel (K10, the within-batch level scan of the
-incremental engine's append path) of one checkout of the PyTorch/CUDA
-port on one CUDA card, call by call.
+"""Time a batch's K9 apply_deltas and K10 step_levels (the incremental
+engine's append path) of one checkout of the PyTorch/CUDA port on one CUDA
+card, call by call.
 
     python3 scripts/time_step_levels.py [--root DIR] [--reps N] [--device cuda|cpu]
                                         [--shapes LABEL,...] [--cache DIR]
 
 Imports `babble_tpu_torch` from DIR (default: the checkout that holds this
 script), builds its kernels and drives the append path over a grid's
-batches (apply_deltas, step_levels, the decide). Before each batch's
-step_levels it keeps the fields the call writes; the plain version runs
-once on a clone, then every walk of the checkout's `_ext.step_levels`
-that can run the shape ("block", "grid" where it takes `form=`, else its
-default) runs --reps times on the kept fields, each launch between two
-CUDA events behind a spin (the card busy while the host enqueues) and
-held torch.equal to the plain version's state, every field. Shapes: the
-bench cell's step state (64 validators, wide), the bench grid's generator
-at 32, 48 and 96 validators (around the crossover of the two walks), the
-switch state (128, packed), BASELINE.json config #4's step state (256,
-packed) and config #5's width (1,024 validators, 16,384 events, packed).
-Prints one JSON line per shape and walk: the kernel ms per call (mean and
-median over the calls, each the median of its reps), the split by launch
-at the middle call (device ms of the walk, K11's compare-copy fill and
-the grid scratch's memset, from torch.profiler; null where it records
-none), the plain version's ms per call, the mean walked levels per
-call, the bound
-(chip_smoke.inc_work_levels: each input read once, the compares at the
-ALU rate), the launch keys counted, and the card's name and power limit.
+batches (K9, K10, the decide). Before each batch it keeps the fields K9
+and K10 write; K9's and K10's plain versions run once on a clone, then
+every variant of the checkout's K9 + K10 runs --reps times on the kept
+fields, each between two CUDA events behind a spin (the card busy while
+the host enqueues) and held torch.equal to the plain versions' state,
+every field: each walk of `_ext.step_levels` that can run the shape
+("block", "grid"), with K9 as the walk's phase 0 where the checkout's
+wrapper takes K9's arrays (fused), else as its own `apply_deltas` launch
+before it (two launches). K9's own launch is also timed alone on the
+same kept fields. Shapes: the bench cell's step state (64
+validators, wide), the bench grid's generator at 32, 48 and 96
+validators (around the crossover of the two walks), the switch state
+(128, packed), BASELINE.json config #4's step state (256, packed) and
+config #5's width (1,024 validators, 16,384 events, packed). Prints one
+JSON line per shape and variant: the ms per batch (mean and median over
+the calls, each the median of its reps), the split by launch at the
+middle call (device ms of K9's launch, the walks, K11's compare-copy fill
+and the grid scratch's memset, from torch.profiler; null where it records
+none), the launches per call by key, the plain versions' ms per call, the
+mean walked levels per call, the bound (chip_smoke.inc_work_deltas plus
+inc_work_levels: each input read once, the compares at the ALU rate),
+whether it is the variant the checkout's wrapper chooses, and the card's
+name and power limit; then one line for K9's own launch (ms per call,
+its bound and its launches over the step path as the checkout runs it)
+and one for the step path's wall (`incremental.step` over every batch from
+a fresh state, host clock around a synchronize, median of --wall-runs warm
+runs, default 3) with the host time of its two bodies in it
+(`_step_body`, K9 + K10's wrappers and launches, and `_decide_body`:
+host clock around each call, summed over the batches, median over the
+runs). `--wall-only` prints the wall line alone, so that many runs of
+two checkouts can alternate in one call.
 The grids are kept in --cache (default build/timing_cache), shared with
 scripts/time_train_levels.py, so that later runs skip the host grid
 builder.
@@ -53,12 +65,16 @@ import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPIN_CYCLES = 1_000_000
-# the fields a level-scan call writes, restored before every timed rep
-WRITTEN = ("rounds", "lamport", "witness", "wtable", "w_of_row", "la_w", "fd_w", "idx_w",
-           "coin_w", "last_round", "count", "stale")
-# the device work of a call, by kernel name: the walks, K11's compare-copy
-# fill, and the memset of K10's grid scratch
-LAUNCH_NAMES = ("sl_walk", "sl_grid", "tl_init", "tl_walk", "tl_grid", "Memset")
+# the fields a level-scan call writes (and, first, K9's: fd, la, creator,
+# index), restored before every timed rep
+WRITTEN = ("fd", "la", "creator", "index", "rounds", "lamport", "witness", "wtable",
+           "w_of_row", "la_w", "fd_w", "idx_w", "coin_w", "last_round", "count", "stale")
+# the device work of a call, by kernel name: K9's own launch, the walks,
+# K11's compare-copy fill, and the memset of K10's grid scratch
+LAUNCH_NAMES = ("ad_apply", "sl_walk", "sl_grid", "tl_init", "tl_walk", "tl_grid", "Memset")
+STEP_WALL_RUNS = 3
+# the step path's bodies whose host time the wall line takes apart
+BODIES = ("_step_body", "_decide_body")
 
 
 def load_chip_smoke():
@@ -178,13 +194,20 @@ def profiled_split(fn, calls):
     return split or None
 
 
-def time_calls(cs, label, xs, st, plain, kern, forms, decide, rounds_scan, reps, timer):
-    """Drive state st over inputs xs: K9, then for each call the plain
-    version once on a clone and kern(st, x, form) `reps` times for each
-    walk on st's kept fields, every launch held torch.equal to the plain
-    state; at the middle call also the split by launch (profiled_split);
-    then the decide. Returns {form: (kernel ms per call, median, launches,
-    split)} and (plain ms per call, mean levels, bound ms, bound_by)."""
+# the fields a train-level call writes (K9 runs before it, untimed)
+LEVEL_WRITTEN = WRITTEN[4:]
+
+
+def time_calls(cs, label, xs, st, plain, kern, forms, decide, rounds_scan, reps, timer,
+               written=WRITTEN, before=None):
+    """Drive state st over inputs xs: for each call before(st, x) if given
+    (untimed), then the plain version once on a clone and kern(st, x,
+    form) `reps` times for each variant in `forms` on st's kept `written`
+    fields, every launch held torch.equal to the plain state; at the
+    middle call also the split by launch (profiled_split); then the
+    decide. Returns {form: (kernel ms per call, median, launches in all,
+    split)} and (plain ms per call, mean levels, bound ms, bound_by). The
+    bound counts K9's work too where rounds_scan (the step path)."""
     from babble_tpu_torch.tpu import _ext
     from babble_tpu_torch.tpu import incremental as inc
 
@@ -193,20 +216,25 @@ def time_calls(cs, label, xs, st, plain, kern, forms, decide, rounds_scan, reps,
     split = dict.fromkeys(forms)
     plain_ms, levels, nbytes, alu = [], [], 0, 0
     for k, x in enumerate(xs):
-        inc._apply_deltas_and_stage(st, x)
-        kept = {f: getattr(st, f).clone() for f in WRITTEN}
+        if before is not None:
+            before(st, x)
+        kept = {f: getattr(st, f).clone() for f in written}
         want = inc.clone_state(st)
+        if rounds_scan:
+            work = cs.inc_work_deltas(st, x)
+            nbytes += work[0]
+            alu += work[1]
         plain_ms.append(timer(lambda: plain(want, x)))
         for form in forms:
             times = []
             for _ in range(reps):
-                for f in WRITTEN:
+                for f in written:
                     getattr(st, f).copy_(kept[f])
-                before = dict(_ext.LAUNCHES)
+                seen = dict(_ext.LAUNCHES)
                 times.append(timer(lambda: kern(st, x, form)))
                 for name, v in _ext.LAUNCHES.items():
-                    if v != before[name]:
-                        launched[form][name] = launched[form].get(name, 0) + v - before[name]
+                    if v != seen[name]:
+                        launched[form][name] = launched[form].get(name, 0) + v - seen[name]
                 bad = cs.state_diff(st, want)
                 if bad:
                     raise AssertionError(f"{label}, call {k}, form {form}: {bad} differ from "
@@ -214,7 +242,7 @@ def time_calls(cs, label, xs, st, plain, kern, forms, decide, rounds_scan, reps,
             per_form[form].append(statistics.median(times))
             if timer.cuda and k == len(xs) // 2:
                 def restored_call():
-                    for f in WRITTEN:
+                    for f in written:
                         getattr(st, f).copy_(kept[f])
                     kern(st, x, form)
                 split[form] = profiled_split(restored_call, reps)
@@ -231,6 +259,82 @@ def time_calls(cs, label, xs, st, plain, kern, forms, decide, rounds_scan, reps,
                  "bytes" if bytes_s >= ops_s else "operations")
 
 
+def time_apply_deltas(cs, xs, st, advance, reps, timer):
+    """K9's own launch over the batches (each rep on the kept fields K9
+    writes, held torch.equal to its plain version), then the kept fields
+    restored and advance(st, x) (the checkout's K9 + K10 and the decide)
+    moving the state on: (ms per call, bound ms)."""
+    from babble_tpu_torch.tpu import incremental as inc
+
+    k9_fields = ("fd", "fd_w", "la", "creator", "index")
+    times, nbytes = [], 0
+    for k, x in enumerate(xs):
+        kept = {f: getattr(st, f).clone() for f in k9_fields}
+        want = inc.clone_state(st)
+        inc._apply_deltas_and_stage_plain(want, x)
+        nbytes += cs.inc_work_deltas(st, x)[0]
+        reps_ms = []
+        for _ in range(reps):
+            for f in k9_fields:
+                getattr(st, f).copy_(kept[f])
+            reps_ms.append(timer(lambda: inc._apply_deltas_and_stage(st, x)))
+        bad = cs.state_diff(st, want)
+        if bad:
+            raise AssertionError(f"apply_deltas, call {k}: {bad} differ from the plain version")
+        times.append(statistics.median(reps_ms))
+        for f in k9_fields:
+            getattr(st, f).copy_(kept[f])
+        advance(st, x)
+    return statistics.mean(times), nbytes / len(xs) / cs.HBM_BYTES_S * 1e3
+
+
+def step_wall_ms(xs, fresh, step, timer, runs):
+    """The step path (step(st, x) over every batch from a fresh state, one
+    synchronize at the end) over `runs` warm runs: the median host-clock
+    ms of the whole, {body: median host ms of its calls summed over the
+    batches} for BODIES, and the launches of one run by key."""
+    from babble_tpu_torch.tpu import _ext
+    from babble_tpu_torch.tpu import incremental as inc
+
+    walls, hosts, launches = [], {b: [] for b in BODIES}, {}
+    spent = dict.fromkeys(BODIES, 0.0)
+    real = {b: getattr(inc, b) for b in BODIES}
+
+    def clocked(name):
+        def body(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return body
+
+    try:
+        for b in BODIES:
+            setattr(inc, b, clocked(b))
+        for r in range(runs + 1):
+            st = fresh()
+            if timer.cuda:
+                torch.cuda.synchronize()
+            before = dict(_ext.LAUNCHES)
+            spent.update(dict.fromkeys(BODIES, 0.0))
+            t0 = time.perf_counter()
+            for x in xs:
+                step(st, x)
+            if timer.cuda:
+                torch.cuda.synchronize()
+            if r:
+                walls.append((time.perf_counter() - t0) * 1e3)
+                for b in BODIES:
+                    hosts[b].append(spent[b] * 1e3)
+            launches = {k: v - before[k] for k, v in _ext.LAUNCHES.items() if v != before[k]}
+    finally:
+        for b in BODIES:
+            setattr(inc, b, real[b])
+    return (statistics.median(walls), {b: statistics.median(h) for b, h in hosts.items()},
+            launches)
+
+
 def setup(description):
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--root", default=HERE)
@@ -238,6 +342,9 @@ def setup(description):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--shapes", default="", help="comma-separated labels (default: all)")
     ap.add_argument("--cache", default=os.path.join(HERE, "build", "timing_cache"))
+    ap.add_argument("--wall-runs", type=int, default=STEP_WALL_RUNS)
+    ap.add_argument("--wall-only", action="store_true",
+                    help="print the step path's wall line alone")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     cs = load_chip_smoke()
@@ -260,6 +367,9 @@ def main() -> int:
     from babble_tpu_torch.tpu import incremental as inc
 
     timer = Timer(dev)
+    # the checkout's K9 + K10: one launch where its wrapper takes K9's
+    # arrays, else K9's own launch before K10's
+    fused_api = "upd_row" in inspect.signature(_ext.step_levels).parameters
     for label, spec, packed in grid_specs(cs):
         if wanted and label not in wanted:
             continue
@@ -273,39 +383,78 @@ def main() -> int:
             except ValueError:  # a burst above the cap
                 upd_cap *= 2
         xs = [inc.device_put(b, dev) for b in batches]
-        st = inc.init_state(n, e_cap, r_cap, device=dev)
+        wall, host_ms, path_launches = step_wall_ms(
+            xs, lambda: inc.init_state(n, e_cap, r_cap, device=dev),
+            lambda st, x: inc.step(st, x, sm, n, r_win=r_win, e_win=e_win, packed=packed),
+            timer, args.wall_runs)
+        wall_line = {
+            "kernel": "step (path)", "shape": label, "validators": n, "packed": packed,
+            "batches": len(xs), "wall_ms": wall, "host_ms": host_ms, "runs": args.wall_runs,
+            "launches": path_launches, "root": args.root, "card": card}
+        if args.wall_only:
+            print(json.dumps(wall_line), flush=True)
+            del g, batches, xs
+            continue
+
+        def decide(s):
+            inc._decide_body(s, sm, n, r_win=r_win, e_win=e_win, packed=packed)
+
+        def step_body(st, x):
+            inc._step_body(st, x, sm, n, packed=packed)
 
         def kern(st, x, form):
-            if not timer.cuda:
-                inc._step_levels(st, x, sm, packed=packed)
+            if form is None:
+                step_body(st, x)
                 return
-            _ext.step_levels(
+            levels_args = (
                 st.fd, st.rounds, st.lamport, st.witness, st.wtable, st.w_of_row, st.la_w,
                 st.fd_w, st.idx_w, st.coin_w, st.rounds_decided, st.last_round, st.count,
                 st.stale, x.rows, x.creator, x.index, x.sp_row, x.op_row, x.la_rows, x.coin,
-                x.fixed_round, x.levels, sm, packed=packed,
-                **({} if form is None else {"form": form}))
+                x.fixed_round, x.levels)
+            if fused_api:
+                _ext.step_levels(*levels_args, st.la, st.creator, st.index, x.upd_row,
+                                 x.upd_col, x.upd_val, sm, packed=packed, form=form)
+                return
+            _ext.apply_deltas(st.fd, st.fd_w, st.la, st.creator, st.index, st.w_of_row,
+                              x.rows, x.creator, x.index, x.la_rows, x.upd_row, x.upd_col,
+                              x.upd_val)
+            _ext.step_levels(*levels_args, sm, packed=packed, form=form)
+
+        def plain(s, x):
+            inc._apply_deltas_and_stage_plain(s, x)
+            inc._step_levels_plain(s, x, sm, packed=packed)
 
         l_lv, w = xs[0].levels.shape
         forms = [f for f in forms_of(_ext.step_levels, timer.cuda)
                  if f is None or _ext.step_levels_form_fits(f, n, w, l_lv, batch, r_cap)]
         out, (plain_ms, levels, bound_ms, bound_by) = time_calls(
-            cs, label, xs, st, lambda s, x: inc._step_levels_plain(s, x, sm, packed=packed),
-            kern, forms, lambda s: inc._decide_body(s, sm, n, r_win=r_win, e_win=e_win,
-                                                    packed=packed),
-            True, args.reps, timer)
-        chosen = _ext.step_levels_form(n, w, l_lv, batch, r_cap) if hasattr(
-            _ext, "step_levels_form") else None
+            cs, label, xs, inc.init_state(n, e_cap, r_cap, device=dev), plain, kern, forms,
+            decide, True, args.reps, timer)
+        chosen = _ext.step_levels_form(n, w, l_lv, batch, r_cap)
         for form, (ms, med, launched, split) in out.items():
             print(json.dumps({
-                "kernel": "step_levels", "shape": label, "validators": n, "packed": packed,
-                "form": form, "chosen": form is not None and form == chosen,
-                "calls": len(xs), "levels_per_call": levels, "launches": launched,
+                "kernel": "apply_deltas + step_levels", "shape": label, "validators": n,
+                "packed": packed, "form": form, "fused": fused_api, "chosen": form == chosen,
+                "calls": len(xs), "levels_per_call": levels,
+                "launches_per_call": {k: v / (len(xs) * args.reps) for k, v in launched.items()},
                 "ms": ms, "median_ms": med, "reps": args.reps, "split_ms": split,
                 "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "root": args.root,
                 "card": card}), flush=True)
-        del g, batches, xs, st
+
+        def advance(st, x):
+            step_body(st, x)
+            decide(st)
+
+        k9_ms, k9_bound = time_apply_deltas(cs, xs, inc.init_state(n, e_cap, r_cap, device=dev),
+                                            advance, args.reps, timer)
+        print(json.dumps({
+            "kernel": "apply_deltas", "shape": label, "validators": n, "packed": packed,
+            "calls": len(xs), "ms": k9_ms, "bound_ms": k9_bound, "bound_by": "bytes",
+            "launches_on_the_step_path": path_launches.get("apply_deltas", 0),
+            "root": args.root, "card": card}), flush=True)
+        print(json.dumps(wall_line), flush=True)
+        del g, batches, xs
     return 0
 
 

@@ -28,7 +28,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from time_step_levels import (  # noqa: E402
-    Timer, cached_grid, forms_of, grid_specs, setup, time_calls)
+    LEVEL_WRITTEN, Timer, cached_grid, forms_of, grid_specs, setup, time_calls)
 
 
 def train_config(cs, label, g):
@@ -85,7 +85,8 @@ def main() -> int:
             cs, label, xs, st, lambda s, x: inc._train_levels_plain(s, x, sm, packed=packed),
             kern, forms, lambda s: inc._decide_body(s, sm, n, r_win=r_win, e_win=e_win,
                                                     packed=packed),
-            False, args.reps, timer)
+            False, args.reps, timer, written=LEVEL_WRITTEN,
+            before=lambda s, x: inc._apply_deltas_and_stage(s, x))
         chosen = (_ext.train_levels_form(n, size, w, r_cap)
                   if hasattr(_ext, "train_levels_form") else None)
         for form, (ms, med, launched, split) in out.items():

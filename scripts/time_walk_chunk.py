@@ -13,19 +13,25 @@ forced to 1, 4 and 5, one chain's la rows reversed), then times the
 largest chunk and every chunk of the walk by CUDA events behind a spin
 (the card busy while the host enqueues): the catch-up section of
 bench_catchup.py (8 validators), the bench grid's generator at 16 and 32
-validators (the one-block walk's upper end), the bench grid (64) and
-BASELINE.json config #4's grid (256). Prints one JSON line per grid:
-validators, chunk steps and probes, the tree depth where the checkout's
-one-block walk has one (`_ext.walk_chunk_depth`), the median kernel ms of
+validators (the one-block walk's upper end), at 48, the bench grid (64),
+the bench generator at 96 and 128 (the cluster form's tree depths by
+width), BASELINE.json config #4's grid (256), the bench generator at 512
+validators (a cluster of 8 blocks) and config #5's width grid (1,024
+validators, 16,384 events: past a cluster's reach). Prints one JSON line
+per grid: validators, chunk steps and probes, the tree depth
+(`_ext.walk_chunk_depth`, where the checkout has it) and the checkout's
+plan (`_ext.walk_chunk_plan`: form, blocks a cluster, chains a block,
+shared memory a block; null where it has none), the median kernel ms of
 the largest chunk and the sum of every chunk's medians over N runs, the
 kernel launches per call of the largest chunk (torch.profiler), the
 plain version's ms of the largest chunk (one call), its bound
 (`chip_smoke.walk_chunk_work`: its working steps, from the data) and the
-card's name and power limit. `--depths` also times the one-block walk at every tree
-depth that fits (one line each). The grids are kept in --cache (default
-build/timing_cache). To compare two versions of the kernel, run it
-against both checkouts in one call, in the order A, B, B, A. `--device
-cpu` rehearses it on the plain versions (wall-clock times).
+card's name and power limit. `--depths` also times the walk at every
+tree depth up to 4 that fits (one line each; the L2 form has none). The
+grids are kept in --cache (default build/timing_cache). To compare two
+versions of the kernel, run it against both checkouts in one call, in
+the order A, B, B, A. `--device cpu` rehearses it on the plain versions
+(wall-clock times).
 """
 
 from __future__ import annotations
@@ -63,8 +69,13 @@ def shapes(cs):
         ("catch-up section", "section", cs.CATCHUP),
         ("16-validator grid", "grid", dict(cs.BENCH, n=16)),
         ("32-validator grid", "grid", dict(cs.BENCH, n=32)),
+        ("48-validator grid", "grid", dict(cs.BENCH, n=48)),
         ("bench grid", "grid", cs.BENCH),
+        ("96-validator grid", "grid", dict(cs.BENCH, n=96)),
+        ("128-validator grid", "grid", dict(cs.BENCH, n=128)),
         ("config #4 grid", "grid", cs.WIDE),
+        ("512-validator grid", "grid", dict(cs.BENCH, n=512)),
+        ("width grid", "grid", cs.FL_WIDTH),
     )
 
 
@@ -148,6 +159,7 @@ def main() -> int:
         _ext.build_all()
     wanted = [s.strip() for s in args.shapes.split(";") if s.strip()]
     tree = hasattr(_ext, "walk_chunk_depth")  # the checkout's one-block walk is a tree
+    planned = hasattr(_ext, "walk_chunk_plan")  # and its grid form is planned by width
 
     def sync():
         if cuda:
@@ -207,12 +219,13 @@ def main() -> int:
         for name, a in traps.items():
             held(f"{name} on the {label}'s largest chunk", a, doubling._walk_chunk)
         depths = [None]
-        if tree and g.n <= _ext.WC_BLOCK_MAX:
+        if planned or (tree and g.n <= _ext.WC_BLOCK_MAX):
             depths = [_ext.walk_chunk_depth(g.n)]
-            if args.depths:
-                depths += [d for d in range(1, _ext.WC_TREE_DEPTH_MAX + 1)
-                           if d != depths[0] and _ext.walk_chunk_tree_smem(g.n, d)
-                           <= _ext.MAX_SMEM_BYTES]
+            if args.depths and (not planned or
+                                _ext.walk_chunk_plan(g.n, st.l_b)["form"] != "l2"):
+                depths += [d for d in range(1, 5)
+                           if d != depths[0] and _ext.smem_bytes(
+                               "walk_chunk", g.n, l=st.l_b, depth=d) <= _ext.MAX_SMEM_BYTES]
         plain_ms = None
         for depth in depths:
             def kern(*a, depth=depth):
@@ -231,10 +244,15 @@ def main() -> int:
                 plain_ms = time_ms(lambda: doubling._walk_chunk_plain(*big), 1)
                 (nbytes, ops_s), working = cs.walk_chunk_work(big, st.l_b, g.n)
                 bytes_s = nbytes / cs.HBM_BYTES_S
+            plan = None
+            if planned:
+                plan = {k: v for k, v in _ext.walk_chunk_plan(g.n, st.l_b, depth).items()
+                        if k in ("form", "k", "chains", "smem")}
             print(json.dumps({
                 "grid": label, "validators": g.n, "steps": big[10], "probes": big[11],
                 "chunks": [a[10] for a in chunks], "tree_depth": depth,
                 "depth_rule": depth == depths[0] if depth is not None else None,
+                "l": st.l_b, "plan": plan,
                 "traps_held": list(traps), "ms": ms, "all_chunks_ms": all_ms,
                 "launches": launches_per_call(lambda: kern(*big), 3) if cuda else None,
                 "plain_ms": plain_ms, "working_steps": working,

@@ -19,7 +19,7 @@ from babble_tpu_torch.tpu.grid import section_grid, synthetic_deep_grid
 from babble_tpu_torch.tpu import _ext
 from chip_smoke import CLOSURE_TRAP_CAPS, walk_chunk_traps
 from test_doubling import assert_matches
-from test_torch_levelscan import CASE_IDS, CASES, TRAPS, fixture_grid
+from test_torch_levelscan import CASE_IDS, CASES, SCAN_FIXTURES, TRAPS, fixture_grid
 
 
 def staged(case):
@@ -241,19 +241,52 @@ def test_walk_chunk_tree_plan(n):
     """The one-block walk's rule: the tree depth by width from
     WC_TREE_DEPTHS (one at every width up to WC_BLOCK_MAX, not increasing
     with it), and block_smem's entry, which is the kernel's shared memory
-    at that depth and fits one block; past WC_BLOCK_MAX the grid form."""
+    at that depth and fits one block; past WC_BLOCK_MAX the grid forms
+    (walk_chunk_plan), whose depth also comes from WC_TREE_DEPTHS, up to
+    WC_MAX_WIDTH."""
     depth = _ext.walk_chunk_depth(n)
     assert 1 <= depth <= _ext.WC_TREE_DEPTH_MAX
     assert all(_ext.walk_chunk_depth(m) >= depth for m in range(1, n + 1))
     smem = _ext.block_smem("walk_chunk", n)["walk"]
     assert smem == _ext.walk_chunk_tree_smem(n, depth) <= _ext.MAX_SMEM_BYTES
+    assert _ext.walk_chunk_plan(n)["form"] == "tree"
     # each chain's probed rows (2^d - 1 rows of the power of two at or
     # above n, at least 4) and its closure terms by leaf (2^d x n words)
     np_ = max(4, 1 << (n - 1).bit_length())
     nodes = (1 << depth) - 1
     assert smem == n * (nodes * np_ + ((nodes + 1) * n + 3) // 4 * 4) * 4
+    assert _ext.walk_chunk_plan(_ext.WC_BLOCK_MAX + 1)["form"] != "tree"
+    assert 1 <= _ext.walk_chunk_depth(_ext.WC_MAX_WIDTH) <= _ext.WC_TREE_DEPTH_MAX
     with pytest.raises(ValueError):
-        _ext.walk_chunk_depth(_ext.WC_BLOCK_MAX + 1)
+        _ext.walk_chunk_depth(_ext.WC_MAX_WIDTH + 1)
+
+
+@pytest.mark.parametrize("n", [8, 64, 512, 1100])
+def test_walk_chunk_hands_its_plan_to_the_launcher(monkeypatch, n):
+    """_ext.walk_chunk launches one walk_chunk whose last seven ints are
+    walk_chunk_plan's form code (WC_FORMS), k, cw, chains, slots, threads
+    and shared memory, as the launcher takes them, with a scratch of the
+    plan's size (the launch is stubbed: CPU tensors here)."""
+    l, e, length = 4, 16, 3
+    plan = _ext.walk_chunk_plan(n, l)
+    assert plan["form"] == {8: "tree", 64: "cluster", 512: "cluster", 1100: "l2"}[n]
+    seen = []
+    monkeypatch.setattr(_ext, "_launch", lambda name, dev, args, **kw: seen.append((name, args)))
+    i32 = torch.int32
+    z = lambda *s: torch.zeros(s, dtype=i32)  # noqa: E731
+    _ext.walk_chunk(z(n, n, l), z(n, l), z(e, n), z(e, n), z(n), z(length, n), z(length), z(n),
+                    2 * n // 3 + 1, l, length, 3, True)
+    assert [name for name, _ in seen] == ["walk_chunk"]
+    args = seen[0][1]
+    kinds = _ext.KERNELS["walk_chunk"][2]
+    assert len(args) == len(kinds)
+    assert args[-8] == plan["depth"]
+    assert args[-7:] == (_ext.WC_FORMS.index(plan["form"]), plan["k"], plan["cw"],
+                         plan["chains"], plan["slots"], plan["threads"], plan["smem"])
+    words = (2 * n * l * _ext._walk_np(n) + n if plan["form"] == "tree"
+             else n * plan["k"] * plan["cw"] + plan["k"] * plan["cw"] + 3 * n + 1)
+    assert args[10].numel() == words
+    assert all(0 <= a < 2 ** 31 for a in args[-7:])
 
 
 @pytest.mark.parametrize("n,l", [(4, 64), (5, 64), (8, 8192), (12, 128), (33, 64), (64, 1024),
@@ -367,3 +400,169 @@ def test_run_doubling_passes_refuses_packed_empty_and_a_missing_card(monkeypatch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.run_doubling_passes(g)
+
+
+def cluster_walk_chunk(args, k, chains, depth):
+    """A numpy emulation of csrc/walk_chunk.cu walk_chunk_cluster's
+    schedule on one chunk's _walk_chunk arguments: each step's frontier
+    table (n coordinates x k * cw witness columns, MAX and not countable
+    past n) split by columns over a cluster of k blocks; the chains in
+    groups of `chains`, each group's searches run together as speculative
+    trees of `depth` (2^d - 1 probes a chain a round, the last round
+    shorter), each block counting every probe against its cw columns and
+    summing its strongly-seen witnesses, the cluster adding the k partial
+    sums per probe, then the round's d decisions; then the advance."""
+    inv, rows_by, fd, la, x0, seeds, r_abs, first_nw = (np_(a) for a in args[:8])
+    sm, l, length, steps, use_seeds = args[8:]
+    n = rows_by.shape[0]
+    ld4 = (n + 3) // 4 * 4
+    cw = ((ld4 + k - 1) // k + 3) // 4 * 4
+    big = np.iinfo(np.int32).max
+    clen = (rows_by >= 0).sum(axis=1)
+    x = x0.astype(np.int64).copy()
+    xs = []
+    for step in range(length):
+        tab = np.full((n, k * cw), big, dtype=np.int64)
+        wok = np.zeros(k * cw, dtype=bool)
+        for w in range(n):
+            ok = x[w] < l and not (use_seeds and x[w] == 0 and r_abs[step] == first_nw[w])
+            if ok:
+                tab[:, w] = fd[np.clip(rows_by[w, min(max(x[w], 0), l - 1)], 0, fd.shape[0] - 1)]
+            wok[w] = ok
+        m0 = np.empty(n, dtype=np.int64)
+        for c0 in range(0, n, chains):
+            grp = np.arange(c0, min(c0 + chains, n))
+            lo = np.clip(x[grp], 0, l)
+            hi = np.full(grp.size, l)
+            done = 0
+            while done < steps:
+                d = min(depth, steps - done)
+                nodes = (1 << d) - 1
+                ev = np.empty((grp.size, nodes), dtype=np.int64)
+                for i, c in enumerate(grp):
+                    for node in range(nodes):
+                        j, a, b = node + 1, lo[i], hi[i]
+                        for bit in range(j.bit_length() - 2, -1, -1):
+                            mid = min((a + b) // 2, l - 1)
+                            a, b = (mid + 1, b) if (j >> bit) & 1 else (a, min(mid, b))
+                        probe = min(min((a + b) // 2, l - 1), max(clen[c] - 1, 0))
+                        ev[i, node] = np.clip(rows_by[c, probe], 0, la.shape[0] - 1)
+                rows = la[ev.reshape(-1)]
+                tot = np.zeros(ev.size, dtype=np.int64)
+                for r in range(k):  # block r's columns, its partial sums
+                    cols = slice(r * cw, (r + 1) * cw)
+                    cnt = (rows[:, :, None] >= tab[None, :, cols]).sum(axis=1)
+                    tot += ((cnt >= sm) & wok[None, cols]).sum(axis=1)
+                tot = tot.reshape(grp.size, nodes)
+                for i, c in enumerate(grp):
+                    j = 1
+                    for _ in range(d):
+                        mid = min((lo[i] + hi[i]) // 2, l - 1)
+                        if clen[c] > 0 and tot[i, j - 1] >= sm:
+                            hi[i], j = min(mid, hi[i]), 2 * j
+                        else:
+                            lo[i], j = mid + 1, 2 * j + 1
+                done += d
+            m0[grp] = np.where(hi < clen[grp], hi, l)
+        xn = np.empty(n, dtype=np.int64)
+        for c in range(n):
+            reach = [inv[c, y, min(max(m0[y], 0), l - 1)] for y in range(n) if m0[y] < l]
+            v = min([m0[c]] + reach)
+            if use_seeds:
+                v = min(v, seeds[step, c])
+            xn[c] = min(max(v, x[c]), l)
+        x = xn
+        xs.append(x.copy())
+    return x.astype(np.int32), np.stack(xs).astype(np.int32)
+
+
+# the 64-validator walk case and the two sections: (k, chains a block, tree
+# depth) of the emulated cluster, each block count k in turn
+CLUSTER_CASES = [("synthetic",) + SCAN_FIXTURES[-1], ("section", 1.0 / 3.0, True),
+                 ("section", 0.5, False)]
+CLUSTER_SCHEDULES = [(1, 1, 3), (2, 3, 2), (4, 5, 1)]
+
+
+@pytest.mark.parametrize("schedule", CLUSTER_SCHEDULES, ids=["k1", "k2", "k4"])
+@pytest.mark.parametrize("case", CLUSTER_CASES, ids=["synthetic-64", "section-0.333-True",
+                                                     "section-0.5-False"])
+def test_cluster_schedule_matches_reference_on_every_chunk(case, schedule):
+    """K7's cluster form as the card runs it (walk_chunk_cluster: the
+    table split by witness columns over k blocks, the per-block partial
+    counts summed per probe, chains searched a group at a time as trees)
+    emulated in numpy on every chunk of the walk, equal to the JAX
+    package's _walk_chunk and to the port's plain version, and on the
+    largest chunk's traps (searches cut short, a non-monotone la)."""
+    k, chains, depth = schedule
+    grid, pg, st = staged(case)
+    inv = port.build_inv(st.rows_by_d, st.la_d)
+    s_np, first_nw, x0 = port.walk_seeds(pg, st)
+    seen = []
+
+    def check(a):
+        got = port._walk_chunk(*a)
+        statics = dict(zip(("super_majority", "l", "length", "steps", "use_seeds"), a[8:]))
+        want = ref._walk_chunk(*[np_(v) for v in a[:8]], **statics)
+        emulated = cluster_walk_chunk(a, k, chains, depth)
+        for g, w, e in zip(got, want, emulated):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            np.testing.assert_array_equal(e, np.asarray(w))
+        return got
+
+    def walk(*a):
+        seen.append(a)
+        return check(a)
+
+    port._doubling_walk(
+        lambda a: torch.from_numpy(np.ascontiguousarray(a)), inv, st.rows_by_d, st.fd_d,
+        st.la_d, x0, s_np, first_nw, pg.super_majority, st.l_b, st.seeded, {}, walk=walk,
+    )
+    assert seen
+    for a in walk_chunk_traps(max(seen, key=lambda a: a[10])).values():
+        check(a)
+
+
+@pytest.mark.parametrize("l", [1, 512, 4096])
+def test_walk_chunk_plan_by_width(l):
+    """K7's plan past the one-block walk, at every width from 33 to
+    WC_MAX_WIDTH (29,056) validators and chain length l: every block fits
+    one block's shared memory; a cluster of k <= WC_CLUSTER_MAX blocks
+    (a power of two) splits the padded witness columns into slices of cw
+    (a multiple of 4) that cover every column, and the least such k is
+    taken; its groups of `chains` chains cover every chain, with a probe
+    row for every node of every chain's tree; past a cluster's reach the
+    L2 form, a block per chain; the plan is block_smem's, and one more
+    validator is refused."""
+    last_form = None
+    for n in range(_ext.WC_BLOCK_MAX + 1, _ext.WC_MAX_WIDTH + 1):
+        plan = _ext.walk_chunk_plan(n, l)
+        assert plan["smem"] <= _ext.MAX_SMEM_BYTES
+        ld4 = (n + 3) // 4 * 4
+        if plan["form"] == "cluster":
+            assert last_form in (None, "cluster")
+            k, cw = plan["k"], plan["cw"]
+            assert k in (1, 2, 4, 8) and cw % 4 == 0 and k * cw >= ld4 > (k - 1) * cw
+            assert plan["threads"] == (_ext.WC_GRID_THREADS if k <= 2
+                                       else _ext.WC_GRID_THREADS_WIDE)
+            assert 1 <= plan["chains"] <= max(1, -(-n * k // _ext._wc_resident_blocks(k)))
+            assert -(-n // plan["chains"]) * plan["chains"] >= n
+            assert plan["slots"] >= plan["chains"] * plan["nodes"]
+            assert plan["slots"] % _ext.WC_SLOT_CHUNK == 0
+            for smaller in (1, 2, 4):
+                if smaller < k:  # one chain a block does not fit a smaller cluster
+                    cw_s = ((ld4 + smaller - 1) // smaller + 3) // 4 * 4
+                    slots_1 = -(-plan["nodes"] // _ext.WC_SLOT_CHUNK) * _ext.WC_SLOT_CHUNK
+                    assert (_ext._wc_cluster_smem(n, l, cw_s, 1, slots_1)
+                            > _ext.MAX_SMEM_BYTES)
+        else:
+            assert plan["form"] == "l2" and plan["cw"] == ld4 and plan["chains"] == 1
+            assert plan["threads"] % 32 == 0 and plan["threads"] <= 512
+        last_form = plan["form"]
+        if n % 97 == 0 or n < 700:
+            assert plan["smem"] == _ext.block_smem("walk_chunk", n, l=l)["walk"]
+    assert last_form == "l2"
+    # where one block holds the table the cluster is one block
+    assert _ext.walk_chunk_plan(64, l)["k"] == 1
+    assert _ext.walk_chunk_plan(_ext.WC_MAX_WIDTH + 1, l)["smem"] > _ext.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="validators"):
+        _ext.check_smem("walk_chunk", _ext.WC_MAX_WIDTH + 1, l=l)

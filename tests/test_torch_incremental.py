@@ -454,3 +454,91 @@ def test_device_put_and_state_round_trip():
     copy = inc.clone_state(st)
     copy.rounds.fill_(7)
     assert not torch.equal(copy.rounds, st.rounds)
+
+
+def c_entry_kinds(source: str, fn: str) -> str:
+    """The argument kinds ("p" a pointer, "i" an int) of the extern "C"
+    entry point `fn` in babble_tpu_torch/csrc/`source`, without the
+    (int device, void* stream) every entry point ends in."""
+    import re
+
+    from babble_tpu_torch.tpu import _ext
+
+    text = (_ext.CSRC / source).read_text()
+    m = re.search(r'extern "C" int ' + re.escape(fn) + r"\s*\(([^)]*)\)\s*\{", text)
+    assert m, f"{fn} not in {source}"
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    assert params[-2:] == ["int device", "void* stream"], params[-2:]
+    kinds = ""
+    for p in params[:-2]:
+        if "*" in p:
+            kinds += "p"
+        else:
+            assert p.split()[0] == "int", p
+            kinds += "i"
+    return kinds
+
+
+@pytest.mark.parametrize("name", sorted(__import__(
+    "babble_tpu_torch.tpu._ext", fromlist=["KERNELS"]).KERNELS))
+def test_ext_argument_kinds_match_the_c_entry_points(name):
+    """Each _ext.KERNELS entry's argument-kind string is its C entry
+    point's parameter list as the csrc file declares it, so that ctypes
+    passes every pointer as a pointer and every int as an int on a card
+    (step_levels' entry took K9's arrays in this slice)."""
+    from babble_tpu_torch.tpu import _ext
+
+    source, fn, kinds = _ext.KERNELS[name]
+    assert c_entry_kinds(source, fn) == kinds
+
+
+def recorded_launches(monkeypatch):
+    """Patch _ext._launch to record (name, args) and check each call's
+    arguments against its kind string (a tensor or None per pointer, an
+    int per int) instead of launching."""
+    from babble_tpu_torch.tpu import _ext
+
+    calls = []
+
+    def launch(name, device, args, packed=False, grid=False):
+        kinds = _ext.KERNELS[name][2]
+        assert len(args) == len(kinds), (name, len(args), len(kinds))
+        for a, k in zip(args, kinds):
+            assert (a is None or isinstance(a, torch.Tensor)) if k == "p" else \
+                isinstance(a, int), (name, k, type(a))
+        calls.append((name + ("/grid" if grid else ""), args))
+
+    monkeypatch.setattr(_ext, "_launch", launch)
+    return calls
+
+
+@pytest.mark.parametrize("form", ["block", "grid"])
+def test_step_levels_takes_k9_as_phase_0(monkeypatch, form):
+    """_ext.step_levels launches one step_levels, in either walk, whose K9
+    pointers and delta count are set (K9 as the launch's phase 0) and no
+    apply_deltas, and checks K9's arrays before it launches; apply_deltas
+    keeps a launch of its own (the train paths)."""
+    from babble_tpu_torch.tpu import _ext
+
+    _, pg = grids(8, 512, 5, 1.1)
+    b = inc.device_put(inc.batches_from_grid(pg, 32, 8192, pg.e)[0], "cpu")
+    st = inc.init_state(8, pg.e, 64, device="cpu")
+    deltas = (st.la, st.creator, st.index, b.upd_row, b.upd_col, b.upd_val)
+    args = (st.fd, st.rounds, st.lamport, st.witness, st.wtable, st.w_of_row, st.la_w,
+            st.fd_w, st.idx_w, st.coin_w, st.rounds_decided, st.last_round, st.count,
+            st.stale, b.rows, b.creator, b.index, b.sp_row, b.op_row, b.la_rows, b.coin,
+            b.fixed_round, b.levels, *deltas, pg.super_majority)
+    key = "step_levels" + ("/grid" if form == "grid" else "")
+    calls = recorded_launches(monkeypatch)
+    _ext.step_levels(*args, form=form)
+    assert [c[0] for c in calls] == [key]
+    tail = calls[-1][1]
+    assert all(a is d for a, d in zip(tail[24:30], deltas))
+    assert tail[-1] == b.upd_row.shape[0]
+    calls.clear()
+    with pytest.raises(ValueError, match="upd_col"):
+        _ext.step_levels(*args[:27], b.upd_col[:-1], *args[28:], form=form)
+    assert not calls
+    _ext.apply_deltas(st.fd, st.fd_w, *deltas[:3], st.w_of_row, b.rows, b.creator, b.index,
+                      b.la_rows, *deltas[3:])
+    assert [c[0] for c in calls] == ["apply_deltas"]

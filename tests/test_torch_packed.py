@@ -849,8 +849,9 @@ def test_step_levels_form_around_the_crossover(packed):
                          st.la_w, st.fd_w, st.idx_w, st.coin_w, st.rounds_decided,
                          st.last_round, st.count, st.stale, batch.rows, batch.creator,
                          batch.index, batch.sp_row, batch.op_row, batch.la_rows, batch.coin,
-                         batch.fixed_round, batch.levels, 2 * n // 3 + 1, packed=packed,
-                         form=form)
+                         batch.fixed_round, batch.levels, st.la, st.creator, st.index,
+                         batch.upd_row, batch.upd_col, batch.upd_val, 2 * n // 3 + 1,
+                         packed=packed, form=form)
         return seen[-1]
 
     try:
