@@ -40,10 +40,10 @@
 // The last round also loads the closure's INV value for every leaf, so
 // the closure reads shared memory.
 //
-// walk_chunk_cluster, from 33 validators while a cluster holds the step's
-// frontier table: a launch of thread-block clusters of k blocks (k <= 8,
-// a portable cluster), every block resident (a software barrier across
-// the grid), two barriers across the grid a step:
+// walk_chunk_cluster, from 33 validators below WC_L2_FROM, while a cluster
+// holds the step's frontier table: a launch of thread-block clusters of k
+// blocks (k <= 8, a portable cluster), every block resident (a software
+// barrier across the grid), two barriers across the grid a searched step:
 //   search:  the table fdT[p, w] (N coordinates x the witness columns
 //            padded to k * cw) lies in the cluster's shared memory, split
 //            by witness columns: block r of a cluster holds columns
@@ -70,11 +70,48 @@
 // Per step the table crosses L2 once per block (not once per probe), and
 // a probe's event row is a shared-memory read.
 //
-// walk_chunk_grid, past a cluster's reach (about 640 validators at the
-// chain lengths of the cells): a block per chain (as many as the card
-// holds at once; a block takes chains c, c + grid, ...), its search
-// probing one la row at a time against the table in device memory
-// (through L2), with the same two barriers a step.
+// walk_chunk_tiles, from tpu/_ext.py WC_L2_FROM validators or past a
+// cluster's reach: one cooperative launch that counts every chain's
+// probes of a search round together, tile by tile:
+//   table:   the step's frontier rows with the countable ones compacted:
+//            the advance gives each countable row a slot (the atomic that
+//            counts them) and writes its fd row there, rows of ld4 words
+//            in device memory; the count is a sum over witnesses, so the
+//            order of the slots changes nothing;
+//   round:   rows (chain, node) of the probes' la rows (2^d - 1 nodes a
+//            chain, the tree of walk_chunk_depth's depth for this form)
+//            against the slots, in tiles of WC_TILE x WC_TILE pairs that
+//            the blocks take in turn (common.cuh babble_count_ge_tile: a
+//            4 x 4 register tile a thread, the coordinates through a
+//            cp.async ring); each tile's strongly-seen witnesses per row,
+//            summed by half-warp shuffles, are added into the round's sums
+//            (three buffers in rotation) once a tile; then one grid
+//            barrier, after which every block takes, for the chains of its
+//            tiles, the same decisions from the sums and picks the next
+//            round's probes (the block of a chain tile's first witness tile
+//            keeps lo and hi for the next round, two buffers in rotation).
+//            A settled chain (lo >= hi, hi <= l - 1: every later mid is at
+//            or above hi, so hi and m0 cannot change) probes nothing, and a
+//            tile whose chains have all settled is not counted: its sums
+//            stay 0, which moves only lo;
+//   m0:      after the last round every block decides its share of the
+//            chains and writes m0; one more barrier, then the advance.
+// A table byte crosses L2 once per chain tile a round, not once per chain
+// and probe; the shared memory is the count tile's at every width.
+//
+// Every form skips the search of a step whose frontier holds fewer than
+// super_majority countable rows. The predicate counts strongly-seen
+// countable rows, so it is false for every probe of such a step: every
+// search ends at hi = l and m0 = l, which is what the skip writes. The
+// advance still runs: its closure terms are the sentinel, and the seed row
+// and the clamp apply as they do in the reference (a seeded step may move
+// X, and under seeds a later step may count more rows, through first_nw).
+// The tree form counts the rows with a ballot; the grid forms count them
+// in the advance, an atomic into one of three counters in rotation, read
+// after the step's first grid barrier, so every block skips alike, and a
+// skipped step has no second barrier (nothing is searched before its
+// advance). The cluster form issues no bulk copy in a skipped step and
+// waits on the parity of its copies, not of its steps.
 //
 // The frontier, m0, the chain lengths and the device table live in a
 // device scratch the wrapper allocates, read and written through L2
@@ -114,53 +151,83 @@ namespace cg = cooperative_groups;
 #define WC_FORM_CLUSTER 1
 #define WC_FORM_L2 2
 
-// Coordinate slices per quad of witnesses in walk_chunk_grid: the
-// block's threads over the quads, each slice at least 8 coordinates long
-// (tpu/_ext.py _wc_slices sizes its shared memory by it).
-__device__ __forceinline__ int wc_slices(int n, int threads) {
-    const int nq = (n + 3) / 4;
-    int s = threads >= nq ? threads / nq : 1;
-    const int cap = n / 8 > 1 ? n / 8 : 1;
-    return s < cap ? s : cap;
-}
+// walk_chunk_tiles: WC_TILE probe rows x WC_TILE table slots a tile, a
+// WC_TILE_TM x WC_TILE_TN register tile a thread (WC_TILE_THREADS
+// threads), the coordinate ring WC_TILE_STAGES deep (tpu/_ext.py
+// WC_TILE_SMEM is its shared memory)
+#define WC_TILE 64
+#define WC_TILE_TM 4
+#define WC_TILE_TN 4
+#define WC_TILE_THREADS ((WC_TILE / WC_TILE_TM) * (WC_TILE / WC_TILE_TN))
+#define WC_TILE_STAGES 3
+// the grid forms' step counters: the grid barrier's count, then three
+// counters of countable frontier rows in rotation (step k's in k % 3), at
+// the end of the scratch, zeroed before the launch
+#define WC_COUNTERS 4
 
 // The device table's word of coordinate p, witness w, in slices of cw
-// columns (walk_chunk_grid: one slice of ld4 columns, row-major (n, ld4)).
+// columns (walk_chunk_cluster).
 __device__ __forceinline__ long long wc_tab_at(int p, int w, int n, int cw) {
     const int r = w / cw;
     return ((long long)r * n + p) * cw + (w - r * cw);
 }
 
-// Column w of the device table and wok[w] for frontier row w at index x,
-// round r_cur; one whole warp. The table's generic writes are fenced
-// against the next step's bulk copies (the async proxy).
+// Whether frontier row w at index x is countable in round r_cur.
+__device__ __forceinline__ bool wc_countable(int w, int x, int r_cur,
+                                             const int32_t* __restrict__ first_nw, int l,
+                                             int use_seeds) {
+    return x < l && !(use_seeds && x == 0 && r_cur == first_nw[w]);
+}
+
+// Frontier row w at index x, round r_cur, into the next step's table; one
+// whole warp. TILED (walk_chunk_tiles): a countable row takes the slot its
+// count gives it (okc, the step's counter) and its fd row is written there,
+// slots cw (ld4) words apart; else (walk_chunk_cluster) column w of the table in
+// slices of cw and wok[w], the countable rows counted into okc, the
+// table's generic writes fenced against the next step's bulk copies (the
+// async proxy).
+template <bool TILED>
 __device__ __forceinline__ void wc_frontier_row(
     int w, int x, int r_cur, const int32_t* __restrict__ rows_by,
     const int32_t* __restrict__ fd, const int32_t* __restrict__ first_nw, int32_t* tab,
-    int32_t* wok, int n, int cw, int l, int e_fd, int use_seeds) {
+    int32_t* wok, unsigned int* okc, int n, int cw, int l, int e_fd, int use_seeds) {
     const int lane = threadIdx.x & 31;
-    bool ok = x < l;
-    if (use_seeds) ok = ok && !(x == 0 && r_cur == first_nw[w]);
+    const bool ok = wc_countable(w, x, r_cur, first_nw, l, use_seeds);
     const int row = ok ? babble_clamp(
         rows_by[(long long)w * l + babble_clamp(x, 0, l - 1)], 0, e_fd - 1) : 0;
+    const int32_t* src = fd + (long long)row * n;
+    if (TILED) {
+        if (!ok) return;  // warp-uniform
+        int slot = 0;
+        if (lane == 0) slot = (int)atomicAdd(okc, 1u);
+        slot = __shfl_sync(BABBLE_FULL_MASK, slot, 0);
+        int32_t* dst = tab + (long long)slot * cw;
+#pragma unroll 8
+        for (int p = lane; p < n; p += 32) __stcg(dst + p, src[p]);
+        return;
+    }
 #pragma unroll 8
     for (int p = lane; p < n; p += 32) {
-        __stcg(tab + wc_tab_at(p, w, n, cw), ok ? fd[(long long)row * n + p] : BABBLE_MAX_INT32);
+        __stcg(tab + wc_tab_at(p, w, n, cw), ok ? src[p] : BABBLE_MAX_INT32);
     }
-    if (lane == 0) __stcg(wok + w, (int32_t)ok);
+    if (lane == 0) {
+        __stcg(wok + w, (int32_t)ok);
+        if (ok) atomicAdd(okc, 1u);
+    }
     asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 
-// The prologue of both grid forms: the table's padding columns (n ..
-// n_cols - 1) MAX and their flags 0, each chain's length, X(0) and the
-// first step's frontier row.
+// The prologue of both grid forms: (cluster) the table's padding columns
+// (n .. n_cols - 1) MAX and their flags 0; each chain's length, X(0) and
+// the first step's frontier row.
+template <bool TILED>
 __device__ __forceinline__ void wc_prologue(
     const int32_t* __restrict__ rows_by, const int32_t* __restrict__ fd,
     const int32_t* __restrict__ x0, const int32_t* __restrict__ r_abs,
-    const int32_t* __restrict__ first_nw, int32_t* g_tab, int32_t* g_wok, int32_t* xc,
-    int32_t* clen, int n, int cw, int n_cols, int l, int e_fd, int use_seeds) {
+    const int32_t* __restrict__ first_nw, int32_t* g_tab, int32_t* g_wok, unsigned int* okc,
+    int32_t* xc, int32_t* clen, int n, int cw, int n_cols, int l, int e_fd, int use_seeds) {
     const int lane = threadIdx.x & 31;
-    const int pad = n_cols - n;
+    const int pad = TILED ? 0 : n_cols - n;
     for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < (long long)n * pad;
          k += (long long)gridDim.x * blockDim.x) {
         const int p = (int)(k / pad), w = n + (int)(k % pad);
@@ -178,34 +245,39 @@ __device__ __forceinline__ void wc_prologue(
             __stcg(clen + c, cnt);
             __stcg(xc + c, x);
         }
-        wc_frontier_row(c, x, r_abs[0], rows_by, fd, first_nw, g_tab, g_wok, n, cw, l, e_fd,
-                        use_seeds);
+        wc_frontier_row<TILED>(c, x, r_abs[0], rows_by, fd, first_nw, g_tab, g_wok, okc, n, cw,
+                               l, e_fd, use_seeds);
     }
 }
 
 // The advance of both grid forms: one warp per chain over the whole grid
-// takes the cross-chain closure, the seed row and the clamp, writes
-// X(r+1), then the next step's frontier row; chain c's warp alone reads and
+// takes the cross-chain closure (none where the step skipped its search:
+// every m0 is l), the seed row and the clamp, writes X(r+1), then the next
+// step's frontier row, counted into okc; chain c's warp alone reads and
 // writes xc[c].
+template <bool TILED>
 __device__ __forceinline__ void wc_advance(
-    int k, const int32_t* __restrict__ inv, const int32_t* __restrict__ rows_by,
+    int k, bool skip, const int32_t* __restrict__ inv, const int32_t* __restrict__ rows_by,
     const int32_t* __restrict__ fd, const int32_t* __restrict__ seeds,
     const int32_t* __restrict__ r_abs, const int32_t* __restrict__ first_nw, int32_t* x_last,
-    int32_t* xs, int32_t* g_tab, int32_t* g_wok, int32_t* xc, const int32_t* m0, int n,
-    int cw, int l, int e_fd, int length, int use_seeds) {
+    int32_t* xs, int32_t* g_tab, int32_t* g_wok, unsigned int* okc, int32_t* xc,
+    const int32_t* m0, int n, int cw, int l, int e_fd, int length, int use_seeds) {
     const int lane = threadIdx.x & 31;
     const int n_warps = blockDim.x >> 5;
     const int all_warps = gridDim.x * n_warps;
     for (int c = blockIdx.x * n_warps + (threadIdx.x >> 5); c < n; c += all_warps) {
-        int r = l;
-        const int32_t* inv_c = inv + (long long)c * n * l;
+        int xn = l;
+        if (!skip) {
+            int r = l;
+            const int32_t* inv_c = inv + (long long)c * n * l;
 #pragma unroll 8
-        for (int x = lane; x < n; x += 32) {
-            const int mx = __ldcg(m0 + x);
-            if (mx < l) r = min(r, inv_c[(long long)x * l + babble_clamp(mx, 0, l - 1)]);
+            for (int x = lane; x < n; x += 32) {
+                const int mx = __ldcg(m0 + x);
+                if (mx < l) r = min(r, inv_c[(long long)x * l + babble_clamp(mx, 0, l - 1)]);
+            }
+            r = __reduce_min_sync(BABBLE_FULL_MASK, r);
+            xn = min(__ldcg(m0 + c), r);
         }
-        r = __reduce_min_sync(BABBLE_FULL_MASK, r);
-        int xn = min(__ldcg(m0 + c), r);
         if (use_seeds) xn = min(xn, seeds[(long long)k * n + c]);
         xn = min(max(xn, __ldcg(xc + c)), l);
         __syncwarp();
@@ -215,34 +287,40 @@ __device__ __forceinline__ void wc_advance(
             if (k == length - 1) x_last[c] = xn;
         }
         if (k + 1 < length) {
-            wc_frontier_row(c, xn, r_abs[k + 1], rows_by, fd, first_nw, g_tab, g_wok, n, cw, l,
-                            e_fd, use_seeds);
+            wc_frontier_row<TILED>(c, xn, r_abs[k + 1], rows_by, fd, first_nw, g_tab, g_wok, okc,
+                                   n, cw, l, e_fd, use_seeds);
         }
     }
 }
 
-// The block's counts of la_mid[p] >= fdT[p, 4q .. 4q+3] over its
-// slices (walk_chunk_grid): thread j takes quad q = j % nq and coordinates
-// p = j / nq, + n_slices, ...; part[s * ld4 + w] is slice s's count for
-// witness w.
-__device__ __forceinline__ void wc_count(const int32_t* tab, const int32_t* la_mid,
-                                         int32_t* part, int n, int nq, int n_slices) {
-    const int4* tab4 = reinterpret_cast<const int4*>(tab);
-    int4* part4 = reinterpret_cast<int4*>(part);
-    for (int j = threadIdx.x; j < nq * n_slices; j += blockDim.x) {
-        const int q = j % nq;
-        int c0 = 0, c1 = 0, c2 = 0, c3 = 0;
-#pragma unroll 4
-        for (int p = j / nq; p < n; p += n_slices) {
-            const int4 v = __ldcg(tab4 + (long long)p * nq + q);
-            const int lm = la_mid[p];
-            c0 += lm >= v.x;
-            c1 += lm >= v.y;
-            c2 += lm >= v.z;
-            c3 += lm >= v.w;
+// One round's d decisions of a chain's search from (lo, hi), node j's
+// verdict sum at sums[j - 1] (heap order): the reference's iteration, the
+// predicate false on an empty chain.
+__device__ __forceinline__ void wc_decide(int& lo, int& hi, const int32_t* sums, int d, int len,
+                                          int super_majority, int l) {
+    int j = 1;
+    for (int st = 0; st < d; ++st) {
+        const int mid = min((lo + hi) / 2, l - 1);
+        if (len > 0 && __ldcg(sums + j - 1) >= super_majority) {
+            hi = min(mid, hi);
+            j = 2 * j;
+        } else {
+            lo = mid + 1;
+            j = 2 * j + 1;
         }
-        part4[j] = make_int4(c0, c1, c2, c3);  // j = slice * nq + q
     }
+}
+
+// The probe of node j (heap order, j >= 1) of a search tree from (lo, hi):
+// the index the iteration probes once it has taken node j's path.
+__device__ __forceinline__ int wc_node_probe(int j, int lo, int hi, int len, int l) {
+    int a = lo, b = hi;
+    for (int bit = 30 - __clz(j); bit >= 0; --bit) {
+        const int mid = min((a + b) / 2, l - 1);
+        if ((j >> bit) & 1) a = mid + 1;
+        else b = min(mid, b);
+    }
+    return min(min((a + b) / 2, l - 1), max(len - 1, 0));
 }
 
 // The chain-order tables of the one-block walk: la_by[c, i, :] =
@@ -289,7 +367,9 @@ __global__ void wc_tables(const int32_t* __restrict__ rows_by, const int32_t* __
 // decisions are taken the chain hands every chain its closure term
 // through shared memory. The step's round number, seed row and first_nw
 // are read ahead of the walk. Per step: the search's rounds of dependent
-// loads (the first beside the frontier rows') and two block barriers.
+// loads (the first beside the frontier rows') and two block barriers; a
+// step with fewer than super_majority countable rows (a ballot) stages and
+// searches nothing.
 template <int NP>
 __global__ void __launch_bounds__(NP * 32) walk_chunk_tree(
     const int32_t* __restrict__ inv, const int32_t* __restrict__ chain_len,
@@ -324,7 +404,6 @@ __global__ void __launch_bounds__(NP * 32) walk_chunk_tree(
     const int4* fd4 = reinterpret_cast<const int4*>(fd_by);
 
     const int len = chain_len[c];
-    const int last = max(len - 1, 0);
     int r_next = length > 0 ? r_abs[0] : 0;
     if (lane == 0) {
         s_x[0][c] = x0[c];
@@ -337,12 +416,17 @@ __global__ void __launch_bounds__(NP * 32) walk_chunk_tree(
         const int r_cur = r_next;
         if (k + 1 < length) r_next = r_abs[k + 1];
         const int seed = use_seeds ? seeds[(long long)k * n + c] : l;
+        // the step's countable frontier rows, counted alike in every warp:
+        // below super_majority the search is skipped (m0 = l, no leaf)
+        const bool skip = __popc(__ballot_sync(
+            BABBLE_FULL_MASK, lane < n && wc_countable(lane, xc[min(lane, n - 1)], r_cur, s_fnw, l,
+                                                       use_seeds))) < super_majority;
         // the frontier rows: row w in registers (up to 8 validators each
         // lane loads its own; past that the block stages each row once,
         // read after round 0's barrier)
         bool ok = false;
         int4 f[NV];
-        if (STAGE_FD) {
+        if (!skip && STAGE_FD) {
             for (int it = tid; it < n * NV; it += blockDim.x) {
                 const int w2 = it / NV, v = it - w2 * NV;
                 const int x = xc[w2];
@@ -351,7 +435,7 @@ __global__ void __launch_bounds__(NP * 32) walk_chunk_tree(
                     ok2 ? fd4[((long long)w2 * l + babble_clamp(x, 0, l - 1)) * NV + v] : none;
                 if (v == 0) s_ok[w2] = ok2;
             }
-        } else {
+        } else if (!skip) {
             const int x = w < n ? xc[w] : l;
             ok = w < n && x < l && !(use_seeds && x == 0 && r_cur == s_fnw[w]);
             const int4* src = fd4 + ((long long)w * l + babble_clamp(x, 0, l - 1)) * NV;
@@ -361,21 +445,13 @@ __global__ void __launch_bounds__(NP * 32) walk_chunk_tree(
         // chain c's search, `depth` iterations a round
         int lo = babble_clamp(xc[c], 0, l), hi = l;
         int leaf = -1;  // the last round's leaf, once taken
-        for (int done = 0; done < steps;) {  // block-uniform
+        for (int done = skip ? steps : 0; done < steps;) {  // block-uniform
             const int d = min(depth, steps - done);
             const int nodes_r = (1 << d) - 1;
             const bool final_round = done + d == steps;
             for (int it = lane; it < nodes_r * nv; it += 32) {
                 const int node = it / nv, v = it - node * nv;
-                const int j = node + 1;
-                int a = lo, b = hi;
-                for (int bit = 30 - __clz(j); bit >= 0; --bit) {  // node j's interval
-                    const int mid = min((a + b) / 2, l - 1);
-                    if ((j >> bit) & 1) a = mid + 1;
-                    else b = min(mid, b);
-                }
-                const int probe = min(min((a + b) / 2, l - 1), last);
-                s_la[it] = la4[(long long)probe * nv + v];
+                s_la[it] = la4[(long long)wc_node_probe(node + 1, lo, hi, len, l) * nv + v];
             }
             if (final_round) {  // every leaf's m0 and its closure terms
                 for (int it = lane; it < (nodes_r + 1) * n; it += 32) {
@@ -477,13 +553,15 @@ __global__ void __launch_bounds__(WC_GRID_THREADS_WIDE) walk_chunk_cluster(
     const int lane = threadIdx.x & 31;
 
     // device scratch: the table (k slices of (n, cw)), the countable flags
-    // (k * cw), the frontier, m0, the chain lengths, the barrier's count
+    // (k * cw), the frontier, m0, the chain lengths, the barrier's count and
+    // the step counters
     int32_t* g_tab = scratch;
     int32_t* g_wok = g_tab + (long long)n * cw * k_cl;
     int32_t* xc = g_wok + cw * k_cl;
     int32_t* m0 = xc + n;
     int32_t* clen = m0 + n;
     unsigned int* bar = reinterpret_cast<unsigned int*>(clen + n);
+    unsigned int* okc = bar + 1;
     unsigned int bar_target = 0;
     // shared memory (tpu/_ext.py _wc_cluster_smem sizes it)
     extern __shared__ int4 wcc_smem4[];
@@ -504,8 +582,8 @@ __global__ void __launch_bounds__(WC_GRID_THREADS_WIDE) walk_chunk_cluster(
     }
     for (int i = threadIdx.x; i < 2 * slots; i += blockDim.x) part[i] = 0;
     for (int i = threadIdx.x; i < slots * cw; i += blockDim.x) cnt[i] = 0;
-    wc_prologue(rows_by, fd, x0, r_abs, first_nw, g_tab, g_wok, xc, clen, n, cw, cw * k_cl, l,
-                e_fd, use_seeds);
+    wc_prologue<false>(rows_by, fd, x0, r_abs, first_nw, g_tab, g_wok, okc, xc, clen, n, cw,
+                       cw * k_cl, l, e_fd, use_seeds);
     // every block of the cluster runs (and its mbarrier is initialised)
     // before any block reads another's shared memory
     cluster.sync();
@@ -520,9 +598,20 @@ __global__ void __launch_bounds__(WC_GRID_THREADS_WIDE) walk_chunk_cluster(
     const bool la16 = babble_rows_aligned16(la, n);
     const int nla = la16 ? n / 4 : n;  // copies a probed row
     int rnd = 0;  // block-uniform: the verdict sums' buffer is rnd & 1
+    int copies = 0;  // block-uniform: the table copies waited for
 
     for (int k = 0; k < length; ++k) {
         babble_grid_sync(bar, bar_target);
+        // the step's countable rows; the counter of step k + 2 starts at 0
+        // (step k - 1's, which every block read before this barrier)
+        const bool skip = (int)__ldcg(okc + k % 3) < super_majority;
+        if (blockIdx.x == 0 && threadIdx.x == 0) __stcg(okc + (k + 2) % 3, 0u);
+        if (skip) {
+            wc_advance<false>(k, true, inv, rows_by, fd, seeds, r_abs, first_nw, x_last, xs,
+                              g_tab, g_wok, okc + (k + 1) % 3, xc, m0, n, cw, l, e_fd, length,
+                              use_seeds);
+            continue;
+        }
         // this step's table slice (one bulk copy) and countable flags
         if (threadIdx.x == 0) {
             asm volatile("fence.proxy.async;\n" ::: "memory");
@@ -546,7 +635,7 @@ __global__ void __launch_bounds__(WC_GRID_THREADS_WIDE) walk_chunk_cluster(
             }
             __syncthreads();
             if (!waited) {
-                babble_mbar_wait(tbar, k & 1);
+                babble_mbar_wait(tbar, copies & 1);
                 waited = true;
             }
             for (int done = 0; done < steps; ++rnd) {  // block-uniform
@@ -565,14 +654,7 @@ __global__ void __launch_bounds__(WC_GRID_THREADS_WIDE) walk_chunk_cluster(
                         for (int j = 0; j < (la16 ? 4 : 1); ++j) dst[j] = BABBLE_MIN_INT32;
                         continue;
                     }
-                    const int j = node + 1;
-                    int a = s_lo[i], b = s_hi[i];
-                    for (int bit = 30 - __clz(j); bit >= 0; --bit) {  // node j's interval
-                        const int mid = min((a + b) / 2, l - 1);
-                        if ((j >> bit) & 1) a = mid + 1;
-                        else b = min(mid, b);
-                    }
-                    const int probe = min(min((a + b) / 2, l - 1), max(s_len[i] - 1, 0));
+                    const int probe = wc_node_probe(node + 1, s_lo[i], s_hi[i], s_len[i], l);
                     const int32_t* src =
                         la + (long long)babble_clamp(rows_s[i * l + probe], 0, e_la - 1) * n + p;
                     if (la16) babble_cp_async16(dst, src);
@@ -668,93 +750,167 @@ __global__ void __launch_bounds__(WC_GRID_THREADS_WIDE) walk_chunk_cluster(
             }
             __syncthreads();  // the group's arrays are rewritten by the next
         }
-        if (!waited) babble_mbar_wait(tbar, k & 1);
+        if (!waited) babble_mbar_wait(tbar, copies & 1);
+        ++copies;
         babble_grid_sync(bar, bar_target);
-        wc_advance(k, inv, rows_by, fd, seeds, r_abs, first_nw, x_last, xs, g_tab, g_wok, xc, m0,
-                   n, cw, l, e_fd, length, use_seeds);
+        wc_advance<false>(k, false, inv, rows_by, fd, seeds, r_abs, first_nw, x_last, xs, g_tab,
+                          g_wok, okc + (k + 1) % 3, xc, m0, n, cw, l, e_fd, length, use_seeds);
     }
     // no block leaves while another of its cluster may read its shared memory
     cluster.sync();
 }
 
-// walk_chunk_grid (the header above): a block per chain, the table in
-// device memory, (n, ld4) row-major.
-__global__ void walk_chunk_grid(const int32_t* __restrict__ inv,
-                                const int32_t* __restrict__ rows_by,
-                                const int32_t* __restrict__ fd,
-                                const int32_t* __restrict__ la,
-                                const int32_t* __restrict__ x0,
-                                const int32_t* __restrict__ seeds,
-                                const int32_t* __restrict__ r_abs,
-                                const int32_t* __restrict__ first_nw,
-                                int32_t* x_last, int32_t* xs, int32_t* scratch,
-                                int n, int l, int e_fd, int e_la,
-                                int super_majority, int length, int steps,
-                                int use_seeds) {
-    extern __shared__ int4 smem4[];
-    __shared__ int s_seen[3];  // the block's verdict sums, three probes in rotation
+// walk_chunk_tiles (the header above): the rounds of a step's search
+// counted for all chains at once, tiles of WC_TILE probe rows x WC_TILE
+// table slots over a persistent cooperative grid.
+__global__ void __launch_bounds__(WC_TILE_THREADS) walk_chunk_tiles(
+    const int32_t* __restrict__ inv, const int32_t* __restrict__ rows_by,
+    const int32_t* __restrict__ fd, const int32_t* __restrict__ la,
+    const int32_t* __restrict__ x0, const int32_t* __restrict__ seeds,
+    const int32_t* __restrict__ r_abs, const int32_t* __restrict__ first_nw, int32_t* x_last,
+    int32_t* xs, int32_t* scratch, int n, int l, int e_fd, int e_la, int super_majority,
+    int length, int steps, int use_seeds, int depth) {
+    constexpr int TX = WC_TILE / WC_TILE_TN, TY = WC_TILE / WC_TILE_TM;
+    extern __shared__ int4 wct_smem4[];
+    int32_t* ring = reinterpret_cast<int32_t*>(wct_smem4);
+    __shared__ const int32_t* a_rows[WC_TILE];  // the tile's probe rows (la rows)
+    __shared__ const int32_t* b_rows[WC_TILE];  // the tile's table slots
     const int ld4 = (n + 3) & ~3;
-    const int nq = ld4 >> 2;
-    const int lane = threadIdx.x & 31;
-    const int n_slices = wc_slices(n, blockDim.x);
+    const int nodes_max = (1 << depth) - 1;
+    const long long sums = (long long)n * nodes_max;
+    const int tid = threadIdx.x;
+    const long long gtid = (long long)blockIdx.x * blockDim.x + tid;
+    const long long gthreads = (long long)gridDim.x * blockDim.x;
 
-    // device scratch: the table (n, ld4), the countable flags (ld4), the
-    // frontier, m0, the chain lengths, the barrier's count
-    int32_t* g_tab = scratch;
-    int32_t* g_wok = g_tab + (long long)n * ld4;
-    int32_t* xc = g_wok + ld4;
+    // device scratch: the table (n slots of ld4 words), lo and hi of every
+    // chain (two rounds in rotation), the rounds' verdict sums (three in
+    // rotation, (chain, node) a row), the frontier, m0, the chain lengths,
+    // the barrier's count and the step counters
+    int32_t* tab = scratch;
+    int32_t* s_lo = tab + (long long)n * ld4;  // [2][n]
+    int32_t* s_hi = s_lo + 2LL * n;            // [2][n]
+    int32_t* seen = s_hi + 2LL * n;            // [3][n * nodes_max]
+    int32_t* xc = seen + 3 * sums;
     int32_t* m0 = xc + n;
     int32_t* clen = m0 + n;
     unsigned int* bar = reinterpret_cast<unsigned int*>(clen + n);
+    unsigned int* okc = bar + 1;
     unsigned int bar_target = 0;
-    // shared memory: the probe row (ld4) and the slice counts (n_slices, ld4)
-    int32_t* la_mid = reinterpret_cast<int32_t*>(smem4);
-    int32_t* part = la_mid + ld4;
 
-    if (threadIdx.x < 3) s_seen[threadIdx.x] = 0;
-    wc_prologue(rows_by, fd, x0, r_abs, first_nw, g_tab, g_wok, xc, clen, n, ld4, ld4, l, e_fd,
-                use_seeds);
+    for (long long i = gtid; i < 3 * sums; i += gthreads) __stcg(seen + i, 0);
+    wc_prologue<true>(rows_by, fd, x0, r_abs, first_nw, tab, nullptr, okc, xc, clen, n, ld4,
+                      ld4, l, e_fd, use_seeds);
+    // 16-byte copies where every la row and table slot starts on 16 bytes
+    const bool aligned16 = babble_rows_aligned16(la, n) && babble_rows_aligned16(tab, ld4);
+    int rnd = 0;  // grid-uniform: round rnd adds into seen buffer rnd % 3
 
-    int probe_no = 0;  // block-uniform
     for (int k = 0; k < length; ++k) {
         babble_grid_sync(bar, bar_target);
-        // search: m0[c], one block per chain
-        for (int c = blockIdx.x; c < n; c += gridDim.x) {
-            const int len = __ldcg(clen + c);
-            const int last = max(len - 1, 0);
-            int lo = babble_clamp(__ldcg(xc + c), 0, l), hi = l;
-            for (int st = 0; st < steps; ++st, ++probe_no) {
-                const int mid = min((lo + hi) / 2, l - 1);
-                const int probe = min(mid, last);
-                const int ev = babble_clamp(rows_by[(long long)c * l + probe], 0, e_la - 1);
-                for (int p = threadIdx.x; p < n; p += blockDim.x) {
-                    la_mid[p] = la[(long long)ev * n + p];
+        // the step's countable rows (its table's slots); the counter of
+        // step k + 2 starts at 0 (step k - 1's, read before this barrier)
+        const int n_ok = (int)__ldcg(okc + k % 3);
+        if (blockIdx.x == 0 && tid == 0) __stcg(okc + (k + 2) % 3, 0u);
+        const bool skip = n_ok < super_majority || steps < 1;  // m0 = l either way
+        if (!skip) {
+            // at least one witness tile, so that every chain tile is taken
+            const int n_wt = max((n_ok + WC_TILE - 1) / WC_TILE, 1);
+            int t = 0, d = 0, nodes = 0;
+            for (int done = 0; done < steps; done += d, ++t, ++rnd) {
+                const int d_prev = d;
+                d = min(depth, steps - done);
+                nodes = (1 << d) - 1;
+                const int rows = n * nodes;
+                const int n_mt = (rows + WC_TILE - 1) / WC_TILE;
+                int32_t* seen_t = seen + (rnd % 3) * sums;
+                const int32_t* seen_p = seen + ((rnd + 2) % 3) * sums;
+                int32_t* lo_t = s_lo + (t & 1) * n;
+                int32_t* hi_t = s_hi + (t & 1) * n;
+                const int32_t* lo_p = s_lo + ((t + 1) & 1) * n;
+                const int32_t* hi_p = s_hi + ((t + 1) & 1) * n;
+                // the next round's sums start at 0 (round rnd - 2's, read
+                // before this round's barrier)
+                int32_t* seen_n = seen + ((rnd + 1) % 3) * sums;
+                for (long long i = gtid; i < sums; i += gthreads) __stcg(seen_n + i, 0);
+                for (int item = blockIdx.x; item < n_mt * n_wt; item += gridDim.x) {
+                    const int mt = item / n_wt, wt = item - mt * n_wt;
+                    const int32_t* a = nullptr;
+                    if (tid < WC_TILE) {
+                        // probe row r = (chain c, node): the chain's
+                        // interval after the previous round's decisions
+                        // (the same in every block), then the node's
+                        // probe; none for an empty or settled chain
+                        const int r = mt * WC_TILE + tid;
+                        if (r < rows) {
+                            const int c = r / nodes, node = r - c * nodes;
+                            const int len = __ldcg(clen + c);
+                            int lo, hi;
+                            if (t == 0) {
+                                lo = babble_clamp(__ldcg(xc + c), 0, l);
+                                hi = l;
+                            } else {
+                                lo = __ldcg(lo_p + c);
+                                hi = __ldcg(hi_p + c);
+                                wc_decide(lo, hi, seen_p + (long long)c * nodes_max, d_prev, len,
+                                          super_majority, l);
+                            }
+                            if (wt == 0 && node == 0) {
+                                __stcg(lo_t + c, lo);
+                                __stcg(hi_t + c, hi);
+                            }
+                            if (len > 0 && !(lo >= hi && hi <= l - 1)) {
+                                const int probe = wc_node_probe(node + 1, lo, hi, len, l);
+                                a = la + (long long)babble_clamp(
+                                    rows_by[(long long)c * l + probe], 0, e_la - 1) * n;
+                            }
+                        }
+                        a_rows[tid] = a;
+                        const int w = wt * WC_TILE + tid;
+                        b_rows[tid] = w < n_ok ? tab + (long long)w * ld4 : nullptr;
+                    }
+                    // a tile whose chains have all settled counts nothing
+                    if (!__syncthreads_or(a != nullptr)) continue;  // block-uniform
+                    int cnt[WC_TILE_TM][WC_TILE_TN];
+                    babble_count_ge_tile<WC_TILE, WC_TILE, WC_TILE_TM, WC_TILE_TN,
+                                         WC_TILE_STAGES>(ring, n, a_rows, b_rows, aligned16,
+                                                         cnt);
+                    // each row's strongly-seen slots of the tile: a thread's
+                    // TN slots, then the TX threads of its row (a half warp)
+                    const int tx = tid % TX, ty = tid / TX;
+#pragma unroll
+                    for (int i = 0; i < WC_TILE_TM; ++i) {
+                        int v = 0;
+#pragma unroll
+                        for (int q = 0; q < WC_TILE_TN; ++q) {
+                            v += wt * WC_TILE + tx + q * TX < n_ok &&
+                                 cnt[i][q] >= super_majority;
+                        }
+#pragma unroll
+                        for (int off = TX / 2; off > 0; off >>= 1) {
+                            v += __shfl_xor_sync(BABBLE_FULL_MASK, v, off);
+                        }
+                        const int r = mt * WC_TILE + ty + i * TY;
+                        if (tx == 0 && v > 0 && r < rows) atomicAdd(seen_t + r, v);
+                    }
+                    __syncthreads();  // a_rows and b_rows are rewritten next
                 }
-                // every thread has read the sum this slot held three probes ago
-                if (threadIdx.x == 0) s_seen[(probe_no + 1) % 3] = 0;
-                __syncthreads();
-                wc_count(g_tab, la_mid, part, n, nq, n_slices);
-                __syncthreads();
-                int seen = 0;
-                for (int w = threadIdx.x; w < n; w += blockDim.x) {
-                    int cnt = 0;
-                    for (int t = 0; t < n_slices; ++t) cnt += part[t * ld4 + w];
-                    seen += __ldcg(g_wok + w) != 0 && cnt >= super_majority;
-                }
-                seen = __reduce_add_sync(BABBLE_FULL_MASK, seen);
-                if (lane == 0 && seen) atomicAdd(&s_seen[probe_no % 3], seen);
-                __syncthreads();
-                if (s_seen[probe_no % 3] >= super_majority && len > 0) hi = min(mid, hi);
-                else lo = mid + 1;
+                babble_grid_sync(bar, bar_target);
             }
-            if (threadIdx.x == 0) __stcg(m0 + c, hi < len ? hi : l);
+            // the last round's decisions: m0 of every chain
+            const int32_t* lo_p = s_lo + ((t + 1) & 1) * n;
+            const int32_t* hi_p = s_hi + ((t + 1) & 1) * n;
+            const int32_t* seen_p = seen + ((rnd + 2) % 3) * sums;
+            for (long long c = gtid; c < n; c += gthreads) {
+                const int len = __ldcg(clen + c);
+                int lo = __ldcg(lo_p + c), hi = __ldcg(hi_p + c);
+                wc_decide(lo, hi, seen_p + c * nodes, d, len, super_majority, l);
+                __stcg(m0 + c, hi < len ? hi : l);
+            }
+            babble_grid_sync(bar, bar_target);
         }
-        babble_grid_sync(bar, bar_target);
-        wc_advance(k, inv, rows_by, fd, seeds, r_abs, first_nw, x_last, xs, g_tab, g_wok, xc, m0,
-                   n, ld4, l, e_fd, length, use_seeds);
+        wc_advance<true>(k, skip, inv, rows_by, fd, seeds, r_abs, first_nw, x_last, xs, tab,
+                         nullptr, okc + (k + 1) % 3, xc, m0, n, ld4, l, e_fd, length, use_seeds);
     }
 }
-
 
 // walk_chunk_tree<NP>'s launch: the chain-order tables (rows of NP words)
 // and the chain lengths, then the walk.
@@ -782,9 +938,11 @@ static int wc_tree_launch(const int32_t* inv, const int32_t* rows_by, const int3
 
 // The launch in the form of tpu/_ext.py walk_chunk_plan, whose fields the
 // wrapper hands over as they are: `form` (WC_FORM_*), k blocks a cluster,
-// cw witness columns a block, `chains` chains a block searches at once,
-// `slots` probe rows a block stages, threads a block and dynamic shared
-// memory bytes a block.
+// cw witness columns a block (walk_chunk_tiles: the table's row of ld4
+// words), `chains` chains a block searches at once (walk_chunk_tiles: the
+// probe rows of a tile), `slots` probe rows a block stages
+// (walk_chunk_tiles: the table slots of a tile), threads a block and
+// dynamic shared memory bytes a block.
 extern "C" int babble_walk_chunk(
     const int32_t* inv, const int32_t* rows_by, const int32_t* fd,
     const int32_t* la, const int32_t* x0, const int32_t* seeds,
@@ -819,36 +977,55 @@ extern "C" int babble_walk_chunk(
                                   xs, scratch, n, l, e_fd, e_la, super_majority, length,
                                   steps, use_seeds, depth, smem, s);
     }
-    if ((form != WC_FORM_CLUSTER && form != WC_FORM_L2) || k < 1 || k > WC_CLUSTER_MAX ||
-        (k & (k - 1)) != 0 || cw < 4 || cw % 4 != 0 || chains < 1 || slots < 0 ||
-        threads < 32 || threads > WC_GRID_THREADS_WIDE || threads % 32 != 0) {
-        return (int)cudaErrorInvalidValue;
-    }
-    // scratch (the wrapper sizes it from the same plan): the device table
-    // and flags (k * cw columns), the frontier, m0, the chain lengths, then
-    // the grid barrier's count, 0 at launch
-    const long long cols = (long long)k * cw;
-    unsigned int* bar = reinterpret_cast<unsigned int*>(scratch + (long long)n * cols + cols +
-                                                        3LL * n);
-    BABBLE_CHECK(cudaMemsetAsync(bar, 0, sizeof(unsigned int), s));
+    const int ld4 = (n + 3) & ~3;
     if (form == WC_FORM_L2) {
-        // walk_chunk_grid: a block per chain, as many as can be resident
-        // at once (the grid barrier needs every block running)
-        BABBLE_CHECK(babble_allow_smem(walk_chunk_grid, smem));
+        if (k != 1 || cw != ld4 || chains != WC_TILE || slots != WC_TILE ||
+            threads != WC_TILE_THREADS ||
+            smem_bytes != babble_count_tile_words<WC_TILE, WC_TILE, WC_TILE_STAGES>() * 4) {
+            return (int)cudaErrorInvalidValue;
+        }
+        // scratch (the wrapper sizes it from the same plan): the table, lo
+        // and hi (2 x 2n), the verdict sums (3 x n * nodes), the frontier,
+        // m0, the chain lengths, then the barrier's count and the step
+        // counters, 0 at launch
+        const long long nodes = (1LL << depth) - 1;
+        unsigned int* bar = reinterpret_cast<unsigned int*>(
+            scratch + (long long)n * ld4 + 4LL * n + 3LL * n * nodes + 3LL * n);
+        BABBLE_CHECK(cudaMemsetAsync(bar, 0, WC_COUNTERS * sizeof(unsigned int), s));
+        // as many blocks as can be resident at once (the grid barrier needs
+        // every block running), at most the widest round's tiles or a warp
+        // a chain for the advance, whichever is more
+        BABBLE_CHECK(babble_allow_smem(walk_chunk_tiles, smem));
+        const long long tiles = ((n * nodes + WC_TILE - 1) / WC_TILE) *
+                                (((long long)n + WC_TILE - 1) / WC_TILE);
+        const long long warps = ((long long)n * 32 + threads - 1) / threads;
         int grid = 0;
-        BABBLE_CHECK(babble_coop_blocks(walk_chunk_grid, threads, smem, device, n, &grid));
+        BABBLE_CHECK(babble_coop_blocks(walk_chunk_tiles, threads, smem, device,
+                                        tiles > warps ? tiles : warps, &grid));
         void* args[] = {
             (void*)&inv, (void*)&rows_by, (void*)&fd, (void*)&la, (void*)&x0,
             (void*)&seeds, (void*)&r_abs, (void*)&first_nw, (void*)&x_last,
             (void*)&xs, (void*)&scratch, (void*)&n, (void*)&l, (void*)&e_fd,
             (void*)&e_la, (void*)&super_majority, (void*)&length, (void*)&steps,
-            (void*)&use_seeds,
+            (void*)&use_seeds, (void*)&depth,
         };
-        BABBLE_CHECK(cudaLaunchCooperativeKernel((const void*)walk_chunk_grid, dim3(grid),
+        BABBLE_CHECK(cudaLaunchCooperativeKernel((const void*)walk_chunk_tiles, dim3(grid),
                                                  dim3(threads), args, smem, s));
         BABBLE_CHECK_LAUNCH();
         return 0;
     }
+    if (form != WC_FORM_CLUSTER || k < 1 || k > WC_CLUSTER_MAX || (k & (k - 1)) != 0 || cw < 4 ||
+        cw % 4 != 0 || chains < 1 || slots < 0 || threads < 32 ||
+        threads > WC_GRID_THREADS_WIDE || threads % 32 != 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    // scratch (the wrapper sizes it from the same plan): the device table
+    // and flags (k * cw columns), the frontier, m0, the chain lengths, then
+    // the grid barrier's count and the step counters, 0 at launch
+    const long long cols = (long long)k * cw;
+    unsigned int* bar = reinterpret_cast<unsigned int*>(scratch + (long long)n * cols + cols +
+                                                        3LL * n);
+    BABBLE_CHECK(cudaMemsetAsync(bar, 0, WC_COUNTERS * sizeof(unsigned int), s));
     // walk_chunk_cluster: clusters of k blocks, at most one a group of
     // chains and at most as many as the card holds at once
     BABBLE_CHECK(cudaFuncSetAttribute(walk_chunk_cluster,

@@ -47,7 +47,12 @@ launch to its fixed point (`closure_la_plan` shapes it), and its walk
 (walk_chunk) takes, up to WC_BLOCK_MAX validators, one block that runs
 each chain's binary search as a speculative tree (`walk_chunk_depth`
 picks the depth by width), after a prep launch; above, a cooperative
-launch with a block per chain.
+launch of thread-block clusters that hold the step's frontier table in
+shared memory, and from WC_L2_FROM validators a cooperative launch that
+counts every chain's probes of a search round together against the
+table of countable rows, tile by tile (`walk_chunk_plan` chooses). Every
+form skips the search of a step with fewer than super_majority countable
+frontier rows.
 
 Every frontier walk on one card is one cooperative launch of the same
 kernel template (csrc/frontier_walk.cu walk_grid), which stops at the
@@ -371,10 +376,11 @@ def block_smem(name: str, n: int, packed: bool = False, **shape) -> Dict[str, in
         return {"pass": closure_la_plan(n, 64)["smem"]}
     if name == "walk_chunk":
         # walk_chunk.cu, by walk_chunk_plan (shape: l, the chain length,
-        # default 1, and depth): the tree form's probed rows and verdicts,
-        # the cluster form's table slice, rows_by rows and probe rows, the
-        # L2 form's probe row and slice counts
-        return {"walk": walk_chunk_plan(n, shape.get("l", 1), shape.get("depth"))["smem"]}
+        # default 1, depth and form): the tree form's probed rows and
+        # verdicts, the cluster form's table slice, rows_by rows and probe
+        # rows, the L2 form's count tile
+        return {"walk": walk_chunk_plan(n, shape.get("l", 1), shape.get("depth"),
+                                        shape.get("form"))["smem"]}
     if name in WALK_SMEM:
         if walk_form(name, n, **shape) == "grid":
             return {"grid": LEVEL_GRID_SMEM}
@@ -872,37 +878,55 @@ def closure_la_plan(n: int, l: int) -> Dict[str, int]:
 
 # walk_chunk.cu's three forms (walk_chunk_plan chooses): the one-block
 # walk (walk_chunk_tree, a warp per chain) up to WC_BLOCK_MAX validators;
-# from there, while a cluster holds the step's frontier table, the cluster
-# form (walk_chunk_cluster: clusters of up to WC_CLUSTER_MAX blocks that
-# split the table by witness columns; WC_GRID_THREADS threads a block,
-# WC_GRID_THREADS_WIDE in clusters of 4 or 8, whose blocks count more probe
-# rows a column: 10.2 -> 7.0 ms a chunk at 512 validators on the H100,
-# while at 96 the larger block lost 0.44 -> 0.47; chains per block sized for the
-# blocks the card holds at once in such clusters, _wc_resident_blocks;
-# WC_SLOT_CHUNK probe rows a thread counts at once); past it the L2 form
-# (walk_chunk_grid: a block per chain, the table in device memory) up to
-# WC_MAX_WIDTH validators. The speculative tree's depth: the depth
-# walk_chunk_depth takes up to each width, from time_walk_chunk.py --depths
-# on the H100 (the L2 form searches a probe at a time), and the largest
-# the kernels take (a round's verdicts fit a 64-bit mask)
+# from there, below WC_L2_FROM and while a cluster holds the step's
+# frontier table, the cluster form (walk_chunk_cluster: clusters of up to
+# WC_CLUSTER_MAX blocks that split the table by witness columns;
+# WC_GRID_THREADS threads a block, WC_GRID_THREADS_WIDE in clusters of 4 or
+# 8, whose blocks count more probe rows a column: 10.2 -> 7.0 ms a chunk at
+# 512 validators on the H100, while at 96 the larger block lost 0.44 ->
+# 0.47; chains per block sized for the blocks the card holds at once in
+# such clusters, _wc_resident_blocks; WC_SLOT_CHUNK probe rows a thread
+# counts at once); from WC_L2_FROM, or past a cluster's reach, the L2 form
+# (walk_chunk_tiles: every chain's probes of a search round counted
+# together against the step's table of countable rows, in WC_TILE x
+# WC_TILE tiles over a cooperative grid, WC_TILE_THREADS threads and the
+# count tile's WC_TILE_SMEM bytes a block at every width) up to
+# WC_MAX_WIDTH validators (the widest max_width scans). WC_L2_FROM: on the
+# H100 (time_walk_chunk.py --forms --depths, the best depth of each form)
+# the L2 form took 0.719 ms a chunk at 512 validators against the cluster
+# form's 1.093, 0.890 against 1.505 at 640; the cluster form 0.576 against
+# 0.756 at 256 and 0.803 against 0.948 at 448 (at 384 the L2 form won,
+# 0.480 against 0.589). The speculative
+# tree's depth: the depth walk_chunk_depth takes up to each width, from
+# time_walk_chunk.py --depths on the H100 (WC_TREE_DEPTHS for the tree and
+# cluster forms, WC_TILE_DEPTHS for the L2 form), and the largest the
+# kernels take (a round's verdicts fit a 64-bit mask)
 WC_BLOCK_MAX = 32
-WC_MAX_WIDTH = 29056
-WC_TREE_DEPTHS = ((8, 4), (16, 3), (32, 1), (48, 4), (64, 3), (128, 2), (256, 1),
-                  (WC_MAX_WIDTH, 2))
+WC_MAX_WIDTH = 65536
+WC_L2_FROM = 512
+WC_TREE_DEPTHS = ((8, 4), (16, 3), (32, 1), (48, 4), (64, 3), (128, 2), (448, 1), (512, 2),
+                  (WC_MAX_WIDTH, 1))
+WC_TILE_DEPTHS = ((512, 2), (WC_MAX_WIDTH, 1))
 WC_TREE_DEPTH_MAX = 6
 WC_GRID_THREADS = 256
 WC_GRID_THREADS_WIDE = 512
 WC_CLUSTER_MAX = 8
 WC_SLOT_CHUNK = 4
+WC_TILE = 64
+WC_TILE_THREADS = 256
+# common.cuh babble_count_tile_words<64, 64, 3>() int32 words
+WC_TILE_SMEM = 3 * (WC_TILE + WC_TILE) * 36 * 4
+# the grid forms' barrier count and three step counters at the scratch's end
+WC_COUNTERS = 4
 # walk_chunk_plan's forms, by their code in csrc/walk_chunk.cu (WC_FORM_*)
 WC_FORMS = ("tree", "cluster", "l2")
 
 
-def walk_chunk_depth(n: int) -> int:
-    """The speculative tree's depth at n validators: WC_TREE_DEPTHS' entry
-    for the least width at or above n (the L2 form's searches take one
-    probe a round whatever it says)."""
-    for width, depth in WC_TREE_DEPTHS:
+def walk_chunk_depth(n: int, form: Optional[str] = None) -> int:
+    """The speculative tree's depth at n validators: the entry for the least
+    width at or above n of WC_TILE_DEPTHS (form "l2") or WC_TREE_DEPTHS
+    (the tree and cluster forms)."""
+    for width, depth in (WC_TILE_DEPTHS if form == "l2" else WC_TREE_DEPTHS):
         if n <= width:
             return depth
     raise ValueError(f"walk_chunk: the walk takes at most {WC_MAX_WIDTH} validators")
@@ -920,15 +944,6 @@ def walk_chunk_tree_smem(n: int, depth: int) -> int:
     closure terms by leaf (2^d x n words, rounded up to 4)."""
     nodes = (1 << depth) - 1
     return n * (nodes * _walk_np(n) + ((nodes + 1) * n + 3) // 4 * 4) * 4
-
-
-def _wc_slices(n: int, threads: int) -> int:
-    """walk_chunk.cu wc_slices: the L2 form's coordinate slices per quad of
-    witnesses (its shared memory holds that many partial counts of the
-    probe row)."""
-    nq = (n + 3) // 4
-    s = threads // nq if threads >= nq else 1
-    return min(s, max(n // 8, 1))
 
 
 def _wc_resident_blocks(k: int) -> int:
@@ -953,24 +968,10 @@ def _wc_cluster_smem(n: int, l: int, cw: int, chains: int, slots: int) -> int:
                      + 3 * chains)
 
 
-def walk_chunk_plan(n: int, l: int = 1, depth: Optional[int] = None) -> Dict:
-    """K7's form at n validators and chain length l, which walk_chunk hands
-    the launcher as it is: "tree" up to WC_BLOCK_MAX; else the
-    least cluster of k blocks (1, 2, 4, 8) whose blocks hold the frontier
-    table's slice of cw witness columns (a multiple of 4), with `chains`
-    chains a block at once (n * k / _wc_resident_blocks(k), fewer where
-    shared memory runs short), `nodes` = 2^depth - 1 probes a chain a round,
-    `slots` probe rows (rounded up to WC_SLOT_CHUNK) and `threads` a block;
-    past a cluster's reach "l2". smem: one block's dynamic shared memory in
-    bytes (above MAX_SMEM_BYTES past WC_MAX_WIDTH)."""
-    if depth is None:
-        depth = walk_chunk_depth(min(n, WC_MAX_WIDTH))
-    if not 1 <= depth <= WC_TREE_DEPTH_MAX:
-        raise ValueError(f"walk_chunk: tree depth {depth} outside 1..{WC_TREE_DEPTH_MAX}")
+def _wc_cluster_plan(n: int, l: int, depth: int) -> Optional[Dict]:
+    """The cluster form's plan (walk_chunk_plan), None where no cluster of
+    up to WC_CLUSTER_MAX blocks holds the table."""
     nodes = (1 << depth) - 1
-    if n <= WC_BLOCK_MAX:
-        return dict(form="tree", k=1, cw=0, chains=n, nodes=nodes, slots=0, threads=32 * n,
-                    smem=walk_chunk_tree_smem(n, depth), depth=depth)
     ld4 = (n + 3) // 4 * 4
     k = 1
     while k <= WC_CLUSTER_MAX:
@@ -985,22 +986,79 @@ def walk_chunk_plan(n: int, l: int = 1, depth: Optional[int] = None) -> Dict:
                                 threads=WC_GRID_THREADS if k <= 2 else WC_GRID_THREADS_WIDE,
                                 smem=smem, depth=depth)
         k *= 2
-    threads = 32 * min((n + 15) // 16, 16)
-    return dict(form="l2", k=1, cw=ld4, chains=1, nodes=1, slots=0, threads=threads,
-                smem=(ld4 + _wc_slices(n, threads) * ld4) * 4, depth=depth)
+    return None
+
+
+def walk_chunk_plan(n: int, l: int = 1, depth: Optional[int] = None,
+                    form: Optional[str] = None) -> Dict:
+    """K7's form at n validators and chain length l, which walk_chunk hands
+    the launcher as it is: "tree" up to WC_BLOCK_MAX; below WC_L2_FROM the
+    least cluster of k blocks (1, 2, 4, 8) whose blocks hold the frontier
+    table's slice of cw witness columns (a multiple of 4), with `chains`
+    chains a block at once (n * k / _wc_resident_blocks(k), fewer where
+    shared memory runs short), `nodes` = 2^depth - 1 probes a chain a round,
+    `slots` probe rows (rounded up to WC_SLOT_CHUNK) and `threads` a block;
+    from WC_L2_FROM, or past a cluster's reach, "l2": tiles of `chains`
+    probe rows x `slots` table slots (WC_TILE each), the table's rows of cw
+    = ld4 words, WC_TILE_THREADS threads and WC_TILE_SMEM bytes a block.
+    smem: one block's dynamic shared memory in bytes. `form` names a form
+    (ValueError where it cannot take n validators); `depth` a tree depth
+    (else walk_chunk_depth's for the form). ValueError past WC_MAX_WIDTH."""
+    if not 1 <= n <= WC_MAX_WIDTH:
+        raise ValueError(f"walk_chunk: {n} validators, outside the 1 to {WC_MAX_WIDTH} it takes")
+    if form is not None and form not in WC_FORMS:
+        raise ValueError(f"walk_chunk: no form {form!r} (one of {WC_FORMS})")
+    if depth is not None and not 1 <= depth <= WC_TREE_DEPTH_MAX:
+        raise ValueError(f"walk_chunk: tree depth {depth} outside 1..{WC_TREE_DEPTH_MAX}")
+    if n <= WC_BLOCK_MAX:
+        if form not in (None, "tree"):
+            raise ValueError(f"walk_chunk: the {form} form takes more than {WC_BLOCK_MAX} "
+                             f"validators")
+        depth = depth or walk_chunk_depth(n)
+        return dict(form="tree", k=1, cw=0, chains=n, nodes=(1 << depth) - 1, slots=0,
+                    threads=32 * n, smem=walk_chunk_tree_smem(n, depth), depth=depth)
+    if form == "tree":
+        raise ValueError(f"walk_chunk: the tree form takes at most {WC_BLOCK_MAX} validators")
+    if form == "cluster" or (form is None and n < WC_L2_FROM):
+        plan = _wc_cluster_plan(n, l, depth or walk_chunk_depth(n))
+        if plan is not None:
+            return plan
+        if form == "cluster":
+            raise ValueError(f"walk_chunk: no cluster holds the table of {n} validators "
+                             f"(chain length {l})")
+    depth = depth or walk_chunk_depth(n, "l2")
+    return dict(form="l2", k=1, cw=(n + 3) // 4 * 4, chains=WC_TILE, nodes=(1 << depth) - 1,
+                slots=WC_TILE, threads=WC_TILE_THREADS, smem=WC_TILE_SMEM, depth=depth)
+
+
+def walk_chunk_scratch_words(plan: Dict, n: int, l: int) -> int:
+    """The int32 words of walk_chunk's device scratch in `plan`'s form: the
+    tree form's chain-order tables la_by and fd_by ((N, l, NP) each) and the
+    chain lengths; the cluster form's table and flags (k * cw columns), the
+    frontier, m0 and the chain lengths; the L2 form's table (N slots of cw
+    words), lo and hi (two rounds each), the verdict sums (three rounds of
+    N * nodes), the frontier, m0 and the chain lengths; the grid forms'
+    barrier count and step counters (WC_COUNTERS) last."""
+    if plan["form"] == "tree":
+        return 2 * n * l * _walk_np(n) + n
+    if plan["form"] == "cluster":
+        cols = plan["k"] * plan["cw"]
+        return n * cols + cols + 3 * n + WC_COUNTERS
+    return n * plan["cw"] + 4 * n + 3 * n * plan["nodes"] + 3 * n + WC_COUNTERS
 
 
 def walk_chunk(inv, rows_by, fd, la, x0, seeds, r_abs, first_nw,
                super_majority: int, l: int, length: int, steps: int,
-               use_seeds: bool, depth: Optional[int] = None):
+               use_seeds: bool, depth: Optional[int] = None, form: Optional[str] = None):
     """K7: `length` frontier steps from x0 in one launch, in
     walk_chunk_plan's form (the tree form after a prep launch that lays
     out the chain-order tables); `depth` overrides walk_chunk_depth's tree
-    depth. Returns (x_last (N,) int32, xs (length, N) int32)."""
+    depth and `form` the plan's form. Returns (x_last (N,) int32, xs
+    (length, N) int32)."""
     dev = rows_by.device
     n = rows_by.shape[0]
-    plan = walk_chunk_plan(n, l, depth)
-    check_smem("walk_chunk", n, l=l, depth=plan["depth"])
+    plan = walk_chunk_plan(n, l, depth, form)
+    check_smem("walk_chunk", n, l=l, depth=plan["depth"], form=plan["form"])
     e_fd, e_la = fd.shape[0], la.shape[0]
     check_tensor("inv", inv, torch.int32, (n, n, l), dev)
     check_tensor("rows_by", rows_by, torch.int32, (n, l), dev)
@@ -1014,16 +1072,8 @@ def walk_chunk(inv, rows_by, fd, la, x0, seeds, r_abs, first_nw,
         raise ValueError("walk_chunk: needs length >= 1, l >= 1 and events")
     x_last = torch.empty((n,), dtype=torch.int32, device=dev)
     xs = torch.empty((length, n), dtype=torch.int32, device=dev)
-    if plan["form"] == "tree":
-        # the chain-order tables la_by and fd_by, (N, l, NP) each, and the
-        # chain lengths
-        words = 2 * n * l * _walk_np(n) + n
-    else:
-        # the frontier rows' fd table and their flags (k * cw columns), the
-        # frontier, m0, the chain lengths and the grid barrier's count
-        cols = plan["k"] * plan["cw"]
-        words = n * cols + cols + 3 * n + 1
-    scratch = torch.empty((words,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((walk_chunk_scratch_words(plan, n, l),), dtype=torch.int32,
+                          device=dev)
     _launch("walk_chunk", dev, (
         inv, rows_by, fd, la, x0, seeds, r_abs, first_nw, x_last, xs,
         scratch, n, l, e_fd, e_la, super_majority, length, steps,

@@ -33,8 +33,10 @@ Phases, in order; any failure raises and exits non-zero:
    section, walk_chunk on every chunk of
    the bench grid's walk (unseeded) and both sections' (seeded; the
    first_nw mask must fire on the unpinned section), and on the catch-up
-   section's largest chunk with `steps` forced to 1, 4 and 5 and with one
-   chain's la rows reversed (walk_chunk_traps), with launches and
+   section's largest chunk with `steps` forced to 1, 4 and 5, with one
+   chain's la rows reversed and with the skip's traps (walk_chunk_traps:
+   fewer than super_majority countable rows, unseeded and seeded, steps 1;
+   each chunk's working and skipped steps logged), with launches and
    CUDA-event times (walk_chunk: the largest chunk's, and all six chunks'
    on the catch-up section); divide_rounds takes the one-block walk on
    the sections (8 validators) and the grid walk on the bench grid, where
@@ -194,9 +196,10 @@ Phases, in order; any failure raises and exits non-zero:
    on coin_round_case tables at 1,024 validators, where witnesses are
    decided, and K3 on coin_round_case(1056, 5, 7) in both layouts, past
    1,024, where its vote keeps each column's words in shared memory; K7 on
-   every chunk of the cold path's walk, past a cluster's reach: its L2
-   form, timed beside its plain version, with run_doubling_passes (packed)
-   equal to run_frontier_passes), and
+   every chunk of the cold path's walk and each trap of its largest chunk
+   in its L2 form (every chain's probes counted in tiles), timed beside
+   its plain version, with run_doubling_passes (packed) equal to
+   run_frontier_passes), and
    frontier_train_step (packed), K14 and K15 held to their
    plain versions after every train (K15's bound printed), equal to
    run_frontier_passes (packed); launches of the grid walks under
@@ -204,10 +207,11 @@ Phases, in order; any failure raises and exits non-zero:
    of the entry points a user calls (run_passes, run_doubling_passes, step,
    multi_step, train_step, frontier_train_step) with nothing else in the
    window; (e) K7's cluster form at 8 blocks a cluster (512 threads a
-   block, the partial counts summed through distributed shared memory) on
-   the bench grid's generator at 512 validators: every chunk of the cold
-   path's walk and each trap of its largest chunk held torch.equal to the
-   plain version, that chunk timed beside its plain version (once) and
+   block, the partial counts summed through distributed shared memory) and
+   its L2 form, each named, on the bench grid's generator at 512
+   validators: every chunk of the cold path's walk and each trap of its
+   largest chunk held torch.equal to the plain version in each form, that
+   chunk timed beside its plain version (once) and
    its bound.
 17. the device mesh (tpu/mesh.py, tpu/sharded.py, tpu/dispatch.py), every
    position of every mesh on the one card (torch.cuda.device_count() is
@@ -430,9 +434,9 @@ FL_WIDE_INC = dict(e_cap=65536, r_cap=64, r_win=64, e_win=65536)
 # (packed and wide in turn); the launch counts come from the entry points'
 # own runs (run_passes, step, multi_step, train_step, frontier_train_step)
 FL_WIDTH = dict(n=1024, e_count=16384, seed=0, zipf_a=1.1)
-# (e) K7's cluster form at its widest clusters: the bench grid's generator
-# at 512 validators (the grid scripts/time_walk_chunk.py times), where the
-# plan takes clusters of 8 blocks of 512 threads
+# (e) K7's two grid forms where the cluster form takes its widest
+# clusters (8 blocks of 512 threads): the bench grid's generator at 512
+# validators (the grid scripts/time_walk_chunk.py times)
 CLUSTER_WIDE = dict(BENCH, n=512)
 FL_WIDTH_BATCH = 64
 FL_WIDTH_TRAIN = 8192
@@ -544,8 +548,8 @@ REPLACES = {
     "closure_la (config #4)": ("babble_tpu_torch/csrc/closure_la.cu",
                                "babble_tpu/tpu/doubling.py:172"),
     # K7's grid forms: the cluster form on the bench grid (phase 6, one
-    # block a cluster) and config #4 (phase 13, two), the L2 form past a
-    # cluster's reach (phase 16(d), 1,024 validators)
+    # block a cluster) and config #4 (phase 13, two), the L2 form (phase
+    # 16(d), 1,024 validators: tiles of every chain's probes)
     "walk_chunk (bench grid)": ("babble_tpu_torch/csrc/walk_chunk.cu",
                                 "babble_tpu/tpu/doubling.py:296"),
     "walk_chunk (config #4)": ("babble_tpu_torch/csrc/walk_chunk.cu",
@@ -805,30 +809,104 @@ def closure_la_work(cs, la_fin, passes):
              + (int(passes) - 1) * (nonneg_0 * n + prefix_ops)) / ALU_OPS_S)
 
 
-def walk_chunk_work(big, l_c, n_s):
-    """((bytes, seconds at the peak rates), working steps) of one walk_chunk
-    call (`big`: its arguments) over n_s validators with chain length l_c:
-    the steps whose frontier still holds a row, each reading the frontier
-    rows and the probed rows (at most every input once), the count-based
-    selection's compares at the ALU rate."""
+def walk_chunk_steps(big, xs=None):
+    """The steps of one walk_chunk call (`big`: its arguments), from the
+    plain version's history (`xs`, computed where not given): `working`,
+    those whose frontier still holds a row (X below l somewhere);
+    `skipped`, those with fewer than super_majority countable frontier
+    rows, whose search every form skips; `countable`, the countable rows of
+    each step that searches."""
     from babble_tpu_torch.tpu import doubling
 
-    x_before = torch.cat([big[4][None, :], doubling._walk_chunk_plain(*big)[1][:-1]])
-    working = int((x_before < l_c).any(dim=1).sum().item())
+    sm, l, length, steps, use_seeds = big[8:]
+    if xs is None:
+        xs = doubling._walk_chunk_plain(*big)[1]
+    x_before = torch.cat([big[4][None, :], xs[:-1]])
+    ok = x_before < l
+    if use_seeds:
+        ok &= ~((x_before == 0) & (big[6][:, None] == big[7][None, :]))
+    n_ok = ok.sum(dim=1)
+    searched = [int(v) for v in n_ok.tolist() if v >= sm and steps >= 1]
+    return dict(working=int((x_before < l).any(dim=1).sum().item()),
+                skipped=length - len(searched), countable=searched)
+
+
+def walk_chunk_live(big, depth):
+    """The live chains of every search round of the L2 form at tree depth
+    `depth`, for each step of one walk_chunk call (`big`: its arguments)
+    that searches: a chain is live while it has events and has not settled
+    (lo >= hi with hi <= l - 1: its hi and m0 can no longer change). The
+    search is the plain version's iteration, on the plain history's
+    frontiers; the settled set is the same whether or not settled chains
+    are counted."""
+    from babble_tpu_torch.tpu import doubling
+
+    inv, rows_by, fd, la, x0, seeds, r_abs, first_nw, sm, l, length, steps, use_seeds = big
+    xs = doubling._walk_chunk_plain(*big)[1]
+    x_before = torch.cat([x0[None, :], xs[:-1]])
+    n = x0.numel()
+    cc = torch.arange(n, device=x0.device)
+    rb = rows_by.clamp(min=0).long()
+    clen = (rows_by >= 0).sum(dim=1)
+    last = (clen - 1).clamp(min=0)
+    out = []
+    for k in range(length):
+        x = x_before[k]
+        ok = x < l
+        if use_seeds:
+            ok &= ~((x == 0) & (r_abs[k] == first_nw))
+        if int(ok.sum()) < sm or steps < 1:
+            continue
+        fd_w = fd[rb[ok.nonzero().flatten(), x[ok].clamp(0, l - 1).long()]]
+        lo, hi = x.clamp(0, l).long(), torch.full((n,), l, device=x.device, dtype=torch.long)
+        rounds, done = [], 0
+        while done < steps:
+            d = min(depth, steps - done)
+            rounds.append(int(((clen > 0) & ~((lo >= hi) & (hi <= l - 1))).sum()))
+            for _ in range(d):
+                mid = torch.clamp((lo + hi) // 2, max=l - 1)
+                rows = la[rb[cc, torch.minimum(mid, last)]]
+                seen = torch.cat([((rows[c0:c0 + 128, None, :] >= fd_w[None, :, :]).sum(dim=2)
+                                   >= sm).sum(dim=1) for c0 in range(0, n, 128)])
+                pred = (seen >= sm) & (clen > 0)
+                hi = torch.where(pred, torch.minimum(mid, hi), hi)
+                lo = torch.where(pred, lo, mid + 1)
+            done += d
+        out.append(rounds)
+    return out
+
+
+def walk_chunk_work(big, l_c, n_s):
+    """((bytes, seconds at the peak rates), walk_chunk_steps) of one
+    walk_chunk call (`big`: its arguments) over n_s validators with chain
+    length l_c: the steps that search (the others need no compares), each
+    reading its countable frontier rows, the probed rows and the closure's
+    INV terms (at most every input once), and counting each probe against
+    its countable rows at the ALU rate."""
+    st = walk_chunk_steps(big)
     steps = big[11]
-    step_bytes = n_s * n_s * 4 * 2 + n_s * steps * n_s * 4 + n_s * (steps + 1) * 4
-    return ((min(working * step_bytes, big[0].numel() * 4 + big[2].numel() * 4
+    searched_bytes = sum(n_ok * n_s * 4 + n_s * steps * n_s * 4 + n_s * n_s * 4
+                         for n_ok in st["countable"])
+    return ((min(searched_bytes, big[0].numel() * 4 + big[2].numel() * 4
                  + big[3].numel() * 4 + big[1].numel() * 4)
              + big[5].numel() * 4 + big[6].numel() * 4 + big[10] * n_s * 4 + 3 * n_s * 4,
-             working * (n_s * steps * n_s * n_s + n_s * n_s) / ALU_OPS_S), working)
+             sum(n_s * steps * n_s * n_ok + n_s * n_s for n_ok in st["countable"]) / ALU_OPS_S),
+            st)
+
+
+def steps_note(st, length):
+    """walk_chunk_steps for the log."""
+    return (f"{st['working']} working and {st['skipped']} skipped steps of {length}; countable "
+            f"rows of the searched steps {st['countable']}")
 
 
 def walk_chunk_traps(args):
     """walk_chunk's trap calls made from one chunk's _walk_chunk arguments:
     the chunk with `steps` forced to 1, 4 and 5 (searches that end before
-    they converge), and with the la rows of the longest chain from its
+    they converge), with the la rows of the longest chain from its
     frontier row on in reverse order (a predicate that is not monotone
-    along that chain). name -> arguments."""
+    along that chain), and the skip's traps (skip_traps). name ->
+    arguments."""
     traps = {f"steps {k}": args[:11] + (k,) + args[12:] for k in (1, 4, 5)}
     rows_by, la, x0 = args[1], args[3], args[4]
     lens = (rows_by >= 0).sum(dim=1)
@@ -838,21 +916,58 @@ def walk_chunk_traps(args):
     la2 = la.clone()
     la2[rows] = la[rows.flip(0)]
     traps["non-monotone la"] = args[:3] + (la2,) + args[4:]
+    traps.update(skip_traps(args))
     return traps
 
 
-def held_walk(label, g, cs, dev):
+def skip_traps(args):
+    """The traps of the skip (a step with fewer than super_majority
+    countable frontier rows searches nothing), made from one chunk's
+    _walk_chunk arguments: "skip, unsaturated" starts the chunk with X below
+    l on super_majority - 1 chains (those of least X) and at l on the rest,
+    so its first step is skipped while X is not saturated (unseeded, X then
+    saturates); "skip, seeded" adds a chain at X = 0 whose first_nw is the
+    first step's round (not countable there, countable after it; its seed
+    row holds it at 0) and seeds the first step, alternately below X (X
+    held) and above it (X moved to the seed), so the skipped step must
+    still apply its seed row and the next step searches; "skip, seeded,
+    steps 1" is the latter with one probe a search. name -> arguments."""
+    inv, rows_by, fd, la, x0, seeds, r_abs, first_nw, sm, l, length, steps, use_seeds = args
+    n = x0.numel()
+    order = torch.argsort(x0, stable=True)
+    kept = order[: max(min(sm - 1, n - 1), 0)]
+    x1 = torch.full_like(x0, l)
+    x1[kept] = x0[kept].clamp(max=l - 1)
+    star = order[kept.numel()]
+    x2 = x1.clone()
+    x2[star] = 0
+    fnw = first_nw.clone()
+    fnw[star] = r_abs[0]
+    s2 = torch.full_like(seeds, l)
+    s2[:, star] = 0
+    held, moved = kept[0::2], kept[1::2]
+    s2[0, held] = (x1[held] - 1).clamp(min=0)
+    s2[0, moved] = (x1[moved] + 1).clamp(max=l - 1)
+    seeded = (inv, rows_by, fd, la, x2, s2, r_abs, fnw, sm, l, length)
+    return {"skip, unsaturated": args[:4] + (x1,) + args[5:],
+            "skip, seeded": seeded + (steps, True),
+            "skip, seeded, steps 1": seeded + (1, True)}
+
+
+def held_walk(label, g, cs, dev, kern=None):
     """The cold path's walk of grid g (cs: its stage_doubling), every chunk
     held torch.equal to the plain version: (the chunks' _walk_chunk
-    arguments, the walk's history, first_nw)."""
+    arguments, the walk's history, first_nw). `kern` is the chunk function
+    held (default the dispatching wrapper, doubling._walk_chunk)."""
     from babble_tpu_torch.tpu import doubling, frontier
 
+    kern = kern or doubling._walk_chunk
     inv_c = frontier.build_inv(cs.rows_by_d, cs.la_d)
     s_np, first_nw, x0 = doubling.walk_seeds(g, cs)
     chunks = []
 
     def walk(*a):
-        got = doubling._walk_chunk(*a)
+        got = kern(*a)
         want = doubling._walk_chunk_plain(*a)
         torch.cuda.synchronize()
         require_equal(f"walk_chunk (length {a[10]}) on the {label}", got, want)
@@ -866,22 +981,35 @@ def held_walk(label, g, cs, dev):
     return chunks, hist, first_nw
 
 
-def hold_walk_chunk_traps(label, big, log_fn):
-    """walk_chunk held torch.equal to its plain version on each trap of a
-    walk's largest chunk (walk_chunk_traps); logs whether each trap
-    changes the chunk's history."""
+def hold_walk_chunk_traps(label, big, log_fn, kern=None):
+    """walk_chunk (`kern`, default the dispatching wrapper) held
+    torch.equal to its plain version on each trap of a walk's largest chunk
+    (walk_chunk_traps); logs whether each trap changes the chunk's history
+    and each trap's working and skipped steps."""
     from babble_tpu_torch.tpu import doubling
 
-    base_xs = doubling._walk_chunk(*big)[1]
-    changed = {}
+    kern = kern or doubling._walk_chunk
+    base_xs = kern(*big)[1]
+    changed, skipped = {}, {}
     for name, t_args in walk_chunk_traps(big).items():
-        got = doubling._walk_chunk(*t_args)
+        got = kern(*t_args)
         want = doubling._walk_chunk_plain(*t_args)
         torch.cuda.synchronize()
         require_equal(f"walk_chunk ({name}) on the {label}'s largest chunk", got, want)
         changed[name] = not torch.equal(got[1], base_xs)
+        st = walk_chunk_steps(t_args, want[1])
+        skipped[name] = (st["working"], st["skipped"])
     log_fn(f"walk_chunk == plain on the {label}'s largest chunk with each trap (the trap "
-           f"changes the chunk's history: {changed})")
+           f"changes the chunk's history: {changed}; (working, skipped) steps: {skipped})")
+
+
+def log_chunk_steps(label, chunks, log_fn):
+    """Each chunk's working and skipped steps (walk_chunk_steps), logged."""
+    notes = []
+    for a in chunks:
+        st = walk_chunk_steps(a)
+        notes.append(f"{a[10]} steps: {st['working']} working, {st['skipped']} skipped")
+    log_fn(f"  walk_chunk on the {label}, each chunk's steps: {'; '.join(notes)}")
 
 
 def walk_chunk_form(n, l):
@@ -895,7 +1023,8 @@ def walk_chunk_form(n, l):
     if p["form"] == "cluster":
         return (f"cluster form: {p['k']} blocks a cluster, {p['chains']} chains a block, tree "
                 f"depth {p['depth']}, {p['smem']} bytes a block")
-    return f"L2 form (past a cluster's reach), {p['smem']} bytes a block"
+    return (f"L2 form (every chain's probes counted in tiles), tree depth {p['depth']}, "
+            f"{p['smem']} bytes a block")
 
 
 def profile_device(fn, before=None):
@@ -1946,13 +2075,14 @@ def packed_kernel_phase(g, dev, log_fn):
     k_ms = spun_ms(lambda: doubling._walk_chunk(*big), 5)
     p_ms = spun_ms(lambda: doubling._walk_chunk_plain(*big), SLOW_PLAIN_REPS, warmup=0)
     summary["walk_chunk (config #4)"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
-    (nbytes, ops_s), working = walk_chunk_work(big, cs.l_b, n)
+    (nbytes, ops_s), st = walk_chunk_work(big, cs.l_b, n)
     work["walk_chunk (config #4)"] = (nbytes, ops_s)
+    log_chunk_steps(f"{n}-validator grid", chunks, log_fn)
     log_fn(f"walk_chunk == plain on every chunk of the {n}-validator grid's walk "
            f"({', '.join(str(a[10]) for a in chunks)} steps, "
            f"{walk_chunk_form(n, cs.l_b)}); largest chunk {big[10]} steps x {big[11]} probes "
            f"{k_ms:.4f} ms, plain {p_ms:.2f} ms, bound "
-           f"{max(nbytes / HBM_BYTES_S, ops_s) * 1e3:.6f} ms ({working} working steps)")
+           f"{max(nbytes / HBM_BYTES_S, ops_s) * 1e3:.6f} ms ({steps_note(st, big[10])})")
     del cs, chunks
 
     # K10p and K12p (and the repaired wide K12) on the append state, at
@@ -2648,10 +2778,11 @@ def fl_wide_phase(g, ref, dev, log_fn):
 
 
 def cluster_walk_phase(dev, log_fn):
-    """Phase 16 (e): K7's cluster form where a cluster takes 4 or 8 blocks
-    (CLUSTER_WIDE): every chunk of the cold path's walk held torch.equal
-    to the plain version, the largest chunk with each trap too, and timed
-    beside its plain version (once) and its bound."""
+    """Phase 16 (e): K7 at CLUSTER_WIDE's width in both grid forms, the
+    cluster form where a cluster takes 4 or 8 blocks and the L2 form: every
+    chunk of the cold path's walk held torch.equal to the plain version in
+    each, the largest chunk with each trap too, and timed beside its plain
+    version (once) and its bound."""
     from babble_tpu_torch.tpu import _ext, doubling
     from babble_tpu_torch.tpu.grid import synthetic_grid
 
@@ -2660,21 +2791,32 @@ def cluster_walk_phase(dev, log_fn):
                        zipf_a=CLUSTER_WIDE["zipf_a"])
     n = g.n
     cs = doubling.stage_doubling(g, dev)
-    plan = _ext.walk_chunk_plan(n, cs.l_b)
-    form = walk_chunk_form(n, cs.l_b)
-    if plan["form"] != "cluster" or plan["k"] < 4:
-        raise AssertionError(f"walk_chunk at {n} validators: {form}, not a cluster of 4 or 8")
+    plan = _ext.walk_chunk_plan(n, cs.l_b, form="cluster")
+    if plan["k"] < 4:
+        raise AssertionError(f"walk_chunk at {n} validators: a cluster of {plan['k']}, not 4 or 8")
     label = f"{n}-validator grid"
-    chunks, _, _ = held_walk(label, g, cs, dev)
-    big = max(chunks, key=lambda a: a[10])
-    hold_walk_chunk_traps(label, big, log_fn)
-    k_ms = spun_ms(lambda: doubling._walk_chunk(*big), 5)
-    p_ms = spun_ms(lambda: doubling._walk_chunk_plain(*big), SLOW_PLAIN_REPS, warmup=0)
-    (nbytes, ops_s), working = walk_chunk_work(big, cs.l_b, n)
-    log_fn(f"walk_chunk == plain on every chunk of the {label}'s walk ({len(chunks)} chunks; "
-           f"{form}); largest chunk {big[10]} steps x {big[11]} probes {k_ms:.4f} ms, plain "
-           f"{p_ms:.1f} ms, bound {max(nbytes / HBM_BYTES_S, ops_s) * 1e3:.6f} ms ({working} "
-           f"working steps)")
+    p_ms = None
+    for form in ("cluster", "l2"):
+        def kern(*a, form=form):
+            if a[1].device.type == "cpu":  # a rehearsal: the plain version
+                return doubling._walk_chunk(*a)
+            return _ext.walk_chunk(*a, form=form)
+
+        chunks, _, _ = held_walk(f"{label} ({form} form)", g, cs, dev, kern=kern)
+        big = max(chunks, key=lambda a: a[10])
+        hold_walk_chunk_traps(f"{label} ({form} form)", big, log_fn, kern=kern)
+        k_ms = spun_ms(lambda: kern(*big), 5)
+        if p_ms is None:
+            p_ms = spun_ms(lambda: doubling._walk_chunk_plain(*big), SLOW_PLAIN_REPS, warmup=0)
+            (nbytes, ops_s), st = walk_chunk_work(big, cs.l_b, n)
+            log_chunk_steps(label, chunks, log_fn)
+        desc = _ext.walk_chunk_plan(n, cs.l_b, form=form)
+        log_fn(f"walk_chunk ({form} form: k {desc['k']}, chains {desc['chains']}, depth "
+               f"{desc['depth']}, {desc['smem']} bytes a block; the plan's form "
+               f"{_ext.walk_chunk_plan(n, cs.l_b)['form']}) == plain on every chunk of the "
+               f"{label}'s walk ({len(chunks)} chunks); largest chunk {big[10]} steps x "
+               f"{big[11]} probes {k_ms:.4f} ms, plain {p_ms:.1f} ms, bound "
+               f"{max(nbytes / HBM_BYTES_S, ops_s) * 1e3:.6f} ms ({steps_note(st, big[10])})")
     log_fn(f"phase 16 (e): {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2843,13 +2985,15 @@ def fl_width_phase(dev, log_fn):
     cs = doubling.stage_doubling(g, dev)
     form = walk_chunk_form(n, cs.l_b)
     if _ext.walk_chunk_plan(n, cs.l_b)["form"] != "l2":
-        raise AssertionError(f"walk_chunk at {n} validators: {form}, not past a cluster's reach")
+        raise AssertionError(f"walk_chunk at {n} validators: {form}, not the L2 form")
     chunks, _, _ = held_walk(f"{n}-validator grid", g, cs, dev)
     big = max(chunks, key=lambda a: a[10])
+    hold_walk_chunk_traps(f"{n}-validator grid", big, log_fn)
+    log_chunk_steps(f"{n}-validator grid", chunks, log_fn)
     k_ms = spun_ms(lambda: doubling._walk_chunk(*big), 5)
     p_ms = spun_ms(lambda: doubling._walk_chunk_plain(*big), SLOW_PLAIN_REPS, warmup=0)
     summary["walk_chunk (1,024)"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
-    (nbytes, ops_s), working = walk_chunk_work(big, cs.l_b, n)
+    (nbytes, ops_s), st = walk_chunk_work(big, cs.l_b, n)
     work["walk_chunk (1,024)"] = (nbytes, ops_s)
     del cs, chunks
     res_d, d_launches = run_path("run_doubling_passes (1,024), packed",
@@ -2859,8 +3003,8 @@ def fl_width_phase(dev, log_fn):
     launches["walk_chunk (1,024)"] = d_launches["walk_chunk"]
     log_fn(f"walk_chunk == plain on every chunk of the {n}-validator grid's walk ({form}); "
            f"largest chunk {big[10]} steps x {big[11]} probes {k_ms:.4f} ms, plain "
-           f"{p_ms:.1f} ms, bound {max(nbytes / HBM_BYTES_S, ops_s) * 1e3:.6f} ms ({working} "
-           f"working steps); run_doubling_passes (packed) == run_frontier_passes")
+           f"{p_ms:.1f} ms, bound {max(nbytes / HBM_BYTES_S, ops_s) * 1e3:.6f} ms "
+           f"({steps_note(st, big[10])}); run_doubling_passes (packed) == run_frontier_passes")
     del big, res_d
 
     # K10 and the decide (K12, both layouts) on the append state
@@ -4117,6 +4261,7 @@ def main() -> int:
             log(f"  walk_chunk on the {label}: {big[10]} steps x {big[11]} probes, "
                 f"{k_ms:.4f} ms, plain {p_ms:.3f} ms; all {len(chunks)} chunks "
                 f"({sum(a[10] for a in chunks)} steps) {all_ms:.4f} ms")
+        log_chunk_steps(label, chunks, log)
         log(f"walk_chunk == plain on every chunk of the {label} "
             f"({', '.join(str(a[10]) for a in chunks)} steps, seeded {cs.seeded}, "
             f"{walk_chunk_form(g.n, cs.l_b)}); first_nw mask fired on {fired} of {g.n} chains")
@@ -4130,12 +4275,11 @@ def main() -> int:
             summary["walk_chunk (bench grid)"] = {
                 "max_abs_err": 0, "ms": spun_ms(lambda: doubling._walk_chunk(*big), 10),
                 "plain_ms": p_ms}
-            (nbytes, ops_s), working = walk_chunk_work(big, cs.l_b, g.n)
+            (nbytes, ops_s), st = walk_chunk_work(big, cs.l_b, g.n)
             work["walk_chunk (bench grid)"] = (nbytes, ops_s)
             log(f"  walk_chunk on the {label}, largest chunk behind a spin: "
                 f"{summary['walk_chunk (bench grid)']['ms']:.4f} ms; bound "
-                f"{max(nbytes / HBM_BYTES_S, ops_s) * 1e3:.6f} ms ({working} working steps "
-                f"of {big[10]})")
+                f"{max(nbytes / HBM_BYTES_S, ops_s) * 1e3:.6f} ms ({steps_note(st, big[10])})")
             continue
         summary["walk_chunk"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
 
@@ -4149,10 +4293,10 @@ def main() -> int:
         la_fin, passes = cl
         l_c = cs.l_b
         work["closure_la"] = closure_la_work(cs, la_fin, passes)
-        work["walk_chunk"], working = walk_chunk_work(big, l_c, n_s)
+        work["walk_chunk"], st = walk_chunk_work(big, l_c, n_s)
         log(f"  bound inputs (catch-up section): {pairs} scan (event, witness) pairs, "
-            f"{n_wit} witnesses, closure {int(passes)} passes, {working} working walk steps "
-            f"of {big[10]}")
+            f"{n_wit} witnesses, closure {int(passes)} passes, walk "
+            f"{steps_note(st, big[10])}")
 
     # the whole catch-up grid (65,536 events: K5's and K8's carries keep
     # the rows past what fits on chip in device memory) and the level
@@ -4548,14 +4692,14 @@ def main() -> int:
     phase_clock.next("16")
     # 16. the frontier-live engine: (a), (c) the bench cell and the
     # bootstrap, (b) config #4 in trains, (d) config #5's width; (e) K7's
-    # widest clusters
+    # widest clusters and its L2 form at 512 validators
     for part, args in ((fl_bench_phase, (bench, trains, scan_ref)),
                        (fl_wide_phase, (wide, wide_ref)), (fl_width_phase, ())):
         f_summary, f_work, f_launches = part(*args, dev, log)
         summary.update(f_summary)
         work.update(f_work)
         launches.update(f_launches)
-    # (e) K7's cluster form at 8 blocks a cluster
+    # (e) K7's cluster form at 8 blocks a cluster, and its L2 form
     cluster_walk_phase(dev, log)
 
     phase_clock.next("17")

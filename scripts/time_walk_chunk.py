@@ -3,7 +3,8 @@
 checkout of the PyTorch/CUDA port on one CUDA card.
 
     python3 scripts/time_walk_chunk.py [--root DIR] [--reps N] [--device cuda|cpu]
-                                       [--shapes LABEL;...] [--depths] [--cache DIR]
+                                       [--shapes LABEL;...] [--depths] [--forms]
+                                       [--cache DIR]
 
 Imports `babble_tpu_torch` from DIR (default: the checkout that holds this
 script), builds its kernels, and for each grid walks the cold path's
@@ -15,19 +16,27 @@ largest chunk and every chunk of the walk by CUDA events behind a spin
 bench_catchup.py (8 validators), the bench grid's generator at 16 and 32
 validators (the one-block walk's upper end), at 48, the bench grid (64),
 the bench generator at 96 and 128 (the cluster form's tree depths by
-width), BASELINE.json config #4's grid (256), the bench generator at 512
-validators (a cluster of 8 blocks) and config #5's width grid (1,024
-validators, 16,384 events: past a cluster's reach). Prints one JSON line
-per grid: validators, chunk steps and probes, the tree depth
-(`_ext.walk_chunk_depth`, where the checkout has it) and the checkout's
-plan (`_ext.walk_chunk_plan`: form, blocks a cluster, chains a block,
-shared memory a block; null where it has none), the median kernel ms of
-the largest chunk and the sum of every chunk's medians over N runs, the
-kernel launches per call of the largest chunk (torch.profiler), the
-plain version's ms of the largest chunk (one call), its bound
-(`chip_smoke.walk_chunk_work`: its working steps, from the data) and the
-card's name and power limit. `--depths` also times the walk at every
-tree depth up to 4 that fits (one line each; the L2 form has none). The
+width), BASELINE.json config #4's grid (256), the bench generator at 384,
+448, 512 and 640 validators (the crossover of the two grid forms; a
+cluster of 8 blocks at 512 and 640, about the cluster form's reach)
+and config #5's width grid (1,024 validators, 16,384 events: past a
+cluster's reach). Prints one JSON line per grid and form: validators,
+chunk steps and probes, the tree depth (`_ext.walk_chunk_depth`, where
+the checkout has it) and the checkout's plan (`_ext.walk_chunk_plan`:
+form, blocks a cluster, chains a block, shared memory a block; null where
+it has none), the median kernel ms of the largest chunk and the sum of
+every chunk's medians over N runs, the kernel launches per call of the
+largest chunk (torch.profiler), the plain version's ms of the largest
+chunk (one call), its bound (`chip_smoke.walk_chunk_work`: its searched
+steps and their countable rows, from the data), the largest chunk's
+working and skipped steps (`chip_smoke.walk_chunk_steps`: a step with
+fewer than super_majority countable frontier rows searches nothing) and
+each chunk's, in the L2 form the live chains of each search round of the
+largest chunk's searched steps (`chip_smoke.walk_chunk_live`: settled
+chains leave the rounds), and the card's name and power limit. `--forms` times every
+grid form that takes the grid (where the checkout's `_ext.walk_chunk`
+takes `form=`), each held like the plan's, one line each; `--depths`
+also times each form at every other tree depth up to 4 that fits. The
 grids are kept in --cache (default build/timing_cache). To compare two
 versions of the kernel, run it against both checkouts in one call, in
 the order A, B, B, A. `--device cpu` rehearses it on the plain versions
@@ -38,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import pickle
@@ -74,7 +84,10 @@ def shapes(cs):
         ("96-validator grid", "grid", dict(cs.BENCH, n=96)),
         ("128-validator grid", "grid", dict(cs.BENCH, n=128)),
         ("config #4 grid", "grid", cs.WIDE),
+        ("384-validator grid", "grid", dict(cs.BENCH, n=384)),
+        ("448-validator grid", "grid", dict(cs.BENCH, n=448)),
         ("512-validator grid", "grid", dict(cs.BENCH, n=512)),
+        ("640-validator grid", "grid", dict(cs.BENCH, n=640)),
         ("width grid", "grid", cs.FL_WIDTH),
     )
 
@@ -139,7 +152,9 @@ def main() -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--shapes", default="", help="labels separated by ';' (default: all)")
     ap.add_argument("--depths", action="store_true",
-                    help="also time the one-block walk at every tree depth")
+                    help="also time each form at every other tree depth")
+    ap.add_argument("--forms", action="store_true",
+                    help="time every grid form that takes the grid")
     ap.add_argument("--cache", default=os.path.join(HERE, "build", "timing_cache"))
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
@@ -160,6 +175,8 @@ def main() -> int:
     wanted = [s.strip() for s in args.shapes.split(";") if s.strip()]
     tree = hasattr(_ext, "walk_chunk_depth")  # the checkout's one-block walk is a tree
     planned = hasattr(_ext, "walk_chunk_plan")  # and its grid form is planned by width
+    # and its wrapper takes a form
+    named = "form" in inspect.signature(_ext.walk_chunk).parameters
 
     def sync():
         if cuda:
@@ -218,44 +235,78 @@ def main() -> int:
         traps = cs.walk_chunk_traps(big)
         for name, a in traps.items():
             held(f"{name} on the {label}'s largest chunk", a, doubling._walk_chunk)
-        depths = [None]
-        if planned or (tree and g.n <= _ext.WC_BLOCK_MAX):
-            depths = [_ext.walk_chunk_depth(g.n)]
-            if args.depths and (not planned or
-                                _ext.walk_chunk_plan(g.n, st.l_b)["form"] != "l2"):
-                depths += [d for d in range(1, 5)
-                           if d != depths[0] and _ext.smem_bytes(
-                               "walk_chunk", g.n, l=st.l_b, depth=d) <= _ext.MAX_SMEM_BYTES]
-        plain_ms = None
-        for depth in depths:
-            def kern(*a, depth=depth):
-                if depth is None or not cuda:
-                    return doubling._walk_chunk(*a)
-                return _ext.walk_chunk(*a, depth=depth)
+        # (form, depth) variants: the plan's first, then (--forms) the other
+        # grid forms that take the grid, then (--depths) other depths
+        forms = [None]
+        if named and args.forms and g.n > _ext.WC_BLOCK_MAX:
+            plan_form = _ext.walk_chunk_plan(g.n, st.l_b)["form"]
+            for f in ("cluster", "l2"):
+                try:
+                    _ext.walk_chunk_plan(g.n, st.l_b, form=f)
+                except ValueError:
+                    continue
+                if f != plan_form:
+                    forms.append(f)
+        variants = []
+        for form in forms:
+            if not (planned or (tree and g.n <= _ext.WC_BLOCK_MAX)):
+                variants.append((None, None))
+                continue
+            if named:
+                d0 = _ext.walk_chunk_plan(g.n, st.l_b, form=form)["depth"]
+            else:
+                d0 = _ext.walk_chunk_depth(g.n)
+            variants.append((form, d0))
+            if args.depths and (named or _ext.walk_chunk_plan(g.n, st.l_b)["form"] != "l2"):
+                def fits(d, form=form):
+                    shape = dict(l=st.l_b, depth=d, **({"form": form} if named else {}))
+                    try:
+                        return _ext.smem_bytes("walk_chunk", g.n, **shape) <= _ext.MAX_SMEM_BYTES
+                    except ValueError:  # the named form cannot take that depth
+                        return False
 
-            if depth is not None and depth != depths[0]:
+                variants += [(form, d) for d in range(1, 5) if d != d0 and fits(d)]
+        plain_ms = None
+        chunk_steps = [cs.walk_chunk_steps(a) for a in chunks]
+        for form, depth in variants:
+            def kern(*a, depth=depth, form=form):
+                if (depth is None and form is None) or not cuda:
+                    return doubling._walk_chunk(*a)
+                if form is None:
+                    return _ext.walk_chunk(*a, depth=depth)
+                return _ext.walk_chunk(*a, depth=depth, form=form)
+
+            if (form, depth) != variants[0]:
+                what = f"{form or 'planned'} form, tree depth {depth}"
                 for a in chunks:
-                    held(f"length {a[10]}, tree depth {depth}, on the {label}", a, kern)
+                    held(f"length {a[10]}, {what}, on the {label}", a, kern)
                 for name, a in traps.items():
-                    held(f"{name}, tree depth {depth}, on the {label}", a, kern)
+                    held(f"{name}, {what}, on the {label}", a, kern)
             ms = time_ms(lambda: kern(*big), args.reps)
             all_ms = sum(time_ms(lambda a=a: kern(*a), args.reps) for a in chunks)
             if plain_ms is None:
                 plain_ms = time_ms(lambda: doubling._walk_chunk_plain(*big), 1)
-                (nbytes, ops_s), working = cs.walk_chunk_work(big, st.l_b, g.n)
+                (nbytes, ops_s), steps_big = cs.walk_chunk_work(big, st.l_b, g.n)
                 bytes_s = nbytes / cs.HBM_BYTES_S
             plan = None
             if planned:
-                plan = {k: v for k, v in _ext.walk_chunk_plan(g.n, st.l_b, depth).items()
+                p_args = (g.n, st.l_b, depth) + ((form,) if named else ())
+                plan = {k: v for k, v in _ext.walk_chunk_plan(*p_args).items()
                         if k in ("form", "k", "chains", "smem")}
             print(json.dumps({
                 "grid": label, "validators": g.n, "steps": big[10], "probes": big[11],
                 "chunks": [a[10] for a in chunks], "tree_depth": depth,
-                "depth_rule": depth == depths[0] if depth is not None else None,
-                "l": st.l_b, "plan": plan,
+                "depth_rule": (form, depth) == variants[0] if depth is not None else None,
+                "form_named": form, "l": st.l_b, "plan": plan,
                 "traps_held": list(traps), "ms": ms, "all_chunks_ms": all_ms,
                 "launches": launches_per_call(lambda: kern(*big), 3) if cuda else None,
-                "plain_ms": plain_ms, "working_steps": working,
+                "plain_ms": plain_ms, "working_steps": steps_big["working"],
+                "skipped_steps": steps_big["skipped"],
+                "countable_rows": steps_big["countable"],
+                "chunk_steps": [(a[10], s_["working"], s_["skipped"])
+                                for a, s_ in zip(chunks, chunk_steps)],
+                "live_per_round": (cs.walk_chunk_live(big, depth)
+                                   if plan and plan["form"] == "l2" else None),
                 "bound_ms": max(bytes_s, ops_s) * 1e3,
                 "bound_by": "bytes" if bytes_s >= ops_s else "operations",
                 "reps": args.reps, "root": args.root, "card": card}),

@@ -209,14 +209,18 @@ def largest_chunk(case):
 TRAP_WALK_CASES = [("section", 1.0 / 3.0, True), ("synthetic", 16, 1024, 4, 1.1, 0.0)]
 
 
-@pytest.mark.parametrize("trap", ["steps 1", "steps 4", "steps 5", "non-monotone la"])
+@pytest.mark.parametrize("trap", ["steps 1", "steps 4", "steps 5", "non-monotone la",
+                                  "skip, unsaturated", "skip, seeded", "skip, seeded, steps 1"])
 @pytest.mark.parametrize("case", TRAP_WALK_CASES, ids=["section-0.333-True", "synthetic-16-1024"])
 def test_walk_chunk_traps_match_reference(case, trap):
     """The traps the card's walk is held to (chip_smoke.walk_chunk_traps):
-    searches cut to 1, 4 and 5 probes, which end before they converge, and
-    la rows reversed along the longest chain from its frontier row, so the
-    predicate is not monotone along it; the port's plain chunk against the
-    reference's _walk_chunk on the same inputs."""
+    searches cut to 1, 4 and 5 probes, which end before they converge, la
+    rows reversed along the longest chain from its frontier row, so the
+    predicate is not monotone along it, and the skip's (fewer than
+    super_majority countable rows while X is not saturated; seeded, a seed
+    row holding or moving X in the skipped step, first_nw making the next
+    step search; that with one probe a search); the port's plain chunk
+    against the reference's _walk_chunk on the same inputs."""
     a = walk_chunk_traps(largest_chunk(case))[trap]
     got = port._walk_chunk(*a)
     statics = dict(zip(("super_majority", "l", "length", "steps", "use_seeds"), a[8:]))
@@ -261,21 +265,36 @@ def test_walk_chunk_tree_plan(n):
         _ext.walk_chunk_depth(_ext.WC_MAX_WIDTH + 1)
 
 
-@pytest.mark.parametrize("n", [8, 64, 512, 1100])
+@pytest.mark.parametrize("n", [8, 64, 512, 640, 1100])
 def test_walk_chunk_hands_its_plan_to_the_launcher(monkeypatch, n):
     """_ext.walk_chunk launches one walk_chunk whose last seven ints are
     walk_chunk_plan's form code (WC_FORMS), k, cw, chains, slots, threads
     and shared memory, as the launcher takes them, with a scratch of the
-    plan's size (the launch is stubbed: CPU tensors here)."""
+    plan's size (the grid forms' step counters last; the L2 form's table of
+    N slots, lo and hi of two rounds, the verdict sums of three rounds)
+    (the launch is stubbed: CPU tensors here)."""
+    plan = hands_plan_to_launcher(monkeypatch, n, None)
+    assert plan["form"] == {8: "tree", 64: "cluster", 512: "l2", 640: "l2", 1100: "l2"}[n]
+
+
+@pytest.mark.parametrize("n,form", [(256, "l2"), (512, "cluster"), (1100, "l2")])
+def test_walk_chunk_hands_a_named_form_to_the_launcher(monkeypatch, n, form):
+    """The same with the form named (`form=`): the plan's fields and scratch
+    of that form."""
+    assert hands_plan_to_launcher(monkeypatch, n, form)["form"] == form
+
+
+def hands_plan_to_launcher(monkeypatch, n, form):
+    """_ext.walk_chunk at n validators (form named or not) with its launch
+    stubbed, its arguments checked against walk_chunk_plan; the plan."""
     l, e, length = 4, 16, 3
-    plan = _ext.walk_chunk_plan(n, l)
-    assert plan["form"] == {8: "tree", 64: "cluster", 512: "cluster", 1100: "l2"}[n]
+    plan = _ext.walk_chunk_plan(n, l, form=form)
     seen = []
     monkeypatch.setattr(_ext, "_launch", lambda name, dev, args, **kw: seen.append((name, args)))
     i32 = torch.int32
     z = lambda *s: torch.zeros(s, dtype=i32)  # noqa: E731
     _ext.walk_chunk(z(n, n, l), z(n, l), z(e, n), z(e, n), z(n), z(length, n), z(length), z(n),
-                    2 * n // 3 + 1, l, length, 3, True)
+                    2 * n // 3 + 1, l, length, 3, True, form=form)
     assert [name for name, _ in seen] == ["walk_chunk"]
     args = seen[0][1]
     kinds = _ext.KERNELS["walk_chunk"][2]
@@ -283,10 +302,14 @@ def test_walk_chunk_hands_its_plan_to_the_launcher(monkeypatch, n):
     assert args[-8] == plan["depth"]
     assert args[-7:] == (_ext.WC_FORMS.index(plan["form"]), plan["k"], plan["cw"],
                          plan["chains"], plan["slots"], plan["threads"], plan["smem"])
-    words = (2 * n * l * _ext._walk_np(n) + n if plan["form"] == "tree"
-             else n * plan["k"] * plan["cw"] + plan["k"] * plan["cw"] + 3 * n + 1)
+    ld4 = (n + 3) // 4 * 4
+    words = {"tree": 2 * n * l * _ext._walk_np(n) + n,
+             "cluster": n * plan["k"] * plan["cw"] + plan["k"] * plan["cw"] + 3 * n + 4,
+             "l2": n * ld4 + 2 * 2 * n + 3 * n * ((1 << plan["depth"]) - 1) + 3 * n + 4,
+             }[plan["form"]]
     assert args[10].numel() == words
     assert all(0 <= a < 2 ** 31 for a in args[-7:])
+    return plan
 
 
 @pytest.mark.parametrize("n,l", [(4, 64), (5, 64), (8, 8192), (12, 128), (33, 64), (64, 1024),
@@ -411,7 +434,8 @@ def cluster_walk_chunk(args, k, chains, depth):
     trees of `depth` (2^d - 1 probes a chain a round, the last round
     shorter), each block counting every probe against its cw columns and
     summing its strongly-seen witnesses, the cluster adding the k partial
-    sums per probe, then the round's d decisions; then the advance."""
+    sums per probe, then the round's d decisions (no search in a step with
+    fewer than super_majority countable rows); then the advance."""
     inv, rows_by, fd, la, x0, seeds, r_abs, first_nw = (np_(a) for a in args[:8])
     sm, l, length, steps, use_seeds = args[8:]
     n = rows_by.shape[0]
@@ -429,24 +453,27 @@ def cluster_walk_chunk(args, k, chains, depth):
             if ok:
                 tab[:, w] = fd[np.clip(rows_by[w, min(max(x[w], 0), l - 1)], 0, fd.shape[0] - 1)]
             wok[w] = ok
-        m0 = np.empty(n, dtype=np.int64)
-        for c0 in range(0, n, chains):
+        m0 = np.full(n, l, dtype=np.int64)
+        # the skip: too few countable rows, no search (every m0 is l)
+        for c0 in range(0, n, chains) if wok.sum() >= sm else ():
             grp = np.arange(c0, min(c0 + chains, n))
+            gi = np.arange(grp.size)
             lo = np.clip(x[grp], 0, l)
             hi = np.full(grp.size, l)
             done = 0
             while done < steps:
                 d = min(depth, steps - done)
                 nodes = (1 << d) - 1
+                # node j's interval of every chain's tree, then its probe
                 ev = np.empty((grp.size, nodes), dtype=np.int64)
-                for i, c in enumerate(grp):
-                    for node in range(nodes):
-                        j, a, b = node + 1, lo[i], hi[i]
-                        for bit in range(j.bit_length() - 2, -1, -1):
-                            mid = min((a + b) // 2, l - 1)
-                            a, b = (mid + 1, b) if (j >> bit) & 1 else (a, min(mid, b))
-                        probe = min(min((a + b) // 2, l - 1), max(clen[c] - 1, 0))
-                        ev[i, node] = np.clip(rows_by[c, probe], 0, la.shape[0] - 1)
+                for node in range(nodes):
+                    j, a, b = node + 1, lo.copy(), hi.copy()
+                    for bit in range(j.bit_length() - 2, -1, -1):
+                        mid = np.minimum((a + b) // 2, l - 1)
+                        a, b = (mid + 1, b) if (j >> bit) & 1 else (a, np.minimum(mid, b))
+                    probe = np.minimum(np.minimum((a + b) // 2, l - 1),
+                                       np.maximum(clen[grp] - 1, 0))
+                    ev[:, node] = np.clip(rows_by[grp, probe], 0, la.shape[0] - 1)
                 rows = la[ev.reshape(-1)]
                 tot = np.zeros(ev.size, dtype=np.int64)
                 for r in range(k):  # block r's columns, its partial sums
@@ -454,23 +481,20 @@ def cluster_walk_chunk(args, k, chains, depth):
                     cnt = (rows[:, :, None] >= tab[None, :, cols]).sum(axis=1)
                     tot += ((cnt >= sm) & wok[None, cols]).sum(axis=1)
                 tot = tot.reshape(grp.size, nodes)
-                for i, c in enumerate(grp):
-                    j = 1
-                    for _ in range(d):
-                        mid = min((lo[i] + hi[i]) // 2, l - 1)
-                        if clen[c] > 0 and tot[i, j - 1] >= sm:
-                            hi[i], j = min(mid, hi[i]), 2 * j
-                        else:
-                            lo[i], j = mid + 1, 2 * j + 1
+                j = np.ones(grp.size, dtype=np.int64)
+                for _ in range(d):
+                    mid = np.minimum((lo + hi) // 2, l - 1)
+                    pred = (clen[grp] > 0) & (tot[gi, j - 1] >= sm)
+                    hi, lo = np.where(pred, np.minimum(mid, hi), hi), np.where(pred, lo, mid + 1)
+                    j = np.where(pred, 2 * j, 2 * j + 1)
                 done += d
             m0[grp] = np.where(hi < clen[grp], hi, l)
-        xn = np.empty(n, dtype=np.int64)
-        for c in range(n):
-            reach = [inv[c, y, min(max(m0[y], 0), l - 1)] for y in range(n) if m0[y] < l]
-            v = min([m0[c]] + reach)
-            if use_seeds:
-                v = min(v, seeds[step, c])
-            xn[c] = min(max(v, x[c]), l)
+        cc = np.arange(n)
+        reach = inv[cc[:, None], cc[None, :], np.clip(m0, 0, l - 1)[None, :]]
+        xn = np.minimum(m0, np.where((m0 < l)[None, :], reach, l).min(axis=1))
+        if use_seeds:
+            xn = np.minimum(xn, seeds[step])
+        xn = np.minimum(np.maximum(xn, x), l)
         x = xn
         xs.append(x.copy())
     return x.astype(np.int32), np.stack(xs).astype(np.int32)
@@ -525,13 +549,16 @@ def test_cluster_schedule_matches_reference_on_every_chunk(case, schedule):
 @pytest.mark.parametrize("l", [1, 512, 4096])
 def test_walk_chunk_plan_by_width(l):
     """K7's plan past the one-block walk, at every width from 33 to
-    WC_MAX_WIDTH (29,056) validators and chain length l: every block fits
-    one block's shared memory; a cluster of k <= WC_CLUSTER_MAX blocks
-    (a power of two) splits the padded witness columns into slices of cw
-    (a multiple of 4) that cover every column, and the least such k is
-    taken; its groups of `chains` chains cover every chain, with a probe
-    row for every node of every chain's tree; past a cluster's reach the
-    L2 form, a block per chain; the plan is block_smem's, and one more
+    WC_MAX_WIDTH (65,536; the old L2 form's 29,056 is inside) validators
+    and chain length l: every block fits one block's shared memory; below
+    WC_L2_FROM a cluster of k <= WC_CLUSTER_MAX blocks (a power of two)
+    splits the padded witness columns into slices of cw (a multiple of 4)
+    that cover every column, and the least such k is taken; its groups of
+    `chains` chains cover every chain, with a probe row for every node of
+    every chain's tree; from WC_L2_FROM, or past a cluster's reach, the L2
+    form, tiles of WC_TILE probe rows x WC_TILE table slots of ld4 words,
+    whose shared memory is the count tile's at every width; a named form
+    is taken where it fits; the plan is block_smem's, and one more
     validator is refused."""
     last_form = None
     for n in range(_ext.WC_BLOCK_MAX + 1, _ext.WC_MAX_WIDTH + 1):
@@ -539,7 +566,7 @@ def test_walk_chunk_plan_by_width(l):
         assert plan["smem"] <= _ext.MAX_SMEM_BYTES
         ld4 = (n + 3) // 4 * 4
         if plan["form"] == "cluster":
-            assert last_form in (None, "cluster")
+            assert last_form in (None, "cluster") and n < _ext.WC_L2_FROM
             k, cw = plan["k"], plan["cw"]
             assert k in (1, 2, 4, 8) and cw % 4 == 0 and k * cw >= ld4 > (k - 1) * cw
             assert plan["threads"] == (_ext.WC_GRID_THREADS if k <= 2
@@ -555,14 +582,172 @@ def test_walk_chunk_plan_by_width(l):
                     assert (_ext._wc_cluster_smem(n, l, cw_s, 1, slots_1)
                             > _ext.MAX_SMEM_BYTES)
         else:
-            assert plan["form"] == "l2" and plan["cw"] == ld4 and plan["chains"] == 1
+            assert plan["form"] == "l2" and plan["cw"] == ld4 and plan["k"] == 1
             assert plan["threads"] % 32 == 0 and plan["threads"] <= 512
+            assert plan["chains"] == plan["slots"] == _ext.WC_TILE
+            assert plan["threads"] == _ext.WC_TILE_THREADS
+            assert plan["smem"] == _ext.WC_TILE_SMEM
+            assert plan["nodes"] == (1 << plan["depth"]) - 1
+            assert n >= _ext.WC_L2_FROM or _ext._wc_cluster_plan(n, l, plan["depth"]) is None
         last_form = plan["form"]
         if n % 97 == 0 or n < 700:
             assert plan["smem"] == _ext.block_smem("walk_chunk", n, l=l)["walk"]
     assert last_form == "l2"
     # where one block holds the table the cluster is one block
     assert _ext.walk_chunk_plan(64, l)["k"] == 1
-    assert _ext.walk_chunk_plan(_ext.WC_MAX_WIDTH + 1, l)["smem"] > _ext.MAX_SMEM_BYTES
+    # the crossover: the L2 form from WC_L2_FROM, a cluster below it where
+    # one holds the table; either form where named and it takes the width
+    assert _ext.walk_chunk_plan(_ext.WC_L2_FROM, l)["form"] == "l2"
+    below = _ext.walk_chunk_plan(_ext.WC_L2_FROM - 1, l)
+    assert below["form"] == ("cluster" if _ext._wc_cluster_plan(
+        _ext.WC_L2_FROM - 1, l, _ext.walk_chunk_depth(_ext.WC_L2_FROM - 1)) else "l2")
+    assert _ext.walk_chunk_plan(256, l, form="l2")["form"] == "l2"
+    assert _ext.walk_chunk_plan(_ext.WC_L2_FROM, l, form="l2")["depth"] == \
+        _ext.walk_chunk_depth(_ext.WC_L2_FROM, "l2")
+    with pytest.raises(ValueError, match="cluster"):
+        _ext.walk_chunk_plan(4096, l, form="cluster")
+    with pytest.raises(ValueError, match="tree"):
+        _ext.walk_chunk_plan(64, l, form="tree")
+    with pytest.raises(ValueError, match="validators"):
+        _ext.walk_chunk_plan(_ext.WC_MAX_WIDTH + 1, l)
     with pytest.raises(ValueError, match="validators"):
         _ext.check_smem("walk_chunk", _ext.WC_MAX_WIDTH + 1, l=l)
+
+
+def tiled_walk_chunk(args, bm, bn, depth, order_seed=0):
+    """A numpy emulation of csrc/walk_chunk.cu walk_chunk_tiles' schedule
+    on one chunk's _walk_chunk arguments: each step's table holds the
+    countable frontier rows compacted into slots, in an order the slots'
+    atomics may give them (a permutation drawn from order_seed); a step
+    with fewer than super_majority slots searches nothing (every m0 is l),
+    and the emulation checks that the full search would have found every
+    m0 at l there; a searched step runs its rounds as trees of `depth`
+    (2^d - 1 probe rows a chain, the last round shorter), each round's
+    probe rows (chain, node) counted against the slots in tiles of bm rows
+    x bn slots, each tile's strongly-seen slots per row added into the
+    row's sum, then every chain's d decisions from the sums; a settled
+    chain (lo >= hi, hi <= l - 1) probes nothing (its sums stay 0, which
+    moves only its lo) and a tile of settled chains is not counted; then
+    the advance (closure, seed row, clamp). Returns (x_last, xs, the
+    skipped steps, the live chains of every round of every searched
+    step)."""
+    inv, rows_by, fd, la, x0, seeds, r_abs, first_nw = (np_(a) for a in args[:8])
+    sm, l, length, steps, use_seeds = args[8:]
+    n = rows_by.shape[0]
+    clen = (rows_by >= 0).sum(axis=1)
+    rng = np.random.default_rng(order_seed)
+    cc = np.arange(n)
+    lo_int = np.iinfo(np.int32).min
+
+    def search(tab, n_ok, x, live_rounds):
+        lo, hi = np.clip(x, 0, l), np.full(n, l, dtype=np.int64)
+        done = 0
+        while done < steps:
+            d = min(depth, steps - done)
+            nodes = (1 << d) - 1
+            live = (clen > 0) & ~((lo >= hi) & (hi <= l - 1))
+            live_rounds.append(int(live.sum()))
+            # every probe row (chain, node): node j's interval, then its probe
+            probe = np.empty((n, nodes), dtype=np.int64)
+            for node in range(nodes):
+                j, a, b = node + 1, lo.copy(), hi.copy()
+                for bit in range(j.bit_length() - 2, -1, -1):
+                    mid = np.minimum((a + b) // 2, l - 1)
+                    a, b = ((mid + 1, b) if (j >> bit) & 1 else (a, np.minimum(mid, b)))
+                probe[:, node] = np.minimum(np.minimum((a + b) // 2, l - 1),
+                                            np.maximum(clen - 1, 0))
+            ev = np.clip(rows_by[cc[:, None], probe], 0, la.shape[0] - 1).reshape(-1)
+            rows = np.where(live.repeat(nodes)[:, None], la[ev], lo_int)
+            sums = np.zeros(n * nodes, dtype=np.int64)
+            for r0 in range(0, n * nodes, bm):  # a tile's partial sums, added per row
+                if not live.repeat(nodes)[r0:r0 + bm].any():
+                    continue
+                for w0 in range(0, max(n_ok, 1), bn):
+                    cnt = (rows[r0:r0 + bm, None, :] >= tab[None, w0:w0 + bn, :]).sum(axis=2)
+                    sums[r0:r0 + bm] += (cnt >= sm).sum(axis=1)
+            sums = sums.reshape(n, nodes)
+            j = np.ones(n, dtype=np.int64)
+            for _ in range(d):
+                mid = np.minimum((lo + hi) // 2, l - 1)
+                pred = (clen > 0) & (sums[cc, j - 1] >= sm)
+                hi, lo = np.where(pred, np.minimum(mid, hi), hi), np.where(pred, lo, mid + 1)
+                j = np.where(pred, 2 * j, 2 * j + 1)
+            done += d
+        return np.where(hi < clen, hi, l)
+
+    x = x0.astype(np.int64).copy()
+    xs, skipped, live = [], 0, []
+    for step in range(length):
+        ok = (x < l) & ~(bool(use_seeds) & (x == 0) & (r_abs[step] == first_nw))
+        slots = rng.permutation(np.flatnonzero(ok))
+        tab = fd[np.clip(rows_by[slots, np.clip(x[slots], 0, l - 1)], 0, fd.shape[0] - 1)]
+        if slots.size < sm or steps < 1:
+            skipped += 1
+            m0 = np.full(n, l, dtype=np.int64)
+            assert (search(tab, slots.size, x, []) == l).all()
+        else:
+            live.append([])
+            m0 = search(tab, slots.size, x, live[-1])
+        reach = inv[cc[:, None], cc[None, :], np.clip(m0, 0, l - 1)[None, :]]
+        reach = np.where((m0 < l)[None, :], reach, l)
+        xn = np.minimum(m0, reach.min(axis=1))
+        if use_seeds:
+            xn = np.minimum(xn, seeds[step])
+        x = np.minimum(np.maximum(xn, x), l)
+        xs.append(x.copy())
+    return x.astype(np.int32), np.stack(xs).astype(np.int32), skipped, live
+
+
+# (probe rows, slots) of a tile and the tree depth of the emulated L2 form:
+# tiles that divide none of the widths (64 on the synthetic case, 6 on the
+# sections, not a multiple of 4), one and two rounds a decision
+TILE_SCHEDULES = [(24, 20, 1), (5, 3, 2)]
+
+
+@pytest.mark.parametrize("schedule", TILE_SCHEDULES, ids=["24x20-d1", "5x3-d2"])
+@pytest.mark.parametrize("case", CLUSTER_CASES, ids=["synthetic-64", "section-0.333-True",
+                                                     "section-0.5-False"])
+def test_tiled_schedule_matches_reference_on_every_chunk(case, schedule):
+    """K7's L2 form as the card runs it (walk_chunk_tiles: the countable
+    frontier rows compacted into a table in any order, every chain's
+    probes of a round counted against it tile by tile, each tile's partial
+    sums added per probe, the skip of a step with too few countable rows)
+    emulated in numpy on every chunk of the walk and on the largest
+    chunk's traps (the skip's among them), equal to the JAX package's
+    _walk_chunk and to the port's plain version; the skip fires on the
+    skip traps and in the saturated tail of the walk, and settled chains
+    leave the rounds (the live chains of a step's rounds fall)."""
+    bm, bn, depth = schedule
+    grid, pg, st = staged(case)
+    inv = port.build_inv(st.rows_by_d, st.la_d)
+    s_np, first_nw, x0 = port.walk_seeds(pg, st)
+    seen, skipped, live = [], {}, []
+
+    def check(a, name):
+        got = port._walk_chunk(*a)
+        statics = dict(zip(("super_majority", "l", "length", "steps", "use_seeds"), a[8:]))
+        want = ref._walk_chunk(*[np_(v) for v in a[:8]], **statics)
+        *emulated, skipped[name], live_a = tiled_walk_chunk(a, bm, bn, depth,
+                                                            order_seed=len(seen))
+        live.extend(live_a)
+        for g, w, e in zip(got, want, emulated):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            np.testing.assert_array_equal(e, np.asarray(w))
+        return got
+
+    def walk(*a):
+        seen.append(a)
+        return check(a, f"chunk {len(seen)}")
+
+    port._doubling_walk(
+        lambda a: torch.from_numpy(np.ascontiguousarray(a)), inv, st.rows_by_d, st.fd_d,
+        st.la_d, x0, s_np, first_nw, pg.super_majority, st.l_b, st.seeded, {}, walk=walk,
+    )
+    assert seen
+    for name, a in walk_chunk_traps(max(seen, key=lambda a: a[10])).items():
+        check(a, name)
+    assert all(skipped[name] >= 1 for name in skipped if name.startswith("skip"))
+    assert skipped[f"chunk {len(seen)}"] >= 1
+    # settled chains leave the rounds (on the unpinned section every search
+    # ends before a chain settles)
+    assert any(rounds[-1] < rounds[0] for rounds in live) or case == ("section", 0.5, False)

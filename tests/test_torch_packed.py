@@ -686,7 +686,8 @@ OLD_TOPS = {
 ])
 def test_shared_memory_formula_holds_256_and_refuses_past_its_maximum(name, packed, shape):
     """Each kernel's blocks fit one block's shared memory at 256 validators
-    and up to its old maximum; K7 (29,056 validators) still refuses past its
+    and up to its old maximum; K7 (65,536 validators, 29,056 before its L2
+    form took the same shared memory at every width) still refuses past its
     maximum with the check its wrapper runs first. K3p (its setup's pair
     tile, its vote's ring), K12 and the level walks K5, K10 and K11 (from
     their *_GRID_FROM validators: the grid walk) take the same shared
@@ -694,10 +695,13 @@ def test_shared_memory_formula_holds_256_and_refuses_past_its_maximum(name, pack
     port has no staging form left."""
     kw = dict(shape)
     if name == "walk_chunk":
-        top = 29056
+        top = _ext.WC_MAX_WIDTH
+        assert top == 65536
         assert _ext.max_width(name) == top
         assert _ext.smem_bytes(name, 256) <= _ext.MAX_SMEM_BYTES
-        assert _ext.smem_bytes(name, top + 1) > _ext.MAX_SMEM_BYTES
+        assert _ext.smem_bytes(name, 29056) == _ext.smem_bytes(name, top) <= _ext.MAX_SMEM_BYTES
+        with pytest.raises(ValueError, match=f"{top + 1} validators"):
+            _ext.smem_bytes(name, top + 1)
         _ext.check_smem(name, 256)
         with pytest.raises(ValueError, match=f"{top + 1} validators"):
             _ext.check_smem(name, top + 1)
@@ -1046,7 +1050,7 @@ def test_wrappers_run_the_width_check_before_anything_else():
     assert max(_ext.block_smem("decide_window", n).values()) <= _ext.MAX_SMEM_BYTES
     # walk_chunk reads the width off rows_by and checks it first, so the
     # (N, N, L) table need not be built at this width
-    n, l = 29057, 1
-    with pytest.raises(ValueError, match="29057 validators"):
+    n, l = _ext.WC_MAX_WIDTH + 1, 1
+    with pytest.raises(ValueError, match=f"{n} validators"):
         _ext.walk_chunk(z(1, 1, l), z(n, l), z(1, 1), z(1, 1), z(1), z(1, 1), z(1), z(1),
                         3, l, 1, 1, False)
