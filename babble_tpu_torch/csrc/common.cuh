@@ -132,6 +132,56 @@ __device__ __forceinline__ void babble_grid_sync(unsigned int* count, unsigned i
     __syncthreads();
 }
 
+// The same barrier on a word that lives across launches and needs no
+// reset: block 0 adds 2^31 - (gridDim.x - 1) and every other block 1, so
+// the word's top bit flips once all have arrived and its low bits come
+// back as they were (0, where the word was zeroed once when allocated).
+// Takes a one-dimensional co-resident grid.
+__device__ __forceinline__ void babble_grid_flip_sync(unsigned int* word) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+        __threadfence();
+        const unsigned int old = atomicAdd(word, add);
+        while (((old ^ *(volatile unsigned int*)word) & 0x80000000u) == 0) {
+        }
+        __threadfence();
+    }
+    __syncthreads();
+}
+
+// The least la entry in column c over the witnesses whose bits are set in
+// words [k_lo, k_hi) of fw and in `mask` (witness 32 k + b for bit b of
+// word k), MAX_INT32 where none is: every thread of a warp walks the same
+// bits, so each load is coalesced over c, with up to eight loads of a word
+// in flight. row(w) points at witness w's la row (K12: its row of la_w,
+// every bit; K4 and B23: the clamped event row of la its witness table
+// names, a warp every fourth bit). Carrying a batch across words measured
+// slower for both (PERF.md).
+template <typename Row>
+__device__ __forceinline__ int babble_famous_min(const uint32_t* fw, int k_lo, int k_hi, int c,
+                                                 unsigned mask, Row row) {
+    int m = BABBLE_MAX_INT32;
+    for (int k = k_lo; k < k_hi; ++k) {
+        unsigned bits = fw[k] & mask;
+        while (bits) {
+            int v[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+                v[u] = BABBLE_MAX_INT32;
+                if (bits) {
+                    const int w = 32 * k + __ffs(bits) - 1;
+                    bits &= bits - 1;
+                    v[u] = row(w)[c];
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < 8; ++u) m = min(m, v[u]);
+        }
+    }
+    return m;
+}
+
 // Asynchronous copies from global to shared memory (cp.async, sm_80 and
 // up): 16 bytes through L2 only, or 4 bytes; commit and wait by group.
 __device__ __forceinline__ void babble_cp_async16(void* smem, const void* gmem) {

@@ -54,9 +54,19 @@
 //     ticket) writes it. The freeze keeps a settled round's stored values.
 //   dw_tables, a block per (round, 128 columns c): the famous-witness
 //     count, the min over famous witnesses of la_w[r, w, c] (only the
-//     famous ones are read), and whether r is decided.
+//     famous ones are read: common.cuh babble_famous_min, the set-bit
+//     walk K4 and B23 take too), and whether r is decided.
 //   dw_events, a grid over all E_cap rows: received in the window, the
 //     stale detector below it (the horizon scanned in shared memory).
+// Where the caller passes a vector (`pack`), the last two launches also
+// write K13 pack_results' layout of what the live engine's write-back
+// reads (replacing babble_tpu/tpu/live.py:757 _pack_results for a fetch
+// that follows a decide; pack_results.cu stays for one that does not):
+// dw_tables, after the vote, the three (r_cap, n) tables (a thread its
+// column of its round) and the scalars as they stand (stale, fame_lag,
+// last_round); dw_events each row's four words, received after its own
+// update, and a 1 into the stale word wherever it latches stale, so the
+// word ends as stale does.
 //
 // Both voting-table layouts launch this kernel: its tallies are bit words
 // already, so the packed layout (tpu/packed.py) has nothing to change.
@@ -378,14 +388,17 @@ dw_vote(const int32_t* __restrict__ wtable, const uint8_t* __restrict__ coin_w,
 // per round r: the famous-witness count, the min over famous witnesses of
 // la_w[r, w, c], and whether r is decided and <= last_round. A block per
 // (round, 128 columns c): the round's famous flags as bits in shared
-// memory, then each thread walks the set bits only (every thread the same
-// bits, so each load is coalesced over c), eight loads in flight.
+// memory, then each thread walks the set bits only (babble_famous_min:
+// every thread the same bits, so each load is coalesced over c), eight
+// loads in flight.
 #define DW_TABLES_THREADS 128
 __global__ void __launch_bounds__(DW_TABLES_THREADS)
 dw_tables(const int32_t* __restrict__ wtable, const int32_t* __restrict__ la_w,
           const uint8_t* __restrict__ fame_decided, const uint8_t* __restrict__ famous,
           const uint8_t* __restrict__ rounds_decided, const int32_t* __restrict__ last_round,
-          int32_t* min_la, int32_t* famous_count, uint8_t* i_ok, int n) {
+          int32_t* min_la, int32_t* famous_count, uint8_t* i_ok,
+          const uint8_t* __restrict__ stale, const uint8_t* __restrict__ fame_lag,
+          int32_t* pack_tab, int n, int r_cap) {
     extern __shared__ uint32_t fw[];  // (ceil(n / 32),) famous flags, a bit a witness
     __shared__ int total;
     const int r = blockIdx.x;
@@ -406,32 +419,32 @@ dw_tables(const int32_t* __restrict__ wtable, const int32_t* __restrict__ la_w,
     __syncthreads();
     const int c = blockIdx.y * blockDim.x + threadIdx.x;
     if (c < n) {
-        int m = BABBLE_MAX_INT32;
-        for (int k = 0; k < words; ++k) {
-            unsigned bits = fw[k];
-            while (bits) {
-                int v[8];
-#pragma unroll
-                for (int u = 0; u < 8; ++u) {
-                    v[u] = BABBLE_MAX_INT32;
-                    if (bits) {
-                        const int w = 32 * k + __ffs(bits) - 1;
-                        bits &= bits - 1;
-                        v[u] = la_w[(rn + w) * n + c];
-                    }
-                }
-#pragma unroll
-                for (int u = 0; u < 8; ++u) m = min(m, v[u]);
-            }
-        }
+        const int m = babble_famous_min(fw, 0, words, c, BABBLE_FULL_MASK, [=](int w) {
+            return la_w + (rn + w) * n;
+        });
         min_la[rn + c] = m;
+        if (pack_tab != nullptr) {
+            const long long r_n = (long long)r_cap * n;
+            pack_tab[rn + c] = wtable[rn + c];
+            pack_tab[r_n + rn + c] = fame_decided[rn + c] != 0;
+            pack_tab[2 * r_n + rn + c] = famous[rn + c] != 0;
+        }
     }
     if (threadIdx.x == 0 && blockIdx.y == 0) {
         famous_count[r] = total;
         i_ok[r] = rounds_decided[r] && r <= *last_round;
+        if (pack_tab != nullptr && r == 0) {
+            int32_t* flags = pack_tab + 3LL * r_cap * n;
+            flags[0] = *stale != 0;
+            flags[1] = *fame_lag != 0;
+            flags[2] = *last_round;
+        }
     }
 }
 
+// dw_events with `pack` (rows from `pack_lo`, the host's window start: a
+// launch whose count places the window elsewhere traps; `flags` the
+// vector's three scalar words, which dw_tables wrote)
 __global__ void dw_events(const int32_t* __restrict__ index,
                           const int32_t* __restrict__ creator,
                           const int32_t* __restrict__ rounds,
@@ -440,6 +453,9 @@ __global__ void dw_events(const int32_t* __restrict__ index,
                           const int32_t* __restrict__ famous_count,
                           const uint8_t* __restrict__ i_ok,
                           int32_t* received, uint8_t* stale,
+                          const int32_t* __restrict__ lamport,
+                          const uint8_t* __restrict__ witness,
+                          int32_t* pack, int32_t* flags, int pack_lo,
                           int e_cap, int n, int r_cap, int e_win) {
     extern __shared__ int32_t horizon[];  // (r_cap,) first round >= k not i_ok
     for (int r = threadIdx.x; r < r_cap; r += blockDim.x) horizon[r] = i_ok[r];
@@ -454,6 +470,7 @@ __global__ void dw_events(const int32_t* __restrict__ index,
     __syncthreads();
     const long long lo_l = (long long)*count - e_win;
     const int lo = (int)(lo_l < 0 ? 0 : (lo_l > e_cap - e_win ? e_cap - e_win : lo_l));
+    if (pack != nullptr && pack_lo != lo) __trap();
     const long long stride = (long long)gridDim.x * blockDim.x;
     int miss = 0;
     for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < e_cap;
@@ -464,22 +481,34 @@ __global__ void dw_events(const int32_t* __restrict__ index,
         }
         if (k >= (long long)lo + e_win) continue;
         const int idx = index[k];
-        if (received[k] >= 0 || idx == BABBLE_MAX_INT32) continue;
-        const int rd = rounds[k];
-        const int c = creator[k];
-        const bool c_ok = c >= 0 && c < n;
-        const int stop = min(horizon[babble_clamp(rd + 1, 0, r_cap - 1)], r_cap);
-        int res = -1;
-        for (int i = max(rd + 1, 0); i < stop; ++i) {
-            const int seen = c_ok ? min(min_la[(long long)i * n + c], DW_FD_CLAMP) : 0;
-            if (famous_count[i] > 0 && i_ok[i] && idx <= seen) {
-                res = i;
-                break;
+        int res = received[k];
+        if (res < 0 && idx != BABBLE_MAX_INT32) {
+            const int rd = rounds[k];
+            const int c = creator[k];
+            const bool c_ok = c >= 0 && c < n;
+            const int stop = min(horizon[babble_clamp(rd + 1, 0, r_cap - 1)], r_cap);
+            res = -1;
+            for (int i = max(rd + 1, 0); i < stop; ++i) {
+                const int seen = c_ok ? min(min_la[(long long)i * n + c], DW_FD_CLAMP) : 0;
+                if (famous_count[i] > 0 && i_ok[i] && idx <= seen) {
+                    res = i;
+                    break;
+                }
             }
+            received[k] = res;
         }
-        received[k] = res;
+        if (pack != nullptr) {
+            const long long q = k - lo;
+            pack[q] = rounds[k];
+            pack[e_win + q] = lamport[k];
+            pack[2LL * e_win + q] = witness[k] != 0;
+            pack[3LL * e_win + q] = res;
+        }
     }
-    if (__syncthreads_or(miss) && threadIdx.x == 0) *stale = 1;
+    if (__syncthreads_or(miss) && threadIdx.x == 0) {
+        *stale = 1;
+        if (pack != nullptr) flags[0] = 1;
+    }
 }
 
 extern "C" int babble_decide_window(
@@ -489,9 +518,10 @@ extern "C" int babble_decide_window(
     const int32_t* count, const int32_t* index, const int32_t* creator,
     const int32_t* rounds, int32_t* received, uint8_t* stale, uint8_t* fame_lag,
     int32_t* scal, uint32_t* ss_bits, uint32_t* vt0, uint32_t* vt1, int32_t* rcnt,
-    int32_t* min_la, int32_t* famous_count, uint8_t* i_ok,
+    int32_t* min_la, int32_t* famous_count, uint8_t* i_ok, const int32_t* lamport,
+    const uint8_t* witness, int32_t* pack,
     int e_cap, int n, int r_cap, int r_win, int e_win, int super_majority,
-    int n_participants, int d_unroll, int device, void* stream) {
+    int n_participants, int d_unroll, int pack_lo, int device, void* stream) {
     BABBLE_CHECK(cudaSetDevice(device));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int words = (n + 31) / 32;
@@ -525,16 +555,19 @@ extern "C" int babble_decide_window(
     BABBLE_CHECK_LAUNCH();
 
     const dim3 grid_tables(r_cap, (n + DW_TABLES_THREADS - 1) / DW_TABLES_THREADS);
+    int32_t* pack_tab = pack != nullptr ? pack + 4LL * e_win : nullptr;
     dw_tables<<<grid_tables, DW_TABLES_THREADS, (size_t)words * sizeof(uint32_t), s>>>(
         wtable, la_w, fame_decided, famous, rounds_decided, last_round, min_la, famous_count,
-        i_ok, n);
+        i_ok, stale, fame_lag, pack_tab, n, r_cap);
     BABBLE_CHECK_LAUNCH();
 
     size_t smem_events = (size_t)r_cap * sizeof(int32_t);
     BABBLE_CHECK(babble_allow_smem(dw_events, smem_events));
     dw_events<<<babble_stride_blocks(e_cap, 256), 256, smem_events, s>>>(
         index, creator, rounds, count, min_la, famous_count, i_ok, received,
-        stale, e_cap, n, r_cap, e_win);
+        stale, lamport, witness, pack,
+        pack_tab != nullptr ? pack_tab + 3LL * r_cap * n : nullptr, pack_lo, e_cap, n, r_cap,
+        e_win);
     BABBLE_CHECK_LAUNCH();
     return 0;
 }

@@ -13,6 +13,10 @@
 // One grid-stride launch: output word i finds its segment and reads its
 // one source element. Bound: bytes (each source read once, each output
 // word written once); at the live engine's defaults it is launch-bound.
+// The live engine launches it only where no decide ran since its last
+// fetch (a call with no new events, an attach from the frontier): a
+// decide handed a vector writes this layout in K12's last two launches
+// (decide_window.cu dw_tables, dw_events).
 
 #include "common.cuh"
 

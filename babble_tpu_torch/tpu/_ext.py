@@ -66,6 +66,18 @@ cooperative launch for every position ("shard_fame/grid", K3's vote on
 tables gathered from the shards), or three launches per step and position
 ("shard_fame/tally", "/decide", "/active"); `shard_fame_form` also takes
 the per-step form past the vote's 32 * FV_MAX_WORDS voters.
+
+K4 `round_received` and B23 `fame_tables` launch one design of the
+received tables (csrc/round_received.cu rt_grid; `received_tables_plan`
+shapes it): blocks of (round, tile of columns, slice of the famous
+witnesses), the slices' minima met in a thread-block cluster's shared
+memory, the horizon scanned by the round that takes a ticket's last
+number; K4's events follow a grid barrier in the same cooperative
+launch; their ticket and barrier live on
+per-card words zeroed once (`sync_words`), which the launches leave as
+they found them. K12 `decide_window` writes K13's vector in its last two
+launches when handed one (`pack`): the live engine's results then need
+no pack_results launch.
 """
 
 from __future__ import annotations
@@ -96,7 +108,7 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
     ),
     "decide_fame": ("decide_fame.cu", "babble_decide_fame", "ppppppppppppp" "iiiiii"),
     "round_received": (
-        "round_received.cu", "babble_round_received", "pppppppppppppp" "iiii",
+        "round_received.cu", "babble_round_received", "pppppppppppppp" "iiiiii",
     ),
     "divide_rounds": (
         "divide_rounds.cu", "babble_divide_rounds", "pppppppppppppppppppp" "iiiiii"
@@ -124,7 +136,7 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
     ),
     "decide_window": (
         "decide_window.cu", "babble_decide_window",
-        "pppppppppppppppppppppppp" "iiiiiiii",
+        "ppppppppppppppppppppppppppp" "iiiiiiiii",
     ),
     "pack_results": (
         "pack_results.cu", "babble_pack_results", "ppppppppppp" "iiiii",
@@ -147,7 +159,7 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
     # device)
     "shard_fame/grid": ("shard_fame.cu", "babble_shard_fame_grid", "pppppp" "iiiiiiiii"),
     "received_search": ("round_received.cu", "babble_received_search", "pppppppp" "iii"),
-    "fame_tables": ("round_received.cu", "babble_fame_tables", "pppppppppp" "iii"),
+    "fame_tables": ("round_received.cu", "babble_fame_tables", "ppppppppppp" "iiiii"),
     "shard_walk/rows": ("frontier_walk.cu", "babble_shard_walk_rows", "ppppp" "iiii"),
     "shard_walk/m0": ("frontier_walk.cu", "babble_shard_walk_m0", "pppp" "iiiii"),
     "shard_walk/close": ("frontier_walk.cu", "babble_shard_walk_close", "pppp" "iiii"),
@@ -230,7 +242,37 @@ FV_COLS = 16
 FV_STAGES = 8
 FV_REG_WORDS = 32
 
+# the received tables of K4 and B23 (csrc/round_received.cu rt_grid,
+# received_tables_plan): a block's threads (four warps, each every fourth
+# witness), the columns of a tile (a lane each), the witnesses' bit words a
+# block stages at once, the most blocks a cluster (a portable one), the
+# blocks the plan aims at (eight an SM of the H100's 132) and the widest
+# grid it plans; the shared memory of one block (static: the chunk's flags,
+# each warp's occupied words and the la rows, two buffers of the warps' and
+# the block's minima, the slice's count and verdicts, the ticket's flag,
+# the horizon scan's warp minima)
+RT_THREADS = 128
+RT_COLS = 32
+RT_CHUNK = 32
+RT_MAX_SLICES = 8
+RT_TARGET_BLOCKS = 8 * 132
+RT_MAX_WIDTH = 65536
+RT_SMEM = (RT_CHUNK * 4 + RT_THREADS // 32 * 4 + RT_CHUNK * 32 * 4
+           + 2 * (RT_THREADS + RT_COLS + 3) * 4 + 4 + RT_THREADS // 32 * 4)
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# words that outlast a launch, zeroed once per card: the received tables'
+# ticket and grid barrier; the ticket's last taker sets it back to 0 and
+# the barrier's word comes back as it was, so no launch sets them first
+_SYNC: Dict[torch.device, torch.Tensor] = {}
+
+
+def sync_words(dev: torch.device) -> torch.Tensor:
+    """`dev`'s two sync words."""
+    words = _SYNC.get(dev)
+    if words is None:
+        words = _SYNC[dev] = torch.zeros((2,), dtype=torch.int32, device=dev)
+    return words
 
 
 def reset_launches() -> None:
@@ -370,6 +412,9 @@ def block_smem(name: str, n: int, packed: bool = False, **shape) -> Dict[str, in
         return {"setup": FS_SETUP_SMEM, "vote": fame_vote_plan(words)["smem"]}
     if name == "decide_window":
         return {"setup": DW_SETUP_SMEM, "vote": DW_VOTE_SMEM}
+    if name in ("round_received", "fame_tables"):
+        # static, the same at every width
+        return {"tables": RT_SMEM}
     if name == "closure_la":
         # closure_la.cu: the squaring's tile of target codes (n rows of
         # tile + 1 words) beside the prefix's two reductions
@@ -714,9 +759,38 @@ def decide_fame(wtable, la, fd, index, coin_bit, last_round,
             rounds_decided.view(torch.bool))
 
 
+def received_tables_plan(n: int, r_max: int) -> Dict:
+    """The received tables' work (csrc/round_received.cu rt_grid) for n
+    validators and r_max rounds, the one rule that shapes it: items of
+    (round, tile of RT_COLS columns), each taken by a cluster of
+    `slices` blocks (a power of two, at most RT_MAX_SLICES), slice s
+    walking the witnesses' bit words [s * wps, min((s + 1) * wps,
+    words)); slices double while the items times slices stay below
+    RT_TARGET_BLOCKS and every slice keeps a word. The launch takes a
+    cluster an item, or, with K4's events after a grid barrier, as many
+    clusters as the card holds at once striding over the items: any item
+    count is placeable."""
+    if not 1 <= n <= RT_MAX_WIDTH:
+        raise ValueError(f"the received tables hold 1 to {RT_MAX_WIDTH} validators, not {n}")
+    if r_max < 1:
+        raise ValueError(f"the received tables need a round, not r_max {r_max}")
+    words = -(-n // 32)
+    tiles = -(-n // RT_COLS)
+    items = r_max * tiles
+    slices = 1
+    while (slices * 2 <= min(RT_MAX_SLICES, words) and items * slices < RT_TARGET_BLOCKS
+           and (2 * slices - 1) * -(-words // (2 * slices)) < words):
+        slices *= 2
+    return {"words": words, "tiles": tiles, "items": items, "slices": slices,
+            "wps": -(-words // slices), "cols": RT_COLS, "threads": RT_THREADS,
+            "smem": RT_SMEM}
+
+
 def round_received(wtable, la, index, creator, rounds, decided, famous,
                    rounds_decided, last_round) -> torch.Tensor:
-    """K4: round-received per event, (E,) int32, -1 while undetermined."""
+    """K4: round-received per event, (E,) int32, -1 while undetermined.
+    One cooperative launch: the tables as received_tables_plan shapes
+    them, a grid barrier, then the events."""
     dev = wtable.device
     r_max, n = wtable.shape
     e_la = la.shape[0]
@@ -731,15 +805,16 @@ def round_received(wtable, la, index, creator, rounds, decided, famous,
     check_tensor("last_round", last_round, torch.int32, (), dev)
     if e_la < 1:
         raise ValueError("round_received: la has no rows")
+    plan = received_tables_plan(n, r_max)
     min_la = torch.empty((r_max, n), dtype=torch.int32, device=dev)
     famous_count = torch.empty((r_max,), dtype=torch.int32, device=dev)
     i_ok = torch.empty((r_max,), dtype=torch.uint8, device=dev)
-    horizon = torch.empty((r_max,), dtype=torch.int32, device=dev)
     received = torch.empty((e,), dtype=torch.int32, device=dev)
     _launch("round_received", dev, (
         wtable, la, index, creator, rounds, decided.view(torch.uint8),
         famous.view(torch.uint8), rounds_decided.view(torch.uint8), last_round,
-        min_la, famous_count, i_ok, horizon, received, r_max, n, e, e_la,
+        min_la, famous_count, i_ok, received, sync_words(dev), r_max, n, e, e_la,
+        plan["slices"], plan["wps"],
     ))
     return received
 
@@ -1276,13 +1351,21 @@ def decide_window(wtable, la_w, fd_w, idx_w, coin_w, fame_decided, famous,
                   rounds_decided, last_round, count, index, creator, rounds,
                   received, stale, fame_lag, super_majority: int,
                   n_participants: int, r_win: int, e_win: int,
-                  d_unroll: int, packed: bool = False) -> None:
+                  d_unroll: int, packed: bool = False, lamport=None, witness=None,
+                  pack=None, pack_lo: int = 0) -> None:
     """K12, in place: fame over the r_win-round window from the first
     undecided round (freeze mask below it), round received over the
     trailing e_win rows, the stale detector and the fame_lag latch. Its
     tallies are bit words in both layouts, so `packed` launches the same
     kernel and counts it as decide_window/packed. Its launches' shared
-    memory is the same at every width (no staging form)."""
+    memory is the same at every width (no staging form).
+
+    With `pack` (int32, K13's 4 * e_win + 3 * R_cap * N + 3 words) its
+    last two launches also write pack_results' vector of the state they
+    leave (rows from the decide's window start, which must be `pack_lo`,
+    the host's start clamped as pack_window_start clamps it: the last
+    launch traps where the state's count places it elsewhere), reading
+    `lamport` and `witness` too; no pack_results launch is counted."""
     dev = wtable.device
     r_cap, n = wtable.shape
     e_cap = index.shape[0]
@@ -1302,6 +1385,13 @@ def decide_window(wtable, la_w, fd_w, idx_w, coin_w, fame_decided, famous,
                          fame_lag=(fame_lag, torch.bool))
     if not (1 <= r_win <= r_cap and 1 <= e_win <= e_cap) or n_participants < 1:
         raise ValueError("decide_window: windows must fit the capacities")
+    if pack is not None:
+        check_tensor("lamport", lamport, torch.int32, (e_cap,), dev)
+        check_tensor("witness", witness, torch.bool, (e_cap,), dev)
+        check_tensor("pack", pack, torch.int32, (4 * e_win + 3 * r_cap * n + 3,), dev)
+        if not 0 <= pack_lo <= e_cap - e_win:
+            raise ValueError(f"decide_window: pack_lo {pack_lo} must lie in "
+                             f"[0, {e_cap - e_win}]")
     words = (n + 31) // 32
     scal = torch.empty((2,), dtype=torch.int32, device=dev)
     ss_bits = torch.empty((r_win, n, words), dtype=torch.int32, device=dev)
@@ -1318,8 +1408,11 @@ def decide_window(wtable, la_w, fd_w, idx_w, coin_w, fame_decided, famous,
         fame_decided.view(torch.uint8), famous.view(torch.uint8),
         rounds_decided.view(torch.uint8), last_round, count, index, creator,
         rounds, received, stale.view(torch.uint8), fame_lag.view(torch.uint8),
-        scal, ss_bits, vt0, vt1, rcnt, min_la, famous_count, i_ok, e_cap, n, r_cap,
-        r_win, e_win, super_majority, n_participants, d_unroll,
+        scal, ss_bits, vt0, vt1, rcnt, min_la, famous_count, i_ok,
+        lamport if pack is not None else None,
+        witness.view(torch.uint8) if pack is not None else None, pack,
+        e_cap, n, r_cap, r_win, e_win, super_majority,
+        n_participants, d_unroll, pack_lo,
     ), packed=packed)
 
 
@@ -1598,7 +1691,8 @@ def shard_fame_grid(ss_parts, votes_parts, wv_parts, coin_parts, wvalid_parts,
 
 def fame_tables(wtable, la, decided, famous, last_round):
     """B23: (min_la (R, N) int32, famous_count (R,) int32, i_ok (R,) bool,
-    horizon (R,) int32, rounds_decided (R,) bool)."""
+    horizon (R,) int32, rounds_decided (R,) bool), in one launch of K4's
+    tables (received_tables_plan)."""
     dev = wtable.device
     r_max, n = wtable.shape
     e_la = la.shape[0]
@@ -1609,6 +1703,7 @@ def fame_tables(wtable, la, decided, famous, last_round):
     check_tensor("last_round", last_round, torch.int32, (), dev)
     if e_la < 1 or r_max < 1:
         raise ValueError("fame_tables: needs la rows and rounds")
+    plan = received_tables_plan(n, r_max)
     min_la = torch.empty((r_max, n), dtype=torch.int32, device=dev)
     famous_count = torch.empty((r_max,), dtype=torch.int32, device=dev)
     i_ok = torch.empty((r_max,), dtype=torch.uint8, device=dev)
@@ -1616,7 +1711,8 @@ def fame_tables(wtable, la, decided, famous, last_round):
     rounds_decided = torch.empty((r_max,), dtype=torch.uint8, device=dev)
     _launch("fame_tables", dev, (
         wtable, la, decided.view(torch.uint8), famous.view(torch.uint8), last_round,
-        min_la, famous_count, i_ok, horizon, rounds_decided, r_max, n, e_la,
+        min_la, famous_count, i_ok, horizon, rounds_decided, sync_words(dev), r_max,
+        n, e_la, plan["slices"], plan["wps"],
     ))
     return (min_la, famous_count, i_ok.view(torch.bool), horizon,
             rounds_decided.view(torch.bool))

@@ -33,7 +33,9 @@ Four kernels carry the card path (babble_tpu_torch/csrc/):
   `_ext.train_levels_form`);
 - K12 decide_window.cu `_decide_body`: windowed fame with D_UNROLL fixed
   voting offsets and the freeze mask, round received over the trailing
-  row window, the stale detector.
+  row window, the stale detector; where a caller passes a vector (`pack`),
+  K13's layout of what the live engine's write-back reads, in its last
+  two launches (tpu/live.py asks for it on the last decide of a call).
 
 `step` = K9 -> K10 -> K12, `multi_step` = K x (K9 -> K10) then K12,
 `train_step` = K9 -> K11 -> K12, `multi_train` = K x (K9 -> K11) then K12.
@@ -688,18 +690,69 @@ def _decide_body_plain(state: IncState, super_majority: int, n_participants: int
     state.fame_lag.logical_or_(fame_overflow)
 
 
+def pack_window_start(lo: int, e_cap: int, e_win: int) -> int:
+    """Where K13's row window starts: jax.lax.dynamic_slice's rule, a
+    negative start counted from the end once, then clamped to
+    [0, e_cap - e_win]. The live engine's lo = max(count - e_win, 0)
+    never needs either."""
+    lo = int(lo)
+    if lo < 0:
+        lo += e_cap
+    return min(max(lo, 0), e_cap - e_win)
+
+
+def pack_size(e_win: int, r_cap: int, n: int) -> int:
+    """The words of K13's vector."""
+    return 4 * e_win + 3 * r_cap * n + 3
+
+
+def pack_results_plain(st: IncState, lo: int, e_win: int, r_cap: int,
+                       n: int) -> torch.Tensor:
+    """K13's plain version (babble_tpu/tpu/live.py:757 _pack_results):
+    slices, casts and one concatenation, with the row window's start
+    placed as jax.lax.dynamic_slice places it."""
+    l0 = pack_window_start(lo, st.rounds.shape[0], e_win)
+    i32 = torch.int32
+
+    def sl(a):
+        return a[l0 : l0 + e_win].to(i32)
+
+    return torch.cat([
+        sl(st.rounds), sl(st.lamport), sl(st.witness), sl(st.received),
+        st.wtable.reshape(r_cap * n).to(i32),
+        st.fame_decided.reshape(r_cap * n).to(i32),
+        st.famous.reshape(r_cap * n).to(i32),
+        torch.stack([st.stale.to(i32), st.fame_lag.to(i32), st.last_round.to(i32)]),
+    ])
+
+
 def _decide_body(state: IncState, super_majority: int, n_participants: int,
                  r_win: int = 32, e_win: int = 8192,
-                 packed: bool = False) -> IncState:
+                 packed: bool = False, pack=None, pack_lo: int = 0) -> IncState:
     """K12 (babble_tpu/tpu/incremental.py:361 _decide_body with :125
     _fame_window). Timing-independent: running it once per K appended
     batches gives the values per-batch evaluation would. CPU: the plain
     version; CUDA: csrc/decide_window.cu, whose tallies are bit words in
     both layouts (the packed launch is counted as decide_window/packed).
-    The entry points check the windows before they change the state."""
+    The entry points check the windows before they change the state.
+
+    With `pack` (int32, pack_size(e_win, R_cap, N) words on the state's
+    device) K13's vector of the state the decide leaves is written into
+    it at window start `pack_lo`, which must be where the decide's own
+    window starts (clamp(count - e_win, 0, E_cap - e_win)): on the card
+    by K12's last two launches (the last traps where it is not); on the CPU by
+    pack_results_plain after the plain decide, which raises."""
     if state.la.device.type == "cpu":
         _decide_body_plain(state, super_majority, n_participants, r_win, e_win,
                            packed)
+        if pack is not None:
+            e_cap = state.la.shape[0]
+            lo = min(max(int(state.count) - e_win, 0), e_cap - e_win)
+            if pack_lo != lo:
+                raise RuntimeError(f"decide: the pack's window starts at {pack_lo}, the "
+                                   f"state's count places it at {lo}")
+            r_cap, n = state.wtable.shape
+            pack.copy_(pack_results_plain(state, pack_lo, e_win, r_cap, n))
         return state
     _ext.decide_window(
         state.wtable, state.la_w, state.fd_w, state.idx_w, state.coin_w,
@@ -707,6 +760,7 @@ def _decide_body(state: IncState, super_majority: int, n_participants: int,
         state.last_round, state.count, state.index, state.creator,
         state.rounds, state.received, state.stale, state.fame_lag,
         super_majority, n_participants, r_win, e_win, D_UNROLL, packed=packed,
+        lamport=state.lamport, witness=state.witness, pack=pack, pack_lo=pack_lo,
     )
     return state
 
@@ -718,13 +772,15 @@ def _decide_body(state: IncState, super_majority: int, n_participants: int,
 
 def _step_full(state: IncState, batch: Batch, super_majority: int,
                n_participants: int, r_win: int = 32, e_win: int = 8192,
-               packed: bool = False) -> IncState:
+               packed: bool = False, pack=None, pack_lo: int = 0) -> IncState:
     """Append one batch and decide: K9 -> K10 -> K12, in place, in the
-    voting-table layout `packed` names."""
+    voting-table layout `packed` names. `pack` and `pack_lo` as
+    _decide_body takes them (every entry point that decides passes them
+    through)."""
     _check_windows(state, r_win, e_win)
     _step_body(state, batch, super_majority, n_participants, packed)
     return _decide_body(state, super_majority, n_participants, r_win=r_win,
-                        e_win=e_win, packed=packed)
+                        e_win=e_win, packed=packed, pack=pack, pack_lo=pack_lo)
 
 
 step = _step_full
@@ -736,7 +792,7 @@ def _unstack(stacked: Inputs, k: int) -> Inputs:
 
 def multi_step(state: IncState, stacked: Batch, super_majority: int,
                n_participants: int, r_win: int = 32, e_win: int = 8192,
-               packed: bool = False) -> IncState:
+               packed: bool = False, pack=None, pack_lo: int = 0) -> IncState:
     """K stacked batches (every field with a leading K axis), then one
     decide. Equal to K step calls: decisions are timing-independent."""
     _check_windows(state, r_win, e_win)
@@ -745,31 +801,31 @@ def multi_step(state: IncState, stacked: Batch, super_majority: int,
         _step_body(state, _unstack(stacked, k), super_majority, n_participants,
                    packed)
     return _decide_body(state, super_majority, n_participants, r_win=r_win,
-                        e_win=e_win, packed=packed)
+                        e_win=e_win, packed=packed, pack=pack, pack_lo=pack_lo)
 
 
 def train_step(state: IncState, train: Train, super_majority: int,
                n_participants: int, r_win: int = 32, e_win: int = 8192,
-               packed: bool = False) -> IncState:
+               packed: bool = False, pack=None, pack_lo: int = 0) -> IncState:
     """One whole train, then one decide: K9 -> K11 -> K12, in place, in
     the voting-table layout `packed` names. The throughput path of the
     incremental engine."""
     _check_windows(state, r_win, e_win)
     _train_body(state, train, super_majority, n_participants, packed)
     return _decide_body(state, super_majority, n_participants, r_win=r_win, e_win=e_win,
-                        packed=packed)
+                        packed=packed, pack=pack, pack_lo=pack_lo)
 
 
 def multi_train(state: IncState, stacked: Train, super_majority: int,
                 n_participants: int, r_win: int = 32, e_win: int = 8192,
-                packed: bool = False) -> IncState:
+                packed: bool = False, pack=None, pack_lo: int = 0) -> IncState:
     """K stacked trains, then one decide. Equal to K train_step calls."""
     _check_windows(state, r_win, e_win)
     stacked = device_put(stacked, state.la.device)
     for k in range(stacked.rows.shape[0]):
         _train_body(state, _unstack(stacked, k), super_majority, n_participants, packed)
     return _decide_body(state, super_majority, n_participants, r_win=r_win, e_win=e_win,
-                        packed=packed)
+                        packed=packed, pack=pack, pack_lo=pack_lo)
 
 
 # ---------------------------------------------------------------------------

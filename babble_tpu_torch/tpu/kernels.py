@@ -371,7 +371,10 @@ def received_search(index, creator, rounds, min_la, famous_count, i_ok, horizon)
     fully fame-decided, round i has >= 1 famous witness, and all famous
     witnesses of i see e }; -1 if none."""
     r_dim, n = min_la.shape
-    seen_min = min_la[:, creator.clamp(0, n - 1).long()].T  # (E, R)
+    # the reference's gather: a negative creator counted from the end
+    # once, then clamped to [0, n)
+    col = torch.where(creator < 0, creator + n, creator).clamp(0, n - 1)
+    seen_min = min_la[:, col.long()].T  # (E, R)
     start = (rounds + 1).clamp(0, r_dim - 1).long()
     return received_core(index, rounds, seen_min, famous_count, i_ok, horizon[start])
 

@@ -27,10 +27,16 @@ passes device="cpu".
 
 The engine holds its device (the CUDA card unless the caller passes
 device="cpu") and updates its IncState there in place: K9-K12 per append
-(tpu/incremental.py), then K13 `_pack_results` (csrc/pack_results.cu)
-flattens what the write-back reads into one fresh int32 vector, all on
-the one compute stream, so stream order keeps K13's reads ahead of the
-next append's writes. That vector is the only device read of a call: the
+(tpu/incremental.py), then K13's layout flattens what the write-back
+reads into one fresh int32 vector, all on the one compute stream, so
+stream order keeps its reads ahead of the next append's writes. `advance`
+asks the call's last decide for that vector (K12's last two launches write
+it: csrc/decide_window.cu dw_tables, dw_events) and keeps it; `_dispatch` hands it over
+where nothing has written the state since (a rebase or an attach drops
+it; the bootstrap's replay packs the same way), and launches K13
+`_pack_results` (csrc/pack_results.cu) of its own only where no decide
+ran since the last pack: a call with no new events, an attach from the
+frontier. That vector is the only device read of a call: the
 synchronous discipline copies it to the host at once, the pipelined one
 hands it to a side stream and a reader thread (`_AsyncFetch`).
 """
@@ -54,6 +60,9 @@ from .incremental import (
     empty_batch,
     init_state,
     multi_step,
+    pack_results_plain,
+    pack_size,
+    pack_window_start,
     stack_batches,
     state_from_arrays,
     step,
@@ -183,6 +192,12 @@ class LiveDeviceEngine:
         self.state: IncState = init_state(
             self.n, self.e_cap, self.r_cap, device=self.device
         )
+        # K13's vector from the last decide of the latest advance, with the
+        # row count it was packed at, until a dispatch takes it or anything
+        # else writes the state; and which route each dispatch's vector came
+        # by ("fused": that decide's; "own": K13's own launch)
+        self._pack: Optional[Tuple[torch.Tensor, int]] = None
+        self.packs = {"fused": 0, "own": 0}
         self.row_of: Dict[str, int] = {}
         self.hashes: List[str] = []
         self.pending: List[tuple] = []  # (event, fd_writes)
@@ -251,11 +266,23 @@ class LiveDeviceEngine:
         )
         from .incremental import batches_from_grid
 
-        for b in batches_from_grid(grid, self.batch_cap, self.upd_cap, self.e_cap):
+        batches = list(batches_from_grid(grid, self.batch_cap, self.upd_cap, self.e_cap))
+        # the replay's last decide packs the attach call's results
+        vec, lo = self._pack_target()
+        for j, b in enumerate(batches):
             self.state = step(
                 self.state, b, self.hg.super_majority, self.n,
                 e_win=self.e_win, r_win=self.r_win, packed=self.packed,
+                pack=vec if j == len(batches) - 1 else None, pack_lo=lo,
             )
+        self._pack = (vec, len(self.hashes))
+
+    def _pack_target(self) -> Tuple[torch.Tensor, int]:
+        """A fresh vector for K13's layout and the window start of the row
+        count the engine holds now (every row staged)."""
+        lo = pack_window_start(max(len(self.hashes) - self.e_win, 0), self.e_cap, self.e_win)
+        return torch.empty((pack_size(self.e_win, self.r_cap, self.n),), dtype=torch.int32,
+                           device=self.device), lo
 
     def _attach_base_round(self):
         """(base, floor): floor = first fame-undecided round, base =
@@ -408,6 +435,7 @@ class LiveDeviceEngine:
         hg = self.hg
         n, e_cap, r_cap = self.n, self.e_cap, self.r_cap
         undet = set(hg.undetermined_events)
+        self._pack = None  # the state is rebuilt below
 
         min_undet_round = floor
         for h, ev in kept:
@@ -556,6 +584,7 @@ class LiveDeviceEngine:
         live path compiles at most three programs."""
         if not self.pending:
             return []
+        self._pack = None
         clock = self.hg.obs.clock
         t0 = clock.monotonic()
         drained, self.pending = self.pending, []
@@ -581,19 +610,23 @@ class LiveDeviceEngine:
         # batch building is the live rung's host staging work; the step/
         # multi_step launches below are attributed by their own seams
         led.component("live", "stage", clock.monotonic() - t0, layout=layout)
+        # the call's last decide also packs the results (K13's layout)
+        vec, lo = self._pack_target()
         with led.activate("live", layout=layout):
             if len(built) <= 2:
-                for b in built:
+                for j, b in enumerate(built):
+                    last = j == len(built) - 1
                     self.state = ledger_call(
                         "_step_full", step,
                         self.state, b, self.hg.super_majority, self.n,
                         e_win=self.e_win, r_win=self.r_win,
-                        packed=self.packed,
+                        packed=self.packed, pack=vec if last else None, pack_lo=lo,
                     )
                     self.dispatches += 1
             else:
                 for i in range(0, len(built), 16):
                     group = built[i : i + 16]
+                    last = i + 16 >= len(built)
                     k = 4 if len(group) <= 4 else 16
                     group = group + [self._empty_batch()] * (k - len(group))
                     self.state = ledger_call(
@@ -601,8 +634,10 @@ class LiveDeviceEngine:
                         self.state, stack_batches(group),
                         self.hg.super_majority, self.n, e_win=self.e_win,
                         r_win=self.r_win, packed=self.packed,
+                        pack=vec if last else None, pack_lo=lo,
                     )
                     self.dispatches += 1
+        self._pack = (vec, len(self.hashes))
         dt = clock.monotonic() - t0
         led.component("live", "stage", dt, layout=layout)
         self._m_dispatch.observe(dt)
@@ -729,34 +764,9 @@ class LiveDeviceEngine:
         )
 
 
-def pack_window_start(lo: int, e_cap: int, e_win: int) -> int:
-    """Where K13's row window starts: jax.lax.dynamic_slice's rule, a
-    negative start counted from the end once, then clamped to
-    [0, e_cap - e_win]. The live engine's lo = max(count - e_win, 0)
-    never needs either."""
-    lo = int(lo)
-    if lo < 0:
-        lo += e_cap
-    return min(max(lo, 0), e_cap - e_win)
-
-
-def _pack_results_plain(st: IncState, lo: int, e_win: int, r_cap: int,
-                        n: int) -> torch.Tensor:
-    """K13's plain version: slices, casts and one concatenation, with the
-    row window's start placed as jax.lax.dynamic_slice places it."""
-    l0 = pack_window_start(lo, st.rounds.shape[0], e_win)
-    i32 = torch.int32
-
-    def sl(a):
-        return a[l0 : l0 + e_win].to(i32)
-
-    return torch.cat([
-        sl(st.rounds), sl(st.lamport), sl(st.witness), sl(st.received),
-        st.wtable.reshape(r_cap * n).to(i32),
-        st.fame_decided.reshape(r_cap * n).to(i32),
-        st.famous.reshape(r_cap * n).to(i32),
-        torch.stack([st.stale.to(i32), st.fame_lag.to(i32), st.last_round.to(i32)]),
-    ])
+# K13's plain version (tpu/incremental.py, where the decide's CPU route
+# packs too)
+_pack_results_plain = pack_results_plain
 
 
 def _pack_results(st: IncState, lo: int, e_win: int, r_cap: int,
@@ -955,9 +965,20 @@ def _snapshot(eng: LiveDeviceEngine, new_rows: List[int]) -> dict:
 
 
 def _dispatch(eng: LiveDeviceEngine, new_rows: List[int]):
-    """Launch the packed-results program for the current device state.
-    Returns (device_array, snapshot); does NOT block on the transfer."""
+    """The packed results of the current device state: the vector the last
+    advance's last decide wrote, where nothing has written the state since
+    (its row count must be the snapshot's: it raises otherwise), else a
+    launch of K13 of its own. Returns (device_array, snapshot); does NOT
+    block on the transfer."""
     snap = _snapshot(eng, new_rows)
+    stash, eng._pack = eng._pack, None
+    if stash is not None:
+        vec, count = stash
+        if count != snap["count"]:
+            raise RuntimeError(f"live: the decide packed {count} rows, the snapshot holds "
+                               f"{snap['count']}")
+        eng.packs["fused"] += 1
+        return vec, snap
     with eng.hg.obs.devledger.activate(
         "live", layout="packed" if eng.packed else "wide",
     ):
@@ -965,6 +986,7 @@ def _dispatch(eng: LiveDeviceEngine, new_rows: List[int]):
             "_pack_results", _pack_results,
             eng.state, snap["lo"], eng.e_win, eng.r_cap, eng.n,
         )
+    eng.packs["own"] += 1
     return packed, snap
 
 

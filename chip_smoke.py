@@ -15,7 +15,10 @@ Phases, in order; any failure raises and exits non-zero:
    the JAX suite's frontier tests, with CUDA-event times at the bench shapes;
    decide_fame in both layouts, also on random voting tables that reach a
    coin round (shown on the CPU first: flipping the coin bits changes the
-   verdicts);
+   verdicts); K4 round_received and B23 fame_tables on the bench grid's
+   tables, the coin cases' and
+   received_trap_case's (136 validators, two column tiles, at last_round
+   -1, 3 and 6; 1,056 at 4; creators outside [0, n));
 4. end to end: run_frontier_passes on the card at the bench size, every
    field equal to the port's CPU run, last_round 26 and 28,065 received
    events (the JAX reference's result on this grid), every kernel's launch
@@ -93,6 +96,12 @@ Phases, in order; any failure raises and exits non-zero:
    (counted from the end, as jax.lax.dynamic_slice counts it), and on the
    8-validator fixture's state, with the launches and CUDA-event times
    (device work behind a spin, and with the host's wrapper in the window);
+   then the fused route (the vector K12's last two launches write when the
+   decide is handed one) held to K12 then the plain pack, and every state
+   field to K12 alone, with no pack_results launch (fused_pack_phase):
+   count < e_win, mid-range, = e_cap, stale latched by one block of
+   many, fame_lag latched by dw_vote; dw_tables' and dw_events'
+   device times with and without the pack (torch.profiler, A, B, B, A);
 12. the hashgraph path at full width: the signed events of the bench grid's
    first 24,576 rows (the depth is cut from 32,768 so that the whole
    script stays near ten minutes; 1,140 levels) built once with the port's
@@ -117,8 +126,12 @@ Phases, in order; any failure raises and exits non-zero:
    byte-identical
    to (a) and the same round, lamport and round received for every event
    (a) received, and witnesses and fame in every round (a) decided; each
-   path's kernels must launch. Printed per run: calls, blocks, events
-   received, the summed host-clock seconds of the consensus calls (no
+   path's kernels must launch; every call's pack rides its last decide's
+   launch, so pack_results launches on its own 0 times in (c) and (d) (the
+   attach's bootstrap replay packs too) and once in (e), whose attach from
+   the frontier decides nothing (PATH_OWN_PACKS). Printed per run: calls,
+   blocks, events received, the dispatch's host time a call and the packs
+   by route, the summed host-clock seconds of the consensus calls (no
    synchronize after each call, so the pipelined fetch of (d) overlaps as
    in a node; one after the flush), events
    brought to consensus per second, and the per-layer milliseconds (batch
@@ -137,7 +150,7 @@ Phases, in order; any failure raises and exits non-zero:
    launch to its fixed point) with its pass count, held to its plain
    version and timed; K3 in both layouts on its witness table (both
    timed), on test_packed.py's 7- and 33-validator fixtures and on the
-   coin cases;
+   coin cases; K4 and B23 on its witness table's tables;
    K5p on the grid and a pinned section of it; walk_chunk on every chunk
    of its walk; on a state driven through its 1,024 batches of 64 (the
    live engine's defaults but e_win 65,536, phase 14's window; upd_cap the
@@ -195,7 +208,9 @@ Phases, in order; any failure raises and exits non-zero:
    each held to its plain version (K2 too, with its time; the votes also
    on coin_round_case tables at 1,024 validators, where witnesses are
    decided, and K3 on coin_round_case(1056, 5, 7) in both layouts, past
-   1,024, where its vote keeps each column's words in shared memory; K7 on
+   1,024, where its vote keeps each column's words in shared memory; K4
+   on the grid's tables (timed: the kernels line's row at 1,024) and, with
+   B23, on both coin cases'; K7 on
    every chunk of the cold path's walk and each trap of its largest chunk
    in its L2 form (every chain's probes counted in tiles), timed beside
    its plain version, with run_doubling_passes (packed) equal to
@@ -504,6 +519,9 @@ REPLACES = {
     "frontier_rounds": ("babble_tpu_torch/csrc/frontier_walk.cu", "babble_tpu/tpu/frontier.py:299"),
     "decide_fame": ("babble_tpu_torch/csrc/decide_fame.cu", "babble_tpu/tpu/kernels.py:335"),
     "round_received": ("babble_tpu_torch/csrc/round_received.cu", "babble_tpu/tpu/kernels.py:424"),
+    # K4 at 1,024 validators (phase 16(d))
+    "round_received (1,024)": ("babble_tpu_torch/csrc/round_received.cu",
+                               "babble_tpu/tpu/kernels.py:424"),
     "divide_rounds": ("babble_tpu_torch/csrc/divide_rounds.cu", "babble_tpu/tpu/kernels.py:118"),
     "closure_la": ("babble_tpu_torch/csrc/closure_la.cu", "babble_tpu/tpu/doubling.py:172"),
     "walk_chunk": ("babble_tpu_torch/csrc/walk_chunk.cu", "babble_tpu/tpu/doubling.py:296"),
@@ -636,7 +654,9 @@ PATH_KERNELS = {
     "step, 8-validator fixture, packed": ("step_levels/packed", "decide_window/packed"),
     "train_step, 8-validator fixture, packed": ("apply_deltas", "train_levels/packed",
                                                 "decide_window/packed"),
-    "run_consensus_live": ("step_levels/grid", "decide_window", "pack_results"),
+    # the live runs: every call's pack rides its last decide's launch
+    # (PATH_OWN_PACKS), the attach from the frontier packs on its own
+    "run_consensus_live": ("step_levels/grid", "decide_window"),
     "late attach": ("closure_la", "build_inv", "walk_chunk", "decide_fame",
                     "round_received", "step_levels/grid", "decide_window", "pack_results"),
     # the packed layout: a path whose label ends in ", packed" must launch
@@ -649,8 +669,7 @@ PATH_KERNELS = {
                                     "decide_fame/packed", "round_received"),
     "step, packed": ("step_levels/packed/grid", "decide_window/packed"),
     "multi_step, packed": ("step_levels/packed/grid", "decide_window/packed"),
-    "run_consensus_live, packed": ("step_levels/packed/grid", "decide_window/packed",
-                                   "pack_results"),
+    "run_consensus_live, packed": ("step_levels/packed/grid", "decide_window/packed"),
     "train_step, packed": ("apply_deltas", "train_levels/packed/grid", "decide_window/packed"),
     "multi_train, packed": ("apply_deltas", "train_levels/packed/grid",
                             "decide_window/packed"),
@@ -704,6 +723,10 @@ PATH_KERNELS = {
                                                 "shard_fame/grid/packed", "fame_tables",
                                                 "received_search"),
 }
+# K13's own launches on the live paths: none where every call decides (the
+# attach's bootstrap replay packs too), one where the attach comes from the
+# frontier with nothing to replay (phase 12 (e))
+PATH_OWN_PACKS = {"run_consensus_live": 0, "run_consensus_live, packed": 0, "late attach": 1}
 # the step paths, which run K9 as phase 0 of step_levels' launch (both
 # walks) and launch no apply_deltas of their own
 PATH_NO_OWN_K9 = ("step", "multi_step", "step, 8-validator fixture",
@@ -1233,6 +1256,122 @@ def coin_round_case(n, r, seed):
     )
 
 
+def received_trap_case(n, r, seed):
+    """K4's and B23's inputs over n validators and r rounds, random from a
+    numpy seed, with the edges their masks guard: absent witnesses and
+    witness rows past la's last row (clamped), rounds with no famous
+    witness (every third) and one with no witness at all, rounds decided
+    in part, la entries at MAX_INT32, and events whose creator lies
+    outside [0, n) or whose round lies outside [0, r). Returns numpy
+    arrays (K4's rounds_decided given; B23 derives its own); last_round is
+    the caller's."""
+    rng = np.random.default_rng(seed)
+    e_la = 2 * n * r
+    e = 4 * n * r
+    wtable = rng.integers(0, e_la + 8, size=(r, n), dtype=np.int32)
+    wtable[rng.random((r, n)) < 0.15] = -1
+    wtable[r // 2] = -1
+    decided = rng.random((r, n)) < 0.8
+    decided[1] = True
+    famous = rng.random((r, n)) < 0.5
+    famous[::3] = False
+    la = rng.integers(0, 40, size=(e_la, n), dtype=np.int32)
+    la[rng.random((e_la, n)) < 0.01] = np.iinfo(np.int32).max
+    creator = rng.integers(0, n, size=e, dtype=np.int32)
+    edge = rng.random(e)
+    creator[edge < 0.02] = -2
+    creator[(edge >= 0.02) & (edge < 0.04)] = n
+    creator[(edge >= 0.04) & (edge < 0.05)] = n + 7
+    return dict(
+        wtable=wtable, la=la, decided=decided, famous=famous,
+        rounds_decided=rng.random(r) < 0.8,
+        index=rng.integers(0, 40, size=e, dtype=np.int32), creator=creator,
+        rounds=rng.integers(-2, r + 2, size=e, dtype=np.int32),
+    )
+
+
+def received_trap_args(case, last_round, device):
+    """(K4's positional arguments, B23's) for a received_trap_case, on
+    device."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    lr = torch.tensor(last_round, dtype=torch.int32, device=device)
+    k4 = (t(case["wtable"]), t(case["la"]), t(case["index"]), t(case["creator"]),
+          t(case["rounds"]), t(case["decided"]), t(case["famous"]),
+          t(case["rounds_decided"]), lr)
+    b23 = (k4[0], k4[1], k4[5], k4[6], lr)
+    return k4, b23
+
+
+def coin_received_args(case, fame, device):
+    """K4's positional arguments for a coin_round_case decided by `fame`
+    (decide_fame's result): every row an event of its table row's round
+    and creator."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    r, n = case["wtable"].shape
+    e = r * n
+    return (t(case["wtable"]), t(case["la"]), t(case["index"]),
+            t(np.arange(e, dtype=np.int32) % n), t(np.arange(e, dtype=np.int32) // n),
+            fame.decided, fame.famous, fame.rounds_decided,
+            torch.tensor(case["last_round"], dtype=torch.int32, device=device))
+
+
+def received_work(k4, recv):
+    """K4's (bytes, seconds at the peak integer rate) on these inputs
+    (PERF.md's counting rules): the witness table, the fame flags and
+    rounds_decided, the famous witnesses' la rows, the events' index,
+    creator and rounds read once, received written once; a min per famous
+    la entry and a compare per round each event's scan passes (round(e) +
+    1 to its reception, or to its horizon)."""
+    from babble_tpu_torch.tpu import kernels
+
+    wtable, la, index, creator, rounds, decided, famous, rounds_decided, last_round = k4
+    r_max, n = wtable.shape
+    e = index.shape[0]
+    n_famous = int((decided & famous & (wtable >= 0)).sum().item())
+    *_, horizon = kernels._received_tables(wtable, la, decided, famous, rounds_decided,
+                                           last_round)
+    start = (rounds + 1).clamp(0, r_max - 1).long()
+    stop = torch.where(recv >= 0, recv, horizon[start].clamp(max=r_max) - 1)
+    scan_ops = int((stop - rounds).clamp(min=0).sum().item())
+    return (r_max * n * 4 + n_famous * n * 4 + r_max * n * 2 + r_max + 4 + 3 * e * 4 + e * 4,
+            (n_famous * n + scan_ops) / ALU_OPS_S)
+
+
+def hold_received(label, k4, log_fn):
+    """K4 and B23 on K4's tables, each torch.equal to its plain version on
+    the card."""
+    from babble_tpu_torch.tpu import _ext, kernels, sharded
+
+    want = kernels._decide_round_received_plain(*k4)
+    got = _ext.round_received(*k4)
+    torch.cuda.synchronize()
+    require_equal(f"round_received on {label}", got, want)
+    b23 = (k4[0], k4[1], k4[5], k4[6], k4[8])
+    got_t = _ext.fame_tables(*b23)
+    torch.cuda.synchronize()
+    require_equal(f"fame_tables on {label}", got_t, sharded._fame_tables_plain(*b23))
+    r_max, n = k4[0].shape
+    plan = _ext.received_tables_plan(n, r_max)
+    log_fn(f"  round_received and fame_tables == plain on {label} "
+           f"({plan['items']} items x {plan['slices']} slices of {plan['wps']} words; "
+           f"{int((want >= 0).sum())} of {want.numel()} received)")
+
+
+# the received tables' traps: two column tiles (the second ragged) at
+# three last rounds, and past the width cell with a ragged word
+RECEIVED_TRAPS = (((136, 7, 11), (-1, 3, 6)), ((1056, 5, 1056), (4,)))
+
+
+def hold_received_traps(dev, log_fn):
+    for (n, r, seed), last_rounds in RECEIVED_TRAPS:
+        case = received_trap_case(n, r, seed)
+        for lr in last_rounds:
+            k4, _ = received_trap_args(case, lr, dev)
+            hold_received(f"received_trap_case({n}, {r}, {seed}), last_round {lr}", k4, log_fn)
+
+
 def coin_case_state(case, device):
     """An IncState holding a coin_round_case's voting tables as registered
     witnesses (round r's witnesses on rows r * n .. r * n + n - 1, each
@@ -1272,6 +1411,91 @@ def coin_fame_args(case, coin_bit, device):
     return (t(case["wtable"]), t(case["la"]), t(case["fd"]), t(case["index"]),
             t(coin_bit), torch.tensor(case["last_round"], dtype=torch.int32, device=device),
             case["super_majority"], case["n_participants"], case["d_cap"])
+
+
+def fused_pack_phase(step_state, batches, sm, n, dev):
+    """Phase 11's fused route: the live engine's pack written by K12's last
+    launch (decide with `pack`), held torch.equal to K12 then the plain
+    pack, and every state field to K12 alone, with no pack_results launch:
+    at the live step shape (r_cap 64, e_win 8,192) with count < e_win (the
+    first 16 batches), count mid-range (phase 10's step state) and count =
+    e_cap (the same rows: every undetermined row below the window latches
+    stale); stale latched by one row below the window (one block of 256
+    writes the word) and fame_lag latched by dw_vote (every round
+    undecided, r_win 8 below last_round). Then dw_tables' and dw_events'
+    device times with and without the pack (torch.profiler, A, B, B, A,
+    behind a spin)."""
+    from babble_tpu_torch.tpu import _ext
+    from babble_tpu_torch.tpu import incremental as inc
+
+    cfg = INC_STEP
+    e_cap, e_win, r_cap = cfg["e_cap"], cfg["e_win"], cfg["r_cap"]
+
+    def fused(label, st0, r_win=cfg["r_win"], edit=None, flags=None):
+        a = inc.clone_state(st0)
+        if edit is not None:
+            edit(a)
+        b = inc.clone_state(a)
+        lo = inc.pack_window_start(max(int(a.count) - e_win, 0), e_cap, e_win)
+        vec = torch.empty((inc.pack_size(e_win, r_cap, n),), dtype=torch.int32, device=dev)
+        _ext.reset_launches()
+        inc._decide_body(a, sm, n, r_win=r_win, e_win=e_win, pack=vec, pack_lo=lo)
+        inc._decide_body(b, sm, n, r_win=r_win, e_win=e_win)
+        want = inc.pack_results_plain(b, lo, e_win, r_cap, n)
+        torch.cuda.synchronize()
+        require_equal(f"the fused pack on {label}", vec, want)
+        diff = state_diff(a, b)
+        if diff or _ext.LAUNCHES["pack_results"]:
+            raise AssertionError(f"the fused pack on {label}: fields {diff} differ from K12's "
+                                 f"alone; {_ext.LAUNCHES['pack_results']} pack_results launches")
+        got_flags = [int(x) for x in vec[-3:].tolist()]
+        if flags is not None and got_flags[:2] != flags:
+            raise AssertionError(f"the fused pack on {label}: stale, fame_lag {got_flags[:2]}, "
+                                 f"expected {flags}")
+        log(f"  fused pack == K12 then the plain pack on {label}: count {int(a.count)}, "
+            f"window start {lo}, stale/fame_lag/last_round {got_flags}")
+
+    early = inc.init_state(n, e_cap, r_cap, device=dev)
+    for b in batches[:16]:
+        inc.step(early, b, sm, n, r_win=cfg["r_win"], e_win=e_win)
+    fused("the first 16 batches' state (count < e_win)", early, flags=[0, 0])
+    fused("phase 10's step state", step_state, flags=[0, 0])
+    fused("that state at count = e_cap", step_state,
+          edit=lambda st: st.count.fill_(e_cap), flags=[1, 0])
+
+    def miss_row0(st):
+        st.received[0] = -1
+
+    fused("that state with row 0 undetermined (one block latches stale)", step_state,
+          edit=miss_row0, flags=[1, 0])
+    fused("that state with every round undecided at r_win 8 (dw_vote latches fame_lag)",
+          step_state, r_win=8, edit=lambda st: st.rounds_decided.zero_(), flags=[0, 1])
+
+    st_t = inc.clone_state(step_state)
+    lo = inc.pack_window_start(max(int(st_t.count) - e_win, 0), e_cap, e_win)
+    vec = torch.empty((inc.pack_size(e_win, r_cap, n),), dtype=torch.int32, device=dev)
+    reps = 20
+
+    def decide(pack):
+        def run():
+            torch.cuda._sleep(SPIN_CYCLES)
+            for _ in range(reps):
+                inc._decide_body(st_t, sm, n, r_win=cfg["r_win"], e_win=e_win,
+                                 pack=vec if pack else None, pack_lo=lo)
+        return run
+
+    ev = {False: [], True: []}
+    for pack in (False, True, True, False):
+        got = profile_device(decide(pack))
+        if got is None or "dw_events" not in got:
+            log("  dw_tables, dw_events: torch.profiler recorded no device time (not measured)")
+            return
+        ev[pack].append((got["dw_tables"] / reps, got["dw_events"] / reps))
+    us = {k: [statistics.mean(x[j] for x in ev[k]) * 1e3 for j in (0, 1)] for k in ev}
+    log(f"  K12's last two launches at the live step shape (count {int(st_t.count)}, e_win "
+        f"{e_win}, r_cap {r_cap}, n {n}; A, B, B, A): dw_tables {us[False][0]:.2f} us without "
+        f"the pack, {us[True][0]:.2f} with it; dw_events {us[False][1]:.2f}, {us[True][1]:.2f} "
+        f"(+{sum(us[True]) - sum(us[False]):.2f} us together)")
 
 
 def max_abs_err(got, want):
@@ -1335,11 +1559,16 @@ def run_path(label, fn):
 
 def require_path_launches(what, path, launches):
     """Fail unless each kernel of PATH_KERNELS[path] launched, on a step
-    path (PATH_NO_OWN_K9) unless no apply_deltas did, and, on a packed
-    path, unless no wide form of a layout kernel did."""
+    path (PATH_NO_OWN_K9) unless no apply_deltas did, on a live path unless
+    pack_results launched PATH_OWN_PACKS[path] times of its own, and, on a
+    packed path, unless no wide form of a layout kernel did."""
     missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     if missing:
         raise AssertionError(f"{what}: never launched {missing}")
+    if path in PATH_OWN_PACKS and launches["pack_results"] != PATH_OWN_PACKS[path]:
+        raise AssertionError(f"{what}: launched pack_results {launches['pack_results']} times "
+                             f"of its own, expected {PATH_OWN_PACKS[path]} (the pack rides "
+                             f"the last decide's launch)")
     if path in PATH_NO_OWN_K9 and launches["apply_deltas"]:
         raise AssertionError(f"{what}: launched apply_deltas {launches['apply_deltas']} times "
                              f"of its own (the step paths run it inside step_levels)")
@@ -1679,7 +1908,7 @@ class LayerTimes:
 
     def __init__(self, live, cuda):
         self.live, self.cuda = live, cuda
-        self.host = {"build": 0.0, "passes": 0.0}
+        self.host = {"build": 0.0, "passes": 0.0, "dispatch": 0.0}
         self.spans = []
         self.calls = {"step": 0, "multi_step": 0, "_pack_results": 0,
                       "_integrate_oldest": 0}
@@ -1731,6 +1960,7 @@ class LayerTimes:
         for name in ("step", "multi_step", "_pack_results"):
             self._patch(self.live, name, self._device(name))
         self._patch(self.live, "_integrate_oldest", self._count("_integrate_oldest"))
+        self._patch(self.live, "_dispatch", self._host("dispatch"))
         return self
 
     def watch(self, hg):
@@ -1879,7 +2109,10 @@ def hashgraph_phase(dev, log_fn, spec=BENCH, oneshot=HG_ONESHOT_RUNG, full=True,
                 launches = launches_of(label, path_kernels) if cuda else {}
                 st["device_ms"] = lt.device_ms()
                 st.update(build_ms=lt.host["build"] * 1e3, passes_ms=lt.host["passes"] * 1e3,
+                          dispatch_us=lt.host["dispatch"] * 1e6 / max(st["calls"], 1),
                           calls_by_fn=dict(lt.calls))
+                eng = getattr(hg, "_live_device_engine", None)
+                st["packs"] = dict(eng.packs) if eng is not None else None
         finally:
             live.ENGINE_DEFAULTS.clear()
             live.ENGINE_DEFAULTS.update(saved)
@@ -1902,7 +2135,9 @@ def hashgraph_phase(dev, log_fn, spec=BENCH, oneshot=HG_ONESHOT_RUNG, full=True,
                f"layers: batch build {st['build_ms']:.1f} ms, device span of the launches "
                f"{st['device_ms']:.1f} ms, fetch {st['fetch_ms']:.1f} ms, integrate "
                f"{st['integrate_ms']:.1f} ms, host passes 4-5 {st['passes_ms']:.1f} ms; "
-               f"rebases {st['rebases']}, calls {st['calls_by_fn']}; launches {launches}")
+               f"the dispatch's host time {st['dispatch_us']:.1f} us a call (packs by route "
+               f"{st['packs']}); rebases {st['rebases']}, calls {st['calls_by_fn']}; "
+               f"launches {launches}")
         return st
 
     settings = dict(live_settings or {})
@@ -2021,6 +2256,10 @@ def packed_kernel_phase(g, dev, log_fn):
            f"grid's witness table (r_cap {WIDE_R_CAP}, last_round {int(fr.last_round)}, "
            f"{int((fr.witness_table >= 0).sum())} witnesses): {launched} launch, packed "
            f"{k_ms:.4f} ms (plain {p_ms:.3f}), wide {w_ms:.4f} ms (plain {wp_ms:.3f})")
+    fame = kernels.FameResult(*got)
+    hold_received(f"the {n}-validator grid's tables (config #4)",
+                  (fr.witness_table, st.la, st.index, st.creator, fr.rounds, fame.decided,
+                   fame.famous, fame.rounds_decided, fr.last_round), log_fn)
 
     # K5p on the grid and on a pinned section of it
     res = engine.run_frontier_passes(g, device=dev)
@@ -2893,14 +3132,29 @@ def fl_width_phase(dev, log_fn):
     fame_args = (fr.witness_table, st.la, st.fd, st.index, st.coin_bit, fr.last_round, sm, n,
                  r_fame + 2)
     for pk, key in ((True, "decide_fame/packed (1,024)"), (False, "decide_fame (1,024)")):
-        _, k_ms, p_ms = held(f"decide_fame (packed={pk}) at {n} validators",
-                             lambda: tuple(kernels.decide_fame(*fame_args, packed=pk)),
-                             lambda: tuple(kernels._decide_fame_plain(*fame_args, packed=pk)))
+        fame, k_ms, p_ms = held(f"decide_fame (packed={pk}) at {n} validators",
+                                lambda: tuple(kernels.decide_fame(*fame_args, packed=pk)),
+                                lambda: tuple(kernels._decide_fame_plain(*fame_args, packed=pk)))
         summary[key] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
         work[key] = fame_work(fr.witness_table, n)
         log_fn(f"  {key} == plain on the {n}-validator grid's witness table (r {r_fame}): "
                f"{k_ms:.3f} ms, plain {p_ms:.1f} ms")
     launches["decide_fame/packed (1,024)"] = l_launches["decide_fame/packed"]
+    # K4 on the same tables: its time, in every form, and its launches on
+    # run_frontier_passes (1,024) above
+    fame = kernels.FameResult(*fame)
+    recv_args = (fr.witness_table, st.la, st.index, st.creator, fr.rounds, fame.decided,
+                 fame.famous, fame.rounds_decided, fr.last_round)
+    recv, k_ms, p_ms = held(f"round_received at {n} validators",
+                            lambda: kernels.decide_round_received(*recv_args),
+                            lambda: kernels._decide_round_received_plain(*recv_args))
+    hold_received(f"the {n}-validator grid's tables", recv_args, log_fn)
+    k_ms = spun_ms(lambda: kernels.decide_round_received(*recv_args), 20)
+    summary["round_received (1,024)"] = {"max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms}
+    work["round_received (1,024)"] = received_work(recv_args, recv)
+    launches["round_received (1,024)"] = l_launches["round_received"]
+    log_fn(f"  round_received == plain on the {n}-validator grid's tables (r {r_fame}, "
+           f"{int((recv >= 0).sum())} received): {k_ms:.4f} ms, plain {p_ms:.1f} ms")
     log_fn(f"run_frontier_passes (packed) at {n} validators: last_round {res.last_round}, "
            f"{int((res.received >= 0).sum())} received")
     del st, fr
@@ -2914,6 +3168,8 @@ def fl_width_phase(dev, log_fn):
     fame, k_ms, p_ms = held(f"decide_fame/packed on coin case {FL_WIDTH_COIN}",
                             lambda: tuple(kernels.decide_fame(*c_args, packed=True)),
                             lambda: tuple(kernels._decide_fame_plain(*c_args, packed=True)))
+    hold_received(f"coin case {FL_WIDTH_COIN}",
+                  coin_received_args(case, kernels.FameResult(*fame), dev), log_fn)
     cst = coin_case_state(case, dev)
 
     def decide_plain(st, sm_, n_, r_win, e_win, pk):
@@ -2957,6 +3213,8 @@ def fl_width_phase(dev, log_fn):
     if not int(w_fame[0].sum()) or plan["columns"] != "shared":
         raise AssertionError(f"coin case {WIDE_VOTE_CASE}: no witness decided, or the vote's "
                              f"words in {plan['columns']} memory")
+    hold_received(f"coin case {WIDE_VOTE_CASE}",
+                  coin_received_args(w_case, kernels.FameResult(*w_fame), dev), log_fn)
     del w_case, w_args
 
     # K5's grid walk on the level scan
@@ -4024,6 +4282,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 require_equal(f"decide_fame (packed={pk}) on coin case n={n} rounds={r} "
                               f"seed={seed}", got, want)
+        hold_received(f"coin case ({n}, {r}, {seed})",
+                      coin_received_args(case, kernels.FameResult(*want), dev), log)
         log(f"decide_fame == plain in both layouts on coin case n={n} rounds={r} seed={seed}, "
             f"both coin settings: coin round reached (flipping the coin bits changes the "
             f"verdicts)")
@@ -4050,6 +4310,10 @@ def main() -> int:
     log(f"kernels == plain on the bench grid (decide_fame in both layouts: the wide "
         f"{summary['decide_fame']['ms']:.4f} ms, the packed "
         f"{summary.pop('decide_fame/packed')['ms']:.4f})")
+    bench_recv_args = (fr.witness_table, st.la, st.index, st.creator, fr.rounds, fame.decided,
+                       fame.famous, fame.rounds_decided, fr.last_round)
+    hold_received("the bench grid", bench_recv_args, log)
+    hold_received_traps(dev, log)
 
     # the K3 tally as one batched 0/1 product, a yardstick the port never calls
     r_max, n = fr.witness_table.shape
@@ -4062,24 +4326,12 @@ def main() -> int:
     # still holds a witness, and the la/fd rows of the witnesses present
     # (all of them for K3, the famous ones for K4)
     n, l = st.rows_by.shape
-    e_b = st.la.shape[0]
     real_rows = int((st.rows_by >= 0).sum().item())
     valid_rounds = int((fr.witness_table >= 0).any(dim=1).sum().item())
     wvalid = fr.witness_table >= 0
     n_wit = int(wvalid.sum().item())
     n_pairs = int((wvalid[1:].sum(dim=1) * wvalid[:-1].sum(dim=1)).sum().item())
     n_famous = int((fame.decided & fame.famous & wvalid).sum().item())
-    # K4's per-event scan: rounds round(e)+1 .. received(e), or up to the
-    # horizon when nothing is received
-    *_, horizon = kernels._received_tables(
-        fr.witness_table, st.la, fame.decided, fame.famous, fame.rounds_decided,
-        fr.last_round)
-    recv = kernels._decide_round_received_plain(
-        fr.witness_table, st.la, st.index, st.creator, fr.rounds, fame.decided,
-        fame.famous, fame.rounds_decided, fr.last_round)
-    start = (fr.rounds + 1).clamp(0, r_max - 1).long()
-    stop = torch.where(recv >= 0, recv, horizon[start].clamp(max=r_max) - 1)
-    scan_ops = int((stop - fr.rounds).clamp(min=0).sum().item())
     inv_bytes = inv.numel() * 4
     # K2's working steps, from the plain walk's history
     k2_hist = frontier._frontier_history_plain(inv, st.rows_by, st.fd, bench.super_majority,
@@ -4089,10 +4341,8 @@ def main() -> int:
                       (real_rows * n + n * n * l) / ALU_OPS_S),
         "frontier_rounds": frontier_rounds_work(inv, st, bench.super_majority, k2_hist),
         "decide_fame": fame_work(fr.witness_table, n),
-        "round_received": (
-            r_max * n * 4 + n_famous * n * 4 + r_max * n * 2 + r_max + 4
-            + 3 * e_b * 4 + e_b * 4,
-            (n_famous * n + scan_ops) / ALU_OPS_S),
+        "round_received": received_work(
+            bench_recv_args, kernels._decide_round_received_plain(*bench_recv_args)),
     }
     log(f"bound inputs: {real_rows} chain rows, {valid_rounds} rounds with witnesses, "
         f"{n_wit} witnesses, {n_famous} famous; K2's walk {walk_steps([k2_hist])} working "
@@ -4648,11 +4898,14 @@ def main() -> int:
     # three scalars), each output word written once
     work["pack_results"] = (e_win_s * 13 + r_cap_s * n * 6 + 6
                             + (4 * e_win_s + 3 * r_cap_s * n + 3) * 4, 0.0)
+    fused_pack_phase(step_state, batches_d, sm, n, dev)
 
     phase_clock.next("12")
     # 12. the hashgraph path at full width
-    _, live_launches = hashgraph_phase(DEVICE, log, depth=HG_DEPTH)
-    launches["pack_results"] = live_launches["pack_results"]
+    hg_stats, _ = hashgraph_phase(DEVICE, log, depth=HG_DEPTH)
+    # K13's own launches: the late attach's (run (e)); every other call's
+    # pack rides its last decide's launch
+    launches["pack_results"] = hg_stats["attach"]["launches"].get("pack_results", 0)
 
     phase_clock.next("13-15")
     # 13-15. the packed layout: config #4's grid, then the hashgraph path at

@@ -1,7 +1,10 @@
 """The port's DecideFame and DecideRoundReceived (babble_tpu_torch.tpu.
 kernels, plain versions on the CPU) against the JAX package's functions:
-on witness tables the frontier walk produces for the suite's fixtures, and
-on hand-built voting tables that reach coin rounds. Exact equality."""
+on witness tables the frontier walk produces for the suite's fixtures, on
+hand-built voting tables that reach coin rounds, and (K4 and the mesh's
+B23) on trap tables at two column tiles; the received tables' plan
+(`_ext.received_tables_plan`) and a numpy emulation of the kernel's
+schedule over it. Exact equality."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,11 +13,19 @@ import torch
 
 import babble_tpu.tpu.frontier as ref_frontier
 import babble_tpu.tpu.kernels as ref
+from babble_tpu.tpu import sharded as ref_sharded
 from babble_tpu.tpu import synthetic_grid
 from babble_tpu_torch.tpu import _ext
 from babble_tpu_torch.tpu import kernels as port
+from babble_tpu_torch.tpu import sharded as port_sharded
 
-from chip_smoke import COIN_CASES, coin_fame_args, coin_round_case
+from chip_smoke import (
+    COIN_CASES,
+    coin_fame_args,
+    coin_round_case,
+    received_trap_args,
+    received_trap_case,
+)
 from test_torch_grid import FRONTIER_FIXTURES
 
 R_CAP = 64
@@ -196,3 +207,134 @@ def test_wrapper_checks_reject_bad_tensors():
         _ext.check_tensor("x", x.T, torch.int32, (6, 4), dev)
     with pytest.raises(ValueError, match="expected cuda"):
         _ext.check_tensor("x", x, torch.int32, (4, 6), torch.device("cuda"))
+
+
+# widths of the received tables' plan: one word, two words, two column
+# tiles with a ragged one, the width cell, and past it with a ragged word
+PLAN_WIDTHS = (8, 64, 136, 1024, 1056)
+
+
+def plan_cells(plan, n, r_max):
+    """Each (round, column, witness) the plan's blocks walk, once per
+    block that walks it: items (round, tile of columns), slice s of each
+    the bit words [s * wps, (s + 1) * wps) clipped to the round's words
+    (its four warps split a slice's witnesses by bit, b % 4)."""
+    cells = np.zeros((r_max, n, n), np.int32)
+    th, words = plan["cols"], plan["words"]
+    for it in range(plan["items"]):
+        r, t = divmod(it, plan["tiles"])
+        cols = slice(t * th, min(t * th + th, n))
+        for s in range(plan["slices"]):
+            k_lo = min(s * plan["wps"], words)
+            k_hi = min(k_lo + plan["wps"], words)
+            cells[r, cols, 32 * k_lo : min(32 * k_hi, n)] += 1
+    return cells
+
+
+@pytest.mark.parametrize("n", PLAN_WIDTHS)
+@pytest.mark.parametrize("r_max", (1, 6, 28))
+def test_received_tables_plan_covers_every_cell_once(n, r_max):
+    """Every (round, column, witness) is walked by exactly one block; the
+    slices are a power of two that a portable cluster holds, each a word
+    at least; the shared memory is the same at every width."""
+    plan = _ext.received_tables_plan(n, r_max)
+    assert (plan_cells(plan, n, r_max) == 1).all()
+    s = plan["slices"]
+    assert s & (s - 1) == 0 and 1 <= s <= _ext.RT_MAX_SLICES
+    assert (s - 1) * plan["wps"] < plan["words"] <= s * plan["wps"]
+    assert plan["items"] * (s // 2) < _ext.RT_TARGET_BLOCKS or s == 1
+    assert _ext.block_smem("round_received", n) == {"tables": _ext.RT_SMEM}
+    assert plan["smem"] == _ext.RT_SMEM <= 48 * 1024
+
+
+def test_received_tables_plan_refuses_what_it_cannot_hold():
+    with pytest.raises(ValueError, match=f"1 to {_ext.RT_MAX_WIDTH} validators"):
+        _ext.received_tables_plan(_ext.RT_MAX_WIDTH + 1, 4)
+    with pytest.raises(ValueError, match="need a round"):
+        _ext.received_tables_plan(64, 0)
+    # the coin case spreads over the card: 6 rounds x 8 tiles x 8 slices
+    assert _ext.received_tables_plan(1024, 6)["slices"] == 8
+
+
+def emulate_tables(plan, wtable, la, decided, famous):
+    """min_la and famous_count as csrc/round_received.cu rt_grid builds
+    them: per item and slice, RT_CHUNK words at a time, the chunk's famous
+    flags as bit words and its witnesses' clamped la rows, each warp's
+    column minima over its quarter of the set bits (b % 4 == warp), the
+    warps' minima and then the slices' merged by min, the slices' famous
+    counts summed (block 0 of the cluster, on tile 0 for the count)."""
+    r_max, n = wtable.shape
+    e_la = la.shape[0]
+    big = np.iinfo(np.int32).max
+    out = np.full((r_max, n), -7, np.int64)
+    count = np.full(r_max, -7, np.int64)
+    th, words = plan["cols"], plan["words"]
+    for it in range(plan["items"]):
+        r, t = divmod(it, plan["tiles"])
+        cols = np.arange(t * th, min(t * th + th, n))
+        parts, counts = [], []
+        for s in range(plan["slices"]):
+            k_lo = min(s * plan["wps"], words)
+            k_hi = min(k_lo + plan["wps"], words)
+            m = np.full(len(cols), big, np.int64)
+            cnt = 0
+            for k0 in range(k_lo, k_hi, _ext.RT_CHUNK):
+                w = np.arange(32 * k0, min(32 * min(k0 + _ext.RT_CHUNK, k_hi), n))
+                wt = wtable[r, w]
+                f = (wt >= 0) & decided[r, w] & famous[r, w]
+                cnt += int(f.sum())
+                for q in range(_ext.RT_THREADS // 32):
+                    rows = np.clip(wt, 0, e_la - 1)[f & (w % 4 == q)]
+                    if len(rows):
+                        m = np.minimum(m, la[np.ix_(rows, cols)].min(axis=0))
+            parts.append(m)
+            counts.append(cnt)
+        out[r, cols] = np.min(parts, axis=0)
+        if t == 0:
+            count[r] = sum(counts)
+    return out.astype(np.int32), count.astype(np.int32)
+
+
+@pytest.mark.parametrize("n,r", [(136, 7), (1056, 5)])
+def test_received_tables_schedule_matches_reference(n, r):
+    """The kernel's schedule (its plan, chunks, set-bit walks and merge)
+    emulated in numpy gives the JAX package's famous-witness minima and
+    counts."""
+    case = received_trap_case(n, r, seed=n)
+    plan = _ext.received_tables_plan(n, r)
+    got, got_count = emulate_tables(plan, case["wtable"], case["la"], case["decided"],
+                                    case["famous"])
+    want = ref_sharded._fame_tables(
+        jnp.asarray(case["wtable"]), jnp.asarray(case["la"]), jnp.asarray(case["decided"]),
+        jnp.asarray(case["famous"]), jnp.int32(r - 1))
+    np.testing.assert_array_equal(got, np.asarray(want[0]))
+    np.testing.assert_array_equal(got_count, np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("last_round", (-1, 3, 6))
+def test_received_plain_matches_reference_on_traps(last_round):
+    """K4 and B23's plain versions at 136 validators (two column tiles,
+    the second ragged) equal the JAX package's on received_trap_case:
+    rounds with no famous witness or none at all, witness rows past la,
+    creators outside [0, n) (clamped as the reference clamps them),
+    rounds outside the axis, last_round -1 (nothing eligible), inside and
+    at the top."""
+    case = received_trap_case(136, 7, seed=11)
+    k4, b23 = received_trap_args(case, last_round, "cpu")
+    want = ref.decide_round_received(
+        case["wtable"], case["la"], case["index"], case["creator"], case["rounds"],
+        case["decided"], case["famous"], case["rounds_decided"], jnp.int32(last_round))
+    got = port.decide_round_received(*k4)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if last_round == -1:
+        assert (got.numpy() == -1).all()
+    else:
+        assert (got.numpy() >= 0).any()
+    want_t = ref_sharded._fame_tables(
+        jnp.asarray(case["wtable"]), jnp.asarray(case["la"]), jnp.asarray(case["decided"]),
+        jnp.asarray(case["famous"]), jnp.int32(last_round))
+    got_t = port_sharded.fame_tables(*b23)
+    for g, w in zip(got_t, want_t):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    famous_count = got_t[1].numpy()
+    assert (famous_count[::3] == 0).all() and famous_count.any()

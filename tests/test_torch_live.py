@@ -2,7 +2,9 @@
 versions): grid_from_hashgraph field for field, run_consensus_device on
 each rung of its ladder (the round-frontier walk on a base DAG, the level
 scan after a reset, the cold path when forced), K13 `_pack_results`
-against the JAX program including a clamped window start, and
+against the JAX program including a clamped window start, the vector
+each live call fetches (the last decide's, or K13's own launch where no
+decide ran since the last pack) against the JAX engine's, and
 run_consensus_live fed one sync at a time against the JAX live engine,
 every IncState field equal after every call, in the default, rebase,
 pipelined-fetch, multi_step and large-history-attach variants. Each DAG
@@ -174,6 +176,100 @@ def test_pack_results_plain_matches_reference():
             np.testing.assert_array_equal(got_u[6], arrays["famous"])
             assert got_u[7:] == (bool(arrays["stale"]), bool(arrays["fame_lag"]),
                                  int(arrays["last_round"]))
+
+
+def test_live_pack_rides_the_last_decide(monkeypatch):
+    """The live engine on the 8-validator fixture (ref_step_states' grid
+    and capacities, e_cap 1,024, r_cap 16, e_win 256, with r_win 16: at
+    r_win 8 fame_lag latches in a live run, in both packages; batches of
+    16): after every call the vector _dispatch hands back equals the JAX
+    engine's (its _pack_results of its state at the same lo), on one-batch,
+    two-batch and multi_step calls and the attach, whose bootstrap replays
+    the DAG's first events (the vector the call's last decide wrote, the
+    only decide asked for one), on a call with no new events (K13's own
+    launch: no decide since the last pack), and
+    after a rebase forced on both engines, which drops a vector left
+    from before it (own launch, then the last decide's again); 432 of the
+    DAG's 512 events, before its undecided tail outgrows e_win (the stale
+    latch demotes both engines at 480). A vector whose row count is not
+    the snapshot's is refused."""
+    settings = {"e_cap": 1024, "r_cap": 16, "e_win": 256, "r_win": 16, "batch_cap": 16,
+                "async_fetch": False}
+    patch_both(monkeypatch, settings)
+    ref_hg = dag(8, 512, 5, 1.1)
+    events = ref_events(ref_hg)
+    ref_blocks, port_blocks = [], []
+    ref = carry_ref(ref_hg, [], ref_blocks)
+    port = carry(ref_hg, [], commit_callback=port_blocks.append)
+    seen = {}
+    port_dispatch = live._dispatch
+    for side, mod in (("port", live), ("ref", ref_live)):
+        real = mod._dispatch
+
+        def captured(eng, new_rows, _real=real, _side=side):
+            vec, snap = _real(eng, new_rows)
+            seen[_side] = (vec, snap["lo"])
+            return vec, snap
+
+        monkeypatch.setattr(mod, "_dispatch", captured)
+    asks = []
+    for name in ("step", "multi_step"):
+        real = getattr(live, name)
+
+        def asked(*a, _real=real, **kw):
+            asks.append(kw.get("pack") is not None)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(live, name, asked)
+    pos = 0
+
+    def call(k, route):
+        nonlocal pos
+        for ev in events[pos : pos + k]:
+            ref.insert_event(RefEvent.from_json(ev.to_json()), True)
+            port.insert_event(Event.from_json(ev.to_json()), True)
+        pos += k
+        eng = getattr(port, "_live_device_engine", None)
+        before = dict(eng.packs) if eng is not None else {"fused": 0, "own": 0}
+        asks.clear()
+        ref_live.run_consensus_live(ref)
+        live.run_consensus_live(port, device="cpu")
+        eng = port._live_device_engine
+        what = f"call at {pos} events"
+        assert_engines_equal(port, ref, what)
+        (got, got_lo), (want, want_lo) = seen.pop("port"), seen.pop("ref")
+        assert got_lo == want_lo == max(len(eng.hashes) - 256, 0), what
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=what)
+        assert {k: eng.packs[k] - before[k] for k in before} == {
+            "fused": route == "fused", "own": route == "own"}, what
+        if route == "fused":
+            assert asks and asks[-1] and sum(asks) == 1, (what, asks)
+        assert eng._pack is None, what
+        return eng
+
+    call(16, "fused")               # the attach: its bootstrap's replay packs
+    call(16, "fused")               # one batch: step
+    call(32, "fused")               # two batches: two steps, the last packs
+    eng = call(64, "fused")         # four batches: multi_step
+    assert asks == [True]
+    while pos < 368:
+        call(48, "fused")           # three batches: multi_step; lo > 0 from 272
+    call(0, "own")                  # nothing new: no decide since the last pack
+    # a vector left from before a rebase is dropped with the state
+    eng._pack = (torch.full((inc.pack_size(256, 16, 8),), -9, dtype=torch.int32),
+                 len(eng.hashes))
+    eng.rebase()
+    ref._live_device_engine.rebase()
+    assert eng._pack is None and eng.rebases == 1
+    assert_engines_equal(port, ref, "after the forced rebase")
+    call(0, "own")
+    call(16, "fused")
+    call(48, "fused")
+    # a vector whose row count is not the snapshot's is refused
+    eng._pack = (torch.zeros(1, dtype=torch.int32), len(eng.hashes) - 1)
+    with pytest.raises(RuntimeError, match="packed"):
+        port_dispatch(eng, [])
 
 
 def assert_engines_equal(port_hg, ref_hg, what):
