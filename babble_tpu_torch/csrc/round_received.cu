@@ -37,13 +37,15 @@
 // takes a ticket after its i_ok, and the round that takes the last one
 // scans the horizon (a suffix min, one load a round; the ticket is an
 // acquire-release atomic, no fence). A cluster an item;
-// with K4's events a persistent grid of as many clusters as the card holds
-// at once, striding over the items.
+// with the events a persistent grid of as many clusters as the card holds
+// at once, striding over the items, then over the events.
 //
-// K4's events stop at their first round that is not i_ok, which is where
-// horizon[round(e) + 1] stops them (the reference's clamps included), so
-// K4 needs no horizon: one cooperative launch, the tables, one grid
-// barrier, the events. (Its two-launch form, the tables and recv_events,
+// The events stop at their first round that is not i_ok, which is where
+// horizon[round(e) + 1] stops them (the reference's clamps included: a
+// round of -1 or below starts at 0, one at R - 1 or above receives
+// nothing), so K4 needs no horizon: one cooperative launch, the tables,
+// one grid barrier, the events; on one card B22's events ride B23's
+// launch the same way. (K4's two-launch form, the tables and recv_events,
 // measured faster where the items outnumber the resident blocks and
 // slower on the bench grid: PERF.md.)
 //
@@ -52,9 +54,15 @@
 //   babble_fame_tables      B23, replaces sharded.py:329 _fame_tables: the
 //                           tables with rounds_decided derived and the
 //                           horizon, one launch;
+//   babble_fame_received    B23 and B22 together where every position of
+//                           the mesh lies on one card: B23's tables, one
+//                           grid barrier, then the whole event axis as K4's
+//                           events (they stop where the horizon stops B22),
+//                           one launch;
 //   babble_received_search  B22, replaces sharded.py:302 local_received:
 //                           recv_events over one position's event shard,
-//                           against the replicated tables.
+//                           against the replicated tables (positions on
+//                           distinct cards).
 // The ticket and the grid barrier live on words that outlast the launch
 // (the wrapper's `sync`, zeroed once when allocated): the ticket's last
 // taker sets it back to 0, and the barrier's word comes back as it was.
@@ -405,6 +413,23 @@ extern "C" int babble_fame_tables(
                    i_ok, horizon, rounds_decided, nullptr, nullptr, nullptr, nullptr,
                    sync, r_max, n, e_la, 0, slices, wps};
     return rt_launch<false>(a, device, s);
+}
+
+// B23 and B22 in one launch: fame_tables' tables and horizon, then
+// received (E,) over the unsharded event axis, in its global order.
+extern "C" int babble_fame_received(
+    const int32_t* wtable, const int32_t* la, const uint8_t* decided,
+    const uint8_t* famous, const int32_t* last_round, const int32_t* index,
+    const int32_t* creator, const int32_t* rounds, int32_t* min_la,
+    int32_t* famous_count, uint8_t* i_ok, int32_t* horizon, uint8_t* rounds_decided,
+    int32_t* received, unsigned int* sync, int r_max, int n, int e, int e_la, int slices,
+    int wps, int device, void* stream) {
+    BABBLE_CHECK(cudaSetDevice(device));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const RtArgs a{wtable, la, decided, famous, nullptr, last_round, min_la, famous_count,
+                   i_ok, horizon, rounds_decided, index, creator, rounds, received,
+                   sync, r_max, n, e_la, e, slices, wps};
+    return e > 0 ? rt_launch<true>(a, device, s) : rt_launch<false>(a, device, s);
 }
 
 extern "C" int babble_received_search(

@@ -16,6 +16,13 @@ launch in the packed layout under "<name>/packed" and a wide one under
 "<name>", so a run can show which form ran: the two layouts give equal
 integers by design.
 
+build_inv (K1) is one launch that writes each INV word once, with no
+atomic: a block per chain, tile of coordinates and segment of the chain's
+indices, a running maximum down each column and a search of it for each
+value; few chains split the chain axis into segments, each of which
+publishes its maxima and reads every segment's, in one cooperative launch
+(`build_inv_plan`), and its shared memory is the same at every L.
+
 decide_fame (K3, both layouts) is a setup launch, whose blocks tile the
 (voter, witness) pairs with the compare-count tile decide_window's setup
 takes (`FS_SETUP_SMEM`), and a vote launch (csrc/fame_vote.cuh: a warp
@@ -73,9 +80,10 @@ shapes it): blocks of (round, tile of columns, slice of the famous
 witnesses), the slices' minima met in a thread-block cluster's shared
 memory, the horizon scanned by the round that takes a ticket's last
 number; K4's events follow a grid barrier in the same cooperative
-launch; their ticket and barrier live on
-per-card words zeroed once (`sync_words`), which the launches leave as
-they found them. K12 `decide_window` writes K13's vector in its last two
+launch, and where every position of the mesh lies on one card B22's
+events ride B23's launch the same way (`fame_received`); their ticket and
+barrier live on per-card words zeroed once (`sync_words`), which the
+launches leave as they found them. K12 `decide_window` writes K13's vector in its last two
 launches when handed one (`pack`): the live engine's results then need
 no pack_results launch.
 """
@@ -83,6 +91,7 @@ no pack_results launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -102,7 +111,7 @@ NVCC_FLAGS = (
 # kernel name -> (source file, C entry point, argument kinds:
 # p = device pointer, i = int; every entry point ends in (device, stream))
 KERNELS: Dict[str, Tuple[str, str, str]] = {
-    "build_inv": ("build_inv.cu", "babble_build_inv", "ppp" "iiii"),
+    "build_inv": ("build_inv.cu", "babble_build_inv", "pppp" "iiiiiiii"),
     "frontier_rounds": (
         "frontier_walk.cu", "babble_frontier_rounds", "pppppppppppp" "iiiiii",
     ),
@@ -160,6 +169,8 @@ KERNELS: Dict[str, Tuple[str, str, str]] = {
     "shard_fame/grid": ("shard_fame.cu", "babble_shard_fame_grid", "pppppp" "iiiiiiiii"),
     "received_search": ("round_received.cu", "babble_received_search", "pppppppp" "iii"),
     "fame_tables": ("round_received.cu", "babble_fame_tables", "ppppppppppp" "iiiii"),
+    # B23 and B22 in one launch where every position lies on one device
+    "fame_received": ("round_received.cu", "babble_fame_received", "ppppppppppppppp" "iiiiii"),
     "shard_walk/rows": ("frontier_walk.cu", "babble_shard_walk_rows", "ppppp" "iiii"),
     "shard_walk/m0": ("frontier_walk.cu", "babble_shard_walk_m0", "pppp" "iiiii"),
     "shard_walk/close": ("frontier_walk.cu", "babble_shard_walk_close", "pppp" "iiii"),
@@ -260,6 +271,21 @@ RT_MAX_WIDTH = 65536
 RT_SMEM = (RT_CHUNK * 4 + RT_THREADS // 32 * 4 + RT_CHUNK * 32 * 4
            + 2 * (RT_THREADS + RT_COLS + 3) * 4 + 4 + RT_THREADS // 32 * 4)
 
+# K1 build_inv (csrc/build_inv.cu, build_inv_plan): a block's threads, the
+# chain indices it stages at once, the coordinates of a tile (a lane each);
+# below BI_SPLIT_PER_SM blocks of (chain, tile) an SM the chain axis splits
+# into segments, up to BI_BLOCKS_PER_SM blocks an SM (each block's launch
+# bounds), in one cooperative launch; the shared memory of one block
+# (static: the chunk's column-major maxima at a stride of BI_CHUNK + 1, its
+# rows, the warps' slice maxima, each column's carry, top and final maximum)
+BI_THREADS = 256
+BI_CHUNK = 128
+BI_COLS = 32
+BI_SPLIT_PER_SM = 2
+BI_BLOCKS_PER_SM = 4
+H100_SMS = 132
+BI_SMEM = (BI_COLS * (BI_CHUNK + 1) + BI_CHUNK + BI_THREADS + 3 * BI_COLS) * 4
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # words that outlast a launch, zeroed once per card: the received tables'
 # ticket and grid barrier; the ticket's last taker sets it back to 0 and
@@ -273,6 +299,24 @@ def sync_words(dev: torch.device) -> torch.Tensor:
     if words is None:
         words = _SYNC[dev] = torch.zeros((2,), dtype=torch.int32, device=dev)
     return words
+
+
+# K1's segmented form: per card, the segments' tagged maxima (zeroed once
+# when allocated, grown as needed) and the epoch of the last call (a word
+# of another call's epoch is never read as this one's)
+_BI_WORDS: Dict[torch.device, torch.Tensor] = {}
+_BI_EPOCH: Dict[torch.device, int] = {}
+
+
+def _bi_words(dev: torch.device, words: int) -> Tuple[torch.Tensor, int]:
+    """`dev`'s segment words (at least `words` of them) and a new epoch."""
+    buf = _BI_WORDS.get(dev)
+    epoch = _BI_EPOCH.get(dev, 0) + 1
+    if buf is None or buf.numel() < words or epoch >= 1 << 30:
+        buf = _BI_WORDS[dev] = torch.zeros((max(words, 1024),), dtype=torch.int64, device=dev)
+        epoch = 1
+    _BI_EPOCH[dev] = epoch
+    return buf, epoch
 
 
 def reset_launches() -> None:
@@ -412,7 +456,10 @@ def block_smem(name: str, n: int, packed: bool = False, **shape) -> Dict[str, in
         return {"setup": FS_SETUP_SMEM, "vote": fame_vote_plan(words)["smem"]}
     if name == "decide_window":
         return {"setup": DW_SETUP_SMEM, "vote": DW_VOTE_SMEM}
-    if name in ("round_received", "fame_tables"):
+    if name == "build_inv":
+        # static, the same at every width and every L
+        return {"walk": BI_SMEM}
+    if name in ("round_received", "fame_tables", "fame_received"):
         # static, the same at every width
         return {"tables": RT_SMEM}
     if name == "closure_la":
@@ -665,15 +712,56 @@ def _launch(name: str, device: torch.device, args: Sequence,
     LAUNCHES[name + ("/packed" if packed else "") + ("/grid" if grid else "")] += 1
 
 
-def build_inv(rows_by: torch.Tensor, la: torch.Tensor) -> torch.Tensor:
-    """K1: INV (N_c, N_p, L) int32 from rows_by (N_c, L) and la (E, N_p)."""
+def build_inv_plan(n_c: int, n_p: int, l: int, segments: Optional[int] = None,
+                   sms: int = H100_SMS) -> Dict[str, int]:
+    """K1's launch (csrc/build_inv.cu) for n_c chains of l indices and n_p
+    coordinates on a card of `sms` SMs, the one rule that shapes it: a
+    block per (chain, tile of BI_COLS coordinates, segment of the chain's
+    indices), a segment whole chunks of BI_CHUNK indices. One segment a
+    chain from BI_SPLIT_PER_SM (chain, tile) blocks an SM; below, as many as
+    bring the blocks near BI_BLOCKS_PER_SM an SM (the cooperative launch's
+    reach), at most one a chunk (`segments` names a count instead, within
+    that reach: timing, the crossover). Returns tiles, segments, seg_len (a
+    segment's indices), blocks and smem (bytes a block)."""
+    if n_c < 1 or n_p < 1 or l < 1:
+        raise ValueError(f"build_inv: needs chains, coordinates and indices, not "
+                         f"({n_c}, {n_p}, {l})")
+    tiles = -(-n_p // BI_COLS)
+    base = n_c * tiles
+    chunks = -(-l // BI_CHUNK)
+    reach = max(1, BI_BLOCKS_PER_SM * sms // base)
+    if segments is None:
+        segments = 1 if base >= BI_SPLIT_PER_SM * sms else reach
+    per = -(-chunks // max(1, min(segments, reach, chunks)))
+    segments = -(-chunks // per)
+    return {"tiles": tiles, "segments": segments, "seg_len": per * BI_CHUNK,
+            "blocks": base * segments, "smem": BI_SMEM}
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(dev: torch.device) -> int:
+    """The SMs of CUDA device `dev`."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def build_inv(rows_by: torch.Tensor, la: torch.Tensor,
+              segments: Optional[int] = None) -> torch.Tensor:
+    """K1: INV (N_c, N_p, L) int32 from rows_by (N_c, L) and la (E, N_p),
+    one launch as build_inv_plan shapes it (`segments` as it takes them)."""
     dev = rows_by.device
     n_c, l = rows_by.shape
     e, n_p = la.shape
     check_tensor("rows_by", rows_by, torch.int32, (n_c, l), dev)
     check_tensor("la", la, torch.int32, (e, n_p), dev)
     inv = torch.empty((n_c, n_p, l), dtype=torch.int32, device=dev)
-    _launch("build_inv", dev, (rows_by, la, inv, n_c, l, n_p, e))
+    if inv.numel() == 0:
+        return inv
+    plan = build_inv_plan(n_c, n_p, l, segments, sm_count(dev))
+    words, epoch = None, 0
+    if plan["segments"] > 1:
+        words, epoch = _bi_words(dev, plan["blocks"] * BI_COLS)
+    _launch("build_inv", dev, (rows_by, la, inv, words, n_c, l, n_p, e, plan["tiles"],
+                               plan["segments"], plan["seg_len"], epoch))
     return inv
 
 
@@ -1716,6 +1804,39 @@ def fame_tables(wtable, la, decided, famous, last_round):
     ))
     return (min_la, famous_count, i_ok.view(torch.bool), horizon,
             rounds_decided.view(torch.bool))
+
+
+def fame_received(wtable, la, decided, famous, last_round, index, creator, rounds):
+    """B23 and B22 in one launch (every position of the mesh on one card):
+    fame_tables' five tables, then received (E,) int32 over the unsharded
+    event axis (index, creator, rounds (E,) int32), in its order."""
+    dev = wtable.device
+    r_max, n = wtable.shape
+    e_la = la.shape[0]
+    e = index.shape[0]
+    check_tensor("wtable", wtable, torch.int32, (r_max, n), dev)
+    check_tensor("la", la, torch.int32, (e_la, n), dev)
+    check_tensor("decided", decided, torch.bool, (r_max, n), dev)
+    check_tensor("famous", famous, torch.bool, (r_max, n), dev)
+    check_tensor("last_round", last_round, torch.int32, (), dev)
+    for what, t in (("index", index), ("creator", creator), ("rounds", rounds)):
+        check_tensor(what, t, torch.int32, (e,), dev)
+    if e_la < 1 or r_max < 1:
+        raise ValueError("fame_received: needs la rows and rounds")
+    plan = received_tables_plan(n, r_max)
+    min_la = torch.empty((r_max, n), dtype=torch.int32, device=dev)
+    famous_count = torch.empty((r_max,), dtype=torch.int32, device=dev)
+    i_ok = torch.empty((r_max,), dtype=torch.uint8, device=dev)
+    horizon = torch.empty((r_max,), dtype=torch.int32, device=dev)
+    rounds_decided = torch.empty((r_max,), dtype=torch.uint8, device=dev)
+    received = torch.empty((e,), dtype=torch.int32, device=dev)
+    _launch("fame_received", dev, (
+        wtable, la, decided.view(torch.uint8), famous.view(torch.uint8), last_round, index,
+        creator, rounds, min_la, famous_count, i_ok, horizon, rounds_decided, received,
+        sync_words(dev), r_max, n, e, e_la, plan["slices"], plan["wps"],
+    ))
+    return (min_la, famous_count, i_ok.view(torch.bool), horizon,
+            rounds_decided.view(torch.bool), received)
 
 
 def received_search(index, creator, rounds, min_la, famous_count, i_ok, horizon):

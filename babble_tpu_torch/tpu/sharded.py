@@ -19,20 +19,25 @@ Layout, as in the reference:
   exit); `_ext.shard_fame_form` chooses, by layout, and takes the step
   form past the one launch's 19,296 voters.
 - **DecideRoundReceived** shards over the *events* axis against the
-  replicated (R, N) fame tables.
+  replicated (R, N) fame tables. Where every position lies on one device
+  the tables and every event are one launch (B22's events after B23's
+  tables, the event axis unsharded).
 - The frontier walk shards over *chains*: each position builds and keeps
-  its chains' INV (K1 on its slice of the chain table). Where every
-  position lies on one device the whole walk is one launch over every
-  position's chains, stopping at its fixed point; where positions lie on
-  distinct cards the frontier rows and m0 cross the mesh by two tiled
-  all-gathers per step (`_ext.shard_walk_form` chooses, by layout alone).
+  its chains' INV (K1 on its slice of the chain table; on one device one
+  K1 launch over every position's chains, each position's INV a view).
+  Where every position lies on one device the whole walk is one launch
+  over every position's chains, stopping at its fixed point; where
+  positions lie on distinct cards the frontier rows and m0 cross the mesh
+  by two tiled all-gathers per step (`_ext.shard_walk_form` chooses, by
+  layout alone, for K1, the walk and pass 3 alike).
 
 Each kernel of a position's shard is a wrapper: on a CPU tensor it runs
 the plain PyTorch version below, on a CUDA tensor the hand-written kernel
 (babble_tpu_torch/csrc/shard_fame.cu for B21 `local_fame`, in one launch
 `babble_shard_fame_grid` or step by step;
 round_received.cu's `babble_received_search` and `babble_fame_tables` for
-B22 `local_received` and B23 `_fame_tables`; frontier_walk.cu's
+B22 `local_received` and B23 `_fame_tables`, `babble_fame_received` for
+both in one launch; frontier_walk.cu's
 `babble_shard_walk` for B24 `local_walk` in one launch, and its
 `babble_shard_walk_rows`, `_m0`, `_close` step by step), or raises. The replicated
 fame setup and the walk's post pass run K3's and K2's kernels on their own
@@ -323,6 +328,19 @@ def local_received(index, creator, rounds, min_la, famous_count, i_ok, horizon):
     return _ext.received_search(index, creator, rounds, min_la, famous_count, i_ok, horizon)
 
 
+def fame_received(wtable, la, decided, famous, last_round, index, creator, rounds):
+    """B23 then B22 over the whole event axis, every position on one
+    device: (the five tables fame_tables gives, received (E,)). CPU the
+    plain versions; CUDA one launch (the tables, a grid barrier, the
+    events)."""
+    if wtable.device.type == "cpu":
+        tables = _fame_tables_plain(wtable, la, decided, famous, last_round)
+        return tables, received_search(index, creator, rounds, *tables[:4])
+    *tables, received = _ext.fame_received(wtable, la, decided, famous, last_round, index,
+                                           creator, rounds)
+    return tuple(tables), received
+
+
 # ---------------------------------------------------------------------------
 # the replicated fame setup (K3's setup) and the staging of passes 2+3
 # ---------------------------------------------------------------------------
@@ -447,44 +465,62 @@ def sharded_fame(mesh: DeviceMesh, stage: FameStage, last_round, chunk: int,
             unshard(famous_parts, mesh, (axis, None)))
 
 
-def sharded_received(mesh: DeviceMesh, index_np, creator_np, rounds_np, tables):
-    """Round received over the events, sharded over every position against
-    the replicated tables (min_la, famous_count, i_ok, horizon); (E,) on the
-    mesh's device."""
+def sharded_received(mesh: DeviceMesh, index_np, creator_np, rounds_np, fame,
+                     form: Optional[str] = None):
+    """Pass 3 over the mesh from the decided fame, fame = (wtable, la,
+    decided, famous, last_round) on the mesh's device: (B23's replicated
+    tables (min_la, famous_count, i_ok, horizon, rounds_decided), round
+    received (E,)) on the mesh's device. `form` is _ext.shard_walk_form's
+    unless named: "grid", one launch of both over the unsharded event axis
+    (every position on one device; on the CPU the plain versions); "step",
+    B23's launch, then B22 on each position's padded event shard against
+    the replicated tables (positions on distinct cards). Both give the same
+    tables and received."""
+    if form is None:
+        form = _ext.shard_walk_form(mesh.devices)
+    e = len(index_np)
+    if form == "grid":
+        if _ext.shard_walk_form(mesh.devices) != "grid":
+            raise ValueError("sharded_received: the one launch needs every position on one "
+                             "device")
+        ev = [to_device(np.asarray(a, dtype=np.int32), mesh.device)
+              for a in (index_np, creator_np, rounds_np)]
+        return ledger_call("fame_received", fame_received, *fame, *ev)
+    if form != "step":
+        raise ValueError(f"sharded_received: no form {form!r}; {_ext.SHARD_WALK_FORMS}")
+    tables = ledger_call("_fame_tables", fame_tables, *fame)
     axis, v_axis = _mesh_axes(mesh)
     ev_axes = (v_axis, axis) if v_axis is not None else axis
-    e = len(index_np)
     e_pad = ((max(e, 1) + mesh.size - 1) // mesh.size) * mesh.size
 
     def pute(a, fill):
         return shard(_pad_axis0(np.asarray(a, dtype=np.int32), e_pad, fill), mesh, (ev_axes,))
 
     idx_p, cr_p, rd_p = pute(index_np, 0), pute(creator_np, 0), pute(rounds_np, -1)
-    reps = [replicate(t, mesh) for t in tables]
+    reps = [replicate(t, mesh) for t in tables[:4]]
     received = unshard(
         [ledger_call("local_received", local_received, idx_p[p], cr_p[p], rd_p[p],
                      *(t[p] for t in reps))
          for p in range(mesh.size)],
         mesh, (ev_axes,),
     )
-    return received[:e]
+    return tables, received[:e]
 
 
 def _sharded_fame_received(mesh: DeviceMesh, grid: DagGrid, wtable_np, la, fd, index,
                            rounds_np, last_round, chunk: int, packed=None):
     """Passes 2+3 over the mesh, shared by the three entry points:
     rounds-sharded fame voting with ring-shifted voters (witness-sharded
-    too on a 2-D mesh), then events-sharded round-received. la, fd, index
-    are tensors on the mesh's device. Returns host numpy results."""
+    too on a 2-D mesh), then round-received (sharded_received). la, fd,
+    index are tensors on the mesh's device. Returns host numpy results."""
     pk = resolve_packed(packed, grid.n)
     r_rows = wtable_np.shape[0]
     lr = _as_scalar(last_round, mesh.device)
     stage = stage_fame(mesh, grid, wtable_np, la, fd, index, pk)
     decided, famous = sharded_fame(mesh, stage, lr, chunk, grid.n, grid.super_majority, pk)
-    min_la, famous_count, i_ok, horizon, rounds_decided = ledger_call(
-        "_fame_tables", fame_tables, stage.wtable, la, decided, famous, lr)
-    received = sharded_received(mesh, grid.index, grid.creator, rounds_np,
-                                (min_la, famous_count, i_ok, horizon))
+    tables, received = sharded_received(mesh, grid.index, grid.creator, rounds_np,
+                                        (stage.wtable, la, decided, famous, lr))
+    rounds_decided = tables[4]
     return (
         decided.cpu().numpy()[:r_rows],
         famous.cpu().numpy()[:r_rows],
@@ -531,8 +567,38 @@ def sharded_run_passes(mesh: DeviceMesh, grid: DagGrid, chunk: int = 8,
 # ---------------------------------------------------------------------------
 
 
-def sharded_build_inv(mesh: DeviceMesh, rb_parts, la_parts) -> List[torch.Tensor]:
-    """K1 on each position's slice of the chain table."""
+def _joined(parts: List[torch.Tensor]) -> torch.Tensor:
+    """Equal-shaped parts back to back along dim 0: a view where they
+    already lie so in one buffer, in list order (stage_walk's one-device
+    staging), else their concatenation."""
+    first = parts[0]
+    step = first.numel() * first.element_size()
+    if all(t.shape == first.shape and t.is_contiguous()
+           and t.untyped_storage().data_ptr() == first.untyped_storage().data_ptr()
+           and t.data_ptr() == first.data_ptr() + k * step for k, t in enumerate(parts)):
+        shape = (first.shape[0] * len(parts),) + tuple(first.shape[1:])
+        return torch.as_strided(first, shape, first.stride())
+    return torch.cat(parts)
+
+
+def sharded_build_inv(mesh: DeviceMesh, rb_parts, la_parts,
+                      form: Optional[str] = None) -> List[torch.Tensor]:
+    """K1 on each position's slice of the chain table: INV (B, N_p, L) per
+    position. `form` is _ext.shard_walk_form's unless named: "grid", one
+    build_inv over every position's chains (every position on one device;
+    a chain's INV depends on its row alone), each part a view of its
+    chains; "step", one build_inv a position (positions on distinct
+    cards). Both give the same integers."""
+    if form is None:
+        form = _ext.shard_walk_form(mesh.devices)
+    if form == "grid":
+        if _ext.shard_walk_form(mesh.devices) != "grid":
+            raise ValueError("sharded_build_inv: the one launch needs every position on one "
+                             "device")
+        b = rb_parts[0].shape[0]
+        return list(build_inv(_joined(list(rb_parts)), la_parts[0]).split(b))
+    if form != "step":
+        raise ValueError(f"sharded_build_inv: no form {form!r}; {_ext.SHARD_WALK_FORMS}")
     return [build_inv(rb_parts[p], la_parts[p]) for p in range(mesh.size)]
 
 
@@ -725,7 +791,15 @@ def stage_walk(mesh: DeviceMesh, grid: DagGrid, grid_p: Optional[DagGrid] = None
     rb_pad[: grid.n, : rows_by.shape[1]] = rows_by
     la = to_device(grid_p.last_ancestors, mesh.device)
     fd = to_device(grid_p.first_descendants, mesh.device)
-    rb_parts = shard(rb_pad, mesh, (axis, None))
+    if _ext.shard_walk_form(mesh.devices) == "grid":
+        # one device: the table staged once, each position's chains a view
+        # of it (K1 builds every position's INV from it in one launch)
+        rb_all = to_device(rb_pad, mesh.device)
+        b = n_pad // mesh.size
+        rb_parts = [rb_all[k * b: (k + 1) * b]
+                    for k in (axis_index(p, mesh, axis) for p in range(mesh.size))]
+    else:
+        rb_parts = shard(rb_pad, mesh, (axis, None))
     la_parts, fd_parts = replicate(la, mesh), replicate(fd, mesh)
     inv_parts = sharded_build_inv(mesh, rb_parts, la_parts)
     x0_parts = shard(np.where(rb_pad[:, 0] >= 0, 0, l_b).astype(np.int32), mesh, (axis,))

@@ -15,10 +15,15 @@ Phases, in order; any failure raises and exits non-zero:
    the JAX suite's frontier tests, with CUDA-event times at the bench shapes;
    decide_fame in both layouts, also on random voting tables that reach a
    coin round (shown on the CPU first: flipping the coin bits changes the
-   verdicts); K4 round_received and B23 fame_tables on the bench grid's
-   tables, the coin cases' and
+   verdicts); K4 round_received, B23 fame_tables and B23 with B22's events
+   (fame_received) on the bench grid's tables, the coin cases' and
    received_trap_case's (136 validators, two column tiles, at last_round
-   -1, 3 and 6; 1,056 at 4; creators outside [0, n));
+   -1, 3 and 6; 1,056 at 4; creators outside [0, n)); K1 build_inv on its
+   trap table (build_inv_trap_cases: chains that fall and rise, entries
+   at and past L and absent, padded slots, rows past E, e = 0, L = 1,
+   ragged tiles, chains of several chunks, the catch-up section's shape
+   and the width cell's), in the plan's form and with the chain axis in
+   one segment, two and one a chunk;
 4. end to end: run_frontier_passes on the card at the bench size, every
    field equal to the port's CPU run, last_round 26 and 28,065 received
    events (the JAX reference's result on this grid), every kernel's launch
@@ -233,8 +238,11 @@ Phases, in order; any failure raises and exits non-zero:
    printed; no number measures an interconnect): (a) each mesh kernel
    (B21 as one launch, shard_fame/grid, held to the plain step-by-step
    loop on every position's decided and famous, and its per-step form
-   shard_fame/tally, /decide, /active; B22 received_search; B23
-   fame_tables; B24 as one launch, shard_walk/grid, held to the plain
+   shard_fame/tally, /decide, /active; B23 with B22's events in one
+   launch, fame_received, and their per-position form, B23 fame_tables and
+   B22 received_search, named; K1 as one launch over every position's
+   chains, and one a position, named; B24 as one launch, shard_walk/grid,
+   held to the plain
    whole walk on every position's history, and its per-step form
    shard_walk/rows, /m0, /close; K3's setup fame_setup and K2's post
    frontier_post launched on their own) held torch.equal to its plain
@@ -263,10 +271,12 @@ Phases, in order; any failure raises and exits non-zero:
    the plain walk's and all of them to the 1-D 8 walk's row for row; (b)
    the three sharded engines on config #4 on
    both meshes and both layouts, each launching its path's kernels
-   (run_path; the frontier walk and the fame loop as exactly one launch
-   each of shard_walk/grid and shard_fame/grid and none of their per-step
-   kernels, whose launches come from local_walk and sharded_fame with that
-   form named) and equal to phase 14's engines (7, 32,341,
+   (run_path; the frontier walk, the fame loop and pass 3 as exactly one
+   launch each of shard_walk/grid, shard_fame/grid and fame_received, and
+   K1 as one build_inv launch, with none of their per-step or per-position
+   kernels, whose launches come from local_walk, sharded_fame,
+   sharded_build_inv and sharded_received with that form named) and equal
+   to phase 14's engines (7, 32,341,
    1,853 witnesses; fame on the overlap), the median wall of 3 warm runs
    per engine and mesh (packed) (the bench cell's end-to-end run on the
    1-D mesh was cut to pay for phase 16(d)'s K7 chunk past a cluster's
@@ -495,14 +505,18 @@ MESH_QUEUE_DEPTH = 4
 # form named, its one launch from the engines' own loops
 MESH_STEP_CELL = "config #4, 1-D 8, packed, per-step form"
 MESH_STEP_CELL_WIDE = "config #4, 1-D 8, wide, per-step form"
+# K1 and B22 named per position (the form of positions on distinct cards)
+MESH_POSITION_CELL = "config #4 frontier, 1-D 8, packed, per-position form"
 MESH_TIMED_CELL = {
     "shard_fame/grid/packed": "config #4 frontier, 1-D 8, packed",
     "shard_fame/grid": "config #4 level scan, 1-D 8, wide",
     "shard_fame/tally/packed": MESH_STEP_CELL,
     "shard_fame/decide/packed": MESH_STEP_CELL,
     "shard_fame/active": MESH_STEP_CELL,
-    "fame_tables": "config #4 frontier, 1-D 8, packed",
-    "received_search": "config #4 frontier, 1-D 8, packed",
+    "fame_received": "config #4 frontier, 1-D 8, packed",
+    "build_inv (config #4 mesh)": ("config #4 frontier, 1-D 8, packed", "build_inv"),
+    "fame_tables": MESH_POSITION_CELL,
+    "received_search": MESH_POSITION_CELL,
     "fame_setup/packed": "config #4 frontier, 1-D 8, packed",
     "shard_walk/rows": "config #4 frontier, 1-D 8, packed",
     "shard_walk/m0": "config #4 frontier, 1-D 8, packed",
@@ -611,6 +625,13 @@ REPLACES = {
     "received_search": ("babble_tpu_torch/csrc/round_received.cu",
                         "babble_tpu/tpu/sharded.py:302"),
     "fame_tables": ("babble_tpu_torch/csrc/round_received.cu", "babble_tpu/tpu/sharded.py:329"),
+    # B22's events in B23's launch, every position on one card (B23's
+    # tables: sharded.py:329)
+    "fame_received": ("babble_tpu_torch/csrc/round_received.cu",
+                      "babble_tpu/tpu/sharded.py:302"),
+    # K1 over every position's chains in one launch (config #4's mesh)
+    "build_inv (config #4 mesh)": ("babble_tpu_torch/csrc/build_inv.cu",
+                                   "babble_tpu/tpu/frontier.py:116"),
     "shard_walk/rows": ("babble_tpu_torch/csrc/frontier_walk.cu",
                         "babble_tpu/tpu/sharded.py:549"),
     "shard_walk/m0": ("babble_tpu_torch/csrc/frontier_walk.cu", "babble_tpu/tpu/sharded.py:549"),
@@ -696,32 +717,34 @@ PATH_KERNELS = {
     "train_step (1,024), packed": ("apply_deltas", "train_levels/packed/grid",
                                    "decide_window/packed"),
     # the device mesh: passes 2+3 of every sharded engine; on the one card
-    # the frontier walk and the fame loop are one launch each
-    # (_ext.shard_walk_form), and their per-step kernels run when a caller
-    # names that form
+    # K1, the frontier walk, the fame loop and pass 3 (B23 with B22's
+    # events) are one launch each (_ext.shard_walk_form, require_one_card),
+    # and their per-position kernels run when a caller names that form
     "sharded_frontier_passes": ("build_inv", "shard_walk/grid", "frontier_post", "fame_setup",
-                                "shard_fame/grid", "fame_tables", "received_search"),
+                                "shard_fame/grid", "fame_received"),
     "sharded_frontier_passes, packed": ("build_inv", "shard_walk/grid", "frontier_post",
                                         "fame_setup/packed", "shard_fame/grid/packed",
-                                        "fame_tables", "received_search"),
+                                        "fame_received"),
     "local_walk, per-step form": ("shard_walk/rows", "shard_walk/m0", "shard_walk/close"),
+    "sharded_build_inv, per-position form": ("build_inv",),
+    "sharded_received, per-position form": ("fame_tables", "received_search"),
     "sharded_fame, per-step form": ("shard_fame/tally", "shard_fame/decide",
                                     "shard_fame/active"),
     "sharded_fame, per-step form, packed": ("shard_fame/tally/packed",
                                             "shard_fame/decide/packed", "shard_fame/active"),
     "sharded_run_passes": ("divide_rounds/grid", "fame_setup", "shard_fame/grid",
-                           "fame_tables", "received_search"),
+                           "fame_received"),
     "sharded_run_passes, packed": ("divide_rounds/packed/grid", "fame_setup/packed",
-                                   "shard_fame/grid/packed", "fame_tables", "received_search"),
+                                   "shard_fame/grid/packed", "fame_received"),
     "sharded_doubling_passes": ("closure_la", "build_inv", "walk_chunk", "fame_setup",
-                                "shard_fame/grid", "fame_tables", "received_search"),
+                                "shard_fame/grid", "fame_received"),
     "sharded_doubling_passes, packed": ("closure_la", "build_inv", "walk_chunk",
                                         "fame_setup/packed", "shard_fame/grid/packed",
-                                        "fame_tables", "received_search"),
+                                        "fame_received"),
     "sharded_frontier_passes (1,024), packed": ("build_inv", "shard_walk/grid",
                                                 "frontier_post", "fame_setup/packed",
-                                                "shard_fame/grid/packed", "fame_tables",
-                                                "received_search"),
+                                                "shard_fame/grid/packed",
+                                                "fame_received"),
 }
 # K13's own launches on the live paths: none where every call decides (the
 # attach's bootstrap replay packs too), one where the attach comes from the
@@ -1290,6 +1313,75 @@ def received_trap_case(n, r, seed):
     )
 
 
+def build_inv_trap_cases(card=False):
+    """K1's edges as (name, rows_by, la) numpy int32 arrays, random from
+    numpy seeds: lastAncestors that fall and rise along a chain, entries at
+    and past L, absent entries (la < 0), padded slots between real ones and
+    an empty chain, rows past la's last row (clamped), no rows at all (e =
+    0, which the reference's gather refuses: INV is L everywhere), L = 1, a
+    ragged tile of coordinates (37, 70), chains of several chunks split into
+    segments, and, with `card`, the catch-up section's shape (8 chains of
+    4,608 indices, 32,760 rows: the chain axis split) and the width cell's
+    (1,024 chains of 64 indices over 1,024 coordinates)."""
+    rng = np.random.default_rng(18)
+
+    def chains(n_c, l, e, fill):
+        rows = np.full((n_c, l), -1, dtype=np.int32)
+        for c in range(n_c):
+            k = int(fill * l)
+            rows[c, :k] = rng.integers(0, e, size=k)
+        return rows
+
+    cases = []
+    rb = chains(6, 16, 40, 1.0)
+    cases.append(("falling and rising", rb, rng.integers(0, 16, size=(40, 6), dtype=np.int32)))
+    cases.append(("at and past L", rb, rng.integers(12, 40, size=(40, 6), dtype=np.int32)))
+    cases.append(("absent entries", rb, rng.integers(-3, 10, size=(40, 6), dtype=np.int32)))
+    gaps = chains(5, 24, 60, 0.9)
+    gaps[rng.random(gaps.shape) < 0.3] = -1
+    gaps[2] = -1
+    cases.append(("padded slots between real ones, an empty chain", gaps,
+                  rng.integers(-1, 30, size=(60, 5), dtype=np.int32)))
+    cases.append(("rows past E", rng.integers(-1, 50, size=(4, 16), dtype=np.int32),
+                  rng.integers(-1, 20, size=(30, 4), dtype=np.int32)))
+    cases.append(("e = 0", np.full((3, 8), -1, dtype=np.int32), np.zeros((0, 5), np.int32)))
+    cases.append(("L = 1", rng.integers(-1, 9, size=(7, 1), dtype=np.int32),
+                  rng.integers(-2, 3, size=(9, 7), dtype=np.int32)))
+    cases.append(("ragged tiles", chains(37, 64, 500, 0.7),
+                  rng.integers(-1, 70, size=(500, 37), dtype=np.int32)))
+    cases.append(("ragged second tile", chains(70, 64, 900, 0.8),
+                  rng.integers(-1, 70, size=(900, 70), dtype=np.int32)))
+    walk = chains(3, 448, 1000, 0.95)
+    cases.append(("chains of four chunks", walk,
+                  np.sort(rng.integers(-1, 500, size=(1000, 3), dtype=np.int32), axis=0)))
+    cases.append(("chains of four chunks, falling", walk,
+                  rng.integers(-1, 500, size=(1000, 3), dtype=np.int32)))
+    if card:
+        e_c, l_c = 32760, 4608
+        rows = np.full((8, l_c), -1, dtype=np.int32)
+        for c in range(8):
+            rows[c, :4095] = np.arange(c, e_c, 8)[:4095]
+        la_c = np.sort(rng.integers(-1, 4100, size=(e_c, 8), dtype=np.int32), axis=0)
+        cases.append(("catch-up shape (8 chains, L 4,608)", rows, la_c))
+        e_w, n_w = 16384, 1024
+        rows = np.full((n_w, 64), -1, dtype=np.int32)
+        rows[:, :16] = np.arange(n_w * 16, dtype=np.int32).reshape(16, n_w).T
+        cases.append(("width shape (1,024 chains, L 64)", rows,
+                      rng.integers(-1, 20, size=(e_w, n_w), dtype=np.int32)))
+    return cases
+
+
+def build_inv_work(rows_by, la, inv):
+    """K1's (bytes, seconds at the peak integer rate) on these inputs
+    (PERF.md's counting rules): the chain table and the la rows it names
+    read once, INV written once; an operation per coordinate a row and per
+    INV word."""
+    rows = int((rows_by >= 0).sum().item())
+    n_p = la.shape[1]
+    return (rows_by.numel() * 4 + rows * n_p * 4 + inv.numel() * 4,
+            (rows * n_p + inv.numel()) / ALU_OPS_S)
+
+
 def received_trap_args(case, last_round, device):
     """(K4's positional arguments, B23's) for a received_trap_case, on
     device."""
@@ -1351,10 +1443,17 @@ def hold_received(label, k4, log_fn):
     b23 = (k4[0], k4[1], k4[5], k4[6], k4[8])
     got_t = _ext.fame_tables(*b23)
     torch.cuda.synchronize()
-    require_equal(f"fame_tables on {label}", got_t, sharded._fame_tables_plain(*b23))
+    want_t = sharded._fame_tables_plain(*b23)
+    require_equal(f"fame_tables on {label}", got_t, want_t)
+    # B23 with B22's events over K4's events in one launch
+    events = (k4[2], k4[3], k4[4])
+    got_f = _ext.fame_received(*b23, *events)
+    torch.cuda.synchronize()
+    require_equal(f"fame_received on {label}", got_f,
+                  tuple(want_t) + (kernels.received_search(*events, *want_t[:4]),))
     r_max, n = k4[0].shape
     plan = _ext.received_tables_plan(n, r_max)
-    log_fn(f"  round_received and fame_tables == plain on {label} "
+    log_fn(f"  round_received, fame_tables and fame_received == plain on {label} "
            f"({plan['items']} items x {plan['slices']} slices of {plan['wps']} words; "
            f"{int((want >= 0).sum())} of {want.numel()} received)")
 
@@ -1370,6 +1469,31 @@ def hold_received_traps(dev, log_fn):
         for lr in last_rounds:
             k4, _ = received_trap_args(case, lr, dev)
             hold_received(f"received_trap_case({n}, {r}, {seed}), last_round {lr}", k4, log_fn)
+
+
+def hold_build_inv_traps(dev, log_fn):
+    """K1 on its trap table (build_inv_trap_cases, with the catch-up and
+    width shapes), in the plan's form and with the chain axis in one
+    segment, two and one a chunk: torch.equal to the plain version (with
+    no rows, to L everywhere, where the reference's gather refuses)."""
+    from babble_tpu_torch.tpu import _ext, frontier
+
+    for name, rows_np, la_np in build_inv_trap_cases(card=True):
+        rows_by, la = (torch.from_numpy(a).to(dev) for a in (rows_np, la_np))
+        n_c, l = rows_np.shape
+        if la_np.shape[0] == 0:
+            want = torch.full((n_c, la_np.shape[1], l), l, dtype=torch.int32, device=dev)
+        else:
+            want = frontier._build_inv_plain(rows_by, la)
+        forms = [None] + sorted({1, 2, -(-l // _ext.BI_CHUNK)})
+        for segments in forms:
+            got = _ext.build_inv(rows_by, la, segments)
+            torch.cuda.synchronize()
+            require_equal(f"build_inv on the trap '{name}', segments {segments}", got, want)
+        plan = _ext.build_inv_plan(n_c, la_np.shape[1], l)
+        log_fn(f"  build_inv == plain on the trap '{name}' ({n_c} chains, L {l}, "
+               f"{la_np.shape[1]} coordinates; the plan's {plan['segments']} segments of "
+               f"{plan['blocks']} blocks, and segments {forms[1:]})")
 
 
 def coin_case_state(case, device):
@@ -1500,13 +1624,17 @@ def fused_pack_phase(step_state, batches, sm, n, dev):
 
 def max_abs_err(got, want):
     if isinstance(got, tuple):
-        return max(max_abs_err(g, w) for g, w in zip(got, want))
+        return max(max_abs_err(g, w) for g, w in zip(flat(got), flat(want)))
     return int((got.long() - want.long()).abs().max().item()) if got.numel() else 0
 
 
+def flat(x):
+    """The tensors of a result, nested tuples flattened in order."""
+    return tuple(t for y in x for t in flat(y)) if isinstance(x, tuple) else (x,)
+
+
 def require_equal(what, got, want):
-    got_t = got if isinstance(got, tuple) else (got,)
-    want_t = want if isinstance(want, tuple) else (want,)
+    got_t, want_t = flat(got), flat(want)
     for k, (g, w) in enumerate(zip(got_t, want_t)):
         if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
             raise AssertionError(f"{what}: field {k} differs from the plain version")
@@ -3494,8 +3622,8 @@ class MeshCheck:
     launches under "<name>/packed")."""
 
     NAMES = ("shard_tally", "shard_decide", "shard_active", "fame_grid", "fame_tables",
-             "local_received", "walk_rows", "walk_m0", "walk_close", "walk_grid", "post",
-             "fame_setup")
+             "local_received", "fame_received", "build_inv", "walk_rows", "walk_m0",
+             "walk_close", "walk_grid", "post", "fame_setup")
 
     def __init__(self, log_fn):
         self.log = log_fn
@@ -3671,6 +3799,41 @@ class MeshCheck:
             lambda: received_search(index, creator, rounds, min_la, famous_count, i_ok,
                                     horizon), work)
 
+    def _fame_received(self, wtable, la, decided, famous, last_round, index, creator, rounds):
+        from babble_tpu_torch.tpu.kernels import received_search
+
+        sh = self.sh
+        r, n = wtable.shape
+        e = index.shape[0]
+
+        def plain():
+            tables = sh._fame_tables_plain(wtable, la, decided, famous, last_round)
+            return tables, received_search(index, creator, rounds, *tables[:4])
+
+        def work(got):
+            # B23's tables, then each event's scan as B22's
+            tables, recv = got
+            n_famous = int((decided & famous & (wtable >= 0)).sum().item())
+            start = (rounds + 1).clamp(0, r - 1).long()
+            stop = torch.where(recv >= 0, recv, tables[3][start].clamp(max=r) - 1)
+            scans = int((stop - rounds).clamp(min=0).sum().item())
+            return (r * n * 4 + n_famous * n * 4 + r * n * 2 + 4 + r * n * 4 + r * 10
+                    + e * 16, (n_famous * n + r * n + scans) / ALU_OPS_S)
+
+        def kern():
+            tables, recv = self.real["fame_received"](wtable, la, decided, famous, last_round,
+                                                      index, creator, rounds)
+            return tuple(tables), recv
+
+        return self._timed("fame_received", kern, plain, work)
+
+    def _build_inv(self, rows_by, la):
+        from babble_tpu_torch.tpu.frontier import _build_inv_plain
+
+        return self._timed("build_inv", lambda: self.real["build_inv"](rows_by, la),
+                           lambda: _build_inv_plain(rows_by, la),
+                           lambda got: build_inv_work(rows_by, la, got))
+
     def _walk_rows(self, rows_by, fd, x_cur):
         b, l = rows_by.shape
         n_p = fd.shape[1]
@@ -3791,6 +3954,20 @@ def require_one_fame_launch(what, launches):
     if one != 1 or step:
         raise AssertionError(f"{what}: shard_fame/grid x{one}, per-step {step}; expected one "
                              f"launch of the one-launch fame loop")
+
+
+def require_one_card(what, path, launches):
+    """Fail unless a sharded engine's call on the one card ran pass 3 as
+    one fame_received launch, with no fame_tables or received_search
+    launch, and a sharded_frontier_passes call built INV in one build_inv
+    launch (the per-position forms: one a position)."""
+    per_pos = {k: launches[k] for k in ("fame_tables", "received_search") if launches[k]}
+    if launches["fame_received"] != 1 or per_pos:
+        raise AssertionError(f"{what}: fame_received x{launches['fame_received']}, "
+                             f"per-position {per_pos}; expected one fame_received launch")
+    if path.startswith("sharded_frontier_passes") and launches["build_inv"] != 1:
+        raise AssertionError(f"{what}: build_inv x{launches['build_inv']}, expected one launch "
+                             f"over every position's chains")
 
 
 def fame_input(g, ref, dev):
@@ -3929,6 +4106,26 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
         log_fn(f"  {checks.cell}, local_walk(form='step'): "
                f"{len(checks.events[(checks.cell, 'shard_walk/m0')])} m0 launches, each == "
                f"plain; its history == the one-launch walk's")
+        # K1 and pass 3 per position, named explicitly (the form of
+        # positions on distinct cards): each launch against its plain
+        # version, INV against the one launch's, the tables and received
+        # against fame_received's
+        checks.cell = MESH_POSITION_CELL
+        require_equal("the per-position K1 against the one launch, config #4, 1-D 8",
+                      tuple(sh.sharded_build_inv(m1, walk_stage.rb_parts, walk_stage.la_parts,
+                                                 form="step")),
+                      tuple(walk_stage.inv_parts))
+        r_stage = sh.stage_fame(m1, wide, *fame_in[:4], True)
+        recv_fame = (r_stage.wtable, fame_in[1], *sh.sharded_fame(
+            m1, r_stage, fame_in[4], 8, wide.n, wide.super_majority, True), fame_in[4])
+        pass3 = {f: sh.sharded_received(m1, wide.index, wide.creator, wide_ref.rounds, recv_fame,
+                                        form=f) for f in ("grid", "step")}
+        require_equal("the per-position pass 3 against fame_received, config #4, 1-D 8",
+                      pass3["step"], pass3["grid"])
+        log_fn(f"  {checks.cell}: sharded_build_inv(form='step') x{m1.size} and "
+               f"sharded_received(form='step') (fame_tables, received_search x{m1.size}), "
+               f"each == plain; == the one-launch forms "
+               f"({int((pass3['grid'][1] >= 0).sum())} received)")
         b_ref = engine.run_frontier_passes(bench, device=dev)
         checks.cell = "bench cell frontier, 1-D 8, wide"
         same_as(checks.cell, sh.sharded_frontier_passes(m1, bench), b_ref)
@@ -4038,6 +4235,7 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
                 res, got = run_path(label, lambda: fn(m, wide, packed=pk))
                 same_as(f"{label} on {mname}", res, wide_ref)
                 require_one_fame_launch(f"{label} on {mname}", got)
+                require_one_card(f"{label} on {mname}", label, got)
                 if ename == "sharded_frontier_passes":
                     require_one_walk_launch(f"{label} on {mname}", got)
                 counts = dict(last_round=res.last_round,
@@ -4054,9 +4252,25 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
                    f"{torch.cuda.get_device_name(0)}")
     log_fn(f"config #4 through the three sharded engines on both meshes in both layouts == "
            f"phase 14's engines: {WIDE_EXPECT}")
-    for name in ("shard_fame/grid/packed", "fame_tables", "received_search",
-                 "fame_setup/packed", "shard_walk/grid", "frontier_post"):
+    for name in ("shard_fame/grid/packed", "fame_received", "fame_setup/packed",
+                 "shard_walk/grid", "frontier_post"):
         launches[name] = paths[("1-D 8", "sharded_frontier_passes, packed")][name]
+    launches["build_inv (config #4 mesh)"] = (
+        paths[("1-D 8", "sharded_frontier_passes, packed")]["build_inv"])
+    # K1's and pass 3's per-position paths: each named (the layout of
+    # positions on distinct cards), config #4 on the 1-D mesh
+    _, step_launches = run_path(
+        "sharded_build_inv, per-position form",
+        lambda: sh.sharded_build_inv(m1, walk_stage.rb_parts, walk_stage.la_parts, form="step"))
+    if step_launches["build_inv"] != m1.size:
+        raise AssertionError(f"sharded_build_inv(form='step'): build_inv "
+                             f"x{step_launches['build_inv']}, expected {m1.size}")
+    _, step_launches = run_path(
+        "sharded_received, per-position form",
+        lambda: sh.sharded_received(m1, wide.index, wide.creator, wide_ref.rounds, recv_fame,
+                                    form="step"))
+    for name in ("fame_tables", "received_search"):
+        launches[name] = step_launches[name]
     # B21's per-step kernels' path: sharded_fame with that form named (the
     # layout of positions on distinct cards), config #4 on the 1-D mesh
     for pk, suffix in ((True, "/packed"), (False, "")):
@@ -4082,6 +4296,7 @@ def mesh_phase(wide, wide_ref, bench, hg_kept, dev, log_fn):
     same_as("sharded_frontier_passes (1,024)", w_run, w_ref)
     require_one_walk_launch("sharded_frontier_passes (1,024)", w_launches)
     require_one_fame_launch("sharded_frontier_passes (1,024)", w_launches)
+    require_one_card("sharded_frontier_passes (1,024)", "sharded_frontier_passes", w_launches)
     launches["fame_setup/packed (1,024)"] = w_launches["fame_setup/packed"]
     log_fn(f"phase 17 (b): {time.perf_counter() - t0:.1f} s")
 
@@ -4314,6 +4529,7 @@ def main() -> int:
                        fame.famous, fame.rounds_decided, fr.last_round)
     hold_received("the bench grid", bench_recv_args, log)
     hold_received_traps(dev, log)
+    hold_build_inv_traps(dev, log)
 
     # the K3 tally as one batched 0/1 product, a yardstick the port never calls
     r_max, n = fr.witness_table.shape
@@ -4332,13 +4548,11 @@ def main() -> int:
     n_wit = int(wvalid.sum().item())
     n_pairs = int((wvalid[1:].sum(dim=1) * wvalid[:-1].sum(dim=1)).sum().item())
     n_famous = int((fame.decided & fame.famous & wvalid).sum().item())
-    inv_bytes = inv.numel() * 4
     # K2's working steps, from the plain walk's history
     k2_hist = frontier._frontier_history_plain(inv, st.rows_by, st.fd, bench.super_majority,
                                                R_CAP, la=st.la)
     work = {
-        "build_inv": (st.rows_by.numel() * 4 + real_rows * n * 4 + inv_bytes,
-                      (real_rows * n + n * n * l) / ALU_OPS_S),
+        "build_inv": build_inv_work(st.rows_by, st.la, inv),
         "frontier_rounds": frontier_rounds_work(inv, st, bench.super_majority, k2_hist),
         "decide_fame": fame_work(fr.witness_table, n),
         "round_received": received_work(

@@ -19,7 +19,11 @@ script) and builds its kernels. Shapes:
 - B23 on the inputs the mesh hands it: config #4 through
   sharded_frontier_passes (packed) and the coin table (1024, 6, 3) through
   sharded_fame, each on the 1-D mesh of 8 and the 2-D (2, 4) mesh, every
-  position on the card;
+  position on the card; and "B23 + B22" on the same inputs, pass 3 as the
+  engines run it (the tables, then received over the grid's events or the
+  coin table's rows): where the checkout's sharded_received has forms, one
+  launch of both and, named, B23 then B22 per position; else B23, then
+  B22 per position;
 - K12 at the live step shape (phase 10's step state: the bench grid's 512
   batches of 64, e_cap 65,536, r_cap 64, e_win 8,192): its decide without
   the pack and, where the checkout takes one, with it (dw_tables and
@@ -52,6 +56,7 @@ import statistics
 import sys
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -146,36 +151,94 @@ def k4_shape(cs, tf, label, args, timer, reps, card, root):
     print(json.dumps(line), flush=True)
 
 
-def b23_inputs(cs, label, dev, cache, tfw):
-    """B23's inputs as the mesh hands them over (sharded.py
-    _local_passes): (wtable, la, decided, famous, last_round)."""
+def pass3_inputs(cs, label, dev, cache, tfw):
+    """(mesh, B23's inputs (wtable, la, decided, famous, last_round), the
+    events (index, creator, rounds) numpy) as the mesh hands them over:
+    config #4 through sharded_frontier_passes (packed), or the coin table
+    through sharded_fame, every row an event of its table row's round and
+    creator."""
     from babble_tpu_torch.tpu import sharded as sh
     from babble_tpu_torch.tpu.device import to_device
     from babble_tpu_torch.tpu.mesh import DeviceMesh
 
     mesh = DeviceMesh.on(dev, *(cs.MESH_1D if "1-D" in label else cs.MESH_2D))
-    if label.startswith("B23 config #4"):
-        seen = []
-        real = sh.fame_tables
+    if "config #4" in label:
+        seen = {}
+        real_ft, real_sr = sh.fame_tables, sh.sharded_received
 
-        def capture(*a):
-            seen.append(a)
-            return real(*a)
+        def cap_ft(*a):
+            seen.setdefault("fame_tables", a)
+            return real_ft(*a)
 
-        sh.fame_tables = capture
+        def cap_sr(*a, **kw):
+            seen.setdefault("sharded_received", a)
+            return real_sr(*a, **kw)
+
+        sh.fame_tables, sh.sharded_received = cap_ft, cap_sr
         try:
             sh.sharded_frontier_passes(mesh, tfw.grid_of(cs.WIDE, cache), packed=True)
         finally:
-            sh.fame_tables = real
-        return seen[0]
+            sh.fame_tables, sh.sharded_received = real_ft, real_sr
+        _, index, creator, rounds, fame = seen["sharded_received"][:5]
+        # a checkout whose sharded_received takes the tables got them from
+        # fame_tables
+        if "form" not in inspect.signature(real_sr).parameters:
+            fame = seen["fame_tables"]
+        return mesh, tuple(fame), (index, creator, rounds)
     case = cs.coin_round_case(*cs.FL_WIDTH_COIN)
-    n = case["wtable"].shape[1]
+    r, n = case["wtable"].shape
     g = SimpleNamespace(n=n, super_majority=case["super_majority"], coin_bit=case["coin_bit"])
     la, fd, index = (to_device(case[k], dev) for k in ("la", "fd", "index"))
     lr = torch.tensor(case["last_round"], dtype=torch.int32, device=dev)
     stage = sh.stage_fame(mesh, g, case["wtable"], la, fd, index, True)
     decided, famous = sh.sharded_fame(mesh, stage, lr, 8, n, case["super_majority"], True)
-    return stage.wtable, la, decided, famous, lr
+    rows = np.arange(r * n, dtype=np.int32)
+    return (mesh, (stage.wtable, la, decided, famous, lr),
+            (case["index"], rows % n, rows // n))
+
+
+def pass3_shape(cs, tf, label, mesh, fame, events, timer, reps, card, root):
+    """Pass 3 on the mesh as the engines run it after the fame loop: B23's
+    tables and B22 over the events; where the checkout has forms, each
+    named (one launch of both; B23, then B22 per position), else B23 then
+    its sharded_received."""
+    from babble_tpu_torch.tpu import kernels
+    from babble_tpu_torch.tpu import sharded as sh
+    from babble_tpu_torch.tpu.device import to_device
+
+    want_t = tuple(sh._fame_tables_plain(*fame))
+    ev = [to_device(np.asarray(a, dtype=np.int32), mesh.device) for a in events]
+    want = want_t + (kernels.received_search(*ev, *want_t[:4]),)
+    plain_ms = timer.events(lambda: kernels.received_search(
+        *ev, *sh._fame_tables_plain(*fame)[:4]))
+    wtable, _, decided, famous, _ = fame
+    r, n = wtable.shape
+    e = len(events[0])
+    n_famous = int((decided & famous & (wtable >= 0)).sum().item())
+    start = (ev[2] + 1).clamp(0, r - 1).long()
+    stop = torch.where(want[5] >= 0, want[5], want_t[3][start].clamp(max=r) - 1)
+    scans = int((stop - ev[2]).clamp(min=0).sum().item())
+    # the mesh check's count (chip_smoke.MeshCheck._fame_received)
+    nbytes = r * n * 4 + n_famous * n * 4 + r * n * 2 + 4 + r * n * 4 + r * 10 + e * 16
+    ops_s = (n_famous * n + r * n + scans) / cs.ALU_OPS_S
+    has_forms = "form" in inspect.signature(sh.sharded_received).parameters
+    for form in (("grid", "step") if has_forms else (None,)):
+        if form:
+            def kern():
+                tables, received = sh.sharded_received(mesh, *events, fame, form=form)
+                return tuple(tables) + (received,)
+        else:
+            def kern():
+                tables = sh.fame_tables(*fame)
+                return tuple(tables) + (sh.sharded_received(mesh, *events, tables[:4]),)
+        line = tf.measure(label, kern, tf.equal_check(f"{label}, form {form}", want), timer,
+                          reps)
+        line.update({"kernel": "fame_received" if form == "grid" else
+                     "fame_tables + received_search", "form": form or "per position",
+                     "validators": n, "rounds": r, "famous": n_famous, "events": e,
+                     "received": int((want[5] >= 0).sum()), "plain_ms": plain_ms,
+                     **bound(cs, nbytes, ops_s), "reps": reps, "root": root, "card": card})
+        print(json.dumps(line), flush=True)
 
 
 def b23_shape(cs, tf, label, args, timer, reps, card, root):
@@ -276,8 +339,12 @@ def main() -> int:
                   f"B23 coin case {cs.FL_WIDTH_COIN}, 1-D 8",
                   f"B23 coin case {cs.FL_WIDTH_COIN}, 2-D (2, 4)"):
         if not wanted or label in wanted:
-            b23_shape(cs, tf, label, b23_inputs(cs, label, dev, args.cache, tfw), timer,
-                      args.reps, card, args.root)
+            _, fame, _ = pass3_inputs(cs, label, dev, args.cache, tfw)
+            b23_shape(cs, tf, label, fame, timer, args.reps, card, args.root)
+        p3 = "B23 + B22" + label[3:]
+        if not wanted or p3 in wanted:
+            mesh, fame, events = pass3_inputs(cs, label, dev, args.cache, tfw)
+            pass3_shape(cs, tf, p3, mesh, fame, events, timer, args.reps, card, args.root)
     label = "K12 dw_events, live step state"
     if not wanted or label in wanted:
         dw_shape(cs, tf, tfw, label, dev, timer, args.reps, card, args.root, args.cache)

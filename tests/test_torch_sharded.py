@@ -398,8 +398,101 @@ def test_fame_loop_matches_reference(kind, shape, packed):
                                                            P(ev_axes)),
         put(pad(tab["rounds"], e_pad, -1), P(ev_axes)),
         *(put(np.asarray(t), P()) for t in want_t[:4])))[:e]
-    got_r = port.sharded_received(pm, tab["index"], tab["creator"], tab["rounds"], got_t[:4])
-    np.testing.assert_array_equal(got_r.numpy(), want_r)
+    fame = (wt, la, decided, famous, torch.tensor(lr, dtype=torch.int32))
+    for form in ("grid", "step"):
+        tables, got_r = port.sharded_received(pm, tab["index"], tab["creator"], tab["rounds"],
+                                              fame, form=form)
+        for a, b in zip(tables, want_t):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=form)
+        np.testing.assert_array_equal(got_r.numpy(), want_r, err_msg=form)
+
+
+MESH_FORM_CASES = [((8,), ("rounds",)), ((2, 4), ("validators", "rounds"))]
+
+
+@pytest.mark.parametrize("shape,names", MESH_FORM_CASES, ids=["1-D 8", "2-D (2, 4)"])
+def test_received_forms_match_reference(shape, names):
+    """sharded_received in both forms (one launch of B23 and B22 over the
+    unsharded event axis; B23, then B22 on each position's padded event
+    shard) on chip_smoke.received_trap_case's tables and events (creators
+    and rounds outside their ranges, rounds with no famous witness, witness
+    rows past la) with 955 events, not a multiple of 8: equal to each other
+    and to the JAX _fame_tables, then _received_fn over the event shards."""
+    from chip_smoke import received_trap_case
+
+    case = received_trap_case(40, 6, 3)
+    e = 955
+    index, creator, rounds = (case[k][:e] for k in ("index", "creator", "rounds"))
+    jm, pm = meshes(shape, names)
+    axis, v_axis = ref_sharded._mesh_axes(jm)
+    ev_axes = (v_axis, axis) if v_axis is not None else axis
+    lr = 3
+    want_t = ref_sharded._fame_tables(*(jnp.asarray(case[k]) for k in (
+        "wtable", "la", "decided", "famous")), jnp.int32(lr))
+
+    def put(a, spec):
+        return jax.device_put(np.asarray(a), NamedSharding(jm, spec))
+
+    e_pad = ((e + pm.size - 1) // pm.size) * pm.size
+    pad = ref_sharded._pad_axis0
+    want_r = np.asarray(ref_sharded._received_fn(jm, ev_axes)(
+        put(pad(index, e_pad, 0), P(ev_axes)), put(pad(creator, e_pad, 0), P(ev_axes)),
+        put(pad(rounds, e_pad, -1), P(ev_axes)),
+        *(put(np.asarray(x), P()) for x in want_t[:4])))[:e]
+    assert (want_r >= 0).any() and (want_r < 0).any()
+    fame = tuple(to_device(case[k], CPU) for k in ("wtable", "la", "decided", "famous")) + (
+        torch.tensor(lr, dtype=torch.int32),)
+    got = {form: port.sharded_received(pm, index, creator, rounds, fame, form=form)
+           for form in ("grid", "step")}
+    for form, (tables, received) in got.items():
+        for a, b in zip(tables, want_t):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=form)
+        np.testing.assert_array_equal(received.numpy(), want_r, err_msg=form)
+    assert port.sharded_received(pm, index, creator, rounds, fame)[1].shape == (e,)
+    with pytest.raises(ValueError):
+        port.sharded_received(pm, index, creator, rounds, fame, form="bogus")
+
+
+@pytest.mark.parametrize("shape,names", MESH_FORM_CASES, ids=["1-D 8", "2-D (2, 4)"])
+def test_build_inv_forms_match_reference(shape, names):
+    """sharded_build_inv in both forms (one build over every position's
+    chains, each part a view; one build a position) on a chain table of 20
+    validators padded to 24 chains: equal to each other and to the JAX
+    _sharded_build_inv_fn; stage_walk on one device stages the chain table
+    once and gives each position views of it and of one INV."""
+    from babble_tpu.tpu.engine import _bucket, pad_grid
+    from babble_tpu.tpu.frontier import chain_table
+
+    grid = synthetic_grid(20, 500, seed=3, zipf_a=1.1)
+    jm, pm = meshes(shape, names)
+    r_axis, v_axis = ref_sharded._mesh_axes(jm)
+    axis = (v_axis, r_axis) if v_axis is not None else r_axis
+    rows_by = chain_table(grid)
+    l_b = _bucket(rows_by.shape[1], 64, factor=2)
+    rb_pad = np.full((24, l_b), -1, dtype=np.int32)
+    rb_pad[:20, : rows_by.shape[1]] = rows_by
+    gp = pad_grid(grid)
+
+    def put(a, spec):
+        return jax.device_put(np.asarray(a), NamedSharding(jm, spec))
+
+    want = np.asarray(ref_sharded._sharded_build_inv_fn(jm, axis)(
+        put(rb_pad, P(axis, None)), put(gp.last_ancestors, P()))).astype(np.int32)
+    la_parts = port_mesh_mod.replicate(to_device(gp.last_ancestors, CPU), pm)
+    rb_parts = port_mesh_mod.shard(rb_pad, pm, (axis, None))
+    for form in ("grid", "step", None):
+        parts = port.sharded_build_inv(pm, rb_parts, la_parts, form=form)
+        got = port_mesh_mod.unshard(parts, pm, (axis, None, None))
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=str(form))
+    st = port.stage_walk(pm, port_grid(grid))
+    base = st.inv_parts[0].untyped_storage().data_ptr()
+    assert all(p.untyped_storage().data_ptr() == base for p in st.inv_parts)
+    assert all(p.untyped_storage().data_ptr() == st.rb_parts[0].untyped_storage().data_ptr()
+               for p in st.rb_parts)
+    np.testing.assert_array_equal(
+        port_mesh_mod.unshard(st.inv_parts, pm, (axis, None, None)).numpy(), want)
+    with pytest.raises(ValueError):
+        port.sharded_build_inv(pm, rb_parts, la_parts, form="bogus")
 
 
 WALK_CASES = [
